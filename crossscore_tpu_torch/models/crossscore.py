@@ -1,0 +1,178 @@
+"""CrossScoreNet; counterpart of ``crossscore_tpu/models/crossscore.py``.
+
+1. query (B, H, W, 3) + references (B, K, H, W, 3), ImageNet-normalised (or
+   raw uint8, normalised here in fp32)
+2. all B*(1+K) images through the frozen DINOv2 encoder in one batch; CLS
+   stripped
+3. the fixed random multi-view PE added to query and reference tokens
+4. the 2-layer cross-reference decoder
+5. head Linear -> LeakyReLU -> Linear -> regression activation
+6. jigsaw reassembly -> (B, H, W) score map
+
+Parameter names are the reference Lightning state-dict keys without the
+``model.`` prefix (``backbone.*``, ``pos_enc_fn.PE``, ``ref_cross.attn.*``,
+``ref_cross.head.{0,2}.*``, ``img_mean_std``), so a reference checkpoint loads
+through ``crossscore_tpu_torch.io.convert.load_into``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from crossscore_tpu_torch.device import resolve_device
+from crossscore_tpu_torch.models.decoder import CrossReferenceDecoder
+from crossscore_tpu_torch.models.dinov2 import (
+    ATTENTION_IMPLS, MLP_IMPLS, VIT_PRESETS, Dinov2Encoder, ViTConfig, linear,
+)
+from crossscore_tpu_torch.models.positional import MultiViewPositionalEmbedding
+from crossscore_tpu_torch.models.regression import regression_activation
+from crossscore_tpu_torch.ops.jigsaw import jigsaw_to_image
+
+# the port's copy of crossscore_tpu/io/images.py's constants
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def _normalize_u8(img: torch.Tensor) -> torch.Tensor:
+    """Raw uint8 pixels -> ImageNet-normalised float32: x*(1/255), then
+    (x-mean)/std, all in fp32 (the host normalise of native/fastimage.cpp)."""
+    mean = torch.from_numpy(IMAGENET_MEAN).to(img.device)
+    std = torch.from_numpy(IMAGENET_STD).to(img.device)
+    return (img.float() * np.float32(1.0 / 255.0) - mean) / std
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossScoreConfig:
+    """Mirrors the JAX ``CrossScoreConfig``. ``attention_impl`` is ``"flash"``
+    (K1/K3, JAX's ``pallas``) or ``"dense"`` (JAX's ``xla``); ``mlp_impl`` is
+    ``"fused"``, ``"fused_exact"`` (K2) or ``"unfused"``. ``parity=True`` is
+    the JAX ``model.tpu.parity`` rule: fp32 compute, exact GELU in K2."""
+
+    backbone: ViTConfig = VIT_PRESETS["dinov2-small"]
+    patch_size: int = 14
+    pe_h: int = 40
+    pe_w: int = 40
+    decoder_layers: int = 2
+    decoder_heads: int = 8
+    decoder_ffn_ratio: int = 1
+    do_self_attn: bool = True
+    do_short_cut: bool = True
+    do_reference_cross: bool = True
+    metric_type: str = "ssim"
+    metric_min: int = 0
+    metric_max: int = 1
+    power_factor: Any = "default"
+    compute_dtype: torch.dtype = torch.bfloat16
+    attention_impl: str = "flash"
+    mlp_impl: str = "fused"
+    parity: bool = False
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}")
+        if self.mlp_impl not in MLP_IMPLS:
+            raise ValueError(f"mlp_impl must be one of {MLP_IMPLS}")
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError("compute_dtype must be torch.float32 or torch.bfloat16")
+        if self.parity:
+            object.__setattr__(self, "compute_dtype", torch.float32)
+            if self.mlp_impl == "fused":
+                object.__setattr__(self, "mlp_impl", "fused_exact")
+
+
+class _RefCross(nn.Module):
+    def __init__(self, cfg: CrossScoreConfig, device):
+        super().__init__()
+        d, p = cfg.backbone.hidden_size, cfg.patch_size
+        self.attn = CrossReferenceDecoder(
+            d, cfg.decoder_heads, cfg.decoder_layers, cfg.decoder_ffn_ratio,
+            cfg.do_self_attn, cfg.do_short_cut, cfg.attention_impl, device,
+        )
+        self.head = nn.Sequential(
+            nn.Linear(d, d, device=device), nn.LeakyReLU(), nn.Linear(d, p * p, device=device)
+        )
+
+
+class CrossScoreNet(nn.Module):
+    def __init__(self, cfg: CrossScoreConfig = CrossScoreConfig(), device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        d = cfg.backbone.hidden_size
+        self.register_buffer(
+            "img_mean_std",
+            torch.from_numpy(np.concatenate([IMAGENET_MEAN, IMAGENET_STD])).to(device),
+        )
+        self.backbone = Dinov2Encoder(cfg.backbone, cfg.compute_dtype, cfg.attention_impl,
+                                      cfg.mlp_impl, device)
+        self.pos_enc_fn = MultiViewPositionalEmbedding(cfg.pe_h, cfg.pe_w, d, device)
+        self.ref_cross = _RefCross(cfg, device)
+        self.requires_grad_(False)  # this slice is the predict forward
+
+    def forward(self, query_img: torch.Tensor, ref_imgs, need_attn_weights: bool = False,
+                need_attn_weights_head_id: int = 0, norm_img: bool = False, valid_hw=None,
+                ref_tokens=None, ref_grid=None, query_tokens=None, token_grid=None) -> dict:
+        """query_img (B, H, W, 3), ref_imgs (B, K, H, W, 3) or None ->
+        {"score_map_ref_cross": (B, H, W) fp32[, "attn_weights_map_ref_cross":
+        (B, gh, gw, K, gh, gw)]}."""
+        for name, val in (("valid_hw", valid_hw), ("ref_tokens", ref_tokens),
+                          ("ref_grid", ref_grid), ("query_tokens", query_tokens),
+                          ("token_grid", token_grid)):
+            if val is not None:
+                raise NotImplementedError(f"{name} is not ported yet")
+        c = self.cfg
+        for name, img in (("query_img", query_img), ("ref_imgs", ref_imgs)):
+            if img is not None and img.device != self.img_mean_std.device:
+                raise ValueError(f"{name} is on {img.device}, the model on {self.img_mean_std.device}")
+        if query_img.dtype == torch.uint8 or (ref_imgs is not None and ref_imgs.dtype == torch.uint8):
+            if norm_img:
+                raise ValueError("norm_img expects [0,1] float pixels, got uint8")
+            query_img = _normalize_u8(query_img) if query_img.dtype == torch.uint8 else query_img
+            if ref_imgs is not None and ref_imgs.dtype == torch.uint8:
+                ref_imgs = _normalize_u8(ref_imgs)
+        if norm_img:
+            # the reference divides by the mean on this (unused) path; like the
+            # JAX package, normalise correctly
+            mean = torch.from_numpy(IMAGENET_MEAN).to(query_img.device, query_img.dtype)
+            std = torch.from_numpy(IMAGENET_STD).to(query_img.device, query_img.dtype)
+            query_img = (query_img - mean) / std
+            if ref_imgs is not None:
+                ref_imgs = (ref_imgs - mean) / std
+
+        b, hgt, wdt, _ = query_img.shape
+        p = c.patch_size
+        gh, gw = hgt // p, wdt // p
+        n_patch = gh * gw
+        d = c.backbone.hidden_size
+        k_ref = 0 if ref_imgs is None else ref_imgs.shape[1]
+        all_imgs = query_img if ref_imgs is None else torch.cat(
+            [query_img, ref_imgs.reshape(b * k_ref, hgt, wdt, 3).to(query_img.dtype)]
+        )
+        with torch.no_grad():  # frozen backbone
+            tokens = self.backbone(all_imgs)[:, 1:]
+        q_tok = tokens[:b]
+        results: dict = {}
+        if not (c.do_reference_cross and k_ref > 0):
+            return results
+
+        feat_query = self.pos_enc_fn(q_tok, 1, gh, gw)
+        feat_ref = self.pos_enc_fn(tokens[b:].reshape(b, k_ref * n_patch, d), k_ref, gh, gw)
+        decoded, weights = self.ref_cross.attn(
+            feat_query, feat_ref, need_weights=need_attn_weights,
+            need_weights_head_id=need_attn_weights_head_id,
+        )
+        head = self.ref_cross.head
+        y = linear(F.leaky_relu(linear(decoded, head[0]), 0.01), head[2])
+        act = regression_activation(c.metric_type, c.metric_min, c.metric_max, c.power_factor)
+        # jigsaw in the compute dtype, then the activation in fp32 (as JAX)
+        score_map = jigsaw_to_image(y.reshape(b, n_patch, p, p), (gh, gw))
+        results["score_map_ref_cross"] = act(score_map.float())
+        if need_attn_weights and weights is not None:
+            results["attn_weights_map_ref_cross"] = weights.reshape(b, gh, gw, k_ref, gh, gw)
+        return results

@@ -1,0 +1,109 @@
+"""Cross-reference transformer decoder; counterpart of
+``crossscore_tpu/models/decoder.py`` (reference
+``model/customised_transformer/transformer.py``).
+
+Post-norm layers (``x = norm1(x + sa(x))``, ``x = norm2(x + mha(x, mem))``,
+``x = norm3(x + ff(x))``, eps 1e-5), a ReLU feed-forward, and optionally the
+last layer's cross-attention weights for one head. Parameter names are
+torch's ``TransformerDecoder`` ones (packed ``in_proj_weight``).
+
+With ``attention_impl="flash"`` both attentions run through K3
+(:func:`flash_cross_attention`) at the true head dim (48 for the main path);
+``need_weights`` and ``"dense"`` take the dense fp32-softmax path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from crossscore_tpu_torch.models.dinov2 import ATTENTION_IMPLS, LayerNorm, linear
+from crossscore_tpu_torch.ops.attention import dense_attention
+from crossscore_tpu_torch.ops.flash_attention import (
+    _merge_heads, _split_heads, flash_cross_attention,
+)
+
+
+class TorchStyleMHA(nn.Module):
+    """``torch.nn.MultiheadAttention`` equivalent (batch_first, equal q/k/v dims)."""
+
+    def __init__(self, d_model: int, num_heads: int, attention_impl: str = "flash", device=None):
+        super().__init__()
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.attention_impl = attention_impl
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, device=device))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
+        self.out_proj = nn.Linear(d_model, d_model, device=device)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, query, key, value, need_weights: bool = False):
+        d, h, dt = self.d_model, self.num_heads, query.dtype
+        w = self.in_proj_weight.to(dt)
+        b = self.in_proj_bias.to(dt)
+        q = F.linear(query, w[:d], b[:d])
+        k = F.linear(key, w[d:2 * d], b[d:2 * d])
+        v = F.linear(value, w[2 * d:], b[2 * d:])
+        probs = None
+        if need_weights or self.attention_impl == "dense":
+            out, probs = dense_attention(_split_heads(q, h), _split_heads(k, h),
+                                         _split_heads(v, h), return_probs=True)
+            out = _merge_heads(out)
+            probs = probs if need_weights else None
+        else:
+            out, _, _ = flash_cross_attention(q, k, v, h)
+        return linear(out, self.out_proj), probs  # probs: (B, H, Nq, Nk) or None
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 do_self_attn: bool = True, do_short_cut: bool = True,
+                 attention_impl: str = "flash", layer_norm_eps: float = 1e-5, device=None):
+        super().__init__()
+        self.do_self_attn = do_self_attn
+        self.do_short_cut = do_short_cut
+        if do_self_attn:
+            self.self_attn = TorchStyleMHA(d_model, num_heads, attention_impl, device)
+            self.norm1 = LayerNorm(d_model, layer_norm_eps, device)
+        self.multihead_attn = TorchStyleMHA(d_model, num_heads, attention_impl, device)
+        self.norm2 = LayerNorm(d_model, layer_norm_eps, device)
+        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
+        self.norm3 = LayerNorm(d_model, layer_norm_eps, device)
+
+    def forward(self, x, memory, need_weights: bool = False):
+        if self.do_self_attn:
+            sa, _ = self.self_attn(x, x, x)
+            x = self.norm1(x + sa if self.do_short_cut else sa)
+        mha, weights = self.multihead_attn(x, memory, memory, need_weights=need_weights)
+        x = self.norm2(x + mha if self.do_short_cut else mha)
+        y = linear(F.relu(linear(x, self.linear1)), self.linear2)
+        return self.norm3(x + y), weights
+
+
+class CrossReferenceDecoder(nn.Module):
+    """Stack of decoder layers; returns the last layer's selected-head weights."""
+
+    def __init__(self, d_model: int, num_heads: int = 8, num_layers: int = 2, ffn_ratio: int = 1,
+                 do_self_attn: bool = True, do_short_cut: bool = True,
+                 attention_impl: str = "flash", device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, num_heads, ffn_ratio * d_model, do_self_attn, do_short_cut,
+                         attention_impl, device=device)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, tgt, memory, need_weights: bool = False, need_weights_head_id: int = 0):
+        x = tgt
+        weights: Optional[torch.Tensor] = None
+        for layer in self.layers:
+            x, w = layer(x, memory, need_weights=need_weights)
+            if w is not None:
+                weights = w[:, need_weights_head_id]  # (B, Nq, Nk), the last layer wins
+        return x, weights

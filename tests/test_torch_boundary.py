@@ -1,0 +1,76 @@
+"""The port's import boundary and device rule: no JAX, Flax, optax or
+``crossscore_tpu`` import in ``crossscore_tpu_torch/`` or ``chip_smoke.py``,
+and no silent move to the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "crossscore_tpu")
+PORT_FILES = sorted((ROOT / "crossscore_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_import(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import crossscore_tpu_torch.models, crossscore_tpu_torch.io.convert, "
+        "crossscore_tpu_torch.train.step, crossscore_tpu_torch.ops.fused_mlp\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_model_without_device_needs_cuda():
+    from crossscore_tpu_torch.models import VIT_PRESETS, CrossScoreConfig, CrossScoreNet
+
+    cfg = CrossScoreConfig(backbone=VIT_PRESETS["dinov2-test"], pe_h=6, pe_w=6)
+    if torch.cuda.is_available():
+        assert CrossScoreNet(cfg).img_mean_std.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            CrossScoreNet(cfg)
+    assert CrossScoreNet(cfg, device="cpu").img_mean_std.device.type == "cpu"
+
+
+def test_model_rejects_inputs_on_another_device():
+    from crossscore_tpu_torch.models import VIT_PRESETS, CrossScoreConfig, CrossScoreNet
+
+    cfg = CrossScoreConfig(backbone=VIT_PRESETS["dinov2-test"], pe_h=6, pe_w=6)
+    model = CrossScoreNet(cfg, device="cpu")
+    with pytest.raises(ValueError, match="meta"):
+        model(torch.zeros(1, 56, 56, 3, device="meta"), None)
+
+
+def test_csrc_builds_only_from_the_package_sources():
+    from crossscore_tpu_torch.ops import _build
+
+    assert _build.CSRC == ROOT / "crossscore_tpu_torch" / "csrc"
+    assert _build.BUILD_DIR == ROOT / "build" / "crossscore_tpu_torch"
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
