@@ -13,16 +13,16 @@
 //
 // Bound on the H100: at the main-path shapes (hd 64 and 48, N >= 1369) the
 // work is ~4*N*N*hd operations per head against ~N*hd*8 bytes, far above the
-// card's ~295 op/byte ridge, so the tensor cores bound it. bf16 runs the two
-// products on them (nvcuda::wmma 16x16x16 bf16, fp32 accumulators); the
-// softmax is fp32 in shared memory. fp32 inputs take a CUDA-core path in full
-// fp32, because wmma's fp32 route is TF32. A simple first version: no
-// wgmma, TMA, pipelining or warp specialisation yet.
+// card's ~295 op/byte ridge, so the tensor cores bound it. bf16 runs both
+// products as mma.sync m16n8k16 (fp32 accumulators in registers, operands
+// through ldmatrix, K/V double-buffered with cp.async) and keeps S, P and O
+// in registers; fp32 inputs take a CUDA-core path in full fp32, because the
+// tensor cores' fp32 route is TF32. Not yet used: wgmma, TMA, warp
+// specialisation.
 #pragma once
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace cs {
 
@@ -47,128 +47,159 @@ struct AttnArgs {
 
 template <int HD>
 struct BfLayout {
-  static constexpr int LDQ = HD + 8;                    // bf16 tiles (Q, K, V)
-  static constexpr int LDS = (HD > BK ? HD : BK) + 4;   // fp32 scratch per warp
-  static constexpr int LDP = BK + 8;                    // bf16 probabilities
+  static constexpr int LD = HD + 8;  // padded rows: ldmatrix without bank conflicts
+  static constexpr size_t tile = align128((size_t)BK * LD * 2);
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = align128(q_off + BQ * LDQ * 2);
-  static constexpr size_t v_off = align128(k_off + BK * LDQ * 2);
-  static constexpr size_t s_off = align128(v_off + BK * LDQ * 2);
-  static constexpr size_t p_off = align128(s_off + 4 * 16 * LDS * 4);
-  static constexpr size_t total = align128(p_off + 4 * 16 * LDP * 2);
+  static constexpr size_t kv_off = align128((size_t)BQ * LD * 2);
+  static constexpr size_t total = kv_off + 4 * tile;  // K and V, two stages
 };
 
+// bf16: each warp owns 16 q rows. Q fragments stay in registers; K/V tiles
+// stream through shared memory (cp.async, two stages). S = Q K^T and O += P V
+// run as mma.sync m16n8k16 with fp32 accumulators in registers, and P is
+// rounded to bf16 straight from the S accumulators into A fragments.
 template <int HD>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
-  using namespace nvcuda;
   using L = BfLayout<HD>;
-  constexpr int HH = HD / 2;
+  using bf16 = __nv_bfloat16;
+  constexpr int NKT = HD / 16;  // k-steps of Q K^T
+  constexpr int NOT = HD / 8;   // n8 tiles of O
+  constexpr int NST = BK / 8;   // n8 tiles of S
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
+  bf16* sKV = reinterpret_cast<bf16*>(smem + L::kv_off);
+  constexpr int TILE = (int)(L::tile / 2);  // elements per K or V tile
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
-  float* sS = reinterpret_cast<float*>(smem + L::s_off) + warp * 16 * L::LDS;
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::p_off) + warp * 16 * L::LDP;
+  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * HD;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * HD;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * HD;
 
-  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + head * HD;
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + head * HD;
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + head * HD;
-
-  load_rows<BQ, HD>(sQ, L::LDQ, Q, a.q_rs, q0, a.nq, tid, ATTN_THREADS);
-
-  // softmax bookkeeping: two lanes per q row, each owns 32 score columns
-  // and half of the head dim of the output
-  const int r = lane >> 1, half = lane & 1;
-  float o_acc[HH];
+  cp_async_rows<BQ, HD, ATTN_THREADS>(sQ, L::LD, Q, a.q_rs, q0, a.nq, tid);
+  cp_async_rows<BK, HD, ATTN_THREADS>(sKV, L::LD, K, a.k_rs, 0, a.nk, tid);
+  cp_async_rows<BK, HD, ATTN_THREADS>(sKV + TILE, L::LD, V, a.v_rs, 0, a.nk, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[NKT][4];
 #pragma unroll
-  for (int d = 0; d < HH; ++d) o_acc[d] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
+  for (int kk = 0; kk < NKT; ++kk) ldsm_a(qa[kk], sQ + warp * 16 * L::LD + kk * 16, L::LD, lane);
 
-  for (int k0 = 0; k0 < a.nk; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<BK, HD>(sK, L::LDQ, K, a.k_rs, k0, a.nk, tid, ATTN_THREADS);
-    load_rows<BK, HD>(sV, L::LDQ, V, a.v_rs, k0, a.nk, tid, ATTN_THREADS);
+  float o[NOT][4];
+#pragma unroll
+  for (int d = 0; d < NOT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+
+  const int ntiles = (a.nk + BK - 1) / BK;
+  for (int t = 0; t < ntiles; ++t) {
+    const bf16* sK = sKV + (t & 1) * 2 * TILE;
+    const bf16* sV = sK + TILE;
+    if (t + 1 < ntiles) {  // prefetch the next tile into the other stage
+      bf16* nK = sKV + ((t + 1) & 1) * 2 * TILE;
+      cp_async_rows<BK, HD, ATTN_THREADS>(nK, L::LD, K, a.k_rs, (t + 1) * BK, a.nk, tid);
+      cp_async_rows<BK, HD, ATTN_THREADS>(nK + TILE, L::LD, V, a.v_rs, (t + 1) * BK, a.nk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
 
-    // S (16 x BK) = Q_warp K^T on the tensor cores
+    float s[NST][4];
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+    for (int j = 0; j < NST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-        wmma::load_matrix_sync(fb, sK + n * 16 * L::LDQ + kk * 16, L::LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
+    for (int kk = 0; kk < NKT; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NST / 2; ++np) {
+        uint32_t bb[4];
+        ldsm_b_nk_x2tiles(bb, sK + np * 16 * L::LD + kk * 16, L::LD, lane);
+        mma_bf16(s[2 * np], qa[kk], bb[0], bb[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], bb[2], bb[3]);
       }
-      wmma::store_matrix_sync(sS + n * 16, acc, L::LDS, wmma::mem_row_major);
     }
-    __syncwarp();
 
-    // online softmax in fp32 (exp2 base); p goes to shared memory as bf16
-    const int kvalid = min(BK, a.nk - k0);
-    float* srow = sS + r * L::LDS + half * 32;
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const float t = (half * 32 + j < kvalid) ? srow[j] * a.c1 : -INFINITY;
-      srow[j] = t;
-      mx = fmaxf(mx, t);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = exp2f(m_run - m_new);
-    __nv_bfloat16* prow = sP + r * L::LDP + half * 32;
-    float sum = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const __nv_bfloat16 pb = __float2bfloat16(exp2f(srow[j] - m_new));
-      prow[j] = pb;
-      sum += __bfloat162float(pb);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    __syncwarp();
-
-    // PV (16 x HD) on the tensor cores, into the scratch S no longer needs
+    // scale (exp2 base), mask the KV tail, online softmax in fp32
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+    for (int j = 0; j < NST; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + kk * 16, L::LDP);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * L::LDQ + n * 16, L::LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = t * BK + j * 8 + qd * 2 + e < a.nk;
+        s[j][e] = ok ? s[j][e] * a.c1 : -INFINITY;
+        s[j][2 + e] = ok ? s[j][2 + e] * a.c1 : -INFINITY;
+        mx0 = fmaxf(mx0, s[j][e]);
+        mx1 = fmaxf(mx1, s[j][2 + e]);
       }
-      wmma::store_matrix_sync(sS + n * 16, acc, L::LDS, wmma::mem_row_major);
     }
-    __syncwarp();
-    const float* pv = sS + r * L::LDS + half * HH;
 #pragma unroll
-    for (int d = 0; d < HH; ++d) o_acc[d] = o_acc[d] * alpha + pv[d];
-    __syncwarp();  // the next tile rewrites the scratch
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    uint32_t pa[BK / 16][4];
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+      const float p00 = exp2f(s[j][0] - mn0), p01 = exp2f(s[j][1] - mn0);
+      const float p10 = exp2f(s[j][2] - mn1), p11 = exp2f(s[j][3] - mn1);
+      rs0 += p00 + p01;
+      rs1 += p10 + p11;
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p00, p01);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p10, p11);
+    }
+    l0 = l0 * al0 + rs0;
+    l1 = l1 * al1 + rs1;
+#pragma unroll
+    for (int d = 0; d < NOT; ++d) {
+      o[d][0] *= al0;
+      o[d][1] *= al0;
+      o[d][2] *= al1;
+      o[d][3] *= al1;
+    }
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+#pragma unroll
+      for (int dp = 0; dp < NOT / 2; ++dp) {
+        uint32_t bb[4];
+        ldsm_b_kn_x2tiles(bb, sV + ks * 16 * L::LD + dp * 16, L::LD, lane);
+        mma_bf16(o[2 * dp], pa[ks], bb[0], bb[1]);
+        mma_bf16(o[2 * dp + 1], pa[ks], bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
   }
 
-  const int row = q0 + warp * 16 + r;
-  if (row < a.nq) {
-    const float inv = l_run == 0.f ? 1.f : 1.f / l_run;
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + b * a.o_bs + row * a.o_rs + head * HD + half * HH;
 #pragma unroll
-    for (int d = 0; d < HH; d += 2)
-      *reinterpret_cast<__nv_bfloat162*>(out + d) = __floats2bfloat162_rn(o_acc[d] * inv, o_acc[d + 1] * inv);
-    if (half == 0) {
-      const long long i = ((long long)b * a.h + head) * a.nq + row;
-      a.l[i] = l_run;
-      a.m[i] = m_run * (1.f / kLog2e);
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0, inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+  bf16* out = static_cast<bf16*>(a.o) + b * a.o_bs + head * HD + qd * 2;
+#pragma unroll
+  for (int d = 0; d < NOT; ++d) {
+    if (r0 < a.nq)
+      *reinterpret_cast<uint32_t*>(out + r0 * a.o_rs + d * 8) = pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
+    if (r1 < a.nq)
+      *reinterpret_cast<uint32_t*>(out + r1 * a.o_rs + d * 8) = pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
+  }
+  if (qd == 0) {
+    const long long base = ((long long)b * a.h + head) * a.nq;
+    if (r0 < a.nq) {
+      a.l[base + r0] = l0;
+      a.m[base + r0] = m0 * (1.f / kLog2e);
+    }
+    if (r1 < a.nq) {
+      a.l[base + r1] = l1;
+      a.m[base + r1] = m1 * (1.f / kLog2e);
     }
   }
 }

@@ -4,36 +4,33 @@
 // Replaces the TPU kernel crossscore_tpu/ops/fused_mlp.py `_ln_mlp_kernel` /
 // `_ln_mlp_body` (launched by `_fused_ln_mlp_fwd_pallas`). The TPU kernel
 // keeps both weight matrices resident in VMEM; a Hopper block cannot
-// (W1 + W2 are 2.4 MB bf16 at D=384), so the weights stream from L2 (they
-// fit in its 50 MB and every block reads the same ones) and what stays on
-// chip is the activation side: a block takes BM rows, writes LN(x) as bf16
-// into shared memory, then walks the hidden dimension F in chunks of 128:
-// h = LN(x) W1[chunk] + b1 -> GELU in fp32 -> bf16 chunk in shared memory ->
-// acc += h W2[chunk] into an fp32 accumulator in shared memory. The 4D-wide
-// hidden never reaches device memory, which is what the TPU kernel achieves.
-// Shared memory at D=384, BM=64: 49 KB LN tile + 97 KB accumulator + 33 KB
-// fp32 and 17 KB bf16 hidden chunk, under the 227 KB a block may use.
+// (W1 + W2 are 2.4 MB bf16 at D=384), so the weights stream through shared
+// memory in chunks of the hidden dimension (cp.async, the next chunk's load
+// overlapping this chunk's products) while the activation side stays on
+// chip: a block takes BM rows, writes LN(x) as bf16 into shared memory, and
+// for each chunk computes h = GELU(LN(x) W1[chunk]^T + b1) into a bf16 tile
+// in shared memory and acc += h W2[:, chunk]^T into fp32 accumulators held
+// in registers across the whole hidden dimension. The 4D-wide hidden never
+// reaches device memory, which is what the TPU kernel achieves.
 //
-// Bound on the H100: 4*D*F operations per row against ~4*D bytes (bf16 in
-// and out), ~1150 op/byte at D=384, so the tensor cores bound it; both
-// products run on them (nvcuda::wmma 16x16x16 bf16, fp32 accumulators). The
-// fp32 variant (the parity preset) runs on the CUDA cores in full fp32,
-// because wmma's fp32 route is TF32. A simple first version: the
-// accumulator round-trips shared memory every chunk and the weight fragments
-// are loaded from global memory without staging; no wgmma or TMA yet.
+// Bound on the H100: 4*D*F operations per row against ~4*D bytes of
+// activations (bf16 in and out), ~1150 op/byte at D=384, so the tensor cores
+// bound it; both products run as mma.sync m16n8k16 with fp32 accumulators.
+// Every block re-reads W1 and W2 (from L2): at BM=64 that is ~64 op per L2
+// byte, which a later version can raise with larger row tiles or clusters
+// sharing the weight loads. The fp32 variant (the parity preset) runs on the
+// CUDA cores in full fp32, because the tensor cores' fp32 route is TF32.
 //
 // Numerics follow the TPU kernel: LN statistics in fp32, bf16 products with
 // fp32 accumulation, GELU in fp32 (the tanh form on bf16 by default, else the
 // exact form through XLA's f32 erf polynomial), LayerScale and residual in
 // fp32, one rounding to the input dtype at the end.
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace cs {
 
-constexpr int FC = 128;  // hidden chunk (bf16 path)
 constexpr int MLP_THREADS = 256;
 constexpr int F32_BM = 16;  // rows per block (fp32 path)
 constexpr int F32_FC = 64;  // hidden chunk (fp32 path)
@@ -112,95 +109,144 @@ __device__ void layer_norm_rows(TO* dst, int ld, const T* X, const T* S, const T
   }
 }
 
-struct BfMlpLayout {
-  int ldl, lda, ldh, ldhb;
-  size_t ln_off, acc_off, h_off, hb_off, total;
-  __host__ __device__ BfMlpLayout(int bm, int d) {
-    ldl = d + 8;
-    lda = d + 4;
-    ldh = FC + 4;
-    ldhb = FC + 8;
-    ln_off = 0;
-    acc_off = align128((size_t)bm * ldl * 2);
-    h_off = align128(acc_off + (size_t)bm * lda * 4);
-    hb_off = align128(h_off + (size_t)bm * ldh * 4);
-    total = align128(hb_off + (size_t)bm * ldhb * 2);
-  }
+// bf16 tiling: RG row groups x CG column groups of warps (RG * CG = 8);
+// BM = 16 * RG rows per block, each warp owns 16 rows x NT*8 output columns
+// of the accumulator and FCH/CG columns of each hidden chunk.
+template <int RG, int NT, int FCH>
+struct MmaMlp {
+  static constexpr int CG = (MLP_THREADS / 32) / RG;
+  static constexpr int D = CG * NT * 8;
+  static constexpr int BM = 16 * RG;
+  static constexpr int NT1 = FCH / CG / 8;  // fc1 n8 tiles per warp
+  static constexpr int LDL = D + 8;         // LN tile and W1 chunk rows
+  static constexpr int LDC = FCH + 8;       // W2 chunk and hidden tile rows
+  static constexpr size_t w1_off = align128((size_t)BM * LDL * 2);
+  static constexpr size_t w2_off = w1_off + align128((size_t)FCH * LDL * 2);
+  static constexpr size_t h_off = w2_off + align128((size_t)D * LDC * 2);
+  static constexpr size_t total = h_off + align128((size_t)BM * LDC * 2);
 };
 
-template <int BM>
+template <int RG, int NT, int FCH>
 __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_bf16(MlpArgs a) {
-  using namespace nvcuda;
+  using L = MmaMlp<RG, NT, FCH>;
   using bf16 = __nv_bfloat16;
-  const BfMlpLayout L(BM, a.d);
+  static_assert(NT % 2 == 0 && (L::NT1 == 1 || L::NT1 % 2 == 0), "tile shape");
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sLn = reinterpret_cast<bf16*>(smem + L.ln_off);
-  float* sAcc = reinterpret_cast<float*>(smem + L.acc_off);
-  float* sH = reinterpret_cast<float*>(smem + L.h_off);
-  bf16* sHb = reinterpret_cast<bf16*>(smem + L.hb_off);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  constexpr int NWARP = MLP_THREADS / 32;
-  const int D = a.d, F = a.f, m0 = blockIdx.x * BM;
+  bf16* sLn = reinterpret_cast<bf16*>(smem);
+  bf16* sW1 = reinterpret_cast<bf16*>(smem + L::w1_off);
+  bf16* sW2 = reinterpret_cast<bf16*>(smem + L::w2_off);
+  bf16* sH = reinterpret_cast<bf16*>(smem + L::h_off);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = warp % RG, cg = warp / RG, g = lane >> 2, qd = lane & 3;
+  const int m0 = blockIdx.x * L::BM, F = a.f;
   const bf16* X = static_cast<const bf16*>(a.x);
   const bf16* W1 = static_cast<const bf16*>(a.w1);
   const bf16* W2 = static_cast<const bf16*>(a.w2);
   const bf16* B1 = static_cast<const bf16*>(a.b1);
+  // W1 chunk: rows f0..f0+FCH of (F, D); W2 chunk: columns f0..f0+FCH of (D, F)
+  auto load_w1 = [&](int f0) {
+    cp_async_rows<FCH, L::D, MLP_THREADS>(sW1, L::LDL, W1, L::D, f0, F, tid);
+    cp_async_commit();
+  };
+  auto load_w2 = [&](int f0) {
+    cp_async_rows<L::D, FCH, MLP_THREADS>(sW2, L::LDC, W2 + f0, F, 0, L::D, tid);
+    cp_async_commit();
+  };
+  load_w1(0);
+  load_w2(0);
+  layer_norm_rows(sLn, L::LDL, X, static_cast<const bf16*>(a.lns), static_cast<const bf16*>(a.lnb),
+                  m0, L::BM, a.rows, L::D, a.eps);
 
-  layer_norm_rows(sLn, L.ldl, X, static_cast<const bf16*>(a.lns), static_cast<const bf16*>(a.lnb),
-                  m0, BM, a.rows, D, a.eps);
-  for (int i = tid; i < BM * D; i += MLP_THREADS) sAcc[(i / D) * L.lda + i % D] = 0.f;
-  __syncthreads();
-
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    // h chunk (BM x FC) = LN(x) W1[f0:f0+FC]^T
-    for (int t = warp; t < (BM / 16) * (FC / 16); t += NWARP) {
-      const int tm = t / (FC / 16), tn = t % (FC / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sLn + tm * 16 * L.ldl + kk * 16, L.ldl);
-        wmma::load_matrix_sync(fb, W1 + (long long)(f0 + tn * 16) * D + kk * 16, D);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sH + tm * 16 * L.ldh + tn * 16, acc, L.ldh, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = tid; i < BM * FC; i += MLP_THREADS) {
-      const int r = i / FC, c = i % FC;
-      const float v = sH[r * L.ldh + c] + to_f32(B1[f0 + c]);
-      sHb[r * L.ldhb + c] = __float2bfloat16(gelu(v, a.tanh_gelu));
-    }
-    __syncthreads();
-    // acc (BM x D) += h W2[:, f0:f0+FC]^T
-    for (int t = warp; t < (BM / 16) * (D / 16); t += NWARP) {
-      const int tm = t / (D / 16), tn = t % (D / 16);
-      float* tile = sAcc + tm * 16 * L.lda + tn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, tile, L.lda, wmma::mem_row_major);
+  float acc[NT][4];
 #pragma unroll
-      for (int kk = 0; kk < FC / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sHb + tm * 16 * L.ldhb + kk * 16, L.ldhb);
-        wmma::load_matrix_sync(fb, W2 + (long long)(tn * 16) * F + f0 + kk * 16, F);
-        wmma::mma_sync(acc, fa, fb, acc);
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const bf16* lnw = sLn + rg * 16 * L::LDL;
+  const int nchunks = F / FCH;
+  for (int c = 0; c < nchunks; ++c) {
+    const int f0 = c * FCH;
+    cp_async_wait<1>();  // W1 chunk c (W2 chunk c may still be in flight)
+    __syncthreads();
+
+    // fc1: this warp's 16 rows x FCH/CG hidden columns, then bias + GELU
+    float hc[L::NT1][4];
+#pragma unroll
+    for (int j = 0; j < L::NT1; ++j) hc[j][0] = hc[j][1] = hc[j][2] = hc[j][3] = 0.f;
+    const bf16* w1t = sW1 + cg * (FCH / L::CG) * L::LDL;
+#pragma unroll 4
+    for (int kk = 0; kk < L::D / 16; ++kk) {
+      uint32_t af[4];
+      ldsm_a(af, lnw + kk * 16, L::LDL, lane);
+      if constexpr (L::NT1 == 1) {
+        uint32_t bb[2];
+        ldsm_b_nk_1tile(bb, w1t + kk * 16, L::LDL, lane);
+        mma_bf16(hc[0], af, bb[0], bb[1]);
+      } else {
+#pragma unroll
+        for (int np = 0; np < L::NT1 / 2; ++np) {
+          uint32_t bb[4];
+          ldsm_b_nk_x2tiles(bb, w1t + np * 16 * L::LDL + kk * 16, L::LDL, lane);
+          mma_bf16(hc[2 * np], af, bb[0], bb[1]);
+          mma_bf16(hc[2 * np + 1], af, bb[2], bb[3]);
+        }
       }
-      wmma::store_matrix_sync(tile, acc, L.lda, wmma::mem_row_major);
+    }
+#pragma unroll
+    for (int j = 0; j < L::NT1; ++j) {
+      const int col = cg * (FCH / L::CG) + j * 8 + qd * 2;
+      const float c0 = to_f32(B1[f0 + col]), c1 = to_f32(B1[f0 + col + 1]);
+      const int row = rg * 16 + g;
+      *reinterpret_cast<uint32_t*>(sH + row * L::LDC + col) =
+          pack_bf16(gelu(hc[j][0] + c0, a.tanh_gelu), gelu(hc[j][1] + c1, a.tanh_gelu));
+      *reinterpret_cast<uint32_t*>(sH + (row + 8) * L::LDC + col) =
+          pack_bf16(gelu(hc[j][2] + c0, a.tanh_gelu), gelu(hc[j][3] + c1, a.tanh_gelu));
+    }
+    __syncthreads();  // the hidden tile is complete and W1 chunk c is free
+    if (c + 1 < nchunks) {
+      load_w1(f0 + FCH);
+      cp_async_wait<1>();  // W2 chunk c
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+
+    // fc2: acc (16 rows x NT*8 columns) += h W2[cols, chunk]^T
+    const bf16* w2t = sW2 + cg * NT * 8 * L::LDC;
+    const bf16* hw = sH + rg * 16 * L::LDC;
+#pragma unroll
+    for (int ks = 0; ks < FCH / 16; ++ks) {
+      uint32_t af[4];
+      ldsm_a(af, hw + ks * 16, L::LDC, lane);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bb[4];
+        ldsm_b_nk_x2tiles(bb, w2t + np * 16 * L::LDC + ks * 16, L::LDC, lane);
+        mma_bf16(acc[2 * np], af, bb[0], bb[1]);
+        mma_bf16(acc[2 * np + 1], af, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // W2 chunk c and the hidden tile are free
+    if (c + 1 < nchunks) load_w2(f0 + FCH);
   }
 
   const bf16* B2 = static_cast<const bf16*>(a.b2);
   const bf16* LS2 = static_cast<const bf16*>(a.ls2);
   bf16* OUT = static_cast<bf16*>(a.out);
-  for (int i = tid; i < BM * D; i += MLP_THREADS) {
-    const int r = i / D, c = i % D, g = m0 + r;
-    if (g < a.rows) {
-      const long long gi = (long long)g * D + c;
-      const float o = (sAcc[r * L.lda + c] + to_f32(B2[c])) * to_f32(LS2[c]);
-      OUT[gi] = __float2bfloat16(to_f32(X[gi]) + o);
+  const int r0 = m0 + rg * 16 + g;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = cg * NT * 8 + j * 8 + qd * 2;
+    const float bb0 = to_f32(B2[col]), bb1 = to_f32(B2[col + 1]);
+    const float s0 = to_f32(LS2[col]), s1 = to_f32(LS2[col + 1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r < a.rows) {
+        const long long gi = (long long)r * L::D + col;
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(X + gi);
+        *reinterpret_cast<uint32_t*>(OUT + gi) =
+            pack_bf16(__low2float(xv) + (acc[j][2 * h] + bb0) * s0,
+                      __high2float(xv) + (acc[j][2 * h + 1] + bb1) * s1);
+      }
     }
   }
 }
@@ -281,28 +327,36 @@ __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_f32(MlpArgs a) {
   }
 }
 
-template <int BM>
+template <int RG, int NT, int FCH>
 int launch_bf16(const MlpArgs& a, cudaStream_t st) {
-  const size_t bytes = BfMlpLayout(BM, a.d).total;
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      cudaFuncSetAttribute(ln_mlp_bf16<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  using L = MmaMlp<RG, NT, FCH>;
+  if (a.d != L::D || a.f % FCH || L::total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(ln_mlp_bf16<RG, NT, FCH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
   if (err != cudaSuccess) return (int)err;
-  ln_mlp_bf16<BM><<<(a.rows + BM - 1) / BM, MLP_THREADS, bytes, st>>>(a);
+  ln_mlp_bf16<RG, NT, FCH><<<(a.rows + L::BM - 1) / L::BM, MLP_THREADS, L::total, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace cs
 
-// Shapes the wrappers guarantee: D % 16 == 0, D <= 1024, F % 128 == 0,
-// contiguous row-major tensors of one dtype.
+// Shapes the wrappers guarantee: D in {64, 384, 768, 1024} (the ViT presets'
+// widths), F % 64 == 0, contiguous row-major tensors of one dtype.
 extern "C" int cs_fused_ln_mlp(const void* x, const void* lns, const void* lnb, const void* w1,
                                const void* b1, const void* w2, const void* b2, const void* ls2,
                                void* out, int rows, int d, int f, float eps, int tanh_gelu,
                                int dtype, void* stream) {
   cs::MlpArgs a{x, lns, lnb, w1, b1, w2, b2, ls2, out, rows, d, f, eps, tanh_gelu};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == cs::kBFloat16) return d <= 384 ? cs::launch_bf16<64>(a, st) : cs::launch_bf16<32>(a, st);
+  if (dtype == cs::kBFloat16) {
+    switch (d) {
+      case 64: return cs::launch_bf16<4, 4, 64>(a, st);
+      case 384: return cs::launch_bf16<4, 24, 64>(a, st);
+      case 768: return cs::launch_bf16<2, 24, 32>(a, st);
+      case 1024: return cs::launch_bf16<2, 32, 32>(a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   const size_t bytes = cs::f32_mlp_smem(d);
   if (bytes > cs::kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t err =

@@ -82,11 +82,11 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, eps: float = 1e-6,
     dt = x.dtype
     params = [t.to(dt).contiguous() for t in (ln_scale, ln_bias, w1, b1, w2, b2, ls2)]
     check_cuda_operands("fused_ln_mlp", x, *params)
-    if d % 16 or d > 1024 or f % 128:
-        raise ValueError(f"fused_ln_mlp: the CUDA kernel takes D % 16 == 0, D <= 1024 and "
-                         f"F % 128 == 0, got D={d}, F={f}")
-    if any(t.data_ptr() % 32 for t in (params[2], params[4])):
-        raise ValueError("fused_ln_mlp: weights must be 32-byte aligned")
+    widths = (64, 384, 768, 1024) if dt == torch.bfloat16 else range(8, 1025, 8)
+    if d not in widths or f % 64:
+        raise ValueError("fused_ln_mlp: the CUDA kernel takes D in (64, 384, 768, 1024) for "
+                         "bfloat16, D % 8 == 0 and D <= 1024 for float32, and F % 64 == 0; "
+                         f"got D={d}, F={f}")
     rows = x.numel() // d
     lib = _build.load("fused_ln_mlp")
     fn = lib.cs_fused_ln_mlp
