@@ -1,6 +1,6 @@
 // Flash-attention forward shared by K1 (flash_qkv.cu) and K3 (flash_cross.cu).
 //
-// softmax(Q K^T * scale) V for one (batch, head, 64-row q tile) per block,
+// softmax(Q K^T * scale) V for one (batch, head, q tile) per block,
 // with an online softmax over 64-row KV tiles, so the Nq x Nk score matrix
 // never reaches device memory. Q, K and V are read at a column offset
 // head * HD from token-major rows of any stride: K1 passes the three sections
@@ -26,7 +26,7 @@
 
 namespace cs {
 
-constexpr int BQ = 64;  // q rows per block (4 warps x 16 rows)
+constexpr int BQ = 64;  // q rows per block of the fp32 path (two threads per row)
 constexpr int BK = 64;  // KV rows per tile
 constexpr int ATTN_THREADS = 128;
 
@@ -45,52 +45,65 @@ struct AttnArgs {
   float c1;  // softmax scale * log2(e)
 };
 
+// bf16 tiling: MW 16-row m-atoms per warp (two when hd <= 64, so every K and
+// V fragment loaded from shared memory feeds two products), 4 warps, so a
+// block takes 64 * MW q rows.
 template <int HD>
 struct BfLayout {
-  static constexpr int LD = HD + 8;  // padded rows: ldmatrix without bank conflicts
+  static constexpr int MW = HD <= 64 ? 2 : 1;
+  static constexpr int ROWS = 64 * MW;  // q rows per block
+  static constexpr int LD = HD + 8;     // padded rows: ldmatrix without bank conflicts
   static constexpr size_t tile = align128((size_t)BK * LD * 2);
-  static constexpr size_t q_off = 0;
-  static constexpr size_t kv_off = align128((size_t)BQ * LD * 2);
+  static constexpr size_t kv_off = align128((size_t)ROWS * LD * 2);
   static constexpr size_t total = kv_off + 4 * tile;  // K and V, two stages
 };
 
-// bf16: each warp owns 16 q rows. Q fragments stay in registers; K/V tiles
-// stream through shared memory (cp.async, two stages). S = Q K^T and O += P V
-// run as mma.sync m16n8k16 with fp32 accumulators in registers, and P is
-// rounded to bf16 straight from the S accumulators into A fragments.
+// bf16: Q fragments stay in registers; K/V tiles stream through shared
+// memory (cp.async, two stages). S = Q K^T and O += P V run as mma.sync
+// m16n8k16 with fp32 accumulators in registers, and P is rounded to bf16
+// straight from the S accumulators into A fragments.
 template <int HD>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
   using L = BfLayout<HD>;
   using bf16 = __nv_bfloat16;
+  constexpr int MW = L::MW;
   constexpr int NKT = HD / 16;  // k-steps of Q K^T
   constexpr int NOT = HD / 8;   // n8 tiles of O
   constexpr int NST = BK / 8;   // n8 tiles of S
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* sKV = reinterpret_cast<bf16*>(smem + L::kv_off);
   constexpr int TILE = (int)(L::tile / 2);  // elements per K or V tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sKV = reinterpret_cast<bf16*>(smem + L::kv_off);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = lane & 3;
-  const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * L::ROWS, head = blockIdx.y, b = blockIdx.z;
   const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * HD;
   const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * HD;
   const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * HD;
 
-  cp_async_rows<BQ, HD, ATTN_THREADS>(sQ, L::LD, Q, a.q_rs, q0, a.nq, tid);
+  cp_async_rows<L::ROWS, HD, ATTN_THREADS>(sQ, L::LD, Q, a.q_rs, q0, a.nq, tid);
   cp_async_rows<BK, HD, ATTN_THREADS>(sKV, L::LD, K, a.k_rs, 0, a.nk, tid);
   cp_async_rows<BK, HD, ATTN_THREADS>(sKV + TILE, L::LD, V, a.v_rs, 0, a.nk, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[NKT][4];
+  uint32_t qa[MW][NKT][4];
 #pragma unroll
-  for (int kk = 0; kk < NKT; ++kk) ldsm_a(qa[kk], sQ + warp * 16 * L::LD + kk * 16, L::LD, lane);
+  for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+    for (int kk = 0; kk < NKT; ++kk)
+      ldsm_a(qa[mi][kk], sQ + (warp * MW + mi) * 16 * L::LD + kk * 16, L::LD, lane);
 
-  float o[NOT][4];
+  float o[MW][NOT][4];
+  float m_run[MW][2], l_run[MW][2];  // rows g and g + 8 of each m-atom
 #pragma unroll
-  for (int d = 0; d < NOT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+  for (int mi = 0; mi < MW; ++mi) {
+#pragma unroll
+    for (int d = 0; d < NOT; ++d) o[mi][d][0] = o[mi][d][1] = o[mi][d][2] = o[mi][d][3] = 0.f;
+    m_run[mi][0] = m_run[mi][1] = -INFINITY;
+    l_run[mi][0] = l_run[mi][1] = 0.f;
+  }
 
   const int ntiles = (a.nk + BK - 1) / BK;
   for (int t = 0; t < ntiles; ++t) {
@@ -107,61 +120,69 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
     }
     __syncthreads();
 
-    float s[NST][4];
+    float s[MW][NST][4];
 #pragma unroll
-    for (int j = 0; j < NST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int j = 0; j < NST; ++j) s[mi][j][0] = s[mi][j][1] = s[mi][j][2] = s[mi][j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < NKT; ++kk) {
 #pragma unroll
       for (int np = 0; np < NST / 2; ++np) {
         uint32_t bb[4];
         ldsm_b_nk_x2tiles(bb, sK + np * 16 * L::LD + kk * 16, L::LD, lane);
-        mma_bf16(s[2 * np], qa[kk], bb[0], bb[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], bb[2], bb[3]);
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi) {
+          mma_bf16(s[mi][2 * np], qa[mi][kk], bb[0], bb[1]);
+          mma_bf16(s[mi][2 * np + 1], qa[mi][kk], bb[2], bb[3]);
+        }
       }
     }
 
     // scale (exp2 base), mask the KV tail, online softmax in fp32
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    uint32_t pa[MW][BK / 16][4];
 #pragma unroll
-    for (int j = 0; j < NST; ++j) {
+    for (int mi = 0; mi < MW; ++mi) {
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = t * BK + j * 8 + qd * 2 + e < a.nk;
-        s[j][e] = ok ? s[j][e] * a.c1 : -INFINITY;
-        s[j][2 + e] = ok ? s[j][2 + e] * a.c1 : -INFINITY;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
+      for (int j = 0; j < NST; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = t * BK + j * 8 + qd * 2 + e < a.nk;
+          s[mi][j][e] = ok ? s[mi][j][e] * a.c1 : -INFINITY;
+          s[mi][j][2 + e] = ok ? s[mi][j][2 + e] * a.c1 : -INFINITY;
+          mx0 = fmaxf(mx0, s[mi][j][e]);
+          mx1 = fmaxf(mx1, s[mi][j][2 + e]);
+        }
       }
-    }
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    uint32_t pa[BK / 16][4];
-    float rs0 = 0.f, rs1 = 0.f;
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m_run[mi][0], mx0), mn1 = fmaxf(m_run[mi][1], mx1);
+      const float al0 = exp2f(m_run[mi][0] - mn0), al1 = exp2f(m_run[mi][1] - mn1);
+      m_run[mi][0] = mn0;
+      m_run[mi][1] = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < NST; ++j) {
-      const float p00 = exp2f(s[j][0] - mn0), p01 = exp2f(s[j][1] - mn0);
-      const float p10 = exp2f(s[j][2] - mn1), p11 = exp2f(s[j][3] - mn1);
-      rs0 += p00 + p01;
-      rs1 += p10 + p11;
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p00, p01);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p10, p11);
-    }
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
+      for (int j = 0; j < NST; ++j) {
+        const float p00 = exp2f(s[mi][j][0] - mn0), p01 = exp2f(s[mi][j][1] - mn0);
+        const float p10 = exp2f(s[mi][j][2] - mn1), p11 = exp2f(s[mi][j][3] - mn1);
+        rs0 += p00 + p01;
+        rs1 += p10 + p11;
+        pa[mi][j / 2][(j % 2) * 2] = pack_bf16(p00, p01);
+        pa[mi][j / 2][(j % 2) * 2 + 1] = pack_bf16(p10, p11);
+      }
+      l_run[mi][0] = l_run[mi][0] * al0 + rs0;
+      l_run[mi][1] = l_run[mi][1] * al1 + rs1;
 #pragma unroll
-    for (int d = 0; d < NOT; ++d) {
-      o[d][0] *= al0;
-      o[d][1] *= al0;
-      o[d][2] *= al1;
-      o[d][3] *= al1;
+      for (int d = 0; d < NOT; ++d) {
+        o[mi][d][0] *= al0;
+        o[mi][d][1] *= al0;
+        o[mi][d][2] *= al1;
+        o[mi][d][3] *= al1;
+      }
     }
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
@@ -169,37 +190,36 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
       for (int dp = 0; dp < NOT / 2; ++dp) {
         uint32_t bb[4];
         ldsm_b_kn_x2tiles(bb, sV + ks * 16 * L::LD + dp * 16, L::LD, lane);
-        mma_bf16(o[2 * dp], pa[ks], bb[0], bb[1]);
-        mma_bf16(o[2 * dp + 1], pa[ks], bb[2], bb[3]);
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi) {
+          mma_bf16(o[mi][2 * dp], pa[mi][ks], bb[0], bb[1]);
+          mma_bf16(o[mi][2 * dp + 1], pa[mi][ks], bb[2], bb[3]);
+        }
       }
     }
     __syncthreads();  // this stage is refilled two tiles on
   }
 
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0, inv1 = l1 == 0.f ? 1.f : 1.f / l1;
   bf16* out = static_cast<bf16*>(a.o) + b * a.o_bs + head * HD + qd * 2;
+  const long long stat = ((long long)b * a.h + head) * a.nq;
 #pragma unroll
-  for (int d = 0; d < NOT; ++d) {
-    if (r0 < a.nq)
-      *reinterpret_cast<uint32_t*>(out + r0 * a.o_rs + d * 8) = pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
-    if (r1 < a.nq)
-      *reinterpret_cast<uint32_t*>(out + r1 * a.o_rs + d * 8) = pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
-  }
-  if (qd == 0) {
-    const long long base = ((long long)b * a.h + head) * a.nq;
-    if (r0 < a.nq) {
-      a.l[base + r0] = l0;
-      a.m[base + r0] = m0 * (1.f / kLog2e);
-    }
-    if (r1 < a.nq) {
-      a.l[base + r1] = l1;
-      a.m[base + r1] = m1 * (1.f / kLog2e);
+  for (int mi = 0; mi < MW; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_run[mi][h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int r = q0 + (warp * MW + mi) * 16 + g + 8 * h;
+      if (r >= a.nq) continue;
+      const float inv = l == 0.f ? 1.f : 1.f / l;
+#pragma unroll
+      for (int d = 0; d < NOT; ++d)
+        *reinterpret_cast<uint32_t*>(out + r * a.o_rs + d * 8) =
+            pack_bf16(o[mi][d][2 * h] * inv, o[mi][d][2 * h + 1] * inv);
+      if (qd == 0) {
+        a.l[stat + r] = l;
+        a.m[stat + r] = m_run[mi][h] * (1.f / kLog2e);
+      }
     }
   }
 }
@@ -288,7 +308,8 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
 
 template <int HD>
 int launch_attention_hd(const AttnArgs& a, int batch, int dtype, cudaStream_t st) {
-  const dim3 grid((a.nq + BQ - 1) / BQ, a.h, batch);
+  const int rows = dtype == kBFloat16 ? BfLayout<HD>::ROWS : BQ;
+  const dim3 grid((a.nq + rows - 1) / rows, a.h, batch);
   cudaError_t err;
   if (dtype == kBFloat16) {
     const int bytes = (int)BfLayout<HD>::total;

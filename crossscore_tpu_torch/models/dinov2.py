@@ -53,13 +53,9 @@ VIT_PRESETS: dict[str, ViTConfig] = {
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm with fp32 statistics whatever the compute dtype; the output
-    is cast back to x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    """LayerNorm in fp32 (statistics, scale and shift) whatever the compute
+    dtype, rounded once to x's dtype."""
+    return F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps).to(x.dtype)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
