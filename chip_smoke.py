@@ -9,7 +9,8 @@ In order:
    per source, all at once) and print the build time;
 3. hold K1 (backbone self-attention), K2 (fused LN->MLP) and K3 (decoder
    attention) against their plain PyTorch versions at the main-path shapes
-   (dinov2-small, 518 px, K=8 references, B=8), in bf16 and fp32, and time
+   (dinov2-small, 518 px, K=8 references, B=8), in bf16 and fp32 (and at the
+   other presets' head dims and widths at small shapes), and time
    the kernel, the plain version and, for the attention kernels, one
    ``F.scaled_dot_product_attention`` call on the same inputs (a yardstick
    only; the port never calls it);
@@ -237,8 +238,41 @@ def main() -> int:
         del q
         torch.cuda.empty_cache()
 
+    # the other presets' widths, small shapes, correctness only: K1 at hd 16
+    # (dinov2-test) and 64 (base, large), K2 at D 64, 768, 1024, K3 at hd 96
+    # and 128 (base, large decoders)
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        for heads, hdim in ((4, 16), (12, 64)):
+            qkv = randn(2, 300, 3 * heads * hdim, dtype=dtype)
+            err = max(_rel_err(torch, g, w) for g, w in zip(
+                flash_qkv_self_attention(qkv, heads), flash_qkv_self_attention_plain(qkv, heads)))
+            report[(f"K1 hd{hdim}", tname)] = dict(err=err)
+        for width in (64, 768, 1024):
+            x = randn(2, 300, width, dtype=dtype)
+            mlp = (randn(width, dtype=torch.float32, scale=0.1) + 1,
+                   randn(width, dtype=torch.float32, scale=0.1),
+                   randn(4 * width, width, dtype=torch.float32, scale=width ** -0.5),
+                   randn(4 * width, dtype=torch.float32, scale=0.1),
+                   randn(width, 4 * width, dtype=torch.float32, scale=(4 * width) ** -0.5),
+                   randn(width, dtype=torch.float32, scale=0.1), randn(width, dtype=torch.float32) + 1)
+            err = max(_rel_err(torch, fused_ln_mlp(x, *mlp, 1e-6, g), fused_ln_mlp_plain(x, *mlp, 1e-6, g))
+                      for g in ("tanh", "exact"))
+            report[(f"K2 D{width}", tname)] = dict(err=err)
+        for heads, hdim in ((8, 96), (8, 128)):
+            q, k_, v_ = (randn(2, n_, heads * hdim, dtype=dtype) for n_ in (300, 700, 700))
+            err = max(_rel_err(torch, g, w) for g, w in zip(
+                flash_cross_attention(q, k_, v_, heads), flash_cross_attention_plain(q, k_, v_, heads)))
+            report[(f"K3 hd{hdim}", tname)] = dict(err=err)
+
     bad = []
     for (kern, tname), r in report.items():
+        if "ms" not in r:  # a preset-width check
+            ok = r["err"] <= TOL[tname]
+            print(f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {TOL[tname]:.1e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{kern} {tname}")
+            continue
         ok = r["err"] <= TOL[tname]
         print(f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {TOL[tname]:.1e}) max|d| {r['max_abs']:.3e} "
               f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms "

@@ -33,7 +33,6 @@ namespace cs {
 
 constexpr int MLP_THREADS = 256;
 constexpr int F32_BM = 16;  // rows per block (fp32 path)
-constexpr int F32_FC = 64;  // hidden chunk (fp32 path)
 constexpr size_t kMaxSmem = 232448;
 
 struct MlpArgs {
@@ -70,8 +69,16 @@ __device__ __forceinline__ float erf_f32(float x) {
   return x * p / q;
 }
 
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The tanh form is only taken on bf16, whose hidden tile is rounded to bf16
+// (2^-8) right after: the hardware tanh (relative error < 2^-10.9) suffices.
 __device__ __forceinline__ float gelu(float h, int tanh_form) {
-  if (tanh_form) return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
+  if (tanh_form) return 0.5f * h * (1.f + tanh_approx(0.7978845608028654f * (h + 0.044715f * h * h * h)));
   return 0.5f * h * (1.f + erf_f32(h * 0.7071067811865476f));
 }
 
@@ -83,11 +90,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // LayerNorm of `nrows` rows from m0 into a shared tile (row stride ld), fp32
 // statistics; rows past `rows` are zero.
-template <typename T, typename TO>
+template <int NW, typename T, typename TO>
 __device__ void layer_norm_rows(TO* dst, int ld, const T* X, const T* S, const T* B, int m0,
                                 int nrows, int rows, int D, float eps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int rr = warp; rr < nrows; rr += MLP_THREADS / 32) {
+  for (int rr = warp; rr < nrows; rr += NW) {
     const int g = m0 + rr;
     TO* out = dst + rr * ld;
     if (g >= rows) {
@@ -112,9 +119,10 @@ __device__ void layer_norm_rows(TO* dst, int ld, const T* X, const T* S, const T
 // bf16 tiling: RG row groups x CG column groups of warps (RG * CG = 8);
 // BM = 16 * RG rows per block, each warp owns 16 rows x NT*8 output columns
 // of the accumulator and FCH/CG columns of each hidden chunk.
-template <int RG, int NT, int FCH>
+template <int RG, int NT, int FCH, int NW>
 struct MmaMlp {
-  static constexpr int CG = (MLP_THREADS / 32) / RG;
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int CG = NW / RG;
   static constexpr int D = CG * NT * 8;
   static constexpr int BM = 16 * RG;
   static constexpr int NT1 = FCH / CG / 8;  // fc1 n8 tiles per warp
@@ -126,9 +134,9 @@ struct MmaMlp {
   static constexpr size_t total = h_off + align128((size_t)BM * LDC * 2);
 };
 
-template <int RG, int NT, int FCH>
-__global__ void __launch_bounds__(MLP_THREADS) ln_mlp_bf16(MlpArgs a) {
-  using L = MmaMlp<RG, NT, FCH>;
+template <int RG, int NT, int FCH, int NW>
+__global__ void __launch_bounds__(32 * NW) ln_mlp_bf16(MlpArgs a) {
+  using L = MmaMlp<RG, NT, FCH, NW>;
   using bf16 = __nv_bfloat16;
   static_assert(NT % 2 == 0 && (L::NT1 == 1 || L::NT1 % 2 == 0), "tile shape");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -145,17 +153,17 @@ __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_bf16(MlpArgs a) {
   const bf16* B1 = static_cast<const bf16*>(a.b1);
   // W1 chunk: rows f0..f0+FCH of (F, D); W2 chunk: columns f0..f0+FCH of (D, F)
   auto load_w1 = [&](int f0) {
-    cp_async_rows<FCH, L::D, MLP_THREADS>(sW1, L::LDL, W1, L::D, f0, F, tid);
+    cp_async_rows<FCH, L::D, L::THREADS>(sW1, L::LDL, W1, L::D, f0, F, tid);
     cp_async_commit();
   };
   auto load_w2 = [&](int f0) {
-    cp_async_rows<L::D, FCH, MLP_THREADS>(sW2, L::LDC, W2 + f0, F, 0, L::D, tid);
+    cp_async_rows<L::D, FCH, L::THREADS>(sW2, L::LDC, W2 + f0, F, 0, L::D, tid);
     cp_async_commit();
   };
   load_w1(0);
   load_w2(0);
-  layer_norm_rows(sLn, L::LDL, X, static_cast<const bf16*>(a.lns), static_cast<const bf16*>(a.lnb),
-                  m0, L::BM, a.rows, L::D, a.eps);
+  layer_norm_rows<NW>(sLn, L::LDL, X, static_cast<const bf16*>(a.lns), static_cast<const bf16*>(a.lnb),
+                      m0, L::BM, a.rows, L::D, a.eps);
 
   float acc[NT][4];
 #pragma unroll
@@ -251,62 +259,86 @@ __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_bf16(MlpArgs a) {
   }
 }
 
-__host__ __device__ inline size_t f32_mlp_smem(int d) {
-  return align128((size_t)F32_BM * d * 4) + (size_t)F32_BM * F32_FC * 4;
-}
+// fp32 layout: LN tile (F32_BM x D), the W1 chunk (FC x D) and the W2 chunk
+// (D x FC) staged with one padding column so that neighbouring threads read
+// neighbouring banks, and the hidden chunk (F32_BM x FC).
+struct F32MlpLayout {
+  size_t w1_off, w2_off, h_off, total;
+  __host__ __device__ F32MlpLayout(int d, int fc) {
+    w1_off = align128((size_t)F32_BM * d * 4);
+    w2_off = w1_off + align128((size_t)fc * (d + 1) * 4);
+    h_off = w2_off + align128((size_t)d * (fc + 1) * 4);
+    total = h_off + align128((size_t)F32_BM * fc * 4);
+  }
+};
 
-// fp32 (parity preset): CUDA cores, F32_BM rows per block, exact GELU.
+// fp32 (parity preset): CUDA cores, F32_BM rows per block, exact GELU. The
+// weight chunks are copied into shared memory with coalesced loads, then
+// every thread reads them along its own row.
+template <int FC>
 __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_f32(MlpArgs a) {
-  constexpr int NJ = 4;  // output columns per thread: D <= 4 * MLP_THREADS
+  constexpr int NJ = 4;                     // output columns per thread: D <= 4 * MLP_THREADS
+  constexpr int RSTEP = MLP_THREADS / FC;   // fc1: one hidden column, F32_BM / RSTEP rows
+  constexpr int RPT = F32_BM / RSTEP;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = a.d, F = a.f, m0 = blockIdx.x * F32_BM, tid = threadIdx.x;
+  const F32MlpLayout L(D, FC);
   float* sLn = reinterpret_cast<float*>(smem);
-  float* sH = reinterpret_cast<float*>(smem + align128((size_t)F32_BM * D * 4));
+  float* sW1 = reinterpret_cast<float*>(smem + L.w1_off);
+  float* sW2 = reinterpret_cast<float*>(smem + L.w2_off);
+  float* sH = reinterpret_cast<float*>(smem + L.h_off);
   const float* X = static_cast<const float*>(a.x);
   const float* W1 = static_cast<const float*>(a.w1);
   const float* W2 = static_cast<const float*>(a.w2);
   const float* B1 = static_cast<const float*>(a.b1);
 
-  layer_norm_rows(sLn, D, X, static_cast<const float*>(a.lns), static_cast<const float*>(a.lnb), m0,
-                  F32_BM, a.rows, D, a.eps);
+  layer_norm_rows<MLP_THREADS / 32>(sLn, D, X, static_cast<const float*>(a.lns),
+                                    static_cast<const float*>(a.lnb), m0, F32_BM, a.rows, D, a.eps);
   float acc[NJ][F32_BM];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int r = 0; r < F32_BM; ++r) acc[j][r] = 0.f;
-  __syncthreads();
 
-  const int f = tid % F32_FC, rg = tid / F32_FC;  // fc1: one hidden column, 4 rows
-  constexpr int RSTEP = MLP_THREADS / F32_FC;
-  for (int f0 = 0; f0 < F; f0 += F32_FC) {
-    float h[F32_BM / RSTEP];
+  const int f = tid % FC, rg = tid / FC;
+  for (int f0 = 0; f0 < F; f0 += FC) {
+    __syncthreads();  // the previous chunk is consumed (and the LN tile written)
+    for (int i = tid; i < FC * D; i += MLP_THREADS) {
+      const int ff = i / D, k = i % D;
+      sW1[ff * (D + 1) + k] = W1[(long long)(f0 + ff) * D + k];
+    }
+    for (int i = tid; i < D * FC; i += MLP_THREADS) {
+      const int n = i / FC, k = i % FC;
+      sW2[n * (FC + 1) + k] = W2[(long long)n * F + f0 + k];
+    }
+    __syncthreads();
+    float h[RPT];
 #pragma unroll
-    for (int i = 0; i < F32_BM / RSTEP; ++i) h[i] = 0.f;
-    const float* w1r = W1 + (long long)(f0 + f) * D;
+    for (int i = 0; i < RPT; ++i) h[i] = 0.f;
+    const float* w1r = sW1 + f * (D + 1);
     for (int k = 0; k < D; ++k) {
       const float w = w1r[k];
 #pragma unroll
-      for (int i = 0; i < F32_BM / RSTEP; ++i) h[i] = fmaf(sLn[(rg + RSTEP * i) * D + k], w, h[i]);
+      for (int i = 0; i < RPT; ++i) h[i] = fmaf(sLn[(rg + RSTEP * i) * D + k], w, h[i]);
     }
 #pragma unroll
-    for (int i = 0; i < F32_BM / RSTEP; ++i)
-      sH[(rg + RSTEP * i) * F32_FC + f] = gelu(h[i] + B1[f0 + f], 0);
+    for (int i = 0; i < RPT; ++i) sH[(rg + RSTEP * i) * FC + f] = gelu(h[i] + B1[f0 + f], 0);
     __syncthreads();
-    for (int k = 0; k < F32_FC; ++k) {
+#pragma unroll 4
+    for (int k = 0; k < FC; ++k) {
       float hv[F32_BM];
 #pragma unroll
-      for (int r = 0; r < F32_BM; ++r) hv[r] = sH[r * F32_FC + k];
+      for (int r = 0; r < F32_BM; ++r) hv[r] = sH[r * FC + k];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int n = tid + j * MLP_THREADS;
         if (n < D) {
-          const float w = W2[(long long)n * F + f0 + k];
+          const float w = sW2[n * (FC + 1) + k];
 #pragma unroll
           for (int r = 0; r < F32_BM; ++r) acc[j][r] = fmaf(hv[r], w, acc[j][r]);
         }
       }
     }
-    __syncthreads();
   }
 
   const float* B2 = static_cast<const float*>(a.b2);
@@ -327,21 +359,33 @@ __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_f32(MlpArgs a) {
   }
 }
 
-template <int RG, int NT, int FCH>
+template <int FC>
+int launch_f32(const MlpArgs& a, cudaStream_t st) {
+  const size_t bytes = F32MlpLayout(a.d, FC).total;
+  if (a.d > 4 * MLP_THREADS || a.f % FC || bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaFuncSetAttribute(ln_mlp_f32<FC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  ln_mlp_f32<FC><<<(a.rows + F32_BM - 1) / F32_BM, MLP_THREADS, bytes, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int RG, int NT, int FCH, int NW>
 int launch_bf16(const MlpArgs& a, cudaStream_t st) {
-  using L = MmaMlp<RG, NT, FCH>;
+  using L = MmaMlp<RG, NT, FCH, NW>;
   if (a.d != L::D || a.f % FCH || L::total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(ln_mlp_bf16<RG, NT, FCH>,
+  const cudaError_t err = cudaFuncSetAttribute(ln_mlp_bf16<RG, NT, FCH, NW>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
   if (err != cudaSuccess) return (int)err;
-  ln_mlp_bf16<RG, NT, FCH><<<(a.rows + L::BM - 1) / L::BM, MLP_THREADS, L::total, st>>>(a);
+  ln_mlp_bf16<RG, NT, FCH, NW><<<(a.rows + L::BM - 1) / L::BM, L::THREADS, L::total, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace cs
 
-// Shapes the wrappers guarantee: D in {64, 384, 768, 1024} (the ViT presets'
-// widths), F % 64 == 0, contiguous row-major tensors of one dtype.
+// Shapes the wrappers guarantee: for bf16 D in {64, 384, 768, 1024} (the ViT
+// presets' widths), for fp32 D % 8 == 0 and D <= 1024; F % 64 == 0;
+// contiguous row-major tensors of one dtype.
 extern "C" int cs_fused_ln_mlp(const void* x, const void* lns, const void* lnb, const void* w1,
                                const void* b1, const void* w2, const void* b2, const void* ls2,
                                void* out, int rows, int d, int f, float eps, int tanh_gelu,
@@ -350,18 +394,12 @@ extern "C" int cs_fused_ln_mlp(const void* x, const void* lns, const void* lnb, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == cs::kBFloat16) {
     switch (d) {
-      case 64: return cs::launch_bf16<4, 4, 64>(a, st);
-      case 384: return cs::launch_bf16<4, 24, 64>(a, st);
-      case 768: return cs::launch_bf16<2, 24, 32>(a, st);
-      case 1024: return cs::launch_bf16<2, 32, 32>(a, st);
+      case 64: return cs::launch_bf16<4, 4, 64, 8>(a, st);
+      case 384: return cs::launch_bf16<4, 12, 64, 16>(a, st);
+      case 768: return cs::launch_bf16<2, 24, 32, 8>(a, st);
+      case 1024: return cs::launch_bf16<2, 32, 32, 8>(a, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  const size_t bytes = cs::f32_mlp_smem(d);
-  if (bytes > cs::kMaxSmem) return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      cudaFuncSetAttribute(cs::ln_mlp_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  cs::ln_mlp_f32<<<(rows + cs::F32_BM - 1) / cs::F32_BM, cs::MLP_THREADS, bytes, st>>>(a);
-  return (int)cudaGetLastError();
+  return d <= 512 ? cs::launch_f32<32>(a, st) : cs::launch_f32<16>(a, st);
 }
