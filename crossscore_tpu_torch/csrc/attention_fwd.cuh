@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
       }
     }
 
-    // scale (exp2 base), mask the KV tail, online softmax in fp32
+    // mask the KV tail; online softmax in fp32, exp2 base (scale folded into the FMA)
     uint32_t pa[MW][BK / 16][4];
 #pragma unroll
     for (int mi = 0; mi < MW; ++mi) {
@@ -149,8 +149,8 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool ok = t * BK + j * 8 + qd * 2 + e < a.nk;
-          s[mi][j][e] = ok ? s[mi][j][e] * a.c1 : -INFINITY;
-          s[mi][j][2 + e] = ok ? s[mi][j][2 + e] * a.c1 : -INFINITY;
+          s[mi][j][e] = ok ? s[mi][j][e] : -INFINITY;
+          s[mi][j][2 + e] = ok ? s[mi][j][2 + e] : -INFINITY;
           mx0 = fmaxf(mx0, s[mi][j][e]);
           mx1 = fmaxf(mx1, s[mi][j][2 + e]);
         }
@@ -160,15 +160,16 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
-      const float mn0 = fmaxf(m_run[mi][0], mx0), mn1 = fmaxf(m_run[mi][1], mx1);
-      const float al0 = exp2f(m_run[mi][0] - mn0), al1 = exp2f(m_run[mi][1] - mn1);
+      // running maxima in scaled units (c1 > 0, so scaling keeps the max)
+      const float mn0 = fmaxf(m_run[mi][0], mx0 * a.c1), mn1 = fmaxf(m_run[mi][1], mx1 * a.c1);
+      const float al0 = ex2(m_run[mi][0] - mn0), al1 = ex2(m_run[mi][1] - mn1);
       m_run[mi][0] = mn0;
       m_run[mi][1] = mn1;
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
       for (int j = 0; j < NST; ++j) {
-        const float p00 = exp2f(s[mi][j][0] - mn0), p01 = exp2f(s[mi][j][1] - mn0);
-        const float p10 = exp2f(s[mi][j][2] - mn1), p11 = exp2f(s[mi][j][3] - mn1);
+        const float p00 = ex2(fmaf(s[mi][j][0], a.c1, -mn0)), p01 = ex2(fmaf(s[mi][j][1], a.c1, -mn0));
+        const float p10 = ex2(fmaf(s[mi][j][2], a.c1, -mn1)), p11 = ex2(fmaf(s[mi][j][3], a.c1, -mn1));
         rs0 += p00 + p01;
         rs1 += p10 + p11;
         pa[mi][j / 2][(j % 2) * 2] = pack_bf16(p00, p01);
