@@ -90,6 +90,32 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# dtype codes of the C entry points (csrc/common.cuh)
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+
+
+def device_type(x) -> str:
+    """"cpu" or "cuda"; raise for any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def check_cuda_operands(what: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned CUDA tensor
+    of one kernel dtype (float32 or bfloat16) on one device."""
+    t0 = tensors[0]
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != t0.device:
+            raise ValueError(f"{what}: operands must share one CUDA device, got {t.device}")
+        if str(t.dtype) not in DTYPE_CODES or t.dtype != t0.dtype:
+            raise ValueError(f"{what}: operands must all be float32 or bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must be 16-byte aligned")
+
+
 def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error (``cudaGetLastError``)."""
     if rc != 0:

@@ -21,7 +21,6 @@ import torch
 from crossscore_tpu_torch.ops import _build
 from crossscore_tpu_torch.ops.attention import attention_with_stats
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -36,33 +35,12 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b, n, h * hd)
 
 
-def check_cuda_operands(what: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous, 16-byte aligned CUDA tensor
-    of one kernel dtype on one device."""
-    t0 = tensors[0]
-    for t in tensors:
-        if t.device.type != "cuda" or t.device != t0.device:
-            raise ValueError(f"{what}: operands must share one CUDA device, got {t.device}")
-        if t.dtype not in _DTYPES or t.dtype != t0.dtype:
-            raise ValueError(f"{what}: operands must all be float32 or bfloat16, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: operands must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: operands must be 16-byte aligned")
-
-
 def _check_head_dim(what: str, hd: int) -> None:
     if hd % 16 or not 16 <= hd <= 128:
         raise ValueError(
             f"{what}: head dim {hd} is not supported by the CUDA kernel "
             "(a multiple of 16 up to 128)"
         )
-
-
-def _device_of(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    return x.device.type
 
 
 # --- K1 ---------------------------------------------------------------------
@@ -82,12 +60,12 @@ def flash_qkv_self_attention(qkv: torch.Tensor, num_heads: int):
     -> (o (B, N, H*hd), l, m (B, H, N))."""
     if qkv.ndim != 3 or qkv.shape[2] % (3 * num_heads):
         raise ValueError(f"qkv must be (B, N, 3*H*hd) with H={num_heads}, got {tuple(qkv.shape)}")
-    if _device_of(qkv) == "cpu":
+    if _build.device_type(qkv) == "cpu":
         return flash_qkv_self_attention_plain(qkv, num_heads)
     b, n, d3 = qkv.shape
     d = d3 // 3
     hd = d // num_heads
-    check_cuda_operands("flash_qkv_self_attention", qkv)
+    _build.check_cuda_operands("flash_qkv_self_attention", qkv)
     _check_head_dim("flash_qkv_self_attention", hd)
     if b > 65535 or num_heads > 65535:
         raise ValueError("flash_qkv_self_attention: batch and heads must be < 65536")
@@ -100,7 +78,7 @@ def flash_qkv_self_attention(qkv: torch.Tensor, num_heads: int):
     m = torch.empty_like(l)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     rc = fn(qkv.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(), b, n, num_heads, hd,
-            _DTYPES[qkv.dtype], 1.0 / math.sqrt(hd), stream)
+            _build.DTYPE_CODES[str(qkv.dtype)], 1.0 / math.sqrt(hd), stream)
     _build.check_rc(lib, rc, "flash_qkv_self_attention")
     flash_qkv_self_attention.launches += 1
     return o, l, m
@@ -129,12 +107,12 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num
             f"q (B, Nq, H*hd) and k, v (B, Nk, H*hd) expected, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if _device_of(q) == "cpu":
+    if _build.device_type(q) == "cpu":
         return flash_cross_attention_plain(q, k, v, num_heads)
     b, nq, d = q.shape
     nk = k.shape[1]
     hd = d // num_heads
-    check_cuda_operands("flash_cross_attention", q, k, v)
+    _build.check_cuda_operands("flash_cross_attention", q, k, v)
     _check_head_dim("flash_cross_attention", hd)
     if b > 65535 or num_heads > 65535:
         raise ValueError("flash_cross_attention: batch and heads must be < 65536")
@@ -147,7 +125,7 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num
     m = torch.empty_like(l)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
-            b, nq, nk, num_heads, hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd), stream)
+            b, nq, nk, num_heads, hd, _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
     _build.check_rc(lib, rc, "flash_cross_attention")
     flash_cross_attention.launches += 1
     return o, l, m

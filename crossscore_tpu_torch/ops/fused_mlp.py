@@ -17,7 +17,6 @@ import ctypes
 import torch
 
 from crossscore_tpu_torch.ops import _build
-from crossscore_tpu_torch.ops.flash_attention import _DTYPES, _device_of, check_cuda_operands
 
 # XLA's f32 erf rational approximation (xla/client/lib/math.cc ErfImpl32),
 # as evaluated by the TPU kernel and by csrc/fused_ln_mlp.cu
@@ -77,11 +76,11 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, eps: float = 1e-6,
             or any(t.shape != (d,) for t in (ln_scale, ln_bias, b2, ls2)):
         raise ValueError(f"fused_ln_mlp: shapes do not match x (..., {d}) and w1 {tuple(w1.shape)}")
     tanh = _use_tanh(x.dtype, gelu)
-    if _device_of(x) == "cpu":
+    if _build.device_type(x) == "cpu":
         return fused_ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, eps, gelu)
     dt = x.dtype
     params = [t.to(dt).contiguous() for t in (ln_scale, ln_bias, w1, b1, w2, b2, ls2)]
-    check_cuda_operands("fused_ln_mlp", x, *params)
+    _build.check_cuda_operands("fused_ln_mlp", x, *params)
     widths = (64, 384, 768, 1024) if dt == torch.bfloat16 else range(8, 1025, 8)
     if d not in widths or f % 64:
         raise ValueError("fused_ln_mlp: the CUDA kernel takes D in (64, 384, 768, 1024) for "
@@ -96,7 +95,7 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, eps: float = 1e-6,
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), rows, d, f,
-            float(eps), int(tanh), _DTYPES[dt], stream)
+            float(eps), int(tanh), _build.DTYPE_CODES[str(dt)], stream)
     _build.check_rc(lib, rc, "fused_ln_mlp")
     fused_ln_mlp.launches += 1
     return out

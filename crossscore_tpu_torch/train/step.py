@@ -16,10 +16,8 @@ def make_predict_step(model: CrossScoreNet, need_attn_weights: bool = False,
     model holds its weights (the JAX step takes them as an argument)."""
 
     def predict_step(query_img: torch.Tensor, ref_imgs: torch.Tensor, valid_hw=None) -> dict:
-        if valid_hw is not None:
-            raise NotImplementedError("shape-bucketed predict (valid_hw) is not ported yet")
         with torch.inference_mode():
             return model(query_img, ref_imgs, need_attn_weights=need_attn_weights,
-                         need_attn_weights_head_id=head_id)
+                         need_attn_weights_head_id=head_id, valid_hw=valid_hw)
 
     return predict_step

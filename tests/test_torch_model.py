@@ -114,11 +114,19 @@ def test_decoder_attention_weights_match_jax(small):
     _close(got.numpy(), want, 1e-6)
 
 
+@pytest.fixture(scope="module")
+def dinov2_test_params():
+    """JAX parameters at the dinov2-test preset (the same tree on every route)."""
+    return _jax_net("dinov2-test", 56, 2, 3, 6)[1]
+
+
 @pytest.fixture(scope="module", params=[("xla", "xla"), ("pallas", "fused")], ids=["jax_xla", "jax_pallas"])
-def dinov2_test_case(request):
+def dinov2_test_case(request, dinov2_test_params):
     """dinov2-test, 56 px, B=2, K=3 through one of the two JAX routes."""
-    net, params = _jax_net("dinov2-test", 56, 2, 3, 6, *request.param)
+    impl, mlp = request.param
+    net = JaxNet(JaxConfig(backbone=JAX_VIT["dinov2-test"], pe_h=6, pe_w=6, attention_impl=impl, mlp_impl=mlp))
     q, r = _images(11, 2, 3, 56)
+    params = dinov2_test_params
     want = np.asarray(jax_make_predict_step(net)(params, jnp.asarray(q), jnp.asarray(r))["score_map_ref_cross"])
     return params, q, r, want
 
@@ -156,8 +164,8 @@ def test_predict_step_bf16_matches_jax(gelu):
     assert float(np.abs(got.numpy() - want).mean()) < 1e-2
 
 
-def test_uint8_input_matches_jax_and_float_wire(dinov2_test_case):
-    params = dinov2_test_case[0]
+def test_uint8_input_matches_jax_and_float_wire(dinov2_test_params):
+    params = dinov2_test_params
     net = JaxNet(JaxConfig(backbone=JAX_VIT["dinov2-test"], pe_h=6, pe_w=6))
     rng = np.random.default_rng(14)
     q8 = rng.integers(0, 256, (2, 56, 56, 3)).astype(np.uint8)
@@ -174,8 +182,8 @@ def test_uint8_input_matches_jax_and_float_wire(dinov2_test_case):
     np.testing.assert_allclose(got, got_f, atol=1e-5)
 
 
-def test_attention_weight_map_shape_and_values(dinov2_test_case):
-    params = dinov2_test_case[0]
+def test_attention_weight_map_shape_and_values(dinov2_test_params):
+    params = dinov2_test_params
     net = JaxNet(JaxConfig(backbone=JAX_VIT["dinov2-test"], pe_h=6, pe_w=6))
     q, r = _images(15, 1, 2, 56)
     want = net.apply({"params": params}, jnp.asarray(q), jnp.asarray(r), need_attn_weights=True,
@@ -187,8 +195,8 @@ def test_attention_weight_map_shape_and_values(dinov2_test_case):
     _close(w.numpy(), np.asarray(want["attn_weights_map_ref_cross"]), 1e-5)
 
 
-def test_unported_inputs_raise(dinov2_test_case):
-    port = _port_net("dinov2-test", 6, dinov2_test_case[0])
+def test_unported_inputs_raise(dinov2_test_params):
+    port = _port_net("dinov2-test", 6, dinov2_test_params)
     q, r = (torch.from_numpy(a) for a in _images(16, 1, 1, 56))
     with pytest.raises(NotImplementedError, match="valid_hw"):
         make_predict_step(port)(q, r, valid_hw=(56, 56))
