@@ -28,6 +28,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace cs {
 
@@ -259,6 +260,176 @@ __global__ void __launch_bounds__(32 * NW) ln_mlp_bf16(MlpArgs a) {
   }
 }
 
+// bf16 at D = 64 and 384 (dinov2-test, dinov2-small): Hopper wgmma. Two
+// warpgroups; each computes the block's 64 rows x 32 of the 64 hidden
+// columns of a chunk (m64n32k16 over D), and 64 rows x D/2 output columns of
+// the accumulator (m64n{D/2}k16 over the chunk). All four tiles are K-major
+// in the 128-byte swizzled layout of wgmma.cuh.
+template <int D>
+struct WgMlp {
+  static constexpr int BM = 64, FCH = 64, THREADS = 256;
+  static constexpr int N2 = D / 2;  // fc2 columns per warpgroup
+  static constexpr size_t w1_off = (size_t)BM * D * 2;      // LN tile [64][D]
+  static constexpr size_t w2_off = w1_off + (size_t)FCH * D * 2;  // W1 chunk [64][D]
+  static constexpr size_t h_off = w2_off + (size_t)D * FCH * 2;   // W2 chunk [D][64]
+  static constexpr size_t total = h_off + (size_t)BM * FCH * 2 + 1024;  // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(256) ln_mlp_wgmma(MlpArgs a) {
+  using L = WgMlp<D>;
+  using bf16 = __nv_bfloat16;
+  static_assert(D % 64 == 0 && (L::N2 == 32 || L::N2 == 192), "wgmma tile shape");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sLn = smem;
+  unsigned char* sW1 = smem + L::w1_off;
+  unsigned char* sW2 = smem + L::w2_off;
+  unsigned char* sH = smem + L::h_off;
+  const int tid = threadIdx.x, wg = tid >> 7, wwarp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int m0 = blockIdx.x * L::BM, F = a.f;
+  const bf16* X = static_cast<const bf16*>(a.x);
+  const bf16* W1 = static_cast<const bf16*>(a.w1);
+  const bf16* W2 = static_cast<const bf16*>(a.w2);
+  const bf16* B1 = static_cast<const bf16*>(a.b1);
+  auto load_w1 = [&](int f0) {  // rows f0..f0+64 of W1 (F, D)
+    for (int i = tid; i < L::FCH * D / 8; i += L::THREADS) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      cp_async16(sW1 + sw128_offset(r, c, L::FCH), W1 + (long long)(f0 + r) * D + c, 16);
+    }
+    cp_async_commit();
+  };
+  auto load_w2 = [&](int f0) {  // columns f0..f0+64 of W2 (D, F)
+    for (int i = tid; i < D * L::FCH / 8; i += L::THREADS) {
+      const int n = i / (L::FCH / 8), c = (i % (L::FCH / 8)) * 8;
+      cp_async16(sW2 + sw128_offset(n, c, D), W2 + (long long)n * F + f0 + c, 16);
+    }
+    cp_async_commit();
+  };
+  load_w1(0);
+  load_w2(0);
+
+  // LayerNorm (fp32 statistics) into the swizzled bf16 A tile of fc1
+  const bf16* S = static_cast<const bf16*>(a.lns);
+  const bf16* Bn = static_cast<const bf16*>(a.lnb);
+  for (int rr = tid >> 5; rr < L::BM; rr += L::THREADS / 32) {
+    const int row = m0 + rr;
+    if (row >= a.rows) {
+      for (int c = lane; c < D; c += 32) *reinterpret_cast<bf16*>(sLn + sw128_offset(rr, c, L::BM)) = __float2bfloat16(0.f);
+      continue;
+    }
+    const bf16* xr = X + (long long)row * D;
+    float sum = 0.f;
+    for (int c = lane; c < D; c += 32) sum += __bfloat162float(xr[c]);
+    const float mean = warp_sum(sum) / D;
+    float var = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float t = __bfloat162float(xr[c]) - mean;
+      var += t * t;
+    }
+    const float rstd = rsqrtf(warp_sum(var) / D + a.eps);
+    for (int c = lane; c < D; c += 32)
+      *reinterpret_cast<bf16*>(sLn + sw128_offset(rr, c, L::BM)) = __float2bfloat16(
+          (__bfloat162float(xr[c]) - mean) * rstd * __bfloat162float(S[c]) + __bfloat162float(Bn[c]));
+  }
+
+  float acc[L::N2 / 2];
+#pragma unroll
+  for (int i = 0; i < L::N2 / 2; ++i) acc[i] = 0.f;
+  const int nchunks = F / L::FCH;
+  for (int c = 0; c < nchunks; ++c) {
+    const int f0 = c * L::FCH;
+    cp_async_wait<1>();  // W1 chunk c
+    fence_async_shared();
+    __syncthreads();
+
+    // fc1: this warpgroup's 32 hidden columns of the chunk, all 64 rows
+    float hc[16];
+    fence_regs(hc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t kb = (kk / 4) * 64 * 128, kin = (kk % 4) * 32;
+      wgmma_m64n32k16(hc, sw128_desc(sLn + kb, kin), sw128_desc(sW1 + kb + wg * 32 * 128, kin), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(hc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = wg * 32 + j * 8 + qd * 2;
+      const float c0 = __bfloat162float(B1[f0 + col]), c1 = __bfloat162float(B1[f0 + col + 1]);
+      const int row = wwarp * 16 + g;
+      *reinterpret_cast<uint32_t*>(sH + sw128_offset(row, col, L::BM)) =
+          pack_bf16(gelu(hc[4 * j] + c0, a.tanh_gelu), gelu(hc[4 * j + 1] + c1, a.tanh_gelu));
+      *reinterpret_cast<uint32_t*>(sH + sw128_offset(row + 8, col, L::BM)) =
+          pack_bf16(gelu(hc[4 * j + 2] + c0, a.tanh_gelu), gelu(hc[4 * j + 3] + c1, a.tanh_gelu));
+    }
+    fence_async_shared();
+    __syncthreads();  // the hidden tile is complete and W1 chunk c is free
+    if (c + 1 < nchunks) {
+      load_w1(f0 + L::FCH);
+      cp_async_wait<1>();  // W2 chunk c
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+
+    // fc2: acc (64 rows x this warpgroup's D/2 columns) += h W2[cols, chunk]^T
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < L::FCH / 16; ++ks) {
+      const uint64_t da = sw128_desc(sH, ks * 32), db = sw128_desc(sW2 + wg * L::N2 * 128, ks * 32);
+      if constexpr (L::N2 == 192) {
+        wgmma_m64n192k16(acc, da, db, 1);
+      } else {
+        wgmma_m64n32k16(acc, da, db, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncthreads();  // W2 chunk c and the hidden tile are free
+    if (c + 1 < nchunks) load_w2(f0 + L::FCH);
+  }
+
+  const bf16* B2 = static_cast<const bf16*>(a.b2);
+  const bf16* LS2 = static_cast<const bf16*>(a.ls2);
+  bf16* OUT = static_cast<bf16*>(a.out);
+  const int r0 = m0 + wwarp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < L::N2 / 8; ++j) {
+    const int col = wg * L::N2 + j * 8 + qd * 2;
+    const float bb0 = __bfloat162float(B2[col]), bb1 = __bfloat162float(B2[col + 1]);
+    const float s0 = __bfloat162float(LS2[col]), s1 = __bfloat162float(LS2[col + 1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r < a.rows) {
+        const long long gi = (long long)r * D + col;
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(X + gi);
+        *reinterpret_cast<uint32_t*>(OUT + gi) =
+            pack_bf16(__low2float(xv) + (acc[4 * j + 2 * h] + bb0) * s0,
+                      __high2float(xv) + (acc[4 * j + 2 * h + 1] + bb1) * s1);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const MlpArgs& a, cudaStream_t st) {
+  using L = WgMlp<D>;
+  if (a.d != D || a.f % L::FCH || L::total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaFuncSetAttribute(ln_mlp_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
+  if (err != cudaSuccess) return (int)err;
+  ln_mlp_wgmma<D><<<(a.rows + L::BM - 1) / L::BM, L::THREADS, L::total, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // fp32 layout: LN tile (F32_BM x D), the W1 chunk (FC x D) and the W2 chunk
 // (D x FC) staged with one padding column so that neighbouring threads read
 // neighbouring banks, and the hidden chunk (F32_BM x FC).
@@ -394,8 +565,8 @@ extern "C" int cs_fused_ln_mlp(const void* x, const void* lns, const void* lnb, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == cs::kBFloat16) {
     switch (d) {
-      case 64: return cs::launch_bf16<4, 4, 64, 8>(a, st);
-      case 384: return cs::launch_bf16<4, 12, 64, 16>(a, st);
+      case 64: return cs::launch_wgmma<64>(a, st);
+      case 384: return cs::launch_wgmma<384>(a, st);
       case 768: return cs::launch_bf16<2, 24, 32, 8>(a, st);
       case 1024: return cs::launch_bf16<2, 32, 32, 8>(a, st);
       default: return (int)cudaErrorInvalidValue;
