@@ -15,11 +15,15 @@
 //
 // Bound on the H100: 4*D*F operations per row against ~4*D bytes of
 // activations (bf16 in and out), ~1150 op/byte at D=384, so the tensor cores
-// bound it; both products run as mma.sync m16n8k16 with fp32 accumulators.
-// Every block re-reads W1 and W2 (from L2): at BM=64 that is ~64 op per L2
-// byte, which a later version can raise with larger row tiles or clusters
-// sharing the weight loads. The fp32 variant (the parity preset) runs on the
-// CUDA cores in full fp32, because the tensor cores' fp32 route is TF32.
+// bound it. At D = 64 and 384 both products run on Hopper wgmma (operands
+// read by the tensor cores straight from swizzled shared memory, fp32
+// accumulators in registers); at D = 768 and 1024, where a warpgroup cannot
+// hold 64 x D/2 accumulators, on mma.sync m16n8k16 fed by ldmatrix. Every
+// block re-reads W1 and W2 from L2 (3.6 GB per main-path launch at 64-row
+// blocks), which a later version can halve with larger row tiles or
+// clusters sharing the weight loads. The fp32 variant (the parity preset)
+// runs on the CUDA cores in full fp32, because the tensor cores' fp32 route
+// is TF32.
 //
 // Numerics follow the TPU kernel: LN statistics in fp32, bf16 products with
 // fp32 accumulation, GELU in fp32 (the tanh form on bf16 by default, else the
