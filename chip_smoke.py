@@ -92,12 +92,12 @@ def _time_ms(torch, fn, reps: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def _rel_err(torch, got, want) -> float:
+def _rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     return float(((got - want).abs() / (1.0 + want.abs())).max())
 
 
-def _max_abs(torch, got, want) -> float:
+def _max_abs(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
@@ -177,11 +177,11 @@ def main() -> int:
         qkv = randn(views, n, 3 * d, dtype=dtype)
         got = flash_qkv_self_attention(qkv, h)
         want = flash_qkv_self_attention_plain(qkv, h)
-        err = max(_rel_err(torch, g, w) for g, w in zip(got, want))
+        err = max(_rel_err(g, w) for g, w in zip(got, want))
         ops = 4.0 * views * h * n * n * hd
         nbytes = views * n * (3 * d + d) * es + 2 * views * h * n * 4
         report[("K1", tname)] = dict(
-            err=err, max_abs=_max_abs(torch, got[0], want[0]),
+            err=err, max_abs=_max_abs(got[0], want[0]),
             ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
             plain_ms=_time_ms(torch, lambda: flash_qkv_self_attention_plain(qkv, h), reps=3),
             library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -198,15 +198,15 @@ def main() -> int:
                randn(d, dtype=torch.float32, scale=0.5) + 1)
         got = fused_ln_mlp(x, *mlp, vit.layer_norm_eps, "tanh")
         want = fused_ln_mlp_plain(x, *mlp, vit.layer_norm_eps, "tanh")
-        err = _rel_err(torch, got, want)
+        err = _rel_err(got, want)
         if dtype == torch.bfloat16:  # the exact-erf form too (fused_exact)
-            err = max(err, _rel_err(torch, fused_ln_mlp(x, *mlp, vit.layer_norm_eps, "exact"),
+            err = max(err, _rel_err(fused_ln_mlp(x, *mlp, vit.layer_norm_eps, "exact"),
                                     fused_ln_mlp_plain(x, *mlp, vit.layer_norm_eps, "exact")))
         rows = views * n
         ops = 4.0 * rows * d * f
         nbytes = 2 * rows * d * es + 2 * d * f * es + (4 * d + f) * es
         report[("K2", tname)] = dict(
-            err=err, max_abs=_max_abs(torch, got, want),
+            err=err, max_abs=_max_abs(got, want),
             ms=_time_ms(torch, lambda: fused_ln_mlp(x, *mlp, vit.layer_norm_eps, "tanh")),
             plain_ms=_time_ms(torch, lambda: fused_ln_mlp_plain(x, *mlp, vit.layer_norm_eps, "tanh"), reps=3),
             library_ms=None,
@@ -220,13 +220,13 @@ def main() -> int:
             k_, v_ = randn(B, nk, d, dtype=dtype), randn(B, nk, d, dtype=dtype)
             got = flash_cross_attention(q, k_, v_, dec_h)
             want = flash_cross_attention_plain(q, k_, v_, dec_h)
-            err = max(_rel_err(torch, g, w) for g, w in zip(got, want))
+            err = max(_rel_err(g, w) for g, w in zip(got, want))
             dhd = d // dec_h
             ops = 4.0 * B * dec_h * nq * nk * dhd
             nbytes = B * (2 * nq + 2 * nk) * d * es + 2 * B * dec_h * nq * 4
             heads = lambda t: t.view(B, -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
             report[(tag, tname)] = dict(
-                err=err, max_abs=_max_abs(torch, got[0], want[0]),
+                err=err, max_abs=_max_abs(got[0], want[0]),
                 ms=_time_ms(torch, lambda: flash_cross_attention(q, k_, v_, dec_h)),
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_plain(q, k_, v_, dec_h), reps=3),
                 library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -245,7 +245,7 @@ def main() -> int:
         tname = str(dtype).split(".")[-1]
         for heads, hdim in ((4, 16), (12, 64)):
             qkv = randn(2, 300, 3 * heads * hdim, dtype=dtype)
-            err = max(_rel_err(torch, g, w) for g, w in zip(
+            err = max(_rel_err(g, w) for g, w in zip(
                 flash_qkv_self_attention(qkv, heads), flash_qkv_self_attention_plain(qkv, heads)))
             report[(f"K1 hd{hdim}", tname)] = dict(err=err)
         for width in (64, 768, 1024):
@@ -256,12 +256,12 @@ def main() -> int:
                    randn(4 * width, dtype=torch.float32, scale=0.1),
                    randn(width, 4 * width, dtype=torch.float32, scale=(4 * width) ** -0.5),
                    randn(width, dtype=torch.float32, scale=0.1), randn(width, dtype=torch.float32) + 1)
-            err = max(_rel_err(torch, fused_ln_mlp(x, *mlp, 1e-6, g), fused_ln_mlp_plain(x, *mlp, 1e-6, g))
+            err = max(_rel_err(fused_ln_mlp(x, *mlp, 1e-6, g), fused_ln_mlp_plain(x, *mlp, 1e-6, g))
                       for g in ("tanh", "exact"))
             report[(f"K2 D{width}", tname)] = dict(err=err)
         for heads, hdim in ((8, 96), (8, 128)):
             q, k_, v_ = (randn(2, n_, heads * hdim, dtype=dtype) for n_ in (300, 700, 700))
-            err = max(_rel_err(torch, g, w) for g, w in zip(
+            err = max(_rel_err(g, w) for g, w in zip(
                 flash_cross_attention(q, k_, v_, heads), flash_cross_attention_plain(q, k_, v_, heads)))
             report[(f"K3 hd{hdim}", tname)] = dict(err=err)
 

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's predict step spends its device time, on one CUDA card.
 
-    python3 tools/torch_step_profile.py [--batch 8] [--refs 8] [--size 518] [--steps 3]
-                                        [--trace chiprun_out/step_trace.json]
+    python3 tools/torch_step_profile.py [--trace step_trace.json]
 
-Builds the kernels, runs ``make_predict_step`` (dinov2-small, bf16, flash
-attention and the fused MLP, seeded random weights, uint8 images), warms up,
-then records ``--steps`` steps under ``torch.profiler``. Prints the card, the
+Builds the kernels, runs ``make_predict_step`` at the main-path operating
+point (dinov2-small, 518 px, K=8 references, B=8, bf16, flash attention and
+the fused MLP, seeded random weights, uint8 images), warms up, then records
+three steps under ``torch.profiler``. Prints the card, the
 step time (CUDA events, no profiler), the device time per kernel (top 25),
 the device time per layer group (K1, K2, K3 kernels, matrix products, the rest)
 and the device busy share (kernel time over the profiled wall time).
@@ -21,6 +21,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+B, K, HW, STEPS = 8, 8, 518, 3
 
 
 def _group(name: str) -> str:
@@ -37,11 +38,7 @@ def _group(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--refs", type=int, default=8)
-    ap.add_argument("--size", type=int, default=518)
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--trace", default="")
+    ap.add_argument("--trace", default="", help="write a Chrome trace of the profiled steps here")
     args = ap.parse_args(argv)
 
     import torch
@@ -65,9 +62,8 @@ def main(argv=None) -> int:
     cfg = CrossScoreConfig()
     model = load_into(CrossScoreNet(cfg, device=dev), init_params(cfg, 0, dev))
     step = make_predict_step(model)
-    b, k, hw = args.batch, args.refs, args.size
-    query = torch.randint(0, 256, (b, hw, hw, 3), generator=gen, device=dev, dtype=torch.uint8)
-    refs = torch.randint(0, 256, (b, k, hw, hw, 3), generator=gen, device=dev, dtype=torch.uint8)
+    query = torch.randint(0, 256, (B, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    refs = torch.randint(0, 256, (B, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
     for _ in range(3):
         step(query, refs)
     torch.cuda.synchronize()
@@ -81,12 +77,12 @@ def main(argv=None) -> int:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     times.sort()
-    print(f"step (no profiler): median {times[2]:.3f} ms of 5, {1e3 * b / times[2]:.2f} maps/s "
-          f"(B={b}, K={k}, {hw} px)")
+    print(f"step (no profiler): median {times[2]:.3f} ms of 5, {1e3 * B / times[2]:.2f} maps/s "
+          f"(B={B}, K={K}, {HW} px)")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(STEPS):
             step(query, refs)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -100,10 +96,10 @@ def main(argv=None) -> int:
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / 1e3 / args.steps, evt.count // args.steps, evt.key))
+            rows.append((dev_us / 1e3 / STEPS, evt.count // STEPS, evt.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    step_wall = wall_ms / args.steps
+    step_wall = wall_ms / STEPS
     print(f"profiled: {step_wall:.3f} ms wall per step, {busy:.3f} ms device time per step, "
           f"device busy {100 * busy / step_wall:.1f}% (idle {100 * (1 - busy / step_wall):.1f}%)")
     if busy == 0:
