@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's predict forward on one CUDA card.
+"""Drive the PyTorch/H100 port's predict forward and train step on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root, one card
 
 In order:
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the three kernels from ``crossscore_tpu_torch/csrc/`` (one ``nvcc``
+2. build the four kernels from ``crossscore_tpu_torch/csrc/`` (one ``nvcc``
    per source, all at once) and print the build time;
 3. hold K1 (backbone self-attention), K2 (fused LN->MLP) and K3 (decoder
-   attention) against their plain PyTorch versions at the main-path shapes
-   (dinov2-small, 518 px, K=8 references, B=8), in bf16 and fp32 (and at the
+   attention) against their plain PyTorch versions at the predict shapes
+   (dinov2-small, 518 px, K=8 references, B=8), and K4 (decoder attention
+   backward) at the train shapes (B=24, K=5), in bf16 and fp32 (and at the
    other presets' head dims and widths at small shapes), and time
    the kernel, the plain version and, for the attention kernels, one
-   ``F.scaled_dot_product_attention`` call on the same inputs (a yardstick
-   only; the port never calls it);
+   ``F.scaled_dot_product_attention`` call (K4: one backward of it) on the
+   same inputs (a yardstick only; the port never calls it);
 4. run the full-width forward through ``make_predict_step`` (dinov2-small,
    518 px, K=8, B=8, bf16, seeded random weights) with the launch counters
-   zeroed, check the score map and that the forward launched 12 / 12 / 4
+   zeroed, check the score map and that the forward launched 12 / 12 / 4 / 0
    kernels, and time it with CUDA events;
 5. run the net again at B=1 with every kernel replaced by its plain version
    and bound the score-map difference, in bf16 and fp32;
-6. print one ``{"kernels": [...]}`` line, then, last, the device line.
+6. run the full-width train step through ``make_train_step`` (B=24, K=5,
+   bf16 compute, fp32 master weights) with the counters zeroed: 12 / 12 / 4 /
+   4 launches, a finite loss, the decoder and head changed, the backbone and
+   PE bit-identical; time it, read its peak memory and print its device-time
+   breakdown (``torch.profiler``);
+7. compare the whole-step gradients at B=1, kernels against the all-plain
+   path, in fp32 and bf16;
+8. run the train CLI (``tasks/train.py``) at dinov2-small width on a seeded
+   synthetic dataset for a few steps at B=2, then resume it from its
+   checkpoint;
+9. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -36,7 +47,8 @@ import time
 from pathlib import Path
 
 SEED = 0
-B, K, HW = 8, 8, 518  # main-path operating point: 72 backbone views of 1370 tokens
+B, K, HW = 8, 8, 518  # predict operating point: 72 backbone views of 1370 tokens
+TB, TK = 24, 5  # train operating point (config/data/combined_training.yaml): 144 views
 
 # least time the card could take: the larger of ops / peak and bytes / rate.
 # Dense peaks from NVIDIA's data sheets (bf16 tensor cores, fp32 CUDA cores).
@@ -52,8 +64,18 @@ PEAKS = {  # name fragment: (bf16 op/s, fp32 op/s, bytes/s)
 # bf16: the kernels round p to bf16 before P.V (as the TPU kernels do) and
 # every output is rounded to bf16 once (2^-8 relative): two bf16 ulps.
 TOL = {"float32": 5e-5, "bfloat16": 1.6e-2}
+# K4 (dq, dk, dv): fp32 as above (dq's atomic sums add only order); bf16: the
+# kernel and its plain version round p and ds to bf16 before the products,
+# exp2 on the special-function unit may flip a rounding, and each output is
+# rounded to bf16 once: the same two-ulp bound
 # whole-net score-map MAE, kernel path vs all-plain path, B=1 (scores in [0, 1])
 NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# whole-step decoder/head gradients, kernel path vs all-plain path, B=1:
+# fp32, the largest |difference| of a leaf over its largest entry (summation
+# order through 12 backbone layers and the decoder); bf16, the relative L2
+# error of a leaf (each path's own bf16 gradient is 5-10% off the fp32 one
+# at small sizes, tests/test_torch_train.py)
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 
 
 def _fail(msg: str) -> None:
@@ -101,7 +123,37 @@ def _max_abs(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def _profile(torch, fn, step_ms: float, top: int = 16) -> None:
+    """Print the device-time breakdown of one call of ``fn`` (torch.profiler,
+    the second of two profiled calls): device ms per kernel, launches, and
+    the device's busy share of ``step_ms``, the call's unprofiled time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = []
+    for evt in prof.key_averages():
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue  # CPU-side ops; their kernels are listed on their own
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"train step device time: {busy:.3f} ms busy of a {step_ms:.3f} ms step "
+          f"({100 * busy / step_ms:.1f}% busy, {len(rows)} kernel names)")
+    for ms, count, key in rows[:top]:
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<4d} {key[:110]}")
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -117,12 +169,14 @@ def main() -> int:
     from crossscore_tpu_torch.io.convert import init_params, load_into
     from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet, VIT_PRESETS
     from crossscore_tpu_torch.ops import _build
+    from crossscore_tpu_torch.confsys import load_config
     from crossscore_tpu_torch.ops.flash_attention import (
-        flash_cross_attention, flash_cross_attention_plain,
-        flash_qkv_self_attention, flash_qkv_self_attention_plain,
+        flash_cross_attention, flash_cross_attention_bwd, flash_cross_attention_bwd_plain,
+        flash_cross_attention_plain, flash_qkv_self_attention, flash_qkv_self_attention_plain,
     )
     from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_plain
-    from crossscore_tpu_torch.train.step import make_predict_step
+    from crossscore_tpu_torch.train.optim import make_optimizer
+    from crossscore_tpu_torch.train.step import TrainState, loss_fn, make_predict_step, make_train_step
 
     # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -236,6 +290,34 @@ def main() -> int:
             )
             del k_, v_, got, want
         del q
+
+        # K4 at the train shapes: q/o/do (TB, Nq, D), k/v (TB, Nk, D)
+        q, do = randn(TB, nq, d, dtype=dtype), randn(TB, nq, d, dtype=dtype)
+        for tag, nk in (("K4", TK * nq), ("K4self", nq)):
+            k_, v_ = randn(TB, nk, d, dtype=dtype), randn(TB, nk, d, dtype=dtype)
+            o, l, m = flash_cross_attention(q, k_, v_, dec_h)
+            args = (q, k_, v_, o, do, l, m, dec_h)
+            got = flash_cross_attention_bwd(*args)
+            want = flash_cross_attention_bwd_plain(*args)
+            dhd = d // dec_h
+            ops = 10.0 * TB * dec_h * nq * nk * dhd
+            # reads q, o, do, k, v, l, m; writes dq, dk, dv
+            nbytes = TB * (3 * nq + 2 * nk) * d * es + 2 * TB * dec_h * nq * 4 + TB * (nq + 2 * nk) * d * es
+            heads = lambda t: t.view(t.shape[0], -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
+            qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k_, v_))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            report[(tag, tname)] = dict(
+                err=max(_rel_err(g, w) for g, w in zip(got, want)),
+                max_abs=max(_max_abs(g, w) for g, w in zip(got, want)),
+                ms=_time_ms(torch, lambda: flash_cross_attention_bwd(*args)),
+                plain_ms=_time_ms(torch, lambda: flash_cross_attention_bwd_plain(*args), reps=3),
+                library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+                    oh, (qh, kh, vh), heads(do), retain_graph=True)),
+                bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
+                bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+            )
+            del k_, v_, o, l, m, args, got, want, qh, kh, vh, oh
+        del q, do
         torch.cuda.empty_cache()
 
     # the other presets' widths, small shapes, correctness only: K1 at hd 16
@@ -264,6 +346,13 @@ def main() -> int:
             err = max(_rel_err(g, w) for g, w in zip(
                 flash_cross_attention(q, k_, v_, heads), flash_cross_attention_plain(q, k_, v_, heads)))
             report[(f"K3 hd{hdim}", tname)] = dict(err=err)
+        for heads_, hdim in ((8, 64), (8, 96), (8, 128)):
+            q, k_, v_ = (randn(2, n_, heads_ * hdim, dtype=dtype) for n_ in (300, 700, 700))
+            o, l, m = flash_cross_attention(q, k_, v_, heads_)
+            args = (q, k_, v_, o, randn(2, 300, heads_ * hdim, dtype=dtype), l, m, heads_)
+            err = max(_rel_err(g, w) for g, w in zip(
+                flash_cross_attention_bwd(*args), flash_cross_attention_bwd_plain(*args)))
+            report[(f"K4 hd{hdim}", tname)] = dict(err=err)
 
     bad = []
     for (kern, tname), r in report.items():
@@ -290,14 +379,22 @@ def main() -> int:
     step = make_predict_step(model)
     query = torch.randint(0, 256, (B, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
     refs = torch.randint(0, 256, (B, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
-    wrappers = {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention,
+                "K4": flash_cross_attention_bwd}
+
+    def zero_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_launches():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    zero_launches()
     score = step(query, refs)["score_map_ref_cross"]
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * cfg.decoder_layers}
-    print(f"main path launches per forward: {launches} (expected {want})")
+    launches = read_launches()
+    want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * cfg.decoder_layers, "K4": 0}
+    print(f"predict path launches per forward: {launches} (expected {want})")
     if launches != want:
         _fail(f"launch counts {launches} != {want}")
     if tuple(score.shape) != (B, HW, HW) or not bool(torch.isfinite(score).all()) \
@@ -327,32 +424,145 @@ def main() -> int:
         print(f"whole net B=1 {tname} {kernel_mlp} vs dense/unfused: score MAE {mae:.3e} (tol {tol:.1e})")
         if not mae < tol:
             _fail(f"whole-net {tname} {kernel_mlp} MAE {mae} >= {tol}")
+    del model, step, query, refs, net, maps
+    torch.cuda.empty_cache()
 
-    # --- 6. the kernels line, then the device line ----------------------------
+    # --- 6. the full-width train step through make_train_step -----------------
+    tcfg = load_config("default")  # dinov2-small, bf16, flash, fused; AdamW 5e-4, StepLR
+    mcfg = CrossScoreConfig.from_config(tcfg)
+    model = load_into(CrossScoreNet(mcfg, device=dev), params)
+    optimizer, scheduler, _ = make_optimizer(tcfg, model, steps_per_epoch=1)
+    train_step = make_train_step(model, optimizer, scheduler)
+    batch = {
+        "query/img": torch.randint(0, 256, (TB, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "reference/cross/imgs": torch.randint(0, 256, (TB, TK, HW, HW, 3), generator=gen, device=dev,
+                                              dtype=torch.uint8),
+        "query/score_map": torch.rand(TB, HW, HW, generator=gen, device=dev),
+        "_valid": torch.tensor(TB, device=dev),
+    }
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    zero_launches()
+    state, metrics = train_step(TrainState(), batch)
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * mcfg.decoder_layers,
+            "K4": 2 * mcfg.decoder_layers}
+    print(f"train step launches: {train_launches} (expected {want})")
+    if train_launches != want:
+        _fail(f"train launch counts {train_launches} != {want}")
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss) or tuple(metrics["pred"].shape) != (TB, HW, HW):
+        _fail(f"train step loss {loss} / pred shape {tuple(metrics['pred'].shape)}")
+    after = model.state_dict()
+    frozen = [k for k in after if k.startswith("backbone.") or k == "pos_enc_fn.PE"]
+    trained = [k for k, p in model.named_parameters() if p.requires_grad]
+    moved_frozen = [k for k in frozen if not torch.equal(after[k], before[k])]
+    unmoved = [k for k in trained if torch.equal(after[k], before[k])]
+    if moved_frozen or unmoved or not all(k.startswith("ref_cross.") for k in trained):
+        _fail(f"frozen parameters moved {moved_frozen[:3]}, trained ones did not {unmoved[:3]}")
+    print(f"train step: loss {loss:.6f}, {len(trained)} decoder/head tensors updated, "
+          f"{len(frozen)} backbone/PE tensors bit-identical")
+    torch.cuda.reset_peak_memory_stats()
+    train_ms = _time_ms(torch, lambda: train_step(state, batch), reps=5)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train step: {train_ms:.2f} ms per step of B={TB}, K={TK} (518 px, bf16 compute, "
+          f"fp32 master weights; median of 5 after warm-up); peak memory {train_peak:.2f} GiB")
+    _profile(torch, lambda: train_step(state, batch), train_ms)
+    del model, optimizer, scheduler, train_step, before, after, metrics
+    torch.cuda.empty_cache()
+
+    # --- 7. whole-step gradients at B=1, kernels vs all-plain, fp32 and bf16 --
+    batch1 = {k: (v[:1] if v.ndim else torch.tensor(1, device=dev)) for k, v in batch.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        grads = {}
+        for impl, mlp_impl in (("flash", "fused_exact"), ("dense", "unfused")):
+            net = load_into(CrossScoreNet(CrossScoreConfig(compute_dtype=dtype, attention_impl=impl,
+                                                           mlp_impl=mlp_impl), device=dev), params)
+            loss_fn(net, batch1)[0].backward()
+            grads[impl] = {n: p.grad for n, p in net.named_parameters() if p.grad is not None}
+        errs = []
+        for leaf, g in grads["dense"].items():
+            got = grads["flash"][leaf]
+            if dtype == torch.float32:
+                errs.append(float((got - g).abs().max() / g.abs().max()))
+            else:
+                errs.append(float(torch.linalg.vector_norm(got - g) / torch.linalg.vector_norm(g)))
+        err = max(errs)
+        print(f"whole step B=1 {tname} gradients, kernels vs dense/unfused: {len(errs)} leaves, "
+              f"worst {err:.3e} (tol {GRAD_TOL[tname]:.1e})")
+        if not err <= GRAD_TOL[tname]:
+            _fail(f"whole-step {tname} gradients differ: {err} > {GRAD_TOL[tname]}")
+    del batch, batch1, net, grads
+    torch.cuda.empty_cache()
+
+    # --- 8. the train CLI end to end, then a resume ----------------------------
+    import tempfile
+
+    from crossscore_tpu_torch.data.synthetic import generate
+    from crossscore_tpu_torch.tasks.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # short side 540 (the training resize) so that 518 px crops exist
+        generate(Path(tmp) / "datadir", hw=(540, 720), scenes_per_split={"train": 1, "test": 1}, seed=SEED)
+        ov = [f"data.dataset.path=[{tmp}/datadir]", f"run.dir={tmp}/log",
+              "data.loader.train.batch_size=2", "data.loader.validation.batch_size=2",
+              "data.loader.train.num_workers=4", "data.loader.validation.num_workers=4",
+              "trainer.num_sanity_val_steps=1", "trainer.limit_val_batches=1",
+              "logger.vis_scalar_every_n_train_steps=1"]
+        zero_launches()
+        run1 = train_main(ov + ["trainer.max_steps=2", "alias=first"])
+        run2 = train_main(ov + ["trainer.max_steps=4", f"trainer.ckpt_path_to_load={run1 / 'ckpt'}",
+                                "alias=resumed"])
+        cli_launches = read_launches()
+
+        def rows(run):
+            return [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+
+        steps1 = [r["step"] for r in rows(run1) if "train/loss" in r]
+        steps2 = [r["step"] for r in rows(run2) if "train/loss" in r]
+        losses = [r["train/loss"] for r in rows(run1) + rows(run2) if "train/loss" in r]
+        val = [r["validation/loss"] for r in rows(run1) + rows(run2) if "validation/loss" in r]
+        ckpts = sorted(p.name for p in (run2 / "ckpt").glob("*.ckpt"))
+        print(f"train CLI (dinov2-small, 518 px crops, B=2, K={TK}, bf16): steps {steps1} then, resumed, "
+              f"{steps2}; losses {[round(x, 6) for x in losses]}; validation losses "
+              f"{[round(x, 6) for x in val]}; checkpoints {ckpts}; launches {cli_launches}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if steps1 != [1, 2] or steps2 != [3, 4] or not all(np.isfinite(losses)) or len(val) < 2 \
+                or ckpts != ["step_00000004.ckpt"] or cli_launches["K4"] != 4 * (len(steps1) + len(steps2)):
+            _fail("train CLI run or resume")
+
+    # --- 9. the kernels line, then the device line ----------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
                       "crossscore_tpu/ops/fused_mlp.py:64"),
                "K3": ("flash_cross_attention", "crossscore_tpu_torch/csrc/flash_cross.cu",
-                      "crossscore_tpu/ops/flash_attention.py:799")}
+                      "crossscore_tpu/ops/flash_attention.py:799"),
+               "K4": ("flash_cross_attention_bwd", "crossscore_tpu_torch/csrc/flash_cross_bwd.cu",
+                      "crossscore_tpu/ops/flash_attention.py:949")}
+    shapes = {"K1": f"qkv ({views}, {n}, {3 * d}) bf16",
+              "K2": f"x ({views}, {n}, {d}) bf16, F={f}",
+              "K3": f"q ({B}, {nq}, {d}), k/v ({B}, {K * nq}, {d}) bf16, hd {d // dec_h}",
+              "K4": f"q/o/do ({TB}, {nq}, {d}), k/v ({TB}, {TK * nq}, {d}) bf16, hd {d // dec_h}"}
+    stats = ("err", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
         row = {"name": fn, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": launches[kern], "max_abs_err": r["max_abs"], "ms": r["ms"],
+               "launches": train_launches[kern], "max_abs_err": r["max_abs"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "rel_err": r["err"], "tol": TOL["bfloat16"],
-               "fp32": {k: r32[k] for k in ("err", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms")},
-               "shape": {"K1": f"qkv ({views}, {n}, {3 * d}) bf16",
-                         "K2": f"x ({views}, {n}, {d}) bf16, F={f}",
-                         "K3": f"q ({B}, {nq}, {d}), k/v ({B}, {K * nq}, {d}) bf16, hd {d // dec_h}"}[kern]}
-        if kern == "K3":
-            s, s32 = report[("K3self", "bfloat16")], report[("K3self", "float32")]
-            row["self"] = {k: s[k] for k in ("err", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms")}
-            row["self_fp32"] = {k: s32[k] for k in ("err", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms")}
+               "launches_by_path": {"predict": launches[kern], "train_step": train_launches[kern]},
+               "fp32": {k: r32[k] for k in stats}, "shape": shapes[kern]}
+        if kern in ("K3", "K4"):
+            s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
+            row["self"] = {k: s[k] for k in stats}
+            row["self_fp32"] = {k: s32[k] for k in stats}
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "card": card, "maps_per_s": 1e3 * B / step_ms,
-                      "step_ms": step_ms}))
+                      "step_ms": step_ms, "train_step_ms": train_ms, "train_peak_gib": train_peak}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
     return 0

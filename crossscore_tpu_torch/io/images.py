@@ -1,0 +1,73 @@
+"""Image and metric-map codecs; the port's own copy of
+``crossscore_tpu/io/images.py`` (reference ``utils/io/images.py``).
+
+- RGB images: PNG -> float32 in [0, 1], HWC.
+- Metric maps: 16-bit PNG. [0, 1] maps to uint16 via ``/65535``; [-1, 1] via
+  ``/32767 - 1`` (encode ``(m + 1) * 32767``, truncated to int, as the
+  reference).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+from PIL import Image
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def f32(img: np.ndarray) -> np.ndarray:
+    return img.astype(np.float32) / 255.0
+
+
+def u8(img: np.ndarray) -> np.ndarray:
+    return (img * 255.0).astype(np.uint8)
+
+
+def image_read(path: str | Path) -> np.ndarray:
+    """PNG/JPG -> float32 (H, W, 3) in [0, 1]. Drops any alpha channel."""
+    img = np.array(Image.open(path))
+    if img.ndim == 2:
+        img = np.repeat(img[:, :, None], 3, axis=2)
+    if img.shape[2] == 4:
+        img = img[:, :, :3]
+    return f32(img)
+
+
+def image_write(path: str | Path, img: np.ndarray) -> None:
+    """float32 (H, W, 3) in [0, 1] -> PNG."""
+    Image.fromarray(u8(np.clip(img, 0.0, 1.0))).save(path)
+
+
+def _metric_range(m: np.ndarray, vrange) -> np.ndarray:
+    vrange = list(vrange)
+    if vrange == [0, 1]:
+        return m / 65535.0
+    if vrange == [-1, 1]:
+        return m / 32767.0 - 1.0
+    raise ValueError("Invalid range for metric map reading. Must be [0,1] or [-1,1]")
+
+
+def metric_map_read(path: str | Path, vrange: list | tuple) -> np.ndarray:
+    """16-bit PNG -> float32 (H, W) in the requested value range."""
+    return _metric_range(np.array(Image.open(path)).astype(np.float32), vrange)
+
+
+def metric_map_write(path: str | Path, m: np.ndarray, vrange: list | tuple) -> None:
+    """float32 (H, W) -> 16-bit PNG (truncating-to-int encode, like reference)."""
+    vrange = list(vrange)
+    if vrange == [0, 1]:
+        enc = m * 65535.0
+    elif vrange == [-1, 1]:
+        enc = (m + 1.0) * 32767.0
+    else:
+        raise ValueError("Invalid range for metric map writing. Must be [0,1] or [-1,1]")
+    enc = np.clip(enc, 0, 65535).astype(np.uint16)
+    Image.fromarray(enc, mode="I;16").save(path)
+
+
+def normalize_imagenet(img: np.ndarray) -> np.ndarray:
+    """(..., 3) float32 [0,1] -> ImageNet-normalised."""
+    return (img - IMAGENET_MEAN) / IMAGENET_STD

@@ -2,9 +2,10 @@
 
 1. query (B, H, W, 3) + references (B, K, H, W, 3), ImageNet-normalised (or
    raw uint8, normalised here in fp32)
-2. all B*(1+K) images through the frozen DINOv2 encoder in one batch; CLS
-   stripped
-3. the fixed random multi-view PE added to query and reference tokens
+2. all B*(1+K) images through the frozen DINOv2 encoder in one batch, under
+   ``torch.no_grad()``; CLS stripped
+3. the multi-view PE added to query and reference tokens (trainable only
+   with ``pe_trainable``)
 4. the 2-layer cross-reference decoder
 5. head Linear -> LeakyReLU -> Linear -> regression activation
 6. jigsaw reassembly -> (B, H, W) score map
@@ -13,6 +14,10 @@ Parameter names are the reference Lightning state-dict keys without the
 ``model.`` prefix (``backbone.*``, ``pos_enc_fn.PE``, ``ref_cross.attn.*``,
 ``ref_cross.head.{0,2}.*``, ``img_mean_std``), so a reference checkpoint loads
 through ``crossscore_tpu_torch.io.convert.load_into``.
+
+Trainable parameters, as the JAX ``trainable_mask`` (reference
+``task/core.py:41-42,494``): the decoder and the head; the backbone never;
+the PE only with ``pe_trainable`` (``model.pos_enc.multi_view.req_grad``).
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ class CrossScoreConfig:
     """Mirrors the JAX ``CrossScoreConfig``. ``attention_impl`` is ``"flash"``
     (K1/K3, JAX's ``pallas``) or ``"dense"`` (JAX's ``xla``); ``mlp_impl`` is
     ``"fused"``, ``"fused_exact"`` (K2) or ``"unfused"``. ``parity=True`` is
-    the JAX ``model.tpu.parity`` rule: fp32 compute, exact GELU in K2."""
+    the JAX ``model.tpu.parity`` rule: fp32 compute, exact GELU in K2.
+    ``pe_trainable`` is ``model.pos_enc.multi_view.req_grad``."""
 
     backbone: ViTConfig = VIT_PRESETS["dinov2-small"]
     patch_size: int = 14
@@ -72,6 +78,7 @@ class CrossScoreConfig:
     attention_impl: str = "flash"
     mlp_impl: str = "fused"
     parity: bool = False
+    pe_trainable: bool = False
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
@@ -84,6 +91,38 @@ class CrossScoreConfig:
             object.__setattr__(self, "compute_dtype", torch.float32)
             if self.mlp_impl == "fused":
                 object.__setattr__(self, "mlp_impl", "fused_exact")
+
+    @staticmethod
+    def from_config(cfg) -> "CrossScoreConfig":
+        """Build from a composed YAML config (``crossscore_tpu_torch.confsys``);
+        the GPU knobs are ``model.gpu``."""
+        m = cfg.model
+        gpu = m.gpu
+        dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+        if str(gpu.compute_dtype) not in dtypes:
+            raise ValueError(f"model.gpu.compute_dtype must be one of {sorted(dtypes)}, "
+                             f"got {gpu.compute_dtype!r}")
+        return CrossScoreConfig(
+            backbone=VIT_PRESETS[m.backbone.get("preset", "dinov2-small")],
+            patch_size=m.patch_size,
+            pe_h=m.pos_enc.multi_view.h,
+            pe_w=m.pos_enc.multi_view.w,
+            decoder_layers=m.decoder.num_layers,
+            decoder_heads=m.decoder.num_heads,
+            decoder_ffn_ratio=m.decoder.ffn_ratio,
+            do_self_attn=m.decoder_do_self_attn,
+            do_short_cut=m.decoder_do_short_cut,
+            do_reference_cross=m.do_reference_cross,
+            metric_type=m.predict.metric.type,
+            metric_min=m.predict.metric.min,
+            metric_max=m.predict.metric.max,
+            power_factor=m.predict.metric.power_factor,
+            compute_dtype=dtypes[str(gpu.compute_dtype)],
+            attention_impl=str(gpu.attention_impl),
+            mlp_impl=str(gpu.mlp_impl),
+            parity=bool(gpu.get("parity", False)),
+            pe_trainable=bool(m.pos_enc.multi_view.get("req_grad", False)),
+        )
 
 
 class _RefCross(nn.Module):
@@ -113,7 +152,8 @@ class CrossScoreNet(nn.Module):
                                       cfg.mlp_impl, device)
         self.pos_enc_fn = MultiViewPositionalEmbedding(cfg.pe_h, cfg.pe_w, d, device)
         self.ref_cross = _RefCross(cfg, device)
-        self.requires_grad_(False)  # this slice is the predict forward
+        self.backbone.requires_grad_(False)
+        self.pos_enc_fn.requires_grad_(cfg.pe_trainable)
 
     def forward(self, query_img: torch.Tensor, ref_imgs, need_attn_weights: bool = False,
                 need_attn_weights_head_id: int = 0, norm_img: bool = False, valid_hw=None,

@@ -7,9 +7,10 @@ Post-norm layers (``x = norm1(x + sa(x))``, ``x = norm2(x + mha(x, mem))``,
 last layer's cross-attention weights for one head. Parameter names are
 torch's ``TransformerDecoder`` ones (packed ``in_proj_weight``).
 
-With ``attention_impl="flash"`` both attentions run through K3
-(:func:`flash_cross_attention`) at the true head dim (48 for the main path);
-``need_weights`` and ``"dense"`` take the dense fp32-softmax path.
+With ``attention_impl="flash"`` both attentions run through K3 forward and
+K4 backward (:func:`flash_cross_attention_ln`) at the true head dim (48 for
+the main path); ``need_weights`` and ``"dense"`` take the dense fp32-softmax
+path, differentiable through plain autograd.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from torch import nn
 from crossscore_tpu_torch.models.dinov2 import ATTENTION_IMPLS, LayerNorm, linear
 from crossscore_tpu_torch.ops.attention import dense_attention
 from crossscore_tpu_torch.ops.flash_attention import (
-    _merge_heads, _split_heads, flash_cross_attention,
+    _merge_heads, _split_heads, flash_cross_attention_ln,
 )
 
 
@@ -56,7 +57,7 @@ class TorchStyleMHA(nn.Module):
             out = _merge_heads(out)
             probs = probs if need_weights else None
         else:
-            out, _, _ = flash_cross_attention(q, k, v, h)
+            out = flash_cross_attention_ln(q, k, v, h)
         return linear(out, self.out_proj), probs  # probs: (B, H, Nq, Nk) or None
 
 

@@ -3,7 +3,8 @@
 The plain version behind the K1 and K3 kernels, and the decoder's
 ``need_weights`` path. Logits and softmax are fp32 (torch-MHA scaling,
 1/sqrt(head_dim)); the probabilities are cast to v's dtype before the
-product with v, as in the JAX package.
+product with v, as in the JAX package. fp64 inputs (the gradient checks)
+stay in fp64 throughout.
 """
 
 from __future__ import annotations
@@ -18,13 +19,14 @@ def attention_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
     ``m`` is the row max of the scaled logits (natural units), ``l`` is
     sum(exp(scaled - m)) -- the (o, l, m) convention of the flash kernels."""
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     m = logits.amax(dim=-1)
     p = torch.exp(logits - m[..., None])
     l = p.sum(dim=-1)
     probs = p / l[..., None]
-    o = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+    o = torch.matmul(probs.to(v.dtype).to(acc), v.to(acc)).to(v.dtype)
     return o, probs, l, m
 
 

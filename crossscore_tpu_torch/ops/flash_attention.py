@@ -1,14 +1,17 @@
-"""Flash-attention forwards K1 and K3; counterpart of
-``crossscore_tpu/ops/flash_attention.py`` (``_flash_qkv_fwd`` and
-``_flash_cross_ln_fwd``).
+"""Flash-attention forwards K1 and K3 and the decoder backward K4;
+counterpart of ``crossscore_tpu/ops/flash_attention.py`` (``_flash_qkv_fwd``,
+``_flash_cross_ln_fwd`` and ``_bwd_cross_ln_pallas``).
 
-Both return ``(o, l, m)`` in the JAX package's convention: ``o`` token-major
-(B, Nq, H*hd), ``l`` and ``m`` (B, H, Nq) fp32, ``m`` the row max of the
-scaled logits in natural units and ``l`` = sum(exp(scaled - m)).
+The forwards return ``(o, l, m)`` in the JAX package's convention: ``o``
+token-major (B, Nq, H*hd), ``l`` and ``m`` (B, H, Nq) fp32, ``m`` the row max
+of the scaled logits in natural units and ``l`` = sum(exp(scaled - m)).
+:func:`flash_cross_attention_ln` is the differentiable decoder attention
+(forward K3, backward K4), the counterpart of the JAX ``custom_vjp``.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/flash_qkv.cu``,
-``csrc/flash_cross.cu``) or raises; on a CPU tensor it runs the plain PyTorch
-version beside it. Each wrapper counts its kernel launches in ``.launches``.
+``csrc/flash_cross.cu``, ``csrc/flash_cross_bwd.cu``) or raises; on a CPU
+tensor it runs the plain PyTorch version beside it. Each wrapper counts its
+kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -132,3 +135,112 @@ def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num
 
 
 flash_cross_attention.launches = 0
+
+
+# --- K4 ---------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _bwd_stats(o: torch.Tensor, do: torch.Tensor, l: torch.Tensor, m: torch.Tensor, num_heads: int):
+    """The backward's per-row inputs, prepared as the JAX package prepares
+    them outside its kernel: ``lb = (m + ln l) * log2(e)`` (l == 0 taken as
+    1) and ``delta = rowsum_h(o * do)``, both (B, H, Nq) in fp32 (fp64 for
+    fp64 inputs)."""
+    acc = torch.float64 if o.dtype == torch.float64 else torch.float32
+    b, nq, d = o.shape
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    lb = ((m + torch.log(l_safe)) * LOG2E).to(acc).contiguous()
+    delta = (o.to(acc) * do.to(acc)).reshape(b, nq, num_heads, d // num_heads).sum(-1)
+    return lb, delta.transpose(1, 2).contiguous()
+
+
+def flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads: int):
+    """Plain version of K4, the kernel's recipe step by step for one batch row
+    at a time (which bounds the memory of the score tensors): recompute
+    ``p = exp2(s * scale * log2e - lb)``, form ``ds = p * (dp - delta) *
+    scale``, then take the five products, with p and ds rounded to the input
+    dtype before their products and every product summed in fp32."""
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    dt = q.dtype
+    lb, delta = _bwd_stats(o, do, l, m, num_heads)
+    hd = q.shape[2] // num_heads
+    scale = 1.0 / math.sqrt(hd)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for i in range(q.shape[0]):
+        qh, kh, vh, doh = (_split_heads(t[i:i + 1].to(acc), num_heads)[0] for t in (q, k, v, do))
+        s = torch.matmul(qh, kh.transpose(-1, -2))  # (H, Nq, Nk)
+        p = torch.exp2(s * (scale * LOG2E) - lb[i][..., None].to(acc))
+        dp = torch.matmul(doh, vh.transpose(-1, -2))
+        ds = p * (dp - delta[i][..., None].to(acc)) * scale
+        p, ds = p.to(dt).to(acc), ds.to(dt).to(acc)
+        dv[i] = _merge_heads(torch.matmul(p.transpose(-1, -2), doh)[None])[0].to(dt)
+        dk[i] = _merge_heads(torch.matmul(ds.transpose(-1, -2), qh)[None])[0].to(dt)
+        dq[i] = _merge_heads(torch.matmul(ds, kh)[None])[0].to(dt)
+    return dq, dk, dv
+
+
+def flash_cross_attention_bwd(q, k, v, o, do, l, m, num_heads: int):
+    """Backward of :func:`flash_cross_attention`: q, o, do (B, Nq, H*hd), k, v
+    (B, Nk, H*hd), l, m (B, H, Nq) -> (dq, dk, dv) in the input dtype."""
+    if q.ndim != 3 or k.shape != v.shape or o.shape != q.shape or do.shape != q.shape \
+            or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2] or q.shape[2] % num_heads \
+            or l.shape != (q.shape[0], num_heads, q.shape[1]) or m.shape != l.shape:
+        raise ValueError(
+            f"flash_cross_attention_bwd: q/o/do (B, Nq, H*hd), k/v (B, Nk, H*hd) and "
+            f"l/m (B, H, Nq) expected, got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"o {tuple(o.shape)}, do {tuple(do.shape)}, l {tuple(l.shape)}"
+        )
+    if _build.device_type(q) == "cpu":
+        return flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads)
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    hd = d // num_heads
+    _build.check_cuda_operands("flash_cross_attention_bwd", q, k, v, o, do)
+    _check_head_dim("flash_cross_attention_bwd", hd)
+    if b > 65535 or num_heads > 65535:
+        raise ValueError("flash_cross_attention_bwd: batch and heads must be < 65536")
+    lb, delta = _bwd_stats(o, do, l, m, num_heads)
+    dq32 = torch.zeros(b, nq, d, dtype=torch.float32, device=q.device)
+    _build.check_cuda_operands("flash_cross_attention_bwd", lb, delta, dq32)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load("flash_cross_bwd")
+    fn = lib.cs_flash_cross_attention_bwd
+    fn.argtypes = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]
+    fn.restype = _I
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lb.data_ptr(), delta.data_ptr(),
+            dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, nq, nk, num_heads, hd,
+            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
+    _build.check_rc(lib, rc, "flash_cross_attention_bwd")
+    flash_cross_attention_bwd.launches += 1
+    return dq32.to(q.dtype), dk, dv
+
+
+flash_cross_attention_bwd.launches = 0
+
+
+class FlashCrossAttention(torch.autograd.Function):
+    """Decoder attention with forward K3 and backward K4; the counterpart of
+    the JAX ``custom_vjp`` ``flash_cross_attention_ln``. Saves q, k, v, o, l
+    and m for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int):
+        o, l, m = flash_cross_attention(q, k, v, num_heads)
+        ctx.save_for_backward(q, k, v, o, l, m)
+        ctx.num_heads = num_heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, l, m = ctx.saved_tensors
+        # the incoming gradient may be a strided view; the kernel takes rows
+        dq, dk, dv = flash_cross_attention_bwd(q, k, v, o, do.contiguous(), l, m, ctx.num_heads)
+        return dq, dk, dv, None
+
+
+def flash_cross_attention_ln(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Differentiable decoder attention: q (B, Nq, H*hd), k/v (B, Nk, H*hd) ->
+    o (B, Nq, H*hd), through K3 forward and K4 backward."""
+    return FlashCrossAttention.apply(q, k, v, num_heads)

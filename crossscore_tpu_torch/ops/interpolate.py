@@ -7,6 +7,8 @@
   (HF DINOv2: bicubic, align_corners=False, a=-0.75). It applies the same
   numpy interpolation matrices as the JAX package, so both packages use one
   set of weights whatever ``F.interpolate``'s size and scale rules are.
+- ``resize_bilinear_antialias`` resizes host-side numpy images in the input
+  pipeline (torchvision ``Resize(antialias=True)`` semantics).
 """
 
 from __future__ import annotations
@@ -74,3 +76,40 @@ def interpolate_bicubic(src: torch.Tensor, out_h: int, out_w: int) -> torch.Tens
     out = torch.einsum("oi,iwc->owc", mh, src.float())
     out = torch.einsum("pw,owc->opc", mw, out)
     return out.to(src.dtype)
+
+
+def resize_bilinear_antialias(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Antialiased bilinear resize for host-side numpy images (H, W, C) or (H, W).
+
+    Matches torchvision ``Resize(..., antialias=True)`` semantics (triangle
+    filter scaled by the downsampling factor). Used by the input pipeline.
+    """
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[:, :, None]
+    in_h, in_w, _ = img.shape
+
+    def axis_matrix(in_size: int, out_size: int) -> np.ndarray:
+        scale = in_size / out_size
+        support = max(scale, 1.0)
+        coords = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
+        lo = np.floor(coords - support).astype(np.int64)
+        taps = int(np.ceil(2 * support)) + 2
+        mat = np.zeros((out_size, in_size), dtype=np.float64)
+        for tap in range(taps):
+            idx = lo + tap
+            w = np.maximum(0.0, 1.0 - np.abs((coords - idx) / support))
+            # torch drops out-of-range taps (no edge clamping) and renormalises
+            valid = (idx >= 0) & (idx < in_size)
+            rows = np.arange(out_size)[valid]
+            np.add.at(mat, (rows, idx[valid]), w[valid])
+        mat /= mat.sum(axis=1, keepdims=True)
+        return mat.astype(np.float32)
+
+    mh = axis_matrix(in_h, out_h)
+    mw = axis_matrix(in_w, out_w)
+    out = np.einsum("oi,iwc->owc", mh, img.astype(np.float32))
+    out = np.einsum("pw,owc->opc", mw, out)
+    if squeeze:
+        out = out[:, :, 0]
+    return out

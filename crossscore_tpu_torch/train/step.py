@@ -1,13 +1,113 @@
-"""Predict step; counterpart of ``crossscore_tpu/train/step.py::make_predict_step``
-(training steps wait for the slice that ports the backward kernel)."""
+"""Train, eval and predict steps; counterpart of ``crossscore_tpu/train/step.py``.
+
+The train step is forward (frozen backbone under ``torch.no_grad``), L1
+loss, backward (K4 for the decoder attention), AdamW update and the per-step
+schedule. Loss parity: reference ``task/core.py:277-293``, the mean |pred -
+gt| over the (B, H, W) score maps, with loader-padded rows weighted out.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from crossscore_tpu_torch.models.crossscore import CrossScoreNet
+from crossscore_tpu_torch.ops.metrics import abs2psnr, correlation, masked_correlation
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """The step count and the exact loop cursor for a mid-epoch resume (the
+    model and the optimiser hold the rest). The train loop resets
+    ``batch_in_epoch`` at epoch boundaries."""
+
+    step: int = 0
+    epoch: int = 0
+    batch_in_epoch: int = 0
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """numpy loader batch -> tensors on ``device`` (``item_paths`` dropped)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items() if k != "item_paths"}
+
+
+def _weights(batch: dict, shape) -> Optional[torch.Tensor]:
+    """(B, H, W) 0/1 weights excluding loader padding from the loss and the
+    metrics: duplicate items in the final partial batch, given as the
+    ``_valid`` prefix count or its per-row ``_valid_mask`` form. None when
+    the batch carries neither."""
+    if batch.get("_valid_hw") is not None:
+        raise NotImplementedError("_valid_hw (shape-bucketed batches) is not ported yet")
+    valid = batch.get("_valid")
+    valid_mask = batch.get("_valid_mask")
+    if valid is None and valid_mask is None:
+        return None
+    b = shape[0]
+    device = (valid_mask if valid_mask is not None else valid).device
+    if valid_mask is not None:
+        rows = valid_mask.float()
+    else:
+        rows = (torch.arange(b, device=device) < valid).float()
+    return rows[:, None, None].expand(shape)
+
+
+def loss_fn(model: CrossScoreNet, batch: dict):
+    if batch.get("query/tokens") is not None:
+        raise NotImplementedError("token-space training (query/tokens) is not ported yet")
+    w = _weights(batch, batch["query/score_map"].shape)
+    out = model(batch["query/img"], batch.get("reference/cross/imgs"),
+                ref_tokens=batch.get("reference/cross/tokens"))
+    pred = out["score_map_ref_cross"]
+    gt = batch["query/score_map"]
+    l1 = torch.abs(pred.float() - gt.float())
+    if w is None:
+        loss = l1.mean()
+    else:
+        loss = torch.sum(l1 * w) / torch.clamp(w.sum(), min=1.0)
+    return loss, (pred, l1, w)
+
+
+def _metrics(loss, pred, gt, w=None) -> dict:
+    corr = correlation(pred, gt) if w is None else masked_correlation(pred, gt, w)
+    return {"loss": loss, "loss_cross": loss, "psnr_cross": abs2psnr(loss), "correlation_cross": corr}
+
+
+def make_train_step(model: CrossScoreNet, optimizer: torch.optim.Optimizer, scheduler) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)``: one update of the
+    model's trainable parameters in place. ``metrics`` holds 0-d tensors on
+    the device and, under ``"pred"``, the training forward's score map (the
+    figure and histogram cadences reuse it, reference
+    ``task/core.py:312-362``)."""
+
+    def train_step(state: TrainState, batch: dict):
+        optimizer.zero_grad(set_to_none=True)
+        loss, (pred, _, w) = loss_fn(model, batch)
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        state = dataclasses.replace(state, step=state.step + 1, batch_in_epoch=state.batch_in_epoch + 1)
+        with torch.no_grad():
+            pred = pred.detach()
+            metrics = _metrics(loss.detach(), pred, batch["query/score_map"], w)
+        metrics["pred"] = pred
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(model: CrossScoreNet) -> Callable:
+    """``eval_step(batch) -> (pred, metrics)`` without gradients."""
+
+    def eval_step(batch: dict):
+        with torch.no_grad():
+            loss, (pred, _, w) = loss_fn(model, batch)
+            return pred, _metrics(loss, pred, batch["query/score_map"], w)
+
+    return eval_step
 
 
 def make_predict_step(model: CrossScoreNet, need_attn_weights: bool = False,

@@ -15,3 +15,27 @@ def check_metric_prediction_config(metric_type, metric_min, metric_max) -> None:
         valid_min = metric_min == 0
     if not valid_min:
         raise ValueError(f"Invalid metric range {metric_min} to {metric_max} for {metric_type}")
+
+
+def check_reference_type(do_reference_cross) -> str:
+    if do_reference_cross:
+        return "cross"
+    raise ValueError("Reference type must be 'cross'")
+
+
+class ConfigChecker:
+    """Entry-point config validation (the train entry point so far)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def _check_common(self):
+        check_reference_type(self.cfg.model.do_reference_cross)
+        check_metric_prediction_config(
+            self.cfg.model.predict.metric.type,
+            self.cfg.model.predict.metric.min,
+            self.cfg.model.predict.metric.max,
+        )
+
+    def check_train_val(self):
+        self._check_common()

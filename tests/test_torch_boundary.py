@@ -1,6 +1,6 @@
 """The port's import boundary and device rule: no JAX, Flax, optax or
 ``crossscore_tpu`` import in ``crossscore_tpu_torch/`` or ``chip_smoke.py``,
-and no silent move to the CPU."""
+no read of the JAX package's YAML tree, and no silent move to the CPU."""
 
 import ast
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "crossscore_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "crossscore_tpu")
 PORT_FILES = sorted((ROOT / "crossscore_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -35,7 +35,11 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import crossscore_tpu_torch.models, crossscore_tpu_torch.io.convert, "
-        "crossscore_tpu_torch.train.step, crossscore_tpu_torch.ops.fused_mlp\n"
+        "crossscore_tpu_torch.train.step, crossscore_tpu_torch.ops.fused_mlp, "
+        "crossscore_tpu_torch.train.optim, crossscore_tpu_torch.tasks.train, "
+        "crossscore_tpu_torch.io.checkpoint, crossscore_tpu_torch.data.loader, "
+        "crossscore_tpu_torch.data.nvs_index, crossscore_tpu_torch.data.synthetic, "
+        "crossscore_tpu_torch.ops.metrics, crossscore_tpu_torch.utils.metric_logger\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -74,3 +78,45 @@ def test_csrc_builds_only_from_the_package_sources():
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_the_port_composes_its_own_yaml_tree():
+    """The port's copy of the config tree: the same data groups (less the
+    packed record store), the model schema with a ``model.gpu`` block in
+    place of ``model.tpu``, and a train root the port's CLI reads."""
+    import yaml
+
+    from crossscore_tpu_torch import confsys
+
+    port_dir = ROOT / "crossscore_tpu_torch" / "config"
+    jax_dir = ROOT / "crossscore_tpu" / "config"
+    assert confsys._CONFIG_DIR == port_dir
+    assert sorted(p.name for p in (port_dir / "data").glob("*.yaml")) == \
+        sorted(p.name for p in (jax_dir / "data").glob("*.yaml"))
+    for path in (port_dir / "data").glob("*.yaml"):
+        want = yaml.safe_load((jax_dir / "data" / path.name).read_text())
+        want["dataset"].pop("record_dir", None)
+        assert yaml.safe_load(path.read_text()) == want, path.name
+    cfg = confsys.load_config("default")
+    assert "tpu" not in cfg.model
+    assert cfg.model.gpu.to_dict() == {"parity": False, "compute_dtype": "bfloat16",
+                                       "attention_impl": "flash", "mlp_impl": "fused"}
+    assert cfg.trainer.accelerator == "cuda" and cfg.trainer.optimizer.lr == 5e-4
+    assert cfg.data.loader.train.batch_size == 24 and cfg.data.neighbour_config.cross == 5
+    with pytest.raises(KeyError, match="tpu"):
+        confsys.load_config("default", ["model.tpu.compute_dtype=float32"])
+
+
+def test_train_entry_point_needs_cuda_unless_told_cpu():
+    from crossscore_tpu_torch import confsys
+    from crossscore_tpu_torch.tasks.common import resolve_accelerator
+
+    cfg = confsys.load_config("default")
+    if torch.cuda.is_available():
+        assert resolve_accelerator(cfg).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_accelerator(cfg)
+    assert resolve_accelerator(confsys.load_config("default", ["trainer.accelerator=cpu"])).type == "cpu"
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        resolve_accelerator(confsys.load_config("default", ["trainer.accelerator=auto"]))
