@@ -64,7 +64,7 @@ PEAKS = {  # name fragment: (bf16 op/s, fp32 op/s, bytes/s)
 # bf16: the kernels round p to bf16 before P.V (as the TPU kernels do) and
 # every output is rounded to bf16 once (2^-8 relative): two bf16 ulps.
 TOL = {"float32": 5e-5, "bfloat16": 1.6e-2}
-# K4 (dq, dk, dv): fp32 as above (dq's atomic sums add only order); bf16: the
+# K4 (dq, dk, dv): fp32 as above; bf16: the
 # kernel and its plain version round p and ds to bf16 before the products,
 # exp2 on the special-function unit may flip a rounding, and each output is
 # rounded to bf16 once: the same two-ulp bound

@@ -13,15 +13,18 @@
 // with p and ds rounded to bf16 before their products in the bf16 path and
 // every product accumulated in fp32.
 //
-// Design: one block per (batch, head, 64-row KV tile), so that dk and dv
-// stay exact in registers while the block walks over every 64-row q tile
-// (the TPU kernel's sequential KV grid axis becomes this loop). dq sums over
-// KV tiles, i.e. across blocks: each block adds its share of every q tile
-// into a zeroed fp32 (B, Nq, H*hd) buffer with atomicAdd (the wrapper casts
-// it to the input dtype afterwards). That keeps one pass and five products
-// per tile; the alternative, a second pass per q tile over the KV tiles,
-// recomputes s and dp (seven products). The atomics make dq's last bits
-// depend on the order in which blocks finish.
+// Design: two passes, as the TPU kernel's sequential grid cannot carry dq
+// across blocks here. Pass 1 (dkdv) takes one block per (batch, head, 64-row
+// KV tile), so that dk and dv stay exact in registers while the block walks
+// over every 64-row q tile (the TPU kernel's sequential KV grid axis becomes
+// this loop). Pass 2 (dq) takes one block per (batch, head, 64-row q tile)
+// and walks over the KV tiles, recomputing s and dp, so that dq too stays in
+// registers and is written once, in the input dtype. That is seven products
+// per score tile instead of five. The alternative, one pass that adds each
+// block's share of dq into an fp32 buffer with atomicAdd, issues Nq * hd
+// atomics per KV tile (1.4e9 at the train cross shape) and measured 8.8 ms
+// there against 5.4 ms for the two passes (tools/torch_k4_bench.py, PERF.md);
+// it also left dq's last bits to the order of the atomics.
 //
 // Ragged tails are masked, never padded in memory: q rows past Nq load as
 // zeros with lb = +inf, so p = 0; KV rows past Nk get p = 0 and their dk, dv
@@ -29,8 +32,8 @@
 //
 // Bound on the H100: 10 * B * H * Nq * Nk * hd operations against
 // ~(4 Nq + 4 Nk) * H * hd * 2 bytes per batch row, far above the ridge, so
-// the tensor cores bound it. bf16 runs all five products as mma.sync
-// m16n8k16 (operands through ldmatrix, q/do tiles double-buffered with
+// the tensor cores bound it. bf16 runs every product as mma.sync m16n8k16
+// (operands through ldmatrix, the streamed tiles double-buffered with
 // cp.async); fp32 takes a CUDA-core path in full fp32 (the tensor cores'
 // fp32 route is TF32). Not yet used: wgmma, TMA, warp specialisation.
 
@@ -50,7 +53,7 @@ struct BwdArgs {
   const void* dout;
   const float* lb;     // (B, H, Nq)
   const float* delta;  // (B, H, Nq)
-  float* dq;           // (B, Nq, H*hd) fp32, zeroed by the wrapper
+  void* dq;
   void* dk;
   void* dv;
   long long q_bs, k_bs, rs;  // batch strides of q/do/dq and k/v/dk/dv; row stride H*hd
@@ -72,19 +75,18 @@ __device__ __forceinline__ void load_stats(float* s_lb, float* s_dl, const BwdAr
 
 template <int HD>
 struct BwdBfLayout {
-  static constexpr int LD = HD + 8;    // padded rows: ldmatrix without bank conflicts
-  static constexpr int LDS = BQT + 8;  // dS tile rows (q) of BKV kv columns
+  static constexpr int LD = HD + 8;  // padded rows: ldmatrix without bank conflicts
   static constexpr size_t tile = align128((size_t)64 * LD * 2);
   static constexpr size_t k_off = 0;
   static constexpr size_t v_off = tile;
-  static constexpr size_t qd_off = 2 * tile;              // two stages of (q, do)
-  static constexpr size_t ds_off = 6 * tile;
-  static constexpr size_t st_off = ds_off + align128((size_t)BQT * LDS * 2);
+  static constexpr size_t qd_off = 2 * tile;             // two stages of (q, do)
+  static constexpr size_t st_off = 6 * tile;
   static constexpr size_t total = st_off + 4 * BQT * 4;  // two stages of (lb, delta)
 };
 
+// Pass 1, bf16: dk and dv of one 64-row KV tile.
 template <int HD>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_bf16(BwdArgs a) {
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_bf16(BwdArgs a) {
   using L = BwdBfLayout<HD>;
   using bf16 = __nv_bfloat16;
   constexpr int LD = L::LD;
@@ -96,7 +98,6 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_bf16(BwdArgs a) {
   bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
   bf16* sQD = reinterpret_cast<bf16*>(smem + L::qd_off);  // stage s: q at 2s*TILE, do at (2s+1)*TILE
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds_off);  // [q][kv]
   float* sST = reinterpret_cast<float*>(smem + L::st_off);  // stage s: lb at 2s*BQT, delta at (2s+1)*BQT
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -106,7 +107,6 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_bf16(BwdArgs a) {
   const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.q_bs + head * HD;
   const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * HD;
   const bf16* V = static_cast<const bf16*>(a.v) + b * a.k_bs + head * HD;
-  float* DQ = a.dq + b * a.q_bs + head * HD;
   const long long st = ((long long)b * a.h + head) * a.nq;
 
   cp_async_rows<BKV, HD, BWD_THREADS>(sK, LD, K, a.rs, kv0, a.nk, tid);
@@ -169,7 +169,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_bf16(BwdArgs a) {
       }
     }
 
-    // p^T and ds^T, rounded to bf16 into A fragments; ds also into sDS[q][kv]
+    // p^T and ds^T, rounded to bf16 into A fragments
     uint32_t pa[BQT / 16][4], dsa[BQT / 16][4];
 #pragma unroll
     for (int j = 0; j < NST; ++j) {
@@ -182,8 +182,6 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_bf16(BwdArgs a) {
         p[2 + e] = ok1 ? ex2(fmaf(s[j][2 + e], a.c1, -lbq)) : 0.f;
         ds[e] = p[e] * (dp[j][e] - dlq) * a.scale;
         ds[2 + e] = p[2 + e] * (dp[j][2 + e] - dlq) * a.scale;
-        sDS[c * L::LDS + warp * 16 + g] = __float2bfloat16(ds[e]);
-        sDS[c * L::LDS + warp * 16 + g + 8] = __float2bfloat16(ds[2 + e]);
       }
       pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
       pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
@@ -205,39 +203,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_bf16(BwdArgs a) {
         mma_bf16(dk[2 * dd + 1], dsa[ks], bq[2], bq[3]);
       }
     }
-    __syncthreads();  // sDS complete
-
-    // this block's share of dq for the tile: ds (64 q x 64 kv) K; warp w
-    // takes q rows w*16.., then adds them into the fp32 buffer
-    float dqa[NOT][4];
-#pragma unroll
-    for (int d = 0; d < NOT; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dqa[d][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < BKV / 16; ++ks) {
-      uint32_t aa[4];
-      ldsm_a(aa, sDS + warp * 16 * L::LDS + ks * 16, L::LDS, lane);
-#pragma unroll
-      for (int dd = 0; dd < NOT / 2; ++dd) {
-        uint32_t bk[4];
-        ldsm_b_kn_x2tiles(bk, sK + ks * 16 * LD + dd * 16, LD, lane);
-        mma_bf16(dqa[2 * dd], aa, bk[0], bk[1]);
-        mma_bf16(dqa[2 * dd + 1], aa, bk[2], bk[3]);
-      }
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = t * BQT + warp * 16 + g + 8 * hh;
-      if (r >= a.nq) continue;
-      float* out = DQ + (long long)r * a.rs + qd * 2;
-#pragma unroll
-      for (int d = 0; d < NOT; ++d) {
-        atomicAdd(out + d * 8, dqa[d][2 * hh]);
-        atomicAdd(out + d * 8 + 1, dqa[d][2 * hh + 1]);
-      }
-    }
-    __syncthreads();  // this stage and sDS are refilled next iteration
+    __syncthreads();  // this stage is refilled next iteration
   }
 
   bf16* DK = static_cast<bf16*>(a.dk) + b * a.k_bs + head * HD + qd * 2;
@@ -254,29 +220,165 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_bf16(BwdArgs a) {
   }
 }
 
+// Pass 2, bf16: dq of one 64-row q tile. The forward's structure: q and do
+// fragments stay in registers, K and V tiles stream through shared memory
+// (cp.async, two stages), s and dp are recomputed per tile and ds K
+// accumulates in fp32 registers.
+template <int HD>
+struct BwdDqLayout {
+  static constexpr int LD = HD + 8;
+  static constexpr size_t tile = align128((size_t)64 * LD * 2);
+  static constexpr size_t kv_off = 2 * tile;          // q and do tiles first
+  static constexpr size_t total = kv_off + 4 * tile;  // K and V, two stages
+};
+
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_bf16(BwdArgs a) {
+  using L = BwdDqLayout<HD>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = L::LD;
+  constexpr int NKT = HD / 16;
+  constexpr int NOT = HD / 8;
+  constexpr int NST = BKV / 8;
+  constexpr int TILE = (int)(L::tile / 2);
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sDO = sQ + TILE;
+  bf16* sKV = reinterpret_cast<bf16*>(smem + L::kv_off);  // stage s: K at 2s*TILE, V at (2s+1)*TILE
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int q0 = blockIdx.x * BQT, head = blockIdx.y, b = blockIdx.z;
+  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * HD;
+  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.q_bs + head * HD;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * HD;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.k_bs + head * HD;
+  const long long st = ((long long)b * a.h + head) * a.nq;
+
+  cp_async_rows<BQT, HD, BWD_THREADS>(sQ, LD, Q, a.rs, q0, a.nq, tid);
+  cp_async_rows<BQT, HD, BWD_THREADS>(sDO, LD, DO, a.rs, q0, a.nq, tid);
+  cp_async_rows<BKV, HD, BWD_THREADS>(sKV, LD, K, a.rs, 0, a.nk, tid);
+  cp_async_rows<BKV, HD, BWD_THREADS>(sKV + TILE, LD, V, a.rs, 0, a.nk, tid);
+  cp_async_commit();
+  // this thread's q rows: q0 + warp*16 + g and + 8 (lb = +inf past Nq: p = 0)
+  const int r0 = q0 + warp * 16 + g;
+  const float lb0 = r0 < a.nq ? a.lb[st + r0] : INFINITY;
+  const float lb1 = r0 + 8 < a.nq ? a.lb[st + r0 + 8] : INFINITY;
+  const float dl0 = r0 < a.nq ? a.delta[st + r0] : 0.f;
+  const float dl1 = r0 + 8 < a.nq ? a.delta[st + r0 + 8] : 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[NKT][4], da[NKT][4];
+#pragma unroll
+  for (int kk = 0; kk < NKT; ++kk) {
+    ldsm_a(qa[kk], sQ + warp * 16 * LD + kk * 16, LD, lane);
+    ldsm_a(da[kk], sDO + warp * 16 * LD + kk * 16, LD, lane);
+  }
+
+  float dq[NOT][4];
+#pragma unroll
+  for (int d = 0; d < NOT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[d][e] = 0.f;
+
+  const int ntiles = (a.nk + BKV - 1) / BKV;
+  for (int t = 0; t < ntiles; ++t) {
+    const bf16* sK = sKV + (t & 1) * 2 * TILE;
+    const bf16* sV = sK + TILE;
+    if (t + 1 < ntiles) {  // prefetch the next K/V tile into the other stage
+      bf16* nK = sKV + ((t + 1) & 1) * 2 * TILE;
+      cp_async_rows<BKV, HD, BWD_THREADS>(nK, LD, K, a.rs, (t + 1) * BKV, a.nk, tid);
+      cp_async_rows<BKV, HD, BWD_THREADS>(nK + TILE, LD, V, a.rs, (t + 1) * BKV, a.nk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // s = Q K^T and dp = dO V^T for this warp's 16 q rows x 64 KV columns
+    float s[NST][4], dp[NST][4];
+#pragma unroll
+    for (int j = 0; j < NST; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NKT; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NST / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_b_nk_x2tiles(bk, sK + np * 16 * LD + kk * 16, LD, lane);
+        ldsm_b_nk_x2tiles(bv, sV + np * 16 * LD + kk * 16, LD, lane);
+        mma_bf16(s[2 * np], qa[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], bk[2], bk[3]);
+        mma_bf16(dp[2 * np], da[kk], bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], da[kk], bv[2], bv[3]);
+      }
+    }
+
+    // ds, rounded to bf16 into A fragments; KV columns past Nk get p = 0
+    uint32_t dsa[BKV / 16][4];
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = t * BKV + j * 8 + qd * 2 + e < a.nk;
+        const float p0 = ok ? ex2(fmaf(s[j][e], a.c1, -lb0)) : 0.f;
+        const float p1 = ok ? ex2(fmaf(s[j][2 + e], a.c1, -lb1)) : 0.f;
+        ds[e] = p0 * (dp[j][e] - dl0) * a.scale;
+        ds[2 + e] = p1 * (dp[j][2 + e] - dl1) * a.scale;
+      }
+      dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dq += ds K (k = the tile's 64 KV rows)
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks) {
+#pragma unroll
+      for (int dd = 0; dd < NOT / 2; ++dd) {
+        uint32_t bk[4];
+        ldsm_b_kn_x2tiles(bk, sK + ks * 16 * LD + dd * 16, LD, lane);
+        mma_bf16(dq[2 * dd], dsa[ks], bk[0], bk[1]);
+        mma_bf16(dq[2 * dd + 1], dsa[ks], bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+
+  bf16* DQ = static_cast<bf16*>(a.dq) + b * a.q_bs + head * HD + qd * 2;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    if (r >= a.nq) continue;
+#pragma unroll
+    for (int d = 0; d < NOT; ++d)
+      *reinterpret_cast<uint32_t*>(DQ + (long long)r * a.rs + d * 8) = pack_bf16(dq[d][2 * hh], dq[d][2 * hh + 1]);
+  }
+}
+
 template <int HD>
 struct BwdF32Layout {
   static constexpr int LD = HD + 4;
   static constexpr size_t tile = align128((size_t)64 * LD * 4);
-  static constexpr size_t ds_off = 4 * tile;  // K, V, Q, dO
-  static constexpr size_t st_off = ds_off + align128((size_t)BQT * (BKV + 1) * 4);
+  static constexpr size_t st_off = 4 * tile;  // two streamed and two resident tiles
   static constexpr size_t total = st_off + 2 * BQT * 4;
 };
 
-// fp32: CUDA cores only. Two threads per KV row, each holding half of the
-// row's dk and dv in registers; K, V, the q/do tile and ds in shared memory.
+// Pass 1, fp32 (CUDA cores only): two threads per KV row, each holding half
+// of the row's dk and dv in registers; K, V and the q/do tile in shared
+// memory.
 template <int HD>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_f32(BwdArgs a) {
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_f32(BwdArgs a) {
   using L = BwdF32Layout<HD>;
   constexpr int LD = L::LD;
   constexpr int HH = HD / 2;
-  constexpr int DC = 16;  // dq columns per pass (bounds the registers)
   extern __shared__ __align__(128) unsigned char smem[];
   float* sK = reinterpret_cast<float*>(smem);
   float* sV = reinterpret_cast<float*>(smem + L::tile);
   float* sQ = reinterpret_cast<float*>(smem + 2 * L::tile);
   float* sDO = reinterpret_cast<float*>(smem + 3 * L::tile);
-  float* sDS = reinterpret_cast<float*>(smem + L::ds_off);  // [q][kv], row stride BKV + 1
   float* sLB = reinterpret_cast<float*>(smem + L::st_off);
   float* sDL = sLB + BQT;
 
@@ -286,10 +388,8 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_f32(BwdArgs a) {
   const float* DO = static_cast<const float*>(a.dout) + b * a.q_bs + head * HD;
   const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * HD;
   const float* V = static_cast<const float*>(a.v) + b * a.k_bs + head * HD;
-  float* DQ = a.dq + b * a.q_bs + head * HD;
   const long long st = ((long long)b * a.h + head) * a.nq;
   const bool ok = kv0 + row < a.nk;
-  const int kvalid = min(BKV, a.nk - kv0);
 
   load_rows<BKV, HD>(sK, LD, K, a.rs, kv0, a.nk, tid, BWD_THREADS);
   load_rows<BKV, HD>(sV, LD, V, a.rs, kv0, a.nk, tid, BWD_THREADS);
@@ -325,29 +425,6 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_f32(BwdArgs a) {
         dv[d] = fmaf(p, di[d], dv[d]);
         dk[d] = fmaf(ds, qi[d], dk[d]);
       }
-      if (half == 0) sDS[i * (BKV + 1) + row] = ds;
-    }
-    __syncthreads();
-    // dq share: thread (row, half) owns q row `row` of the tile, columns
-    // half*HH.., DC at a time
-    if (row < qvalid) {
-      const float* dsr = sDS + row * (BKV + 1);
-      float* out = DQ + (long long)(q0 + row) * a.rs + half * HH;
-      for (int c0 = 0; c0 < HH; c0 += DC) {
-        float acc[DC];
-#pragma unroll
-        for (int d = 0; d < DC; ++d) acc[d] = 0.f;
-        for (int r = 0; r < kvalid; ++r) {
-          const float w = dsr[r];
-          const float* kk = sK + r * LD + half * HH + c0;
-#pragma unroll
-          for (int d = 0; d < DC; ++d)
-            if (c0 + d < HH) acc[d] = fmaf(w, kk[d], acc[d]);
-        }
-#pragma unroll
-        for (int d = 0; d < DC; ++d)
-          if (c0 + d < HH) atomicAdd(out + c0 + d, acc[d]);
-      }
     }
   }
 
@@ -362,28 +439,94 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_f32(BwdArgs a) {
   }
 }
 
+// Pass 2, fp32: two threads per q row, each holding half of the row's q, do
+// and dq in registers; K and V tiles in shared memory.
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_f32(BwdArgs a) {
+  using L = BwdF32Layout<HD>;
+  constexpr int LD = L::LD;
+  constexpr int HH = HD / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = reinterpret_cast<float*>(smem + L::tile);
+
+  const int tid = threadIdx.x, row = tid >> 1, half = tid & 1;
+  const int q0 = blockIdx.x * BQT, head = blockIdx.y, b = blockIdx.z;
+  const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * HD;
+  const float* DO = static_cast<const float*>(a.dout) + b * a.q_bs + head * HD;
+  const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * HD;
+  const float* V = static_cast<const float*>(a.v) + b * a.k_bs + head * HD;
+  const long long st = ((long long)b * a.h + head) * a.nq;
+  const int qrow = q0 + row;
+  const bool ok = qrow < a.nq;
+  const float lbq = ok ? a.lb[st + qrow] : INFINITY;
+  const float dlq = ok ? a.delta[st + qrow] : 0.f;
+
+  float q[HH], dov[HH], dq[HH];
+#pragma unroll
+  for (int d = 0; d < HH; ++d) {
+    q[d] = ok ? Q[qrow * a.rs + half * HH + d] : 0.f;
+    dov[d] = ok ? DO[qrow * a.rs + half * HH + d] : 0.f;
+    dq[d] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < a.nk; k0 += BKV) {
+    __syncthreads();
+    load_rows<BKV, HD>(sK, LD, K, a.rs, k0, a.nk, tid, BWD_THREADS);
+    load_rows<BKV, HD>(sV, LD, V, a.rs, k0, a.nk, tid, BWD_THREADS);
+    __syncthreads();
+    const int kvalid = min(BKV, a.nk - k0);
+    for (int j = 0; j < kvalid; ++j) {
+      const float* kj = sK + j * LD + half * HH;
+      const float* vj = sV + j * LD + half * HH;
+      float s = 0.f, dpv = 0.f;
+#pragma unroll
+      for (int d = 0; d < HH; ++d) {
+        s = fmaf(q[d], kj[d], s);
+        dpv = fmaf(dov[d], vj[d], dpv);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      dpv += __shfl_xor_sync(0xffffffffu, dpv, 1);
+      const float ds = exp2f(s * a.c1 - lbq) * (dpv - dlq) * a.scale;
+#pragma unroll
+      for (int d = 0; d < HH; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
+    }
+  }
+
+  if (ok) {
+    float* out = static_cast<float*>(a.dq) + b * a.q_bs + (long long)qrow * a.rs + head * HD + half * HH;
+#pragma unroll
+    for (int d = 0; d < HH; ++d) out[d] = dq[d];
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch_one(Kernel kernel, dim3 grid, int bytes, cudaStream_t stream, const BwdArgs& a) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, BWD_THREADS, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int HD>
 int launch_bwd_hd(const BwdArgs& a, int batch, int dtype, cudaStream_t stream) {
-  const dim3 grid((a.nk + BKV - 1) / BKV, a.h, batch);
+  const dim3 kv_grid((a.nk + BKV - 1) / BKV, a.h, batch);
+  const dim3 q_grid((a.nq + BQT - 1) / BQT, a.h, batch);
   cudaError_t err;
   if (dtype == kBFloat16) {
-    const int bytes = (int)BwdBfLayout<HD>::total;
-    err = cudaFuncSetAttribute(attn_bwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    attn_bwd_bf16<HD><<<grid, BWD_THREADS, bytes, stream>>>(a);
+    err = launch_one(attn_bwd_dkdv_bf16<HD>, kv_grid, (int)BwdBfLayout<HD>::total, stream, a);
+    if (err == cudaSuccess) err = launch_one(attn_bwd_dq_bf16<HD>, q_grid, (int)BwdDqLayout<HD>::total, stream, a);
   } else {
-    const int bytes = (int)BwdF32Layout<HD>::total;
-    err = cudaFuncSetAttribute(attn_bwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    attn_bwd_f32<HD><<<grid, BWD_THREADS, bytes, stream>>>(a);
+    err = launch_one(attn_bwd_dkdv_f32<HD>, kv_grid, (int)BwdF32Layout<HD>::total, stream, a);
+    if (err == cudaSuccess) err = launch_one(attn_bwd_dq_f32<HD>, q_grid, (int)(2 * BwdF32Layout<HD>::tile), stream, a);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 }  // namespace cs
 
 // q, do: (B, Nq, H*hd); k, v: (B, Nk, H*hd); lb, delta: (B, H, Nq) fp32;
-// dq: zeroed (B, Nq, H*hd) fp32; dk, dv: (B, Nk, H*hd) in the input dtype.
+// dq: (B, Nq, H*hd), dk, dv: (B, Nk, H*hd), all in the input dtype.
 extern "C" int cs_flash_cross_attention_bwd(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lb, const void* delta,
                                             void* dq, void* dk, void* dv, int batch, int nq,
@@ -397,7 +540,7 @@ extern "C" int cs_flash_cross_attention_bwd(const void* q, const void* k, const 
   a.dout = dout;
   a.lb = static_cast<const float*>(lb);
   a.delta = static_cast<const float*>(delta);
-  a.dq = static_cast<float*>(dq);
+  a.dq = dq;
   a.dk = dk;
   a.dv = dv;
   a.q_bs = (long long)nq * d;

@@ -201,20 +201,19 @@ def flash_cross_attention_bwd(q, k, v, o, do, l, m, num_heads: int):
     if b > 65535 or num_heads > 65535:
         raise ValueError("flash_cross_attention_bwd: batch and heads must be < 65536")
     lb, delta = _bwd_stats(o, do, l, m, num_heads)
-    dq32 = torch.zeros(b, nq, d, dtype=torch.float32, device=q.device)
-    _build.check_cuda_operands("flash_cross_attention_bwd", lb, delta, dq32)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.check_cuda_operands("flash_cross_attention_bwd", lb, delta)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load("flash_cross_bwd")
     fn = lib.cs_flash_cross_attention_bwd
     fn.argtypes = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]
     fn.restype = _I
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lb.data_ptr(), delta.data_ptr(),
-            dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, nq, nk, num_heads, hd,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, nq, nk, num_heads, hd,
             _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
     _build.check_rc(lib, rc, "flash_cross_attention_bwd")
     flash_cross_attention_bwd.launches += 1
-    return dq32.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 flash_cross_attention_bwd.launches = 0
