@@ -64,10 +64,10 @@ PEAKS = {  # name fragment: (bf16 op/s, fp32 op/s, bytes/s)
 # bf16: the kernels round p to bf16 before P.V (as the TPU kernels do) and
 # every output is rounded to bf16 once (2^-8 relative): two bf16 ulps.
 TOL = {"float32": 5e-5, "bfloat16": 1.6e-2}
-# K4 (dq, dk, dv): fp32 as above; bf16: the
-# kernel and its plain version round p and ds to bf16 before the products,
-# exp2 on the special-function unit may flip a rounding, and each output is
-# rounded to bf16 once: the same two-ulp bound
+# K4 (dq, dk, dv): fp32 as above; bf16: the kernel and its plain version
+# round p and ds to bf16 before the products, exp2 on the special-function
+# unit may flip a rounding, and each output is rounded to bf16 once: the
+# same two-ulp bound
 # whole-net score-map MAE, kernel path vs all-plain path, B=1 (scores in [0, 1])
 NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # whole-step decoder/head gradients, kernel path vs all-plain path, B=1:
@@ -125,25 +125,26 @@ def _max_abs(got, want) -> float:
 
 def _profile(torch, fn, step_ms: float, top: int = 16) -> None:
     """Print the device-time breakdown of one call of ``fn`` (torch.profiler,
-    the second of two profiled calls): device ms per kernel, launches, and
-    the device's busy share of ``step_ms``, the call's unprofiled time."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    after the caller's warm-up): device ms per kernel, launches, and the
+    device's busy share of ``step_ms``, the call's unprofiled time. Fails
+    when the trace holds no kernel."""
+    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     rows = []
     for evt in prof.key_averages():
-        if "CUDA" not in str(getattr(evt, "device_type", "")):
-            continue  # CPU-side ops; their kernels are listed on their own
+        if "CUDA" not in str(evt.device_type):
+            continue  # a CPU-side op: its kernels are listed on their own
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
+            dev_us = evt.self_cuda_time_total
         if dev_us > 0:
             rows.append((dev_us / 1e3, evt.count, evt.key))
+    if not rows:
+        _fail("the profiler recorded no kernel of the train step")
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"train step device time: {busy:.3f} ms busy of a {step_ms:.3f} ms step "

@@ -22,6 +22,7 @@ prefix adds a new key (plain overrides of unknown keys raise, same as Hydra).
 from __future__ import annotations
 
 import copy
+import re
 from pathlib import Path
 from typing import Any, Iterable, Mapping
 
@@ -37,13 +38,13 @@ class _Loader(yaml.SafeLoader):
 
 _Loader.add_implicit_resolver(
     "tag:yaml.org,2002:float",
-    __import__("re").compile(
+    re.compile(
         r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+]?[0-9]+)?
         |[-+]?(?:[0-9][0-9_]*)(?:[eE][-+]?[0-9]+)
         |\.[0-9_]+(?:[eE][-+][0-9]+)?
         |[-+]?\.(?:inf|Inf|INF)
         |\.(?:nan|NaN|NAN))$""",
-        __import__("re").X,
+        re.X,
     ),
     list("-+0123456789."),
 )
@@ -91,14 +92,6 @@ class Config(dict):
             return obj
 
         return conv(self)
-
-    def select(self, dotted: str, default: Any = None) -> Any:
-        node: Any = self
-        for part in dotted.split("."):
-            if not isinstance(node, Mapping) or part not in node:
-                return default
-            node = node[part]
-        return node
 
 
 def _deep_merge(base: dict, extra: Mapping) -> dict:
@@ -210,14 +203,3 @@ def apply_overrides(cfg: Config, overrides: Iterable[str]) -> Config:
         value = parse_value(raw)
         node[leaf] = Config.from_nested(value) if isinstance(value, Mapping) else value
     return cfg
-
-
-def set_key(cfg: Config, dotted: str, value: Any) -> None:
-    """Programmatic equivalent of an ``+key=value`` override."""
-    parts = dotted.split(".")
-    node: Any = cfg
-    for part in parts[:-1]:
-        if part not in node:
-            node[part] = Config()
-        node = node[part]
-    node[parts[-1]] = Config.from_nested(value) if isinstance(value, Mapping) else value

@@ -23,8 +23,9 @@
 // per score tile instead of five. The alternative, one pass that adds each
 // block's share of dq into an fp32 buffer with atomicAdd, issues Nq * hd
 // atomics per KV tile (1.4e9 at the train cross shape) and measured 8.8 ms
-// there against 5.4 ms for the two passes (tools/torch_k4_bench.py, PERF.md);
-// it also left dq's last bits to the order of the atomics.
+// there against 5.4 ms for the two passes on an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit (tools/torch_k4_bench.py, PERF.md); it also left dq's
+// last bits to the order of the atomics.
 //
 // Ragged tails are masked, never padded in memory: q rows past Nq load as
 // zeros with lb = +inf, so p = 0; KV rows past Nk get p = 0 and their dk, dv

@@ -66,9 +66,3 @@ class CropperSeparate:
             outs.append(crop(a, p))
             params.append(p)
         return {"out": np.stack(outs), "crop_param": np.stack(params)}
-
-
-def make_cropper(output_size, same_on_batch: bool, deterministic: bool = False):
-    if same_on_batch:
-        return CropperSame(output_size, deterministic)
-    return CropperSeparate(output_size, deterministic)

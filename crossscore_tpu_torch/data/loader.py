@@ -67,7 +67,6 @@ class Loader:
         prefetch_batches: int = 2,
         seed: int = 0,
         drop_last: bool = False,
-        pad_last: bool = True,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -76,7 +75,6 @@ class Loader:
         self.prefetch_batches = max(1, prefetch_batches)
         self.seed = seed
         self.drop_last = drop_last
-        self.pad_last = pad_last
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
@@ -141,7 +139,7 @@ class Loader:
                             chunk,
                         )
                     )
-                    if len(items) < bs and self.pad_last:
+                    if len(items) < bs:
                         items = items + [items[-1]] * (bs - len(items))
                     batch = collate(items)
                     batch["_valid"] = np.asarray(n_valid, np.int32)

@@ -80,9 +80,6 @@ class NeighbourSelector:
     def __len__(self) -> int:
         return len(self.index)
 
-    def __getitem__(self, idx: int) -> dict:
-        return self.select(idx, np.random.default_rng(0))
-
     def select(self, idx: int, rng: np.random.Generator) -> dict:
         meta = self.index[idx]
         split_paths = self.paths[meta["scene_name"]][f"gs_{meta['gaussian_split']}"]

@@ -170,9 +170,9 @@ def flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads: int):
     for i in range(q.shape[0]):
         qh, kh, vh, doh = (_split_heads(t[i:i + 1].to(acc), num_heads)[0] for t in (q, k, v, do))
         s = torch.matmul(qh, kh.transpose(-1, -2))  # (H, Nq, Nk)
-        p = torch.exp2(s * (scale * LOG2E) - lb[i][..., None].to(acc))
+        p = torch.exp2(s * (scale * LOG2E) - lb[i][..., None])
         dp = torch.matmul(doh, vh.transpose(-1, -2))
-        ds = p * (dp - delta[i][..., None].to(acc)) * scale
+        ds = p * (dp - delta[i][..., None]) * scale
         p, ds = p.to(dt).to(acc), ds.to(dt).to(acc)
         dv[i] = _merge_heads(torch.matmul(p.transpose(-1, -2), doh)[None])[0].to(dt)
         dk[i] = _merge_heads(torch.matmul(ds.transpose(-1, -2), qh)[None])[0].to(dt)
@@ -219,7 +219,7 @@ def flash_cross_attention_bwd(q, k, v, o, do, l, m, num_heads: int):
 flash_cross_attention_bwd.launches = 0
 
 
-class FlashCrossAttention(torch.autograd.Function):
+class _FlashCrossAttention(torch.autograd.Function):
     """Decoder attention with forward K3 and backward K4; the counterpart of
     the JAX ``custom_vjp`` ``flash_cross_attention_ln``. Saves q, k, v, o, l
     and m for the backward."""
@@ -242,4 +242,4 @@ class FlashCrossAttention(torch.autograd.Function):
 def flash_cross_attention_ln(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Differentiable decoder attention: q (B, Nq, H*hd), k/v (B, Nk, H*hd) ->
     o (B, Nq, H*hd), through K3 forward and K4 backward."""
-    return FlashCrossAttention.apply(q, k, v, num_heads)
+    return _FlashCrossAttention.apply(q, k, v, num_heads)

@@ -14,31 +14,29 @@ optimiser, the scheduler and the exact loop cursor; resume with
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from crossscore_tpu_torch.data.loader import Loader
+from crossscore_tpu_torch.data.nvs_index import get_dataset
+from crossscore_tpu_torch.io.checkpoint import CheckpointManager, load_hparams
+from crossscore_tpu_torch.io.convert import init_params, load_into
+from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.tasks.common import (
     JsonlLogger, config_diff, parse_cli, resolve_accelerator, resolve_limit,
     save_config_snapshot, timestamp, weighted_mean,
 )
+from crossscore_tpu_torch.train.optim import make_optimizer
+from crossscore_tpu_torch.train.step import TrainState, batch_to_device, make_eval_step, make_train_step
+from crossscore_tpu_torch.utils.check_config import ConfigChecker
+from crossscore_tpu_torch.utils.metric_logger import MetricLoggerScalar
 
 
 def train(cfg) -> Path:
-    from crossscore_tpu_torch.data.loader import Loader
-    from crossscore_tpu_torch.data.nvs_index import get_dataset
-    from crossscore_tpu_torch.io.checkpoint import CheckpointManager, load_hparams
-    from crossscore_tpu_torch.io.convert import init_params, load_into
-    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
-    from crossscore_tpu_torch.train.optim import make_optimizer
-    from crossscore_tpu_torch.train.step import (
-        TrainState, batch_to_device, make_eval_step, make_train_step,
-    )
-    from crossscore_tpu_torch.utils.check_config import ConfigChecker
-    from crossscore_tpu_torch.utils.metric_logger import MetricLoggerScalar
-
     ConfigChecker(cfg).check_train_val()
     device = resolve_accelerator(cfg)
     if device.type == "cuda":
@@ -133,9 +131,6 @@ def train(cfg) -> Path:
     eval_step = make_eval_step(model)
     train_cache = {"loss": MetricLoggerScalar(cfg.logger.cache_size.train.n_scalar)}
 
-    def loop_cursor() -> dict:
-        return {"step": state.step, "epoch": state.epoch, "batch_in_epoch": state.batch_in_epoch}
-
     def run_validation(epoch: int, step: int, max_batches: int):
         if max_batches <= 0:
             return
@@ -146,7 +141,7 @@ def train(cfg) -> Path:
             _, metrics = eval_step(batch_to_device(vbatch, device))
             losses.append(float(metrics["loss"]))
             corrs.append(float(metrics["correlation_cross"]))
-            weights.append(float(vbatch.get("_valid", len(vbatch["query/img"]))))
+            weights.append(float(vbatch["_valid"]))
         if losses:
             # weighted by the valid items of each batch (the reference's
             # epoch-level self.log reduction, task/core.py:449)
@@ -228,7 +223,7 @@ def train(cfg) -> Path:
                 }, state.step)
 
             if ckpt_mgr.should_save(state.step):
-                ckpt_mgr.save(state.step, model, optimizer, scheduler, loop_cursor())
+                ckpt_mgr.save(state.step, model, optimizer, scheduler, dataclasses.asdict(state))
             if max_steps > 0 and state.step >= max_steps:
                 stop = True
                 break
@@ -238,7 +233,7 @@ def train(cfg) -> Path:
         if (epoch + 1) % max(1, int(cfg.trainer.get("check_val_every_n_epoch", 1) or 1)) == 0:
             run_validation(epoch, state.step, limit_val)
         if ckpt_mgr.should_save(state.step, epoch_end=True, epoch=epoch):
-            ckpt_mgr.save(state.step, model, optimizer, scheduler, loop_cursor())
+            ckpt_mgr.save(state.step, model, optimizer, scheduler, dataclasses.asdict(state))
 
     if profiler is not None:  # the run ended inside the window
         profiler.__exit__(None, None, None)
@@ -249,7 +244,7 @@ def train(cfg) -> Path:
         print(f"sustained: {ms:.1f} ms/step over {n} steps (loader in loop)")
         logger.log({"train/sustained_ms_per_step": ms, "train/sustained_steps": n}, state.step)
     if cfg.trainer.checkpointing.save_last:
-        ckpt_mgr.save(state.step, model, optimizer, scheduler, loop_cursor())
+        ckpt_mgr.save(state.step, model, optimizer, scheduler, dataclasses.asdict(state))
     logger.close()
     print(f"train done: {state.step} steps -> {run_dir}")
     return run_dir
