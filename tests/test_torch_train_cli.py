@@ -105,3 +105,33 @@ def test_checkpoint_reads_into_the_jax_tree(ws):
     assert set(back) == set(blob["state_dict"])
     for key, value in blob["state_dict"].items():
         np.testing.assert_array_equal(back[key], value.numpy(), err_msg=key)
+
+
+def test_padded_final_val_batch_equals_exact_mean(ws):
+    """Validation keeps the final partial batch and weights its padded
+    duplicates out (``_valid``): with 7 val items at batch 2 the logged loss
+    equals a batch-1 run over the same items."""
+    common = BASE + ["trainer.num_sanity_val_steps=999", "trainer.limit_val_batches=1.0",
+                     "trainer.max_epochs=0"]
+
+    def val_loss(bs):
+        rows = _rows(main(common + [f"data.loader.validation.batch_size={bs}", f"alias=val{bs}"]))
+        return [r["validation/loss"] for r in rows if "validation/loss" in r]
+
+    padded, exact = val_loss(2), val_loss(1)
+    assert len(padded) == len(exact) == 1
+    assert padded[0] == pytest.approx(exact[0], rel=1e-5)
+
+
+def test_profiler_window_and_sustained_report(ws, capsys):
+    """``trainer.do_profiling`` traces steps 12..22 into the run dir, and the
+    sustained report times the steps after its warm-up."""
+    run_dir = main(BASE + ["trainer.num_sanity_val_steps=0", "trainer.max_epochs=8",
+                           "trainer.check_val_every_n_epoch=100", "trainer.do_profiling=true",
+                           "this_main.sustained_report_after_steps=2", "alias=prof"])
+    assert (run_dir / "profiler" / "trace.json").stat().st_size > 0
+    assert "sustained:" in capsys.readouterr().out
+    rows = _rows(run_dir)
+    sustained = [r for r in rows if "train/sustained_ms_per_step" in r]
+    assert len(sustained) == 1 and sustained[0]["train/sustained_steps"] == 24 - 2
+    assert max(r["step"] for r in rows) == 24
