@@ -64,10 +64,14 @@ PEAKS = {  # name fragment: (bf16 op/s, fp32 op/s, bytes/s)
 # bf16: the kernels round p to bf16 before P.V (as the TPU kernels do) and
 # every output is rounded to bf16 once (2^-8 relative): two bf16 ulps.
 TOL = {"float32": 5e-5, "bfloat16": 1.6e-2}
-# K4 (dq, dk, dv): fp32 as above; bf16: the kernel and its plain version
-# round p and ds to bf16 before the products, exp2 on the special-function
-# unit may flip a rounding, and each output is rounded to bf16 once: the
-# same two-ulp bound
+# K4: the largest relative L2 error ||kernel - plain|| / ||plain|| of dq, dk
+# and dv, each against its own scale (the gradients are ~1e-2, so a bound
+# relative to 1 + |plain| would be as large as they are). On the H100 the
+# sound kernel reads at most 2.5e-4 in bf16 (p and ds rounded to bf16 before
+# the products, where exp2 on the special-function unit flips some roundings)
+# and 6.7e-7 in fp32 (summation order); a ds scale 3% off reads 3.0e-2, a
+# dropped ragged last KV tile 9.7e-2 and a dropped last q tile 0.13 (PERF.md).
+TOL_K4 = {"float32": 1e-5, "bfloat16": 2e-3}
 # whole-net score-map MAE, kernel path vs all-plain path, B=1 (scores in [0, 1])
 NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # whole-step decoder/head gradients, kernel path vs all-plain path, B=1:
@@ -117,6 +121,11 @@ def _time_ms(torch, fn, reps: int = 10) -> float:
 def _rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     return float(((got - want).abs() / (1.0 + want.abs())).max())
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
 
 
 def _max_abs(got, want) -> float:
@@ -236,7 +245,7 @@ def main() -> int:
         ops = 4.0 * views * h * n * n * hd
         nbytes = views * n * (3 * d + d) * es + 2 * views * h * n * 4
         report[("K1", tname)] = dict(
-            err=err, max_abs=_max_abs(got[0], want[0]),
+            err=err, tol=TOL[tname], max_abs=_max_abs(got[0], want[0]),
             ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
             plain_ms=_time_ms(torch, lambda: flash_qkv_self_attention_plain(qkv, h), reps=3),
             library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -261,7 +270,7 @@ def main() -> int:
         ops = 4.0 * rows * d * f
         nbytes = 2 * rows * d * es + 2 * d * f * es + (4 * d + f) * es
         report[("K2", tname)] = dict(
-            err=err, max_abs=_max_abs(got, want),
+            err=err, tol=TOL[tname], max_abs=_max_abs(got, want),
             ms=_time_ms(torch, lambda: fused_ln_mlp(x, *mlp, vit.layer_norm_eps, "tanh")),
             plain_ms=_time_ms(torch, lambda: fused_ln_mlp_plain(x, *mlp, vit.layer_norm_eps, "tanh"), reps=3),
             library_ms=None,
@@ -281,7 +290,7 @@ def main() -> int:
             nbytes = B * (2 * nq + 2 * nk) * d * es + 2 * B * dec_h * nq * 4
             heads = lambda t: t.view(B, -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
             report[(tag, tname)] = dict(
-                err=err, max_abs=_max_abs(got[0], want[0]),
+                err=err, tol=TOL[tname], max_abs=_max_abs(got[0], want[0]),
                 ms=_time_ms(torch, lambda: flash_cross_attention(q, k_, v_, dec_h)),
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_plain(q, k_, v_, dec_h), reps=3),
                 library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -307,8 +316,12 @@ def main() -> int:
             heads = lambda t: t.view(t.shape[0], -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
             qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k_, v_))
             oh = F.scaled_dot_product_attention(qh, kh, vh)
+            errs = [_rel_l2(g, w) for g, w in zip(got, want)]  # dq, dk, dv
+            print(f"{tag} {tname} relative L2 error dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; "
+                  f"max|d|/max|plain| " + " ".join(
+                      f"{_max_abs(g, w) / float(w.float().abs().max()):.3e}" for g, w in zip(got, want)))
             report[(tag, tname)] = dict(
-                err=max(_rel_err(g, w) for g, w in zip(got, want)),
+                err=max(errs), tol=TOL_K4[tname],
                 max_abs=max(_max_abs(g, w) for g, w in zip(got, want)),
                 ms=_time_ms(torch, lambda: flash_cross_attention_bwd(*args)),
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_bwd_plain(*args), reps=3),
@@ -322,15 +335,15 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # the other presets' widths, small shapes, correctness only: K1 at hd 16
-    # (dinov2-test) and 64 (base, large), K2 at D 64, 768, 1024, K3 at hd 96
-    # and 128 (base, large decoders)
+    # (dinov2-test) and 64 (base, large), K2 at D 64, 768, 1024, K3 and K4 at
+    # hd 96 and 128 (base, large decoders), K4 also at hd 64
     for dtype in (torch.bfloat16, torch.float32):
         tname = str(dtype).split(".")[-1]
         for heads, hdim in ((4, 16), (12, 64)):
             qkv = randn(2, 300, 3 * heads * hdim, dtype=dtype)
             err = max(_rel_err(g, w) for g, w in zip(
                 flash_qkv_self_attention(qkv, heads), flash_qkv_self_attention_plain(qkv, heads)))
-            report[(f"K1 hd{hdim}", tname)] = dict(err=err)
+            report[(f"K1 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
         for width in (64, 768, 1024):
             x = randn(2, 300, width, dtype=dtype)
             mlp = (randn(width, dtype=torch.float32, scale=0.1) + 1,
@@ -341,30 +354,29 @@ def main() -> int:
                    randn(width, dtype=torch.float32, scale=0.1), randn(width, dtype=torch.float32) + 1)
             err = max(_rel_err(fused_ln_mlp(x, *mlp, 1e-6, g), fused_ln_mlp_plain(x, *mlp, 1e-6, g))
                       for g in ("tanh", "exact"))
-            report[(f"K2 D{width}", tname)] = dict(err=err)
+            report[(f"K2 D{width}", tname)] = dict(err=err, tol=TOL[tname])
         for heads, hdim in ((8, 96), (8, 128)):
             q, k_, v_ = (randn(2, n_, heads * hdim, dtype=dtype) for n_ in (300, 700, 700))
             err = max(_rel_err(g, w) for g, w in zip(
                 flash_cross_attention(q, k_, v_, heads), flash_cross_attention_plain(q, k_, v_, heads)))
-            report[(f"K3 hd{hdim}", tname)] = dict(err=err)
+            report[(f"K3 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
         for heads_, hdim in ((8, 64), (8, 96), (8, 128)):
             q, k_, v_ = (randn(2, n_, heads_ * hdim, dtype=dtype) for n_ in (300, 700, 700))
             o, l, m = flash_cross_attention(q, k_, v_, heads_)
             args = (q, k_, v_, o, randn(2, 300, heads_ * hdim, dtype=dtype), l, m, heads_)
-            err = max(_rel_err(g, w) for g, w in zip(
+            err = max(_rel_l2(g, w) for g, w in zip(
                 flash_cross_attention_bwd(*args), flash_cross_attention_bwd_plain(*args)))
-            report[(f"K4 hd{hdim}", tname)] = dict(err=err)
+            report[(f"K4 hd{hdim}", tname)] = dict(err=err, tol=TOL_K4[tname])
 
     bad = []
     for (kern, tname), r in report.items():
+        ok = r["err"] <= r["tol"]
         if "ms" not in r:  # a preset-width check
-            ok = r["err"] <= TOL[tname]
-            print(f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {TOL[tname]:.1e}) {'ok' if ok else 'FAIL'}")
+            print(f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {r['tol']:.1e}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(f"{kern} {tname}")
             continue
-        ok = r["err"] <= TOL[tname]
-        print(f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {TOL[tname]:.1e}) max|d| {r['max_abs']:.3e} "
+        print(f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {r['tol']:.1e}) max|d| {r['max_abs']:.3e} "
               f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} ms "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) {'ok' if ok else 'FAIL'}")
@@ -547,14 +559,15 @@ def main() -> int:
               "K2": f"x ({views}, {n}, {d}) bf16, F={f}",
               "K3": f"q ({B}, {nq}, {d}), k/v ({B}, {K * nq}, {d}) bf16, hd {d // dec_h}",
               "K4": f"q/o/do ({TB}, {nq}, {d}), k/v ({TB}, {TK * nq}, {d}) bf16, hd {d // dec_h}"}
-    stats = ("err", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms")
+    stats = ("err", "tol", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
         row = {"name": fn, "route": "cuda", "source": src, "replaces": replaces,
                "launches": train_launches[kern], "max_abs_err": r["max_abs"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-               "library_ms": r["library_ms"], "rel_err": r["err"], "tol": TOL["bfloat16"],
+               "library_ms": r["library_ms"], "rel_err": r["err"], "tol": r["tol"],
+               "err_kind": "relative L2 of dq, dk, dv" if kern == "K4" else "max |d| / (1 + |plain|)",
                "launches_by_path": {"predict": launches[kern], "train_step": train_launches[kern]},
                "fp32": {k: r32[k] for k in stats}, "shape": shapes[kern]}
         if kern in ("K3", "K4"):

@@ -22,10 +22,10 @@
 // registers and is written once, in the input dtype. That is seven products
 // per score tile instead of five. The alternative, one pass that adds each
 // block's share of dq into an fp32 buffer with atomicAdd, issues Nq * hd
-// atomics per KV tile (1.4e9 at the train cross shape) and measured 8.8 ms
-// there against 5.4 ms for the two passes on an NVIDIA H100 80GB HBM3 at a
-// 700 W power limit (tools/torch_k4_bench.py, PERF.md); it also left dq's
-// last bits to the order of the atomics.
+// atomics per KV tile (1.4e9 at the train cross shape) and measured
+// 8.9-9.0 ms there against 5.5-5.6 ms for the two passes on an NVIDIA H100
+// 80GB HBM3 at a 700 W power limit (chip_smoke.py from both checkouts,
+// PERF.md); it also left dq's last bits to the order of the atomics.
 //
 // Ragged tails are masked, never padded in memory: q rows past Nq load as
 // zeros with lb = +inf, so p = 0; KV rows past Nk get p = 0 and their dk, dv
