@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's predict forward and train step on one CUDA card.
+"""Drive the PyTorch/H100 port's predict forward, train step and predict CLI on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root, one card
 
 In order:
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the four kernels from ``crossscore_tpu_torch/csrc/`` (one ``nvcc``
-   per source, all at once) and print the build time;
+2. build the kernels from ``crossscore_tpu_torch/csrc/`` (one ``nvcc`` per
+   source, all at once) and print the build time;
 3. hold K1 (backbone self-attention), K2 (fused LN->MLP) and K3 (decoder
    attention) against their plain PyTorch versions at the predict shapes
-   (dinov2-small, 518 px, K=8 references, B=8), and K4 (decoder attention
-   backward) at the train shapes (B=24, K=5), in bf16 and fp32 (and at the
-   other presets' head dims and widths at small shapes), and time
-   the kernel, the plain version and, for the attention kernels, one
-   ``F.scaled_dot_product_attention`` call (K4: one backward of it) on the
-   same inputs (a yardstick only; the port never calls it);
+   (dinov2-small, 518 px, K=8 references, B=8), K4 (decoder attention
+   backward) at the train shapes (B=24, K=5), and K5 and K6 (the masked
+   forwards of shape-bucketed inference) at the bucketed predict shapes
+   (540x960 images -> 518x921 -> a 560x1008 bucket, B=8, K=5; per-item and
+   shared token biases), in bf16 and fp32 (and at the other presets' head
+   dims and widths at small shapes), and time the kernel, the plain version
+   and, for the attention kernels, one ``F.scaled_dot_product_attention``
+   call (K4: one backward of it; K5/K6: with the bias as a float mask) on
+   the same inputs (a yardstick only; the port never calls it);
 4. run the full-width forward through ``make_predict_step`` (dinov2-small,
    518 px, K=8, B=8, bf16, seeded random weights) with the launch counters
    zeroed, check the score map and that the forward launched 12 / 12 / 4 / 0
@@ -31,7 +34,14 @@ In order:
 8. run the train CLI (``tasks/train.py``) at dinov2-small width on a seeded
    synthetic dataset for a few steps at B=2, then resume it from its
    checkpoint;
-9. print one ``{"kernels": [...]}`` line, then, last, the device line.
+9. run the predict CLI (``tasks/predict.py``) at full width (dinov2-small,
+   518 px short side, B=8, K=5, bf16, a seeded Lightning checkpoint) over a
+   seeded 540x960 query/reference pair of directories four times: buckets
+   off and on, each with the reference-token cache off and on. Check the
+   kernels each mode launches, the cache's misses, and that the valid region
+   of every score map agrees across the four runs; print maps/s with the
+   loader in the loop;
+10. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -49,6 +59,11 @@ from pathlib import Path
 SEED = 0
 B, K, HW = 8, 8, 518  # predict operating point: 72 backbone views of 1370 tokens
 TB, TK = 24, 5  # train operating point (config/data/combined_training.yaml): 144 views
+# bucketed predict (config/data/SimpleReference.yaml, B=8, K=5): 540x960 images
+# resize to 518x921 (a 37x65 patch grid) and pad to the 560x1008 bucket (40x72)
+PB, PK, PHW, BUCKET_GRID = 8, 5, (540, 960), (40, 72)
+# valid grids mixed in one bucket-packed batch: 16.5% and 16.7% of the columns masked
+VALID_GRIDS = ((37, 65), (40, 60))
 
 # least time the card could take: the larger of ops / peak and bytes / rate.
 # Dense peaks from NVIDIA's data sheets (bf16 tensor cores, fp32 CUDA cores).
@@ -74,6 +89,12 @@ TOL = {"float32": 5e-5, "bfloat16": 1.6e-2}
 TOL_K4 = {"float32": 1e-5, "bfloat16": 2e-3}
 # whole-net score-map MAE, kernel path vs all-plain path, B=1 (scores in [0, 1])
 NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# predict CLI, bf16: mean |difference| of the valid region of the written
+# score maps between any two of the four modes (the B=1 net bound): the
+# bucketed runs go through K5/K6 with per-item resized position tables, the
+# cached runs encode the references in other batches, and bf16 rounds each
+# path differently through 12 blocks
+CLI_TOL = 1e-2
 # whole-step decoder/head gradients, kernel path vs all-plain path, B=1:
 # fp32, the largest |difference| of a leaf over its largest entry (summation
 # order through 12 backbone layers and the decoder); bf16, the relative L2
@@ -132,6 +153,57 @@ def _max_abs(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def _token_bias(torch, grids, dev, grid=BUCKET_GRID, cls: bool = False):
+    """(len(grids), N) fp32 token bias over a padded ``grid``: 0 in each
+    item's valid (gh_v, gw_v) top-left region, -1e30 elsewhere (the model's
+    bucket mask); ``cls`` prepends an always-valid column."""
+    gh, gw = grid
+    valid = torch.zeros(len(grids), gh, gw, dtype=torch.bool)
+    for i, (vh, vw) in enumerate(grids):
+        valid[i, :vh, :vw] = True
+    valid = valid.reshape(len(grids), gh * gw)
+    if cls:
+        valid = torch.cat([torch.ones(len(grids), 1, dtype=torch.bool), valid], 1)
+    return torch.where(valid, 0.0, -1e30).to(dev).contiguous()
+
+
+def _write_predict_dirs(root: Path, n_query: int, n_ref: int) -> tuple[Path, Path]:
+    """Seeded 540x960 RGB PNGs: ``n_query`` renders and ``n_ref`` references
+    (smooth random fields, each render a noisy copy of a reference)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    qdir, rdir = root / "query", root / "reference"
+    qdir.mkdir(parents=True)
+    rdir.mkdir(parents=True)
+    h, w = PHW
+    refs = []
+    for i in range(n_ref):
+        coarse = rng.random((h // 60 + 1, w // 60 + 1, 3))
+        img = np.kron(coarse, np.ones((60, 60, 1)))[:h, :w]
+        refs.append(img)
+        Image.fromarray((img * 255).astype(np.uint8)).save(rdir / f"frame_{i:05d}.png")
+    for i in range(n_query):
+        img = np.clip(refs[i % n_ref] + 0.1 * rng.standard_normal((h, w, 3)), 0, 1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(qdir / f"frame_{i:05d}.png")
+    return qdir, rdir
+
+
+class _Tee:
+    """stdout that also keeps what was written (the CLI's report lines)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
 def _profile(torch, fn, step_ms: float, top: int = 16) -> None:
     """Print the device-time breakdown of one call of ``fn`` (torch.profiler,
     after the caller's warm-up): device ms per kernel, launches, and the
@@ -182,7 +254,9 @@ def main() -> int:
     from crossscore_tpu_torch.confsys import load_config
     from crossscore_tpu_torch.ops.flash_attention import (
         flash_cross_attention, flash_cross_attention_bwd, flash_cross_attention_bwd_plain,
-        flash_cross_attention_plain, flash_qkv_self_attention, flash_qkv_self_attention_plain,
+        flash_cross_attention_masked, flash_cross_attention_masked_plain, flash_cross_attention_plain,
+        flash_qkv_self_attention, flash_qkv_self_attention_masked, flash_qkv_self_attention_masked_plain,
+        flash_qkv_self_attention_plain,
     )
     from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_plain
     from crossscore_tpu_torch.train.optim import make_optimizer
@@ -334,6 +408,62 @@ def main() -> int:
         del q, do
         torch.cuda.empty_cache()
 
+        # K5 and K6 at the bucketed predict shapes: a per-item bias mixing two
+        # valid extents (checked and timed) and the shared (N,) form (checked)
+        nb = BUCKET_GRID[0] * BUCKET_GRID[1]  # 2880 patch tokens per view
+        item_bias = _token_bias(torch, [VALID_GRIDS[i % 2] for i in range(PB)], dev)  # (PB, nb)
+        qkv = randn(PB, nb + 1, 3 * d, dtype=dtype)
+        bias5 = torch.cat([torch.zeros(PB, 1, device=dev), item_bias], 1).contiguous()  # CLS valid
+        got = flash_qkv_self_attention_masked(qkv, bias5, h)
+        want = flash_qkv_self_attention_masked_plain(qkv, bias5, h)
+        err = max(_rel_err(g, w) for g, w in zip(got, want))
+        err = max(err, *(_rel_err(g, w) for g, w in zip(
+            flash_qkv_self_attention_masked(qkv, bias5[1].contiguous(), h),
+            flash_qkv_self_attention_masked_plain(qkv, bias5[1].contiguous(), h))))
+        valid_cols = float((bias5 == 0).sum())  # summed over the batch
+        ops = 4.0 * h * (nb + 1) * valid_cols * hd  # masked columns need no work
+        nbytes = PB * (nb + 1) * (3 * d + d) * es + 2 * PB * h * (nb + 1) * 4 + bias5.numel() * 4
+        mask = bias5[:, None, None, :].to(dtype)
+        report[("K5", tname)] = dict(
+            err=err, tol=TOL[tname], max_abs=_max_abs(got[0], want[0]),
+            ms=_time_ms(torch, lambda: flash_qkv_self_attention_masked(qkv, bias5, h)),
+            plain_ms=_time_ms(torch, lambda: flash_qkv_self_attention_masked_plain(qkv, bias5, h), reps=3),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                *(qkv.view(PB, nb + 1, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)),
+                attn_mask=mask)),
+            bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
+            bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+        )
+        del qkv, got, want, mask
+        q = randn(PB, nb, d, dtype=dtype)
+        for tag, reps_ in (("K6", PK), ("K6self", 1)):  # cross over K views, then self
+            k_, v_ = randn(PB, reps_ * nb, d, dtype=dtype), randn(PB, reps_ * nb, d, dtype=dtype)
+            bias6 = item_bias.repeat(1, reps_).contiguous()
+            got = flash_cross_attention_masked(q, k_, v_, bias6, dec_h)
+            want = flash_cross_attention_masked_plain(q, k_, v_, bias6, dec_h)
+            err = max(_rel_err(g, w) for g, w in zip(got, want))
+            err = max(err, *(_rel_err(g, w) for g, w in zip(
+                flash_cross_attention_masked(q, k_, v_, bias6[1].contiguous(), dec_h),
+                flash_cross_attention_masked_plain(q, k_, v_, bias6[1].contiguous(), dec_h))))
+            dhd = d // dec_h
+            ops = 4.0 * dec_h * nb * float((bias6 == 0).sum()) * dhd
+            nbytes = PB * (2 * nb + 2 * reps_ * nb) * d * es + 2 * PB * dec_h * nb * 4 + bias6.numel() * 4
+            heads = lambda t: t.view(PB, -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
+            mask = bias6[:, None, None, :].to(dtype)
+            report[(tag, tname)] = dict(
+                err=err, tol=TOL[tname], max_abs=_max_abs(got[0], want[0]),
+                ms=_time_ms(torch, lambda: flash_cross_attention_masked(q, k_, v_, bias6, dec_h)),
+                plain_ms=_time_ms(torch, lambda: flash_cross_attention_masked_plain(q, k_, v_, bias6, dec_h),
+                                  reps=3),
+                library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    heads(q), heads(k_), heads(v_), attn_mask=mask)),
+                bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
+                bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+            )
+            del k_, v_, got, want, mask
+        del q, item_bias, bias5, bias6
+        torch.cuda.empty_cache()
+
     # the other presets' widths, small shapes, correctness only: K1 at hd 16
     # (dinov2-test) and 64 (base, large), K2 at D 64, 768, 1024, K3 and K4 at
     # hd 96 and 128 (base, large decoders), K4 also at hd 64
@@ -367,6 +497,20 @@ def main() -> int:
             err = max(_rel_l2(g, w) for g, w in zip(
                 flash_cross_attention_bwd(*args), flash_cross_attention_bwd_plain(*args)))
             report[(f"K4 hd{hdim}", tname)] = dict(err=err, tol=TOL_K4[tname])
+        for heads_, hdim in ((4, 16), (12, 64)):  # K5: dinov2-test, base/large backbones
+            qkv = randn(2, 301, 3 * heads_ * hdim, dtype=dtype)
+            bias = _token_bias(torch, [(10, 30), (15, 17)], dev, grid=(15, 20), cls=True)
+            err = max(_rel_err(g, w) for b_ in (bias, bias[1].contiguous()) for g, w in zip(
+                flash_qkv_self_attention_masked(qkv, b_, heads_),
+                flash_qkv_self_attention_masked_plain(qkv, b_, heads_)))
+            report[(f"K5 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
+        for heads_, hdim in ((8, 64), (8, 96), (8, 128)):  # K6: other decoders' head dims
+            q, k_ = randn(2, 300, heads_ * hdim, dtype=dtype), randn(2, 600, heads_ * hdim, dtype=dtype)
+            bias = _token_bias(torch, [(10, 20), (15, 17)], dev, grid=(15, 20)).repeat(1, 2).contiguous()
+            err = max(_rel_err(g, w) for b_ in (bias, bias[1].contiguous()) for g, w in zip(
+                flash_cross_attention_masked(q, k_, k_, b_, heads_),
+                flash_cross_attention_masked_plain(q, k_, k_, b_, heads_)))
+            report[(f"K6 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
 
     bad = []
     for (kern, tname), r in report.items():
@@ -393,7 +537,8 @@ def main() -> int:
     query = torch.randint(0, 256, (B, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
     refs = torch.randint(0, 256, (B, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
     wrappers = {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention,
-                "K4": flash_cross_attention_bwd}
+                "K4": flash_cross_attention_bwd, "K5": flash_qkv_self_attention_masked,
+                "K6": flash_cross_attention_masked}
 
     def zero_launches():
         for w in wrappers.values():
@@ -406,7 +551,8 @@ def main() -> int:
     score = step(query, refs)["score_map_ref_cross"]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * cfg.decoder_layers, "K4": 0}
+    want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * cfg.decoder_layers, "K4": 0,
+            "K5": 0, "K6": 0}
     print(f"predict path launches per forward: {launches} (expected {want})")
     if launches != want:
         _fail(f"launch counts {launches} != {want}")
@@ -459,7 +605,7 @@ def main() -> int:
     torch.cuda.synchronize()
     train_launches = read_launches()
     want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * mcfg.decoder_layers,
-            "K4": 2 * mcfg.decoder_layers}
+            "K4": 2 * mcfg.decoder_layers, "K5": 0, "K6": 0}
     print(f"train step launches: {train_launches} (expected {want})")
     if train_launches != want:
         _fail(f"train launch counts {train_launches} != {want}")
@@ -546,7 +692,126 @@ def main() -> int:
                 or ckpts != ["step_00000004.ckpt"] or cli_launches["K4"] != 4 * (len(steps1) + len(steps2)):
             _fail("train CLI run or resume")
 
-    # --- 9. the kernels line, then the device line ----------------------------
+    # --- 9. the predict CLI at full width, four modes --------------------------
+    import contextlib
+
+    from crossscore_tpu_torch.tasks.predict import main as predict_main
+
+    n_query, n_ref = 3 * PB, PK  # three batches; every query takes the whole pool
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        qdir, rdir = _write_predict_dirs(Path(tmp), n_query, n_ref)
+        pcfg = CrossScoreConfig.from_config(load_config("default_predict"))
+        ckpt = Path(tmp) / "run" / "ckpt" / "seeded.ckpt"  # the CLI makes <tmp>/run/predict
+        ckpt.parent.mkdir(parents=True)
+        torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in init_params(pcfg, SEED).items()}}, ckpt)
+        # gray maps and no figures: rgb maps and figures need matplotlib, which
+        # the card's machine lacks; no image copies, so that maps/s reads the
+        # loader, the device and the score-map writer
+        common = [f"trainer.ckpt_path_to_load={ckpt}", f"data.dataset.query_dir={qdir}",
+                  f"data.dataset.reference_dir={rdir}", f"data.neighbour_config.cross={PK}",
+                  f"data.loader.validation.batch_size={PB}",
+                  "logger.predict.write.config.score_map_colour_mode=gray",
+                  "logger.predict.write.config.vis_img_every_n_steps=-1",
+                  "logger.predict.write.flag.image_query=false",
+                  "logger.predict.write.flag.image_reference=false"]
+        modes = {"a": ("off", "off"), "b": ("off", "on"), "c": ("on", "on"), "d": ("on", "off")}
+        cli = {}
+        for tag, (buckets, cache) in modes.items():
+            tee = _Tee(sys.stdout)
+            zero_launches()
+            with contextlib.redirect_stdout(tee):
+                out = predict_main(common + [f"this_main.shape_buckets={buckets}",
+                                             f"this_main.ref_token_cache={cache}",
+                                             f"logger.predict.out_dir={tmp}/out_{tag}"])
+            torch.cuda.synchronize()
+            text = "".join(tee.text)
+            rate = re.search(r"= ([0-9.]+) maps/s", text)
+            h2d = re.search(r"host-to-device ([0-9.]+) MiB per batch", text)
+            hits = re.search(r"ref-token cache: (\d+) hits, (\d+) unique misses", text)
+            cli[tag] = dict(launches=read_launches(), maps_per_s=float(rate.group(1)),
+                            h2d_mib_per_batch=float(h2d.group(1)),
+                            hits=int(hits.group(1)) if hits else None,
+                            misses=int(hits.group(2)) if hits else None,
+                            maps=sorted((out / "batch" / "score_map_ref_cross").glob("*.png")))
+        # three full batches; a cached run adds one miss batch through the backbone
+        n_b, n_layers, n_dec = n_query // PB, vit.num_layers, 2 * pcfg.decoder_layers
+        bad = []
+        for tag, (buckets, cache) in modes.items():
+            r = cli[tag]
+            enc = n_layers * (n_b + (cache == "on"))
+            att, dec = ("K5", "K6") if buckets == "on" else ("K1", "K3")
+            other = ("K1", "K3") if buckets == "on" else ("K5", "K6")
+            want = {"K2": enc, att: enc, dec: n_dec * n_b, other[0]: 0, other[1]: 0, "K4": 0}
+            got = {k: r["launches"][k] for k in want}
+            print(f"predict CLI ({tag}) buckets {buckets}, cache {cache}: launches {got} (expected {want}); "
+                  f"{r['maps_per_s']:.2f} maps/s; host-to-device {r['h2d_mib_per_batch']:.2f} MiB per batch; "
+                  f"cache hits {r['hits']}, misses {r['misses']}; {len(r['maps'])} maps")
+            if got != want or len(r["maps"]) != n_query:
+                bad.append(f"{tag} launches/maps")
+            # the first batch's slots all resolve from its own misses (counted as
+            # misses, as the JAX counter does); every later slot is a hit
+            if cache == "on" and (r["misses"] != n_ref or r["hits"] != (n_b - 1) * PB * PK):
+                bad.append(f"{tag} cache misses {r['misses']} != {n_ref}")
+        # the valid region of every written map agrees across the four modes
+        from PIL import Image
+
+        def read_maps(tag):
+            return [np.asarray(Image.open(p)).astype(np.float64) / 32767.0 - 1.0 for p in cli[tag]["maps"]]
+
+        maps = {tag: read_maps(tag) for tag in modes}
+        names = [p.name for p in cli["a"]["maps"]]
+        agree = {}
+        for tag in "bcd":
+            if [p.name for p in cli[tag]["maps"]] != names:
+                bad.append(f"{tag} map names")
+                continue
+            diffs = [np.abs(x - y) for x, y in zip(maps[tag], maps["a"])]
+            agree[tag] = (float(np.mean([dd.mean() for dd in diffs])), float(max(dd.max() for dd in diffs)))
+            print(f"predict CLI ({tag}) vs (a): score-map MAE {agree[tag][0]:.3e} (tol {CLI_TOL:.0e}), "
+                  f"max |d| {agree[tag][1]:.3e}, shape {maps[tag][0].shape}")
+            if not agree[tag][0] <= CLI_TOL:
+                bad.append(f"{tag} maps disagree")
+        print(f"predict CLI: 4 runs in {time.perf_counter() - t0:.1f} s")
+        if bad:
+            _fail("predict CLI: " + ", ".join(bad))
+
+        # where the CLI's time goes: the host loader alone (decode, resize,
+        # normalise, collate on 8 threads), then each mode's device step alone
+        # on one batch already on the card
+        from crossscore_tpu_torch.data.loader import Loader
+        from crossscore_tpu_torch.data.simple_reference import SimpleReference
+        from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
+        from crossscore_tpu_torch.train.step import make_predict_step_cached
+
+        dataset = SimpleReference(str(qdir), str(rdir), {"strategy": "random", "cross": PK, "deterministic": False})
+        t1 = time.perf_counter()
+        host = list(Loader(dataset, PB, shuffle=False, num_workers=8).epoch(0))
+        loader_rate = n_query / (time.perf_counter() - t1)
+        model = load_into(CrossScoreNet(pcfg, device=dev), init_params(pcfg, SEED, dev))
+        step, step_cached = make_predict_step(model), make_predict_step_cached(model)
+        encode = make_backbone_encoder(pcfg)
+        q_img = torch.from_numpy(host[0]["query/img"]).to(dev)
+        r_img = torch.from_numpy(host[0]["reference/cross/imgs"]).to(dev)
+        bucket = (BUCKET_GRID[0] * 14, BUCKET_GRID[1] * 14)
+        pad = lambda t: F.pad(t, (0, 0, 0, bucket[1] - t.shape[-2], 0, bucket[0] - t.shape[-3]))  # noqa: E731
+        vhw = np.tile(np.asarray(host[0]["query/img"].shape[1:3], np.int32), (PB, 1))
+        tokens = encode(model, r_img.reshape(PB * PK, *r_img.shape[2:])).reshape(PB, PK, -1, d)
+        tokens_b = encode(model, pad(r_img).reshape(PB * PK, *bucket, 3),
+                          np.repeat(vhw, PK, axis=0)).reshape(PB, PK, -1, d)
+        device_ms = {
+            "a": _time_ms(torch, lambda: step(q_img, r_img), reps=5),
+            "b": _time_ms(torch, lambda: step_cached(q_img, tokens), reps=5),
+            "c": _time_ms(torch, lambda: step_cached(pad(q_img), tokens_b, vhw), reps=5),
+            "d": _time_ms(torch, lambda: step(pad(q_img), pad(r_img), vhw), reps=5),
+        }
+        print(f"predict CLI breakdown: host loader alone {loader_rate:.2f} maps/s (8 threads); device step "
+              "alone, ms per batch of 8 (maps/s): " + ", ".join(
+                  f"({k}) {v:.2f} ({1e3 * PB / v:.1f})" for k, v in device_ms.items()))
+        del model, step, step_cached, tokens, tokens_b, q_img, r_img, host
+        torch.cuda.empty_cache()
+
+    # --- 10. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -554,29 +819,46 @@ def main() -> int:
                "K3": ("flash_cross_attention", "crossscore_tpu_torch/csrc/flash_cross.cu",
                       "crossscore_tpu/ops/flash_attention.py:799"),
                "K4": ("flash_cross_attention_bwd", "crossscore_tpu_torch/csrc/flash_cross_bwd.cu",
-                      "crossscore_tpu/ops/flash_attention.py:949")}
+                      "crossscore_tpu/ops/flash_attention.py:949"),
+               "K5": ("flash_qkv_self_attention_masked", "crossscore_tpu_torch/csrc/flash_qkv.cu",
+                      "crossscore_tpu/ops/flash_attention.py:1227"),
+               "K6": ("flash_cross_attention_masked", "crossscore_tpu_torch/csrc/flash_cross.cu",
+                      "crossscore_tpu/ops/flash_attention.py:799")}
     shapes = {"K1": f"qkv ({views}, {n}, {3 * d}) bf16",
               "K2": f"x ({views}, {n}, {d}) bf16, F={f}",
               "K3": f"q ({B}, {nq}, {d}), k/v ({B}, {K * nq}, {d}) bf16, hd {d // dec_h}",
-              "K4": f"q/o/do ({TB}, {nq}, {d}), k/v ({TB}, {TK * nq}, {d}) bf16, hd {d // dec_h}"}
+              "K4": f"q/o/do ({TB}, {nq}, {d}), k/v ({TB}, {TK * nq}, {d}) bf16, hd {d // dec_h}",
+              "K5": f"qkv ({PB}, {BUCKET_GRID[0] * BUCKET_GRID[1] + 1}, {3 * d}) bf16, per-item bias",
+              "K6": f"q ({PB}, {BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}), k/v ({PB}, "
+                    f"{PK * BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}) bf16, hd {d // dec_h}, per-item bias"}
     stats = ("err", "tol", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
+        # the main path of K1-K4 is the train step; of K5 and K6, the bucketed
+        # predict CLI run (c)
+        main_launches = cli["c"]["launches"][kern] if kern in ("K5", "K6") else train_launches[kern]
         row = {"name": fn, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": train_launches[kern], "max_abs_err": r["max_abs"], "ms": r["ms"],
+               "launches": main_launches, "max_abs_err": r["max_abs"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "rel_err": r["err"], "tol": r["tol"],
                "err_kind": "relative L2 of dq, dk, dv" if kern == "K4" else "max |d| / (1 + |plain|)",
-               "launches_by_path": {"predict": launches[kern], "train_step": train_launches[kern]},
+               "launches_by_path": {"predict": launches[kern], "bucketed_predict": cli["c"]["launches"][kern],
+                                    "train_step": train_launches[kern]},
                "fp32": {k: r32[k] for k in stats}, "shape": shapes[kern]}
-        if kern in ("K3", "K4"):
+        if kern in ("K3", "K4", "K6"):
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
             row["self"] = {k: s[k] for k in stats}
             row["self_fp32"] = {k: s32[k] for k in stats}
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "card": card, "maps_per_s": 1e3 * B / step_ms,
-                      "step_ms": step_ms, "train_step_ms": train_ms, "train_peak_gib": train_peak}))
+                      "step_ms": step_ms, "train_step_ms": train_ms, "train_peak_gib": train_peak,
+                      "predict_cli": {tag: {k: v for k, v in r.items() if k not in ("maps", "launches")}
+                                      | {"mae_vs_a": agree.get(tag, (0.0, 0.0))[0],
+                                         "max_vs_a": agree.get(tag, (0.0, 0.0))[1],
+                                         "device_step_ms": device_ms[tag]}
+                                      for tag, r in cli.items()},
+                      "predict_loader_maps_per_s": loader_rate}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
     return 0

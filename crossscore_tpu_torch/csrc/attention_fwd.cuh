@@ -1,4 +1,5 @@
-// Flash-attention forward shared by K1 (flash_qkv.cu) and K3 (flash_cross.cu).
+// Flash-attention forward shared by K1 and K5 (flash_qkv.cu) and K3 and K6
+// (flash_cross.cu).
 //
 // softmax(Q K^T * scale) V for one (batch, head, q tile) per block,
 // with an online softmax over 64-row KV tiles, so the Nq x Nk score matrix
@@ -10,6 +11,14 @@
 // natural units) to (B, H, Nq) fp32, the JAX package's (o, l, m) convention.
 // Ragged tails are masked on both sides: q rows past Nq are computed from
 // zeros and never stored, KV columns past Nk get -inf logits (and zero V).
+//
+// K5 and K6 are the same kernels with BIAS = true: an fp32 additive bias over
+// the KV tokens (0 for a valid token, -1e30 for a bucket-padded one), one row
+// shared by the batch (bias_bs = 0) or one row per batch item (bias_bs = Nk,
+// selected by blockIdx.z). The score becomes s * c1 + bias[col] * log2(e) in
+// fp32 before the row max; -1e30 * log2(e) stays finite in fp32 and exp2 of
+// it is 0. The tail mask is applied after the bias, so the two combine. With
+// BIAS = false the unmasked K1 and K3 compile exactly as without the bias.
 //
 // Bound on the H100: at the main-path shapes (hd 64 and 48, N >= 1369) the
 // work is ~4*N*N*hd operations per head against ~N*hd*8 bytes, far above the
@@ -43,6 +52,8 @@ struct AttnArgs {
   long long o_bs, o_rs;
   int h, nq, nk;
   float c1;  // softmax scale * log2(e)
+  const float* bias = nullptr;  // K5/K6: (Nk,) or (B, Nk) fp32, natural units
+  long long bias_bs = 0;        // batch stride of bias: 0 (shared row) or Nk
 };
 
 // bf16 tiling: MW 16-row m-atoms per warp (two when hd <= 64, so every K and
@@ -62,7 +73,7 @@ struct BfLayout {
 // memory (cp.async, two stages). S = Q K^T and O += P V run as mma.sync
 // m16n8k16 with fp32 accumulators in registers, and P is rounded to bf16
 // straight from the S accumulators into A fragments.
-template <int HD>
+template <int HD, bool BIAS>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
   using L = BfLayout<HD>;
   using bf16 = __nv_bfloat16;
@@ -81,6 +92,10 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
   const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * HD;
   const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * HD;
   const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * HD;
+  const float* bias = BIAS ? a.bias + b * a.bias_bs : nullptr;
+  // with a bias the scores are scaled (and biased) in place, so the softmax
+  // below runs at scale 1; without one it folds c1 into its FMAs
+  const float cs = BIAS ? 1.f : a.c1;
 
   cp_async_rows<L::ROWS, HD, ATTN_THREADS>(sQ, L::LD, Q, a.q_rs, q0, a.nq, tid);
   cp_async_rows<BK, HD, ATTN_THREADS>(sKV, L::LD, K, a.k_rs, 0, a.nk, tid);
@@ -139,7 +154,18 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
       }
     }
 
-    // mask the KV tail; online softmax in fp32, exp2 base (scale folded into the FMA)
+    // bias, then mask the KV tail; online softmax in fp32, exp2 base (scale
+    // folded into the FMA unless the bias pass applied it)
+    float bcol[NST][2];
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int j = 0; j < NST; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = t * BK + j * 8 + qd * 2 + e;
+          bcol[j][e] = col < a.nk ? __ldg(bias + col) * kLog2e : 0.f;
+        }
+    }
     uint32_t pa[MW][BK / 16][4];
 #pragma unroll
     for (int mi = 0; mi < MW; ++mi) {
@@ -149,6 +175,10 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool ok = t * BK + j * 8 + qd * 2 + e < a.nk;
+          if constexpr (BIAS) {
+            s[mi][j][e] = fmaf(s[mi][j][e], a.c1, bcol[j][e]);
+            s[mi][j][2 + e] = fmaf(s[mi][j][2 + e], a.c1, bcol[j][e]);
+          }
           s[mi][j][e] = ok ? s[mi][j][e] : -INFINITY;
           s[mi][j][2 + e] = ok ? s[mi][j][2 + e] : -INFINITY;
           mx0 = fmaxf(mx0, s[mi][j][e]);
@@ -161,15 +191,15 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
       // running maxima in scaled units (c1 > 0, so scaling keeps the max)
-      const float mn0 = fmaxf(m_run[mi][0], mx0 * a.c1), mn1 = fmaxf(m_run[mi][1], mx1 * a.c1);
+      const float mn0 = fmaxf(m_run[mi][0], mx0 * cs), mn1 = fmaxf(m_run[mi][1], mx1 * cs);
       const float al0 = ex2(m_run[mi][0] - mn0), al1 = ex2(m_run[mi][1] - mn1);
       m_run[mi][0] = mn0;
       m_run[mi][1] = mn1;
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
       for (int j = 0; j < NST; ++j) {
-        const float p00 = ex2(fmaf(s[mi][j][0], a.c1, -mn0)), p01 = ex2(fmaf(s[mi][j][1], a.c1, -mn0));
-        const float p10 = ex2(fmaf(s[mi][j][2], a.c1, -mn1)), p11 = ex2(fmaf(s[mi][j][3], a.c1, -mn1));
+        const float p00 = ex2(fmaf(s[mi][j][0], cs, -mn0)), p01 = ex2(fmaf(s[mi][j][1], cs, -mn0));
+        const float p10 = ex2(fmaf(s[mi][j][2], cs, -mn1)), p11 = ex2(fmaf(s[mi][j][3], cs, -mn1));
         rs0 += p00 + p01;
         rs1 += p10 + p11;
         pa[mi][j / 2][(j % 2) * 2] = pack_bf16(p00, p01);
@@ -236,7 +266,7 @@ struct F32Layout {
 
 // fp32: CUDA cores only. Two threads per q row, each holding half of the
 // row's q and o in registers; K/V tiles and the row's scores in shared memory.
-template <int HD>
+template <int HD, bool BIAS>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
   using L = F32Layout<HD>;
   constexpr int HH = HD / 2;
@@ -249,6 +279,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
   const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * HD;
   const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * HD;
   const float* V = static_cast<const float*>(a.v) + b * a.v_bs + head * HD;
+  const float* bias = BIAS ? a.bias + b * a.bias_bs : nullptr;
 
   const int qrow = q0 + row;
   float q[HH], o[HH];
@@ -272,7 +303,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
 #pragma unroll
       for (int d = 0; d < HH; ++d) s = fmaf(q[d], kr[d], s);
       s += __shfl_xor_sync(0xffffffffu, s, 1);
-      const float t = s * a.c1;
+      const float t = BIAS ? fmaf(s, a.c1, __ldg(bias + k0 + j) * kLog2e) : s * a.c1;
       if (half == 0) srow[j] = t;
       mx = fmaxf(mx, t);
     }
@@ -307,36 +338,39 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
   }
 }
 
-template <int HD>
+template <int HD, bool BIAS>
 int launch_attention_hd(const AttnArgs& a, int batch, int dtype, cudaStream_t st) {
   const int rows = dtype == kBFloat16 ? BfLayout<HD>::ROWS : BQ;
   const dim3 grid((a.nq + rows - 1) / rows, a.h, batch);
   cudaError_t err;
   if (dtype == kBFloat16) {
     const int bytes = (int)BfLayout<HD>::total;
-    err = cudaFuncSetAttribute(attn_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(attn_fwd_bf16<HD, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
-    attn_fwd_bf16<HD><<<grid, ATTN_THREADS, bytes, st>>>(a);
+    attn_fwd_bf16<HD, BIAS><<<grid, ATTN_THREADS, bytes, st>>>(a);
   } else {
     const int bytes = (int)F32Layout<HD>::total;
-    err = cudaFuncSetAttribute(attn_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(attn_fwd_f32<HD, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
-    attn_fwd_f32<HD><<<grid, ATTN_THREADS, bytes, st>>>(a);
+    attn_fwd_f32<HD, BIAS><<<grid, ATTN_THREADS, bytes, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
-// head dims: multiples of 16 up to 128 (the wrappers reject the rest)
-inline int launch_attention(const AttnArgs& a, int batch, int hd, int dtype, cudaStream_t st) {
+// head dims: multiples of 16 up to 128 (the wrappers reject the rest).
+// BIAS selects the unmasked (K1/K3) or the masked (K5/K6) instantiation; a
+// source instantiates only the ones its entry points launch.
+template <bool BIAS>
+int launch_attention(const AttnArgs& a, int batch, int hd, int dtype, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_attention_hd<16>(a, batch, dtype, st);
-    case 32: return launch_attention_hd<32>(a, batch, dtype, st);
-    case 48: return launch_attention_hd<48>(a, batch, dtype, st);
-    case 64: return launch_attention_hd<64>(a, batch, dtype, st);
-    case 80: return launch_attention_hd<80>(a, batch, dtype, st);
-    case 96: return launch_attention_hd<96>(a, batch, dtype, st);
-    case 112: return launch_attention_hd<112>(a, batch, dtype, st);
-    case 128: return launch_attention_hd<128>(a, batch, dtype, st);
+    case 16: return launch_attention_hd<16, BIAS>(a, batch, dtype, st);
+    case 32: return launch_attention_hd<32, BIAS>(a, batch, dtype, st);
+    case 48: return launch_attention_hd<48, BIAS>(a, batch, dtype, st);
+    case 64: return launch_attention_hd<64, BIAS>(a, batch, dtype, st);
+    case 80: return launch_attention_hd<80, BIAS>(a, batch, dtype, st);
+    case 96: return launch_attention_hd<96, BIAS>(a, batch, dtype, st);
+    case 112: return launch_attention_hd<112, BIAS>(a, batch, dtype, st);
+    case 128: return launch_attention_hd<128, BIAS>(a, batch, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

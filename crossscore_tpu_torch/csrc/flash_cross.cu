@@ -1,6 +1,7 @@
-// K3: decoder self- and cross-attention on token-major projections.
+// K3: decoder self- and cross-attention on token-major projections, and
+// K6: the same with an additive KV-token bias (shape-bucketed inference).
 //
-// Replaces the TPU kernel crossscore_tpu/ops/flash_attention.py
+// K3 replaces the TPU kernel crossscore_tpu/ops/flash_attention.py
 // `_fwd_kernel_cross_ln` (launched by `_flash_cross_ln_fwd`). q is
 // (B, Nq, H*hd) and k, v are (B, Nk, H*hd), the layout the q/k/v projections
 // emit; heads are read at column offset h*hd. The TPU kernel pads hd 48 to 64
@@ -9,13 +10,20 @@
 // path, three 16-wide tensor-core steps) with scale 1/sqrt(hd), and the KV
 // tail (Nk = 1369 or K*1369) is masked in the last 64-row tile instead of
 // being padded in memory. What bounds it and how: see attention_fwd.cuh.
+//
+// K6 is the same body with `kv_bias` (`_fwd_kernel_cross_ln` with `per_item`):
+// a (Nk,) or (B, Nk) fp32 bias row, for the decoder's self-attention (Nk =
+// Nq) and its cross-attention over K bucket-padded reference grids (the
+// item's token mask tiled K times). The TPU kernel adds the pre-scaled bias
+// block to the score tile; here each thread reads its columns of the item's
+// row per KV tile and the tail mask still applies after it.
 
 #include "attention_fwd.cuh"
 
-extern "C" int cs_flash_cross_attention(const void* q, const void* k, const void* v,
-                                        void* o, void* l, void* m, int batch, int nq,
-                                        int nk, int heads, int hd, int dtype, float scale,
-                                        void* stream) {
+namespace {
+
+cs::AttnArgs cross_args(const void* q, const void* k, const void* v, void* o, void* l, void* m,
+                        int nq, int nk, int heads, int hd, float scale) {
   const long long d = (long long)heads * hd;
   cs::AttnArgs a;
   a.q = q;
@@ -33,5 +41,27 @@ extern "C" int cs_flash_cross_attention(const void* q, const void* k, const void
   a.nq = nq;
   a.nk = nk;
   a.c1 = scale * cs::kLog2e;
-  return cs::launch_attention(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
+  return a;
+}
+
+}  // namespace
+
+extern "C" int cs_flash_cross_attention(const void* q, const void* k, const void* v,
+                                        void* o, void* l, void* m, int batch, int nq,
+                                        int nk, int heads, int hd, int dtype, float scale,
+                                        void* stream) {
+  const cs::AttnArgs a = cross_args(q, k, v, o, l, m, nq, nk, heads, hd, scale);
+  return cs::launch_attention<false>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// bias: (Nk,) with bias_bs 0, or (B, Nk) with bias_bs Nk; fp32, natural units
+extern "C" int cs_flash_cross_attention_masked(const void* q, const void* k, const void* v,
+                                               const void* bias, long long bias_bs, void* o,
+                                               void* l, void* m, int batch, int nq, int nk,
+                                               int heads, int hd, int dtype, float scale,
+                                               void* stream) {
+  cs::AttnArgs a = cross_args(q, k, v, o, l, m, nq, nk, heads, hd, scale);
+  a.bias = static_cast<const float*>(bias);
+  a.bias_bs = bias_bs;
+  return cs::launch_attention<true>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
 }

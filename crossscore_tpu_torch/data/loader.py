@@ -11,7 +11,9 @@ Replaces the reference's torch ``DataLoader`` stack (reference
   decode); whole batches are assembled ahead of time into a bounded prefetch
   queue so the accelerator never waits on the host.
 - Fixed output shapes per (crop_size, K). The final partial batch is padded
-  by repeating the last item; the true count travels in ``batch["_valid"]``.
+  by repeating the last item (``pad_last``); the true count travels in
+  ``batch["_valid"]``. Subclasses may pad mixed-shape items to one shape
+  before collation (``_pre_collate``, data/bucketing.py).
 - Batches are numpy; the train loop moves them to the device.
 """
 
@@ -67,6 +69,7 @@ class Loader:
         prefetch_batches: int = 2,
         seed: int = 0,
         drop_last: bool = False,
+        pad_last: bool = True,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -75,6 +78,7 @@ class Loader:
         self.prefetch_batches = max(1, prefetch_batches)
         self.seed = seed
         self.drop_last = drop_last
+        self.pad_last = pad_last
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
@@ -86,7 +90,9 @@ class Loader:
         return len(self._plan(0))
 
     def _plan(self, epoch: int) -> list:
-        """Batch plan: a list of (index_chunk, n_valid)."""
+        """Batch plan: a list of (index_chunk, n_valid, extra); ``extra`` is an
+        opaque value handed to :meth:`_pre_collate` (ShapeBucketedLoader's
+        bucket shape)."""
         indices = self._epoch_indices(epoch)
         bs = self.batch_size
         plan = []
@@ -94,8 +100,13 @@ class Loader:
             chunk = indices[start : start + bs]
             if len(chunk) < bs and self.drop_last:
                 continue
-            plan.append((chunk, len(chunk)))
+            plan.append((chunk, len(chunk), None))
         return plan
+
+    def _pre_collate(self, items: list, extra) -> list:
+        """Per-item hook before collation (subclasses pad mixed-shape items
+        to a common shape here so that they stack)."""
+        return items
 
     def epoch(self, epoch: int = 0, start_batch: int = 0) -> Iterator[dict]:
         """Yield collated numpy batches for one epoch.
@@ -128,7 +139,7 @@ class Loader:
 
         def _produce_inner():
             with ThreadPoolExecutor(self.num_workers) as pool:
-                for chunk, n_valid in batch_slices:
+                for chunk, n_valid, extra in batch_slices:
                     if stop.is_set():
                         break
                     items = list(
@@ -139,9 +150,9 @@ class Loader:
                             chunk,
                         )
                     )
-                    if len(items) < bs:
+                    if len(items) < bs and self.pad_last:
                         items = items + [items[-1]] * (bs - len(items))
-                    batch = collate(items)
+                    batch = collate(self._pre_collate(items, extra))
                     batch["_valid"] = np.asarray(n_valid, np.int32)
                     if not put_checked(batch):
                         return

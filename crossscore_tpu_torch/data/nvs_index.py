@@ -33,6 +33,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+from PIL import Image
 
 from crossscore_tpu_torch.data.crop import CropperSame, CropperSeparate
 from crossscore_tpu_torch.data.samplers import EMPTY_IMAGE, make_sampler
@@ -79,6 +80,9 @@ class NeighbourSelector:
 
     def __len__(self) -> int:
         return len(self.index)
+
+    def __getitem__(self, idx: int) -> dict:
+        return self.select(idx, np.random.default_rng(0))
 
     def select(self, idx: int, rng: np.random.Generator) -> dict:
         meta = self.index[idx]
@@ -284,6 +288,29 @@ class NvsDataset:
             ref_imgs = np.zeros_like(ref_imgs)
         return {"query/img": query, "query/score_map": score_map, "reference/cross/imgs": ref_imgs}
 
+    def resized_hw(self, h: int, w: int) -> tuple[int, int]:
+        """Post-pipeline (H, W) for an original (h, w) image: the rounding of
+        :meth:`_resize` and the optional integer-patch crop."""
+        s = self.resize_short_side
+        if s > 0 and min(h, w) != s:
+            if h <= w:
+                h, w = s, max(1, round(w * s / h))
+            else:
+                h, w = max(1, round(h * s / w)), s
+        if self.crop_mode == "integer_patches":
+            h, w = h - h % 14, w - w % 14
+        return h, w
+
+    def get_item_shape(self, idx: int) -> tuple[int, int]:
+        """Post-pipeline query (H, W) of item ``idx`` without decoding it: only
+        the PNG header is read. The shape-bucketed loader groups items by it
+        before any pixel I/O."""
+        if self.query_crop is not None:
+            return tuple(self.query_crop.output_size)
+        with Image.open(self.neighbour_selector[idx]["query/img"]) as im:
+            w, h = im.size
+        return self.resized_hw(h, w)
+
     def _resize(self, img: np.ndarray) -> np.ndarray:
         """Resize so the SHORT side == resize_short_side (torchvision semantics)."""
         s = self.resize_short_side
@@ -294,6 +321,8 @@ class NvsDataset:
             out_h, out_w = s, max(1, round(w * s / h))
         else:
             out_h, out_w = max(1, round(h * s / w)), s
+        if not img.any():  # the zero score maps of a dataset without GT: the resize is zero too
+            return np.zeros((out_h, out_w, *img.shape[2:]), np.float32)
         return resize_bilinear_antialias(img, out_h, out_w)
 
     def get_item(self, idx: int, rng: np.random.Generator) -> dict:

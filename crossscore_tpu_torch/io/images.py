@@ -71,3 +71,18 @@ def metric_map_write(path: str | Path, m: np.ndarray, vrange: list | tuple) -> N
 def normalize_imagenet(img: np.ndarray) -> np.ndarray:
     """(..., 3) float32 [0,1] -> ImageNet-normalised."""
     return (img - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def denormalize_imagenet(img: np.ndarray) -> np.ndarray:
+    """(..., 3) ImageNet-normalised -> [0,1]-ish float32."""
+    return img * IMAGENET_STD + IMAGENET_MEAN
+
+
+def to_display_rgb(img: np.ndarray) -> np.ndarray:
+    """Batch pixels -> [0,1] float32 for display, whichever wire format the
+    loader shipped: raw uint8 (``data.dataset.wire_uint8``) or
+    ImageNet-normalised float."""
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        return img.astype(np.float32) / 255.0
+    return denormalize_imagenet(img)

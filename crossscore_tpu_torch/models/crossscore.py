@@ -1,14 +1,20 @@
 """CrossScoreNet; counterpart of ``crossscore_tpu/models/crossscore.py``.
 
 1. query (B, H, W, 3) + references (B, K, H, W, 3), ImageNet-normalised (or
-   raw uint8, normalised here in fp32)
-2. all B*(1+K) images through the frozen DINOv2 encoder in one batch, under
-   ``torch.no_grad()``; CLS stripped
+   raw uint8, normalised here in fp32), or the references' cached backbone
+   tokens (``ref_tokens``, from :func:`make_backbone_encoder`)
+2. all B*(1+K) images (or the B queries alone) through the frozen DINOv2
+   encoder in one batch, under ``torch.no_grad()``; CLS stripped
 3. the multi-view PE added to query and reference tokens (trainable only
    with ``pe_trainable``)
 4. the 2-layer cross-reference decoder
 5. head Linear -> LeakyReLU -> Linear -> regression activation
 6. jigsaw reassembly -> (B, H, W) score map
+
+Shape-bucketed inference (``valid_hw``): the images are padded right and
+bottom to a bucket shape; the encoder, the PE and the decoder mask the tokens
+of padded patches (K5 and K6 on the flash route), so the valid region of the
+score map equals an unpadded run's.
 
 Parameter names are the reference Lightning state-dict keys without the
 ``model.`` prefix (``backbone.*``, ``pos_enc_fn.PE``, ``ref_cross.attn.*``,
@@ -33,7 +39,7 @@ from torch import nn
 from crossscore_tpu_torch.device import resolve_device
 from crossscore_tpu_torch.models.decoder import CrossReferenceDecoder
 from crossscore_tpu_torch.models.dinov2 import (
-    ATTENTION_IMPLS, MLP_IMPLS, VIT_PRESETS, Dinov2Encoder, ViTConfig, linear,
+    ATTENTION_IMPLS, MLP_IMPLS, VIT_PRESETS, Dinov2Encoder, ViTConfig, linear, token_bias,
 )
 from crossscore_tpu_torch.models.positional import MultiViewPositionalEmbedding
 from crossscore_tpu_torch.models.regression import regression_activation
@@ -160,16 +166,27 @@ class CrossScoreNet(nn.Module):
                 ref_tokens=None, ref_grid=None, query_tokens=None, token_grid=None) -> dict:
         """query_img (B, H, W, 3), ref_imgs (B, K, H, W, 3) or None ->
         {"score_map_ref_cross": (B, H, W) fp32[, "attn_weights_map_ref_cross":
-        (B, gh, gw, K, gh, gw)]}."""
-        for name, val in (("valid_hw", valid_hw), ("ref_tokens", ref_tokens),
-                          ("ref_grid", ref_grid), ("query_tokens", query_tokens),
-                          ("token_grid", token_grid)):
+        (B, gh, gw, K, gh_r, gw_r)]}.
+
+        :param valid_hw: the true (h, w) pixel extents of bucket-padded
+            images, from the host loader: (2,) shared by the batch or (B, 2)
+            per item (each item's K references share its extent). Numpy or
+            Python ints; a device tensor is refused rather than synchronised.
+        :param ref_tokens: (B, K, N_r, D) cached reference tokens in place of
+            ``ref_imgs``; only the queries are encoded.
+        :param ref_grid: the (gh_r, gw_r) patch grid of ``ref_tokens`` when it
+            differs from the query's (only with ``ref_tokens``, not with
+            ``valid_hw``).
+        """
+        for name, val in (("query_tokens", query_tokens), ("token_grid", token_grid)):
             if val is not None:
                 raise NotImplementedError(f"{name} is not ported yet")
         c = self.cfg
-        for name, img in (("query_img", query_img), ("ref_imgs", ref_imgs)):
+        for name, img in (("query_img", query_img), ("ref_imgs", ref_imgs), ("ref_tokens", ref_tokens)):
             if img is not None and img.device != self.img_mean_std.device:
                 raise ValueError(f"{name} is on {img.device}, the model on {self.img_mean_std.device}")
+        if ref_tokens is not None and ref_imgs is not None:
+            raise ValueError("pass ref_imgs or ref_tokens, not both")
         if query_img.dtype == torch.uint8 or (ref_imgs is not None and ref_imgs.dtype == torch.uint8):
             if norm_img:
                 raise ValueError("norm_img expects [0,1] float pixels, got uint8")
@@ -190,22 +207,59 @@ class CrossScoreNet(nn.Module):
         gh, gw = hgt // p, wdt // p
         n_patch = gh * gw
         d = c.backbone.hidden_size
-        k_ref = 0 if ref_imgs is None else ref_imgs.shape[1]
-        all_imgs = query_img if ref_imgs is None else torch.cat(
-            [query_img, ref_imgs.reshape(b * k_ref, hgt, wdt, 3).to(query_img.dtype)]
-        )
+        if ref_tokens is not None:
+            k_ref = ref_tokens.shape[1]
+            all_imgs = query_img  # only the queries need encoding
+        else:
+            k_ref = 0 if ref_imgs is None else ref_imgs.shape[1]
+            all_imgs = query_img if ref_imgs is None else torch.cat(
+                [query_img, ref_imgs.reshape(b * k_ref, hgt, wdt, 3).to(query_img.dtype)]
+            )
+
+        valid_grid = enc_valid_grid = tok_bias = None
+        per_item = False
+        if valid_hw is not None:
+            vhw = np.asarray(valid_hw)
+            per_item = vhw.ndim == 2
+            if vhw.shape not in ((2,), (b, 2)):
+                raise ValueError(f"valid_hw must be (2,) or ({b}, 2), got {vhw.shape}")
+            valid_grid = (vhw[..., 0] // p, vhw[..., 1] // p)
+            enc_valid_grid = valid_grid
+            if per_item and ref_tokens is None and k_ref:
+                # encoder order: B queries, then each item's K refs in turn
+                enc_valid_grid = tuple(np.concatenate([g, np.repeat(g, k_ref)]) for g in valid_grid)
+            tok_bias = token_bias(gh, gw, valid_grid)
+
         with torch.no_grad():  # frozen backbone
-            tokens = self.backbone(all_imgs)[:, 1:]
+            tokens = self.backbone(all_imgs, enc_valid_grid)[:, 1:]
         q_tok = tokens[:b]
         results: dict = {}
         if not (c.do_reference_cross and k_ref > 0):
             return results
 
-        feat_query = self.pos_enc_fn(q_tok, 1, gh, gw)
-        feat_ref = self.pos_enc_fn(tokens[b:].reshape(b, k_ref * n_patch, d), k_ref, gh, gw)
+        if ref_grid is not None and ref_tokens is None:
+            raise ValueError("ref_grid is only meaningful with ref_tokens")
+        n_patch_r = ref_tokens.shape[2] if ref_tokens is not None else n_patch
+        gh_r, gw_r = ref_grid if ref_grid is not None else (gh, gw)
+        if gh_r * gw_r != n_patch_r:
+            raise ValueError(f"ref_tokens carry {n_patch_r} patches per view but the reference "
+                             f"grid is {(gh_r, gw_r)}")
+        if (gh_r, gw_r) != (gh, gw) and valid_hw is not None:
+            raise ValueError("shape-bucketed inference (valid_hw) needs the query and reference "
+                             "grids to match: the bucket masks assume one grid per item")
+        r_tok = tokens[b:] if ref_tokens is None else ref_tokens.to(c.compute_dtype)
+        feat_query = self.pos_enc_fn(q_tok, 1, gh, gw, valid_grid)
+        feat_ref = self.pos_enc_fn(r_tok.reshape(b, k_ref * n_patch_r, d), k_ref, gh_r, gw_r,
+                                   valid_grid)
+        self_bias = cross_bias = None
+        if tok_bias is not None:
+            # the same mask for every view: each item's refs share its extent
+            cross = np.tile(tok_bias, (1, k_ref) if per_item else k_ref)
+            self_bias, cross_bias = (torch.from_numpy(t).to(query_img.device) for t in (tok_bias, cross))
         decoded, weights = self.ref_cross.attn(
             feat_query, feat_ref, need_weights=need_attn_weights,
-            need_weights_head_id=need_attn_weights_head_id,
+            need_weights_head_id=need_attn_weights_head_id, self_bias=self_bias,
+            cross_bias=cross_bias,
         )
         head = self.ref_cross.head
         y = linear(F.leaky_relu(linear(decoded, head[0]), 0.01), head[2])
@@ -214,5 +268,29 @@ class CrossScoreNet(nn.Module):
         score_map = jigsaw_to_image(y.reshape(b, n_patch, p, p), (gh, gw))
         results["score_map_ref_cross"] = act(score_map.float())
         if need_attn_weights and weights is not None:
-            results["attn_weights_map_ref_cross"] = weights.reshape(b, gh, gw, k_ref, gh, gw)
+            results["attn_weights_map_ref_cross"] = weights.reshape(b, gh, gw, k_ref, gh_r, gw_r)
         return results
+
+
+def make_backbone_encoder(cfg: CrossScoreConfig):
+    """Returns ``encode(model, imgs, valid_hw=None) -> (B, N_patch, D)``,
+    running only the frozen backbone of ``model`` (CLS stripped) with the
+    same knobs as the full net: the producer side of the cached-reference
+    path (the consumer is ``CrossScoreNet(..., ref_tokens=...)``).
+
+    ``valid_hw`` (B, 2): the true pixel extents of bucket-padded images; the
+    tokens of padded patches are masked out of the encoder's attention and get
+    no position embedding, so the valid tokens equal an unpadded encode."""
+    p = cfg.patch_size
+
+    def encode(model: CrossScoreNet, imgs: torch.Tensor, valid_hw=None) -> torch.Tensor:
+        if imgs.dtype == torch.uint8:
+            imgs = _normalize_u8(imgs)
+        valid_grid = None
+        if valid_hw is not None:
+            vhw = np.asarray(valid_hw)
+            valid_grid = (vhw[:, 0] // p, vhw[:, 1] // p)
+        with torch.no_grad():
+            return model.backbone(imgs, valid_grid)[:, 1:]
+
+    return encode

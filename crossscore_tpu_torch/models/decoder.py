@@ -9,8 +9,10 @@ torch's ``TransformerDecoder`` ones (packed ``in_proj_weight``).
 
 With ``attention_impl="flash"`` both attentions run through K3 forward and
 K4 backward (:func:`flash_cross_attention_ln`) at the true head dim (48 for
-the main path); ``need_weights`` and ``"dense"`` take the dense fp32-softmax
-path, differentiable through plain autograd.
+the main path), or through K6 (:func:`flash_cross_attention_masked`, forward
+only) when a token bias masks bucket-padded tokens; ``need_weights`` and
+``"dense"`` take the dense fp32-softmax path, differentiable through plain
+autograd.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from torch import nn
 from crossscore_tpu_torch.models.dinov2 import ATTENTION_IMPLS, LayerNorm, linear
 from crossscore_tpu_torch.ops.attention import dense_attention
 from crossscore_tpu_torch.ops.flash_attention import (
-    _merge_heads, _split_heads, flash_cross_attention_ln,
+    _merge_heads, _split_heads, flash_cross_attention_ln, flash_cross_attention_masked,
 )
 
 
@@ -43,7 +45,9 @@ class TorchStyleMHA(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model, device=device)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, query, key, value, need_weights: bool = False):
+    def forward(self, query, key, value, need_weights: bool = False, kv_bias=None):
+        """``kv_bias``: None, or an fp32 (Nk,) / (B, Nk) additive bias over
+        the key tokens (shape-bucketed inference)."""
         d, h, dt = self.d_model, self.num_heads, query.dtype
         w = self.in_proj_weight.to(dt)
         b = self.in_proj_bias.to(dt)
@@ -53,9 +57,11 @@ class TorchStyleMHA(nn.Module):
         probs = None
         if need_weights or self.attention_impl == "dense":
             out, probs = dense_attention(_split_heads(q, h), _split_heads(k, h),
-                                         _split_heads(v, h), return_probs=True)
+                                         _split_heads(v, h), kv_bias=kv_bias, return_probs=True)
             out = _merge_heads(out)
             probs = probs if need_weights else None
+        elif kv_bias is not None:
+            out, _, _ = flash_cross_attention_masked(q, k, v, kv_bias, h)
         else:
             out = flash_cross_attention_ln(q, k, v, h)
         return linear(out, self.out_proj), probs  # probs: (B, H, Nq, Nk) or None
@@ -77,11 +83,12 @@ class DecoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
         self.norm3 = LayerNorm(d_model, layer_norm_eps, device)
 
-    def forward(self, x, memory, need_weights: bool = False):
+    def forward(self, x, memory, need_weights: bool = False, self_bias=None, cross_bias=None):
         if self.do_self_attn:
-            sa, _ = self.self_attn(x, x, x)
+            sa, _ = self.self_attn(x, x, x, kv_bias=self_bias)
             x = self.norm1(x + sa if self.do_short_cut else sa)
-        mha, weights = self.multihead_attn(x, memory, memory, need_weights=need_weights)
+        mha, weights = self.multihead_attn(x, memory, memory, need_weights=need_weights,
+                                           kv_bias=cross_bias)
         x = self.norm2(x + mha if self.do_short_cut else mha)
         y = linear(F.relu(linear(x, self.linear1)), self.linear2)
         return self.norm3(x + y), weights
@@ -100,11 +107,15 @@ class CrossReferenceDecoder(nn.Module):
             for _ in range(num_layers)
         )
 
-    def forward(self, tgt, memory, need_weights: bool = False, need_weights_head_id: int = 0):
+    def forward(self, tgt, memory, need_weights: bool = False, need_weights_head_id: int = 0,
+                self_bias=None, cross_bias=None):
+        """``self_bias`` / ``cross_bias``: None, or fp32 token biases over the
+        query and the memory tokens that mask bucket padding."""
         x = tgt
         weights: Optional[torch.Tensor] = None
         for layer in self.layers:
-            x, w = layer(x, memory, need_weights=need_weights)
+            x, w = layer(x, memory, need_weights=need_weights, self_bias=self_bias,
+                         cross_bias=cross_bias)
             if w is not None:
                 weights = w[:, need_weights_head_id]  # (B, Nq, Nk), the last layer wins
         return x, weights

@@ -7,25 +7,44 @@ exact-GELU MLP, final LayerNorm. Parameters stay fp32; each forward casts them
 to the compute dtype, with LayerNorm statistics in fp32 (as the JAX package).
 
 ``attention_impl="flash"`` runs the attention core through K1
-(:func:`flash_qkv_self_attention`); ``mlp_impl="fused"``/``"fused_exact"`` runs
-the LN->MLP half through K2 (:func:`fused_ln_mlp`). ``"dense"`` and
-``"unfused"`` are the plain routes, for tests and whole-net comparisons.
+(:func:`flash_qkv_self_attention`), or through K5
+(:func:`flash_qkv_self_attention_masked`) when the encoder masks the tokens of
+bucket-padded patches; ``mlp_impl="fused"``/``"fused_exact"`` runs the LN->MLP
+half through K2 (:func:`fused_ln_mlp`). ``"dense"`` and ``"unfused"`` are the
+plain routes, for tests and whole-net comparisons.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from crossscore_tpu_torch.ops.attention import dense_attention
 from crossscore_tpu_torch.ops.flash_attention import (
-    _merge_heads, _split_heads, flash_qkv_self_attention,
+    _merge_heads, _split_heads, flash_qkv_self_attention, flash_qkv_self_attention_masked,
 )
 from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp
-from crossscore_tpu_torch.ops.interpolate import interpolate_bicubic
+from crossscore_tpu_torch.ops.interpolate import interpolate_bicubic, interpolate_bicubic_dyn
+
+# additive logits bias of a masked token: -1e30, not -inf or -fmax, since the
+# kernels scale biases by log2(e), which must stay finite in fp32
+MASKED = -1e30
+
+
+def token_bias(gh: int, gw: int, valid_grid, cls: bool = False) -> np.ndarray:
+    """fp32 bias over a (gh, gw) patch grid: 0 inside the valid (gh_v, gw_v)
+    top-left region, :data:`MASKED` outside. Host ints give one (N,) row; (B,)
+    arrays give (B, N). ``cls`` prepends an always-valid CLS column."""
+    vh, vw = (np.asarray(v) for v in valid_grid)
+    valid = (np.arange(gh)[:, None] < vh[..., None, None]) & (np.arange(gw)[None, :] < vw[..., None, None])
+    valid = valid.reshape(*vh.shape, gh * gw)
+    if cls:
+        valid = np.concatenate([np.ones((*vh.shape, 1), bool), valid], axis=-1)
+    return np.where(valid, 0.0, MASKED).astype(np.float32)
 
 ATTENTION_IMPLS = ("flash", "dense")
 MLP_IMPLS = ("fused", "fused_exact", "unfused")
@@ -100,16 +119,20 @@ class ViTAttention(nn.Module):
         self.attention = _QKV(cfg.hidden_size, device)
         self.output = _Output(cfg.hidden_size, device)
 
-    def forward(self, x):
+    def forward(self, x, kv_bias=None):
+        """``kv_bias``: None, or the fp32 (N,) / (B, N) token bias that masks
+        bucket-padded tokens (K5 on the flash route)."""
         a = self.attention
         w = torch.cat([a.query.weight, a.key.weight, a.value.weight]).to(x.dtype)
         bias = torch.cat([a.query.bias, a.key.bias, a.value.bias]).to(x.dtype)
         qkv = F.linear(x, w, bias)  # (B, N, 3D)
-        if self.attention_impl == "flash":
+        if self.attention_impl == "flash" and kv_bias is None:
             out, _, _ = flash_qkv_self_attention(qkv, self.num_heads)
+        elif self.attention_impl == "flash":
+            out, _, _ = flash_qkv_self_attention_masked(qkv, kv_bias, self.num_heads)
         else:
             q, k, v = (_split_heads(t, self.num_heads) for t in qkv.chunk(3, dim=-1))
-            out = _merge_heads(dense_attention(q, k, v))
+            out = _merge_heads(dense_attention(q, k, v, kv_bias=kv_bias))
         return linear(out, self.output.dense)
 
 
@@ -142,8 +165,8 @@ class ViTBlock(nn.Module):
         self.mlp = _MLP(d, cfg.mlp_ratio * d, device)
         self.layer_scale2 = LayerScale(d, cfg.layerscale_init, device)
 
-    def forward(self, x):
-        y = self.attention(self.norm1(x))
+    def forward(self, x, kv_bias=None):
+        y = self.attention(self.norm1(x), kv_bias)
         x = x + y * self.layer_scale1.lambda1.to(x.dtype)
         if self.mlp_impl != "unfused":
             n2, m = self.norm2, self.mlp
@@ -194,7 +217,13 @@ class Dinov2Encoder(nn.Module):
         self.encoder = _Encoder(cfg, attention_impl, mlp_impl, device)
         self.layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, valid_grid=None) -> torch.Tensor:
+        """``valid_grid`` (shape-bucketed inference): the valid (gh_v, gw_v)
+        patch grid of bucket-padded images, host ints shared by the batch or
+        (B,) arrays per image. Position embeddings are resized to the valid
+        grid, and the tokens of padded patches are masked out of every
+        self-attention: their residual stream holds garbage that cannot reach
+        a valid token."""
         c, dt, e = self.cfg, self.dtype, self.embeddings
         b, hgt, wdt, _ = images.shape
         p, d = c.patch_size, c.hidden_size
@@ -211,14 +240,18 @@ class Dinov2Encoder(nn.Module):
         x = F.linear(x, w.to(dt), conv.bias.to(dt))
 
         pos = e.position_embeddings
-        if (gh, gw) == (native, native):
+        grid = pos[0, 1:].reshape(native, native, d)
+        kv_bias = None
+        if valid_grid is not None:
+            patch_pos = interpolate_bicubic_dyn(grid, gh, gw, *valid_grid).reshape(-1, n, d)
+            kv_bias = torch.from_numpy(token_bias(gh, gw, valid_grid, cls=True)).to(images.device)
+        elif (gh, gw) == (native, native):
             patch_pos = pos[:, 1:]
         else:
-            grid = pos[0, 1:].reshape(native, native, d)
             patch_pos = interpolate_bicubic(grid, gh, gw).reshape(1, n, d)
         x = x + patch_pos.to(dt)
         cls = (e.cls_token + pos[:, :1]).to(dt)
         x = torch.cat([cls.expand(b, 1, d), x], dim=1)
         for blk in self.encoder.layer:
-            x = blk(x)
+            x = blk(x, kv_bias)
         return self.layernorm(x)

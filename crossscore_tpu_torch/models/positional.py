@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from crossscore_tpu_torch.ops.interpolate import interpolate_bilinear_align_corners
+from crossscore_tpu_torch.ops.interpolate import (
+    interpolate_bilinear_align_corners, interpolate_bilinear_align_corners_dyn,
+)
 
 
 class MultiViewPositionalEmbedding(nn.Module):
@@ -19,11 +21,23 @@ class MultiViewPositionalEmbedding(nn.Module):
         super().__init__()
         self.PE = nn.Parameter(torch.zeros(1, pe_h, pe_w, hidden_size, device=device))
 
-    def forward(self, tokens: torch.Tensor, n_view: int, grid_h: int, grid_w: int) -> torch.Tensor:
-        """tokens: (B, n_view * grid_h * grid_w, C) -> the same with the PE added."""
+    def forward(self, tokens: torch.Tensor, n_view: int, grid_h: int, grid_w: int,
+                valid_grid=None) -> torch.Tensor:
+        """tokens: (B, n_view * grid_h * grid_w, C) -> the same with the PE added.
+
+        ``valid_grid`` (shape-bucketed inference): host ints (gh_v, gw_v)
+        shared by the batch, or (B,) arrays of them per item. The PE is
+        resized to the valid grid and placed in the top-left of the padded
+        (grid_h, grid_w) layout; padded positions get none (they are masked
+        in every attention)."""
         pe = self.PE[0]
-        if (grid_h, grid_w) != tuple(pe.shape[:2]):
-            pe = interpolate_bilinear_align_corners(pe, grid_h, grid_w)
         b, _, c = tokens.shape
+        if valid_grid is not None:
+            pe = interpolate_bilinear_align_corners_dyn(pe, grid_h, grid_w, *valid_grid)
+            if pe.ndim == 4:  # per item: (B, gh, gw, C), the same for every view
+                x = tokens.reshape(b, n_view, grid_h, grid_w, c) + pe.to(tokens.dtype)[:, None]
+                return x.reshape(b, n_view * grid_h * grid_w, c)
+        elif (grid_h, grid_w) != tuple(pe.shape[:2]):
+            pe = interpolate_bilinear_align_corners(pe, grid_h, grid_w)
         x = tokens.reshape(b, n_view, grid_h, grid_w, c) + pe.to(tokens.dtype)
         return x.reshape(b, n_view * grid_h * grid_w, c)

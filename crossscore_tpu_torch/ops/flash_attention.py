@@ -1,12 +1,15 @@
-"""Flash-attention forwards K1 and K3 and the decoder backward K4;
-counterpart of ``crossscore_tpu/ops/flash_attention.py`` (``_flash_qkv_fwd``,
-``_flash_cross_ln_fwd`` and ``_bwd_cross_ln_pallas``).
+"""Flash-attention forwards K1 and K3, their masked forms K5 and K6, and the
+decoder backward K4; counterpart of ``crossscore_tpu/ops/flash_attention.py``
+(``_flash_qkv_fwd``, ``_flash_cross_ln_fwd``, each with and without
+``kv_bias``, and ``_bwd_cross_ln_pallas``).
 
 The forwards return ``(o, l, m)`` in the JAX package's convention: ``o``
 token-major (B, Nq, H*hd), ``l`` and ``m`` (B, H, Nq) fp32, ``m`` the row max
 of the scaled logits in natural units and ``l`` = sum(exp(scaled - m)).
 :func:`flash_cross_attention_ln` is the differentiable decoder attention
-(forward K3, backward K4), the counterpart of the JAX ``custom_vjp``.
+(forward K3, backward K4), the counterpart of the JAX ``custom_vjp``. K5 and
+K6 (shape-bucketed inference) are forward only, as in the JAX package: they
+raise on an input that requires grad.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/flash_qkv.cu``,
 ``csrc/flash_cross.cu``, ``csrc/flash_cross_bwd.cu``) or raises; on a CPU
@@ -46,57 +49,151 @@ def _check_head_dim(what: str, hd: int) -> None:
         )
 
 
-# --- K1 ---------------------------------------------------------------------
+def _check_grid(what: str, b: int, num_heads: int) -> None:
+    if b > 65535 or num_heads > 65535:
+        raise ValueError(f"{what}: batch and heads must be < 65536")
 
 
-def flash_qkv_self_attention_plain(qkv: torch.Tensor, num_heads: int):
-    """Plain version of K1: split the fused projection, attend, re-pack."""
+def _check_bias(what: str, kv_bias: torch.Tensor, b: int, nk: int, *tensors) -> None:
+    """Raise unless ``kv_bias`` is a float32 (Nk,) or (B, Nk) bias and no
+    operand requires grad (the masked kernels are forward only)."""
+    if kv_bias.dtype != torch.float32 or kv_bias.shape not in ((nk,), (b, nk)):
+        raise ValueError(f"{what}: kv_bias must be float32 ({nk},) or ({b}, {nk}), "
+                         f"got {kv_bias.dtype} {tuple(kv_bias.shape)}")
+    if any(t.requires_grad for t in (kv_bias, *tensors)):
+        raise RuntimeError(f"{what} is forward only (shape-bucketed inference); "
+                           "an input requires grad")
+
+
+def _bias_args(what: str, kv_bias, device) -> tuple[list, tuple]:
+    """The masked entry points' extra C arguments: the bias pointer and its
+    batch stride in elements (0 for the shared row); none without a bias."""
+    if kv_bias is None:
+        return [], ()
+    if kv_bias.device != device or not kv_bias.is_contiguous():
+        raise ValueError(f"{what}: kv_bias must be a contiguous tensor on {device}")
+    return [_P, ctypes.c_longlong], (kv_bias.data_ptr(), kv_bias.shape[-1] if kv_bias.ndim == 2 else 0)
+
+
+# --- K1 and K5: the backbone self-attention, unmasked and masked -------------
+
+
+def _check_qkv(qkv: torch.Tensor, num_heads: int) -> None:
+    if qkv.ndim != 3 or qkv.shape[2] % (3 * num_heads):
+        raise ValueError(f"qkv must be (B, N, 3*H*hd) with H={num_heads}, got {tuple(qkv.shape)}")
+
+
+def _launch_qkv(what: str, qkv: torch.Tensor, num_heads: int, kv_bias=None):
+    """Launch K1, or K5 with ``kv_bias``, on CUDA tensors -> (o, l, m)."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // num_heads
+    _build.check_cuda_operands(what, qkv)
+    _check_head_dim(what, hd)
+    _check_grid(what, b, num_heads)
+    bias_types, bias_args = _bias_args(what, kv_bias, qkv.device)
+    lib = _build.load("flash_qkv")
+    fn = lib.cs_flash_qkv_self_attention if kv_bias is None else lib.cs_flash_qkv_self_attention_masked
+    fn.argtypes = [_P, *bias_types, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.restype = _I
+    o = torch.empty(b, n, d, dtype=qkv.dtype, device=qkv.device)
+    l = torch.empty(b, num_heads, n, dtype=torch.float32, device=qkv.device)
+    m = torch.empty_like(l)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    rc = fn(qkv.data_ptr(), *bias_args, o.data_ptr(), l.data_ptr(), m.data_ptr(), b, n, num_heads, hd,
+            _build.DTYPE_CODES[str(qkv.dtype)], 1.0 / math.sqrt(hd), stream)
+    _build.check_rc(lib, rc, what)
+    return o, l, m
+
+
+def flash_qkv_self_attention_plain(qkv: torch.Tensor, num_heads: int, kv_bias=None):
+    """Plain version of K1 (and of K5 with ``kv_bias``): split the fused
+    projection, attend, re-pack."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     q, k, v = (_split_heads(qkv[..., i * d:(i + 1) * d], num_heads) for i in range(3))
-    o, _, l, m = attention_with_stats(q, k, v)
+    o, _, l, m = attention_with_stats(q, k, v, kv_bias)
     return _merge_heads(o), l, m
 
 
 def flash_qkv_self_attention(qkv: torch.Tensor, num_heads: int):
     """Self-attention straight off the fused projection: qkv (B, N, 3*H*hd)
     -> (o (B, N, H*hd), l, m (B, H, N))."""
-    if qkv.ndim != 3 or qkv.shape[2] % (3 * num_heads):
-        raise ValueError(f"qkv must be (B, N, 3*H*hd) with H={num_heads}, got {tuple(qkv.shape)}")
+    _check_qkv(qkv, num_heads)
     if _build.device_type(qkv) == "cpu":
         return flash_qkv_self_attention_plain(qkv, num_heads)
-    b, n, d3 = qkv.shape
-    d = d3 // 3
-    hd = d // num_heads
-    _build.check_cuda_operands("flash_qkv_self_attention", qkv)
-    _check_head_dim("flash_qkv_self_attention", hd)
-    if b > 65535 or num_heads > 65535:
-        raise ValueError("flash_qkv_self_attention: batch and heads must be < 65536")
-    lib = _build.load("flash_qkv")
-    fn = lib.cs_flash_qkv_self_attention
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-    fn.restype = _I
-    o = torch.empty(b, n, d, dtype=qkv.dtype, device=qkv.device)
-    l = torch.empty(b, num_heads, n, dtype=torch.float32, device=qkv.device)
-    m = torch.empty_like(l)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = fn(qkv.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(), b, n, num_heads, hd,
-            _build.DTYPE_CODES[str(qkv.dtype)], 1.0 / math.sqrt(hd), stream)
-    _build.check_rc(lib, rc, "flash_qkv_self_attention")
+    out = _launch_qkv("flash_qkv_self_attention", qkv, num_heads)
     flash_qkv_self_attention.launches += 1
-    return o, l, m
+    return out
 
 
 flash_qkv_self_attention.launches = 0
 
 
-# --- K3 ---------------------------------------------------------------------
+def flash_qkv_self_attention_masked_plain(qkv: torch.Tensor, kv_bias: torch.Tensor, num_heads: int):
+    """Plain version of K5: K1's with the bias added to the scaled logits."""
+    return flash_qkv_self_attention_plain(qkv, num_heads, kv_bias)
 
 
-def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int):
-    """Plain version of K3 on token-major (B, N, H*hd) projections."""
+def flash_qkv_self_attention_masked(qkv: torch.Tensor, kv_bias: torch.Tensor, num_heads: int):
+    """K1 with an additive KV-token bias (forward only): qkv (B, N, 3*H*hd),
+    kv_bias (N,) or (B, N) fp32 in natural units -> (o (B, N, H*hd), l, m
+    (B, H, N)), ``m`` including the bias."""
+    what = "flash_qkv_self_attention_masked"
+    _check_qkv(qkv, num_heads)
+    _check_bias(what, kv_bias, qkv.shape[0], qkv.shape[1], qkv)
+    if _build.device_type(qkv) == "cpu":
+        return flash_qkv_self_attention_masked_plain(qkv, kv_bias, num_heads)
+    out = _launch_qkv(what, qkv, num_heads, kv_bias)
+    flash_qkv_self_attention_masked.launches += 1
+    return out
+
+
+flash_qkv_self_attention_masked.launches = 0
+
+
+# --- K3 and K6: the decoder attention forward, unmasked and masked -----------
+
+
+def _check_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> None:
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 or q.shape[0] != k.shape[0] \
+            or q.shape[2] != k.shape[2] or q.shape[2] % num_heads:
+        raise ValueError(
+            f"q (B, Nq, H*hd) and k, v (B, Nk, H*hd) expected, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+
+
+def _launch_cross(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                  kv_bias=None):
+    """Launch K3, or K6 with ``kv_bias``, on CUDA tensors -> (o, l, m)."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    hd = d // num_heads
+    _build.check_cuda_operands(what, q, k, v)
+    _check_head_dim(what, hd)
+    _check_grid(what, b, num_heads)
+    bias_types, bias_args = _bias_args(what, kv_bias, q.device)
+    lib = _build.load("flash_cross")
+    fn = lib.cs_flash_cross_attention if kv_bias is None else lib.cs_flash_cross_attention_masked
+    fn.argtypes = [_P, _P, _P, *bias_types, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.restype = _I
+    o = torch.empty_like(q)
+    l = torch.empty(b, num_heads, nq, dtype=torch.float32, device=q.device)
+    m = torch.empty_like(l)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *bias_args, o.data_ptr(), l.data_ptr(), m.data_ptr(),
+            b, nq, nk, num_heads, hd, _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
+    _build.check_rc(lib, rc, what)
+    return o, l, m
+
+
+def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                                kv_bias=None):
+    """Plain version of K3 (and of K6 with ``kv_bias``) on token-major
+    (B, N, H*hd) projections."""
     o, _, l, m = attention_with_stats(
-        _split_heads(q, num_heads), _split_heads(k, num_heads), _split_heads(v, num_heads)
+        _split_heads(q, num_heads), _split_heads(k, num_heads), _split_heads(v, num_heads), kv_bias
     )
     return _merge_heads(o), l, m
 
@@ -104,37 +201,39 @@ def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 def flash_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int):
     """Decoder attention at the true head dim with scale 1/sqrt(hd):
     q (B, Nq, H*hd), k/v (B, Nk, H*hd) -> (o (B, Nq, H*hd), l, m (B, H, Nq))."""
-    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 or q.shape[0] != k.shape[0] \
-            or q.shape[2] != k.shape[2] or q.shape[2] % num_heads:
-        raise ValueError(
-            f"q (B, Nq, H*hd) and k, v (B, Nk, H*hd) expected, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
+    _check_cross(q, k, v, num_heads)
     if _build.device_type(q) == "cpu":
         return flash_cross_attention_plain(q, k, v, num_heads)
-    b, nq, d = q.shape
-    nk = k.shape[1]
-    hd = d // num_heads
-    _build.check_cuda_operands("flash_cross_attention", q, k, v)
-    _check_head_dim("flash_cross_attention", hd)
-    if b > 65535 or num_heads > 65535:
-        raise ValueError("flash_cross_attention: batch and heads must be < 65536")
-    lib = _build.load("flash_cross")
-    fn = lib.cs_flash_cross_attention
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-    fn.restype = _I
-    o = torch.empty_like(q)
-    l = torch.empty(b, num_heads, nq, dtype=torch.float32, device=q.device)
-    m = torch.empty_like(l)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
-            b, nq, nk, num_heads, hd, _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
-    _build.check_rc(lib, rc, "flash_cross_attention")
+    out = _launch_cross("flash_cross_attention", q, k, v, num_heads)
     flash_cross_attention.launches += 1
-    return o, l, m
+    return out
 
 
 flash_cross_attention.launches = 0
+
+
+def flash_cross_attention_masked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                       kv_bias: torch.Tensor, num_heads: int):
+    """Plain version of K6: K3's with the bias added to the scaled logits."""
+    return flash_cross_attention_plain(q, k, v, num_heads, kv_bias)
+
+
+def flash_cross_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 kv_bias: torch.Tensor, num_heads: int):
+    """K3 with an additive KV-token bias (forward only), the counterpart of the
+    JAX ``flash_cross_attention_ln_masked``: q (B, Nq, H*hd), k/v (B, Nk,
+    H*hd), kv_bias (Nk,) or (B, Nk) fp32 -> (o (B, Nq, H*hd), l, m (B, H, Nq))."""
+    what = "flash_cross_attention_masked"
+    _check_cross(q, k, v, num_heads)
+    _check_bias(what, kv_bias, q.shape[0], k.shape[1], q, k, v)
+    if _build.device_type(q) == "cpu":
+        return flash_cross_attention_masked_plain(q, k, v, kv_bias, num_heads)
+    out = _launch_cross(what, q, k, v, num_heads, kv_bias)
+    flash_cross_attention_masked.launches += 1
+    return out
+
+
+flash_cross_attention_masked.launches = 0
 
 
 # --- K4 ---------------------------------------------------------------------
@@ -198,8 +297,7 @@ def flash_cross_attention_bwd(q, k, v, o, do, l, m, num_heads: int):
     hd = d // num_heads
     _build.check_cuda_operands("flash_cross_attention_bwd", q, k, v, o, do)
     _check_head_dim("flash_cross_attention_bwd", hd)
-    if b > 65535 or num_heads > 65535:
-        raise ValueError("flash_cross_attention_bwd: batch and heads must be < 65536")
+    _check_grid("flash_cross_attention_bwd", b, num_heads)
     lb, delta = _bwd_stats(o, do, l, m, num_heads)
     _build.check_cuda_operands("flash_cross_attention_bwd", lb, delta)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

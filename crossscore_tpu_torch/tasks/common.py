@@ -1,6 +1,6 @@
-"""Shared task-entry plumbing: CLI parsing, run dirs, logging and the
-accelerator rule; the port's counterpart of ``crossscore_tpu/tasks/common.py``
-for one process."""
+"""Shared task-entry plumbing: CLI parsing, run and output dirs, weights,
+bucketed-output crops, logging and the accelerator rule; the port's
+counterpart of ``crossscore_tpu/tasks/common.py`` for one process."""
 
 from __future__ import annotations
 
@@ -17,6 +17,19 @@ import yaml
 
 from crossscore_tpu_torch.confsys import Config, load_config
 from crossscore_tpu_torch.device import resolve_device
+from crossscore_tpu_torch.io.checkpoint import latest_step, step_path
+from crossscore_tpu_torch.io.convert import init_params, load_into
+
+
+def tristate(value) -> str:
+    """Normalise an on|off|auto config knob. CLI overrides parse with YAML
+    scalar semantics, so ``key=on`` arrives as True and ``key=off`` as False
+    (YAML 1.1 booleans): compare through this, never against raw strings."""
+    if value is True:
+        return "on"
+    if value is False:
+        return "off"
+    return str(value).lower()
 
 
 def parse_cli(config_name: str, argv: Optional[list[str]] = None) -> Config:
@@ -46,6 +59,132 @@ def resolve_limit(limit, batches_per_epoch: int) -> Optional[int]:
     if isinstance(limit, float):
         return None if limit >= 1.0 else int(limit * batches_per_epoch)
     return None
+
+
+def confirm_batch_size(cfg: Config, loader_key: str = "validation") -> None:
+    """Full-resolution images at a large batch can exhaust device memory; the
+    reference asks on stdin (``task/predict.py:27-45``). Prompt only when
+    interactive, otherwise warn and proceed (``this_main.force_batch_size=true``
+    silences it)."""
+    bs = cfg.data.loader[loader_key].batch_size
+    if cfg.this_main.force_batch_size or bs <= 8 or cfg.this_main.crop_mode is not None:
+        return
+    msg = (f"Running full image resolution with batch_size={bs}. "
+           "Press Enter to continue, or enter a new batch size: ")
+    if sys.stdin is not None and sys.stdin.isatty():
+        tmp = input(msg)
+        if tmp.strip():
+            if not tmp.strip().isdigit():
+                raise ValueError("Invalid input")
+            cfg.data.loader[loader_key].batch_size = int(tmp)
+            print(f"Set batch size to {tmp}")
+    else:
+        print(f"WARNING: {msg} (non-interactive; proceeding)")
+
+
+def resolve_out_dir(cfg: Config, phase: str) -> Path:
+    """Reference semantics (``task/predict.py:47-65``): the output dir derives
+    from the checkpoint's location, or is a fresh ``log/<ts>`` tree when no
+    checkpoint is given; the composed config is saved into it."""
+    if cfg.trainer.ckpt_path_to_load is None:
+        log_dir = Path("log") / timestamp() / f"{phase}_empty_ckpt"
+    else:
+        log_dir = Path(cfg.trainer.ckpt_path_to_load).parents[1] / phase
+    log_dir.mkdir(parents=True, exist_ok=True)
+    if cfg.logger[phase].out_dir is None:
+        out_dir = log_dir / timestamp()
+        if cfg.alias:
+            out_dir = Path(str(out_dir) + f"_{cfg.alias}")
+        cfg.logger[phase].out_dir = str(out_dir)
+    out_dir = Path(cfg.logger[phase].out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_config_snapshot(cfg, out_dir)
+    return out_dir
+
+
+def load_model_params(cfg: Config, model: torch.nn.Module) -> torch.nn.Module:
+    """Load ``trainer.ckpt_path_to_load`` into ``model`` and return it:
+
+    - a ``.ckpt`` file: a reference Lightning checkpoint or one written by the
+      train CLI (``model.``-prefixed ``state_dict``);
+    - a directory: the train CLI's ``ckpt/`` dir, whose latest
+      ``step_<N>.ckpt`` is used (the reference points test/predict at one
+      checkpoint the same way, ``task/test.py:134``);
+    - null: seeded random weights (``io/convert.py::init_params``), with a
+      loud warning.
+
+    Checkpoints are read with ``weights_only=True``: tensors and plain
+    containers only."""
+    ckpt = cfg.trainer.ckpt_path_to_load
+    device = model.img_mean_std.device
+    if ckpt is None:
+        print("WARNING: no checkpoint given (trainer.ckpt_path_to_load=null); using RANDOM weights.")
+        return load_into(model, init_params(model.cfg, cfg.seed, device))
+    ckpt = Path(ckpt)
+    if ckpt.is_dir():
+        step = latest_step(ckpt)
+        if step is None:
+            raise FileNotFoundError(f"no step_<N>.ckpt in {ckpt}")
+        ckpt = step_path(ckpt, step)
+    blob = torch.load(ckpt, map_location=device, weights_only=True)
+    return load_into(model, blob.get("state_dict", blob))
+
+
+def crop_bucketed(batch: dict, outputs: dict) -> tuple[dict, dict]:
+    """Crop bucket-padded batch arrays and model outputs back to the item's
+    true shape for writers, visualisers and summarisers; a no-op without
+    ``_valid_hw`` (data/bucketing.py). Images crop to (h, w), score maps to
+    the jigsaw extent (h//14*14, w//14*14), attention-weight maps to the valid
+    patch grid."""
+    vhw = batch.get("_valid_hw")
+    if vhw is None:
+        return batch, outputs
+    h, w = int(vhw[0]), int(vhw[1])
+    ch, cw = h // 14 * 14, w // 14 * 14
+    gh, gw = h // 14, w // 14
+    b2 = dict(batch)
+    for k in ("query/img", "reference/cross/imgs"):
+        if k in b2 and b2[k] is not None:
+            b2[k] = np.asarray(b2[k])[..., :h, :w, :]
+    if "query/score_map" in b2:
+        b2["query/score_map"] = np.asarray(b2["query/score_map"])[..., :ch, :cw]
+    o2 = dict(outputs)
+    if "score_map_ref_cross" in o2:
+        o2["score_map_ref_cross"] = np.asarray(o2["score_map_ref_cross"])[:, :ch, :cw]
+    if "attn_weights_map_ref_cross" in o2:
+        o2["attn_weights_map_ref_cross"] = np.asarray(
+            o2["attn_weights_map_ref_cross"]
+        )[:, :gh, :gw, :, :gh, :gw]
+    return b2, o2
+
+
+def iter_bucketed_items(batch: dict, outputs: dict):
+    """Split a bucket-PACKED batch (per-item ``_valid_hw`` of shape (B, 2),
+    data/bucketing.py) into individually cropped B=1 slices for the host-side
+    consumers, none of which can hold a batch of mixed image sizes as one
+    array. Yields (i, item_batch, item_outputs) for the valid items (not the
+    padding duplicates)."""
+    n_valid = int(batch.get("_valid", len(batch["item_paths"]["query/img"])))
+    vhw = np.asarray(batch["_valid_hw"])
+
+    def slice_item(tree, i):
+        if isinstance(tree, dict):
+            return {k: slice_item(v, i) for k, v in tree.items()}
+        if isinstance(tree, list):
+            # the (K, B) reference path lists slice per view; the JAX package
+            # takes view i here instead (an IndexError once i >= K)
+            return [[v[i]] for v in tree] if tree and isinstance(tree[0], list) else [tree[i]]
+        arr = np.asarray(tree)
+        if arr.ndim == 0:
+            return tree
+        return arr[i:i + 1]
+
+    for i in range(n_valid):
+        b1 = {k: slice_item(v, i) for k, v in batch.items() if k not in ("_valid", "_valid_hw")}
+        b1["_valid"] = np.asarray(1, np.int32)
+        b1["_valid_hw"] = vhw[i]
+        o1 = {k: np.asarray(v)[i:i + 1] for k, v in outputs.items()}
+        yield i, *crop_bucketed(b1, o1)
 
 
 def resolve_accelerator(cfg: Config) -> torch.device:

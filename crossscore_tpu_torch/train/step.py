@@ -112,12 +112,31 @@ def make_eval_step(model: CrossScoreNet) -> Callable:
 
 def make_predict_step(model: CrossScoreNet, need_attn_weights: bool = False,
                       head_id: int = 0) -> Callable:
-    """``predict_step(query_img, ref_imgs) -> dict`` under inference mode; the
-    model holds its weights (the JAX step takes them as an argument)."""
+    """``predict_step(query_img, ref_imgs, valid_hw=None) -> dict`` under
+    inference mode; the model holds its weights (the JAX step takes them as an
+    argument). ``valid_hw``: host (2,) or (B, 2) extents of bucket-padded
+    images (shape-bucketed inference)."""
 
     def predict_step(query_img: torch.Tensor, ref_imgs: torch.Tensor, valid_hw=None) -> dict:
         with torch.inference_mode():
             return model(query_img, ref_imgs, need_attn_weights=need_attn_weights,
                          need_attn_weights_head_id=head_id, valid_hw=valid_hw)
+
+    return predict_step
+
+
+def make_predict_step_cached(model: CrossScoreNet) -> Callable:
+    """``predict_step(query_img, ref_tokens, valid_hw=None, ref_grid=None) ->
+    dict``: the predict step on precomputed reference tokens (the
+    cached-reference path, ``data/token_cache.py``), so only the queries go
+    through the frozen backbone. ``valid_hw`` (B, 2) composes the cache with
+    shape bucketing: the query encode and the decoder mask the padding as the
+    uncached bucketed step does."""
+
+    def predict_step(query_img: torch.Tensor, ref_tokens: torch.Tensor, valid_hw=None,
+                     ref_grid=None) -> dict:
+        with torch.inference_mode():
+            return model(query_img, None, ref_tokens=ref_tokens, valid_hw=valid_hw,
+                         ref_grid=ref_grid)
 
     return predict_step

@@ -39,7 +39,11 @@ def test_importing_the_port_loads_no_jax():
         "crossscore_tpu_torch.train.optim, crossscore_tpu_torch.tasks.train, "
         "crossscore_tpu_torch.io.checkpoint, crossscore_tpu_torch.data.loader, "
         "crossscore_tpu_torch.data.nvs_index, crossscore_tpu_torch.data.synthetic, "
-        "crossscore_tpu_torch.ops.metrics, crossscore_tpu_torch.utils.metric_logger\n"
+        "crossscore_tpu_torch.ops.metrics, crossscore_tpu_torch.utils.metric_logger, "
+        "crossscore_tpu_torch.tasks.predict, crossscore_tpu_torch.data.bucketing, "
+        "crossscore_tpu_torch.data.simple_reference, crossscore_tpu_torch.data.token_cache, "
+        "crossscore_tpu_torch.io.batch_writer, crossscore_tpu_torch.io.summariser, "
+        "crossscore_tpu_torch.utils.vis\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -105,6 +109,24 @@ def test_the_port_composes_its_own_yaml_tree():
     assert cfg.data.loader.train.batch_size == 24 and cfg.data.neighbour_config.cross == 5
     with pytest.raises(KeyError, match="tpu"):
         confsys.load_config("default", ["model.tpu.compute_dtype=float32"])
+
+
+def test_predict_composes_its_own_root_and_needs_cuda_unless_told_cpu(tmp_path):
+    """The predict root of the port's tree: the GPU knobs under ``model.gpu``
+    (view parallelism among them), no serving-daemon knobs; without a card
+    the CLI raises unless told ``trainer.accelerator=cpu``."""
+    from crossscore_tpu_torch import confsys
+    from crossscore_tpu_torch.tasks.predict import main
+
+    cfg = confsys.load_config("default_predict")
+    assert "tpu" not in cfg.model and cfg.model.gpu.view_parallel == "auto"
+    assert cfg.model.gpu.attention_impl == "flash" and cfg.trainer.accelerator == "cuda"
+    assert cfg.data.neighbour_config.cross == 5 and cfg.data.loader.validation.batch_size == 8
+    assert not any(k.startswith("serve_") for k in cfg.this_main)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([f"data.dataset.query_dir={tmp_path}", f"data.dataset.reference_dir={tmp_path}",
+                  f"logger.predict.out_dir={tmp_path / 'out'}"])
 
 
 def test_train_entry_point_needs_cuda_unless_told_cpu():

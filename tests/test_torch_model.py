@@ -196,12 +196,14 @@ def test_attention_weight_map_shape_and_values(dinov2_test_params):
 
 
 def test_unported_inputs_raise(dinov2_test_params):
+    """The token-space inputs (queue 1 item 9) are not ported yet;
+    ``valid_hw`` and ``ref_tokens`` are (tests/test_torch_masked.py)."""
     port = _port_net("dinov2-test", 6, dinov2_test_params)
     q, r = (torch.from_numpy(a) for a in _images(16, 1, 1, 56))
-    with pytest.raises(NotImplementedError, match="valid_hw"):
-        make_predict_step(port)(q, r, valid_hw=(56, 56))
-    with pytest.raises(NotImplementedError, match="ref_tokens"):
-        port(q, None, ref_tokens=torch.zeros(1, 1, 16, 64))
+    with pytest.raises(NotImplementedError, match="query_tokens"):
+        port(None, None, ref_tokens=torch.zeros(1, 1, 16, 64), query_tokens=torch.zeros(1, 16, 64))
+    with pytest.raises(NotImplementedError, match="token_grid"):
+        port(q, r, token_grid=(4, 4))
 
 
 def test_parity_config_rule():
