@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's predict forward, train step and predict CLI on one CUDA card.
 
-    python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py                  # from the repository root, one card
+    python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
 
 In order:
 1. print the card's name and power limit (``nvidia-smi``);
@@ -14,7 +15,8 @@ In order:
    forwards of shape-bucketed inference) at the bucketed predict shapes
    (540x960 images -> 518x921 -> a 560x1008 bucket, B=8, K=5; per-item and
    shared token biases), in bf16 and fp32 (and at the other presets' head
-   dims and widths at small shapes), and time the kernel, the plain version
+   dims and widths at small shapes; K5/K6 also by the relative L2 error of
+   each output), and time the kernel, the plain version
    and, for the attention kernels, one ``F.scaled_dot_product_attention``
    call (K4: one backward of it; K5/K6: with the bias as a float mask) on
    the same inputs (a yardstick only; the port never calls it);
@@ -87,6 +89,13 @@ TOL = {"float32": 5e-5, "bfloat16": 1.6e-2}
 # and 6.7e-7 in fp32 (summation order); a ds scale 3% off reads 3.0e-2, a
 # dropped ragged last KV tile 9.7e-2 and a dropped last q tile 0.13 (PERF.md).
 TOL_K4 = {"float32": 1e-5, "bfloat16": 2e-3}
+# K5/K6: besides TOL, the largest relative L2 error of o, l and m, each
+# against its own scale. At the cross shape o is ~0.015 (about 12000 valid
+# random keys), where an o 15% off reads 1.72e-2 by TOL's measure, just over
+# its bound. On the H100 the sound kernels read at most 3.12e-3 in bf16 (o,
+# rounded to bf16 once on each side) and 2.80e-6 in fp32; o 15% off reads
+# 0.150 and a kernel that ignores the bias 0.30-0.52 (PERF.md).
+TOL_L2 = {"float32": 2e-5, "bfloat16": 8e-3}
 # whole-net score-map MAE, kernel path vs all-plain path, B=1 (scores in [0, 1])
 NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # predict CLI, bf16: mean |difference| of the valid region of the written
@@ -151,6 +160,14 @@ def _rel_l2(got, want) -> float:
 
 def _max_abs(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
+
+
+def _masked_errs(pairs) -> tuple[float, float]:
+    """K5/K6 against their plain versions over (kernel, plain) output triples:
+    the largest max |d| / (1 + |plain|) and the largest relative L2 error of
+    any of o, l, m."""
+    pairs = [(g, w) for got, want in pairs for g, w in zip(got, want)]
+    return max(_rel_err(g, w) for g, w in pairs), max(_rel_l2(g, w) for g, w in pairs)
 
 
 def _token_bias(torch, grids, dev, grid=BUCKET_GRID, cls: bool = False):
@@ -235,8 +252,15 @@ def _profile(torch, fn, step_ms: float, top: int = 16) -> None:
 
 
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel checks (steps 1-3), printing no result lines")
+    kernels_only = ap.parse_args().kernels_only
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -416,17 +440,18 @@ def main() -> int:
         bias5 = torch.cat([torch.zeros(PB, 1, device=dev), item_bias], 1).contiguous()  # CLS valid
         got = flash_qkv_self_attention_masked(qkv, bias5, h)
         want = flash_qkv_self_attention_masked_plain(qkv, bias5, h)
-        err = max(_rel_err(g, w) for g, w in zip(got, want))
-        err = max(err, *(_rel_err(g, w) for g, w in zip(
+        err, l2 = _masked_errs([(got, want), (
             flash_qkv_self_attention_masked(qkv, bias5[1].contiguous(), h),
-            flash_qkv_self_attention_masked_plain(qkv, bias5[1].contiguous(), h))))
+            flash_qkv_self_attention_masked_plain(qkv, bias5[1].contiguous(), h))])
         valid_cols = float((bias5 == 0).sum())  # summed over the batch
         ops = 4.0 * h * (nb + 1) * valid_cols * hd  # masked columns need no work
         nbytes = PB * (nb + 1) * (3 * d + d) * es + 2 * PB * h * (nb + 1) * 4 + bias5.numel() * 4
         mask = bias5[:, None, None, :].to(dtype)
         report[("K5", tname)] = dict(
-            err=err, tol=TOL[tname], max_abs=_max_abs(got[0], want[0]),
+            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], max_abs=_max_abs(got[0], want[0]),
             ms=_time_ms(torch, lambda: flash_qkv_self_attention_masked(qkv, bias5, h)),
+            # K1 on the same qkv: what the bias costs at equal shape
+            k1_ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
             plain_ms=_time_ms(torch, lambda: flash_qkv_self_attention_masked_plain(qkv, bias5, h), reps=3),
             library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
                 *(qkv.view(PB, nb + 1, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)),
@@ -441,17 +466,16 @@ def main() -> int:
             bias6 = item_bias.repeat(1, reps_).contiguous()
             got = flash_cross_attention_masked(q, k_, v_, bias6, dec_h)
             want = flash_cross_attention_masked_plain(q, k_, v_, bias6, dec_h)
-            err = max(_rel_err(g, w) for g, w in zip(got, want))
-            err = max(err, *(_rel_err(g, w) for g, w in zip(
+            err, l2 = _masked_errs([(got, want), (
                 flash_cross_attention_masked(q, k_, v_, bias6[1].contiguous(), dec_h),
-                flash_cross_attention_masked_plain(q, k_, v_, bias6[1].contiguous(), dec_h))))
+                flash_cross_attention_masked_plain(q, k_, v_, bias6[1].contiguous(), dec_h))])
             dhd = d // dec_h
             ops = 4.0 * dec_h * nb * float((bias6 == 0).sum()) * dhd
             nbytes = PB * (2 * nb + 2 * reps_ * nb) * d * es + 2 * PB * dec_h * nb * 4 + bias6.numel() * 4
             heads = lambda t: t.view(PB, -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
             mask = bias6[:, None, None, :].to(dtype)
             report[(tag, tname)] = dict(
-                err=err, tol=TOL[tname], max_abs=_max_abs(got[0], want[0]),
+                err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], max_abs=_max_abs(got[0], want[0]),
                 ms=_time_ms(torch, lambda: flash_cross_attention_masked(q, k_, v_, bias6, dec_h)),
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_masked_plain(q, k_, v_, bias6, dec_h),
                                   reps=3),
@@ -500,34 +524,38 @@ def main() -> int:
         for heads_, hdim in ((4, 16), (12, 64)):  # K5: dinov2-test, base/large backbones
             qkv = randn(2, 301, 3 * heads_ * hdim, dtype=dtype)
             bias = _token_bias(torch, [(10, 30), (15, 17)], dev, grid=(15, 20), cls=True)
-            err = max(_rel_err(g, w) for b_ in (bias, bias[1].contiguous()) for g, w in zip(
-                flash_qkv_self_attention_masked(qkv, b_, heads_),
-                flash_qkv_self_attention_masked_plain(qkv, b_, heads_)))
-            report[(f"K5 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
+            err, l2 = _masked_errs([(flash_qkv_self_attention_masked(qkv, b_, heads_),
+                                     flash_qkv_self_attention_masked_plain(qkv, b_, heads_))
+                                    for b_ in (bias, bias[1].contiguous())])
+            report[(f"K5 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname])
         for heads_, hdim in ((8, 64), (8, 96), (8, 128)):  # K6: other decoders' head dims
             q, k_ = randn(2, 300, heads_ * hdim, dtype=dtype), randn(2, 600, heads_ * hdim, dtype=dtype)
             bias = _token_bias(torch, [(10, 20), (15, 17)], dev, grid=(15, 20)).repeat(1, 2).contiguous()
-            err = max(_rel_err(g, w) for b_ in (bias, bias[1].contiguous()) for g, w in zip(
-                flash_cross_attention_masked(q, k_, k_, b_, heads_),
-                flash_cross_attention_masked_plain(q, k_, k_, b_, heads_)))
-            report[(f"K6 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
+            err, l2 = _masked_errs([(flash_cross_attention_masked(q, k_, k_, b_, heads_),
+                                     flash_cross_attention_masked_plain(q, k_, k_, b_, heads_))
+                                    for b_ in (bias, bias[1].contiguous())])
+            report[(f"K6 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname])
 
     bad = []
     for (kern, tname), r in report.items():
-        ok = r["err"] <= r["tol"]
-        if "ms" not in r:  # a preset-width check
-            print(f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {r['tol']:.1e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                bad.append(f"{kern} {tname}")
-            continue
-        print(f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {r['tol']:.1e}) max|d| {r['max_abs']:.3e} "
-              f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms "
-              f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} ms "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) {'ok' if ok else 'FAIL'}")
+        ok = r["err"] <= r["tol"] and r.get("l2", 0.0) <= r.get("tol_l2", 0.0)
+        line = f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {r['tol']:.1e})"
+        if "l2" in r:
+            line += f" rel L2 {r['l2']:.3e} (tol {r['tol_l2']:.1e})"
+        if "ms" in r:  # not a preset-width check
+            line += (f" max|d| {r['max_abs']:.3e} kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms "
+                     f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} ms "
+                     f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+        if "k1_ms" in r:
+            line += f" K1 same qkv {r['k1_ms']:.3f} ms"
+        print(f"{line} {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append(f"{kern} {tname}")
     if bad:
         _fail("kernel disagrees with its plain version: " + ", ".join(bad))
+    if kernels_only:
+        print("chip_smoke: kernel checks passed; --kernels-only stops here")
+        return 0
 
     # --- 4. the full-width forward through make_predict_step ------------------
     cfg = CrossScoreConfig()  # dinov2-small, bf16, flash, fused
@@ -831,7 +859,7 @@ def main() -> int:
               "K5": f"qkv ({PB}, {BUCKET_GRID[0] * BUCKET_GRID[1] + 1}, {3 * d}) bf16, per-item bias",
               "K6": f"q ({PB}, {BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}), k/v ({PB}, "
                     f"{PK * BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}) bf16, hd {d // dec_h}, per-item bias"}
-    stats = ("err", "tol", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms")
+    stats = ("err", "tol", "l2", "tol_l2", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms", "k1_ms")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
@@ -845,18 +873,21 @@ def main() -> int:
                "err_kind": "relative L2 of dq, dk, dv" if kern == "K4" else "max |d| / (1 + |plain|)",
                "launches_by_path": {"predict": launches[kern], "bucketed_predict": cli["c"]["launches"][kern],
                                     "train_step": train_launches[kern]},
-               "fp32": {k: r32[k] for k in stats}, "shape": shapes[kern]}
+               "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
+        # K5, K6: the relative L2 of o, l, m; K5: K1's time on the same qkv
+        row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms") if k in r})
         if kern in ("K3", "K4", "K6"):
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
-            row["self"] = {k: s[k] for k in stats}
-            row["self_fp32"] = {k: s32[k] for k in stats}
+            row["self"] = {k: s[k] for k in stats if k in s}
+            row["self_fp32"] = {k: s32[k] for k in stats if k in s32}
         kernels.append(row)
+    # (a) is the reference of the agreement check: it has no reading of its own
     print(json.dumps({"kernels": kernels, "card": card, "maps_per_s": 1e3 * B / step_ms,
                       "step_ms": step_ms, "train_step_ms": train_ms, "train_peak_gib": train_peak,
                       "predict_cli": {tag: {k: v for k, v in r.items() if k not in ("maps", "launches")}
-                                      | {"mae_vs_a": agree.get(tag, (0.0, 0.0))[0],
-                                         "max_vs_a": agree.get(tag, (0.0, 0.0))[1],
-                                         "device_step_ms": device_ms[tag]}
+                                      | ({"mae_vs_a": agree[tag][0], "max_vs_a": agree[tag][1]}
+                                         if tag in agree else {})
+                                      | {"device_step_ms": device_ms[tag]}
                                       for tag, r in cli.items()},
                       "predict_loader_maps_per_s": loader_rate}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

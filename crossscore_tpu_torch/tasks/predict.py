@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,14 +50,6 @@ from crossscore_tpu_torch.utils.check_config import ConfigChecker
 from crossscore_tpu_torch.utils.vis import make_visualiser
 
 
-class ServingPlan(NamedTuple):
-    """The resolved serving strategy, a pure function of config and topology."""
-
-    use_vp: bool      # K reference views sharded over devices
-    vp_local: bool    # ... over the process's local devices (multi-process + cache)
-    use_cache: bool   # reference-token cache on
-
-
 def plan_serving_modes(
     *,
     vp_mode: str,
@@ -68,36 +59,21 @@ def plan_serving_modes(
     zero_reference: bool,
     k_refs: int,
     n_dev: int,
-    n_local: int,
-    n_proc: int,
-    data_mesh_size: int,
-) -> ServingPlan:
-    """Pick the serving composition from config knobs and device topology (the
-    JAX package's rule). Every pair of {token cache, view parallelism, shape
-    bucketing, multi-process} composes except bucketing with view
-    parallelism."""
-    cache_ok = (
-        cache_mode != "off"
-        and not need_attn_weights
-        and k_refs > 0
-        and not zero_reference
-    )
+) -> bool:
+    """Whether the reference-token cache is on, by the JAX package's rule for
+    one process whose data-parallel mesh spans its ``n_dev`` devices.
 
-    def vp_fits(n: int) -> bool:
-        return (
-            not use_buckets
-            and vp_mode != "off"
-            and not need_attn_weights
-            and n > 1
-            and k_refs > 0
-            and k_refs % n == 0
-            and (vp_mode == "on" or data_mesh_size < n)
+    That rule shards the K reference views over the devices (view
+    parallelism) only when asked (``vp_mode == "on"``), with K divisible by
+    ``n_dev`` > 1, no buckets and no attention weights. The port has no view
+    parallelism, so that plan raises ``NotImplementedError``."""
+    if (vp_mode == "on" and not use_buckets and not need_attn_weights
+            and n_dev > 1 and k_refs > 0 and k_refs % n_dev == 0):
+        raise NotImplementedError(
+            f"view-parallel predict (K={k_refs} references over {n_dev} devices) is not ported: "
+            "ROADMAP queue 1 item 13; set model.gpu.view_parallel=off"
         )
-
-    vp_local = n_proc > 1 and cache_ok and vp_fits(n_local)
-    use_vp = vp_local or vp_fits(n_dev)
-    use_cache = cache_ok and not (n_proc > 1 and use_vp and not vp_local)
-    return ServingPlan(use_vp, vp_local, use_cache)
+    return cache_mode != "off" and not need_attn_weights and k_refs > 0 and not zero_reference
 
 
 def predict(cfg) -> Path:
@@ -129,27 +105,17 @@ def predict(cfg) -> Path:
         if bucket_mode == "auto" and len(shapes) <= 1:
             use_buckets = False  # one shape: padding buys nothing
 
-    # one process on one device: data parallelism is the single device, and
-    # view parallelism is selectable only when several cards are visible
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    k_refs = int(cfg.data.neighbour_config.cross)
-    plan = plan_serving_modes(
+    # one process: view parallelism is selectable only when several cards
+    # are visible
+    use_cache = plan_serving_modes(
         vp_mode=tristate(cfg.model.gpu.get("view_parallel", "auto")),
         cache_mode=tristate(cfg.this_main.get("ref_token_cache", "auto")),
         use_buckets=use_buckets,
         need_attn_weights=cfg.model.need_attn_weights,
         zero_reference=cfg.data.dataset.zero_reference,
-        k_refs=k_refs,
-        n_dev=n_dev,
-        n_local=n_dev,
-        n_proc=1,
-        data_mesh_size=n_dev,
+        k_refs=int(cfg.data.neighbour_config.cross),
+        n_dev=torch.cuda.device_count() if device.type == "cuda" else 1,
     )
-    if plan.use_vp:
-        raise NotImplementedError(
-            f"view-parallel predict (K={k_refs} references over {n_dev} devices) is not ported: "
-            "ROADMAP queue 1 item 13; set model.gpu.view_parallel=off"
-        )
 
     loader_kw = dict(
         batch_size=cfg.data.loader.validation.batch_size,
@@ -182,7 +148,7 @@ def predict(cfg) -> Path:
         return torch.from_numpy(np.ascontiguousarray(x)).to(device, non_blocking=True)
 
     h2d_bytes = 0
-    if plan.use_cache:
+    if use_cache:
         encoder = make_backbone_encoder(mcfg)
         token_cache = RefTokenCache(
             lambda imgs, valid_hw=None: encoder(model, to_device(imgs), valid_hw),
@@ -261,7 +227,7 @@ def predict(cfg) -> Path:
     seconds = time.perf_counter() - t0
 
     summariser.summarise()
-    if plan.use_cache:
+    if use_cache:
         print(f"ref-token cache: {token_cache.hits} hits, {token_cache.misses} unique misses")
     per_batch = h2d_bytes / max(n_batches, 1) / 2**20
     print(f"predict: {n_maps} maps in {seconds:.3f} s = {n_maps / max(seconds, 1e-9):.2f} maps/s "

@@ -159,18 +159,26 @@ def test_cli_modes_agree_and_reference_copies_are_per_item(ws, capsys):
 @pytest.mark.parametrize("buckets", [False, True])
 @pytest.mark.parametrize("cache", ["auto", "off"])
 def test_serving_plan_matches_jax(k_refs, n_dev, vp, buckets, cache):
+    """One process over its n_dev devices: the port raises where the JAX
+    plan shards the views, and otherwise turns the cache on as JAX does."""
     kw = dict(vp_mode=vp, cache_mode=cache, use_buckets=buckets, need_attn_weights=False,
-              zero_reference=False, k_refs=k_refs, n_dev=n_dev, n_local=n_dev, n_proc=1,
-              data_mesh_size=n_dev)
-    assert tuple(plan_serving_modes(**kw)) == tuple(jax_plan(**kw))
+              zero_reference=False, k_refs=k_refs, n_dev=n_dev)
+    want = jax_plan(**kw, n_local=n_dev, n_proc=1, data_mesh_size=n_dev)
+    if want.use_vp:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            plan_serving_modes(**kw)
+    else:
+        assert plan_serving_modes(**kw) == want.use_cache
 
 
 def test_view_parallel_plan_raises(ws, monkeypatch):
+    """view_parallel=on with K divisible by the cards stops the CLI (two
+    cards stood in for by the plan's device count)."""
     _, ckpt = ws
-    monkeypatch.setattr(port_predict, "plan_serving_modes",
-                        lambda **kw: port_predict.ServingPlan(True, False, True))
+    plan = port_predict.plan_serving_modes
+    monkeypatch.setattr(port_predict, "plan_serving_modes", lambda **kw: plan(**{**kw, "n_dev": 2}))
     with pytest.raises(NotImplementedError, match="item 13"):
-        main(COMMON + [f"trainer.ckpt_path_to_load={ckpt}", "alias=vp"])
+        main(COMMON + [f"trainer.ckpt_path_to_load={ckpt}", "model.gpu.view_parallel=on", "alias=vp"])
 
 
 @pytest.fixture
