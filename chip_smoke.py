@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's predict forward, train step and predict CLI on one CUDA card.
+"""Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
+the predict CLI and view-parallel predict.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -14,9 +15,12 @@ In order:
    backward) at the train shapes (B=24, K=5), and K5 and K6 (the masked
    forwards of shape-bucketed inference) at the bucketed predict shapes
    (540x960 images -> 518x921 -> a 560x1008 bucket, B=8, K=5; per-item and
-   shared token biases), in bf16 and fp32 (and at the other presets' head
-   dims and widths at small shapes; K5/K6 also by the relative L2 error of
-   each output), and time the kernel, the plain version
+   shared token biases), and K7 (the head-major forward) at the
+   view-parallel shapes (q (8, 8, 1369, 48) over Nk 5476 and 1369, with and
+   without a shared bias, on contiguous tensors and on head-major views), in
+   bf16 and fp32 (and at the other presets' head dims and widths at small
+   shapes; K5-K7 also by the relative L2 error of each output), and time the
+   kernel, the plain version
    and, for the attention kernels, one ``F.scaled_dot_product_attention``
    call (K4: one backward of it; K5/K6: with the bias as a float mask) on
    the same inputs (a yardstick only; the port never calls it);
@@ -43,7 +47,15 @@ In order:
    kernels each mode launches, the cache's misses, and that the valid region
    of every score map agrees across the four runs; print maps/s with the
    loader in the loop;
-10. print one ``{"kernels": [...]}`` line, then, last, the device line.
+10. view-parallel predict, on the one card: (i) the context-parallel op
+    over one NCCL rank at the full shape against local K7; (ii) the fp32 B=1
+    forward (K=8) on two gloo ranks that share the card against the
+    single-process all-plain net; (iii) the predict CLI on two such ranks
+    (``model.gpu.view_parallel=on``, K=8 over a pool of 8 references, B=8,
+    3 batches of 518x518 images), uncached and cached: launches and cache
+    misses per rank, the same maps on both ranks, and the written maps
+    against the single-rank CLI; maps/s of two ranks time-slicing one card;
+11. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -66,6 +78,9 @@ TB, TK = 24, 5  # train operating point (config/data/combined_training.yaml): 14
 PB, PK, PHW, BUCKET_GRID = 8, 5, (540, 960), (40, 72)
 # valid grids mixed in one bucket-packed batch: 16.5% and 16.7% of the columns masked
 VALID_GRIDS = ((37, 65), (40, 60))
+# view-parallel predict at B=8, K=8: each rank's KV length, 4*1369 on 2 ranks
+# and 1369 on 8
+VP_NK = (4 * 1369, 1369)
 
 # least time the card could take: the larger of ops / peak and bytes / rate.
 # Dense peaks from NVIDIA's data sheets (bf16 tensor cores, fp32 CUDA cores).
@@ -96,6 +111,9 @@ TOL_K4 = {"float32": 1e-5, "bfloat16": 2e-3}
 # rounded to bf16 once on each side) and 2.80e-6 in fp32; o 15% off reads
 # 0.150 and a kernel that ignores the bias 0.30-0.52 (PERF.md).
 TOL_L2 = {"float32": 2e-5, "bfloat16": 8e-3}
+# the CP op over one rank against local K7: o * l / l in fp32, rounded back
+# once; any difference is an fp32 ulp turned into a bf16 rounding flip
+VP_ONE_RANK_TOL = 1e-5
 # whole-net score-map MAE, kernel path vs all-plain path, B=1 (scores in [0, 1])
 NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # predict CLI, bf16: mean |difference| of the valid region of the written
@@ -184,8 +202,17 @@ def _token_bias(torch, grids, dev, grid=BUCKET_GRID, cls: bool = False):
     return torch.where(valid, 0.0, -1e30).to(dev).contiguous()
 
 
-def _write_predict_dirs(root: Path, n_query: int, n_ref: int) -> tuple[Path, Path]:
-    """Seeded 540x960 RGB PNGs: ``n_query`` renders and ``n_ref`` references
+def _shared_bias(torch, nk: int, dev):
+    """A seeded (nk,) fp32 bias row in natural units: offsets in [-1, 0], a
+    fifth of the columns masked with -1e30."""
+    g = torch.Generator().manual_seed(SEED + 7)
+    bias = -torch.rand(nk, generator=g)
+    bias[torch.rand(nk, generator=g) < 0.2] = -1e30
+    return bias.to(dev)
+
+
+def _write_predict_dirs(root: Path, n_query: int, n_ref: int, hw=PHW) -> tuple[Path, Path]:
+    """Seeded ``hw`` RGB PNGs: ``n_query`` renders and ``n_ref`` references
     (smooth random fields, each render a noisy copy of a reference)."""
     import numpy as np
     from PIL import Image
@@ -194,7 +221,7 @@ def _write_predict_dirs(root: Path, n_query: int, n_ref: int) -> tuple[Path, Pat
     qdir, rdir = root / "query", root / "reference"
     qdir.mkdir(parents=True)
     rdir.mkdir(parents=True)
-    h, w = PHW
+    h, w = hw
     refs = []
     for i in range(n_ref):
         coarse = rng.random((h // 60 + 1, w // 60 + 1, 3))
@@ -219,6 +246,62 @@ class _Tee:
 
     def flush(self):
         self.out.flush()
+
+
+def _rank_launches() -> dict:
+    from crossscore_tpu_torch.ops.flash_attention import (
+        flash_attention_head_major, flash_cross_attention, flash_cross_attention_bwd,
+        flash_cross_attention_masked, flash_qkv_self_attention, flash_qkv_self_attention_masked,
+    )
+    from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp
+
+    return {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention,
+            "K4": flash_cross_attention_bwd, "K5": flash_qkv_self_attention_masked,
+            "K6": flash_cross_attention_masked, "K7": flash_attention_head_major}
+
+
+def _vp_forward_rank(query, refs) -> dict:
+    """One rank of the fp32 B=1 view-parallel forward (gloo, the ranks share
+    the card): the seeded net built with the ``cp`` route, this rank's views."""
+    import torch
+
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.parallel import mesh
+    from crossscore_tpu_torch.parallel.view_parallel import make_view_parallel_apply, view_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, dev = mesh.init_distributed("gloo", "cuda")
+    try:
+        cfg = CrossScoreConfig(compute_dtype=torch.float32, attention_impl="cp", mlp_impl="fused_exact")
+        model = load_into(CrossScoreNet(cfg, device=dev), init_params(cfg, SEED, dev))
+        wrappers = _rank_launches()
+        for w in wrappers.values():
+            w.launches = 0
+        q = torch.from_numpy(query).to(dev)
+        r = torch.from_numpy(refs[:, view_shard(refs.shape[1])].copy()).to(dev)
+        maps = make_view_parallel_apply(model)(q, r).cpu().numpy()
+        return {"maps": maps, "launches": {k: w.launches for k, w in wrappers.items()}}
+    finally:
+        mesh.teardown()
+
+
+def _vp_cli_rank(argv: list) -> dict:
+    """One rank of the predict CLI, its report lines captured, with its
+    kernel launches counted from 0."""
+    import contextlib
+    import io
+
+    from crossscore_tpu_torch.tasks.predict import main as predict_main
+
+    wrappers = _rank_launches()
+    for w in wrappers.values():
+        w.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        predict_main(argv)
+    return {"text": out.getvalue(), "launches": {k: w.launches for k, w in wrappers.items()}}
 
 
 def _profile(torch, fn, step_ms: float, top: int = 16) -> None:
@@ -280,7 +363,7 @@ def main() -> int:
         flash_cross_attention, flash_cross_attention_bwd, flash_cross_attention_bwd_plain,
         flash_cross_attention_masked, flash_cross_attention_masked_plain, flash_cross_attention_plain,
         flash_qkv_self_attention, flash_qkv_self_attention_masked, flash_qkv_self_attention_masked_plain,
-        flash_qkv_self_attention_plain,
+        flash_qkv_self_attention_plain, flash_attention_head_major, flash_attention_head_major_plain,
     )
     from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_plain
     from crossscore_tpu_torch.train.optim import make_optimizer
@@ -488,6 +571,51 @@ def main() -> int:
         del q, item_bias, bias5, bias6
         torch.cuda.empty_cache()
 
+        # K7 at the view-parallel shapes: B*H = 64 (B=8, the 8 decoder heads),
+        # Nq 1369, hd 48; Nk = 4*1369 per rank on 2 ranks at K=8, 1369 on 8
+        # ranks. Without and with a shared bias row, on contiguous (B, H, N,
+        # hd) tensors and on head-major hm of token-major projections
+        dhd = d // dec_h
+        k7_bias = _shared_bias(torch, VP_NK[0], dev)
+        errs, l2s = [], []
+        for nk in VP_NK:
+            xq, xk, xv = randn(B, nq, d, dtype=dtype), randn(B, nk, d, dtype=dtype), randn(B, nk, d, dtype=dtype)
+            hm = [t.view(B, -1, dec_h, dhd).transpose(1, 2) for t in (xq, xk, xv)]
+            for layout in (hm, [t.contiguous() for t in hm]):
+                for bias in (None, k7_bias[:nk].contiguous()):
+                    got = flash_attention_head_major(*layout, bias)
+                    want = flash_attention_head_major_plain(*layout, bias)
+                    err, l2 = _masked_errs([(got, want)])
+                    errs.append(err)
+                    l2s.append(l2)
+            del got, want
+            if nk == VP_NK[0]:  # time the main path's form: hm, no bias
+                ops = 4.0 * B * dec_h * nq * nk * dhd
+                nbytes = B * dec_h * (2 * nq + 2 * nk) * dhd * es + 2 * B * dec_h * nq * 4
+                k7 = dict(
+                    max_abs=max(_max_abs(g, w) for g, w in zip(flash_attention_head_major(*hm),
+                                                               flash_attention_head_major_plain(*hm))),
+                    ms=_time_ms(torch, lambda: flash_attention_head_major(*hm)),
+                    plain_ms=_time_ms(torch, lambda: flash_attention_head_major_plain(*hm), reps=3),
+                    library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(*hm)),
+                    bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
+                    bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+                    # K3 on the token-major tensors the hm read: the same work
+                    k3_ms=_time_ms(torch, lambda: flash_cross_attention(xq, xk, xv, dec_h)),
+                )
+            del xq, xk, xv, hm, layout
+        report[("K7", tname)] = dict(err=max(errs), tol=TOL[tname], l2=max(l2s), tol_l2=TOL_L2[tname], **k7)
+        if dtype == torch.bfloat16:  # K7 and K3 at the 1-rank K=8 length, timed only
+            nk = K * nq
+            xq, xk, xv = randn(B, nq, d, dtype=dtype), randn(B, nk, d, dtype=dtype), randn(B, nk, d, dtype=dtype)
+            hm = [t.view(B, -1, dec_h, dhd).transpose(1, 2) for t in (xq, xk, xv)]
+            report[("K7", tname)].update(
+                ms_nk10952=_time_ms(torch, lambda: flash_attention_head_major(*hm)),
+                k3_ms_nk10952=_time_ms(torch, lambda: flash_cross_attention(xq, xk, xv, dec_h)),
+                bound_ms_nk10952=1e3 * 4.0 * B * dec_h * nq * nk * dhd / peak)
+            del xq, xk, xv, hm
+        torch.cuda.empty_cache()
+
     # the other presets' widths, small shapes, correctness only: K1 at hd 16
     # (dinov2-test) and 64 (base, large), K2 at D 64, 768, 1024, K3 and K4 at
     # hd 96 and 128 (base, large decoders), K4 also at hd 64
@@ -548,6 +676,11 @@ def main() -> int:
                      f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
         if "k1_ms" in r:
             line += f" K1 same qkv {r['k1_ms']:.3f} ms"
+        if "k3_ms" in r:
+            line += f" K3 same work {r['k3_ms']:.3f} ms"
+        if "ms_nk10952" in r:
+            line += (f"; at Nk 10952: kernel {r['ms_nk10952']:.3f} ms, K3 {r['k3_ms_nk10952']:.3f} ms, "
+                     f"bound {r['bound_ms_nk10952']:.3f} ms")
         print(f"{line} {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append(f"{kern} {tname}")
@@ -564,9 +697,7 @@ def main() -> int:
     step = make_predict_step(model)
     query = torch.randint(0, 256, (B, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
     refs = torch.randint(0, 256, (B, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
-    wrappers = {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention,
-                "K4": flash_cross_attention_bwd, "K5": flash_qkv_self_attention_masked,
-                "K6": flash_cross_attention_masked}
+    wrappers = _rank_launches()
 
     def zero_launches():
         for w in wrappers.values():
@@ -580,7 +711,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * cfg.decoder_layers, "K4": 0,
-            "K5": 0, "K6": 0}
+            "K5": 0, "K6": 0, "K7": 0}
     print(f"predict path launches per forward: {launches} (expected {want})")
     if launches != want:
         _fail(f"launch counts {launches} != {want}")
@@ -633,7 +764,7 @@ def main() -> int:
     torch.cuda.synchronize()
     train_launches = read_launches()
     want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * mcfg.decoder_layers,
-            "K4": 2 * mcfg.decoder_layers, "K5": 0, "K6": 0}
+            "K4": 2 * mcfg.decoder_layers, "K5": 0, "K6": 0, "K7": 0}
     print(f"train step launches: {train_launches} (expected {want})")
     if train_launches != want:
         _fail(f"train launch counts {train_launches} != {want}")
@@ -839,7 +970,138 @@ def main() -> int:
         del model, step, step_cached, tokens, tokens_b, q_img, r_img, host
         torch.cuda.empty_cache()
 
-    # --- 10. the kernels line, then the device line ---------------------------
+    # --- 10. view-parallel predict ----------------------------------------------
+    # The card's machine has one H100: NCCL runs with one rank, and the
+    # two-rank runs use gloo ranks that share the card (NCCL refuses two
+    # ranks on one device), so their maps/s is not a scaling number.
+    import os
+
+    from crossscore_tpu_torch.ops.context_parallel import context_parallel_cross_attention
+    from crossscore_tpu_torch.parallel import mesh
+    from crossscore_tpu_torch.parallel.launch import RankPool, free_port
+
+    vp = {}
+    # (i) the CP op through NCCL over one rank at the full shape: the
+    # all-reduces are the identity, so o is local K7's o
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh.init_distributed("nccl", "cuda")
+        dhd = d // dec_h
+        xs = [randn(B, n_, d, dtype=torch.bfloat16) for n_ in (nq, VP_NK[0], VP_NK[0])]
+        hm = [t.view(B, -1, dec_h, dhd).transpose(1, 2) for t in xs]
+        o_cp = context_parallel_cross_attention(*hm)
+        o_k7 = flash_attention_head_major(*hm)[0]
+        torch.cuda.synchronize()
+        vp["nccl_one_rank_rel_l2"] = _rel_l2(o_cp, o_k7)
+        vp["nccl_one_rank_max_abs"] = _max_abs(o_cp, o_k7)
+        del xs, hm, o_cp, o_k7
+    finally:
+        mesh.teardown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"view-parallel (i): CP op over one NCCL rank at q ({B}, {dec_h}, {nq}, {d // dec_h}), Nk "
+          f"{VP_NK[0]}, bf16: relative L2 against local K7 {vp['nccl_one_rank_rel_l2']:.3e}, max |d| "
+          f"{vp['nccl_one_rank_max_abs']:.3e} (tol {VP_ONE_RANK_TOL:.0e})")
+    if not vp["nccl_one_rank_rel_l2"] <= VP_ONE_RANK_TOL:
+        _fail("the CP op over one NCCL rank differs from local K7")
+    torch.cuda.empty_cache()
+
+    n_query, n_ref = 3 * B, K  # three batches; every query lists the pool in one order
+    with tempfile.TemporaryDirectory() as tmp, RankPool(2) as pool:
+        # (ii) fp32 B=1 forward on two gloo ranks against the all-plain net
+        q1 = torch.randint(0, 256, (1, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+        r1 = torch.randint(0, 256, (1, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+        plain_cfg = CrossScoreConfig(compute_dtype=torch.float32, attention_impl="dense", mlp_impl="unfused")
+        net = load_into(CrossScoreNet(plain_cfg, device=dev), init_params(plain_cfg, SEED, dev))
+        want = make_predict_step(net)(q1, r1)["score_map_ref_cross"].cpu().numpy()
+        del net
+        torch.cuda.empty_cache()
+        ranks = pool.run(_vp_forward_rank, q1.cpu().numpy(), r1.cpu().numpy(), timeout=600)
+        vp["fwd_mae"] = float(np.abs(ranks[0]["maps"] - want).mean())
+        same = bool(np.array_equal(ranks[0]["maps"], ranks[1]["maps"]))
+        print(f"view-parallel (ii): fp32 B=1 K={K} forward on 2 gloo ranks sharing the card vs the "
+              f"single-process all-plain net: score MAE {vp['fwd_mae']:.3e} (tol {NET_TOL['float32']:.0e}); "
+              f"ranks equal {same}; launches per rank {[r['launches'] for r in ranks]}")
+        if not (vp["fwd_mae"] < NET_TOL["float32"] and same
+                and all(r["launches"]["K7"] == cfg.decoder_layers for r in ranks)):
+            _fail("view-parallel forward on two ranks")
+
+        # (iii) the predict CLI: two gloo ranks, uncached and cached, against
+        # the single-rank CLI on 518x518 images (the kernel shapes above)
+        qdir, rdir = _write_predict_dirs(Path(tmp), n_query, n_ref, hw=(HW, HW))
+        pcfg = CrossScoreConfig.from_config(load_config("default_predict"))
+        ckpt = Path(tmp) / "run" / "ckpt" / "seeded.ckpt"
+        ckpt.parent.mkdir(parents=True)
+        torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in init_params(pcfg, SEED).items()}}, ckpt)
+        common = [f"trainer.ckpt_path_to_load={ckpt}", f"data.dataset.query_dir={qdir}",
+                  f"data.dataset.reference_dir={rdir}", f"data.neighbour_config.cross={K}",
+                  "data.neighbour_config.deterministic=true", f"data.loader.validation.batch_size={B}",
+                  "logger.predict.write.config.score_map_colour_mode=gray",
+                  "logger.predict.write.config.vis_img_every_n_steps=-1",
+                  "logger.predict.write.flag.image_query=false",
+                  "logger.predict.write.flag.image_reference=false"]
+        t0 = time.perf_counter()
+        zero_launches()
+        with contextlib.redirect_stdout(_Tee(sys.stdout)):
+            one = predict_main(common + ["this_main.ref_token_cache=off", f"logger.predict.out_dir={tmp}/one"])
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        n_layers, n_b = vit.num_layers, n_query // B
+        vp_cli = {}
+        for cache in ("off", "on"):
+            t0 = time.perf_counter()
+            ranks = pool.run(_vp_cli_rank, common + [
+                f"this_main.ref_token_cache={cache}", "model.gpu.view_parallel=on",
+                "model.gpu.dist_backend=gloo", f"logger.predict.out_dir={tmp}/vp_{cache}"], timeout=900)
+            wall = time.perf_counter() - t0
+            enc = n_layers * (n_b + (cache == "on"))  # a cached run adds one miss batch
+            want_l = {"K1": enc, "K2": enc, "K3": pcfg.decoder_layers * n_b, "K4": 0, "K5": 0, "K6": 0,
+                      "K7": pcfg.decoder_layers * n_b}
+            digests, rates, misses, bad = set(), [], [], []
+            for rank, r in enumerate(ranks):
+                text = r["text"]
+                digests.add(re.search(r"score maps sha256 (\w+)", text).group(1))
+                rates.append(float(re.search(r"= ([0-9.]+) maps/s", text).group(1)))
+                hits = re.search(r"ref-token cache: (\d+) hits, (\d+) unique misses", text)
+                misses.append(int(hits.group(2)) if hits else None)
+                if r["launches"] != want_l:
+                    bad.append(f"rank {rank} launches {r['launches']} != {want_l}")
+            if cache == "on" and misses != [K // 2, K // 2]:
+                bad.append(f"misses per rank {misses} != {[K // 2] * 2}")
+            if len(digests) != 1:
+                bad.append("the ranks' maps differ")
+            got_maps = sorted(Path(f"{tmp}/vp_{cache}/batch/score_map_ref_cross").glob("*.png"))
+            ref_maps = sorted((one / "batch" / "score_map_ref_cross").glob("*.png"))
+            if [p.name for p in got_maps] != [p.name for p in ref_maps] or len(got_maps) != n_query:
+                bad.append("map files differ from the single-rank run")
+                mae = float("nan")
+            else:
+                from PIL import Image
+
+                mae = float(np.mean([np.abs(np.asarray(Image.open(a), np.float64)
+                                            - np.asarray(Image.open(b), np.float64)).mean() / 32767.0
+                                     for a, b in zip(got_maps, ref_maps)]))
+            vp_cli[cache] = dict(launches_per_rank=ranks[0]["launches"], misses_per_rank=misses,
+                                 maps_per_s_per_rank=rates, wall_s=wall, mae_vs_single_rank=mae)
+            print(f"view-parallel (iii) predict CLI, 2 gloo ranks time-slicing one card, cache {cache}: "
+                  f"launches per rank {ranks[0]['launches']} (expected {want_l}); misses per rank {misses}; "
+                  f"ranks' maps equal {len(digests) == 1}; MAE vs the single-rank CLI {mae:.3e} "
+                  f"(tol {CLI_TOL:.0e}); {rates} maps/s per rank (two ranks time-slicing one card, the "
+                  f"loader in the loop), {wall:.1f} s wall; single-rank run {single_s:.1f} s")
+            if not mae <= CLI_TOL:
+                bad.append(f"MAE {mae} vs the single-rank CLI")
+            if bad:
+                _fail(f"view-parallel predict CLI, cache {cache}: " + "; ".join(bad))
+        vp["cli"] = vp_cli
+    torch.cuda.empty_cache()
+
+    # --- 11. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -851,31 +1113,41 @@ def main() -> int:
                "K5": ("flash_qkv_self_attention_masked", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1227"),
                "K6": ("flash_cross_attention_masked", "crossscore_tpu_torch/csrc/flash_cross.cu",
-                      "crossscore_tpu/ops/flash_attention.py:799")}
+                      "crossscore_tpu/ops/flash_attention.py:799"),
+               "K7": ("flash_attention_head_major", "crossscore_tpu_torch/csrc/flash_cross.cu",
+                      "crossscore_tpu/ops/flash_attention.py:69")}
     shapes = {"K1": f"qkv ({views}, {n}, {3 * d}) bf16",
               "K2": f"x ({views}, {n}, {d}) bf16, F={f}",
               "K3": f"q ({B}, {nq}, {d}), k/v ({B}, {K * nq}, {d}) bf16, hd {d // dec_h}",
               "K4": f"q/o/do ({TB}, {nq}, {d}), k/v ({TB}, {TK * nq}, {d}) bf16, hd {d // dec_h}",
               "K5": f"qkv ({PB}, {BUCKET_GRID[0] * BUCKET_GRID[1] + 1}, {3 * d}) bf16, per-item bias",
               "K6": f"q ({PB}, {BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}), k/v ({PB}, "
-                    f"{PK * BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}) bf16, hd {d // dec_h}, per-item bias"}
-    stats = ("err", "tol", "l2", "tol_l2", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms", "k1_ms")
+                    f"{PK * BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}) bf16, hd {d // dec_h}, per-item bias",
+              "K7": f"q ({B}, {dec_h}, {nq}, {d // dec_h}), k/v ({B}, {dec_h}, {VP_NK[0]}, {d // dec_h}) bf16 "
+                    "head-major views, no bias"}
+    stats = ("err", "tol", "l2", "tol_l2", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms", "k1_ms",
+             "k3_ms")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
         # the main path of K1-K4 is the train step; of K5 and K6, the bucketed
-        # predict CLI run (c)
-        main_launches = cli["c"]["launches"][kern] if kern in ("K5", "K6") else train_launches[kern]
+        # predict CLI run (c); of K7, rank 0 of the uncached view-parallel CLI
+        main_launches = (cli["c"]["launches"][kern] if kern in ("K5", "K6")
+                         else vp["cli"]["off"]["launches_per_rank"][kern] if kern == "K7"
+                         else train_launches[kern])
         row = {"name": fn, "route": "cuda", "source": src, "replaces": replaces,
                "launches": main_launches, "max_abs_err": r["max_abs"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "rel_err": r["err"], "tol": r["tol"],
                "err_kind": "relative L2 of dq, dk, dv" if kern == "K4" else "max |d| / (1 + |plain|)",
                "launches_by_path": {"predict": launches[kern], "bucketed_predict": cli["c"]["launches"][kern],
-                                    "train_step": train_launches[kern]},
+                                    "train_step": train_launches[kern],
+                                    "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern]},
                "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
-        # K5, K6: the relative L2 of o, l, m; K5: K1's time on the same qkv
-        row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms") if k in r})
+        # K5-K7: the relative L2 of o, l, m; K5: K1's time on the same qkv;
+        # K7: K3's on the same work, and both at the 1-rank length
+        row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms", "k3_ms", "ms_nk10952", "k3_ms_nk10952",
+                                      "bound_ms_nk10952") if k in r})
         if kern in ("K3", "K4", "K6"):
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
             row["self"] = {k: s[k] for k in stats if k in s}
@@ -889,7 +1161,7 @@ def main() -> int:
                                          if tag in agree else {})
                                       | {"device_step_ms": device_ms[tag]}
                                       for tag, r in cli.items()},
-                      "predict_loader_maps_per_s": loader_rate}))
+                      "predict_loader_maps_per_s": loader_rate, "view_parallel": vp}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
     return 0

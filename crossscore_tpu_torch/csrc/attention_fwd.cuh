@@ -1,14 +1,16 @@
-// Flash-attention forward shared by K1 and K5 (flash_qkv.cu) and K3 and K6
-// (flash_cross.cu).
+// Flash-attention forward shared by K1 and K5 (flash_qkv.cu) and K3, K6 and
+// K7 (flash_cross.cu).
 //
 // softmax(Q K^T * scale) V for one (batch, head, q tile) per block,
 // with an online softmax over 64-row KV tiles, so the Nq x Nk score matrix
-// never reaches device memory. Q, K and V are read at a column offset
-// head * HD from token-major rows of any stride: K1 passes the three sections
-// of the fused (B, N, 3D) qkv projection, K3 the separate (B, N, D) q/k/v
-// projections. The output goes to (B, Nq, H*HD) at column head * HD, and the
-// statistics l (sum of exp(scaled - m)) and m (row max of the scaled logits,
-// natural units) to (B, H, Nq) fp32, the JAX package's (o, l, m) convention.
+// never reaches device memory. Q, K, V and O are addressed by batch, head and
+// row strides with the HD columns of a row contiguous: K1 passes the three
+// sections of the fused (B, N, 3D) qkv projection and K3 the separate
+// (B, N, D) q/k/v projections (head stride HD: heads side by side in a
+// token-major row), K7 head-major (B, H, N, HD) tensors or their strided
+// views (any head stride). The statistics l (sum of exp(scaled - m)) and m
+// (row max of the scaled logits, natural units) go to (B, H, Nq) fp32, the
+// JAX package's (o, l, m) convention.
 // Ragged tails are masked on both sides: q rows past Nq are computed from
 // zeros and never stored, KV columns past Nk get -inf logits (and zero V).
 //
@@ -46,10 +48,10 @@ struct AttnArgs {
   void* o;
   float* l;
   float* m;
-  long long q_bs, q_rs;  // batch and row strides, in elements
-  long long k_bs, k_rs;
-  long long v_bs, v_rs;
-  long long o_bs, o_rs;
+  long long q_bs, q_hs, q_rs;  // batch, head and row strides, in elements
+  long long k_bs, k_hs, k_rs;
+  long long v_bs, v_hs, v_rs;
+  long long o_bs, o_hs, o_rs;
   int h, nq, nk;
   float c1;  // softmax scale * log2(e)
   const float* bias = nullptr;  // K5/K6: (Nk,) or (B, Nk) fp32, natural units
@@ -89,9 +91,9 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = lane & 3;
   const int q0 = blockIdx.x * L::ROWS, head = blockIdx.y, b = blockIdx.z;
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * HD;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * HD;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * HD;
+  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * a.q_hs;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * a.k_hs;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * a.v_hs;
   const float* bias = BIAS ? a.bias + b * a.bias_bs : nullptr;
   // with a bias the scores are scaled (and biased) in place, so the softmax
   // below runs at scale 1; without one it folds c1 into its FMAs
@@ -231,7 +233,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
     __syncthreads();  // this stage is refilled two tiles on
   }
 
-  bf16* out = static_cast<bf16*>(a.o) + b * a.o_bs + head * HD + qd * 2;
+  bf16* out = static_cast<bf16*>(a.o) + b * a.o_bs + head * a.o_hs + qd * 2;
   const long long stat = ((long long)b * a.h + head) * a.nq;
 #pragma unroll
   for (int mi = 0; mi < MW; ++mi) {
@@ -276,9 +278,9 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
   const int tid = threadIdx.x, row = tid >> 1, half = tid & 1;
   float* srow = reinterpret_cast<float*>(smem + L::s_off) + row * (BK + 1);
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
-  const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * HD;
-  const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * HD;
-  const float* V = static_cast<const float*>(a.v) + b * a.v_bs + head * HD;
+  const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * a.q_hs;
+  const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * a.k_hs;
+  const float* V = static_cast<const float*>(a.v) + b * a.v_bs + head * a.v_hs;
   const float* bias = BIAS ? a.bias + b * a.bias_bs : nullptr;
 
   const int qrow = q0 + row;
@@ -327,7 +329,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
 
   if (qrow < a.nq) {
     const float inv = l_run == 0.f ? 1.f : 1.f / l_run;
-    float* out = static_cast<float*>(a.o) + b * a.o_bs + qrow * a.o_rs + head * HD + half * HH;
+    float* out = static_cast<float*>(a.o) + b * a.o_bs + qrow * a.o_rs + head * a.o_hs + half * HH;
 #pragma unroll
     for (int d = 0; d < HH; ++d) out[d] = o[d] * inv;
     if (half == 0) {

@@ -17,6 +17,23 @@
 // item's token mask tiled K times). The TPU kernel adds the pre-scaled bias
 // block to the score tile; here each thread reads its columns of the item's
 // row per KV tile and the tail mask still applies after it.
+//
+// K7 is the same kernel on head-major operands, the counterpart of the TPU
+// kernels that `_flash_fwd` launches: `_fwd_kernel` and `_fwd_kernel_single`
+// (v1, no bias; what the context-parallel cross-attention calls per KV shard)
+// and `_fwd_kernel_v2` and `_fwd_kernel_single_v2` (v2, with an optional (Nk,)
+// bias row shared by the batch). q is (B, H, Nq, hd) and k, v (B, H, Nk, hd),
+// each with its own batch, head and row strides and hd contiguous: a
+// contiguous tensor, or the head-major view x.view(B, N, H, hd).transpose(1,
+// 2) of a token-major projection, read in place. o is written to a contiguous
+// (B, H, Nq, hd). The TPU kernels pick one of two bodies by the KV length
+// (one exact-softmax block up to 2048 tokens, an online softmax over 1024-row
+// blocks beyond); here the 64-row online softmax covers both (Nk = 1369 or
+// 5476 per shard on the view-parallel path), and the tail is masked in the
+// last tile instead of padded in memory. Bound and design as K3's: the tensor
+// cores bound it (4*Nq*Nk*hd operations per head against (2*Nq + 2*Nk)*hd
+// elements moved), and a view costs nothing over a contiguous tensor, since
+// every row of hd elements is one run of 16-byte loads either way.
 
 #include "attention_fwd.cuh"
 
@@ -32,6 +49,7 @@ cs::AttnArgs cross_args(const void* q, const void* k, const void* v, void* o, vo
   a.q_bs = (long long)nq * d;
   a.k_bs = a.v_bs = (long long)nk * d;
   a.q_rs = a.k_rs = a.v_rs = d;
+  a.q_hs = a.k_hs = a.v_hs = a.o_hs = hd;  // heads side by side in a row
   a.o = o;
   a.o_bs = (long long)nq * d;
   a.o_rs = d;
@@ -63,5 +81,53 @@ extern "C" int cs_flash_cross_attention_masked(const void* q, const void* k, con
   cs::AttnArgs a = cross_args(q, k, v, o, l, m, nq, nk, heads, hd, scale);
   a.bias = static_cast<const float*>(bias);
   a.bias_bs = bias_bs;
+  return cs::launch_attention<true>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// strides: the batch, head and row strides of q, k and v, in elements
+cs::AttnArgs head_major_args(const void* q, const void* k, const void* v, const long long* strides,
+                             void* o, void* l, void* m, int heads, int nq, int nk, int hd,
+                             float scale) {
+  cs::AttnArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.q_bs = strides[0], a.q_hs = strides[1], a.q_rs = strides[2];
+  a.k_bs = strides[3], a.k_hs = strides[4], a.k_rs = strides[5];
+  a.v_bs = strides[6], a.v_hs = strides[7], a.v_rs = strides[8];
+  a.o = o;  // contiguous (B, H, Nq, hd)
+  a.o_rs = hd;
+  a.o_hs = (long long)nq * hd;
+  a.o_bs = (long long)heads * nq * hd;
+  a.l = static_cast<float*>(l);
+  a.m = static_cast<float*>(m);
+  a.h = heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.c1 = scale * cs::kLog2e;
+  return a;
+}
+
+}  // namespace
+
+extern "C" int cs_flash_attention_head_major(const void* q, const void* k, const void* v,
+                                             const long long* strides, void* o, void* l, void* m,
+                                             int batch, int heads, int nq, int nk, int hd,
+                                             int dtype, float scale, void* stream) {
+  const cs::AttnArgs a = head_major_args(q, k, v, strides, o, l, m, heads, nq, nk, hd, scale);
+  return cs::launch_attention<false>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// bias: (Nk,) fp32 in natural units, one row shared by the batch
+extern "C" int cs_flash_attention_head_major_biased(const void* q, const void* k, const void* v,
+                                                    const long long* strides, const void* bias,
+                                                    void* o, void* l, void* m, int batch,
+                                                    int heads, int nq, int nk, int hd, int dtype,
+                                                    float scale, void* stream) {
+  cs::AttnArgs a = head_major_args(q, k, v, strides, o, l, m, heads, nq, nk, hd, scale);
+  a.bias = static_cast<const float*>(bias);
+  a.bias_bs = 0;
   return cs::launch_attention<true>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -34,6 +34,7 @@ cs::AttnArgs qkv_args(const void* qkv, void* o, void* l, void* m, int n, int hea
   a.v = static_cast<const char*>(qkv) + 2 * d * esize;
   a.q_bs = a.k_bs = a.v_bs = (long long)n * 3 * d;
   a.q_rs = a.k_rs = a.v_rs = 3 * d;
+  a.q_hs = a.k_hs = a.v_hs = a.o_hs = hd;  // heads side by side in a row
   a.o = o;
   a.o_bs = (long long)n * d;
   a.o_rs = d;

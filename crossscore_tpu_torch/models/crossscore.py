@@ -61,7 +61,9 @@ def _normalize_u8(img: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class CrossScoreConfig:
     """Mirrors the JAX ``CrossScoreConfig``. ``attention_impl`` is ``"flash"``
-    (K1/K3, JAX's ``pallas``) or ``"dense"`` (JAX's ``xla``); ``mlp_impl`` is
+    (K1/K3, JAX's ``pallas``), ``"dense"`` (JAX's ``xla``) or ``"cp"`` (JAX's
+    ``cp:<axis>``: the decoder cross-attention through the context-parallel
+    op over the view group, K7; the rest as ``"flash"``); ``mlp_impl`` is
     ``"fused"``, ``"fused_exact"`` (K2) or ``"unfused"``. ``parity=True`` is
     the JAX ``model.tpu.parity`` rule: fp32 compute, exact GELU in K2.
     ``pe_trainable`` is ``model.pos_enc.multi_view.req_grad``."""
@@ -154,7 +156,10 @@ class CrossScoreNet(nn.Module):
             "img_mean_std",
             torch.from_numpy(np.concatenate([IMAGENET_MEAN, IMAGENET_STD])).to(device),
         )
-        self.backbone = Dinov2Encoder(cfg.backbone, cfg.compute_dtype, cfg.attention_impl,
+        # "cp" shards only the decoder's cross-attention; each rank's views
+        # are whole, so the backbone runs its local kernels
+        backbone_impl = "flash" if cfg.attention_impl == "cp" else cfg.attention_impl
+        self.backbone = Dinov2Encoder(cfg.backbone, cfg.compute_dtype, backbone_impl,
                                       cfg.mlp_impl, device)
         self.pos_enc_fn = MultiViewPositionalEmbedding(cfg.pe_h, cfg.pe_w, d, device)
         self.ref_cross = _RefCross(cfg, device)

@@ -12,7 +12,11 @@ K4 backward (:func:`flash_cross_attention_ln`) at the true head dim (48 for
 the main path), or through K6 (:func:`flash_cross_attention_masked`, forward
 only) when a token bias masks bucket-padded tokens; ``need_weights`` and
 ``"dense"`` take the dense fp32-softmax path, differentiable through plain
-autograd.
+autograd. With ``"cp"`` (view parallelism) the cross-attention runs the
+context-parallel op (:func:`context_parallel_cross_attention`, K7 per rank
+and an exact softmax combine over the view group) on head-major views of the
+projections, and the query self-attention stays local on K3 (the JAX package
+runs it dense; the two compute the same function). Forward only.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from torch import nn
 
 from crossscore_tpu_torch.models.dinov2 import ATTENTION_IMPLS, LayerNorm, linear
 from crossscore_tpu_torch.ops.attention import dense_attention
+from crossscore_tpu_torch.ops.context_parallel import context_parallel_cross_attention
 from crossscore_tpu_torch.ops.flash_attention import (
     _merge_heads, _split_heads, flash_cross_attention_ln, flash_cross_attention_masked,
 )
@@ -60,6 +65,13 @@ class TorchStyleMHA(nn.Module):
                                          _split_heads(v, h), kv_bias=kv_bias, return_probs=True)
             out = _merge_heads(out)
             probs = probs if need_weights else None
+        elif self.attention_impl == "cp":
+            if kv_bias is not None:
+                raise NotImplementedError("token masks (shape buckets) do not compose with view "
+                                          "parallelism, as in the JAX package")
+            # k and v hold this rank's reference views; head-major views, no copy
+            heads = lambda t: t.view(t.shape[0], t.shape[1], h, d // h).transpose(1, 2)  # noqa: E731
+            out = _merge_heads(context_parallel_cross_attention(heads(q), heads(k), heads(v)))
         elif kv_bias is not None:
             out, _, _ = flash_cross_attention_masked(q, k, v, kv_bias, h)
         else:
@@ -75,7 +87,9 @@ class DecoderLayer(nn.Module):
         self.do_self_attn = do_self_attn
         self.do_short_cut = do_short_cut
         if do_self_attn:
-            self.self_attn = TorchStyleMHA(d_model, num_heads, attention_impl, device)
+            # the query self-attention is local under "cp"
+            local_impl = "flash" if attention_impl == "cp" else attention_impl
+            self.self_attn = TorchStyleMHA(d_model, num_heads, local_impl, device)
             self.norm1 = LayerNorm(d_model, layer_norm_eps, device)
         self.multihead_attn = TorchStyleMHA(d_model, num_heads, attention_impl, device)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, device)

@@ -46,7 +46,10 @@ def token_bias(gh: int, gw: int, valid_grid, cls: bool = False) -> np.ndarray:
         valid = np.concatenate([np.ones((*vh.shape, 1), bool), valid], axis=-1)
     return np.where(valid, 0.0, MASKED).astype(np.float32)
 
-ATTENTION_IMPLS = ("flash", "dense")
+BACKBONE_IMPLS = ("flash", "dense")
+# "cp": the decoder's cross-attention over a KV axis sharded across the view
+# group (view parallelism); the backbone then runs "flash"
+ATTENTION_IMPLS = (*BACKBONE_IMPLS, "cp")
 MLP_IMPLS = ("fused", "fused_exact", "unfused")
 
 
@@ -112,8 +115,8 @@ class ViTAttention(nn.Module):
 
     def __init__(self, cfg: ViTConfig, attention_impl: str = "flash", device=None):
         super().__init__()
-        if attention_impl not in ATTENTION_IMPLS:
-            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
+        if attention_impl not in BACKBONE_IMPLS:
+            raise ValueError(f"attention_impl must be one of {BACKBONE_IMPLS}, got {attention_impl!r}")
         self.num_heads = cfg.num_heads
         self.attention_impl = attention_impl
         self.attention = _QKV(cfg.hidden_size, device)

@@ -1,18 +1,20 @@
-"""Flash-attention forwards K1 and K3, their masked forms K5 and K6, and the
-decoder backward K4; counterpart of ``crossscore_tpu/ops/flash_attention.py``
-(``_flash_qkv_fwd``, ``_flash_cross_ln_fwd``, each with and without
-``kv_bias``, and ``_bwd_cross_ln_pallas``).
+"""Flash-attention forwards K1 and K3, their masked forms K5 and K6, the
+head-major forward K7, and the decoder backward K4; counterpart of
+``crossscore_tpu/ops/flash_attention.py`` (``_flash_qkv_fwd``,
+``_flash_cross_ln_fwd``, each with and without ``kv_bias``, ``_flash_fwd``
+and ``_bwd_cross_ln_pallas``).
 
 The forwards return ``(o, l, m)`` in the JAX package's convention: ``o``
-token-major (B, Nq, H*hd), ``l`` and ``m`` (B, H, Nq) fp32, ``m`` the row max
-of the scaled logits in natural units and ``l`` = sum(exp(scaled - m)).
+token-major (B, Nq, H*hd) (K7: head-major (B, H, Nq, hd)), ``l`` and ``m``
+(B, H, Nq) fp32, ``m`` the row max of the scaled logits in natural units and
+``l`` = sum(exp(scaled - m)).
 :func:`flash_cross_attention_ln` is the differentiable decoder attention
 (forward K3, backward K4), the counterpart of the JAX ``custom_vjp``. K5 and
 K6 (shape-bucketed inference) are forward only, as in the JAX package: they
 raise on an input that requires grad.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/flash_qkv.cu``,
-``csrc/flash_cross.cu``, ``csrc/flash_cross_bwd.cu``) or raises; on a CPU
+``csrc/flash_cross.cu`` (K3, K6, K7), ``csrc/flash_cross_bwd.cu``) or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. Each wrapper counts its
 kernel launches in ``.launches``.
 """
@@ -234,6 +236,89 @@ def flash_cross_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
 
 
 flash_cross_attention_masked.launches = 0
+
+
+# --- K7: the head-major forward ----------------------------------------------
+
+
+def _check_head_major(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{what}: q (B, H, Nq, hd) and k, v (B, H, Nk, hd) expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if kv_bias is not None:
+        if kv_bias.dtype != torch.float32 or tuple(kv_bias.shape) != (k.shape[2],):
+            raise ValueError(f"{what}: kv_bias must be float32 ({k.shape[2]},), got "
+                             f"{kv_bias.dtype} {tuple(kv_bias.shape)}")
+    if any(t is not None and t.requires_grad for t in (q, k, v, kv_bias)):
+        raise RuntimeError(f"{what} is forward only; an input requires grad")
+
+
+def _strides_16b(what: str, *tensors) -> list[int]:
+    """The batch, head and row strides of each (B, H, N, hd) operand, after
+    checking that its hd columns are contiguous and that every row starts on
+    a 16-byte boundary (the kernel's 16-byte loads)."""
+    out = []
+    for t in tensors:
+        es = t.element_size()
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(t.stride(i) * es % 16 for i in range(3)):
+            raise ValueError(f"{what}: each operand needs contiguous rows of hd elements starting "
+                             f"on 16-byte boundaries, got strides {t.stride()}")
+        out += [t.stride(0), t.stride(1), t.stride(2)]
+    return out
+
+
+def flash_attention_head_major_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias=None):
+    """Plain version of K7: dense attention with fp32 logits on (B, H, N, hd)
+    operands (strided views included) -> (o (B, H, Nq, hd), l, m)."""
+    o, _, l, m = attention_with_stats(q, k, v, kv_bias)
+    return o, l, m
+
+
+def flash_attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias=None):
+    """Forward-only flash attention on head-major operands, the counterpart of
+    the JAX ``_flash_fwd`` (v1 without a bias, v2 with one): q (B, H, Nq, hd),
+    k/v (B, H, Nk, hd), each contiguous or a strided view with hd contiguous
+    (``x.view(B, N, H, hd).transpose(1, 2)`` of a token-major projection);
+    ``kv_bias`` None or a float32 (Nk,) row in natural units shared by the
+    batch -> (o (B, H, Nq, hd) contiguous, l, m (B, H, Nq) fp32), scale
+    1/sqrt(hd), ``m`` including the bias."""
+    what = "flash_attention_head_major"
+    _check_head_major(what, q, k, v, kv_bias)
+    if _build.device_type(q) == "cpu":
+        return flash_attention_head_major_plain(q, k, v, kv_bias)
+    b, h, nq, hd = q.shape
+    nk = k.shape[2]
+    for t in (k, v) + (() if kv_bias is None else (kv_bias,)):
+        if t.device != q.device:
+            raise ValueError(f"{what}: operands must share one CUDA device, got {t.device}")
+    if str(q.dtype) not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what}: operands must all be float32 or bfloat16")
+    _check_head_dim(what, hd)
+    _check_grid(what, b, h)
+    strides = (ctypes.c_longlong * 9)(*_strides_16b(what, q, k, v))
+    lib = _build.load("flash_cross")
+    if kv_bias is None:
+        fn, bias_types, bias_args = lib.cs_flash_attention_head_major, [], ()
+    else:
+        if not kv_bias.is_contiguous():
+            raise ValueError(f"{what}: kv_bias must be contiguous")
+        fn, bias_types, bias_args = lib.cs_flash_attention_head_major_biased, [_P], (kv_bias.data_ptr(),)
+    fn.argtypes = [_P, _P, _P, _P, *bias_types, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.restype = _I
+    o = torch.empty(b, h, nq, hd, dtype=q.dtype, device=q.device)
+    l = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
+    m = torch.empty_like(l)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.addressof(strides), *bias_args,
+            o.data_ptr(), l.data_ptr(), m.data_ptr(), b, h, nq, nk, hd,
+            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
+    _build.check_rc(lib, rc, what)
+    flash_attention_head_major.launches += 1
+    return o, l, m
+
+
+flash_attention_head_major.launches = 0
 
 
 # --- K4 ---------------------------------------------------------------------

@@ -1,0 +1,126 @@
+"""Start N ranks of one node as spawned processes and run functions in them.
+
+    with RankPool(2) as pool:
+        results = pool.run(fn, arg)   # fn(arg) in every rank, results by rank
+
+A :class:`RankPool` spawns its ranks once (``multiprocessing`` spawn start
+method) and gives each the launcher's environment of ``torchrun``: ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, and for
+each :meth:`RankPool.run` a fresh free ``MASTER_PORT``, so the function can
+join a process group (``parallel.mesh.init_distributed``) and leave it
+(``parallel.mesh.teardown``) within one run. ``fn`` must be importable by
+its module path (pickled by reference), and what it returns picklable.
+
+A run that does not finish within its timeout, or in which a rank raises,
+fails: the pool then stops every rank (a rank left waiting in a collective
+would hang) and raises with each failing rank's traceback.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+import queue
+import socket
+import time
+import traceback
+from typing import Any, Callable
+
+
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, inbox, outbox, env: dict) -> None:
+    os.environ.update(env)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1")
+    while True:
+        task = inbox.get()
+        if task is None:
+            return
+        fn, args, port = task
+        os.environ["MASTER_PORT"] = str(port)
+        try:
+            outbox.put((rank, True, fn(*args)))
+        except BaseException:  # reported to the parent, which fails the run
+            outbox.put((rank, False, traceback.format_exc()))
+
+
+class RankPool:
+    """``nprocs`` ranks of one node, spawned once and reused by :meth:`run`.
+
+    ``env``: extra environment variables for every rank."""
+
+    def __init__(self, nprocs: int, env: dict | None = None):
+        if nprocs < 1:
+            raise ValueError(f"nprocs must be >= 1, got {nprocs}")
+        ctx = multiprocessing.get_context("spawn")
+        self.nprocs = nprocs
+        self._inboxes = [ctx.Queue() for _ in range(nprocs)]
+        self._outbox = ctx.Queue()
+        self._procs = [ctx.Process(target=_rank_main, args=(r, nprocs, self._inboxes[r], self._outbox,
+                                                            dict(env or {})), daemon=True)
+                       for r in range(nprocs)]
+        for p in self._procs:
+            p.start()
+
+    def run(self, fn: Callable, *args, timeout: float = 600.0) -> list[Any]:
+        """``fn(*args)`` in every rank at once -> the return values by rank."""
+        if self._procs is None:
+            raise RuntimeError("the rank pool is closed")
+        port = free_port()
+        for box in self._inboxes:
+            box.put((fn, args, port))
+        results: dict[int, Any] = {}
+        failures: dict[int, str] = {}
+        deadline = time.monotonic() + timeout
+        dead: list[int] = []
+        while len(results) + len(failures) < self.nprocs and time.monotonic() < deadline:
+            try:
+                rank, ok, val = self._outbox.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(self._procs) if not p.is_alive()]
+                if dead:
+                    break
+                continue
+            (results if ok else failures)[rank] = val
+            if failures:  # the others may wait for it in a collective: give them a little
+                deadline = min(deadline, time.monotonic() + 30.0)
+        if failures or len(results) < self.nprocs:
+            missing = sorted(set(range(self.nprocs)) - set(results) - set(failures))
+            self.close()
+            msg = "".join(f"\n--- rank {r} ---\n{tb}" for r, tb in sorted(failures.items()))
+            if dead:
+                msg += f"\nranks {dead} exited"
+            if missing:
+                msg += f"\nranks {missing} did not finish within {timeout:.0f} s"
+            raise RuntimeError(f"{getattr(fn, '__name__', fn)} failed in the rank pool:{msg}")
+        return [results[r] for r in range(self.nprocs)]
+
+    def close(self) -> None:
+        """Stop every rank: ask, wait a little, then kill."""
+        if self._procs is None:
+            return
+        for box, p in zip(self._inboxes, self._procs):
+            if p.is_alive():
+                box.put(None)
+        for p in self._procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        for box in (*self._inboxes, self._outbox):
+            box.close()
+            box.cancel_join_thread()
+        self._procs = None
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+

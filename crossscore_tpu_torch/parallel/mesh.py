@@ -1,0 +1,132 @@
+"""Process groups of one node: the port's counterpart of the process half of
+``crossscore_tpu/parallel/mesh.py``.
+
+The JAX package runs one controller over a device mesh; the port runs one
+process per card (``torchrun`` or :mod:`crossscore_tpu_torch.parallel.launch`)
+and joins them in a ``torch.distributed`` process group. The launcher's
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` give the
+topology, ``MASTER_ADDR`` and ``MASTER_PORT`` the rendezvous; rank r of a node
+takes card ``LOCAL_RANK % device_count`` (ranks share a card when there are
+more ranks than cards, which only the gloo backend allows). The backend is
+the caller's (``model.gpu.dist_backend``): ``nccl`` for one rank per card,
+``gloo`` for the CPU and for ranks that share a card.
+
+The view group is the group whose ranks shard the K reference views (view
+parallelism, the decoder's ``cp`` attention route); like the JAX package's
+current mesh it is registered here, because the model carries only the
+string ``"cp"`` and resolves the group when it runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
+
+_VIEW_GROUP: Optional[dist.ProcessGroup] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    rank: int
+    world_size: int
+    local_rank: int
+    local_world_size: int
+
+    @property
+    def n_nodes(self) -> int:
+        return self.world_size // self.local_world_size
+
+
+def topology_from_env() -> Topology:
+    """The launcher's topology; one rank of one node when ``WORLD_SIZE`` is unset."""
+    env = os.environ
+    world = int(env.get("WORLD_SIZE", "1"))
+    top = Topology(rank=int(env.get("RANK", "0")), world_size=world,
+                   local_rank=int(env.get("LOCAL_RANK", "0")),
+                   local_world_size=int(env.get("LOCAL_WORLD_SIZE", str(world))))
+    if not (0 <= top.rank < world and 0 <= top.local_rank < top.local_world_size <= world
+            and world % top.local_world_size == 0):
+        raise ValueError(f"inconsistent launcher topology {top}")
+    return top
+
+
+def rank_device(top: Topology, device_type: str) -> torch.device:
+    """This rank's device: ``cuda:{LOCAL_RANK % device_count}``, or the CPU
+    when asked. Raises without a card: no rank carries on on the CPU."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    if device_type != "cuda":
+        raise ValueError(f"device type must be cuda or cpu, got {device_type!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available for this rank; ask for the CPU explicitly")
+    return torch.device("cuda", top.local_rank % torch.cuda.device_count())
+
+
+def init_distributed(backend: str, device_type: str = "cuda",
+                     timeout_s: float = 600.0) -> tuple[Topology, torch.device]:
+    """Join the process group of the launcher's ranks and register the view
+    group (all ranks: one node). Returns the topology and this rank's device.
+
+    ``backend``: ``nccl`` (CUDA only, one rank per card) or ``gloo``. The
+    collectives give up after ``timeout_s``, so a rank that never arrives
+    fails the others instead of hanging them."""
+    if backend not in BACKENDS:
+        raise ValueError(f"dist backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "nccl" and device_type != "cuda":
+        raise ValueError("the nccl backend needs CUDA tensors; use gloo on the CPU")
+    top = topology_from_env()
+    device = rank_device(top, device_type)
+    if backend == "nccl" and top.local_world_size > torch.cuda.device_count():
+        raise ValueError(f"nccl takes one rank per card: {top.local_world_size} ranks on "
+                         f"{torch.cuda.device_count()} cards; use gloo for ranks that share a card")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
+    port = os.environ.get("MASTER_PORT")
+    if port is None:
+        raise RuntimeError("MASTER_PORT is not set: start the ranks with torchrun or parallel.launch")
+    dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}", rank=top.rank,
+                            world_size=top.world_size, timeout=datetime.timedelta(seconds=timeout_s))
+    set_view_group(dist.group.WORLD)
+    return top, device
+
+
+def set_view_group(group: Optional[dist.ProcessGroup]) -> None:
+    global _VIEW_GROUP
+    _VIEW_GROUP = group
+
+
+def view_group() -> dist.ProcessGroup:
+    """The registered view group; raises when none is."""
+    if _VIEW_GROUP is None:
+        raise RuntimeError("no view group: call parallel.mesh.init_distributed (or set_view_group) "
+                           "before running a model whose attention_impl is 'cp'")
+    return _VIEW_GROUP
+
+
+def teardown() -> None:
+    """Forget the view group and leave the process group, if one was joined."""
+    set_view_group(None)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _per_process_data_par(group_size: int, model_parallel: int, batch_size: int) -> int:
+    """Per-process width of the data axis: the largest d <= group_size //
+    model_parallel with ``batch_size % d == 0`` (the port's copy of the JAX
+    package's rule: each process's own ``batch_size`` rows divide evenly over
+    its devices)."""
+    d = group_size // model_parallel
+    if d < 1:
+        raise ValueError(f"model_parallel={model_parallel} exceeds the {group_size} "
+                         "devices available per process")
+    while d > 1 and batch_size % d:
+        d -= 1
+    return d

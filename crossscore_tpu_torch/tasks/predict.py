@@ -20,18 +20,29 @@ Two modes decide which kernels run (``plan_serving_modes``):
   ``bucket_multiple`` and the padded tokens masked, through K5 in every
   backbone block and K6 in every decoder attention.
 
-One process, one device: ``trainer.accelerator=cuda`` (the default) or
-``cpu`` (the plain PyTorch versions of every kernel). View parallelism (the K
-references sharded over several cards) is not ported.
+One process per card: ``trainer.accelerator=cuda`` (the default) or ``cpu``
+(the plain PyTorch versions of every kernel). Several ranks of one node
+(``torchrun --nproc_per_node N -m crossscore_tpu_torch.tasks.predict
+model.gpu.view_parallel=on ...``, or ``parallel.launch``) run view-parallel
+predict: each rank loads every batch, encodes the queries and its K/N
+reference views (or keeps a token cache of those views alone), and the
+decoder combines the views exactly over the ranks (``model.gpu.dist_backend``:
+``nccl``, or ``gloo`` on the CPU and for ranks that share a card). Every rank
+computes the same maps; rank 0 alone writes them, so the output layout is the
+single rank's.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from crossscore_tpu_torch.data.bucketing import ShapeBucketedLoader
 from crossscore_tpu_torch.data.loader import Loader
@@ -41,6 +52,13 @@ from crossscore_tpu_torch.io.batch_writer import BatchWriter
 from crossscore_tpu_torch.io.summariser import SummaryWriterPredictedOnlineTestPrediction
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
+from crossscore_tpu_torch.ops import _build
+from crossscore_tpu_torch.parallel.mesh import (
+    Topology, _per_process_data_par, init_distributed, teardown, topology_from_env,
+)
+from crossscore_tpu_torch.parallel.view_parallel import (
+    make_view_parallel_apply, make_view_parallel_apply_tokens, view_shard,
+)
 from crossscore_tpu_torch.tasks.common import (
     confirm_batch_size, crop_bucketed, iter_bucketed_items, load_model_params, parse_cli,
     resolve_accelerator, resolve_limit, resolve_out_dir, tristate,
@@ -48,6 +66,14 @@ from crossscore_tpu_torch.tasks.common import (
 from crossscore_tpu_torch.train.step import make_predict_step, make_predict_step_cached
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
 from crossscore_tpu_torch.utils.vis import make_visualiser
+
+
+class ServingPlan(NamedTuple):
+    """The serving composition (the port's copy of the JAX ``ServingPlan``)."""
+
+    use_vp: bool      # K reference views sharded over the ranks
+    vp_local: bool    # ... over one node's ranks of a multi-node run (JAX only)
+    use_cache: bool   # reference-token cache on
 
 
 def plan_serving_modes(
@@ -59,33 +85,75 @@ def plan_serving_modes(
     zero_reference: bool,
     k_refs: int,
     n_dev: int,
-) -> bool:
-    """Whether the reference-token cache is on, by the JAX package's rule for
-    one process whose data-parallel mesh spans its ``n_dev`` devices.
+    n_local: int,
+    n_proc: int,
+    data_mesh_size: int,
+) -> ServingPlan:
+    """The JAX package's plan, with one rank per card: ``n_dev`` ranks in all,
+    ``n_local`` on each of ``n_proc`` nodes, and a data-parallel width of
+    ``data_mesh_size``. The views are sharded when asked (``on``), or under
+    ``auto`` when the batch cannot fill the ranks, with K divisible by the
+    ranks, no buckets and no attention weights.
 
-    That rule shards the K reference views over the devices (view
-    parallelism) only when asked (``vp_mode == "on"``), with K divisible by
-    ``n_dev`` > 1, no buckets and no attention weights. The port has no view
-    parallelism, so that plan raises ``NotImplementedError``."""
-    if (vp_mode == "on" and not use_buckets and not need_attn_weights
-            and n_dev > 1 and k_refs > 0 and k_refs % n_dev == 0):
+    One node only: a multi-node plan, and a multi-rank plan that is not view
+    parallel (data-parallel predict, which comes with DDP), raise
+    ``NotImplementedError`` (ROADMAP queue 1 item 13)."""
+    cache_ok = cache_mode != "off" and not need_attn_weights and k_refs > 0 and not zero_reference
+
+    def vp_fits(n: int) -> bool:
+        return (not use_buckets and vp_mode != "off" and not need_attn_weights and n > 1
+                and k_refs > 0 and k_refs % n == 0 and (vp_mode == "on" or data_mesh_size < n))
+
+    vp_local = n_proc > 1 and cache_ok and vp_fits(n_local)
+    use_vp = vp_local or vp_fits(n_dev)
+    use_cache = cache_ok and not (n_proc > 1 and use_vp and not vp_local)
+    if n_proc > 1:
+        raise NotImplementedError(f"predict over {n_proc} nodes is not ported (ROADMAP queue 1 item 13)")
+    if n_dev > 1 and not use_vp:
         raise NotImplementedError(
-            f"view-parallel predict (K={k_refs} references over {n_dev} devices) is not ported: "
-            "ROADMAP queue 1 item 13; set model.gpu.view_parallel=off"
+            f"{n_dev} ranks without view parallelism would be data-parallel predict, which is not "
+            "ported (ROADMAP queue 1 item 13): run one rank, or set model.gpu.view_parallel=on "
+            f"with K={k_refs} divisible by the ranks and no shape buckets"
         )
-    return cache_mode != "off" and not need_attn_weights and k_refs > 0 and not zero_reference
+    return ServingPlan(use_vp, vp_local, use_cache)
 
 
 def predict(cfg) -> Path:
+    """Run the CLI on this rank; joins (and leaves) the launcher's process
+    group when there are several ranks. Returns the output dir, the same on
+    every rank."""
     ConfigChecker(cfg).check_predict()
-    device = resolve_accelerator(cfg)
+    top = topology_from_env()
+    if top.world_size == 1:
+        return _predict(cfg, top, resolve_accelerator(cfg))
+    _, device = init_distributed(str(cfg.model.gpu.get("dist_backend", "nccl")),
+                                 str(cfg.trainer.get("accelerator", "cuda")))
+    try:
+        return _predict(cfg, top, device)
+    finally:
+        teardown()
+
+
+def _predict(cfg, top: Topology, device: torch.device) -> Path:
+    ranks = top.world_size
+    tag = f"[rank {top.rank}/{ranks}] " if ranks > 1 else ""
     if device.type == "cuda":
         # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if ranks > 1:  # one build for the node's ranks
+            if top.local_rank == 0:
+                _build.build_all()
+            dist.barrier()
     confirm_batch_size(cfg)
-    out_dir = resolve_out_dir(cfg, "predict")
-    (out_dir / "vis").mkdir(parents=True, exist_ok=True)
+    out_dir = None
+    if top.rank == 0:  # rank 0 alone writes
+        out_dir = resolve_out_dir(cfg, "predict")
+        (out_dir / "vis").mkdir(parents=True, exist_ok=True)
+    if ranks > 1:
+        box = [None if out_dir is None else str(out_dir)]
+        dist.broadcast_object_list(box, src=0)
+        out_dir = Path(box[0])
 
     dataset = SimpleReference(
         query_dir=cfg.data.dataset.query_dir,
@@ -105,20 +173,24 @@ def predict(cfg) -> Path:
         if bucket_mode == "auto" and len(shapes) <= 1:
             use_buckets = False  # one shape: padding buys nothing
 
-    # one process: view parallelism is selectable only when several cards
-    # are visible
-    use_cache = plan_serving_modes(
+    k_refs = int(cfg.data.neighbour_config.cross)
+    batch_size = cfg.data.loader.validation.batch_size
+    plan = plan_serving_modes(
         vp_mode=tristate(cfg.model.gpu.get("view_parallel", "auto")),
         cache_mode=tristate(cfg.this_main.get("ref_token_cache", "auto")),
         use_buckets=use_buckets,
         need_attn_weights=cfg.model.need_attn_weights,
         zero_reference=cfg.data.dataset.zero_reference,
-        k_refs=int(cfg.data.neighbour_config.cross),
-        n_dev=torch.cuda.device_count() if device.type == "cuda" else 1,
+        k_refs=k_refs,
+        n_dev=ranks,
+        n_local=top.local_world_size,
+        n_proc=top.n_nodes,
+        data_mesh_size=top.n_nodes * _per_process_data_par(top.local_world_size, 1, batch_size),
     )
+    use_vp, use_cache = plan.use_vp, plan.use_cache
 
     loader_kw = dict(
-        batch_size=cfg.data.loader.validation.batch_size,
+        batch_size=batch_size,
         num_workers=cfg.data.loader.validation.num_workers,
         prefetch_batches=cfg.data.loader.validation.prefetch_factor,
         seed=cfg.seed,
@@ -133,15 +205,22 @@ def predict(cfg) -> Path:
         loader = Loader(dataset, shuffle=False, **loader_kw)
 
     mcfg = CrossScoreConfig.from_config(cfg)
+    if use_vp:
+        mcfg = dataclasses.replace(mcfg, attention_impl="cp")
+        shard = view_shard(k_refs)
+        print(f"{tag}view-parallel predict: K={k_refs} references over {ranks} ranks; this rank "
+              f"takes views [{shard.start}, {shard.stop})")
     model = load_model_params(cfg, CrossScoreNet(mcfg, device=device))
 
-    writer = BatchWriter(cfg, "predict") if cfg.logger.predict.write.flag.batch else None
-    summariser = SummaryWriterPredictedOnlineTestPrediction(
-        metric_type=cfg.model.predict.metric.type,
-        metric_min=cfg.model.predict.metric.min,
-        dir_out=str(out_dir),
-    )
-    visualiser = make_visualiser(cfg)
+    writer = summariser = visualiser = None
+    if top.rank == 0:
+        writer = BatchWriter(cfg, "predict") if cfg.logger.predict.write.flag.batch else None
+        summariser = SummaryWriterPredictedOnlineTestPrediction(
+            metric_type=cfg.model.predict.metric.type,
+            metric_min=cfg.model.predict.metric.min,
+            dir_out=str(out_dir),
+        )
+        visualiser = make_visualiser(cfg)
     vis_every = cfg.logger.predict.write.config.vis_img_every_n_steps
 
     def to_device(x: np.ndarray) -> torch.Tensor:
@@ -150,35 +229,49 @@ def predict(cfg) -> Path:
     h2d_bytes = 0
     if use_cache:
         encoder = make_backbone_encoder(mcfg)
+        # under view parallelism each rank caches the tokens of its own views
         token_cache = RefTokenCache(
             lambda imgs, valid_hw=None: encoder(model, to_device(imgs), valid_hw),
             encode_batch=int(cfg.this_main.get("ref_token_cache_encode_batch", 16)),
             max_items=int(cfg.this_main.get("ref_token_cache_max_items", 2048)),
             persist_dir=cfg.this_main.get("ref_token_cache_dir"),
         )
-        step_cached = make_predict_step_cached(model)
-        print(f"reference-token cache: on (frozen backbone; decode-skip off"
-              f"{'; bucketed' if use_buckets else ''})")
+        step_cached = make_view_parallel_apply_tokens(model) if use_vp else make_predict_step_cached(model)
+        print(f"{tag}reference-token cache: on (frozen backbone; decode-skip off"
+              f"{'; bucketed' if use_buckets else ''}{'; view-parallel' if use_vp else ''})")
 
         def step(batch: dict) -> dict:
             nonlocal h2d_bytes
             vhw = batch.get("_valid_hw")
-            tokens = token_cache.gather(batch["item_paths"]["reference/cross/imgs"],
-                                        batch["reference/cross/imgs"], valid_hw=vhw)
+            paths, refs = batch["item_paths"]["reference/cross/imgs"], batch["reference/cross/imgs"]
+            if use_vp:
+                paths, refs = paths[shard], refs[:, shard]
+            tokens = token_cache.gather(paths, refs, valid_hw=vhw)
             h2d_bytes += batch["query/img"].nbytes + tokens.numel() * tokens.element_size()
-            return step_cached(to_device(batch["query/img"]), tokens.to(device, non_blocking=True), vhw)
+            query, tokens = to_device(batch["query/img"]), tokens.to(device, non_blocking=True)
+            if use_vp:
+                return {"score_map_ref_cross": step_cached(query, tokens)}
+            return step_cached(query, tokens, vhw)
     else:
-        step_plain = make_predict_step(model, need_attn_weights=cfg.model.need_attn_weights,
-                                       head_id=cfg.model.need_attn_weights_head_id)
+        if use_vp:
+            step_vp = make_view_parallel_apply(model)
+        else:
+            step_plain = make_predict_step(model, need_attn_weights=cfg.model.need_attn_weights,
+                                           head_id=cfg.model.need_attn_weights_head_id)
 
         def step(batch: dict) -> dict:
             nonlocal h2d_bytes
             refs = batch.get("reference/cross/imgs")
+            if use_vp:
+                refs = refs[:, shard]
             h2d_bytes += batch["query/img"].nbytes + (0 if refs is None else refs.nbytes)
-            return step_plain(to_device(batch["query/img"]), None if refs is None else to_device(refs),
-                              batch.get("_valid_hw"))
+            query, refs = to_device(batch["query/img"]), None if refs is None else to_device(refs)
+            if use_vp:
+                return {"score_map_ref_cross": step_vp(query, refs)}
+            return step_plain(query, refs, batch.get("_valid_hw"))
 
     max_batches = resolve_limit(cfg.trainer.limit_test_batches, loader.batches_per_epoch())
+    digest = hashlib.sha256()
 
     def save_vis(batch_idx: int, batch: dict, outputs: dict) -> None:
         import matplotlib.pyplot as plt
@@ -190,6 +283,9 @@ def predict(cfg) -> Path:
     def process(batch_idx: int, batch: dict, outputs_dev: dict) -> None:
         # the device copy waits for the step; everything after is host-side
         outputs = {k: v.float().cpu().numpy() for k, v in outputs_dev.items()}
+        digest.update(outputs["score_map_ref_cross"].tobytes())
+        if top.rank != 0:  # the other ranks computed the same maps
+            return
         vhw = batch.get("_valid_hw")
         if vhw is not None and np.ndim(vhw) == 2:
             # a bucket-packed batch (mixed item shapes): the consumers take
@@ -209,7 +305,9 @@ def predict(cfg) -> Path:
             writer.write_out(batch, outputs, local_rank=0, batch_idx=batch_idx)
 
     # one-deep pipeline: dispatch batch i+1 before materialising batch i's
-    # outputs, overlapping device work with host-side writing
+    # outputs, overlapping device work with host-side writing. Every rank
+    # steps through every batch, the partial last one included: each decoder
+    # layer is a collective.
     n_batches = n_maps = 0
     pending = None
     t0 = time.perf_counter()
@@ -226,13 +324,17 @@ def predict(cfg) -> Path:
         process(*pending)
     seconds = time.perf_counter() - t0
 
-    summariser.summarise()
+    if summariser is not None:
+        summariser.summarise()
     if use_cache:
-        print(f"ref-token cache: {token_cache.hits} hits, {token_cache.misses} unique misses")
+        print(f"{tag}ref-token cache: {token_cache.hits} hits, {token_cache.misses} unique misses")
     per_batch = h2d_bytes / max(n_batches, 1) / 2**20
-    print(f"predict: {n_maps} maps in {seconds:.3f} s = {n_maps / max(seconds, 1e-9):.2f} maps/s "
-          f"(loader, device and writers in the loop); host-to-device {per_batch:.2f} MiB per batch")
-    print(f"predict done: {n_batches} batches -> {out_dir}")
+    shared = f" ({ranks} ranks in step)" if ranks > 1 else ""
+    print(f"{tag}predict: {n_maps} maps in {seconds:.3f} s = {n_maps / max(seconds, 1e-9):.2f} maps/s "
+          f"(loader, device and writers in the loop{shared}); host-to-device {per_batch:.2f} MiB per batch")
+    if ranks > 1:
+        print(f"{tag}predict: score maps sha256 {digest.hexdigest()}")
+    print(f"{tag}predict done: {n_batches} batches -> {out_dir}")
     return out_dir
 
 

@@ -15,6 +15,7 @@ from PIL import Image
 from crossscore_tpu.data import fastimage
 from crossscore_tpu.data.bucketing import ShapeBucketedLoader as JaxBucketedLoader
 from crossscore_tpu.data.simple_reference import SimpleReference as JaxSimpleReference
+from crossscore_tpu.parallel.mesh import _per_process_data_par as jax_data_par
 from crossscore_tpu.tasks.common import crop_bucketed as jax_crop_bucketed
 from crossscore_tpu.tasks.common import iter_bucketed_items as jax_iter_bucketed_items
 from crossscore_tpu.tasks.predict import main as jax_main
@@ -26,7 +27,7 @@ from crossscore_tpu_torch.data.synthetic import generate
 from crossscore_tpu_torch.io.checkpoint import step_path
 from crossscore_tpu_torch.io.convert import init_params
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
-from crossscore_tpu_torch.tasks import predict as port_predict
+from crossscore_tpu_torch.parallel.mesh import _per_process_data_par
 from crossscore_tpu_torch.tasks.common import crop_bucketed, iter_bucketed_items, load_model_params
 from crossscore_tpu_torch.tasks.predict import main, plan_serving_modes
 
@@ -154,31 +155,48 @@ def test_cli_modes_agree_and_reference_copies_are_per_item(ws, capsys):
 # --- the CLI's parts -------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("k_refs,n_dev,vp", [(4, 1, "auto"), (4, 2, "on"), (4, 4, "auto"), (3, 2, "on"),
-                                             (4, 2, "off")])
+# (K, ranks, ranks per node, nodes, view_parallel, batch size)
+PLAN_CASES = [(4, 1, 1, 1, "auto", 2), (4, 2, 2, 1, "on", 2), (4, 4, 4, 1, "auto", 2), (3, 2, 2, 1, "on", 2),
+              (4, 2, 2, 1, "off", 2), (4, 4, 4, 1, "auto", 1), (8, 2, 2, 1, "auto", 1), (4, 4, 2, 2, "on", 2),
+              (4, 8, 4, 2, "auto", 1)]
+
+
+@pytest.mark.parametrize("k_refs,n_dev,n_local,n_proc,vp,bs", PLAN_CASES)
 @pytest.mark.parametrize("buckets", [False, True])
 @pytest.mark.parametrize("cache", ["auto", "off"])
-def test_serving_plan_matches_jax(k_refs, n_dev, vp, buckets, cache):
-    """One process over its n_dev devices: the port raises where the JAX
-    plan shards the views, and otherwise turns the cache on as JAX does."""
+def test_serving_plan_matches_jax(k_refs, n_dev, n_local, n_proc, vp, bs, buckets, cache):
+    """One rank per card: the port takes the JAX plan on one node, and
+    raises for a multi-node plan and for a multi-rank plan that is not view
+    parallel (data-parallel predict)."""
     kw = dict(vp_mode=vp, cache_mode=cache, use_buckets=buckets, need_attn_weights=False,
-              zero_reference=False, k_refs=k_refs, n_dev=n_dev)
-    want = jax_plan(**kw, n_local=n_dev, n_proc=1, data_mesh_size=n_dev)
-    if want.use_vp:
+              zero_reference=False, k_refs=k_refs, n_dev=n_dev, n_local=n_local, n_proc=n_proc,
+              data_mesh_size=n_proc * _per_process_data_par(n_local, 1, bs))
+    want = jax_plan(**kw)
+    if n_proc > 1 or (n_dev > 1 and not want.use_vp):
         with pytest.raises(NotImplementedError, match="item 13"):
             plan_serving_modes(**kw)
     else:
-        assert plan_serving_modes(**kw) == want.use_cache
+        assert tuple(plan_serving_modes(**kw)) == tuple(want)
 
 
-def test_view_parallel_plan_raises(ws, monkeypatch):
-    """view_parallel=on with K divisible by the cards stops the CLI (two
-    cards stood in for by the plan's device count)."""
-    _, ckpt = ws
-    plan = port_predict.plan_serving_modes
-    monkeypatch.setattr(port_predict, "plan_serving_modes", lambda **kw: plan(**{**kw, "n_dev": 2}))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(COMMON + [f"trainer.ckpt_path_to_load={ckpt}", "model.gpu.view_parallel=on", "alias=vp"])
+@pytest.mark.parametrize("group,mp,bs", [(1, 1, 8), (2, 1, 8), (4, 1, 6), (8, 2, 3), (3, 1, 7), (4, 4, 5)])
+def test_per_process_data_par_matches_jax(group, mp, bs):
+    assert _per_process_data_par(group, mp, bs) == jax_data_par(group, mp, bs)
+
+
+def test_view_parallel_plan_raises():
+    """view_parallel=on with K divisible by the ranks takes the view-parallel
+    plan (cached or not); without it several ranks, or several nodes, raise."""
+    kw = dict(cache_mode="auto", use_buckets=False, need_attn_weights=False, zero_reference=False,
+              k_refs=8, n_dev=2, n_local=2, n_proc=1, data_mesh_size=2)
+    assert plan_serving_modes(vp_mode="on", **kw) == (True, False, True)
+    assert plan_serving_modes(vp_mode="on", **kw | {"cache_mode": "off"}) == (True, False, False)
+    with pytest.raises(NotImplementedError, match="data-parallel predict.*item 13"):
+        plan_serving_modes(vp_mode="off", **kw)
+    with pytest.raises(NotImplementedError, match="data-parallel predict.*item 13"):
+        plan_serving_modes(vp_mode="on", **kw | {"use_buckets": True})
+    with pytest.raises(NotImplementedError, match="2 nodes.*item 13"):
+        plan_serving_modes(vp_mode="on", **kw | {"n_dev": 4, "n_proc": 2})
 
 
 @pytest.fixture
