@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
-the predict CLI and view-parallel predict.
+the predict CLI, view-parallel predict, and tensor- and view-parallel training.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -17,13 +17,20 @@ In order:
    (540x960 images -> 518x921 -> a 560x1008 bucket, B=8, K=5; per-item and
    shared token biases), and K7 (the head-major forward) at the
    view-parallel shapes (q (8, 8, 1369, 48) over Nk 5476 and 1369, with and
-   without a shared bias, on contiguous tensors and on head-major views), in
-   bf16 and fp32 (and at the other presets' head dims and widths at small
-   shapes; K5-K7 also by the relative L2 error of each output), and time the
-   kernel, the plain version
+   without a shared bias, on contiguous tensors and on head-major views; and
+   at the tp train step's backbone shape, q/k/v (144, 6, 1370, 64), on
+   views and contiguous, by o, l and m), and
+   K8/K9 (the head-major backward) at the tp train step's shapes (q (24, 8,
+   1369, 48) over Nk 1369 and 6845; TP = 2's local 4 heads), at the
+   view-parallel shard fed the global statistics (Nk 5476 of 10952) and at
+   the backbone's hd 64 (N 1370), on head-major views and on contiguous
+   tensors, in bf16 and fp32 (and at the other presets' head dims and widths
+   at small shapes; K4-K9 by the relative L2 error of each output), and time
+   the kernel, the plain version
    and, for the attention kernels, one ``F.scaled_dot_product_attention``
-   call (K4: one backward of it; K5/K6: with the bias as a float mask) on
-   the same inputs (a yardstick only; the port never calls it);
+   call (K4, K8, K9: one backward of it; K5/K6: with the bias as a float
+   mask) on the same inputs (a yardstick only; the port never calls it), and
+   K4 on the same work as K8/K9;
 4. run the full-width forward through ``make_predict_step`` (dinov2-small,
    518 px, K=8, B=8, bf16, seeded random weights) with the launch counters
    zeroed, check the score map and that the forward launched 12 / 12 / 4 / 0
@@ -55,7 +62,22 @@ In order:
     3 batches of 518x518 images), uncached and cached: launches and cache
     misses per rank, the same maps on both ranks, and the written maps
     against the single-rank CLI; maps/s of two ranks time-slicing one card;
-11. print one ``{"kernels": [...]}`` line, then, last, the device line.
+11. tensor-parallel training over one NCCL rank (TP = 1): the full-width
+    train step on the ``tp`` route (B=24, K=5, bf16 compute): launches (K7
+    16, K8 2, K9 2, K2 12, the rest 0), a loss within the bf16 bound of the
+    ``flash`` route's on the same weights and batch, the decoder and head
+    updated and the backbone and PE bit-identical, ms/step, peak memory and
+    the device breakdown; and the context-parallel backward over the same
+    rank against local K9;
+12. two gloo ranks sharing the card: (i) TP = 2, an fp32 B=1 step (K=5)
+    whose gathered gradients and updated parameters are held against the
+    single-process all-plain step (at the same L1 subgradient), and a bf16
+    B=2 step whose loss is held against the one-rank ``tp`` route's; (ii)
+    view-parallel training, an fp32 B=1 backward (K=8, the PE trainable)
+    whose every trainable gradient on each rank is held against the
+    single-process all-plain net's; launches and ms/step per rank (two ranks
+    time-slicing one card: not a scaling number);
+13. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -63,6 +85,7 @@ repository. No JAX is imported.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -81,6 +104,23 @@ VALID_GRIDS = ((37, 65), (40, 60))
 # view-parallel predict at B=8, K=8: each rank's KV length, 4*1369 on 2 ranks
 # and 1369 on 8
 VP_NK = (4 * 1369, 1369)
+# K8/K9 at the main-path shapes: name -> (B, heads, Nq, Nk, hd, the global
+# Nk whose (o, l, m) feed the backward or None): the tp train step's decoder
+# at TP = 1 (self-attention over 1369 keys: K8; cross-attention over 5*1369:
+# K9) and at TP = 2's local 4 heads; the view-parallel cross-attention's shard
+# of 4*1369 keys fed the global statistics of 8*1369 (the CP backward). And
+# the backbone's self-attention at hd 64, N 1370: in the JAX package the
+# backbone's tp route calls the same custom_vjp, so K8 is its backward there;
+# both packages freeze the backbone, so no main path of either runs K8 at this
+# shape (the port's backbone runs K7 forward only, held at its own shape)
+K89_SHAPES = {
+    "K8": (TB, 8, 1369, 1369, 48, None),
+    "K9": (TB, 8, 1369, TK * 1369, 48, None),
+    "K8 tp2": (TB, 4, 1369, 1369, 48, None),
+    "K9 tp2": (TB, 4, 1369, TK * 1369, 48, None),
+    "K9 cp shard": (B, 8, 1369, 4 * 1369, 48, 8 * 1369),
+    "K8 backbone": (B, 6, 1370, 1370, 64, None),
+}
 
 # least time the card could take: the larger of ops / peak and bytes / rate.
 # Dense peaks from NVIDIA's data sheets (bf16 tensor cores, fp32 CUDA cores).
@@ -104,6 +144,8 @@ TOL = {"float32": 5e-5, "bfloat16": 1.6e-2}
 # and 6.7e-7 in fp32 (summation order); a ds scale 3% off reads 3.0e-2, a
 # dropped ragged last KV tile 9.7e-2 and a dropped last q tile 0.13 (PERF.md).
 TOL_K4 = {"float32": 1e-5, "bfloat16": 2e-3}
+# K8/K9 are held as K4 (relative L2 of dq, dk, dv; TOL_K4): the same recipe,
+# read through head strides.
 # K5/K6: besides TOL, the largest relative L2 error of o, l and m, each
 # against its own scale. At the cross shape o is ~0.015 (about 12000 valid
 # random keys), where an o 15% off reads 1.72e-2 by TOL's measure, just over
@@ -112,8 +154,35 @@ TOL_K4 = {"float32": 1e-5, "bfloat16": 2e-3}
 # 0.150 and a kernel that ignores the bias 0.30-0.52 (PERF.md).
 TOL_L2 = {"float32": 2e-5, "bfloat16": 8e-3}
 # the CP op over one rank against local K7: o * l / l in fp32, rounded back
-# once; any difference is an fp32 ulp turned into a bf16 rounding flip
+# once; any difference is an fp32 ulp turned into a bf16 rounding flip. The
+# CP backward over one rank against local K9 (relative L2 of dq, dk, dv):
+# the same kernel fed the combine's o, l and m
 VP_ONE_RANK_TOL = 1e-5
+# tp train step, bf16: the score maps' MAE against the flash route's on the
+# same weights and batch (TP = 1), and each TP = 2 rank's against the one-rank
+# tp route's; the losses too, whose difference the maps' MAE bounds. On the
+# H100 the sound readings are 0 (TP = 1: bit-equal maps) and about 1e-3
+# (TP = 2: the row-parallel partial sums round in bf16 before their sum); a
+# TP = 2 whose in_proj shards pair each rank's q heads with the other's k/v
+# reads 0.133 (PERF.md)
+TP_MAP_TOL = 5e-3
+# TP = 2 and view-parallel training, fp32 B=1 at full width: the worst leaf's
+# relative L2 gradient error against the all-plain net run at the two-rank
+# run's own L1 subgradient and ReLU gates (phase 12). On the H100 the sound
+# readings are of order 1e-6 (fp32 summation order); a copy-to-group backward
+# without its all-reduce reads 0.89 (TP = 2) and 0.50 (view-parallel), the
+# mispaired in_proj shards 1.35 (PERF.md)
+PINNED_GRAD_TOL = 1e-5
+# the same against the all-plain net at its own gates: fp32 rounding moves the
+# decoder's activations by ~1e-7 and flips the gate of the ReLU inputs that
+# lie that close to 0; a flip moves one row of linear1's gradient by one
+# token's share and the PE's gradient at one position by one view's share.
+# A bound on what the flips may cost, the witness of the tight check above
+TWO_RANK_GRAD_TOL = 5e-3
+# TP = 2, fp32: the parameters after one AdamW step on the model ranks'
+# shards, gathered, against the single-process AdamW on the same gathered
+# gradients, over every element (JAX's TP tolerance)
+TP_PARAM_ATOL = 2e-5
 # whole-net score-map MAE, kernel path vs all-plain path, B=1 (scores in [0, 1])
 NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # predict CLI, bf16: mean |difference| of the valid region of the written
@@ -234,6 +303,69 @@ def _write_predict_dirs(root: Path, n_query: int, n_ref: int, hw=PHW) -> tuple[P
     return qdir, rdir
 
 
+def _k89_inputs(randn, shape, dtype):
+    """K8/K9 operands at ``shape`` (K89_SHAPES): -> the head-major views (q,
+    k, v, o, do, l, m) of token-major (B, N, H*hd) tensors, and the
+    token-major (q, k, v, o, do, l, m) that K4 takes for the same work (None
+    for a shard fed the global statistics). o, l and m come from K7 over
+    the global KV length; the backward then takes the first Nk keys."""
+    from crossscore_tpu_torch.ops.flash_attention import _merge_heads, flash_attention_head_major
+
+    bb, hh, n_q, nk, hdim, nk_global = shape
+    xq, xdo = randn(bb, n_q, hh * hdim, dtype=dtype), randn(bb, n_q, hh * hdim, dtype=dtype)
+    xk, xv = (randn(bb, nk_global or nk, hh * hdim, dtype=dtype) for _ in range(2))
+    q, k, v, do = (t.view(bb, -1, hh, hdim).transpose(1, 2) for t in (xq, xk, xv, xdo))
+    o, l, m = flash_attention_head_major(q, k, v)
+    hm = [q, k[:, :, :nk], v[:, :, :nk], o, do, l, m]
+    tm = None if nk_global else (xq, xk, xv, _merge_heads(o).contiguous(), xdo, l, m)
+    return hm, tm
+
+
+@contextlib.contextmanager
+def _gates(record: list | None = None, pinned: list | None = None):
+    """The decoder's ReLUs and the head's leaky ReLU (``F.relu``,
+    ``F.leaky_relu``), in call order. ``record``: each call's own gate
+    (input > 0) is appended, as a bool tensor; ``pinned``: each call takes
+    its gate from the list instead of its input's sign, returning y * gate (y *
+    where(gate, 1, slope)) with that gate's gradient, so a net run at
+    another's gates takes the same side of every kink. A gate of another
+    shape, or a count that differs, fails."""
+    import torch
+    import torch.nn.functional as F
+
+    relu, leaky = F.relu, F.leaky_relu
+    todo = None if pinned is None else list(pinned)
+
+    def gate(y):
+        if record is not None:
+            record.append((y > 0).detach())
+        if todo is None:
+            return None
+        if not todo:
+            _fail("a net ran more ReLUs than the gates pinned")
+        g = todo.pop(0)
+        if tuple(g.shape) != tuple(y.shape):
+            _fail(f"pinned gate {tuple(g.shape)} for a ReLU input {tuple(y.shape)}")
+        return g.to(y.device)
+
+    def relu_(y, inplace=False):
+        g = gate(y)
+        return relu(y) if g is None else y * g.to(y.dtype)
+
+    def leaky_(y, negative_slope=0.01, inplace=False):
+        g = gate(y)
+        return leaky(y, negative_slope) if g is None else \
+            y * torch.where(g, 1.0, negative_slope).to(y.dtype)
+
+    F.relu, F.leaky_relu = relu_, leaky_
+    try:
+        yield
+    finally:
+        F.relu, F.leaky_relu = relu, leaky
+    if todo:
+        _fail(f"{len(todo)} pinned gates were not used")
+
+
 class _Tee:
     """stdout that also keeps what was written (the CLI's report lines)."""
 
@@ -250,14 +382,142 @@ class _Tee:
 
 def _rank_launches() -> dict:
     from crossscore_tpu_torch.ops.flash_attention import (
-        flash_attention_head_major, flash_cross_attention, flash_cross_attention_bwd,
-        flash_cross_attention_masked, flash_qkv_self_attention, flash_qkv_self_attention_masked,
+        flash_attention_bwd_multi, flash_attention_bwd_single, flash_attention_head_major,
+        flash_cross_attention, flash_cross_attention_bwd, flash_cross_attention_masked,
+        flash_qkv_self_attention, flash_qkv_self_attention_masked,
     )
     from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp
 
     return {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention,
             "K4": flash_cross_attention_bwd, "K5": flash_qkv_self_attention_masked,
-            "K6": flash_cross_attention_masked, "K7": flash_attention_head_major}
+            "K6": flash_cross_attention_masked, "K7": flash_attention_head_major,
+            "K8": flash_attention_bwd_single, "K9": flash_attention_bwd_multi}
+
+
+def _launches(**counts) -> dict:
+    """Expected launches: the named counts, 0 for every other kernel."""
+    return {k: counts.get(k, 0) for k in _rank_launches()}
+
+
+@contextlib.contextmanager
+def _one_nccl_rank():
+    """This process as the one rank of an NCCL process group: the launcher's
+    environment set for the block and restored after, the group left."""
+    import os
+
+    from crossscore_tpu_torch.parallel import mesh
+    from crossscore_tpu_torch.parallel.launch import free_port
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh.init_distributed("nccl", "cuda")
+        yield
+    finally:
+        mesh.teardown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _tp_train_rank(dtype_name: str, batch_np: dict) -> dict:
+    """One rank of TP = 2 (gloo; the ranks share the card): one train step of
+    the seeded dinov2-small net on the ``tp`` route (fp32: K2 exact, bf16:
+    the default tanh form) -> the global loss and this rank's score map, the
+    step's launches, ms/step, and on rank 0 the gradients, the updated
+    parameters and the gates of the step's ReLUs (``_gates``), each gathered
+    over the model group."""
+    import torch
+    import torch.distributed as dist
+
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.parallel import mesh
+    from crossscore_tpu_torch.parallel.collectives import all_gather
+    from crossscore_tpu_torch.parallel.tensor_parallel import gather_state_dict, shard_state_dict
+    from crossscore_tpu_torch.train.optim import make_optimizer
+    from crossscore_tpu_torch.train.step import TrainState, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, dev = mesh.init_distributed("gloo", "cuda")
+    try:
+        mesh.make_groups(2)
+        group = mesh.model_group()
+        dtype = getattr(torch, dtype_name)
+        cfg = CrossScoreConfig(compute_dtype=dtype, attention_impl="tp",
+                               mlp_impl="fused_exact" if dtype == torch.float32 else "fused")
+        model = load_into(CrossScoreNet(cfg, device=dev), shard_state_dict(
+            init_params(cfg, SEED, dev), dist.get_rank(group), dist.get_world_size(group), cfg.mlp_impl))
+        optimizer, scheduler, _ = make_optimizer(load_config("default"), model, steps_per_epoch=1)
+        step = make_train_step(model, optimizer, scheduler)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        wrappers = _rank_launches()
+        for w in wrappers.values():
+            w.launches = 0
+        gates = []
+        with _gates(record=gates):
+            state, metrics = step(TrainState(), batch)
+        torch.cuda.synchronize()
+        out = {"loss": float(metrics["loss"]), "launches": {k: w.launches for k, w in wrappers.items()},
+               "pred": metrics["pred"].float().cpu().numpy()}
+        trained = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        grads = gather_state_dict({n: p.grad for n, p in trained}, group, cfg.mlp_impl)
+        params = gather_state_dict({n: p.detach() for n, p in trained}, group, cfg.mlp_impl)
+        # each ReLU's input is a column-parallel layer's: this rank's features
+        gates = [all_gather(g.to(torch.uint8), group, dim=-1).bool() for g in gates]
+        if dist.get_rank() == 0:
+            out["grads"] = {k: v.cpu().numpy() for k, v in grads.items()}
+            out["params"] = {k: v.cpu().numpy() for k, v in params.items()}
+            out["gates"] = [g.cpu().numpy() for g in gates]
+        out["ms"] = _time_ms(torch, lambda: step(state, batch), reps=3)
+        return out
+    finally:
+        mesh.teardown()
+
+
+def _vp_train_rank(batch_np: dict) -> dict:
+    """One rank of view-parallel training (gloo; the ranks share the card):
+    one fp32 backward of the seeded net on the ``cp`` route, the PE
+    trainable, this rank's reference views -> its launches, score map, the
+    gates of its ReLUs (``_gates``; the query side is whole on every rank)
+    and every trainable gradient."""
+    import torch
+
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.parallel import mesh
+    from crossscore_tpu_torch.parallel.view_parallel import view_shard
+    from crossscore_tpu_torch.train.step import loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, dev = mesh.init_distributed("gloo", "cuda")
+    try:
+        cfg = CrossScoreConfig(compute_dtype=torch.float32, attention_impl="cp", mlp_impl="fused_exact",
+                               pe_trainable=True)
+        model = load_into(CrossScoreNet(cfg, device=dev), init_params(cfg, SEED, dev))
+        refs = batch_np["reference/cross/imgs"]
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        batch["reference/cross/imgs"] = torch.from_numpy(refs[:, view_shard(refs.shape[1])].copy()).to(dev)
+        wrappers = _rank_launches()
+        for w in wrappers.values():
+            w.launches = 0
+        gates = []
+        with _gates(record=gates):
+            loss, (pred, _, _) = loss_fn(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return {"launches": {k: w.launches for k, w in wrappers.items()}, "pred": pred.detach().cpu().numpy(),
+                "gates": [g.cpu().numpy() for g in gates],
+                "grads": {n: p.grad.cpu().numpy() for n, p in model.named_parameters() if p.requires_grad}}
+    finally:
+        mesh.teardown()
 
 
 def _vp_forward_rank(query, refs) -> dict:
@@ -304,7 +564,7 @@ def _vp_cli_rank(argv: list) -> dict:
     return {"text": out.getvalue(), "launches": {k: w.launches for k, w in wrappers.items()}}
 
 
-def _profile(torch, fn, step_ms: float, top: int = 16) -> None:
+def _profile(torch, fn, step_ms: float, top: int = 16, what: str = "train step") -> None:
     """Print the device-time breakdown of one call of ``fn`` (torch.profiler,
     after the caller's warm-up): device ms per kernel, launches, and the
     device's busy share of ``step_ms``, the call's unprofiled time. Fails
@@ -325,10 +585,10 @@ def _profile(torch, fn, step_ms: float, top: int = 16) -> None:
         if dev_us > 0:
             rows.append((dev_us / 1e3, evt.count, evt.key))
     if not rows:
-        _fail("the profiler recorded no kernel of the train step")
+        _fail(f"the profiler recorded no kernel of the {what}")
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"train step device time: {busy:.3f} ms busy of a {step_ms:.3f} ms step "
+    print(f"{what} device time: {busy:.3f} ms busy of a {step_ms:.3f} ms step "
           f"({100 * busy / step_ms:.1f}% busy, {len(rows)} kernel names)")
     for ms, count, key in rows[:top]:
         print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<4d} {key[:110]}")
@@ -348,6 +608,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     root = Path(__file__).resolve().parent
     if not (root / "crossscore_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -364,6 +625,7 @@ def main() -> int:
         flash_cross_attention_masked, flash_cross_attention_masked_plain, flash_cross_attention_plain,
         flash_qkv_self_attention, flash_qkv_self_attention_masked, flash_qkv_self_attention_masked_plain,
         flash_qkv_self_attention_plain, flash_attention_head_major, flash_attention_head_major_plain,
+        flash_attention_head_major_bwd, flash_attention_head_major_bwd_plain,
     )
     from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_plain
     from crossscore_tpu_torch.train.optim import make_optimizer
@@ -616,6 +878,70 @@ def main() -> int:
             del xq, xk, xv, hm
         torch.cuda.empty_cache()
 
+        # K7 at the tp route's backbone shape: the train step's 144 views
+        # (TB x (TK + 1)), 6 heads, N 1370 (ragged), hd 64; on the head-major
+        # views of the three q/k/v projections (the main path's form, timed)
+        # and on contiguous tensors
+        bv = TB * (TK + 1)
+        g_bb = torch.Generator(device=dev).manual_seed(SEED + 1)  # its own stream: later draws stay as they were
+        xq, xk, xv = (torch.randn(bv, n, d, generator=g_bb, device=dev).to(dtype) for _ in range(3))
+        hm = [t.view(bv, n, h, hd).transpose(1, 2) for t in (xq, xk, xv)]
+        err, l2 = _masked_errs([(flash_attention_head_major(*layout), flash_attention_head_major_plain(*layout))
+                                for layout in (hm, [t.contiguous() for t in hm])])
+        ops = 4.0 * bv * h * n * n * hd
+        nbytes = 4 * bv * n * d * es + 2 * bv * h * n * 4
+        qkv = torch.cat([xq, xk, xv], -1)
+        report[("K7 backbone", tname)] = dict(
+            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname],
+            max_abs=max(_max_abs(g, w) for g, w in zip(flash_attention_head_major(*hm),
+                                                       flash_attention_head_major_plain(*hm))),
+            ms=_time_ms(torch, lambda: flash_attention_head_major(*hm)),
+            plain_ms=_time_ms(torch, lambda: flash_attention_head_major_plain(*hm), reps=3),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(*hm)),
+            bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
+            bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+            # K1 on the fused qkv of the same projections: the flash route's form
+            k1_ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
+        )
+        del xq, xk, xv, hm, qkv
+        torch.cuda.empty_cache()
+
+        # K8/K9 at the main-path shapes (K89_SHAPES): on head-major views of
+        # token-major projections (the main path's form, timed) and on
+        # contiguous tensors; the CP case fed the global (o, l, m)
+        for tag, shape in K89_SHAPES.items():
+            bb, hh, n_q, nk, hdim = shape[:5]
+            hm, tm = _k89_inputs(randn, shape, dtype)
+            errs = []
+            for layout in (hm, [t.contiguous() for t in hm[:5]] + list(hm[5:])):
+                got = flash_attention_head_major_bwd(*layout)
+                want = flash_attention_head_major_bwd_plain(*layout)
+                errs += [_rel_l2(g, w) for g, w in zip(got, want)]
+            entry = dict(err=max(errs), tol=TOL_K4[tname])
+            if tag in ("K8", "K9"):  # the tp route's decoder at TP = 1: timed
+                ops = 10.0 * bb * hh * n_q * nk * hdim
+                nbytes = bb * hh * (3 * n_q + 2 * nk) * hdim * es + 2 * bb * hh * n_q * 4 \
+                    + bb * hh * (n_q + 2 * nk) * hdim * es
+                qh, kh, vh = (t.detach().requires_grad_() for t in hm[:3])
+                oh = F.scaled_dot_product_attention(qh, kh, vh)
+                entry.update(
+                    max_abs=max(_max_abs(g, w) for g, w in zip(got, want)),
+                    ms=_time_ms(torch, lambda: flash_attention_head_major_bwd(*hm)),
+                    plain_ms=_time_ms(torch, lambda: flash_attention_head_major_bwd_plain(*hm), reps=3),
+                    library_ms=_time_ms(torch, lambda: torch.autograd.grad(oh, (qh, kh, vh), hm[4],
+                                                                           retain_graph=True)),
+                    bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
+                    bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+                    # K4 on the token-major tensors the views read: the same work
+                    k4_ms=_time_ms(torch, lambda: flash_cross_attention_bwd(*tm, hh)),
+                )
+                del qh, kh, vh, oh
+            print(f"{tag} {tname} shape {shape}: relative L2 of dq, dk, dv, views and contiguous, worst "
+                  f"{entry['err']:.3e}")
+            report[(tag, tname)] = entry
+            del hm, tm, got, want, layout
+        torch.cuda.empty_cache()
+
     # the other presets' widths, small shapes, correctness only: K1 at hd 16
     # (dinov2-test) and 64 (base, large), K2 at D 64, 768, 1024, K3 and K4 at
     # hd 96 and 128 (base, large decoders), K4 also at hd 64
@@ -649,6 +975,12 @@ def main() -> int:
             err = max(_rel_l2(g, w) for g, w in zip(
                 flash_cross_attention_bwd(*args), flash_cross_attention_bwd_plain(*args)))
             report[(f"K4 hd{hdim}", tname)] = dict(err=err, tol=TOL_K4[tname])
+        for hdim in range(16, 129, 16):  # K8/K9 at every head dim they take, views and contiguous
+            hm, _ = _k89_inputs(randn, (2, 3, 130, 300, hdim, None), dtype)
+            err = max(_rel_l2(g, w) for layout in (hm, [t.contiguous() for t in hm[:5]] + hm[5:])
+                      for g, w in zip(flash_attention_head_major_bwd(*layout),
+                                      flash_attention_head_major_bwd_plain(*layout)))
+            report[(f"K8 hd{hdim}", tname)] = dict(err=err, tol=TOL_K4[tname])
         for heads_, hdim in ((4, 16), (12, 64)):  # K5: dinov2-test, base/large backbones
             qkv = randn(2, 301, 3 * heads_ * hdim, dtype=dtype)
             bias = _token_bias(torch, [(10, 30), (15, 17)], dev, grid=(15, 20), cls=True)
@@ -678,6 +1010,8 @@ def main() -> int:
             line += f" K1 same qkv {r['k1_ms']:.3f} ms"
         if "k3_ms" in r:
             line += f" K3 same work {r['k3_ms']:.3f} ms"
+        if "k4_ms" in r:
+            line += f" K4 same work {r['k4_ms']:.3f} ms"
         if "ms_nk10952" in r:
             line += (f"; at Nk 10952: kernel {r['ms_nk10952']:.3f} ms, K3 {r['k3_ms_nk10952']:.3f} ms, "
                      f"bound {r['bound_ms_nk10952']:.3f} ms")
@@ -710,8 +1044,7 @@ def main() -> int:
     score = step(query, refs)["score_map_ref_cross"]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * cfg.decoder_layers, "K4": 0,
-            "K5": 0, "K6": 0, "K7": 0}
+    want = _launches(K1=vit.num_layers, K2=vit.num_layers, K3=2 * cfg.decoder_layers)
     print(f"predict path launches per forward: {launches} (expected {want})")
     if launches != want:
         _fail(f"launch counts {launches} != {want}")
@@ -763,12 +1096,13 @@ def main() -> int:
     state, metrics = train_step(TrainState(), batch)
     torch.cuda.synchronize()
     train_launches = read_launches()
-    want = {"K1": vit.num_layers, "K2": vit.num_layers, "K3": 2 * mcfg.decoder_layers,
-            "K4": 2 * mcfg.decoder_layers, "K5": 0, "K6": 0, "K7": 0}
+    want = _launches(K1=vit.num_layers, K2=vit.num_layers, K3=2 * mcfg.decoder_layers,
+                     K4=2 * mcfg.decoder_layers)
     print(f"train step launches: {train_launches} (expected {want})")
     if train_launches != want:
         _fail(f"train launch counts {train_launches} != {want}")
-    loss = float(metrics["loss"])
+    loss = flash_loss = float(metrics["loss"])
+    flash_pred = metrics["pred"].float().clone()  # the tp route's reference (step 11)
     if not np.isfinite(loss) or tuple(metrics["pred"].shape) != (TB, HW, HW):
         _fail(f"train step loss {loss} / pred shape {tuple(metrics['pred'].shape)}")
     after = model.state_dict()
@@ -811,7 +1145,7 @@ def main() -> int:
               f"worst {err:.3e} (tol {GRAD_TOL[tname]:.1e})")
         if not err <= GRAD_TOL[tname]:
             _fail(f"whole-step {tname} gradients differ: {err} > {GRAD_TOL[tname]}")
-    del batch, batch1, net, grads
+    del batch1, net, grads  # the batch serves the tp route's step (step 11)
     torch.cuda.empty_cache()
 
     # --- 8. the train CLI end to end, then a resume ----------------------------
@@ -974,21 +1308,13 @@ def main() -> int:
     # The card's machine has one H100: NCCL runs with one rank, and the
     # two-rank runs use gloo ranks that share the card (NCCL refuses two
     # ranks on one device), so their maps/s is not a scaling number.
-    import os
-
     from crossscore_tpu_torch.ops.context_parallel import context_parallel_cross_attention
-    from crossscore_tpu_torch.parallel import mesh
-    from crossscore_tpu_torch.parallel.launch import RankPool, free_port
+    from crossscore_tpu_torch.parallel.launch import RankPool
 
     vp = {}
     # (i) the CP op through NCCL over one rank at the full shape: the
     # all-reduces are the identity, so o is local K7's o
-    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(free_port()))
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        mesh.init_distributed("nccl", "cuda")
+    with _one_nccl_rank():
         dhd = d // dec_h
         xs = [randn(B, n_, d, dtype=torch.bfloat16) for n_ in (nq, VP_NK[0], VP_NK[0])]
         hm = [t.view(B, -1, dec_h, dhd).transpose(1, 2) for t in xs]
@@ -998,13 +1324,6 @@ def main() -> int:
         vp["nccl_one_rank_rel_l2"] = _rel_l2(o_cp, o_k7)
         vp["nccl_one_rank_max_abs"] = _max_abs(o_cp, o_k7)
         del xs, hm, o_cp, o_k7
-    finally:
-        mesh.teardown()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     print(f"view-parallel (i): CP op over one NCCL rank at q ({B}, {dec_h}, {nq}, {d // dec_h}), Nk "
           f"{VP_NK[0]}, bf16: relative L2 against local K7 {vp['nccl_one_rank_rel_l2']:.3e}, max |d| "
           f"{vp['nccl_one_rank_max_abs']:.3e} (tol {VP_ONE_RANK_TOL:.0e})")
@@ -1061,8 +1380,7 @@ def main() -> int:
                 "model.gpu.dist_backend=gloo", f"logger.predict.out_dir={tmp}/vp_{cache}"], timeout=900)
             wall = time.perf_counter() - t0
             enc = n_layers * (n_b + (cache == "on"))  # a cached run adds one miss batch
-            want_l = {"K1": enc, "K2": enc, "K3": pcfg.decoder_layers * n_b, "K4": 0, "K5": 0, "K6": 0,
-                      "K7": pcfg.decoder_layers * n_b}
+            want_l = _launches(K1=enc, K2=enc, K3=pcfg.decoder_layers * n_b, K7=pcfg.decoder_layers * n_b)
             digests, rates, misses, bad = set(), [], [], []
             for rank, r in enumerate(ranks):
                 text = r["text"]
@@ -1101,7 +1419,226 @@ def main() -> int:
         vp["cli"] = vp_cli
     torch.cuda.empty_cache()
 
-    # --- 11. the kernels line, then the device line ---------------------------
+    # --- 11. tensor-parallel training over one NCCL rank ------------------------
+    import dataclasses
+
+    from crossscore_tpu_torch.ops.flash_attention import head_major_flash_attention
+
+    from crossscore_tpu_torch.parallel import mesh
+
+    tp = {}
+    n_dec = mcfg.decoder_layers
+    with _one_nccl_rank():
+        mesh.make_groups(1)  # TP = 1: the whole of every layer on this rank
+        tp_cfg = dataclasses.replace(mcfg, attention_impl="tp")
+        model = load_into(CrossScoreNet(tp_cfg, device=dev), params)  # TP = 1: the shard is the whole
+        batch2 = {k: (v[:2] if v.ndim else torch.tensor(2, device=dev)) for k, v in batch.items()}
+        with torch.no_grad():  # the reference of the two-rank bf16 step (step 12)
+            loss2, (pred2, _, _) = loss_fn(model, batch2)
+        tp["loss_b2_one_rank"], pred_b2_one_rank = float(loss2), pred2.float().cpu().numpy()
+        optimizer, scheduler, _ = make_optimizer(tcfg, model, steps_per_epoch=1)
+        tp_step = make_train_step(model, optimizer, scheduler)
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        zero_launches()
+        state, metrics = tp_step(TrainState(), batch)
+        torch.cuda.synchronize()
+        tp_launches = read_launches()
+        want = _launches(K2=vit.num_layers, K7=vit.num_layers + 2 * n_dec, K8=n_dec, K9=n_dec)
+        print(f"tp train step (TP = 1, one NCCL rank) launches: {tp_launches} (expected {want})")
+        if tp_launches != want:
+            _fail(f"tp train launch counts {tp_launches} != {want}")
+        tp["loss"] = float(metrics["loss"])
+        pred = metrics["pred"].float()
+        tp["map_mae_vs_flash"] = float((pred - flash_pred).abs().mean())
+        tp["map_max_vs_flash"] = float((pred - flash_pred).abs().max())
+        after = model.state_dict()
+        moved_frozen = [k for k in frozen if not torch.equal(after[k], before[k])]
+        unmoved = [k for k in trained if torch.equal(after[k], before[k])]
+        print(f"tp train step: score maps against the flash route's on the same weights and batch: MAE "
+              f"{tp['map_mae_vs_flash']:.3e} (tol {TP_MAP_TOL:.0e}), max |d| {tp['map_max_vs_flash']:.3e}; loss "
+              f"{tp['loss']:.6f} against {flash_loss:.6f} (tol {TP_MAP_TOL:.0e}); {len(trained) - len(unmoved)} "
+              f"of {len(trained)} decoder/head tensors updated; {len(frozen) - len(moved_frozen)} of "
+              f"{len(frozen)} backbone/PE tensors bit-identical")
+        if not (tuple(pred.shape) == (TB, HW, HW) and bool(torch.isfinite(pred).all())
+                and tp["map_mae_vs_flash"] <= TP_MAP_TOL and abs(tp["loss"] - flash_loss) <= TP_MAP_TOL) \
+                or moved_frozen or unmoved:
+            _fail("tp train step: score maps, loss, or which parameters moved")
+        del pred, flash_pred
+        torch.cuda.reset_peak_memory_stats()
+        tp["step_ms"] = _time_ms(torch, lambda: tp_step(state, batch), reps=5)
+        tp["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"tp train step: {tp['step_ms']:.2f} ms per step of B={TB}, K={TK} (TP = 1; the flash route "
+              f"{train_ms:.2f} ms above); peak memory {tp['peak_gib']:.2f} GiB")
+        _profile(torch, lambda: tp_step(state, batch), tp["step_ms"], what="tp train step")
+        del model, optimizer, scheduler, tp_step, before, after, metrics
+        torch.cuda.empty_cache()
+
+        # the CP backward over the one rank against local K9: the dq sum is
+        # the identity, and the combine's o, l, m are local K7's
+        dhd = d // dec_h
+        xs = [randn(B, n_, d, dtype=torch.bfloat16).requires_grad_() for n_ in (nq, VP_NK[0], VP_NK[0])]
+        hm = lambda ts: [t.view(B, -1, dec_h, dhd).transpose(1, 2) for t in ts]  # noqa: E731
+        o_cp = context_parallel_cross_attention(*hm(xs))
+        g = randn(*o_cp.shape, dtype=torch.bfloat16)
+        got = torch.autograd.grad(o_cp, xs, g)
+        xs_k = [t.detach().clone().requires_grad_() for t in xs]
+        want_g = torch.autograd.grad(head_major_flash_attention(*hm(xs_k)), xs_k, g)
+        tp["cp_bwd_one_rank_rel_l2"] = max(_rel_l2(a, b) for a, b in zip(got, want_g))
+        print(f"CP backward over one NCCL rank at q ({B}, {dec_h}, {nq}, {dhd}), Nk {VP_NK[0]}, bf16: relative "
+              f"L2 of dq, dk, dv against local K9, worst {tp['cp_bwd_one_rank_rel_l2']:.3e} "
+              f"(tol {VP_ONE_RANK_TOL:.0e})")
+        if not tp["cp_bwd_one_rank_rel_l2"] <= VP_ONE_RANK_TOL:
+            _fail("the CP backward over one NCCL rank differs from local K9")
+        del xs, xs_k, o_cp, g, got, want_g
+    torch.cuda.empty_cache()
+
+    # --- 12. two gloo ranks sharing the card: TP = 2, then view-parallel training
+    # fp32 gradients at full width meet three kinks: the L1 loss where a score
+    # equals its target (268324 pixels), and the decoder's ReLUs and the
+    # head's leaky ReLU where an input is 0 (1369 x 384 inputs each). A few
+    # sit within the two paths' fp32 rounding of their kink, and a flip there
+    # moves a row of a gradient by one token's or one pixel's share. So the
+    # all-plain reference is also run at the two-rank run's own L1 subgradient
+    # and ReLU gates (``_gates``): the same function as the two-rank run's
+    # wherever the two agree, which is everywhere else. That reading is held
+    # tight (PINNED_GRAD_TOL); the reference at its own gates, with the flips
+    # counted, is the witness of what the flips cost (TWO_RANK_GRAD_TOL).
+    def host(bt):
+        return {k: v.cpu().numpy() for k, v in bt.items()}
+
+    def plain_net(c):
+        pc = dataclasses.replace(c, attention_impl="dense", mlp_impl="unfused")
+        return load_into(CrossScoreNet(pc, device=dev), init_params(pc, SEED, dev))
+
+    def plain_grads(c, bt, pred_other, gates=None):
+        """The single-process all-plain net (dense, unfused) of ``c``'s dtype
+        and PE flag, backpropagating the L1 subgradient at ``pred_other``'s
+        signs and, with ``gates``, its ReLUs at those gates: -> (gradients,
+        the pixels whose sign differs from its own score map's, the ReLU
+        inputs whose gate differs from its own, per ReLU)."""
+        net, own = plain_net(c), []
+        with _gates(record=own, pinned=None if gates is None else [torch.from_numpy(g) for g in gates]):
+            _, (pred, _, w) = loss_fn(net, bt)
+        gt = bt["query/score_map"].float()
+        other = torch.from_numpy(pred_other).to(dev)
+        w = torch.ones_like(gt) if w is None else w
+        pred.backward(torch.sign(other - gt) * w / torch.clamp(w.sum(), min=1.0))
+        flips = int((torch.sign(other - gt) != torch.sign(pred.detach() - gt)).sum())
+        gate_flips = [0] * len(own) if gates is None else \
+            [int((g.cpu().numpy() != p_).sum()) for g, p_ in zip(own, gates)]
+        grads = {n: p.grad.cpu().numpy() for n, p in net.named_parameters() if p.requires_grad}
+        del net
+        torch.cuda.empty_cache()
+        return grads, flips, gate_flips
+
+    def adamw_on(c, grads):
+        """The all-plain net's trainable parameters after one AdamW step (the
+        default config's) on ``grads``."""
+        net = plain_net(c)
+        opt, _, _ = make_optimizer(tcfg, net, steps_per_epoch=1)
+        for k, p in net.named_parameters():
+            if p.requires_grad:
+                p.grad = torch.from_numpy(grads[k]).to(dev)
+        opt.step()
+        out = {k: p.detach().cpu().numpy() for k, p in net.named_parameters() if p.requires_grad}
+        del net, opt
+        torch.cuda.empty_cache()
+        return out
+
+    def grad_err(got: dict, want: dict, what: str) -> float:
+        """The worst leaf's relative L2 error; prints the three worst leaves
+        with their max |difference| over their largest entry beside it."""
+        if sorted(got) != sorted(want):
+            _fail(f"gradient leaves differ: {sorted(set(got) ^ set(want))[:4]}")
+        errs = sorted(((float(np.linalg.norm(got[k] - w) / max(np.linalg.norm(w), 1e-30)),
+                        float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)), k) for k, w in want.items()),
+                      reverse=True)
+        print(f"  {what}: worst leaves (relative L2; max |d| over max |g|): "
+              + "; ".join(f"{k} {e:.3e}; {m:.3e}" for e, m, k in errs[:3]))
+        return errs[0][0]
+
+    def two_rank_grads(c, bt, r) -> dict:
+        """One rank's gradients against the all-plain net's, at the rank's
+        gates and at the plain net's own (the witness)."""
+        g_pin, flips, gate_flips = plain_grads(c, bt, r["pred"], r["gates"])
+        g_own, _, _ = plain_grads(c, bt, r["pred"])
+        return {"pinned": grad_err(r["grads"], g_pin, "at the ranks' gates"),
+                "own_gates": grad_err(r["grads"], g_own, "at the plain net's own gates"),
+                "l1_sign_flips": flips, "gate_flips": gate_flips}
+
+    t0 = time.perf_counter()
+    bad = []
+    batch1 = {k: (v[:1] if v.ndim else torch.tensor(1, device=dev)) for k, v in batch.items()}
+    vp_batch = {"query/img": torch.randint(0, 256, (1, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8),
+                "reference/cross/imgs": torch.randint(0, 256, (1, K, HW, HW, 3), generator=gen, device=dev,
+                                                      dtype=torch.uint8),
+                "query/score_map": torch.rand(1, HW, HW, generator=gen, device=dev)}
+    fp32_cfg = CrossScoreConfig(compute_dtype=torch.float32)
+    with RankPool(2) as pool:
+        # (i) TP = 2: fp32 B=1 against the all-plain step, bf16 B=2 against one rank
+        r32 = pool.run(_tp_train_rank, "float32", host(batch1), timeout=600)
+        g = two_rank_grads(fp32_cfg, batch1, r32[0])
+        tp["tp2_fp32_grad_err"], tp["tp2_fp32_grad_err_own_gates"] = g["pinned"], g["own_gates"]
+        tp["tp2_fp32_l1_sign_flips"], tp["tp2_fp32_gate_flips"] = g["l1_sign_flips"], g["gate_flips"]
+        # the optimiser on the model ranks' shards against the single-process
+        # AdamW on the same gathered gradients: every element of every leaf
+        p_ref = adamw_on(fp32_cfg, r32[0]["grads"])
+        tp["tp2_fp32_param_max_abs"] = max(float(np.abs(r32[0]["params"][k] - w).max()) for k, w in p_ref.items())
+        r16 = pool.run(_tp_train_rank, "bfloat16", host(batch2), timeout=600)
+        tp["tp2_bf16_loss"] = [r["loss"] for r in r16]
+        tp["tp2_bf16_map_mae"] = [float(np.abs(r["pred"] - pred_b2_one_rank).mean()) for r in r16]
+        tp["tp2_bf16_map_max"] = [float(np.abs(r["pred"] - pred_b2_one_rank).max()) for r in r16]
+        want2 = _launches(K2=vit.num_layers, K7=vit.num_layers + 2 * n_dec, K8=n_dec, K9=n_dec)
+        launches_ok = all(r["launches"] == want2 for r in r32 + r16)
+        tp["tp2_launches_per_rank"] = r16[0]["launches"]
+        tp["tp2_ms_per_rank"] = {"fp32_b1": [r["ms"] for r in r32], "bf16_b2": [r["ms"] for r in r16]}
+        print(f"TP = 2 on 2 gloo ranks sharing the card: fp32 B=1 gathered gradients against the all-plain "
+              f"step at the ranks' L1 subgradient and ReLU gates, worst leaf's relative L2 "
+              f"{tp['tp2_fp32_grad_err']:.3e} (tol {PINNED_GRAD_TOL:.0e}); at the plain net's own gates "
+              f"{tp['tp2_fp32_grad_err_own_gates']:.3e} (tol {TWO_RANK_GRAD_TOL:.0e}; gates that differ per "
+              f"ReLU {tp['tp2_fp32_gate_flips']}, pixels whose L1 sign differs {tp['tp2_fp32_l1_sign_flips']}); "
+              f"parameters after the step against AdamW on the same gradients, max |d| over every element "
+              f"{tp['tp2_fp32_param_max_abs']:.3e} (tol {TP_PARAM_ATOL:.0e}); bf16 B=2 score maps per rank "
+              f"against one rank's: MAE {tp['tp2_bf16_map_mae']} (tol {TP_MAP_TOL:.0e}), max |d| "
+              f"{tp['tp2_bf16_map_max']}; loss per rank {tp['tp2_bf16_loss']} against "
+              f"{tp['loss_b2_one_rank']:.6f} (tol {TP_MAP_TOL:.0e}); launches per rank "
+              f"{tp['tp2_launches_per_rank']} (expected {want2}); ms/step per rank {tp['tp2_ms_per_rank']} "
+              "(two ranks time-slicing one card, gloo through host memory: not a scaling number)")
+        if not (tp["tp2_fp32_grad_err"] <= PINNED_GRAD_TOL and tp["tp2_fp32_grad_err_own_gates"] <= TWO_RANK_GRAD_TOL
+                and tp["tp2_fp32_param_max_abs"] <= TP_PARAM_ATOL
+                and all(e <= TP_MAP_TOL for e in tp["tp2_bf16_map_mae"])
+                and all(abs(x - tp["loss_b2_one_rank"]) <= TP_MAP_TOL for x in tp["tp2_bf16_loss"])
+                and launches_ok):
+            bad.append("TP = 2 on two ranks")
+
+        # (ii) view-parallel training: K=8 over the two ranks, the PE trainable
+        rv = pool.run(_vp_train_rank, host(vp_batch), timeout=600)
+        vp_cfg = CrossScoreConfig(compute_dtype=torch.float32, pe_trainable=True)
+        per_rank = [two_rank_grads(vp_cfg, vp_batch, r) for r in rv]
+        tp["vp_train_grad_err_per_rank"] = [r["pinned"] for r in per_rank]
+        tp["vp_train_grad_err_own_gates_per_rank"] = [r["own_gates"] for r in per_rank]
+        tp["vp_train_l1_sign_flips"] = [r["l1_sign_flips"] for r in per_rank]
+        tp["vp_train_gate_flips"] = [r["gate_flips"] for r in per_rank]
+        tp["vp_train_launches_per_rank"] = rv[0]["launches"]
+        want_v = _launches(K1=vit.num_layers, K2=vit.num_layers, K3=n_dec, K4=n_dec, K7=n_dec, K9=n_dec)
+        print(f"view-parallel training on 2 gloo ranks sharing the card, fp32 B=1, K={K}, PE trainable: every "
+              f"trainable gradient ({len(rv[0]['grads'])} leaves) against the single-process all-plain net at "
+              f"the rank's L1 subgradient and ReLU gates, worst leaf's relative L2 per rank "
+              f"{tp['vp_train_grad_err_per_rank']} (tol {PINNED_GRAD_TOL:.0e}); at the plain net's own gates "
+              f"{tp['vp_train_grad_err_own_gates_per_rank']} (tol {TWO_RANK_GRAD_TOL:.0e}; gates that differ per "
+              f"ReLU {tp['vp_train_gate_flips']}, pixels whose L1 sign differs "
+              f"{tp['vp_train_l1_sign_flips']}); launches per rank {tp['vp_train_launches_per_rank']} "
+              f"(expected {want_v})")
+        if not (all(r["pinned"] <= PINNED_GRAD_TOL and r["own_gates"] <= TWO_RANK_GRAD_TOL for r in per_rank)
+                and all(r["launches"] == want_v for r in rv)):
+            bad.append("view-parallel training on two ranks")
+    tp["two_rank_phases_s"] = time.perf_counter() - t0
+    if bad:
+        _fail("; ".join(bad))
+    del batch, batch1, batch2, vp_batch, p_ref, r32, r16, rv
+    torch.cuda.empty_cache()
+
+    # --- 13. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -1115,7 +1652,11 @@ def main() -> int:
                "K6": ("flash_cross_attention_masked", "crossscore_tpu_torch/csrc/flash_cross.cu",
                       "crossscore_tpu/ops/flash_attention.py:799"),
                "K7": ("flash_attention_head_major", "crossscore_tpu_torch/csrc/flash_cross.cu",
-                      "crossscore_tpu/ops/flash_attention.py:69")}
+                      "crossscore_tpu/ops/flash_attention.py:69"),
+               "K8": ("flash_attention_head_major_bwd, Nk <= 2048", "crossscore_tpu_torch/csrc/flash_cross_bwd.cu",
+                      "crossscore_tpu/ops/flash_attention.py:441"),
+               "K9": ("flash_attention_head_major_bwd, Nk > 2048", "crossscore_tpu_torch/csrc/flash_cross_bwd.cu",
+                      "crossscore_tpu/ops/flash_attention.py:571")}
     shapes = {"K1": f"qkv ({views}, {n}, {3 * d}) bf16",
               "K2": f"x ({views}, {n}, {d}) bf16, F={f}",
               "K3": f"q ({B}, {nq}, {d}), k/v ({B}, {K * nq}, {d}) bf16, hd {d // dec_h}",
@@ -1124,35 +1665,49 @@ def main() -> int:
               "K6": f"q ({PB}, {BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}), k/v ({PB}, "
                     f"{PK * BUCKET_GRID[0] * BUCKET_GRID[1]}, {d}) bf16, hd {d // dec_h}, per-item bias",
               "K7": f"q ({B}, {dec_h}, {nq}, {d // dec_h}), k/v ({B}, {dec_h}, {VP_NK[0]}, {d // dec_h}) bf16 "
-                    "head-major views, no bias"}
+                    "head-major views, no bias",
+              "K7 backbone": f"q/k/v ({TB * (TK + 1)}, {h}, {n}, {hd}) bf16 head-major views, no bias",
+              **{kern: "q/o/do ({0}, {1}, {2}, {4}), k/v ({0}, {1}, {3}, {4}) bf16 head-major views".format(
+                  *K89_SHAPES[kern][:5]) for kern in ("K8", "K9")}}
     stats = ("err", "tol", "l2", "tol_l2", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms", "k1_ms",
-             "k3_ms")
+             "k3_ms", "k4_ms")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
         # the main path of K1-K4 is the train step; of K5 and K6, the bucketed
-        # predict CLI run (c); of K7, rank 0 of the uncached view-parallel CLI
+        # predict CLI run (c); of K7, rank 0 of the uncached view-parallel CLI;
+        # of K8 and K9, the tp route's train step
         main_launches = (cli["c"]["launches"][kern] if kern in ("K5", "K6")
                          else vp["cli"]["off"]["launches_per_rank"][kern] if kern == "K7"
+                         else tp_launches[kern] if kern in ("K8", "K9")
                          else train_launches[kern])
         row = {"name": fn, "route": "cuda", "source": src, "replaces": replaces,
                "launches": main_launches, "max_abs_err": r["max_abs"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "rel_err": r["err"], "tol": r["tol"],
-               "err_kind": "relative L2 of dq, dk, dv" if kern == "K4" else "max |d| / (1 + |plain|)",
+               "err_kind": "relative L2 of dq, dk, dv" if kern in ("K4", "K8", "K9")
+               else "max |d| / (1 + |plain|)",
                "launches_by_path": {"predict": launches[kern], "bucketed_predict": cli["c"]["launches"][kern],
                                     "train_step": train_launches[kern],
-                                    "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern]},
+                                    "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern],
+                                    "tp_train_step": tp_launches[kern]},
                "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
         # K5-K7: the relative L2 of o, l, m; K5: K1's time on the same qkv;
-        # K7: K3's on the same work, and both at the 1-rank length
+        # K7: K3's on the same work, and both at the 1-rank length; K8/K9:
+        # K4's on the same work
         row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms", "k3_ms", "ms_nk10952", "k3_ms_nk10952",
-                                      "bound_ms_nk10952") if k in r})
+                                      "bound_ms_nk10952", "k4_ms") if k in r})
         if kern in ("K3", "K4", "K6"):
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
             row["self"] = {k: s[k] for k in stats if k in s}
             row["self_fp32"] = {k: s32[k] for k in stats if k in s32}
+        if kern == "K7":  # the tp train step's backbone shape, 12 of its 16 launches
+            s, s32 = report[("K7 backbone", "bfloat16")], report[("K7 backbone", "float32")]
+            row["backbone"] = {k: s[k] for k in stats if k in s} | {"shape": shapes["K7 backbone"]}
+            row["backbone_fp32"] = {k: s32[k] for k in stats if k in s32}
         kernels.append(row)
+    seconds = time.perf_counter() - t_start
+    print(f"chip_smoke: every phase passed in {seconds:.1f} s")
     # (a) is the reference of the agreement check: it has no reading of its own
     print(json.dumps({"kernels": kernels, "card": card, "maps_per_s": 1e3 * B / step_ms,
                       "step_ms": step_ms, "train_step_ms": train_ms, "train_peak_gib": train_peak,
@@ -1161,7 +1716,8 @@ def main() -> int:
                                          if tag in agree else {})
                                       | {"device_step_ms": device_ms[tag]}
                                       for tag, r in cli.items()},
-                      "predict_loader_maps_per_s": loader_rate, "view_parallel": vp}))
+                      "predict_loader_maps_per_s": loader_rate, "view_parallel": vp,
+                      "tensor_parallel": tp, "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
     return 0

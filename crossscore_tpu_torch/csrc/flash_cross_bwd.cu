@@ -37,6 +37,27 @@
 // (operands through ldmatrix, the streamed tiles double-buffered with
 // cp.async); fp32 takes a CUDA-core path in full fp32 (the tensor cores'
 // fp32 route is TF32). Not yet used: wgmma, TMA, warp specialisation.
+//
+// K8 and K9: the head-major backward, the same two passes. They replace the
+// TPU kernels crossscore_tpu/ops/flash_attention.py `_bwd_kernel_single`
+// (launched by `_bwd_pallas_single`, Nk <= 2048: one KV block, dk/dv in VMEM
+// scratch across the sequential q axis) and `_bwd_kernel_multi` (launched by
+// `_bwd_pallas_multi`, Nk > 2048: dk/dv exact per 1024-row KV block, dq in
+// fp32 scratch across the sequential KV axis), the backward of the JAX
+// `flash_cross_attention` (K7 forward) on the tensor-parallel route and, fed
+// the global (l, m), of the context-parallel cross-attention (`_bwd_xla`).
+// The two TPU bodies differ only in which gradient their grid carries; the
+// split at 2048 is a VMEM matter. Here the two passes above carry none, so
+// one design serves both, and the wrappers count a launch as K8 or K9 by the
+// JAX rule. q, do (B, H, Nq, hd) and k, v (B, H, Nk, hd) arrive with their
+// own batch, head and row strides (contiguous tensors, or head-major views of
+// token-major projections read in place); dq, dk and dv are written
+// token-major, (B, N, H*hd), whose head-major views the wrappers hand back,
+// so the projections' backward reads them with no transpose copy. Bound as
+// K4's: 10 * B * H * Nq * Nk * hd operations against (4 Nq + 4 Nk) * H * hd
+// elements moved, far above the ridge, so the tensor cores bound it; a view
+// costs nothing over a contiguous tensor, since every row of hd elements is
+// one run of 16-byte loads either way. K4 passes a head stride of hd.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -57,7 +78,15 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  long long q_bs, k_bs, rs;  // batch strides of q/do/dq and k/v/dk/dv; row stride H*hd
+  // batch, head and row strides in elements: the inputs q, do, k and v (K4:
+  // token-major rows, head stride hd; K8/K9: any head-major layout with hd
+  // contiguous) and the outputs dq and dk/dv (token-major (B, N, H*hd) for all)
+  long long q_bs, q_hs, q_rs;
+  long long do_bs, do_hs, do_rs;
+  long long k_bs, k_hs, k_rs;
+  long long v_bs, v_hs, v_rs;
+  long long dq_bs, dq_hs, dq_rs;
+  long long dkv_bs, dkv_hs, dkv_rs;
   int h, nq, nk;
   float scale;  // 1/sqrt(hd)
   float c1;     // scale * log2(e)
@@ -104,16 +133,16 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_bf16(BwdArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = lane & 3;
   const int kv0 = blockIdx.x * BKV, head = blockIdx.y, b = blockIdx.z;
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * HD;
-  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.q_bs + head * HD;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * HD;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.k_bs + head * HD;
+  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * a.q_hs;
+  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_bs + head * a.do_hs;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * a.k_hs;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * a.v_hs;
   const long long st = ((long long)b * a.h + head) * a.nq;
 
-  cp_async_rows<BKV, HD, BWD_THREADS>(sK, LD, K, a.rs, kv0, a.nk, tid);
-  cp_async_rows<BKV, HD, BWD_THREADS>(sV, LD, V, a.rs, kv0, a.nk, tid);
-  cp_async_rows<BQT, HD, BWD_THREADS>(sQD, LD, Q, a.rs, 0, a.nq, tid);
-  cp_async_rows<BQT, HD, BWD_THREADS>(sQD + TILE, LD, DO, a.rs, 0, a.nq, tid);
+  cp_async_rows<BKV, HD, BWD_THREADS>(sK, LD, K, a.k_rs, kv0, a.nk, tid);
+  cp_async_rows<BKV, HD, BWD_THREADS>(sV, LD, V, a.v_rs, kv0, a.nk, tid);
+  cp_async_rows<BQT, HD, BWD_THREADS>(sQD, LD, Q, a.q_rs, 0, a.nq, tid);
+  cp_async_rows<BQT, HD, BWD_THREADS>(sQD + TILE, LD, DO, a.do_rs, 0, a.nq, tid);
   cp_async_commit();
   load_stats(sST, sST + BQT, a, st, 0, tid);
 
@@ -132,8 +161,8 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_bf16(BwdArgs a) {
     const int stage = t & 1;
     if (t + 1 < ntiles) {  // prefetch the next q/do tile into the other stage
       bf16* nQ = sQD + (stage ^ 1) * 2 * TILE;
-      cp_async_rows<BQT, HD, BWD_THREADS>(nQ, LD, Q, a.rs, (t + 1) * BQT, a.nq, tid);
-      cp_async_rows<BQT, HD, BWD_THREADS>(nQ + TILE, LD, DO, a.rs, (t + 1) * BQT, a.nq, tid);
+      cp_async_rows<BQT, HD, BWD_THREADS>(nQ, LD, Q, a.q_rs, (t + 1) * BQT, a.nq, tid);
+      cp_async_rows<BQT, HD, BWD_THREADS>(nQ + TILE, LD, DO, a.do_rs, (t + 1) * BQT, a.nq, tid);
       cp_async_commit();
       load_stats(sST + (stage ^ 1) * 2 * BQT, sST + (stage ^ 1) * 2 * BQT + BQT, a, st,
                  (t + 1) * BQT, tid);
@@ -207,16 +236,16 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_bf16(BwdArgs a) {
     __syncthreads();  // this stage is refilled next iteration
   }
 
-  bf16* DK = static_cast<bf16*>(a.dk) + b * a.k_bs + head * HD + qd * 2;
-  bf16* DV = static_cast<bf16*>(a.dv) + b * a.k_bs + head * HD + qd * 2;
+  bf16* DK = static_cast<bf16*>(a.dk) + b * a.dkv_bs + head * a.dkv_hs + qd * 2;
+  bf16* DV = static_cast<bf16*>(a.dv) + b * a.dkv_bs + head * a.dkv_hs + qd * 2;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r0 + 8 * hh;
     if (r >= a.nk) continue;
 #pragma unroll
     for (int d = 0; d < NOT; ++d) {
-      *reinterpret_cast<uint32_t*>(DK + (long long)r * a.rs + d * 8) = pack_bf16(dk[d][2 * hh], dk[d][2 * hh + 1]);
-      *reinterpret_cast<uint32_t*>(DV + (long long)r * a.rs + d * 8) = pack_bf16(dv[d][2 * hh], dv[d][2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(DK + (long long)r * a.dkv_rs + d * 8) = pack_bf16(dk[d][2 * hh], dk[d][2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(DV + (long long)r * a.dkv_rs + d * 8) = pack_bf16(dv[d][2 * hh], dv[d][2 * hh + 1]);
     }
   }
 }
@@ -250,16 +279,16 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_bf16(BwdArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = lane & 3;
   const int q0 = blockIdx.x * BQT, head = blockIdx.y, b = blockIdx.z;
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * HD;
-  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.q_bs + head * HD;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * HD;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.k_bs + head * HD;
+  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * a.q_hs;
+  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_bs + head * a.do_hs;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * a.k_hs;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * a.v_hs;
   const long long st = ((long long)b * a.h + head) * a.nq;
 
-  cp_async_rows<BQT, HD, BWD_THREADS>(sQ, LD, Q, a.rs, q0, a.nq, tid);
-  cp_async_rows<BQT, HD, BWD_THREADS>(sDO, LD, DO, a.rs, q0, a.nq, tid);
-  cp_async_rows<BKV, HD, BWD_THREADS>(sKV, LD, K, a.rs, 0, a.nk, tid);
-  cp_async_rows<BKV, HD, BWD_THREADS>(sKV + TILE, LD, V, a.rs, 0, a.nk, tid);
+  cp_async_rows<BQT, HD, BWD_THREADS>(sQ, LD, Q, a.q_rs, q0, a.nq, tid);
+  cp_async_rows<BQT, HD, BWD_THREADS>(sDO, LD, DO, a.do_rs, q0, a.nq, tid);
+  cp_async_rows<BKV, HD, BWD_THREADS>(sKV, LD, K, a.k_rs, 0, a.nk, tid);
+  cp_async_rows<BKV, HD, BWD_THREADS>(sKV + TILE, LD, V, a.v_rs, 0, a.nk, tid);
   cp_async_commit();
   // this thread's q rows: q0 + warp*16 + g and + 8 (lb = +inf past Nq: p = 0)
   const int r0 = q0 + warp * 16 + g;
@@ -288,8 +317,8 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_bf16(BwdArgs a) {
     const bf16* sV = sK + TILE;
     if (t + 1 < ntiles) {  // prefetch the next K/V tile into the other stage
       bf16* nK = sKV + ((t + 1) & 1) * 2 * TILE;
-      cp_async_rows<BKV, HD, BWD_THREADS>(nK, LD, K, a.rs, (t + 1) * BKV, a.nk, tid);
-      cp_async_rows<BKV, HD, BWD_THREADS>(nK + TILE, LD, V, a.rs, (t + 1) * BKV, a.nk, tid);
+      cp_async_rows<BKV, HD, BWD_THREADS>(nK, LD, K, a.k_rs, (t + 1) * BKV, a.nk, tid);
+      cp_async_rows<BKV, HD, BWD_THREADS>(nK + TILE, LD, V, a.v_rs, (t + 1) * BKV, a.nk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -348,14 +377,14 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_bf16(BwdArgs a) {
     __syncthreads();  // this stage is refilled two tiles on
   }
 
-  bf16* DQ = static_cast<bf16*>(a.dq) + b * a.q_bs + head * HD + qd * 2;
+  bf16* DQ = static_cast<bf16*>(a.dq) + b * a.dq_bs + head * a.dq_hs + qd * 2;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r0 + 8 * hh;
     if (r >= a.nq) continue;
 #pragma unroll
     for (int d = 0; d < NOT; ++d)
-      *reinterpret_cast<uint32_t*>(DQ + (long long)r * a.rs + d * 8) = pack_bf16(dq[d][2 * hh], dq[d][2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(DQ + (long long)r * a.dq_rs + d * 8) = pack_bf16(dq[d][2 * hh], dq[d][2 * hh + 1]);
   }
 }
 
@@ -385,15 +414,15 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_f32(BwdArgs a) {
 
   const int tid = threadIdx.x, row = tid >> 1, half = tid & 1;
   const int kv0 = blockIdx.x * BKV, head = blockIdx.y, b = blockIdx.z;
-  const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * HD;
-  const float* DO = static_cast<const float*>(a.dout) + b * a.q_bs + head * HD;
-  const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * HD;
-  const float* V = static_cast<const float*>(a.v) + b * a.k_bs + head * HD;
+  const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * a.q_hs;
+  const float* DO = static_cast<const float*>(a.dout) + b * a.do_bs + head * a.do_hs;
+  const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * a.k_hs;
+  const float* V = static_cast<const float*>(a.v) + b * a.v_bs + head * a.v_hs;
   const long long st = ((long long)b * a.h + head) * a.nq;
   const bool ok = kv0 + row < a.nk;
 
-  load_rows<BKV, HD>(sK, LD, K, a.rs, kv0, a.nk, tid, BWD_THREADS);
-  load_rows<BKV, HD>(sV, LD, V, a.rs, kv0, a.nk, tid, BWD_THREADS);
+  load_rows<BKV, HD>(sK, LD, K, a.k_rs, kv0, a.nk, tid, BWD_THREADS);
+  load_rows<BKV, HD>(sV, LD, V, a.v_rs, kv0, a.nk, tid, BWD_THREADS);
   const float* kr = sK + row * LD + half * HH;
   const float* vr = sV + row * LD + half * HH;
 
@@ -403,8 +432,8 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_f32(BwdArgs a) {
 
   for (int q0 = 0; q0 < a.nq; q0 += BQT) {
     __syncthreads();
-    load_rows<BQT, HD>(sQ, LD, Q, a.rs, q0, a.nq, tid, BWD_THREADS);
-    load_rows<BQT, HD>(sDO, LD, DO, a.rs, q0, a.nq, tid, BWD_THREADS);
+    load_rows<BQT, HD>(sQ, LD, Q, a.q_rs, q0, a.nq, tid, BWD_THREADS);
+    load_rows<BQT, HD>(sDO, LD, DO, a.do_rs, q0, a.nq, tid, BWD_THREADS);
     load_stats(sLB, sDL, a, st, q0, tid);
     __syncthreads();
     const int qvalid = min(BQT, a.nq - q0);
@@ -430,8 +459,9 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_f32(BwdArgs a) {
   }
 
   if (ok) {
-    float* dkr = static_cast<float*>(a.dk) + b * a.k_bs + (long long)(kv0 + row) * a.rs + head * HD + half * HH;
-    float* dvr = static_cast<float*>(a.dv) + b * a.k_bs + (long long)(kv0 + row) * a.rs + head * HD + half * HH;
+    const long long off = b * a.dkv_bs + (long long)(kv0 + row) * a.dkv_rs + head * a.dkv_hs + half * HH;
+    float* dkr = static_cast<float*>(a.dk) + off;
+    float* dvr = static_cast<float*>(a.dv) + off;
 #pragma unroll
     for (int d = 0; d < HH; ++d) {
       dkr[d] = dk[d];
@@ -453,10 +483,10 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_f32(BwdArgs a) {
 
   const int tid = threadIdx.x, row = tid >> 1, half = tid & 1;
   const int q0 = blockIdx.x * BQT, head = blockIdx.y, b = blockIdx.z;
-  const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * HD;
-  const float* DO = static_cast<const float*>(a.dout) + b * a.q_bs + head * HD;
-  const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * HD;
-  const float* V = static_cast<const float*>(a.v) + b * a.k_bs + head * HD;
+  const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * a.q_hs;
+  const float* DO = static_cast<const float*>(a.dout) + b * a.do_bs + head * a.do_hs;
+  const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * a.k_hs;
+  const float* V = static_cast<const float*>(a.v) + b * a.v_bs + head * a.v_hs;
   const long long st = ((long long)b * a.h + head) * a.nq;
   const int qrow = q0 + row;
   const bool ok = qrow < a.nq;
@@ -466,15 +496,15 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_f32(BwdArgs a) {
   float q[HH], dov[HH], dq[HH];
 #pragma unroll
   for (int d = 0; d < HH; ++d) {
-    q[d] = ok ? Q[qrow * a.rs + half * HH + d] : 0.f;
-    dov[d] = ok ? DO[qrow * a.rs + half * HH + d] : 0.f;
+    q[d] = ok ? Q[qrow * a.q_rs + half * HH + d] : 0.f;
+    dov[d] = ok ? DO[qrow * a.do_rs + half * HH + d] : 0.f;
     dq[d] = 0.f;
   }
 
   for (int k0 = 0; k0 < a.nk; k0 += BKV) {
     __syncthreads();
-    load_rows<BKV, HD>(sK, LD, K, a.rs, k0, a.nk, tid, BWD_THREADS);
-    load_rows<BKV, HD>(sV, LD, V, a.rs, k0, a.nk, tid, BWD_THREADS);
+    load_rows<BKV, HD>(sK, LD, K, a.k_rs, k0, a.nk, tid, BWD_THREADS);
+    load_rows<BKV, HD>(sV, LD, V, a.v_rs, k0, a.nk, tid, BWD_THREADS);
     __syncthreads();
     const int kvalid = min(BKV, a.nk - k0);
     for (int j = 0; j < kvalid; ++j) {
@@ -495,7 +525,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_f32(BwdArgs a) {
   }
 
   if (ok) {
-    float* out = static_cast<float*>(a.dq) + b * a.q_bs + (long long)qrow * a.rs + head * HD + half * HH;
+    float* out = static_cast<float*>(a.dq) + b * a.dq_bs + (long long)qrow * a.dq_rs + head * a.dq_hs + half * HH;
 #pragma unroll
     for (int d = 0; d < HH; ++d) out[d] = dq[d];
   }
@@ -526,13 +556,13 @@ int launch_bwd_hd(const BwdArgs& a, int batch, int dtype, cudaStream_t stream) {
 
 }  // namespace cs
 
-// q, do: (B, Nq, H*hd); k, v: (B, Nk, H*hd); lb, delta: (B, H, Nq) fp32;
-// dq: (B, Nq, H*hd), dk, dv: (B, Nk, H*hd), all in the input dtype.
-extern "C" int cs_flash_cross_attention_bwd(const void* q, const void* k, const void* v,
-                                            const void* dout, const void* lb, const void* delta,
-                                            void* dq, void* dk, void* dv, int batch, int nq,
-                                            int nk, int heads, int hd, int dtype, float scale,
-                                            void* stream) {
+namespace {
+
+// the arguments of both entries; the outputs dq (B, Nq, H*hd) and dk, dv
+// (B, Nk, H*hd) token-major, the input strides set by the caller
+cs::BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, const void* lb,
+                     const void* delta, void* dq, void* dk, void* dv, int nq, int nk, int heads,
+                     int hd, float scale) {
   const long long d = (long long)heads * hd;
   cs::BwdArgs a;
   a.q = q;
@@ -544,14 +574,17 @@ extern "C" int cs_flash_cross_attention_bwd(const void* q, const void* k, const 
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  a.q_bs = (long long)nq * d;
-  a.k_bs = (long long)nk * d;
-  a.rs = d;
+  a.dq_bs = (long long)nq * d, a.dq_hs = hd, a.dq_rs = d;
+  a.dkv_bs = (long long)nk * d, a.dkv_hs = hd, a.dkv_rs = d;
   a.h = heads;
   a.nq = nq;
   a.nk = nk;
   a.scale = scale;
   a.c1 = scale * cs::kLog2e;
+  return a;
+}
+
+int launch_bwd(const cs::BwdArgs& a, int batch, int hd, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return cs::launch_bwd_hd<16>(a, batch, dtype, st);
@@ -564,4 +597,38 @@ extern "C" int cs_flash_cross_attention_bwd(const void* q, const void* k, const 
     case 128: return cs::launch_bwd_hd<128>(a, batch, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// K4. q, do: (B, Nq, H*hd); k, v: (B, Nk, H*hd); lb, delta: (B, H, Nq) fp32;
+// dq: (B, Nq, H*hd), dk, dv: (B, Nk, H*hd), all in the input dtype.
+extern "C" int cs_flash_cross_attention_bwd(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lb, const void* delta,
+                                            void* dq, void* dk, void* dv, int batch, int nq,
+                                            int nk, int heads, int hd, int dtype, float scale,
+                                            void* stream) {
+  cs::BwdArgs a = bwd_args(q, k, v, dout, lb, delta, dq, dk, dv, nq, nk, heads, hd, scale);
+  a.q_bs = a.do_bs = a.dq_bs, a.q_hs = a.do_hs = hd, a.q_rs = a.do_rs = a.dq_rs;
+  a.k_bs = a.v_bs = a.dkv_bs, a.k_hs = a.v_hs = hd, a.k_rs = a.v_rs = a.dkv_rs;
+  return launch_bwd(a, batch, hd, dtype, stream);
+}
+
+// K8/K9. q, do: (B, H, Nq, hd) and k, v: (B, H, Nk, hd), each with its own
+// batch, head and row strides (strides[0..11]: q, do, k, v, three each, in
+// elements; hd contiguous); lb, delta: (B, H, Nq) fp32. dq is written to a
+// token-major (B, Nq, H*hd) buffer and dk, dv to (B, Nk, H*hd) ones, all in
+// the input dtype.
+extern "C" int cs_flash_attention_head_major_bwd(const void* q, const void* k, const void* v,
+                                                 const void* dout, const long long* strides,
+                                                 const void* lb, const void* delta, void* dq,
+                                                 void* dk, void* dv, int batch, int heads, int nq,
+                                                 int nk, int hd, int dtype, float scale,
+                                                 void* stream) {
+  cs::BwdArgs a = bwd_args(q, k, v, dout, lb, delta, dq, dk, dv, nq, nk, heads, hd, scale);
+  a.q_bs = strides[0], a.q_hs = strides[1], a.q_rs = strides[2];
+  a.do_bs = strides[3], a.do_hs = strides[4], a.do_rs = strides[5];
+  a.k_bs = strides[6], a.k_hs = strides[7], a.k_rs = strides[8];
+  a.v_bs = strides[9], a.v_hs = strides[10], a.v_rs = strides[11];
+  return launch_bwd(a, batch, hd, dtype, stream);
 }

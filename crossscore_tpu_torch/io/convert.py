@@ -7,7 +7,10 @@ reference Lightning ``state_dict``, or from a seed.
   the same dict ``crossscore_tpu.io.torch_convert.revert_lightning_ckpt``
   returns. This is the port's own implementation of that mapping.
 - :func:`load_into` loads such a dict, or a reference ``state_dict``, into a
-  port model.
+  port model. A model built with ``attention_impl="tp"`` takes its model
+  rank's shard: ``parallel.tensor_parallel.shard_state_dict`` of the full
+  dict, so ``state_dict_from_jax`` then ``shard_state_dict`` carries the JAX
+  parameters into every rank.
 - :func:`init_params` draws the port's own seeded parameters with the flax
   initialisers' distributions.
 
@@ -20,6 +23,7 @@ pack into torch's ``in_proj_weight`` (3D, D).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Mapping
 
@@ -136,6 +140,8 @@ def init_params(cfg: CrossScoreConfig, seed: int, device=None) -> dict[str, torc
     truncated normal with std 0.02. Drawn on the CPU from a
     ``torch.Generator``, then moved to ``device``."""
     gen = torch.Generator().manual_seed(seed)
+    if cfg.attention_impl == "tp":  # the full parameters; shard_state_dict shards them
+        cfg = dataclasses.replace(cfg, attention_impl="flash")
     shapes = CrossScoreNet(cfg, device="meta").state_dict()
     out: dict[str, torch.Tensor] = {}
     for key, t in shapes.items():

@@ -39,11 +39,13 @@ from torch import nn
 from crossscore_tpu_torch.device import resolve_device
 from crossscore_tpu_torch.models.decoder import CrossReferenceDecoder
 from crossscore_tpu_torch.models.dinov2 import (
-    ATTENTION_IMPLS, MLP_IMPLS, VIT_PRESETS, Dinov2Encoder, ViTConfig, linear, token_bias,
+    ATTENTION_IMPLS, MLP_IMPLS, VIT_PRESETS, Dinov2Encoder, ViTConfig, linear, token_bias, tp_ranks,
 )
 from crossscore_tpu_torch.models.positional import MultiViewPositionalEmbedding
 from crossscore_tpu_torch.models.regression import regression_activation
 from crossscore_tpu_torch.ops.jigsaw import jigsaw_to_image
+from crossscore_tpu_torch.parallel.mesh import model_group, view_group
+from crossscore_tpu_torch.parallel.tensor_parallel import check_divisible, column_linear, row_linear
 
 # the port's copy of crossscore_tpu/io/images.py's constants
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -61,9 +63,12 @@ def _normalize_u8(img: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class CrossScoreConfig:
     """Mirrors the JAX ``CrossScoreConfig``. ``attention_impl`` is ``"flash"``
-    (K1/K3, JAX's ``pallas``), ``"dense"`` (JAX's ``xla``) or ``"cp"`` (JAX's
+    (K1/K3, JAX's ``pallas``), ``"dense"`` (JAX's ``xla``), ``"cp"`` (JAX's
     ``cp:<axis>``: the decoder cross-attention through the context-parallel
-    op over the view group, K7; the rest as ``"flash"``); ``mlp_impl`` is
+    op over the view group, K7 and K8/K9; the rest as ``"flash"``) or
+    ``"tp"`` (JAX's ``tp:<axis>``: heads, MLP features and the head's hidden
+    features sharded over the model group, ``parallel.tensor_parallel``;
+    every attention on K7, the decoder's backward on K8/K9); ``mlp_impl`` is
     ``"fused"``, ``"fused_exact"`` (K2) or ``"unfused"``. ``parity=True`` is
     the JAX ``model.tpu.parity`` rule: fp32 compute, exact GELU in K2.
     ``pe_trainable`` is ``model.pos_enc.multi_view.req_grad``."""
@@ -141,8 +146,10 @@ class _RefCross(nn.Module):
             d, cfg.decoder_heads, cfg.decoder_layers, cfg.decoder_ffn_ratio,
             cfg.do_self_attn, cfg.do_short_cut, cfg.attention_impl, device,
         )
+        # under "tp" the first linear is column-, the second row-parallel
+        d_local = check_divisible("head features", d, tp_ranks(cfg.attention_impl))
         self.head = nn.Sequential(
-            nn.Linear(d, d, device=device), nn.LeakyReLU(), nn.Linear(d, p * p, device=device)
+            nn.Linear(d, d_local, device=device), nn.LeakyReLU(), nn.Linear(d_local, p * p, device=device)
         )
 
 
@@ -157,7 +164,8 @@ class CrossScoreNet(nn.Module):
             torch.from_numpy(np.concatenate([IMAGENET_MEAN, IMAGENET_STD])).to(device),
         )
         # "cp" shards only the decoder's cross-attention; each rank's views
-        # are whole, so the backbone runs its local kernels
+        # are whole, so the backbone runs its local kernels ("tp" shards the
+        # backbone's heads too)
         backbone_impl = "flash" if cfg.attention_impl == "cp" else cfg.attention_impl
         self.backbone = Dinov2Encoder(cfg.backbone, cfg.compute_dtype, backbone_impl,
                                       cfg.mlp_impl, device)
@@ -254,8 +262,13 @@ class CrossScoreNet(nn.Module):
                              "grids to match: the bucket masks assume one grid per item")
         r_tok = tokens[b:] if ref_tokens is None else ref_tokens.to(c.compute_dtype)
         feat_query = self.pos_enc_fn(q_tok, 1, gh, gw, valid_grid)
+        # view parallelism: the PE meets only this rank's reference views on
+        # the reference side, so that share of its gradient is summed over
+        # the view group (the query side's is whole on every rank)
+        pe_group = view_group() if c.attention_impl == "cp" and c.pe_trainable and torch.is_grad_enabled() \
+            else None
         feat_ref = self.pos_enc_fn(r_tok.reshape(b, k_ref * n_patch_r, d), k_ref, gh_r, gw_r,
-                                   valid_grid)
+                                   valid_grid, grad_group=pe_group)
         self_bias = cross_bias = None
         if tok_bias is not None:
             # the same mask for every view: each item's refs share its extent
@@ -267,7 +280,12 @@ class CrossScoreNet(nn.Module):
             cross_bias=cross_bias,
         )
         head = self.ref_cross.head
-        y = linear(F.leaky_relu(linear(decoded, head[0]), 0.01), head[2])
+        if c.attention_impl == "tp":
+            group = model_group()
+            y = column_linear(decoded, head[0].weight, head[0].bias, group)
+            y = row_linear(F.leaky_relu(y, 0.01), head[2].weight, head[2].bias, group)
+        else:
+            y = linear(F.leaky_relu(linear(decoded, head[0]), 0.01), head[2])
         act = regression_activation(c.metric_type, c.metric_min, c.metric_max, c.power_factor)
         # jigsaw in the compute dtype, then the activation in fp32 (as JAX)
         score_map = jigsaw_to_image(y.reshape(b, n_patch, p, p), (gh, gw))

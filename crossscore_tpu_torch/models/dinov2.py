@@ -12,6 +12,14 @@ to the compute dtype, with LayerNorm statistics in fp32 (as the JAX package).
 bucket-padded patches; ``mlp_impl="fused"``/``"fused_exact"`` runs the LN->MLP
 half through K2 (:func:`fused_ln_mlp`). ``"dense"`` and ``"unfused"`` are the
 plain routes, for tests and whole-net comparisons.
+
+``attention_impl="tp"`` (tensor parallelism, JAX's ``tp:<axis>``) shards the
+heads over the registered model group (``parallel.mesh.make_groups``): each
+rank projects its heads' q, k and v, runs K7 (:func:`flash_attention_head_major`)
+on their head-major views, and sums its share of the output projection over
+the group (``parallel.tensor_parallel``). Forward only: the backbone is
+frozen. The MLP under ``tp`` is K2 on the whole fc1/fc2 weights on every rank
+(``fused``/``fused_exact``), or column-/row-parallel (``unfused``).
 """
 
 from __future__ import annotations
@@ -20,15 +28,19 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from crossscore_tpu_torch.ops.attention import dense_attention
 from crossscore_tpu_torch.ops.flash_attention import (
-    _merge_heads, _split_heads, flash_qkv_self_attention, flash_qkv_self_attention_masked,
+    _merge_heads, _split_heads, flash_attention_head_major, flash_qkv_self_attention,
+    flash_qkv_self_attention_masked,
 )
 from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from crossscore_tpu_torch.ops.interpolate import interpolate_bicubic, interpolate_bicubic_dyn
+from crossscore_tpu_torch.parallel.mesh import model_group
+from crossscore_tpu_torch.parallel.tensor_parallel import check_divisible, column_linear, row_linear
 
 # additive logits bias of a masked token: -1e30, not -inf or -fmax, since the
 # kernels scale biases by log2(e), which must stay finite in fp32
@@ -46,11 +58,18 @@ def token_bias(gh: int, gw: int, valid_grid, cls: bool = False) -> np.ndarray:
         valid = np.concatenate([np.ones((*vh.shape, 1), bool), valid], axis=-1)
     return np.where(valid, 0.0, MASKED).astype(np.float32)
 
-BACKBONE_IMPLS = ("flash", "dense")
+# "tp": heads sharded over the model group (tensor parallelism)
+BACKBONE_IMPLS = ("flash", "dense", "tp")
 # "cp": the decoder's cross-attention over a KV axis sharded across the view
 # group (view parallelism); the backbone then runs "flash"
 ATTENTION_IMPLS = (*BACKBONE_IMPLS, "cp")
 MLP_IMPLS = ("fused", "fused_exact", "unfused")
+
+
+def tp_ranks(attention_impl: str) -> int:
+    """The number of ranks that shard the heads: the registered model
+    group's size under ``"tp"`` (raising when none is), else 1."""
+    return dist.get_world_size(model_group()) if attention_impl == "tp" else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,17 +116,17 @@ class LayerNorm(nn.Module):
 
 
 class _QKV(nn.Module):
-    def __init__(self, d: int, device):
+    def __init__(self, d: int, d_local: int, device):
         super().__init__()
-        self.query = nn.Linear(d, d, device=device)
-        self.key = nn.Linear(d, d, device=device)
-        self.value = nn.Linear(d, d, device=device)
+        self.query = nn.Linear(d, d_local, device=device)
+        self.key = nn.Linear(d, d_local, device=device)
+        self.value = nn.Linear(d, d_local, device=device)
 
 
 class _Output(nn.Module):
-    def __init__(self, d: int, device):
+    def __init__(self, d: int, d_local: int, device):
         super().__init__()
-        self.dense = nn.Linear(d, d, device=device)
+        self.dense = nn.Linear(d_local, d, device=device)
 
 
 class ViTAttention(nn.Module):
@@ -117,15 +136,19 @@ class ViTAttention(nn.Module):
         super().__init__()
         if attention_impl not in BACKBONE_IMPLS:
             raise ValueError(f"attention_impl must be one of {BACKBONE_IMPLS}, got {attention_impl!r}")
-        self.num_heads = cfg.num_heads
+        mp = tp_ranks(attention_impl)
+        self.num_heads = check_divisible("heads", cfg.num_heads, mp)  # this rank's heads
         self.attention_impl = attention_impl
-        self.attention = _QKV(cfg.hidden_size, device)
-        self.output = _Output(cfg.hidden_size, device)
+        d_local = cfg.hidden_size // mp
+        self.attention = _QKV(cfg.hidden_size, d_local, device)
+        self.output = _Output(cfg.hidden_size, d_local, device)
 
     def forward(self, x, kv_bias=None):
         """``kv_bias``: None, or the fp32 (N,) / (B, N) token bias that masks
         bucket-padded tokens (K5 on the flash route)."""
         a = self.attention
+        if self.attention_impl == "tp":
+            return self._forward_tp(x, kv_bias)
         w = torch.cat([a.query.weight, a.key.weight, a.value.weight]).to(x.dtype)
         bias = torch.cat([a.query.bias, a.key.bias, a.value.bias]).to(x.dtype)
         qkv = F.linear(x, w, bias)  # (B, N, 3D)
@@ -137,6 +160,17 @@ class ViTAttention(nn.Module):
             q, k, v = (_split_heads(t, self.num_heads) for t in qkv.chunk(3, dim=-1))
             out = _merge_heads(dense_attention(q, k, v, kv_bias=kv_bias))
         return linear(out, self.output.dense)
+
+    def _forward_tp(self, x, kv_bias):
+        """This rank's heads on K7, then the row-parallel output projection
+        summed over the model group (JAX ``tp_flash_cross_attention``)."""
+        if kv_bias is not None:
+            raise NotImplementedError("shape-bucketed masking under the tp attention route")
+        group, a, h = model_group(), self.attention, self.num_heads
+        q, k, v = (column_linear(x, lin.weight, lin.bias, group) for lin in (a.query, a.key, a.value))
+        out, _, _ = flash_attention_head_major(*(_split_heads(t, h) for t in (q, k, v)))
+        dense = self.output.dense
+        return row_linear(_merge_heads(out), dense.weight, dense.bias, group)
 
 
 class LayerScale(nn.Module):
@@ -161,11 +195,14 @@ class ViTBlock(nn.Module):
         d = cfg.hidden_size
         self.eps = cfg.layer_norm_eps
         self.mlp_impl = mlp_impl
+        # under tp the unfused MLP is column-/row-parallel; K2 takes whole weights
+        self.tp = attention_impl == "tp" and mlp_impl == "unfused"
+        f = cfg.mlp_ratio * d
         self.norm1 = LayerNorm(d, self.eps, device)
         self.attention = ViTAttention(cfg, attention_impl, device)
         self.layer_scale1 = LayerScale(d, cfg.layerscale_init, device)
         self.norm2 = LayerNorm(d, self.eps, device)
-        self.mlp = _MLP(d, cfg.mlp_ratio * d, device)
+        self.mlp = _MLP(d, check_divisible("MLP features", f, tp_ranks(attention_impl)) if self.tp else f, device)
         self.layer_scale2 = LayerScale(d, cfg.layerscale_init, device)
 
     def forward(self, x, kv_bias=None):
@@ -176,8 +213,13 @@ class ViTBlock(nn.Module):
             gelu = "exact" if self.mlp_impl == "fused_exact" else "tanh"
             return fused_ln_mlp(x, n2.weight, n2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight,
                                 m.fc2.bias, self.layer_scale2.lambda1, self.eps, gelu)
-        y = linear(self.norm2(x), self.mlp.fc1)
-        y = linear(F.gelu(y, approximate="none"), self.mlp.fc2)
+        if self.tp:
+            fc1, fc2, group = self.mlp.fc1, self.mlp.fc2, model_group()
+            y = column_linear(self.norm2(x), fc1.weight, fc1.bias, group)
+            y = row_linear(F.gelu(y, approximate="none"), fc2.weight, fc2.bias, group)
+        else:
+            y = linear(self.norm2(x), self.mlp.fc1)
+            y = linear(F.gelu(y, approximate="none"), self.mlp.fc2)
         return x + y * self.layer_scale2.lambda1.to(x.dtype)
 
 

@@ -14,6 +14,7 @@ from torch import nn
 from crossscore_tpu_torch.ops.interpolate import (
     interpolate_bilinear_align_corners, interpolate_bilinear_align_corners_dyn,
 )
+from crossscore_tpu_torch.parallel.tensor_parallel import copy_to_group
 
 
 class MultiViewPositionalEmbedding(nn.Module):
@@ -22,15 +23,19 @@ class MultiViewPositionalEmbedding(nn.Module):
         self.PE = nn.Parameter(torch.zeros(1, pe_h, pe_w, hidden_size, device=device))
 
     def forward(self, tokens: torch.Tensor, n_view: int, grid_h: int, grid_w: int,
-                valid_grid=None) -> torch.Tensor:
+                valid_grid=None, grad_group=None) -> torch.Tensor:
         """tokens: (B, n_view * grid_h * grid_w, C) -> the same with the PE added.
 
         ``valid_grid`` (shape-bucketed inference): host ints (gh_v, gw_v)
         shared by the batch, or (B,) arrays of them per item. The PE is
         resized to the valid grid and placed in the top-left of the padded
         (grid_h, grid_w) layout; padded positions get none (they are masked
-        in every attention)."""
-        pe = self.PE[0]
+        in every attention).
+
+        ``grad_group``: a process group over which the table's gradient from
+        these tokens is summed in the backward (view parallelism: each rank
+        holds a share of the reference views)."""
+        pe = self.PE[0] if grad_group is None else copy_to_group(self.PE, grad_group)[0]
         b, _, c = tokens.shape
         if valid_grid is not None:
             pe = interpolate_bilinear_align_corners_dyn(pe, grid_h, grid_w, *valid_grid)

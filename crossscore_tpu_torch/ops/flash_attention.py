@@ -1,20 +1,24 @@
 """Flash-attention forwards K1 and K3, their masked forms K5 and K6, the
-head-major forward K7, and the decoder backward K4; counterpart of
-``crossscore_tpu/ops/flash_attention.py`` (``_flash_qkv_fwd``,
-``_flash_cross_ln_fwd``, each with and without ``kv_bias``, ``_flash_fwd``
-and ``_bwd_cross_ln_pallas``).
+head-major forward K7, the decoder backward K4 and the head-major backward
+K8/K9; counterpart of ``crossscore_tpu/ops/flash_attention.py``
+(``_flash_qkv_fwd``, ``_flash_cross_ln_fwd``, each with and without
+``kv_bias``, ``_flash_fwd``, ``_bwd_cross_ln_pallas``, ``_bwd_pallas_single``
+and ``_bwd_pallas_multi``).
 
 The forwards return ``(o, l, m)`` in the JAX package's convention: ``o``
 token-major (B, Nq, H*hd) (K7: head-major (B, H, Nq, hd)), ``l`` and ``m``
 (B, H, Nq) fp32, ``m`` the row max of the scaled logits in natural units and
 ``l`` = sum(exp(scaled - m)).
 :func:`flash_cross_attention_ln` is the differentiable decoder attention
-(forward K3, backward K4), the counterpart of the JAX ``custom_vjp``. K5 and
-K6 (shape-bucketed inference) are forward only, as in the JAX package: they
-raise on an input that requires grad.
+(forward K3, backward K4), the counterpart of the JAX ``custom_vjp``
+``flash_cross_attention_ln``; :func:`head_major_flash_attention` is the
+differentiable head-major attention (forward K7, backward K8 up to 2048 KV
+tokens, K9 beyond), the counterpart of the JAX ``custom_vjp``
+``flash_cross_attention``. K5 and K6 (shape-bucketed inference) are forward
+only, as in the JAX package: they raise on an input that requires grad.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/flash_qkv.cu``,
-``csrc/flash_cross.cu`` (K3, K6, K7), ``csrc/flash_cross_bwd.cu``) or raises; on a CPU
+``csrc/flash_cross.cu`` (K3, K6, K7), ``csrc/flash_cross_bwd.cu`` (K4, K8, K9)) or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. Each wrapper counts its
 kernel launches in ``.launches``.
 """
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import types
 
 import torch
 
@@ -333,34 +338,49 @@ def _bwd_stats(o: torch.Tensor, do: torch.Tensor, l: torch.Tensor, m: torch.Tens
     fp64 inputs)."""
     acc = torch.float64 if o.dtype == torch.float64 else torch.float32
     b, nq, d = o.shape
-    l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    lb = ((m + torch.log(l_safe)) * LOG2E).to(acc).contiguous()
     delta = (o.to(acc) * do.to(acc)).reshape(b, nq, num_heads, d // num_heads).sum(-1)
-    return lb, delta.transpose(1, 2).contiguous()
+    return _log_normaliser(l, m, acc), delta.transpose(1, 2).contiguous()
+
+
+def _log_normaliser(l: torch.Tensor, m: torch.Tensor, acc) -> torch.Tensor:
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return ((m + torch.log(l_safe)) * LOG2E).to(acc).contiguous()
+
+
+def _bwd_stats_head_major(o: torch.Tensor, do: torch.Tensor, l: torch.Tensor, m: torch.Tensor):
+    """:func:`_bwd_stats` for head-major (B, H, Nq, hd) ``o`` and ``do``."""
+    acc = torch.float64 if o.dtype == torch.float64 else torch.float32
+    return _log_normaliser(l, m, acc), (o.to(acc) * do.to(acc)).sum(-1).contiguous()
+
+
+def _bwd_recipe(qh, kh, vh, doh, lb, delta, dt):
+    """The backward kernels' recipe on one batch row of head-major (H, N, hd)
+    operands in the accumulation dtype: recompute ``p = exp2(s * scale *
+    log2e - lb)``, form ``ds = p * (dp - delta) * scale``, then take the
+    products, with p and ds rounded to ``dt`` (the input dtype) before their
+    products and every product summed in fp32 -> (dq, dk, dv), (H, N, hd)."""
+    acc = qh.dtype
+    scale = 1.0 / math.sqrt(qh.shape[-1])
+    s = torch.matmul(qh, kh.transpose(-1, -2))  # (H, Nq, Nk)
+    p = torch.exp2(s * (scale * LOG2E) - lb[..., None])
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    p, ds = p.to(dt).to(acc), ds.to(dt).to(acc)
+    return (torch.matmul(ds, kh), torch.matmul(ds.transpose(-1, -2), qh),
+            torch.matmul(p.transpose(-1, -2), doh))
 
 
 def flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads: int):
-    """Plain version of K4, the kernel's recipe step by step for one batch row
-    at a time (which bounds the memory of the score tensors): recompute
-    ``p = exp2(s * scale * log2e - lb)``, form ``ds = p * (dp - delta) *
-    scale``, then take the five products, with p and ds rounded to the input
-    dtype before their products and every product summed in fp32."""
+    """Plain version of K4: the kernel's recipe (:func:`_bwd_recipe`) step by
+    step for one batch row at a time, which bounds the memory of the score
+    tensors."""
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
-    dt = q.dtype
     lb, delta = _bwd_stats(o, do, l, m, num_heads)
-    hd = q.shape[2] // num_heads
-    scale = 1.0 / math.sqrt(hd)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     for i in range(q.shape[0]):
         qh, kh, vh, doh = (_split_heads(t[i:i + 1].to(acc), num_heads)[0] for t in (q, k, v, do))
-        s = torch.matmul(qh, kh.transpose(-1, -2))  # (H, Nq, Nk)
-        p = torch.exp2(s * (scale * LOG2E) - lb[i][..., None])
-        dp = torch.matmul(doh, vh.transpose(-1, -2))
-        ds = p * (dp - delta[i][..., None]) * scale
-        p, ds = p.to(dt).to(acc), ds.to(dt).to(acc)
-        dv[i] = _merge_heads(torch.matmul(p.transpose(-1, -2), doh)[None])[0].to(dt)
-        dk[i] = _merge_heads(torch.matmul(ds.transpose(-1, -2), qh)[None])[0].to(dt)
-        dq[i] = _merge_heads(torch.matmul(ds, kh)[None])[0].to(dt)
+        gq, gk, gv = _bwd_recipe(qh, kh, vh, doh, lb[i], delta[i], q.dtype)
+        dq[i], dk[i], dv[i] = (_merge_heads(g[None])[0].to(q.dtype) for g in (gq, gk, gv))
     return dq, dk, dv
 
 
@@ -426,3 +446,126 @@ def flash_cross_attention_ln(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     """Differentiable decoder attention: q (B, Nq, H*hd), k/v (B, Nk, H*hd) ->
     o (B, Nq, H*hd), through K3 forward and K4 backward."""
     return _FlashCrossAttention.apply(q, k, v, num_heads)
+
+
+# --- K8 and K9: the head-major backward --------------------------------------
+
+# the JAX dispatch rule (``_dispatch_bwd``): the single-KV-block kernel up to
+# this many KV tokens, the multi-block kernel beyond; here one kernel serves
+# both, and the rule only says which counter a launch adds to
+BWD_SINGLE_MAX_NK = 2048
+
+
+def _check_head_major_bwd(what: str, q, k, v, o, do, l, m) -> None:
+    b, h, nq, hd = q.shape if q.ndim == 4 else (0, 0, 0, 0)
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != hd \
+            or o.shape != q.shape or do.shape != q.shape or l.shape != (b, h, nq) or m.shape != l.shape:
+        raise ValueError(f"{what}: q/o/do (B, H, Nq, hd), k/v (B, H, Nk, hd) and l/m (B, H, Nq) "
+                         f"expected, got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"o {tuple(o.shape)}, do {tuple(do.shape)}, l {tuple(l.shape)}")
+
+
+def flash_attention_head_major_bwd_plain(q, k, v, o, do, l, m):
+    """Plain version of K8/K9: :func:`_bwd_recipe` for one batch row at a time
+    on head-major operands (strided views included) -> (dq, dk, dv) as the
+    kernel returns them, head-major views of token-major (B, N, H*hd)
+    buffers in the input dtype."""
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    b, h, nq, hd = q.shape
+    nk = k.shape[2]
+    lb, delta = _bwd_stats_head_major(o, do, l, m)
+    dq = torch.empty(b, nq, h * hd, dtype=q.dtype, device=q.device)
+    dk = torch.empty(b, nk, h * hd, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    for i in range(b):
+        gq, gk, gv = _bwd_recipe(q[i].to(acc), k[i].to(acc), v[i].to(acc), do[i].to(acc), lb[i], delta[i],
+                                 q.dtype)
+        dq[i], dk[i], dv[i] = (_merge_heads(g[None])[0].to(q.dtype) for g in (gq, gk, gv))
+    return tuple(_split_heads(t, h) for t in (dq, dk, dv))
+
+
+# the launch counters of K8 and K9 (``.launches``)
+flash_attention_bwd_single = types.SimpleNamespace(launches=0)  # K8, the JAX ``_bwd_pallas_single``
+flash_attention_bwd_multi = types.SimpleNamespace(launches=0)  # K9, the JAX ``_bwd_pallas_multi``
+
+
+def _launch_head_major_bwd(what: str, q, k, v, o, do, l, m):
+    """Launch the head-major backward on CUDA tensors -> (dq, dk, dv)."""
+    b, h, nq, hd = q.shape
+    nk = k.shape[2]
+    for t in (k, v, o, do, l, m):
+        if t.device != q.device:
+            raise ValueError(f"{what}: operands must share one CUDA device, got {t.device}")
+    if str(q.dtype) not in _build.DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise ValueError(f"{what}: q, k, v, o and do must all be float32 or all bfloat16")
+    _check_head_dim(what, hd)
+    _check_grid(what, b, h)
+    strides = (ctypes.c_longlong * 12)(*_strides_16b(what, q, do, k, v))
+    lb, delta = _bwd_stats_head_major(o, do, l, m)
+    dq = torch.empty(b, nq, h * hd, dtype=q.dtype, device=q.device)
+    dk = torch.empty(b, nk, h * hd, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = _build.load("flash_cross_bwd")
+    fn = lib.cs_flash_attention_head_major_bwd
+    fn.argtypes = [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P]
+    fn.restype = _I
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), ctypes.addressof(strides),
+            lb.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, hd,
+            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
+    _build.check_rc(lib, rc, what)
+    return tuple(_split_heads(t, h) for t in (dq, dk, dv))
+
+
+def flash_attention_head_major_bwd(q, k, v, o, do, l, m):
+    """Backward of the head-major attention, the counterpart of the JAX
+    ``_dispatch_bwd``: q, o, do (B, H, Nq, hd) and k, v (B, H, Nk, hd), each
+    contiguous or a strided view with hd contiguous; l, m (B, H, Nq) fp32 in
+    K7's convention (the context-parallel backward passes the global ones)
+    -> (dq, dk, dv) in the input dtype, the head-major views of token-major
+    (B, N, H*hd) buffers, ready for the projections' backward. A launch
+    counts as K8 (one KV block on the TPU) up to :data:`BWD_SINGLE_MAX_NK`
+    KV tokens, as K9 beyond."""
+    what = "flash_attention_head_major_bwd"
+    _check_head_major_bwd(what, q, k, v, o, do, l, m)
+    if _build.device_type(q) == "cpu":
+        return flash_attention_head_major_bwd_plain(q, k, v, o, do, l, m)
+    out = _launch_head_major_bwd(what, q, k, v, o, do, l, m)
+    (flash_attention_bwd_single if k.shape[2] <= BWD_SINGLE_MAX_NK else flash_attention_bwd_multi).launches += 1
+    return out
+
+
+def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or its contiguous copy when its hd columns are not one run of
+    16-byte aligned elements (an incoming gradient may be any view)."""
+    es = t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.contiguous()
+
+
+class _FlashAttentionHeadMajor(torch.autograd.Function):
+    """Head-major attention with forward K7 and backward K8/K9; the
+    counterpart of the JAX ``custom_vjp`` ``flash_cross_attention``. Saves
+    q, k, v, o, l and m for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        # K7 refuses inputs that require grad: it is handed the detached ones
+        q, k, v = q.detach(), k.detach(), v.detach()
+        o, l, m = flash_attention_head_major(q, k, v)
+        ctx.save_for_backward(q, k, v, o, l, m)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, l, m = ctx.saved_tensors
+        return flash_attention_head_major_bwd(q, k, v, o, _kernel_rows(do), l, m)
+
+
+def head_major_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Differentiable head-major attention, softmax(q k^T / sqrt(hd)) v:
+    q (B, H, Nq, hd), k/v (B, H, Nk, hd), each contiguous or a head-major
+    view of a token-major projection -> o (B, H, Nq, hd), through K7 forward
+    and K8/K9 backward."""
+    return _FlashAttentionHeadMajor.apply(q, k, v)

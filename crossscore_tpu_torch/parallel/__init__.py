@@ -1,2 +1,4 @@
-"""Several ranks of one node: process groups (``mesh``), the rank launcher
-(``launch``) and view-parallel predict (``view_parallel``)."""
+"""Several ranks of one node: process groups and the (data, model) grid
+(``mesh``), the rank launcher (``launch``), the collectives
+(``collectives``), tensor parallelism (``tensor_parallel``) and view
+parallelism (``view_parallel``)."""

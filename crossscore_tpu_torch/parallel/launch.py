@@ -6,9 +6,13 @@
 A :class:`RankPool` spawns its ranks once (``multiprocessing`` spawn start
 method) and gives each the launcher's environment of ``torchrun``: ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, and for
-each :meth:`RankPool.run` a fresh free ``MASTER_PORT``, so the function can
-join a process group (``parallel.mesh.init_distributed``) and leave it
-(``parallel.mesh.teardown``) within one run. ``fn`` must be importable by
+each :meth:`RankPool.run` the ``MASTER_PORT`` of a fresh rendezvous store
+that the pool hosts for the run, as ``torchrun``'s agent does
+(``TORCHELASTIC_USE_AGENT_STORE``), so the function can join a process group
+(``parallel.mesh.init_distributed``) and leave it (``parallel.mesh.teardown``)
+within one run. The store holds its port for the whole run: a port found free
+and handed on could be taken by another pool in the meantime, and two pools
+would then meet in one group. ``fn`` must be importable by
 its module path (pickled by reference), and what it returns picklable.
 
 A run that does not finish within its timeout, or in which a rank raises,
@@ -18,6 +22,7 @@ would hang) and raises with each failing rank's traceback.
 
 from __future__ import annotations
 
+import datetime
 import multiprocessing
 import os
 import queue
@@ -25,6 +30,8 @@ import socket
 import time
 import traceback
 from typing import Any, Callable
+
+from torch.distributed import TCPStore
 
 
 def free_port() -> int:
@@ -34,10 +41,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, inbox, outbox, env: dict) -> None:
-    os.environ.update(env)
+def _rank_main(rank: int, world: int, inbox, outbox) -> None:
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1")
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      TORCHELASTIC_USE_AGENT_STORE="True")
     while True:
         task = inbox.get()
         if task is None:
@@ -62,19 +69,32 @@ class RankPool:
         self.nprocs = nprocs
         self._inboxes = [ctx.Queue() for _ in range(nprocs)]
         self._outbox = ctx.Queue()
-        self._procs = [ctx.Process(target=_rank_main, args=(r, nprocs, self._inboxes[r], self._outbox,
-                                                            dict(env or {})), daemon=True)
+        self._procs = [ctx.Process(target=_rank_main, args=(r, nprocs, self._inboxes[r], self._outbox),
+                                   daemon=True)
                        for r in range(nprocs)]
-        for p in self._procs:
-            p.start()
+        # a spawned rank starts with this process's environment; ``env`` has to
+        # be in it from the start, since a rank imports torch (which reads
+        # OMP_NUM_THREADS, among others, once) before it runs any task
+        saved = {k: os.environ.get(k) for k in env or {}}
+        os.environ.update(env or {})
+        try:
+            for p in self._procs:
+                p.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
 
     def run(self, fn: Callable, *args, timeout: float = 600.0) -> list[Any]:
         """``fn(*args)`` in every rank at once -> the return values by rank."""
         if self._procs is None:
             raise RuntimeError("the rank pool is closed")
-        port = free_port()
+        store = TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=timeout))
         for box in self._inboxes:
-            box.put((fn, args, port))
+            box.put((fn, args, store.port))
         results: dict[int, Any] = {}
         failures: dict[int, str] = {}
         deadline = time.monotonic() + timeout

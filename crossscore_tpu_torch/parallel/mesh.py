@@ -14,7 +14,11 @@ the caller's (``model.gpu.dist_backend``): ``nccl`` for one rank per card,
 The view group is the group whose ranks shard the K reference views (view
 parallelism, the decoder's ``cp`` attention route); like the JAX package's
 current mesh it is registered here, because the model carries only the
-string ``"cp"`` and resolves the group when it runs.
+string ``"cp"`` and resolves the group when it runs. :func:`make_groups`, the
+counterpart of ``make_mesh(model_parallel=...)``, lays the ranks out as a
+(data, model) grid and registers this rank's model group (the ranks that
+shard the heads, the ``tp`` route) and data group (the ranks whose gradients
+are summed).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import torch.distributed as dist
 BACKENDS = ("nccl", "gloo")
 
 _VIEW_GROUP: Optional[dist.ProcessGroup] = None
+_MODEL_GROUP: Optional[dist.ProcessGroup] = None
+_DATA_GROUP: Optional[dist.ProcessGroup] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,9 +117,78 @@ def view_group() -> dist.ProcessGroup:
     return _VIEW_GROUP
 
 
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """The (data, model) grid of :func:`make_groups` and this rank's place in
+    it; ``data_rank`` and ``model_rank`` are None on a rank left out of it."""
+
+    data_parallel: int
+    model_parallel: int
+    data_rank: Optional[int]
+    model_rank: Optional[int]
+
+    @property
+    def active(self) -> bool:
+        return self.model_rank is not None
+
+
+def make_groups(model_parallel: int = 1, batch_size: Optional[int] = None,
+                n_ranks: Optional[int] = None) -> Grid:
+    """Lay the first ``n_ranks`` ranks (all by default) out as a (data,
+    model) grid and register this rank's model and data groups; the
+    counterpart of the JAX ``make_mesh(n_devices, model_parallel,
+    batch_size)``. Rank r sits at data index r // mp and model index r % mp,
+    so the model axis is the fast one, as ``devices.reshape(n // mp, mp)``.
+
+    ``batch_size`` (the global batch) clamps the data axis to the largest
+    width that divides it (:func:`_per_process_data_par`); ranks past the
+    grid get no groups. Raises when ``model_parallel`` exceeds the ranks or
+    does not divide them. Every rank of the process group must call this
+    (each new group is a collective)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_groups needs a process group: call init_distributed first")
+    mp = model_parallel
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = world if n_ranks in (None, -1) else min(n_ranks, world)
+    if mp < 1 or n < mp:
+        raise ValueError(f"model_parallel={mp} exceeds the {n} available ranks")
+    if batch_size is not None:
+        n = _per_process_data_par(n, mp, batch_size) * mp
+    if n % mp:
+        raise ValueError(f"{n} ranks not divisible by model_parallel={mp}")
+    dp = n // mp
+    model_groups = [dist.new_group([d * mp + m for m in range(mp)]) for d in range(dp)]
+    data_groups = [dist.new_group([d * mp + m for d in range(dp)]) for m in range(mp)]
+    global _MODEL_GROUP, _DATA_GROUP
+    if rank >= n:
+        _MODEL_GROUP = _DATA_GROUP = None
+        return Grid(dp, mp, None, None)
+    d, m = divmod(rank, mp)
+    _MODEL_GROUP, _DATA_GROUP = model_groups[d], data_groups[m]
+    return Grid(dp, mp, d, m)
+
+
+def model_group() -> dist.ProcessGroup:
+    """The registered model group (the ``tp`` route's head shards); raises
+    when none is."""
+    if _MODEL_GROUP is None:
+        raise RuntimeError("no model group: call parallel.mesh.make_groups before building or running "
+                           "a model whose attention_impl is 'tp'")
+    return _MODEL_GROUP
+
+
+def data_group() -> Optional[dist.ProcessGroup]:
+    """The registered data group, or None when :func:`make_groups` was not
+    called (one data replica: no gradient sum)."""
+    return _DATA_GROUP
+
+
 def teardown() -> None:
-    """Forget the view group and leave the process group, if one was joined."""
+    """Forget the view, model and data groups and leave the process group, if
+    one was joined."""
+    global _MODEL_GROUP, _DATA_GROUP
     set_view_group(None)
+    _MODEL_GROUP = _DATA_GROUP = None
     if dist.is_initialized():
         dist.destroy_process_group()
 

@@ -14,6 +14,11 @@ for every view, so a shard needs no view offset.
     model = CrossScoreNet(dataclasses.replace(cfg, attention_impl="cp"), device=device)
     fn = make_view_parallel_apply(model)
     maps = fn(query, refs[:, view_shard(refs.shape[1])])
+
+Training runs the same model with gradients (:func:`make_view_parallel_train_apply`,
+or ``train.step.make_train_step`` on a batch that carries this rank's views):
+the context-parallel backward runs K8/K9 per rank, and every trainable
+gradient comes out whole and equal on every rank (``models/decoder.py``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,18 @@ def make_view_parallel_apply(model, need_attn_weights: bool = False) -> Callable
     def fn(query: torch.Tensor, refs_local: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return model(query, refs_local)["score_map_ref_cross"]
+
+    return fn
+
+
+def make_view_parallel_train_apply(model) -> Callable:
+    """The differentiable twin of :func:`make_view_parallel_apply`, the
+    counterpart of the JAX ``make_view_parallel_apply`` under ``jax.grad``:
+    ``fn(query, refs_local) -> (B, H, W)`` score maps with autograd on."""
+    _check_cp(model)
+
+    def fn(query: torch.Tensor, refs_local: torch.Tensor) -> torch.Tensor:
+        return model(query, refs_local)["score_map_ref_cross"]
 
     return fn
 

@@ -187,6 +187,16 @@ def iter_bucketed_items(batch: dict, outputs: dict):
         yield i, *crop_bucketed(b1, o1)
 
 
+def refuse_tensor_parallel(attention_impl: str) -> None:
+    """The CLIs build no model group, as the JAX CLIs build no model axis
+    (``tasks/train.py:202`` there): the ``tp`` route is an API of
+    ``parallel.mesh.make_groups`` and ``train.step.make_train_step``."""
+    if attention_impl == "tp":
+        raise NotImplementedError("model.gpu.attention_impl=tp: the task CLIs build no model group, as "
+                                  "the JAX CLIs build no model axis; use parallel.mesh.make_groups and "
+                                  "train.step.make_train_step")
+
+
 def resolve_accelerator(cfg: Config) -> torch.device:
     """``trainer.accelerator``: ``cuda`` (the default; raises without a card)
     or ``cpu`` (the plain PyTorch versions of every kernel). Nothing else, and

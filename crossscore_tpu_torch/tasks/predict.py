@@ -61,7 +61,7 @@ from crossscore_tpu_torch.parallel.view_parallel import (
 )
 from crossscore_tpu_torch.tasks.common import (
     confirm_batch_size, crop_bucketed, iter_bucketed_items, load_model_params, parse_cli,
-    resolve_accelerator, resolve_limit, resolve_out_dir, tristate,
+    refuse_tensor_parallel, resolve_accelerator, resolve_limit, resolve_out_dir, tristate,
 )
 from crossscore_tpu_torch.train.step import make_predict_step, make_predict_step_cached
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
@@ -123,6 +123,7 @@ def predict(cfg) -> Path:
     group when there are several ranks. Returns the output dir, the same on
     every rank."""
     ConfigChecker(cfg).check_predict()
+    refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
     top = topology_from_env()
     if top.world_size == 1:
         return _predict(cfg, top, resolve_accelerator(cfg))

@@ -27,7 +27,7 @@ from crossscore_tpu_torch.io.checkpoint import CheckpointManager, load_hparams
 from crossscore_tpu_torch.io.convert import init_params, load_into
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.tasks.common import (
-    JsonlLogger, config_diff, parse_cli, resolve_accelerator, resolve_limit,
+    JsonlLogger, config_diff, parse_cli, refuse_tensor_parallel, resolve_accelerator, resolve_limit,
     save_config_snapshot, timestamp, weighted_mean,
 )
 from crossscore_tpu_torch.train.optim import make_optimizer
@@ -38,6 +38,7 @@ from crossscore_tpu_torch.utils.metric_logger import MetricLoggerScalar
 
 def train(cfg) -> Path:
     ConfigChecker(cfg).check_train_val()
+    refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
     device = resolve_accelerator(cfg)
     if device.type == "cuda":
         # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)

@@ -1,9 +1,30 @@
 """Train, eval and predict steps; counterpart of ``crossscore_tpu/train/step.py``.
 
 The train step is forward (frozen backbone under ``torch.no_grad``), L1
-loss, backward (K4 for the decoder attention), AdamW update and the per-step
-schedule. Loss parity: reference ``task/core.py:277-293``, the mean |pred -
-gt| over the (B, H, W) score maps, with loader-padded rows weighted out.
+loss, backward (K4 for the decoder attention; K8/K9 on the ``tp`` and ``cp``
+routes), AdamW update and the per-step schedule. Loss parity: reference
+``task/core.py:277-293``, the mean |pred - gt| over the (B, H, W) score maps,
+with loader-padded rows weighted out.
+
+Over ranks (``parallel.mesh``), the step reduces what the JAX package's
+sharded step reduces:
+
+- data group (``make_groups``): each rank takes its rows of the global batch.
+  The loss is JAX's global weighted mean, ``sum(l1 * w) / max(sum(w), 1)``:
+  one all-reduce SUM of the weight before the backward, each rank's loss its
+  weighted L1 sum over the global weight, then one SUM of the gradients over
+  the data group. The metrics are the global ones.
+- model group (``tp``): nothing to reduce. The Megatron collectives of
+  ``parallel.tensor_parallel`` leave the gradients of replicated parameters
+  whole and equal on every model rank, and each shard's its own.
+- view group (``cp``): nothing to reduce either. The query side's gradients
+  are whole on every rank; those reached only through this rank's reference
+  views (the cross-attention's k/v rows, the PE's reference share) are
+  summed over the view group inside the backward (``models/decoder.py``,
+  ``models/crossscore.py``).
+
+AdamW is elementwise and neither package clips by a global norm, so the
+optimiser runs on each rank's parameters as they are.
 """
 
 from __future__ import annotations
@@ -13,9 +34,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from crossscore_tpu_torch.models.crossscore import CrossScoreNet
 from crossscore_tpu_torch.ops.metrics import abs2psnr, correlation, masked_correlation
+from crossscore_tpu_torch.parallel import mesh
+from crossscore_tpu_torch.parallel.collectives import all_gather, all_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +79,10 @@ def _weights(batch: dict, shape) -> Optional[torch.Tensor]:
     return rows[:, None, None].expand(shape)
 
 
-def loss_fn(model: CrossScoreNet, batch: dict):
+def loss_fn(model: CrossScoreNet, batch: dict, weight_sum: Optional[torch.Tensor] = None):
+    """-> (loss, (pred, l1, w)). ``weight_sum``: the global sum of the
+    weights over the data group (each rank then returns its weighted L1 sum
+    over it, its share of the global mean)."""
     if batch.get("query/tokens") is not None:
         raise NotImplementedError("token-space training (query/tokens) is not ported yet")
     w = _weights(batch, batch["query/score_map"].shape)
@@ -64,11 +91,40 @@ def loss_fn(model: CrossScoreNet, batch: dict):
     pred = out["score_map_ref_cross"]
     gt = batch["query/score_map"]
     l1 = torch.abs(pred.float() - gt.float())
-    if w is None:
+    if weight_sum is not None:
+        loss = (l1.sum() if w is None else torch.sum(l1 * w)) / torch.clamp(weight_sum, min=1.0)
+    elif w is None:
         loss = l1.mean()
     else:
         loss = torch.sum(l1 * w) / torch.clamp(w.sum(), min=1.0)
     return loss, (pred, l1, w)
+
+
+def _data_parallel_loss(model: CrossScoreNet, batch: dict, group):
+    """The global weighted mean over the data group: -> (this rank's share of
+    the loss, the global loss, (this rank's pred, pred and w gathered over
+    the group))."""
+    shape = batch["query/score_map"].shape
+    w = _weights(batch, shape)
+    ws = torch.tensor(float(np.prod(shape)), device=batch["query/score_map"].device) if w is None \
+        else w.sum()
+    ws = all_reduce(ws.float(), dist.ReduceOp.SUM, group)
+    loss, (pred, _, w) = loss_fn(model, batch, weight_sum=ws)
+    with torch.no_grad():
+        total = all_reduce(loss.detach().clone(), dist.ReduceOp.SUM, group)
+        pred_all = all_gather(pred.detach(), group)
+        w_all = None if w is None else all_gather(w, group)
+    return loss, total, (pred, pred_all, w_all)
+
+
+def _sum_gradients(params: list, group) -> None:
+    """One all-reduce SUM of every gradient over ``group``, in one buffer."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in params]), dist.ReduceOp.SUM, group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
 
 
 def _metrics(loss, pred, gt, w=None) -> dict:
@@ -81,19 +137,33 @@ def make_train_step(model: CrossScoreNet, optimizer: torch.optim.Optimizer, sche
     model's trainable parameters in place. ``metrics`` holds 0-d tensors on
     the device and, under ``"pred"``, the training forward's score map (the
     figure and histogram cadences reuse it, reference
-    ``task/core.py:312-362``)."""
+    ``task/core.py:312-362``). With a data group registered
+    (``parallel.mesh.make_groups``) the batch is this rank's rows, and the
+    loss, the gradients and the metrics are the global ones; ``"pred"`` stays
+    this rank's rows."""
+    group = mesh.data_group()
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None  # one data rank: its batch is the global one
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: dict):
         optimizer.zero_grad(set_to_none=True)
-        loss, (pred, _, w) = loss_fn(model, batch)
-        loss.backward()
+        gt = batch["query/score_map"]
+        if group is None:
+            loss, (pred, _, w) = loss_fn(model, batch)
+            loss.backward()
+            total, pred_m, gt_m, w_m = loss.detach(), pred.detach(), gt, w
+        else:
+            loss, total, (pred, pred_m, w_m) = _data_parallel_loss(model, batch, group)
+            loss.backward()
+            _sum_gradients(params, group)
+            gt_m = all_gather(gt, group)
         optimizer.step()
         scheduler.step()
         state = dataclasses.replace(state, step=state.step + 1, batch_in_epoch=state.batch_in_epoch + 1)
         with torch.no_grad():
-            pred = pred.detach()
-            metrics = _metrics(loss.detach(), pred, batch["query/score_map"], w)
-        metrics["pred"] = pred
+            metrics = _metrics(total, pred_m, gt_m, w_m)
+        metrics["pred"] = pred.detach()
         return state, metrics
 
     return train_step

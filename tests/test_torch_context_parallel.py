@@ -1,7 +1,8 @@
 """The context-parallel cross-attention on 1, 2 and 4 gloo ranks of one pool
 (spawned once for the module, free of JAX) against dense attention and the
 JAX package's ``context_parallel_cross_attention`` under ``shard_map`` on the
-virtual CPU devices; and the rank launcher's failure path."""
+virtual CPU devices; its backward against dense autograd; the shared
+host-staged collectives; and the rank launcher's failure path."""
 
 import jax
 import jax.numpy as jnp
@@ -75,9 +76,55 @@ def test_cp_over_one_rank_is_local_k7(pool):
     np.testing.assert_array_equal(m, m_k.numpy())
 
 
+def _dense_grads(q, k, v, do):
+    qt, kt, vt = (torch.from_numpy(x).double().requires_grad_() for x in (q, k, v))
+    o = torch.softmax(qt @ kt.transpose(-1, -2) / q.shape[-1] ** 0.5, -1) @ vt
+    o.backward(torch.from_numpy(do).double())
+    return qt.grad.numpy(), kt.grad.numpy(), vt.grad.numpy()
+
+
+@pytest.mark.parametrize("n,nk,scale", [(2, 300, 1.0), (4, 512, 1.0), (2, 256, 20.0), (4, 256, 20.0)],
+                         ids=["2way", "4way", "2way-extreme-logits", "4way-extreme-logits"])
+def test_cp_backward_matches_dense_autograd(pool, n, nk, scale):
+    """K8/K9 per shard fed the global (o, l, m), dq summed over the ranks, dk
+    and dv local: against dense autograd in fp64, with unit and x20 logits.
+    Every rank is given the whole ``do``: the port has no counterpart of the
+    JAX VJP's ``psum(do)`` (its ranks run the replicated downstream), and
+    with it the gradients would come out n times too large."""
+    rng = np.random.default_rng(10 * n + nk)
+    q = rng.standard_normal((2, 2, 48, 16)).astype(np.float32) * scale  # the logits x scale
+    k = rng.standard_normal((2, 2, nk, 16)).astype(np.float32)
+    v, do = rng.standard_normal((2, 2, nk, 16)).astype(np.float32), rng.standard_normal((2, 2, 48, 16)).astype(np.float32)
+    got = pool.run(workers.cp_backward, n, q, k, v, do, timeout=300)
+    assert all(r is None for r in got[n:])
+    for other in got[1:n]:  # every rank holds the same dq
+        np.testing.assert_array_equal(other[0], got[0][0])
+    dq, dk, dv = _dense_grads(q, k, v, do)
+    tol = TOL  # relative to the largest entry: x20 logits make dq and dk 20 times larger
+    np.testing.assert_allclose(got[0][0], dq, atol=tol * max(1.0, np.abs(dq).max()))
+    np.testing.assert_allclose(np.concatenate([r[1] for r in got[:n]], axis=2), dk,
+                               atol=tol * max(1.0, np.abs(dk).max()))
+    np.testing.assert_allclose(np.concatenate([r[2] for r in got[:n]], axis=2), dv, atol=tol)
+
+
 def test_cp_backward_raises_naming_the_roadmap_item(pool):
-    msg = pool.run(workers.cp_backward_raises, timeout=300)
-    assert all("item 13" in m for m in msg), msg
+    """The backward, once forward only and raising (naming ROADMAP queue 1
+    item 13), is ported: on 2 ranks it returns the dense gradients."""
+    rng = np.random.default_rng(12)
+    q, do = (rng.standard_normal((1, 1, 4, 16)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, 1, 8, 16)).astype(np.float32) for _ in range(2))
+    got = pool.run(workers.cp_backward, 2, q, k, v, do, timeout=300)
+    for g, w in zip((got[0][0], np.concatenate([got[0][1], got[1][1]], 2)), _dense_grads(q, k, v, do)):
+        np.testing.assert_allclose(g, w, atol=TOL)
+
+
+def test_rank_pool_environment_is_in_place_when_a_rank_starts():
+    """A rank imports torch before it runs a task, and torch reads
+    OMP_NUM_THREADS once: the pool's environment must be there from the
+    start (ranks sharing the cores, one thread each, compute the same bits
+    run after run)."""
+    with RankPool(2, env={"OMP_NUM_THREADS": "1"}) as p:
+        assert p.run(workers.intra_op_threads, timeout=60) == [1, 1]
 
 
 def test_rank_failure_is_reported_with_its_traceback():
@@ -86,3 +133,44 @@ def test_rank_failure_is_reported_with_its_traceback():
             p.run(workers.fail_on_rank, 1, timeout=60)
         with pytest.raises(RuntimeError, match="closed"):  # a failed run stops the pool
             p.run(workers.fail_on_rank, 1, timeout=60)
+
+
+@pytest.mark.parametrize("backend,staged", [("gloo", True), ("nccl", False)])
+def test_collectives_stage_cuda_tensors_through_the_host_on_gloo_only(monkeypatch, backend, staged):
+    """A CUDA tensor on gloo is reduced and gathered as a host copy that is
+    copied back; on NCCL the tensor itself goes to the collective (the
+    backend name and the CUDA tensor are stood in on the CPU)."""
+    import torch.distributed as dist
+
+    from crossscore_tpu_torch.parallel import collectives
+
+    seen = []
+
+    class FakeCuda:
+        is_cuda = True
+        device = "cuda:0"
+
+        def __init__(self):
+            self.host, self.copied = torch.ones(3), None
+
+        def cpu(self):
+            return self.host
+
+        def contiguous(self):
+            return self
+
+        def copy_(self, src):
+            self.copied = src
+
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: backend)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "all_reduce", lambda t, op=None, group=None: seen.append(("reduce", t)))
+    monkeypatch.setattr(dist, "all_gather", lambda parts, t, group=None: seen.append(("gather", t)))
+    t = FakeCuda()
+    assert collectives.all_reduce(t) is t
+    assert seen[-1][1] is (t.host if staged else t)
+    assert (t.copied is t.host) == staged
+    if staged:  # the gather's host copy goes back to the card
+        monkeypatch.setattr(torch.Tensor, "to", lambda self, device: ("moved", device))
+        assert collectives.all_gather(t) == ("moved", "cuda:0")
+        assert seen[-1] == ("gather", t.host)

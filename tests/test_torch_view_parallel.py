@@ -2,7 +2,8 @@
 module, free of JAX): the view-parallel net and its cached twin against the
 JAX package's ``make_view_parallel_apply`` / ``_tokens`` on 2 virtual CPU
 devices and against the single-process port net, with the same weights
-(dinov2-test, fp32); the position embedding of a shard; and the predict CLI
+(dinov2-test, fp32); view-parallel training's gradients against the JAX
+single-device ones; the position embedding of a shard; and the predict CLI
 on 2 ranks against the single-rank CLI."""
 
 import dataclasses
@@ -87,6 +88,30 @@ def test_vp_net_matches_jax_and_single_process(pool, case, cached):
         torch.from_numpy(q), torch.from_numpy(r))["score_map_ref_cross"].numpy()
     assert _mae(got[0], want) < MAE32, _mae(got[0], want)
     assert _mae(got[0], single) < MAE32, _mae(got[0], single)
+
+
+def test_vp_train_gradients_match_jax_single_device(pool, case):
+    """Training through view parallelism (the analogue of the JAX
+    ``test_gradients_flow``), over every trainable gradient: the decoder, the
+    head and the PE (``pe_trainable``), whose reference share each rank holds
+    only in part. Every rank's gradients equal the JAX single-device ones."""
+    jcfg, params, cfg, state, q, r = case
+    gt = np.random.default_rng(12).random((B, HW, HW)).astype(np.float32)
+    net = JaxNet(jcfg)
+
+    def loss(p):
+        out = net.apply({"params": p}, jnp.asarray(q), jnp.asarray(r))["score_map_ref_cross"]
+        return jnp.abs(out - jnp.asarray(gt)).mean()
+
+    want = state_dict_from_jax(jax.device_get(jax.jit(jax.grad(loss))(params)))
+    got = pool.run(workers.vp_train_grads, dataclasses.replace(cfg, attention_impl="cp", pe_trainable=True),
+                   state, q, r, gt, timeout=300)
+    names = sorted(got[0])
+    assert names == sorted(n for n in (f[len("model."):] for f in want)
+                           if n.startswith("ref_cross.") or n == "pos_enc_fn.PE")
+    for name in names:
+        np.testing.assert_array_equal(got[1][name], got[0][name], err_msg=name)
+        np.testing.assert_allclose(got[0][name], want[f"model.{name}"], atol=1e-5, rtol=0, err_msg=name)
 
 
 def test_shard_position_embedding_needs_no_view_offset():
