@@ -30,7 +30,15 @@ In order:
    and, for the attention kernels, one ``F.scaled_dot_product_attention``
    call (K4, K8, K9: one backward of it; K5/K6: with the bias as a float
    mask) on the same inputs (a yardstick only; the port never calls it), and
-   K4 on the same work as K8/K9;
+   K4 on the same work as K8/K9; and the timing instruments of the sixth
+   slice, which no model path reaches: K10 (LN -> MLP with the attention
+   residual folded in) at x (72, 1370, 384), bf16 and fp32, timed beside the
+   residual add and K2, its backward at B=1; K11 (K1's probes nomax, nosum,
+   mxu and its split-KV chunks 2 and 3) at qkv (72, 1370, 1152) beside K1;
+   K7' (mxuprobe, noexp, bf16exp) at the backbone and the decoder shape
+   beside K7; K12 (the backward's products without exponentials) at the TPU
+   tool's four geometries. The wrong-math modes are held by the relative L2
+   of each output;
 4. run the full-width forward through ``make_predict_step`` (dinov2-small,
    518 px, K=8, B=8, bf16, seeded random weights) with the launch counters
    zeroed, check the score map and that the forward launched 12 / 12 / 4 / 0
@@ -77,7 +85,11 @@ In order:
     whose every trainable gradient on each rank is held against the
     single-process all-plain net's; launches and ms/step per rank (two ranks
     time-slicing one card: not a scaling number);
-13. print one ``{"kernels": [...]}`` line, then, last, the device line.
+13. drive the instruments through their entry points: K10's op forward and
+    backward, ``tools.attn_microbench`` at the backbone and the decoder
+    shape and ``tools.lane_pad_probe``, each with the counts zeroed just
+    before it and read just after: every mode launched, every run exit 0;
+14. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -88,7 +100,6 @@ from __future__ import annotations
 import contextlib
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -183,6 +194,14 @@ TWO_RANK_GRAD_TOL = 5e-3
 # shards, gathered, against the single-process AdamW on the same gathered
 # gradients, over every element (JAX's TP tolerance)
 TP_PARAM_ATOL = 2e-5
+# K10's backward at B=1: the reference recompute on both sides (K10's forward
+# feeds it nothing but the saved inputs), so the gradients agree bit for bit;
+# held by the worst relative L2 of the ten
+K10_BWD_TOL = 1e-6
+# K11's probes and K7' (wrong math, unnormalised outputs): the relative L2 of
+# each of o, l and m against the plain version (TOL_L2; the l and m a probe
+# zeroes must be exactly 0); K11's chunks as K1 (TOL and TOL_L2) against the
+# plain chunked version and K1's; K12 as K4 (TOL_K4) on the lanes it writes
 # whole-net score-map MAE, kernel path vs all-plain path, B=1 (scores in [0, 1])
 NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # predict CLI, bf16: mean |difference| of the valid region of the written
@@ -204,14 +223,6 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
 def _peaks(name: str):
     for frag, peaks in PEAKS.items():
         if frag in name:
@@ -221,18 +232,9 @@ def _peaks(name: str):
 
 def _time_ms(torch, fn, reps: int = 10) -> float:
     """Median of ``reps`` CUDA-event timings after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    from crossscore_tpu_torch.tools._common import median_ms
+
+    return median_ms(fn, torch.device("cuda"), reps)
 
 
 def _rel_err(got, want) -> float:
@@ -255,6 +257,161 @@ def _masked_errs(pairs) -> tuple[float, float]:
     any of o, l, m."""
     pairs = [(g, w) for got, want in pairs for g, w in zip(got, want)]
     return max(_rel_err(g, w) for g, w in pairs), max(_rel_l2(g, w) for g, w in pairs)
+
+
+
+def _rel_l2_or_zero(got, want) -> float:
+    """The relative L2 error, or max |got| where the plain output is all zero
+    (the l and m that a wrong-math probe sets to 0)."""
+    if not bool(want.any()):
+        return float(got.float().abs().max())
+    return _rel_l2(got, want)
+
+def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, *, views, n, d, h, f, eps, nq,
+                       dec_h) -> dict:
+    """Step 3's part for K10-K12: fill ``report`` with each kernel or mode
+    against its plain version at the shapes of its entry point, timed; return
+    the inputs the kernels line names. Its inputs come from a generator of its
+    own, so the later phases draw what they drew before."""
+    from crossscore_tpu_torch.ops import flash_attention as fa
+    from crossscore_tpu_torch.ops import lane_pad_probe as lpp
+    from crossscore_tpu_torch.ops.fused_mlp import (
+        _reference_res, fused_ln_mlp, fused_res_ln_mlp, fused_res_ln_mlp_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def bound(ops, nbytes, peak):
+        return dict(bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
+                    bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes")
+
+    # K10 at the backbone's width over the predict point's 72 views, both dtypes:
+    # against its plain version, timed beside K2 after the separate residual add
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        es = dtype.itemsize
+        x, attn = randn(views, n, d, dtype=dtype), randn(views, n, d, dtype=dtype, scale=0.3)
+        mlp = (randn(d, dtype=torch.float32, scale=0.05) + 1, randn(d, dtype=torch.float32, scale=0.1) + 1,
+               randn(d, dtype=torch.float32, scale=0.1), randn(f, d, dtype=torch.float32, scale=d ** -0.5),
+               randn(f, dtype=torch.float32, scale=0.1), randn(d, f, dtype=torch.float32, scale=f ** -0.5),
+               randn(d, dtype=torch.float32, scale=0.1), randn(d, dtype=torch.float32, scale=0.5) + 1)
+        ls1_dt = mlp[0].to(dtype)
+        got, want = fused_res_ln_mlp(x, attn, *mlp, eps), fused_res_ln_mlp_plain(x, attn, *mlp, eps)
+        rows = views * n
+        # the backward once at B=1: K10 forward + the reference recompute against
+        # plain autograd through the same recompute, one fixed cotangent
+        leaves = [t[:1].clone().requires_grad_() for t in (x, attn)] + [t.clone().requires_grad_() for t in mlp]
+        gout = randn(1, n, d, dtype=dtype)
+        g_k10 = torch.autograd.grad(fused_res_ln_mlp(*leaves, eps), leaves, gout)
+        g_plain = torch.autograd.grad(_reference_res(*leaves, eps), leaves, gout)
+        bwd_err = max(_rel_l2(g, w) for g, w in zip(g_k10, g_plain))
+        report[("K10", tname)] = dict(
+            err=_rel_err(got, want), tol=TOL[tname], l2=bwd_err, tol_l2=K10_BWD_TOL,
+            max_abs=_max_abs(got, want),
+            ms=_time_ms(torch, lambda: fused_res_ln_mlp(x, attn, *mlp, eps)),
+            plain_ms=_time_ms(torch, lambda: fused_res_ln_mlp_plain(x, attn, *mlp, eps), reps=3),
+            library_ms=None,
+            # what the block does today: the residual add in PyTorch, then K2
+            k2res_ms=_time_ms(torch, lambda: fused_ln_mlp(x + attn * ls1_dt, *mlp[1:], eps, "tanh")),
+            **bound(4.0 * rows * d * f, 3 * rows * d * es + 2 * d * f * es + (5 * d + f) * es,
+                    peak_bf16 if dtype == torch.bfloat16 else peak_f32),
+        )
+        print(f"K10 {tname}: backward at B=1 against plain autograd, worst relative L2 of the ten "
+              f"gradients {bwd_err:.3e}")
+        del x, attn, mlp, got, want, leaves, g_k10, g_plain
+    torch.cuda.empty_cache()
+
+    bf16, es = torch.bfloat16, 2
+    hd = d // h
+
+    # K11 at the backbone's qkv of the predict point, K1 timed in the same run
+    qkv = randn(views, n, 3 * d, dtype=bf16)
+    k1_ms = _time_ms(torch, lambda: fa.flash_qkv_self_attention(qkv, h))
+    k1_bound = bound(4.0 * views * h * n * n * hd, views * n * 4 * d * es + 2 * views * h * n * 4, peak_bf16)
+    k1_plain = fa.flash_qkv_self_attention_plain(qkv, h)
+    for probe in fa.QKV_PROBES:
+        got = fa.flash_qkv_self_attention_probe(qkv, h, probe)
+        want = fa.flash_qkv_self_attention_probe_plain(qkv, h, probe)
+        report[(f"K11 {probe}", "bfloat16")] = dict(
+            err=max(_rel_l2_or_zero(g, w) for g, w in zip(got, want)), tol=TOL_L2["bfloat16"],
+            max_abs=_max_abs(got[0], want[0]),
+            ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_probe(qkv, h, probe)),
+            plain_ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_probe_plain(qkv, h, probe), reps=3),
+            library_ms=None, k1_ms=k1_ms, **k1_bound)
+        del got, want
+    views_hm = [qkv.view(views, n, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)]
+    sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(*views_hm))
+    for chunks in (2, 3):
+        got = fa.flash_qkv_self_attention_chunked(qkv, h, chunks)
+        want = fa.flash_qkv_self_attention_chunked_plain(qkv, h, chunks)
+        # against the plain chunked version, and K1's plain version (the same function)
+        err, l2 = _masked_errs([(got, want), (got, k1_plain)])
+        report[(f"K11 chunks{chunks}", "bfloat16")] = dict(
+            err=err, tol=TOL["bfloat16"], l2=l2, tol_l2=TOL_L2["bfloat16"], max_abs=_max_abs(got[0], want[0]),
+            ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_chunked(qkv, h, chunks)),
+            plain_ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_chunked_plain(qkv, h, chunks), reps=3),
+            library_ms=sdpa_ms, k1_ms=k1_ms, **k1_bound)
+        del got, want
+    del qkv, views_hm, k1_plain
+    torch.cuda.empty_cache()
+
+    # K7' at the backbone shape and at the decoder's cross shape over K=8
+    # references (the microbenchmark's two), contiguous head-major tensors; K7
+    # timed on the same inputs
+    shapes = {"backbone": (views, h, n, n, hd), "decoder": (8, dec_h, nq, 8 * nq, d // dec_h)}
+    for where, (bb, hh, n_q, nk, hdim) in shapes.items():
+        q, k_, v_ = (randn(bb, hh, m_, hdim, dtype=bf16) for m_ in (n_q, nk, nk))
+        k7_ms = _time_ms(torch, lambda: fa.flash_attention_head_major(q, k_, v_))
+        ops = 4.0 * bb * hh * n_q * nk * hdim
+        nbytes = bb * hh * (2 * n_q + 2 * nk) * hdim * es + 2 * bb * hh * n_q * 4
+        for variant in fa.HEAD_MAJOR_VARIANTS:
+            got = fa.flash_attention_head_major_variant(q, k_, v_, variant)
+            want = fa.flash_attention_head_major_variant_plain(q, k_, v_, variant)
+            report[(f"K7' {variant}" + (" backbone" if where == "backbone" else ""), "bfloat16")] = dict(
+                err=max(_rel_l2_or_zero(g, w) for g, w in zip(got, want)), tol=TOL_L2["bfloat16"],
+                max_abs=_max_abs(got[0], want[0]),
+                ms=_time_ms(torch, lambda: fa.flash_attention_head_major_variant(q, k_, v_, variant)),
+                plain_ms=_time_ms(torch, lambda: fa.flash_attention_head_major_variant_plain(q, k_, v_, variant),
+                                  reps=3),
+                # bf16exp is softmax attention with a coarser exp: SDPA computes the same function
+                library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(q, k_, v_))
+                if variant == "bf16exp" else None,
+                k7_ms=k7_ms, **bound(ops, nbytes, peak_bf16))
+            del got, want
+        del q, k_, v_
+        torch.cuda.empty_cache()
+
+    # K12's four geometries at the TPU tool's shapes (b 24, K 5), on the lanes
+    # each writes: the relative L2 of dq, dk and dv
+    b12 = 24
+    nq_p, nk_p = lpp.probe_shapes(b12, 5)
+    qp, dop = (randn(b12, nq_p, lpp.LANES, dtype=bf16) for _ in range(2))
+    kp, vp = (randn(b12, nk_p, lpp.LANES, dtype=bf16) for _ in range(2))
+    for geometry in lpp.GEOMETRIES:
+        lanes = torch.cat([torch.arange(lo, hi, device=dev) for lo, hi in lpp.slices(geometry)])
+        got = lpp.lane_pad_probe(qp, dop, kp, vp, geometry)
+        want = lpp.lane_pad_probe_plain(qp, dop, kp, vp, geometry)
+        pairs = [(g[..., lanes], w[..., lanes]) for g, w in zip(got, want)]
+        width = len(lanes)
+        report[(f"K12 {geometry}", "bfloat16")] = dict(
+            err=max(_rel_l2(g, w) for g, w in pairs), tol=TOL_K4["bfloat16"],
+            max_abs=max(_max_abs(g, w) for g, w in pairs),
+            ms=_time_ms(torch, lambda: lpp.lane_pad_probe(qp, dop, kp, vp, geometry)),
+            plain_ms=_time_ms(torch, lambda: lpp.lane_pad_probe_plain(qp, dop, kp, vp, geometry), reps=3),
+            library_ms=None,
+            **bound(lpp.useful_flops(b12, nq_p, nk_p, geometry),
+                    b12 * (2 * nq_p + 2 * nk_p) * width * es + b12 * (nq_p + 2 * nk_p) * width * es, peak_bf16))
+        del got, want, pairs
+    del qp, dop, kp, vp
+    torch.cuda.empty_cache()
+    return {"K10": f"x, attn ({views}, {n}, {d}) bf16, F={f}",
+            "K11": f"qkv ({views}, {n}, {3 * d}) bf16",
+            "K7'": f"q ({shapes['decoder'][0]}, {dec_h}, {nq}, {d // dec_h}), k/v (.., {8 * nq}, ..) bf16; "
+                   f"backbone q/k/v ({views}, {h}, {n}, {hd})",
+            "K12": f"q/do ({b12}, {nq_p}, {lpp.LANES}), k/v ({b12}, {nk_p}, {lpp.LANES}) bf16"}
 
 
 def _token_bias(torch, grids, dev, grid=BUCKET_GRID, cls: bool = False):
@@ -386,12 +543,20 @@ def _rank_launches() -> dict:
         flash_cross_attention, flash_cross_attention_bwd, flash_cross_attention_masked,
         flash_qkv_self_attention, flash_qkv_self_attention_masked,
     )
-    from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp
+    from crossscore_tpu_torch.ops.flash_attention import (
+        flash_attention_head_major_variant, flash_qkv_self_attention_chunked, flash_qkv_self_attention_probe,
+    )
+    from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_res_ln_mlp
+    from crossscore_tpu_torch.ops.lane_pad_probe import lane_pad_probe
 
     return {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention,
             "K4": flash_cross_attention_bwd, "K5": flash_qkv_self_attention_masked,
             "K6": flash_cross_attention_masked, "K7": flash_attention_head_major,
-            "K8": flash_attention_bwd_single, "K9": flash_attention_bwd_multi}
+            "K8": flash_attention_bwd_single, "K9": flash_attention_bwd_multi,
+            # the timing instruments (K11 and K7' also count per mode in .launches_by_mode)
+            "K10": fused_res_ln_mlp, "K11 probe": flash_qkv_self_attention_probe,
+            "K11 chunks": flash_qkv_self_attention_chunked, "K7'": flash_attention_head_major_variant,
+            "K12": lane_pad_probe}
 
 
 def _launches(**counts) -> dict:
@@ -628,6 +793,7 @@ def main() -> int:
         flash_attention_head_major_bwd, flash_attention_head_major_bwd_plain,
     )
     from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_plain
+    from crossscore_tpu_torch.tools._common import card_line
     from crossscore_tpu_torch.train.optim import make_optimizer
     from crossscore_tpu_torch.train.step import TrainState, loss_fn, make_predict_step, make_train_step
 
@@ -635,7 +801,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = _card_line()
+    card = card_line()
     print(card)
     name = torch.cuda.get_device_name(0)
     peak_row, (peak_bf16, peak_f32, peak_bw) = _peaks(name)
@@ -942,6 +1108,13 @@ def main() -> int:
             del hm, tm, got, want, layout
         torch.cuda.empty_cache()
 
+    # K10, K11, K7' and K12, the timing instruments of the sixth slice (no
+    # model path reaches them): each against its plain version, the K11 and
+    # K7' modes and K12 in bf16 (their CUDA kernels' only type), K10 in both
+    instruments = _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw,
+                                     views=views, n=n, d=d, h=h, f=f, eps=vit.layer_norm_eps,
+                                     nq=nq, dec_h=dec_h)
+
     # the other presets' widths, small shapes, correctness only: K1 at hd 16
     # (dinov2-test) and 64 (base, large), K2 at D 64, 768, 1024, K3 and K4 at
     # hd 96 and 128 (base, large decoders), K4 also at hd 64
@@ -1012,6 +1185,10 @@ def main() -> int:
             line += f" K3 same work {r['k3_ms']:.3f} ms"
         if "k4_ms" in r:
             line += f" K4 same work {r['k4_ms']:.3f} ms"
+        if "k7_ms" in r:
+            line += f" K7 same inputs {r['k7_ms']:.3f} ms"
+        if "k2res_ms" in r:
+            line += f" residual add + K2 {r['k2res_ms']:.3f} ms"
         if "ms_nk10952" in r:
             line += (f"; at Nk 10952: kernel {r['ms_nk10952']:.3f} ms, K3 {r['k3_ms_nk10952']:.3f} ms, "
                      f"bound {r['bound_ms_nk10952']:.3f} ms")
@@ -1036,6 +1213,8 @@ def main() -> int:
     def zero_launches():
         for w in wrappers.values():
             w.launches = 0
+            if hasattr(w, "launches_by_mode"):
+                w.launches_by_mode = dict.fromkeys(w.launches_by_mode, 0)
 
     def read_launches():
         return {k: w.launches for k, w in wrappers.items()}
@@ -1638,7 +1817,68 @@ def main() -> int:
     del batch, batch1, batch2, vp_batch, p_ref, r32, r16, rv
     torch.cuda.empty_cache()
 
-    # --- 13. the kernels line, then the device line ---------------------------
+    # --- 13. the timing instruments through their entry points -------------------
+    # K10 through its op (forward and backward at the predict point's 72 views),
+    # then one short run of each tool; the counts zeroed just before each and
+    # read just after
+    from crossscore_tpu_torch.ops import flash_attention as fa
+    from crossscore_tpu_torch.ops import lane_pad_probe as lpp
+    from crossscore_tpu_torch.ops.fused_mlp import fused_res_ln_mlp
+    from crossscore_tpu_torch.tools import attn_microbench
+    from crossscore_tpu_torch.tools import lane_pad_probe as lane_pad_tool
+
+    def modes():
+        return {k: dict(w.launches_by_mode) for k, w in wrappers.items() if hasattr(w, "launches_by_mode")}
+
+    inst = {}
+    g10 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x10, a10 = (torch.randn(views, n, d, generator=g10, device=dev).to(torch.bfloat16).requires_grad_()
+                for _ in range(2))
+    p10 = [torch.randn(d, generator=g10, device=dev) * 0.05 + 1, torch.ones(d, device=dev), torch.zeros(d, device=dev),
+           torch.randn(f, d, generator=g10, device=dev) * d ** -0.5, torch.zeros(f, device=dev),
+           torch.randn(d, f, generator=g10, device=dev) * f ** -0.5, torch.zeros(d, device=dev),
+           torch.ones(d, device=dev)]
+    zero_launches()
+    out10 = fused_res_ln_mlp(x10, a10, *p10, vit.layer_norm_eps)
+    out10.float().square().mean().backward()
+    torch.cuda.synchronize()
+    inst["K10 op"] = {"launches": read_launches()}
+    want10 = _launches(K10=1)
+    print(f"K10 op, forward and backward at x ({views}, {n}, {d}) bf16: launches {inst['K10 op']['launches']} "
+          f"(expected {want10})")
+    if inst["K10 op"]["launches"] != want10 or not bool(torch.isfinite(out10).all()) \
+            or not all(bool(torch.isfinite(t.grad).all()) for t in (x10, a10)):
+        _fail("K10 op: launches or a non-finite output / gradient")
+    del x10, a10, p10, out10
+    torch.cuda.empty_cache()
+    tool_runs = {
+        "attn_microbench backbone": (attn_microbench.main, [
+            "--layers", "2", "qkv:688,2", "qkvc:688,2,2", "qkvc:688,2,3", "qkvp:688,2,nomax", "qkvp:688,2,nosum",
+            "qkvp:688,2,mxu", "v2:688,1408,2", "v2mxu:688,1408,2", "v2noexp:688,1408,2", "v2bf16:688,1408,2"]),
+        "attn_microbench decoder": (attn_microbench.main, [
+            "--decoder", "--layers", "2", "v2:1369,1024,1", "v2mxu:1369,1024,1", "v2noexp:1369,1024,1",
+            "v2bf16:1369,1024,1", "xln:1369,1024"]),
+        "lane_pad_probe": (lane_pad_tool.main, ["--reps", "5", "--step-ms", f"{train_ms:.2f}"]),
+    }
+    for tag, (tool, argv) in tool_runs.items():
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = tool(argv)
+        torch.cuda.synchronize()
+        inst[tag] = {"rc": rc, "s": time.perf_counter() - t0, "launches": read_launches(), "by_mode": modes()}
+        print(f"{tag} ({' '.join(argv)}): exit {rc} in {inst[tag]['s']:.1f} s; launches "
+              f"{ {k: v for k, v in inst[tag]['launches'].items() if v} }; per mode {inst[tag]['by_mode']}")
+        if rc != 0:
+            _fail(f"{tag} exited {rc}")
+    bb, dec, lp = (inst[t]["by_mode"] for t in tool_runs)
+    missing = [f"K11 {m}" for m in fa.QKV_PROBES if not bb["K11 probe"].get(m)] \
+        + [f"K11 chunks{c}" for c in (2, 3) if not bb["K11 chunks"].get(f"chunks{c}")] \
+        + [f"K7' {m}" for m in fa.HEAD_MAJOR_VARIANTS if not (bb["K7'"].get(m) and dec["K7'"].get(m))] \
+        + [f"K12 {g}" for g in lpp.GEOMETRIES if not lp["K12"].get(g)]
+    if missing:
+        _fail("a timing mode was never launched by its entry point: " + ", ".join(missing))
+
+    # --- 14. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -1706,6 +1946,41 @@ def main() -> int:
             row["backbone"] = {k: s[k] for k in stats if k in s} | {"shape": shapes["K7 backbone"]}
             row["backbone_fp32"] = {k: s32[k] for k in stats if k in s32}
         kernels.append(row)
+    # K10-K12: their launches from step 13's runs of their entry points (K10:
+    # its op; K11: the microbenchmark at the backbone shape; K7': at the
+    # decoder shape, the MXU probe's home, the backbone run's beside it; K12:
+    # its tool)
+    fa_src, qkv_src = "crossscore_tpu_torch/csrc/flash_cross.cu", "crossscore_tpu_torch/csrc/flash_qkv.cu"
+    flash_py = "crossscore_tpu/ops/flash_attention.py"
+    new_rows = {"K10": ("fused_res_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
+                        "crossscore_tpu/ops/fused_mlp.py:72", inst["K10 op"]["launches"]["K10"], instruments["K10"])}
+    for m in fa.QKV_PROBES:
+        new_rows[f"K11 {m}"] = (f"flash_qkv_self_attention_probe, probe {m}", qkv_src, f"{flash_py}:1255",
+                                bb["K11 probe"][m], instruments["K11"])
+    for c in (2, 3):
+        new_rows[f"K11 chunks{c}"] = (f"flash_qkv_self_attention_chunked, chunks {c}", qkv_src, f"{flash_py}:1295",
+                                      bb["K11 chunks"][f"chunks{c}"], instruments["K11"])
+    for m, line in (("mxuprobe", 157), ("noexp", 231), ("bf16exp", 231)):
+        new_rows[f"K7' {m}"] = (f"flash_attention_head_major_variant, {m}", fa_src, f"{flash_py}:{line}",
+                                dec["K7'"][m], instruments["K7'"])
+    for g in lpp.GEOMETRIES:
+        new_rows[f"K12 {g}"] = (f"lane_pad_probe, {g}", "crossscore_tpu_torch/csrc/lane_pad_probe.cu",
+                                "tools/lane_pad_probe.py:73", lp["K12"][g], instruments["K12"])
+    for kern, (fn, src, replaces, main_launches, shape) in new_rows.items():
+        r = report[(kern, "bfloat16")]
+        row = {"name": fn, "route": "cuda", "source": src, "replaces": replaces, "launches": main_launches,
+               "max_abs_err": r["max_abs"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"], "rel_err": r["err"], "tol": r["tol"],
+               "err_kind": "relative L2 of o, l, m" if kern.startswith(("K11 n", "K11 m", "K7'"))
+               else "relative L2 of dq, dk, dv on the written lanes" if kern.startswith("K12")
+               else "max |d| / (1 + |plain|)", "shape": shape}
+        row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms", "k7_ms", "k2res_ms") if k in r})
+        if kern == "K10":
+            row["fp32"] = {k: v for k, v in report[("K10", "float32")].items()}
+        if kern.startswith("K7'"):
+            row["backbone"] = {k: v for k, v in report[(f"{kern} backbone", "bfloat16")].items()} \
+                | {"launches": bb["K7'"][kern.split()[1]]}
+        kernels.append(row)
     seconds = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {seconds:.1f} s")
     # (a) is the reference of the agreement check: it has no reading of its own
@@ -1717,7 +1992,7 @@ def main() -> int:
                                       | {"device_step_ms": device_ms[tag]}
                                       for tag, r in cli.items()},
                       "predict_loader_maps_per_s": loader_rate, "view_parallel": vp,
-                      "tensor_parallel": tp, "seconds": seconds}))
+                      "tensor_parallel": tp, "instruments": inst, "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
     return 0

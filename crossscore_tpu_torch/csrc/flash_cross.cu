@@ -35,6 +35,15 @@
 // elements moved), and a view costs nothing over a contiguous tensor, since
 // every row of hd elements is one run of 16-byte loads either way.
 
+//
+// K7' is K7's geometry with a timing mode of attention_fwd.cuh: the TPU's MXU
+// probe `_fwd_kernel_v2_mxu_probe` (`variant` "v2_mxuprobe", the multi-KV
+// body) and the `noexp` and `bf16` options of `_fwd_kernel_single_v2`
+// ("v2_noexp", "v2_bf16", the single-KV body). On the TPU each is tied to the
+// body its blocking selects; here each is a function of (q, k, v) alone, at
+// any Nk. v2 without its ones column ("v2_noaug") is the function of v2, and
+// K7 itself.
+
 #include "attention_fwd.cuh"
 
 namespace {
@@ -130,4 +139,20 @@ extern "C" int cs_flash_attention_head_major_biased(const void* q, const void* k
   a.bias = static_cast<const float*>(bias);
   a.bias_bs = 0;
   return cs::launch_attention<true>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K7': mode 5 "mxuprobe", 6 "noexp", 7 "bf16exp" (cs::kMxuProbe ..); bf16,
+// no bias, hd 48 or 64.
+extern "C" int cs_flash_attention_head_major_variant(const void* q, const void* k, const void* v,
+                                                     const long long* strides, void* o, void* l, void* m,
+                                                     int batch, int heads, int nq, int nk, int hd, int mode,
+                                                     float scale, void* stream) {
+  const cs::AttnArgs a = head_major_args(q, k, v, strides, o, l, m, heads, nq, nk, hd, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case cs::kMxuProbe: return cs::launch_attention_mode<cs::kMxuProbe>(a, batch, hd, 1, st);
+    case cs::kNoExp: return cs::launch_attention_mode<cs::kNoExp>(a, batch, hd, 1, st);
+    case cs::kBf16Exp: return cs::launch_attention_mode<cs::kBf16Exp>(a, batch, hd, 1, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -29,6 +29,20 @@
 // fp32 accumulation, GELU in fp32 (the tanh form on bf16 by default, else the
 // exact form through XLA's f32 erf polynomial), LayerScale and residual in
 // fp32, one rounding to the input dtype at the end.
+//
+// K10 is the same kernels with RES = true, replacing the TPU kernel
+// `_ln_mlp_res_kernel` (launched by `_fused_res_ln_mlp_fwd_pallas`), which
+// folds the attention half's LayerScale residual in as well:
+//   x2 = x + attn * ls1 (fp32, ls1 rounded to x's dtype first),
+//   out = x2 + ls2 * (fc2(gelu(fc1(ln(x2)) + b1)) + b2),
+// with LN on x2 and x2 added unrounded in the epilogue. A row's x2 is
+// computed from x and attn once for LN (held in registers by the bf16
+// kernel) and again in the epilogue (the second reads hit L2), so nothing but
+// the output is written. Its GELU has no option, as on the TPU: the tanh form on
+// bf16, the erf polynomial on fp32. It adds one (B*N, D) read to K2's bytes
+// and no operation of note, so the same tensor-core bound holds. RES = false
+// compiles K2 exactly as before. K10 takes D = 64 and 384 in bf16 (the wgmma
+// kernels) and the fp32 widths; no model path calls it (nor the TPU's).
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -53,7 +67,18 @@ struct MlpArgs {
   int rows, d, f;
   float eps;
   int tanh_gelu;
+  const void* attn = nullptr;  // K10: the attention half's output (rows, D)
+  const void* ls1 = nullptr;   // K10: its LayerScale (D,), in x's dtype
 };
+
+// The residual stream entering LN at row-major index gi (column c): x for
+// K2; for K10 x2 = x + attn * ls1 in fp32, rounded as the TPU kernel rounds
+// it (a product, then a sum: no fused multiply-add).
+template <bool RES, typename T>
+__device__ __forceinline__ float stream_in(const T* X, const T* ATT, const T* LS1, long long gi, int c) {
+  if constexpr (RES) return __fadd_rn(to_f32(X[gi]), __fmul_rn(to_f32(ATT[gi]), to_f32(LS1[c])));
+  else return to_f32(X[gi]);
+}
 
 __device__ __forceinline__ float erf_f32(float x) {
   // XLA's f32 erf rational approximation (as crossscore_tpu/ops/fused_mlp.py)
@@ -94,10 +119,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // LayerNorm of `nrows` rows from m0 into a shared tile (row stride ld), fp32
-// statistics; rows past `rows` are zero.
-template <int NW, typename T, typename TO>
+// statistics; rows past `rows` are zero. RES: of K10's x + ATT * LS1.
+template <int NW, bool RES = false, typename T, typename TO>
 __device__ void layer_norm_rows(TO* dst, int ld, const T* X, const T* S, const T* B, int m0,
-                                int nrows, int rows, int D, float eps) {
+                                int nrows, int rows, int D, float eps, const T* ATT = nullptr,
+                                const T* LS1 = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int rr = warp; rr < nrows; rr += NW) {
     const int g = m0 + rr;
@@ -106,18 +132,18 @@ __device__ void layer_norm_rows(TO* dst, int ld, const T* X, const T* S, const T
       for (int c = lane; c < D; c += 32) out[c] = from_f32<TO>(0.f);
       continue;
     }
-    const T* xr = X + (long long)g * D;
+    const long long r0 = (long long)g * D;
     float sum = 0.f;
-    for (int c = lane; c < D; c += 32) sum += to_f32(xr[c]);
+    for (int c = lane; c < D; c += 32) sum += stream_in<RES>(X, ATT, LS1, r0 + c, c);
     const float mean = warp_sum(sum) / D;
     float var = 0.f;
     for (int c = lane; c < D; c += 32) {
-      const float t = to_f32(xr[c]) - mean;
+      const float t = stream_in<RES>(X, ATT, LS1, r0 + c, c) - mean;
       var += t * t;
     }
     const float rstd = rsqrtf(warp_sum(var) / D + eps);
     for (int c = lane; c < D; c += 32)
-      out[c] = from_f32<TO>((to_f32(xr[c]) - mean) * rstd * to_f32(S[c]) + to_f32(B[c]));
+      out[c] = from_f32<TO>((stream_in<RES>(X, ATT, LS1, r0 + c, c) - mean) * rstd * to_f32(S[c]) + to_f32(B[c]));
   }
 }
 
@@ -279,7 +305,7 @@ struct WgMlp {
   static constexpr size_t total = h_off + (size_t)BM * FCH * 2 + 1024;  // + alignment slack
 };
 
-template <int D>
+template <int D, bool RES = false>
 __global__ void __launch_bounds__(256) ln_mlp_wgmma(MlpArgs a) {
   using L = WgMlp<D>;
   using bf16 = __nv_bfloat16;
@@ -294,6 +320,8 @@ __global__ void __launch_bounds__(256) ln_mlp_wgmma(MlpArgs a) {
   const int g = lane >> 2, qd = lane & 3;
   const int m0 = blockIdx.x * L::BM, F = a.f;
   const bf16* X = static_cast<const bf16*>(a.x);
+  const bf16* ATT = static_cast<const bf16*>(a.attn);
+  const bf16* LS1 = static_cast<const bf16*>(a.ls1);
   const bf16* W1 = static_cast<const bf16*>(a.w1);
   const bf16* W2 = static_cast<const bf16*>(a.w2);
   const bf16* B1 = static_cast<const bf16*>(a.b1);
@@ -323,19 +351,41 @@ __global__ void __launch_bounds__(256) ln_mlp_wgmma(MlpArgs a) {
       for (int c = lane; c < D; c += 32) *reinterpret_cast<bf16*>(sLn + sw128_offset(rr, c, L::BM)) = __float2bfloat16(0.f);
       continue;
     }
-    const bf16* xr = X + (long long)row * D;
+    const long long r0 = (long long)row * D;
+    if constexpr (RES) {  // K10: x2 = x + attn * ls1 once into registers, then LN
+      float xv[D / 32];
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        xv[i] = stream_in<true>(X, ATT, LS1, r0 + lane + 32 * i, lane + 32 * i);
+        sum += xv[i];
+      }
+      const float mean = warp_sum(sum) / D;
+      float var = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) var += (xv[i] - mean) * (xv[i] - mean);
+      const float rstd = rsqrtf(warp_sum(var) / D + a.eps);
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const int c = lane + 32 * i;
+        *reinterpret_cast<bf16*>(sLn + sw128_offset(rr, c, L::BM)) =
+            __float2bfloat16((xv[i] - mean) * rstd * __bfloat162float(S[c]) + __bfloat162float(Bn[c]));
+      }
+      continue;
+    }
     float sum = 0.f;
-    for (int c = lane; c < D; c += 32) sum += __bfloat162float(xr[c]);
+    for (int c = lane; c < D; c += 32) sum += stream_in<RES>(X, ATT, LS1, r0 + c, c);
     const float mean = warp_sum(sum) / D;
     float var = 0.f;
     for (int c = lane; c < D; c += 32) {
-      const float t = __bfloat162float(xr[c]) - mean;
+      const float t = stream_in<RES>(X, ATT, LS1, r0 + c, c) - mean;
       var += t * t;
     }
     const float rstd = rsqrtf(warp_sum(var) / D + a.eps);
     for (int c = lane; c < D; c += 32)
       *reinterpret_cast<bf16*>(sLn + sw128_offset(rr, c, L::BM)) = __float2bfloat16(
-          (__bfloat162float(xr[c]) - mean) * rstd * __bfloat162float(S[c]) + __bfloat162float(Bn[c]));
+          (stream_in<RES>(X, ATT, LS1, r0 + c, c) - mean) * rstd * __bfloat162float(S[c]) +
+          __bfloat162float(Bn[c]));
   }
 
   float acc[L::N2 / 2];
@@ -414,23 +464,33 @@ __global__ void __launch_bounds__(256) ln_mlp_wgmma(MlpArgs a) {
       const int r = r0 + 8 * h;
       if (r < a.rows) {
         const long long gi = (long long)r * D + col;
-        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(X + gi);
+        float x0, x1;  // the residual stream, unrounded (K10: x2 in fp32)
+        if constexpr (RES) {
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(X + gi);
+          const __nv_bfloat162 av = *reinterpret_cast<const __nv_bfloat162*>(ATT + gi);
+          const __nv_bfloat162 lv = *reinterpret_cast<const __nv_bfloat162*>(LS1 + col);
+          x0 = __fadd_rn(__low2float(xv), __fmul_rn(__low2float(av), __low2float(lv)));
+          x1 = __fadd_rn(__high2float(xv), __fmul_rn(__high2float(av), __high2float(lv)));
+        } else {
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(X + gi);
+          x0 = __low2float(xv);
+          x1 = __high2float(xv);
+        }
         *reinterpret_cast<uint32_t*>(OUT + gi) =
-            pack_bf16(__low2float(xv) + (acc[4 * j + 2 * h] + bb0) * s0,
-                      __high2float(xv) + (acc[4 * j + 2 * h + 1] + bb1) * s1);
+            pack_bf16(x0 + (acc[4 * j + 2 * h] + bb0) * s0, x1 + (acc[4 * j + 2 * h + 1] + bb1) * s1);
       }
     }
   }
 }
 
-template <int D>
+template <int D, bool RES = false>
 int launch_wgmma(const MlpArgs& a, cudaStream_t st) {
   using L = WgMlp<D>;
   if (a.d != D || a.f % L::FCH || L::total > kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      cudaFuncSetAttribute(ln_mlp_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
+      cudaFuncSetAttribute(ln_mlp_wgmma<D, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
   if (err != cudaSuccess) return (int)err;
-  ln_mlp_wgmma<D><<<(a.rows + L::BM - 1) / L::BM, L::THREADS, L::total, st>>>(a);
+  ln_mlp_wgmma<D, RES><<<(a.rows + L::BM - 1) / L::BM, L::THREADS, L::total, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -450,7 +510,7 @@ struct F32MlpLayout {
 // fp32 (parity preset): CUDA cores, F32_BM rows per block, exact GELU. The
 // weight chunks are copied into shared memory with coalesced loads, then
 // every thread reads them along its own row.
-template <int FC>
+template <int FC, bool RES = false>
 __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_f32(MlpArgs a) {
   constexpr int NJ = 4;                     // output columns per thread: D <= 4 * MLP_THREADS
   constexpr int RSTEP = MLP_THREADS / FC;   // fc1: one hidden column, F32_BM / RSTEP rows
@@ -463,12 +523,14 @@ __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_f32(MlpArgs a) {
   float* sW2 = reinterpret_cast<float*>(smem + L.w2_off);
   float* sH = reinterpret_cast<float*>(smem + L.h_off);
   const float* X = static_cast<const float*>(a.x);
+  const float* ATT = static_cast<const float*>(a.attn);
+  const float* LS1 = static_cast<const float*>(a.ls1);
   const float* W1 = static_cast<const float*>(a.w1);
   const float* W2 = static_cast<const float*>(a.w2);
   const float* B1 = static_cast<const float*>(a.b1);
 
-  layer_norm_rows<MLP_THREADS / 32>(sLn, D, X, static_cast<const float*>(a.lns),
-                                    static_cast<const float*>(a.lnb), m0, F32_BM, a.rows, D, a.eps);
+  layer_norm_rows<MLP_THREADS / 32, RES>(sLn, D, X, static_cast<const float*>(a.lns),
+                                         static_cast<const float*>(a.lnb), m0, F32_BM, a.rows, D, a.eps, ATT, LS1);
   float acc[NJ][F32_BM];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
@@ -528,20 +590,20 @@ __global__ void __launch_bounds__(MLP_THREADS) ln_mlp_f32(MlpArgs a) {
       const int g = m0 + r;
       if (g < a.rows) {
         const long long gi = (long long)g * D + n;
-        OUT[gi] = X[gi] + (acc[j][r] + B2[n]) * LS2[n];
+        OUT[gi] = stream_in<RES>(X, ATT, LS1, gi, n) + (acc[j][r] + B2[n]) * LS2[n];
       }
     }
   }
 }
 
-template <int FC>
+template <int FC, bool RES = false>
 int launch_f32(const MlpArgs& a, cudaStream_t st) {
   const size_t bytes = F32MlpLayout(a.d, FC).total;
   if (a.d > 4 * MLP_THREADS || a.f % FC || bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      cudaFuncSetAttribute(ln_mlp_f32<FC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      cudaFuncSetAttribute(ln_mlp_f32<FC, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  ln_mlp_f32<FC><<<(a.rows + F32_BM - 1) / F32_BM, MLP_THREADS, bytes, st>>>(a);
+  ln_mlp_f32<FC, RES><<<(a.rows + F32_BM - 1) / F32_BM, MLP_THREADS, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -577,4 +639,23 @@ extern "C" int cs_fused_ln_mlp(const void* x, const void* lns, const void* lnb, 
     }
   }
   return d <= 512 ? cs::launch_f32<32>(a, st) : cs::launch_f32<16>(a, st);
+}
+
+// K10: x2 = x + attn * ls1, then K2 on x2 with x2 as the residual; the GELU
+// by the dtype (tanh on bf16, erf on fp32). Shapes as K2's, with D in {64,
+// 384} for bf16; attn (rows, D) and ls1 (D,) in x's dtype.
+extern "C" int cs_fused_res_ln_mlp(const void* x, const void* attn, const void* ls1, const void* lns,
+                                   const void* lnb, const void* w1, const void* b1, const void* w2,
+                                   const void* b2, const void* ls2, void* out, int rows, int d, int f,
+                                   float eps, int dtype, void* stream) {
+  cs::MlpArgs a{x, lns, lnb, w1, b1, w2, b2, ls2, out, rows, d, f, eps, dtype == cs::kBFloat16, attn, ls1};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == cs::kBFloat16) {
+    switch (d) {
+      case 64: return cs::launch_wgmma<64, true>(a, st);
+      case 384: return cs::launch_wgmma<384, true>(a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  return d <= 512 ? cs::launch_f32<32, true>(a, st) : cs::launch_f32<16, true>(a, st);
 }

@@ -3,7 +3,10 @@ head-major forward K7, the decoder backward K4 and the head-major backward
 K8/K9; counterpart of ``crossscore_tpu/ops/flash_attention.py``
 (``_flash_qkv_fwd``, ``_flash_cross_ln_fwd``, each with and without
 ``kv_bias``, ``_flash_fwd``, ``_bwd_cross_ln_pallas``, ``_bwd_pallas_single``
-and ``_bwd_pallas_multi``).
+and ``_bwd_pallas_multi``). Also the timing instruments K11 (``_flash_qkv_fwd``
+with ``probe`` or ``chunks``) and K7' (``_flash_fwd``'s ``v2_mxuprobe``,
+``v2_noexp`` and ``v2_bf16`` variants), which no model path calls: the
+probes compute wrong math on purpose, to time the passes they keep.
 
 The forwards return ``(o, l, m)`` in the JAX package's convention: ``o``
 token-major (B, Nq, H*hd) (K7: head-major (B, H, Nq, hd)), ``l`` and ``m``
@@ -17,10 +20,11 @@ tokens, K9 beyond), the counterpart of the JAX ``custom_vjp``
 ``flash_cross_attention``. K5 and K6 (shape-bucketed inference) are forward
 only, as in the JAX package: they raise on an input that requires grad.
 
-On a CUDA tensor each wrapper launches its kernel (``csrc/flash_qkv.cu``,
-``csrc/flash_cross.cu`` (K3, K6, K7), ``csrc/flash_cross_bwd.cu`` (K4, K8, K9)) or raises; on a CPU
-tensor it runs the plain PyTorch version beside it. Each wrapper counts its
-kernel launches in ``.launches``.
+On a CUDA tensor each wrapper launches its kernel (``csrc/flash_qkv.cu`` (K1,
+K5, K11), ``csrc/flash_cross.cu`` (K3, K6, K7, K7'), ``csrc/flash_cross_bwd.cu``
+(K4, K8, K9)) or raises; on a CPU tensor it runs the plain PyTorch version
+beside it. Each wrapper counts its kernel launches in ``.launches`` (K11 and
+K7' also per mode, in ``.launches_by_mode``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from crossscore_tpu_torch.ops.attention import attention_with_stats
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+LOG2E = 1.4426950408889634
 
 
 def _split_heads(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -157,6 +162,177 @@ def flash_qkv_self_attention_masked(qkv: torch.Tensor, kv_bias: torch.Tensor, nu
 
 
 flash_qkv_self_attention_masked.launches = 0
+
+
+# --- K11: K1's timing probes and its chunked schedule -----------------------
+
+# the C codes of the probes and of the head-major variants (csrc/attention_fwd.cuh)
+QKV_PROBES = {"nomax": 1, "nosum": 2, "mxu": 3}
+HEAD_MAJOR_VARIANTS = {"mxuprobe": 5, "noexp": 6, "bf16exp": 7}
+# the head dims of the timing modes' CUDA kernels: the microbenchmark's
+# backbone (64) and decoder (48) shapes
+TIMING_HEAD_DIMS = (48, 64)
+BF16_LN2 = 0.69140625  # ln 2 rounded to bf16, the factor of JAX's bf16 exp2
+
+
+def _check_timing(what: str, dtype: torch.dtype, hd: int, *tensors) -> None:
+    """The timing modes' CUDA kernels: bf16, hd 48 or 64, forward only."""
+    if dtype != torch.bfloat16 or hd not in TIMING_HEAD_DIMS:
+        raise ValueError(f"{what}: the CUDA kernel takes bfloat16 at head dim 48 or 64, got {dtype}, hd {hd}")
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} is a forward-only timing instrument; an input requires grad")
+
+
+def _qkv_heads_f32(qkv: torch.Tensor, num_heads: int):
+    """q, k, v (B, H, N, hd) in fp32 from the fused projection."""
+    d = qkv.shape[2] // 3
+    return (_split_heads(qkv[..., i * d:(i + 1) * d], num_heads).float() for i in range(3))
+
+
+def flash_qkv_self_attention_probe_plain(qkv: torch.Tensor, num_heads: int, probe: str):
+    """Plain version of K11's probes, the TPU body ``_fwd_kernel_qkv_probe``
+    step by step: fp32 scores, p rounded to qkv's dtype, fp32 products.
+    "nomax": p = exp2(s c1 - 8), l = sum p, o / l, m = l * scale; "nosum":
+    m = rowmax(s), p = exp2((s - m) c1), o / m, l = m, m * scale; "mxu":
+    p = s, o unnormalised, l = m = 0 (c1 = scale * log2(e))."""
+    if probe not in QKV_PROBES:
+        raise ValueError(f"probe must be one of {sorted(QKV_PROBES)}, got {probe!r}")
+    dt = qkv.dtype
+    q, k, v = _qkv_heads_f32(qkv, num_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    c1 = scale * LOG2E
+    s = torch.matmul(q, k.transpose(-1, -2))
+    if probe == "mxu":
+        o = torch.matmul(s.to(dt).float(), v)
+        l = torch.zeros(s.shape[:-1], dtype=torch.float32, device=qkv.device)
+        m = torch.zeros_like(l)
+    else:
+        if probe == "nomax":
+            p = torch.exp2(s * c1 - 8.0).to(dt).float()
+            l = m = p.sum(-1)
+        else:
+            m = s.amax(-1)
+            p = torch.exp2((s - m[..., None]) * c1).to(dt).float()
+            l = m
+        o = torch.matmul(p, v) * torch.where(l == 0, torch.ones_like(l), 1.0 / l)[..., None]
+        m = m * scale
+    return _merge_heads(o.to(dt)), l, m
+
+
+def flash_qkv_self_attention_probe(qkv: torch.Tensor, num_heads: int, probe: str):
+    """K11's probe ``probe`` ("nomax", "nosum" or "mxu"; wrong math on
+    purpose, see the plain version) off the fused projection: qkv (B, N,
+    3*H*hd) -> (o (B, N, H*hd), l, m (B, H, N)). A timing instrument only."""
+    what = "flash_qkv_self_attention_probe"
+    _check_qkv(qkv, num_heads)
+    if probe not in QKV_PROBES:
+        raise ValueError(f"{what}: probe must be one of {sorted(QKV_PROBES)}, got {probe!r}")
+    if _build.device_type(qkv) == "cpu":
+        return flash_qkv_self_attention_probe_plain(qkv, num_heads, probe)
+    b, n, d3 = qkv.shape
+    hd = d3 // 3 // num_heads
+    _build.check_cuda_operands(what, qkv)
+    _check_timing(what, qkv.dtype, hd, qkv)
+    _check_grid(what, b, num_heads)
+    lib = _build.load("flash_qkv")
+    fn = lib.cs_flash_qkv_self_attention_probe
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.restype = _I
+    o = torch.empty(b, n, d3 // 3, dtype=qkv.dtype, device=qkv.device)
+    l = torch.empty(b, num_heads, n, dtype=torch.float32, device=qkv.device)
+    m = torch.empty_like(l)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    rc = fn(qkv.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(), b, n, num_heads, hd, QKV_PROBES[probe],
+            1.0 / math.sqrt(hd), stream)
+    _build.check_rc(lib, rc, what)
+    flash_qkv_self_attention_probe.launches += 1
+    flash_qkv_self_attention_probe.launches_by_mode[probe] += 1
+    return o, l, m
+
+
+flash_qkv_self_attention_probe.launches = 0
+flash_qkv_self_attention_probe.launches_by_mode = dict.fromkeys(QKV_PROBES, 0)
+
+
+def chunk_bounds(n: int, chunks: int) -> list[int]:
+    """The TPU kernel's KV chunk bounds: steps of ceil(n / chunks) rounded up
+    to 128 tokens, the last chunk ending at n (so there may be fewer chunks
+    than asked)."""
+    if chunks < 1:
+        raise ValueError(f"chunks must be >= 1, got {chunks}")
+    step = -(-(-(-n // chunks)) // 128) * 128
+    bounds = [0]
+    while bounds[-1] + step < n:
+        bounds.append(bounds[-1] + step)
+    return bounds + [n]
+
+
+def flash_qkv_self_attention_chunked_plain(qkv: torch.Tensor, num_heads: int, chunks: int):
+    """Plain version of K11's ``chunks``, the TPU body
+    ``_fwd_kernel_qkv_chunked`` step by step: per KV chunk the running max of
+    the raw scores, p = exp2((s - m_run) c1) rounded to qkv's dtype, the
+    running l and o rescaled by exp2((m_old - m_new) c1); K1's function."""
+    dt = qkv.dtype
+    q, k, v = _qkv_heads_f32(qkv, num_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    c1 = scale * LOG2E
+    bounds = chunk_bounds(qkv.shape[1], chunks)
+    m_run = l_run = acc = None
+    for c0, c1_ in zip(bounds[:-1], bounds[1:]):
+        s = torch.matmul(q, k[:, :, c0:c1_].transpose(-1, -2))
+        m_c = s.amax(-1, keepdim=True)
+        m_new = m_c if m_run is None else torch.maximum(m_run, m_c)
+        p = torch.exp2((s - m_new) * c1).to(dt).float()
+        pv = torch.matmul(p, v[:, :, c0:c1_])
+        if m_run is None:
+            l_run, acc = p.sum(-1, keepdim=True), pv
+        else:
+            alpha = torch.exp2((m_run - m_new) * c1)
+            l_run = l_run * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + pv
+        m_run = m_new
+    o = acc * torch.where(l_run == 0, torch.ones_like(l_run), 1.0 / l_run)
+    return _merge_heads(o.to(dt)), l_run[..., 0], m_run[..., 0] * scale
+
+
+def flash_qkv_self_attention_chunked(qkv: torch.Tensor, num_heads: int, chunks: int):
+    """K11's ``chunks``: K1's function with the KV axis split at the TPU's
+    128-aligned chunk bounds (:func:`chunk_bounds`), each chunk a block of
+    its own, merged by the exact online-softmax rule: qkv (B, N, 3*H*hd) ->
+    (o (B, N, H*hd), l, m (B, H, N)). A timing instrument only."""
+    what = "flash_qkv_self_attention_chunked"
+    _check_qkv(qkv, num_heads)
+    bounds = chunk_bounds(qkv.shape[1], chunks)
+    if _build.device_type(qkv) == "cpu":
+        return flash_qkv_self_attention_chunked_plain(qkv, num_heads, chunks)
+    b, n, d3 = qkv.shape
+    hd = d3 // 3 // num_heads
+    _build.check_cuda_operands(what, qkv)
+    _check_timing(what, qkv.dtype, hd, qkv)
+    _check_grid(what, b, num_heads)
+    nchunks = len(bounds) - 1
+    lib = _build.load("flash_qkv")
+    fn = lib.cs_flash_qkv_self_attention_chunked
+    fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+    fn.restype = _I
+    o = torch.empty(b, n, d3 // 3, dtype=qkv.dtype, device=qkv.device)
+    l = torch.empty(b, num_heads, n, dtype=torch.float32, device=qkv.device)
+    m = torch.empty_like(l)
+    part_o = torch.empty(nchunks, b, num_heads, n, hd, dtype=torch.float32, device=qkv.device)
+    part_l = torch.empty(nchunks, b, num_heads, n, dtype=torch.float32, device=qkv.device)
+    part_m = torch.empty_like(part_l)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    rc = fn(qkv.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(), part_o.data_ptr(), part_l.data_ptr(),
+            part_m.data_ptr(), b, n, num_heads, hd, bounds[1], nchunks, 1.0 / math.sqrt(hd), stream)
+    _build.check_rc(lib, rc, what)
+    flash_qkv_self_attention_chunked.launches += 1
+    by_mode = flash_qkv_self_attention_chunked.launches_by_mode
+    by_mode[f"chunks{chunks}"] = by_mode.get(f"chunks{chunks}", 0) + 1
+    return o, l, m
+
+
+flash_qkv_self_attention_chunked.launches = 0
+flash_qkv_self_attention_chunked.launches_by_mode = {}  # "chunks<n>" -> launches
 
 
 # --- K3 and K6: the decoder attention forward, unmasked and masked -----------
@@ -326,9 +502,81 @@ def flash_attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 flash_attention_head_major.launches = 0
 
 
-# --- K4 ---------------------------------------------------------------------
+# --- K7': K7's timing variants -----------------------------------------------
 
-LOG2E = 1.4426950408889634
+
+def flash_attention_head_major_variant_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str):
+    """Plain version of K7', the TPU bodies step by step (fp32 scores, p
+    rounded to v's dtype, fp32 products, c1 = log2(e) / sqrt(hd)):
+    "mxuprobe" (``_fwd_kernel_v2_mxu_probe``): p = s c1, o = p v
+    unnormalised, l = sum p, m = 0; "noexp" and "bf16exp" (the options of
+    ``_fwd_kernel_single_v2``): t = s c1, m = rowmax(t), p = t - m (noexp)
+    or exp2 of t - m rounded to bf16, in bf16 (bf16exp: JAX computes a bf16
+    exp2 as exp(bf16(x * bf16(ln 2)))); o / l, l = sum p, m in natural
+    units. p is rounded to v's dtype, so bf16exp's exponential rounds to bf16
+    for bf16 inputs and stays fp32 for fp32 ones, as XLA runs the TPU body."""
+    if variant not in HEAD_MAJOR_VARIANTS:
+        raise ValueError(f"variant must be one of {sorted(HEAD_MAJOR_VARIANTS)}, got {variant!r}")
+    dt = v.dtype
+    c1 = LOG2E / math.sqrt(q.shape[-1])
+    vf = v.float()
+    t = torch.matmul(q.float(), k.float().transpose(-1, -2)) * c1
+    if variant == "mxuprobe":
+        p = t.to(dt).float()
+        l = p.sum(-1)
+        return torch.matmul(p, vf).to(q.dtype), l, torch.zeros_like(l)
+    m = t.amax(-1, keepdim=True)
+    if variant == "noexp":
+        p = (t - m).to(dt).float()
+    else:  # exp2 on bf16 as JAX lowers it: exp(bf16(bf16(x) * bf16(ln 2))); XLA keeps the
+        # exponential itself in fp32 (its excess-precision rule), so p rounds to v's dtype only
+        u = (t - m).to(torch.bfloat16) * torch.tensor(BF16_LN2, dtype=torch.bfloat16)
+        p = torch.exp(u.float()).to(dt).float()
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p, vf) * torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+    return o.to(q.dtype), l[..., 0], m[..., 0] / LOG2E
+
+
+def flash_attention_head_major_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str):
+    """K7' ("mxuprobe", "noexp" or "bf16exp"; see the plain version) on
+    head-major operands as K7 takes them (contiguous or head-major views, no
+    bias): q (B, H, Nq, hd), k/v (B, H, Nk, hd) -> (o (B, H, Nq, hd), l, m).
+    A timing instrument only: no model path calls it."""
+    what = "flash_attention_head_major_variant"
+    _check_head_major(what, q, k, v, None)
+    if variant not in HEAD_MAJOR_VARIANTS:
+        raise ValueError(f"{what}: variant must be one of {sorted(HEAD_MAJOR_VARIANTS)}, got {variant!r}")
+    if _build.device_type(q) == "cpu":
+        return flash_attention_head_major_variant_plain(q, k, v, variant)
+    b, h, nq, hd = q.shape
+    nk = k.shape[2]
+    for t in (k, v):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{what}: operands must share one CUDA device and dtype")
+    _check_timing(what, q.dtype, hd)
+    _check_grid(what, b, h)
+    strides = (ctypes.c_longlong * 9)(*_strides_16b(what, q, k, v))
+    lib = _build.load("flash_cross")
+    fn = lib.cs_flash_attention_head_major_variant
+    fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+    fn.restype = _I
+    o = torch.empty(b, h, nq, hd, dtype=q.dtype, device=q.device)
+    l = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
+    m = torch.empty_like(l)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.addressof(strides), o.data_ptr(), l.data_ptr(),
+            m.data_ptr(), b, h, nq, nk, hd, HEAD_MAJOR_VARIANTS[variant], 1.0 / math.sqrt(hd), stream)
+    _build.check_rc(lib, rc, what)
+    flash_attention_head_major_variant.launches += 1
+    flash_attention_head_major_variant.launches_by_mode[variant] += 1
+    return o, l, m
+
+
+flash_attention_head_major_variant.launches = 0
+flash_attention_head_major_variant.launches_by_mode = dict.fromkeys(HEAD_MAJOR_VARIANTS, 0)
+
+
+# --- K4 ---------------------------------------------------------------------
 
 
 def _bwd_stats(o: torch.Tensor, do: torch.Tensor, l: torch.Tensor, m: torch.Tensor, num_heads: int):

@@ -5,6 +5,7 @@ counterpart of ``crossscore_tpu/tasks/common.py`` for one process."""
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from datetime import datetime
@@ -195,6 +196,23 @@ def refuse_tensor_parallel(attention_impl: str) -> None:
         raise NotImplementedError("model.gpu.attention_impl=tp: the task CLIs build no model group, as "
                                   "the JAX CLIs build no model axis; use parallel.mesh.make_groups and "
                                   "train.step.make_train_step")
+
+
+def refuse_multi_rank(cfg: Config) -> None:
+    """The train CLI runs one process on one device. The JAX CLI builds its
+    data mesh from ``trainer.devices`` (``tasks/train.py:195-203`` there);
+    until the port's DDP CLI lands (ROADMAP queue 1 item 6), a request for
+    more than one device, or a launch of several ranks (``WORLD_SIZE`` > 1),
+    raises rather than training on one card, or running independent copies."""
+    devices = cfg.trainer.get("devices", 1)
+    n_dev = devices if isinstance(devices, int) else len(devices) if devices is not None else -1
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n_dev != 1 or world > 1:
+        raise NotImplementedError(
+            f"trainer.devices={devices!r} with WORLD_SIZE={world}: the train CLI runs one process on one "
+            "device; data-parallel training is not ported (ROADMAP queue 1 item 6). Run one rank with "
+            "trainer.devices=1, or call train.step.make_train_step with a data group"
+        )
 
 
 def resolve_accelerator(cfg: Config) -> torch.device:

@@ -97,7 +97,7 @@ def plan_serving_modes(
 
     One node only: a multi-node plan, and a multi-rank plan that is not view
     parallel (data-parallel predict, which comes with DDP), raise
-    ``NotImplementedError`` (ROADMAP queue 1 item 13)."""
+    ``NotImplementedError`` (ROADMAP queue 1 item 6)."""
     cache_ok = cache_mode != "off" and not need_attn_weights and k_refs > 0 and not zero_reference
 
     def vp_fits(n: int) -> bool:
@@ -108,11 +108,11 @@ def plan_serving_modes(
     use_vp = vp_local or vp_fits(n_dev)
     use_cache = cache_ok and not (n_proc > 1 and use_vp and not vp_local)
     if n_proc > 1:
-        raise NotImplementedError(f"predict over {n_proc} nodes is not ported (ROADMAP queue 1 item 13)")
+        raise NotImplementedError(f"predict over {n_proc} nodes is not ported (ROADMAP queue 1 item 6)")
     if n_dev > 1 and not use_vp:
         raise NotImplementedError(
             f"{n_dev} ranks without view parallelism would be data-parallel predict, which is not "
-            "ported (ROADMAP queue 1 item 13): run one rank, or set model.gpu.view_parallel=on "
+            "ported (ROADMAP queue 1 item 6): run one rank, or set model.gpu.view_parallel=on "
             f"with K={k_refs} divisible by the ranks and no shape buckets"
         )
     return ServingPlan(use_vp, vp_local, use_cache)

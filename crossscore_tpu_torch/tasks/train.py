@@ -4,7 +4,8 @@ counterpart of ``crossscore_tpu/tasks/train.py``.
     python -m crossscore_tpu_torch.tasks.train data.dataset.path=[<root>] alias=run1 \\
         trainer.max_epochs=9 trainer.optimizer.lr=5e-4
 
-One process, one device: ``trainer.accelerator=cuda`` (the default) or
+One process, one device (``trainer.devices=1``; more, or a launch of several
+ranks, raises): ``trainer.accelerator=cuda`` (the default) or
 ``cpu`` (the plain PyTorch versions of every kernel). Each step is forward
 (frozen backbone), L1 loss, backward (K4 for the decoder attention) and an
 AdamW update. Checkpoints (``io/checkpoint.py``) keep the model, the
@@ -27,8 +28,8 @@ from crossscore_tpu_torch.io.checkpoint import CheckpointManager, load_hparams
 from crossscore_tpu_torch.io.convert import init_params, load_into
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.tasks.common import (
-    JsonlLogger, config_diff, parse_cli, refuse_tensor_parallel, resolve_accelerator, resolve_limit,
-    save_config_snapshot, timestamp, weighted_mean,
+    JsonlLogger, config_diff, parse_cli, refuse_multi_rank, refuse_tensor_parallel, resolve_accelerator,
+    resolve_limit, save_config_snapshot, timestamp, weighted_mean,
 )
 from crossscore_tpu_torch.train.optim import make_optimizer
 from crossscore_tpu_torch.train.step import TrainState, batch_to_device, make_eval_step, make_train_step
@@ -39,6 +40,7 @@ from crossscore_tpu_torch.utils.metric_logger import MetricLoggerScalar
 def train(cfg) -> Path:
     ConfigChecker(cfg).check_train_val()
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
+    refuse_multi_rank(cfg)
     device = resolve_accelerator(cfg)
     if device.type == "cuda":
         # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)

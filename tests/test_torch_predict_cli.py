@@ -173,7 +173,7 @@ def test_serving_plan_matches_jax(k_refs, n_dev, n_local, n_proc, vp, bs, bucket
               data_mesh_size=n_proc * _per_process_data_par(n_local, 1, bs))
     want = jax_plan(**kw)
     if n_proc > 1 or (n_dev > 1 and not want.use_vp):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             plan_serving_modes(**kw)
     else:
         assert tuple(plan_serving_modes(**kw)) == tuple(want)
@@ -191,11 +191,11 @@ def test_view_parallel_plan_raises():
               k_refs=8, n_dev=2, n_local=2, n_proc=1, data_mesh_size=2)
     assert plan_serving_modes(vp_mode="on", **kw) == (True, False, True)
     assert plan_serving_modes(vp_mode="on", **kw | {"cache_mode": "off"}) == (True, False, False)
-    with pytest.raises(NotImplementedError, match="data-parallel predict.*item 13"):
+    with pytest.raises(NotImplementedError, match="data-parallel predict.*item 6"):
         plan_serving_modes(vp_mode="off", **kw)
-    with pytest.raises(NotImplementedError, match="data-parallel predict.*item 13"):
+    with pytest.raises(NotImplementedError, match="data-parallel predict.*item 6"):
         plan_serving_modes(vp_mode="on", **kw | {"use_buckets": True})
-    with pytest.raises(NotImplementedError, match="2 nodes.*item 13"):
+    with pytest.raises(NotImplementedError, match="2 nodes.*item 6"):
         plan_serving_modes(vp_mode="on", **kw | {"n_dev": 4, "n_proc": 2})
 
 

@@ -135,3 +135,20 @@ def test_profiler_window_and_sustained_report(ws, capsys):
     sustained = [r for r in rows if "train/sustained_ms_per_step" in r]
     assert len(sustained) == 1 and sustained[0]["train/sustained_steps"] == 24 - 2
     assert max(r["step"] for r in rows) == 24
+
+
+@pytest.mark.parametrize("overrides,world", [(["trainer.devices=2"], None), (["trainer.devices=-1"], None),
+                                             ([], "2")])
+def test_more_than_one_device_or_rank_is_refused(ws, monkeypatch, overrides, world):
+    """``trainer.devices`` other than 1, or a launch of several ranks, raises
+    before any run dir is made: the CLI would otherwise train on one card, or
+    run independent copies (data-parallel training is not ported)."""
+    if world is None:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("WORLD_SIZE", world)
+    before = set((ws / "log").rglob("*")) if (ws / "log").exists() else set()
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        main(BASE + overrides + ["alias=refused"])
+    after = set((ws / "log").rglob("*")) if (ws / "log").exists() else set()
+    assert after == before
