@@ -8,7 +8,9 @@ the predict CLI, view-parallel predict, and tensor- and view-parallel training.
 In order:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``crossscore_tpu_torch/csrc/`` (one ``nvcc`` per
-   source, all at once) and print the build time;
+   source, all at once) and print the build time, each kernel's registers
+   and spills, and for the bf16 backward's kernels their static shared
+   memory and each head dim's tile plan with its dynamic shared memory;
 3. hold K1 (backbone self-attention), K2 (fused LN->MLP) and K3 (decoder
    attention) against their plain PyTorch versions at the predict shapes
    (dinov2-small, 518 px, K=8 references, B=8), K4 (decoder attention
@@ -25,7 +27,10 @@ In order:
    view-parallel shard fed the global statistics (Nk 5476 of 10952) and at
    the backbone's hd 64 (N 1370), on head-major views and on contiguous
    tensors, in bf16 and fp32 (and at the other presets' head dims and widths
-   at small shapes; K4-K9 by the relative L2 error of each output), and time
+   at small shapes, K4 and K8/K9 at every head dim 16-128 and K4, K8 and K9
+   at ragged and tiny lengths, Nq 1, 63, 65 over Nk 1, 65, 2049, views and
+   contiguous; K4-K9 by the relative L2 error of each output; the backward
+   launched twice on the same inputs must give the same bits), and time
    the kernel, the plain version
    and, for the attention kernels, one ``F.scaled_dot_product_attention``
    call (K4, K8, K9: one backward of it; K5/K6: with the bias as a float
@@ -87,8 +92,10 @@ In order:
     time-slicing one card: not a scaling number);
 13. drive the instruments through their entry points: K10's op forward and
     backward, ``tools.attn_microbench`` at the backbone and the decoder
-    shape and ``tools.lane_pad_probe``, each with the counts zeroed just
-    before it and read just after: every mode launched, every run exit 0;
+    shape, ``tools.lane_pad_probe`` and ``tools.bwd_microbench`` (K4 at the
+    train shape, hd 64 and 48), each with the counts zeroed just before it
+    and read just after: every mode launched, K4 by the last, every run
+    exit 0;
 14. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
@@ -537,6 +544,55 @@ class _Tee:
         self.out.flush()
 
 
+def _bwd_build_report(_build) -> None:
+    """Print, for the bf16 backward's kernels (K4, K8, K9; K12 with PROBE),
+    what ``-Xptxas -v`` says of each (registers at launch, spill stores and
+    loads, static shared memory, any wgmma it serialised) and each head
+    dim's tile plan from the library (rows per block, q tile, KV tile,
+    stages, the dynamic shared memory of each pass); fail on a head dim
+    without a plan."""
+    import ctypes
+
+    for src in ("flash_cross_bwd", "lane_pad_probe"):
+        log = (_build.BUILD_DIR / f"{src}.log").read_text().splitlines()
+        entry, info = None, {}
+        for line in log + ["Compiling entry function 'end'"]:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                if entry:
+                    print(f"  ptxas {src} {entry}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
+                k = re.search(r"(attn_bwd_\w+_wgmma)ILi(\d+)ELb(\d)", m.group(1))
+                entry = k and f"{k.group(1)}<{k.group(2)}{', PROBE' if k.group(3) == '1' else ''}>"
+                info = {}
+            if not entry:
+                continue
+            for key, pat in (("registers", r"Used (\d+) registers"), ("spill stores", r"(\d+) bytes spill stores"),
+                             ("spill loads", r"(\d+) bytes spill loads"), ("static smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    info[key] = int(m.group(1))
+            if "C7515" in line:
+                info["wgmma serialised"] = "yes"
+    fn = _build.load("flash_cross_bwd").cs_flash_attention_bwd_plan
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    for hdim in range(16, 129, 16):
+        out = (ctypes.c_int * 6)()
+        if fn(hdim, ctypes.addressof(out)) != 0:
+            _fail(f"the bf16 backward has no tile plan at hd {hdim}")
+        rows, bq, bk, stages, smem1, smem2 = out
+        print(f"  bf16 backward plan hd {hdim}: pass 1 {rows} KV rows a block over q tiles of {bq}, pass 2 {rows} "
+              f"q rows over KV tiles of {bk}, {stages} stages, dynamic shared memory {smem1} / {smem2} bytes")
+
+
+def _twice(fn, *args):
+    """``fn(*args)`` and whether a second launch on the same inputs gives the
+    same bits."""
+    import torch
+
+    first, again = fn(*args), fn(*args)
+    return first, all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def _rank_launches() -> dict:
     from crossscore_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_multi, flash_attention_bwd_single, flash_attention_head_major,
@@ -825,6 +881,7 @@ def main() -> int:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 print(f"  ptxas {src} {entry}: {m.group(1)} registers")
+    _bwd_build_report(_build)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -916,7 +973,7 @@ def main() -> int:
             k_, v_ = randn(TB, nk, d, dtype=dtype), randn(TB, nk, d, dtype=dtype)
             o, l, m = flash_cross_attention(q, k_, v_, dec_h)
             args = (q, k_, v_, o, do, l, m, dec_h)
-            got = flash_cross_attention_bwd(*args)
+            got, same = _twice(flash_cross_attention_bwd, *args)
             want = flash_cross_attention_bwd_plain(*args)
             dhd = d // dec_h
             ops = 10.0 * TB * dec_h * nq * nk * dhd
@@ -930,7 +987,7 @@ def main() -> int:
                   f"max|d|/max|plain| " + " ".join(
                       f"{_max_abs(g, w) / float(w.float().abs().max()):.3e}" for g, w in zip(got, want)))
             report[(tag, tname)] = dict(
-                err=max(errs), tol=TOL_K4[tname],
+                err=max(errs), tol=TOL_K4[tname], bit_equal=same,
                 max_abs=max(_max_abs(g, w) for g, w in zip(got, want)),
                 ms=_time_ms(torch, lambda: flash_cross_attention_bwd(*args)),
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_bwd_plain(*args), reps=3),
@@ -1078,12 +1135,13 @@ def main() -> int:
         for tag, shape in K89_SHAPES.items():
             bb, hh, n_q, nk, hdim = shape[:5]
             hm, tm = _k89_inputs(randn, shape, dtype)
-            errs = []
+            errs, same = [], True
             for layout in (hm, [t.contiguous() for t in hm[:5]] + list(hm[5:])):
-                got = flash_attention_head_major_bwd(*layout)
+                got, same_ = _twice(flash_attention_head_major_bwd, *layout)
                 want = flash_attention_head_major_bwd_plain(*layout)
                 errs += [_rel_l2(g, w) for g, w in zip(got, want)]
-            entry = dict(err=max(errs), tol=TOL_K4[tname])
+                same = same and same_
+            entry = dict(err=max(errs), tol=TOL_K4[tname], bit_equal=same)
             if tag in ("K8", "K9"):  # the tp route's decoder at TP = 1: timed
                 ops = 10.0 * bb * hh * n_q * nk * hdim
                 nbytes = bb * hh * (3 * n_q + 2 * nk) * hdim * es + 2 * bb * hh * n_q * 4 \
@@ -1141,13 +1199,34 @@ def main() -> int:
             err = max(_rel_err(g, w) for g, w in zip(
                 flash_cross_attention(q, k_, v_, heads), flash_cross_attention_plain(q, k_, v_, heads)))
             report[(f"K3 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
-        for heads_, hdim in ((8, 64), (8, 96), (8, 128)):
-            q, k_, v_ = (randn(2, n_, heads_ * hdim, dtype=dtype) for n_ in (300, 700, 700))
-            o, l, m = flash_cross_attention(q, k_, v_, heads_)
-            args = (q, k_, v_, o, randn(2, 300, heads_ * hdim, dtype=dtype), l, m, heads_)
+        for hdim in range(16, 129, 16):  # K4 at every head dim it takes
+            q, k_, v_ = (randn(2, n_, 8 * hdim, dtype=dtype) for n_ in (300, 700, 700))
+            o, l, m = flash_cross_attention(q, k_, v_, 8)
+            args = (q, k_, v_, o, randn(2, 300, 8 * hdim, dtype=dtype), l, m, 8)
             err = max(_rel_l2(g, w) for g, w in zip(
                 flash_cross_attention_bwd(*args), flash_cross_attention_bwd_plain(*args)))
             report[(f"K4 hd{hdim}", tname)] = dict(err=err, tol=TOL_K4[tname])
+        # ragged and tiny shapes, where the bf16 kernels' TMA boxes run past
+        # Nq or Nk and read zeros: K4 and K8/K9 (views and contiguous) at hd
+        # 48 and 128, o drawn at random so that ds is no rounding noise (at
+        # Nk 1 the true o is v and dp equals delta); each launched twice
+        for nq_ in (1, 63, 65):
+            for nk_ in (1, 65, 2049):
+                for hdim in (48, 128):
+                    q, do_ = randn(2, nq_, 3 * hdim, dtype=dtype), randn(2, nq_, 3 * hdim, dtype=dtype)
+                    k_, v_ = randn(2, nk_, 3 * hdim, dtype=dtype), randn(2, nk_, 3 * hdim, dtype=dtype)
+                    _, l, m = flash_cross_attention_plain(q, k_, v_, 3)
+                    o = randn(2, nq_, 3 * hdim, dtype=dtype)
+                    got, same = _twice(flash_cross_attention_bwd, q, k_, v_, o, do_, l, m, 3)
+                    errs = [_rel_l2(g, w) for g, w in zip(
+                        got, flash_cross_attention_bwd_plain(q, k_, v_, o, do_, l, m, 3))]
+                    hm = [t.view(2, -1, 3, hdim).transpose(1, 2) for t in (q, k_, v_, o, do_)] + [l, m]
+                    for layout in (hm, [t.contiguous() for t in hm[:5]] + hm[5:]):
+                        got, same_ = _twice(flash_attention_head_major_bwd, *layout)
+                        errs += [_rel_l2(g, w) for g, w in zip(got, flash_attention_head_major_bwd_plain(*layout))]
+                        same = same and same_
+                    report[(f"K4/K8/K9 nq{nq_} nk{nk_} hd{hdim}", tname)] = dict(
+                        err=max(errs), tol=TOL_K4[tname], bit_equal=same)
         for hdim in range(16, 129, 16):  # K8/K9 at every head dim they take, views and contiguous
             hm, _ = _k89_inputs(randn, (2, 3, 130, 300, hdim, None), dtype)
             err = max(_rel_l2(g, w) for layout in (hm, [t.contiguous() for t in hm[:5]] + hm[5:])
@@ -1171,8 +1250,10 @@ def main() -> int:
 
     bad = []
     for (kern, tname), r in report.items():
-        ok = r["err"] <= r["tol"] and r.get("l2", 0.0) <= r.get("tol_l2", 0.0)
+        ok = r["err"] <= r["tol"] and r.get("l2", 0.0) <= r.get("tol_l2", 0.0) and r.get("bit_equal", True)
         line = f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {r['tol']:.1e})"
+        if "bit_equal" in r:
+            line += f" rerun bit-equal {r['bit_equal']}"
         if "l2" in r:
             line += f" rel L2 {r['l2']:.3e} (tol {r['tol_l2']:.1e})"
         if "ms" in r:  # not a preset-width check
@@ -1824,7 +1905,7 @@ def main() -> int:
     from crossscore_tpu_torch.ops import flash_attention as fa
     from crossscore_tpu_torch.ops import lane_pad_probe as lpp
     from crossscore_tpu_torch.ops.fused_mlp import fused_res_ln_mlp
-    from crossscore_tpu_torch.tools import attn_microbench
+    from crossscore_tpu_torch.tools import attn_microbench, bwd_microbench
     from crossscore_tpu_torch.tools import lane_pad_probe as lane_pad_tool
 
     def modes():
@@ -1859,6 +1940,7 @@ def main() -> int:
             "--decoder", "--layers", "2", "v2:1369,1024,1", "v2mxu:1369,1024,1", "v2noexp:1369,1024,1",
             "v2bf16:1369,1024,1", "xln:1369,1024"]),
         "lane_pad_probe": (lane_pad_tool.main, ["--reps", "5", "--step-ms", f"{train_ms:.2f}"]),
+        "bwd_microbench": (bwd_microbench.main, ["--reps", "5"]),
     }
     for tag, (tool, argv) in tool_runs.items():
         zero_launches()
@@ -1870,7 +1952,9 @@ def main() -> int:
               f"{ {k: v for k, v in inst[tag]['launches'].items() if v} }; per mode {inst[tag]['by_mode']}")
         if rc != 0:
             _fail(f"{tag} exited {rc}")
-    bb, dec, lp = (inst[t]["by_mode"] for t in tool_runs)
+    bb, dec, lp, _ = (inst[t]["by_mode"] for t in tool_runs)
+    if not inst["bwd_microbench"]["launches"]["K4"]:
+        _fail("bwd_microbench never launched K4")
     missing = [f"K11 {m}" for m in fa.QKV_PROBES if not bb["K11 probe"].get(m)] \
         + [f"K11 chunks{c}" for c in (2, 3) if not bb["K11 chunks"].get(f"chunks{c}")] \
         + [f"K7' {m}" for m in fa.HEAD_MAJOR_VARIANTS if not (bb["K7'"].get(m) and dec["K7'"].get(m))] \

@@ -1,8 +1,10 @@
 // The two-pass flash-attention backward shared by K4, K8 and K9
-// (flash_cross_bwd.cu) and K12 (lane_pad_probe.cu): pass 1 (dkdv) takes one
-// block per (batch, head, 64-row KV tile) and walks over the q tiles, pass 2
-// (dq) one block per (batch, head, 64-row q tile) walking over the KV tiles;
-// the design and its bound are set out in flash_cross_bwd.cu.
+// (flash_cross_bwd.cu) and K12 (lane_pad_probe.cu): pass 1 (dkdv) walks a
+// block of KV rows over every q tile, pass 2 (dq) a block of q rows over
+// every KV tile, so each gradient stays in registers and is written once.
+// bf16 runs on Hopper: wgmma products, TMA loads into an mbarrier ring, a
+// producer warp and two consumer warpgroups (below); fp32 on the CUDA
+// cores. The design and its bound are set out in flash_cross_bwd.cu.
 //
 // PROBE (K12, bf16 only): the recipe's transcendentals replaced by casts, as
 // the TPU tool tools/lane_pad_probe.py replaces them (its `probe_kernel`):
@@ -13,12 +15,15 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace cs {
 
+// fp32: 128 threads, two per row of a 64-row block, 64-row tiles
 constexpr int BWD_THREADS = 128;
-constexpr int BKV = 64;  // KV rows per block (16 per warp in the bf16 path)
-constexpr int BQT = 64;  // q rows per tile of the loop
+constexpr int BKV = 64;
+constexpr int BQT = 64;
 
 struct BwdArgs {
   const void* q;
@@ -55,301 +60,458 @@ __device__ __forceinline__ void load_stats(float* s_lb, float* s_dl, const BwdAr
   }
 }
 
+// ---- bf16: wgmma, TMA, warp specialisation ---------------------------------
+//
+// A block is three warpgroups: warpgroup 0 the producer (one warp issues
+// every TMA load and, in pass 1, copies lb and delta; setmaxnreg hands its
+// registers to the consumers), warpgroups 1 and 2 the consumers, each
+// owning 64 of the block's 128 resident rows (KV rows in pass 1, q rows in
+// pass 2). The resident tiles arrive once; the streamed tiles go through a
+// ring of STAGES buffers, each with a `full` mbarrier (the TMA bytes, in
+// pass 1 also the producer warp's stores of lb and delta) and an `empty`
+// one (one arrival per consumer warp once the products that read the
+// buffer are done).
+//
+// Per streamed tile a consumer issues its two score products (s and dp,
+// both operands in shared memory) and behind them the previous tile's
+// gradient products (its p and ds from registers), waits for s alone and
+// takes the exponentials while the tensor cores run the rest, waits for dp
+// and forms ds, then waits for the previous tile's products, releases that
+// tile's buffer and packs this tile's p and ds to bf16. Every product is
+// done by the end of its iteration: one left in flight across the loop's
+// back edge makes ptxas serialise every wgmma of the kernel (C7515).
+//
+// Registers: ptxas allocates the consumers' code up to the setmaxnreg
+// ceiling (240), not the launch bound (168), only if the kernel has no trap
+// instruction (with one it capped them at 168 and spilled).
+constexpr int WG_THREADS = 384;
+constexpr int PRODUCER_REGS = 24;   // one warp issuing loads
+constexpr int CONSUMER_REGS = 240;  // 128 * 24 + 256 * 240 <= 65536
+constexpr int STAGES = 4;
+
+// The tile plan of head dim HD. Shared rows are hd padded to CB 64-column
+// SW128 blocks (the padding read as zeros from TMA, and never by a product:
+// the hd contractions stop at hd, and the hd-wide gradient products are
+// m64n{HD}). Pass 1 keeps s^T and dp^T (BQ/2 fp32 registers each), dk and dv
+// (HD/2 each) and the previous tile's p and ds packed to bf16 (BQ/4 each)
+// live at once: BQ = 64 costs 96 + HD registers a thread, which fits the
+// consumers' 240 up to HD 80 with room for the addresses; HD 96-128 take
+// BQ = 32 (48 + HD). Pass 2 holds s, dp (BK/2 each), dq (HD/2) and ds
+// (BK/4): BK = 128 (160 + HD/2) up to HD 64, BK = 64 above. Four stages
+// (on the H100 more were no faster, two clearly slower): at most 64 KB of
+// ring in pass 1 and 128 KB in pass 2, beside the 32-64 KB of resident
+// rows; the block runs alone on its SM, held there by its registers.
 template <int HD>
-struct BwdBfLayout {
-  static constexpr int LD = HD + 8;  // padded rows: ldmatrix without bank conflicts
-  static constexpr size_t tile = align128((size_t)64 * LD * 2);
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = tile;
-  static constexpr size_t qd_off = 2 * tile;             // two stages of (q, do)
-  static constexpr size_t st_off = 6 * tile;
-  static constexpr size_t total = st_off + 4 * BQT * 4;  // two stages of (lb, delta)
+struct BwdTiles {
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128, "head dim");
+  static constexpr int CB = (HD + 63) / 64;
+  static constexpr int ROWS = 128;  // resident rows a block: 64 per consumer warpgroup
+  static constexpr int BQ = HD <= 80 ? 64 : 32;
+  static constexpr int BK = HD <= 64 ? 128 : 64;
+  static constexpr uint32_t RES = CB * ROWS * 128;  // bytes of a resident operand
+  static constexpr uint32_t QT = CB * BQ * 128;  // of a streamed q or do tile (pass 1)
+  static constexpr uint32_t KT = CB * BK * 128;  // of a streamed K or V tile (pass 2)
+  static constexpr uint32_t p1_st = 2 * RES + STAGES * 2 * QT;
+  static constexpr uint32_t p1_bar = p1_st + STAGES * 2 * BQ * 4;
+  static constexpr uint32_t p1_bytes = p1_bar + (1 + 2 * STAGES) * 8 + 1024;  // + alignment slack
+  static constexpr uint32_t p2_bar = 2 * RES + STAGES * 2 * KT;
+  static constexpr uint32_t p2_bytes = p2_bar + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// Pass 1, bf16: dk and dv of one 64-row KV tile.
-template <int HD, bool PROBE = false>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_bf16(BwdArgs a) {
-  using L = BwdBfLayout<HD>;
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = L::LD;
-  constexpr int NKT = HD / 16;  // k-steps over hd
-  constexpr int NOT = HD / 8;   // n8 tiles over hd
-  constexpr int NST = BQT / 8;  // n8 tiles over a q tile
-  constexpr int TILE = (int)(L::tile / 2);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
-  bf16* sQD = reinterpret_cast<bf16*>(smem + L::qd_off);  // stage s: q at 2s*TILE, do at (2s+1)*TILE
-  float* sST = reinterpret_cast<float*>(smem + L::st_off);  // stage s: lb at 2s*BQT, delta at (2s+1)*BQT
+// the block's shared memory, aligned up to the 1024 bytes of a swizzle atom
+__device__ __forceinline__ unsigned char* smem_1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, qd = lane & 3;
-  const int kv0 = blockIdx.x * BKV, head = blockIdx.y, b = blockIdx.z;
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * a.q_hs;
-  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_bs + head * a.do_hs;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * a.k_hs;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * a.v_hs;
-  const long long st = ((long long)b * a.h + head) * a.nq;
-
-  cp_async_rows<BKV, HD, BWD_THREADS>(sK, LD, K, a.k_rs, kv0, a.nk, tid);
-  cp_async_rows<BKV, HD, BWD_THREADS>(sV, LD, V, a.v_rs, kv0, a.nk, tid);
-  cp_async_rows<BQT, HD, BWD_THREADS>(sQD, LD, Q, a.q_rs, 0, a.nq, tid);
-  cp_async_rows<BQT, HD, BWD_THREADS>(sQD + TILE, LD, DO, a.do_rs, 0, a.nq, tid);
-  cp_async_commit();
-  if constexpr (!PROBE) load_stats(sST, sST + BQT, a, st, 0, tid);
-
-  // this warp's KV rows: kv0 + warp*16 + g and + 8
-  const int r0 = kv0 + warp * 16 + g;
-  const bool ok0 = r0 < a.nk, ok1 = r0 + 8 < a.nk;
-
-  float dk[NOT][4], dv[NOT][4];
-#pragma unroll
-  for (int d = 0; d < NOT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
-
-  const int ntiles = (a.nq + BQT - 1) / BQT;
-  for (int t = 0; t < ntiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < ntiles) {  // prefetch the next q/do tile into the other stage
-      bf16* nQ = sQD + (stage ^ 1) * 2 * TILE;
-      cp_async_rows<BQT, HD, BWD_THREADS>(nQ, LD, Q, a.q_rs, (t + 1) * BQT, a.nq, tid);
-      cp_async_rows<BQT, HD, BWD_THREADS>(nQ + TILE, LD, DO, a.do_rs, (t + 1) * BQT, a.nq, tid);
-      cp_async_commit();
-      if constexpr (!PROBE)
-        load_stats(sST + (stage ^ 1) * 2 * BQT, sST + (stage ^ 1) * 2 * BQT + BQT, a, st, (t + 1) * BQT, tid);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// bar[0] the resident tiles, bar[1 + s] stage s full, bar[1 + S + s] empty
+__device__ __forceinline__ void init_ring(uint64_t* bar, int stages, int full_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&bar[1 + s], full_count);
+      mbar_init(&bar[1 + stages + s], 8);  // the two consumer warpgroups' eight warps
     }
-    __syncthreads();
-    const bf16* sQ = sQD + stage * 2 * TILE;
-    const bf16* sDO = sQ + TILE;
-    const float* sLB = sST + stage * 2 * BQT;
-    const float* sDL = sLB + BQT;
-
-    // s^T = K Q^T and dp^T = V dO^T for this warp's 16 KV rows x 64 q columns
-    float s[NST][4], dp[NST][4];
-#pragma unroll
-    for (int j = 0; j < NST; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NKT; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_a(ka, sK + warp * 16 * LD + kk * 16, LD, lane);
-      ldsm_a(va, sV + warp * 16 * LD + kk * 16, LD, lane);
-#pragma unroll
-      for (int np = 0; np < NST / 2; ++np) {
-        uint32_t bq[4], bd[4];
-        ldsm_b_nk_x2tiles(bq, sQ + np * 16 * LD + kk * 16, LD, lane);
-        ldsm_b_nk_x2tiles(bd, sDO + np * 16 * LD + kk * 16, LD, lane);
-        mma_bf16(s[2 * np], ka, bq[0], bq[1]);
-        mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
-        mma_bf16(dp[2 * np], va, bd[0], bd[1]);
-        mma_bf16(dp[2 * np + 1], va, bd[2], bd[3]);
-      }
-    }
-
-    // p^T and ds^T, rounded to bf16 into A fragments
-    uint32_t pa[BQT / 16][4], dsa[BQT / 16][4];
-#pragma unroll
-    for (int j = 0; j < NST; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if constexpr (PROBE) {
-          p[e] = s[j][e] * a.c1;
-          p[2 + e] = s[j][2 + e] * a.c1;
-          ds[e] = dp[j][e] * a.c1;
-          ds[2 + e] = dp[j][2 + e] * a.c1;
-        } else {
-          const int c = j * 8 + qd * 2 + e;
-          const float lbq = sLB[c], dlq = sDL[c];
-          p[e] = ok0 ? ex2(fmaf(s[j][e], a.c1, -lbq)) : 0.f;
-          p[2 + e] = ok1 ? ex2(fmaf(s[j][2 + e], a.c1, -lbq)) : 0.f;
-          ds[e] = p[e] * (dp[j][e] - dlq) * a.scale;
-          ds[2 + e] = p[2 + e] * (dp[j][2 + e] - dlq) * a.scale;
-        }
-      }
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dv += p^T dO and dk += ds^T Q (k = the tile's 64 q rows)
-#pragma unroll
-    for (int ks = 0; ks < BQT / 16; ++ks) {
-#pragma unroll
-      for (int dd = 0; dd < NOT / 2; ++dd) {
-        uint32_t bd[4], bq[4];
-        ldsm_b_kn_x2tiles(bd, sDO + ks * 16 * LD + dd * 16, LD, lane);
-        ldsm_b_kn_x2tiles(bq, sQ + ks * 16 * LD + dd * 16, LD, lane);
-        mma_bf16(dv[2 * dd], pa[ks], bd[0], bd[1]);
-        mma_bf16(dv[2 * dd + 1], pa[ks], bd[2], bd[3]);
-        mma_bf16(dk[2 * dd], dsa[ks], bq[0], bq[1]);
-        mma_bf16(dk[2 * dd + 1], dsa[ks], bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled next iteration
+    mbar_init_fence();
   }
+  __syncthreads();
+}
 
-  bf16* DK = static_cast<bf16*>(a.dk) + b * a.dkv_bs + head * a.dkv_hs + qd * 2;
-  bf16* DV = static_cast<bf16*>(a.dv) + b * a.dkv_bs + head * a.dkv_hs + qd * 2;
+// the CB column blocks of `rows`-row boxes at row r0 of `map` into `dst`
+template <int CB>
+__device__ __forceinline__ void tma_rows(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int rows,
+                                         int r0, int head, int b) {
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + 8 * hh;
-    if (r >= a.nk) continue;
+  for (int cb = 0; cb < CB; ++cb) tma_load_4d(dst + cb * rows * 128, map, bar, cb * 64, r0, head, b);
+}
+
+// One consumer's score product: acc = A B^T over hd, A the warpgroup's 64
+// resident rows (a_rows per column block), B the streamed tile (b_rows).
+template <int HD, int N>
+__device__ __forceinline__ void score_product(float (&acc)[N / 2], uint32_t a, int a_rows, uint32_t b, int b_rows) {
 #pragma unroll
-    for (int d = 0; d < NOT; ++d) {
-      *reinterpret_cast<uint32_t*>(DK + (long long)r * a.dkv_rs + d * 8) = pack_bf16(dk[d][2 * hh], dk[d][2 * hh + 1]);
-      *reinterpret_cast<uint32_t*>(DV + (long long)r * a.dkv_rs + d * 8) = pack_bf16(dv[d][2 * hh], dv[d][2 * hh + 1]);
-    }
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t kin = (kk % 4) * 32, cb = kk / 4;
+    Wgmma<N>::ss(acc, sw128_desc_at(a + cb * a_rows * 128 + kin, 16), sw128_desc_at(b + cb * b_rows * 128 + kin, 16),
+                 kk > 0);
   }
 }
 
-// Pass 2, bf16: dq of one 64-row q tile. The forward's structure: q and do
-// fragments stay in registers, K and V tiles stream through shared memory
-// (cp.async, two stages), s and dp are recomputed per tile and ds K
-// accumulates in fp32 registers.
+// The two consumer warpgroups run the same loop over the same tiles; started
+// together they stay in step, both on the tensor cores and then both on
+// the exponentials. Warpgroup 1 therefore starts once warpgroup 0 has its
+// first scores, and the two stay about half an iteration apart (named
+// barrier 1, once per block; on the H100 this sped up the dq pass and left
+// the dk/dv pass as it was).
+__device__ __forceinline__ void start_after_warpgroup_0() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+__device__ __forceinline__ void release_warpgroup_1() { asm volatile("bar.arrive 1, 256;\n" ::: "memory"); }
+
+// acc += P B over the K rows of a streamed tile at `b` (b_rows rows per
+// column block): P's bf16 A registers, B MN-major
+template <int HD, int K>
+__device__ __forceinline__ void grad_product(float (&acc)[HD / 2], const uint32_t (&pa)[K / 16][4], uint32_t b,
+                                             int b_rows) {
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks)
+    Wgmma<HD>::rs_t(acc, pa[ks], sw128_desc_mn(b + ks * 2048, b_rows * 128));
+}
+
+// an accumulator tile's 4j..4j+3 values packed as A registers
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[N / 16][4], const float (&v)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    pa[j / 2][(j % 2) * 2] = pack_bf16(v[4 * j], v[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// a consumer's 64 x HD fp32 tile to rows [r0, r0 + 64) of a token-major
+// bf16 output (row stride rs), rows at or past n skipped
 template <int HD>
-struct BwdDqLayout {
-  static constexpr int LD = HD + 8;
-  static constexpr size_t tile = align128((size_t)64 * LD * 2);
-  static constexpr size_t kv_off = 2 * tile;          // q and do tiles first
-  static constexpr size_t total = kv_off + 4 * tile;  // K and V, two stages
-};
-
-template <int HD, bool PROBE = false>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_bf16(BwdArgs a) {
-  using L = BwdDqLayout<HD>;
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = L::LD;
-  constexpr int NKT = HD / 16;
-  constexpr int NOT = HD / 8;
-  constexpr int NST = BKV / 8;
-  constexpr int TILE = (int)(L::tile / 2);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + TILE;
-  bf16* sKV = reinterpret_cast<bf16*>(smem + L::kv_off);  // stage s: K at 2s*TILE, V at (2s+1)*TILE
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, qd = lane & 3;
-  const int q0 = blockIdx.x * BQT, head = blockIdx.y, b = blockIdx.z;
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * a.q_hs;
-  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_bs + head * a.do_hs;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * a.k_hs;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * a.v_hs;
-  const long long st = ((long long)b * a.h + head) * a.nq;
-
-  cp_async_rows<BQT, HD, BWD_THREADS>(sQ, LD, Q, a.q_rs, q0, a.nq, tid);
-  cp_async_rows<BQT, HD, BWD_THREADS>(sDO, LD, DO, a.do_rs, q0, a.nq, tid);
-  cp_async_rows<BKV, HD, BWD_THREADS>(sKV, LD, K, a.k_rs, 0, a.nk, tid);
-  cp_async_rows<BKV, HD, BWD_THREADS>(sKV + TILE, LD, V, a.v_rs, 0, a.nk, tid);
-  cp_async_commit();
-  // this thread's q rows: q0 + warp*16 + g and + 8 (lb = +inf past Nq: p = 0)
-  const int r0 = q0 + warp * 16 + g;
-  const float lb0 = PROBE ? 0.f : r0 < a.nq ? a.lb[st + r0] : INFINITY;
-  const float lb1 = PROBE ? 0.f : r0 + 8 < a.nq ? a.lb[st + r0 + 8] : INFINITY;
-  const float dl0 = PROBE ? 0.f : r0 < a.nq ? a.delta[st + r0] : 0.f;
-  const float dl1 = PROBE ? 0.f : r0 + 8 < a.nq ? a.delta[st + r0 + 8] : 0.f;
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[NKT][4], da[NKT][4];
-#pragma unroll
-  for (int kk = 0; kk < NKT; ++kk) {
-    ldsm_a(qa[kk], sQ + warp * 16 * LD + kk * 16, LD, lane);
-    ldsm_a(da[kk], sDO + warp * 16 * LD + kk * 16, LD, lane);
-  }
-
-  float dq[NOT][4];
-#pragma unroll
-  for (int d = 0; d < NOT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[d][e] = 0.f;
-
-  const int ntiles = (a.nk + BKV - 1) / BKV;
-  for (int t = 0; t < ntiles; ++t) {
-    const bf16* sK = sKV + (t & 1) * 2 * TILE;
-    const bf16* sV = sK + TILE;
-    if (t + 1 < ntiles) {  // prefetch the next K/V tile into the other stage
-      bf16* nK = sKV + ((t + 1) & 1) * 2 * TILE;
-      cp_async_rows<BKV, HD, BWD_THREADS>(nK, LD, K, a.k_rs, (t + 1) * BKV, a.nk, tid);
-      cp_async_rows<BKV, HD, BWD_THREADS>(nK + TILE, LD, V, a.v_rs, (t + 1) * BKV, a.nk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // s = Q K^T and dp = dO V^T for this warp's 16 q rows x 64 KV columns
-    float s[NST][4], dp[NST][4];
-#pragma unroll
-    for (int j = 0; j < NST; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NKT; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NST / 2; ++np) {
-        uint32_t bk[4], bv[4];
-        ldsm_b_nk_x2tiles(bk, sK + np * 16 * LD + kk * 16, LD, lane);
-        ldsm_b_nk_x2tiles(bv, sV + np * 16 * LD + kk * 16, LD, lane);
-        mma_bf16(s[2 * np], qa[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], bk[2], bk[3]);
-        mma_bf16(dp[2 * np], da[kk], bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], da[kk], bv[2], bv[3]);
-      }
-    }
-
-    // ds, rounded to bf16 into A fragments; KV columns past Nk get p = 0
-    uint32_t dsa[BKV / 16][4];
-#pragma unroll
-    for (int j = 0; j < NST; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if constexpr (PROBE) {
-          ds[e] = dp[j][e] * a.c1;
-          ds[2 + e] = dp[j][2 + e] * a.c1;
-        } else {
-          const bool ok = t * BKV + j * 8 + qd * 2 + e < a.nk;
-          const float p0 = ok ? ex2(fmaf(s[j][e], a.c1, -lb0)) : 0.f;
-          const float p1 = ok ? ex2(fmaf(s[j][2 + e], a.c1, -lb1)) : 0.f;
-          ds[e] = p0 * (dp[j][e] - dl0) * a.scale;
-          ds[2 + e] = p1 * (dp[j][2 + e] - dl1) * a.scale;
-        }
-      }
-      dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dq += ds K (k = the tile's 64 KV rows)
-#pragma unroll
-    for (int ks = 0; ks < BKV / 16; ++ks) {
-#pragma unroll
-      for (int dd = 0; dd < NOT / 2; ++dd) {
-        uint32_t bk[4];
-        ldsm_b_kn_x2tiles(bk, sK + ks * 16 * LD + dd * 16, LD, lane);
-        mma_bf16(dq[2 * dd], dsa[ks], bk[0], bk[1]);
-        mma_bf16(dq[2 * dd + 1], dsa[ks], bk[2], bk[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-
-  bf16* DQ = static_cast<bf16*>(a.dq) + b * a.dq_bs + head * a.dq_hs + qd * 2;
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long rs, const float (&acc)[HD / 2], int r0,
+                                           int n) {
+  const int lane = threadIdx.x & 31, r = r0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  out += 2 * (lane & 3);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + 8 * hh;
-    if (r >= a.nq) continue;
+    if (r + 8 * hh >= n) continue;
+    __nv_bfloat16* row = out + (long long)(r + 8 * hh) * rs;
 #pragma unroll
-    for (int d = 0; d < NOT; ++d)
-      *reinterpret_cast<uint32_t*>(DQ + (long long)r * a.dq_rs + d * 8) = pack_bf16(dq[d][2 * hh], dq[d][2 * hh + 1]);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
+}
+
+// Pass 1, bf16: dk and dv of 128 KV rows (K and V resident), walking over
+// the q tiles (q, do, lb and delta streamed).
+template <int HD, bool PROBE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
+                        const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                        const BwdArgs a) {
+  using T = BwdTiles<HD>;
+  constexpr int BQ = T::BQ, S = STAGES;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + T::RES;
+  unsigned char* sQD = smem + 2 * T::RES;                  // stage s: q at 2s*QT, do at (2s+1)*QT
+  float* sST = reinterpret_cast<float*>(smem + T::p1_st);  // stage s: lb at 2s*BQ, delta at (2s+1)*BQ
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + T::p1_bar);
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int kv0 = blockIdx.x * T::ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (a.nq + BQ - 1) / BQ;
+  init_ring(bar, S, 33);  // full: the TMA bytes, then the producer warp's 32 lanes with the stats
+
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid >= 32) return;
+    if (lane == 0) {
+      mbar_expect_tx(&bar[0], 2 * T::RES);
+      tma_rows<T::CB>(sK, &mk, &bar[0], T::ROWS, kv0, head, b);
+      tma_rows<T::CB>(sV, &mv, &bar[0], T::ROWS, kv0, head, b);
+    }
+    // lb and delta of a tile's rows, BQ / 32 a lane, loaded one tile ahead
+    // (in flight while the producer waits for a free stage); rows past Nq:
+    // lb = +inf (so p = 0) and delta = 0
+    const long long st = ((long long)b * a.h + head) * a.nq;
+    float lbv[BQ / 32], dlv[BQ / 32];
+    auto fetch = [&](int t) {
+#pragma unroll
+      for (int j = 0; j < BQ / 32; ++j) {
+        const int r = t * BQ + lane + 32 * j;
+        lbv[j] = r < a.nq ? a.lb[st + r] : INFINITY;
+        dlv[j] = r < a.nq ? a.delta[st + r] : 0.f;
+      }
+    };
+    if constexpr (!PROBE) fetch(0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % S;
+      if (t >= S) mbar_wait(&bar[1 + S + s], (t / S - 1) & 1);
+      if (lane == 0) {
+        unsigned char* q = sQD + s * 2 * T::QT;
+        mbar_expect_tx(&bar[1 + s], 2 * T::QT);
+        tma_rows<T::CB>(q, &mq, &bar[1 + s], BQ, t * BQ, head, b);
+        tma_rows<T::CB>(q + T::QT, &mdo, &bar[1 + s], BQ, t * BQ, head, b);
+      }
+      if constexpr (!PROBE) {
+        float* st_s = sST + s * 2 * BQ;
+#pragma unroll
+        for (int j = 0; j < BQ / 32; ++j) {
+          st_s[lane + 32 * j] = lbv[j];
+          st_s[BQ + lane + 32 * j] = dlv[j];
+        }
+        if (t + 1 < ntiles) fetch(t + 1);
+      }
+      mbar_arrive(&bar[1 + s]);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1, qd = lane & 3;
+  const uint32_t k_base = smem_addr(sK) + cw * 64 * 128, v_base = smem_addr(sV) + cw * 64 * 128;
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(&bar[0], 0);
+  if (cw == 1 && ntiles > 0) start_after_warpgroup_0();
+
+  // p^T and ds^T of the previous tile, packed: its dv and dk products are
+  // issued behind this tile's score products, and all four are done by the
+  // end of the iteration (a product left in flight across the loop's back
+  // edge makes ptxas serialise every wgmma of the kernel)
+  uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+  uint32_t prev_q = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % S;
+    mbar_wait(&bar[1 + s], (t / S) & 1);
+    const uint32_t q_base = smem_addr(sQD) + s * 2 * T::QT, do_base = q_base + T::QT;
+    // s^T = K q^T and dp^T = V do^T: this warpgroup's 64 KV rows x BQ q columns
+    float sc[BQ / 2], dp[BQ / 2];
+    fence_regs(sc);
+    fence_regs(dp);
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+    score_product<HD, BQ>(sc, k_base, T::ROWS, q_base, BQ);
+    wgmma_commit();
+    score_product<HD, BQ>(dp, v_base, T::ROWS, do_base, BQ);
+    wgmma_commit();
+    if (t > 0) {
+      grad_product<HD, BQ>(dv, pa, prev_q + T::QT, BQ);  // dv += p^T do
+      grad_product<HD, BQ>(dk, dsa, prev_q, BQ);         // dk += ds^T q
+    }
+    wgmma_commit();
+    wgmma_wait<2>();  // s^T
+    fence_regs(sc);
+    if (cw == 0 && t == 0) release_warpgroup_1();
+
+    // p^T in place of s^T, fp32 until ds is formed
+    const float* st_s = sST + s * 2 * BQ;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      if constexpr (PROBE) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * j + e] *= a.c1;
+      } else {
+        const float2 lb = *reinterpret_cast<const float2*>(st_s + 8 * j + 2 * qd);
+        sc[4 * j] = ex2(fmaf(sc[4 * j], a.c1, -lb.x));
+        sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], a.c1, -lb.y));
+        sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], a.c1, -lb.x));
+        sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], a.c1, -lb.y));
+      }
+    }
+    wgmma_wait<1>();  // dp^T
+    fence_regs(dp);
+
+    // ds^T = p^T (dp^T - delta) scale, in place of dp^T
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      if constexpr (PROBE) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] *= a.c1;
+      } else {
+        const float2 dl = *reinterpret_cast<const float2*>(st_s + BQ + 8 * j + 2 * qd);
+        dp[4 * j] = sc[4 * j] * (dp[4 * j] - dl.x) * a.scale;
+        dp[4 * j + 1] = sc[4 * j + 1] * (dp[4 * j + 1] - dl.y) * a.scale;
+        dp[4 * j + 2] = sc[4 * j + 2] * (dp[4 * j + 2] - dl.x) * a.scale;
+        dp[4 * j + 3] = sc[4 * j + 3] * (dp[4 * j + 3] - dl.y) * a.scale;
+      }
+    }
+    wgmma_wait<0>();  // the previous tile's dv and dk: its stage is free
+    fence_regs(pa);
+    fence_regs(dsa);
+    if (t > 0 && lane == 0) mbar_arrive(&bar[1 + S + (t - 1) % S]);
+    pack_a<BQ>(pa, sc);
+    pack_a<BQ>(dsa, dp);
+    prev_q = q_base;
+  }
+  if (ntiles > 0) {
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+    grad_product<HD, BQ>(dv, pa, prev_q + T::QT, BQ);
+    grad_product<HD, BQ>(dk, dsa, prev_q, BQ);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  fence_regs(dk);
+  fence_regs(dv);
+  const long long off = b * a.dkv_bs + head * a.dkv_hs;
+  store_rows<HD>(static_cast<__nv_bfloat16*>(a.dk) + off, a.dkv_rs, dk, kv0 + cw * 64, a.nk);
+  store_rows<HD>(static_cast<__nv_bfloat16*>(a.dv) + off, a.dkv_rs, dv, kv0 + cw * 64, a.nk);
+}
+
+// Pass 2, bf16: dq of 128 q rows (q and do resident; lb and delta in
+// registers), walking over the KV tiles (K and V streamed), s and dp
+// recomputed per tile.
+template <int HD, bool PROBE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
+                      const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                      const BwdArgs a) {
+  using T = BwdTiles<HD>;
+  constexpr int BK = T::BK, S = STAGES;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sDO = smem + T::RES;
+  unsigned char* sKV = smem + 2 * T::RES;  // stage s: K at 2s*KT, V at (2s+1)*KT
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + T::p2_bar);
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int q0 = blockIdx.x * T::ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (a.nk + BK - 1) / BK;
+  init_ring(bar, S, 1);
+
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid != 0) return;
+    mbar_expect_tx(&bar[0], 2 * T::RES);
+    tma_rows<T::CB>(sQ, &mq, &bar[0], T::ROWS, q0, head, b);
+    tma_rows<T::CB>(sDO, &mdo, &bar[0], T::ROWS, q0, head, b);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % S;
+      if (t >= S) mbar_wait(&bar[1 + S + s], (t / S - 1) & 1);
+      unsigned char* kv = sKV + s * 2 * T::KT;
+      mbar_expect_tx(&bar[1 + s], 2 * T::KT);
+      tma_rows<T::CB>(kv, &mk, &bar[1 + s], BK, t * BK, head, b);
+      tma_rows<T::CB>(kv + T::KT, &mv, &bar[1 + s], BK, t * BK, head, b);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1, qd = lane & 3;
+  const uint32_t q_base = smem_addr(sQ) + cw * 64 * 128, do_base = smem_addr(sDO) + cw * 64 * 128;
+  // this thread's two q rows (lb = +inf past Nq: p = 0)
+  const int r0 = q0 + cw * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const long long st = ((long long)b * a.h + head) * a.nq;
+  float lb0 = 0.f, lb1 = 0.f, dl0 = 0.f, dl1 = 0.f;
+  if constexpr (!PROBE) {
+    lb0 = r0 < a.nq ? a.lb[st + r0] : INFINITY;
+    lb1 = r0 + 8 < a.nq ? a.lb[st + r0 + 8] : INFINITY;
+    dl0 = r0 < a.nq ? a.delta[st + r0] : 0.f;
+    dl1 = r0 + 8 < a.nq ? a.delta[st + r0 + 8] : 0.f;
+  }
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  mbar_wait(&bar[0], 0);
+  if (cw == 1 && ntiles > 0) start_after_warpgroup_0();
+
+  uint32_t dsa[BK / 16][4];  // ds of the previous tile: its dq product runs behind this tile's scores
+  uint32_t prev_k = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % S;
+    mbar_wait(&bar[1 + s], (t / S) & 1);
+    const uint32_t k_base = smem_addr(sKV) + s * 2 * T::KT, v_base = k_base + T::KT;
+    // s = q K^T and dp = do V^T: this warpgroup's 64 q rows x BK KV columns
+    float sc[BK / 2], dp[BK / 2];
+    fence_regs(sc);
+    fence_regs(dp);
+    fence_regs(dq);
+    wgmma_fence();
+    score_product<HD, BK>(sc, q_base, T::ROWS, k_base, BK);
+    wgmma_commit();
+    score_product<HD, BK>(dp, do_base, T::ROWS, v_base, BK);
+    wgmma_commit();
+    if (t > 0) grad_product<HD, BK>(dq, dsa, prev_k, BK);  // dq += ds K
+    wgmma_commit();
+    wgmma_wait<2>();  // s
+    fence_regs(sc);
+    if (cw == 0 && t == 0) release_warpgroup_1();
+    const int lim = a.nk - t * BK;  // KV columns at or past it lie past Nk: p = 0
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int c = 8 * j + 2 * qd;
+      if constexpr (!PROBE) {
+        sc[4 * j] = c < lim ? ex2(fmaf(sc[4 * j], a.c1, -lb0)) : 0.f;
+        sc[4 * j + 1] = c + 1 < lim ? ex2(fmaf(sc[4 * j + 1], a.c1, -lb0)) : 0.f;
+        sc[4 * j + 2] = c < lim ? ex2(fmaf(sc[4 * j + 2], a.c1, -lb1)) : 0.f;
+        sc[4 * j + 3] = c + 1 < lim ? ex2(fmaf(sc[4 * j + 3], a.c1, -lb1)) : 0.f;
+      }
+    }
+    wgmma_wait<1>();  // dp
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      if constexpr (PROBE) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] *= a.c1;
+      } else {
+        dp[4 * j] = sc[4 * j] * (dp[4 * j] - dl0) * a.scale;
+        dp[4 * j + 1] = sc[4 * j + 1] * (dp[4 * j + 1] - dl0) * a.scale;
+        dp[4 * j + 2] = sc[4 * j + 2] * (dp[4 * j + 2] - dl1) * a.scale;
+        dp[4 * j + 3] = sc[4 * j + 3] * (dp[4 * j + 3] - dl1) * a.scale;
+      }
+    }
+    wgmma_wait<0>();  // the previous tile's dq: its stage is free
+    fence_regs(dsa);
+    if (t > 0 && lane == 0) mbar_arrive(&bar[1 + S + (t - 1) % S]);
+    pack_a<BK>(dsa, dp);
+    prev_k = k_base;
+  }
+  if (ntiles > 0) {
+    fence_regs(dq);
+    wgmma_fence();
+    grad_product<HD, BK>(dq, dsa, prev_k, BK);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  fence_regs(dq);
+  store_rows<HD>(static_cast<__nv_bfloat16*>(a.dq) + b * a.dq_bs + head * a.dq_hs, a.dq_rs, dq, q0 + cw * 64, a.nq);
+}
+
+template <int HD, bool PROBE>
+int launch_bwd_wgmma(const BwdArgs& a, int batch, cudaStream_t stream) {
+  using T = BwdTiles<HD>;
+  // pass 1 streams q and do in BQ-row boxes past K and V resident in 128-row
+  // ones; pass 2 the other way round, K and V in BK-row boxes
+  CUtensorMap m1[4], m2[4];
+  const void* base[4] = {a.q, a.dout, a.k, a.v};
+  const long long st[4][3] = {{a.q_rs, a.q_hs, a.q_bs}, {a.do_rs, a.do_hs, a.do_bs},
+                              {a.k_rs, a.k_hs, a.k_bs}, {a.v_rs, a.v_hs, a.v_bs}};
+  for (int i = 0; i < 4; ++i) {
+    const int rows = i < 2 ? a.nq : a.nk;
+    cudaError_t err = operand_map(&m1[i], base[i], HD, rows, a.h, batch, st[i][0], st[i][1], st[i][2],
+                                  i < 2 ? T::BQ : T::ROWS);
+    if (err == cudaSuccess)
+      err = operand_map(&m2[i], base[i], HD, rows, a.h, batch, st[i][0], st[i][1], st[i][2], i < 2 ? T::ROWS : T::BK);
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto k1 = attn_bwd_dkdv_wgmma<HD, PROBE>;
+  auto k2 = attn_bwd_dq_wgmma<HD, PROBE>;
+  cudaError_t err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::p1_bytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::p2_bytes);
+  if (err != cudaSuccess) return (int)err;
+  k1<<<dim3((a.nk + T::ROWS - 1) / T::ROWS, a.h, batch), WG_THREADS, T::p1_bytes, stream>>>(m1[0], m1[1], m1[2], m1[3],
+                                                                                            a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  k2<<<dim3((a.nq + T::ROWS - 1) / T::ROWS, a.h, batch), WG_THREADS, T::p2_bytes, stream>>>(m2[0], m2[1], m2[2], m2[3],
+                                                                                            a);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
@@ -505,21 +667,16 @@ cudaError_t launch_one(Kernel kernel, dim3 grid, int bytes, cudaStream_t stream,
 
 template <int HD, bool PROBE = false>
 int launch_bwd_hd(const BwdArgs& a, int batch, int dtype, cudaStream_t stream) {
-  const dim3 kv_grid((a.nk + BKV - 1) / BKV, a.h, batch);
-  const dim3 q_grid((a.nq + BQT - 1) / BQT, a.h, batch);
-  cudaError_t err;
-  if (dtype == kBFloat16) {
-    err = launch_one(attn_bwd_dkdv_bf16<HD, PROBE>, kv_grid, (int)BwdBfLayout<HD>::total, stream, a);
-    if (err == cudaSuccess)
-      err = launch_one(attn_bwd_dq_bf16<HD, PROBE>, q_grid, (int)BwdDqLayout<HD>::total, stream, a);
-  } else if constexpr (PROBE) {
+  if (dtype == kBFloat16) return launch_bwd_wgmma<HD, PROBE>(a, batch, stream);
+  if constexpr (PROBE) {
     return (int)cudaErrorInvalidValue;
   } else {
-    err = launch_one(attn_bwd_dkdv_f32<HD>, kv_grid, (int)BwdF32Layout<HD>::total, stream, a);
+    const dim3 kv_grid((a.nk + BKV - 1) / BKV, a.h, batch);
+    const dim3 q_grid((a.nq + BQT - 1) / BQT, a.h, batch);
+    cudaError_t err = launch_one(attn_bwd_dkdv_f32<HD>, kv_grid, (int)BwdF32Layout<HD>::total, stream, a);
     if (err == cudaSuccess) err = launch_one(attn_bwd_dq_f32<HD>, q_grid, (int)(2 * BwdF32Layout<HD>::tile), stream, a);
+    return (int)err;
   }
-  return (int)err;
 }
 
 }  // namespace cs
-

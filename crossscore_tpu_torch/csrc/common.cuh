@@ -47,4 +47,8 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, long lon
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 }  // namespace cs

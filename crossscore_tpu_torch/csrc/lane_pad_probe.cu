@@ -14,15 +14,17 @@
 // them unwritten in dq, dk and dv (the TPU leaves dk and dv unwritten and dq
 // zero).
 //
-// Design: the K4 backward's two passes (attention_bwd.cuh with PROBE), the
-// slices read as heads through a head stride of STRIDE lanes and a row
-// stride of 128, so K12 times the products of K4's own schedule without its
-// exponentials: seven products per score tile (s and dp are recomputed by
-// the dq pass), where the TPU tool runs five in one pass. Bound on the H100:
-// the five products' 10 * B * S * Nq * Nk * HD operations (the useful hd-48
-// work, 10 * B * 2 * Nq * Nk * 48, at the hd 48 geometries) against ~(2 Nq +
-// 2 Nk) * 128 * 2 bytes in and the same out per item, far above the ridge,
-// so the tensor cores bound it.
+// Design: the K4 backward's two passes (attention_bwd.cuh with PROBE: wgmma
+// products, TMA loads, a producer warp), the slices read as heads through a
+// head stride of STRIDE lanes and a row stride of 128, so K12 times the
+// products of K4's own schedule without its exponentials: seven products per
+// score tile (s and dp are recomputed by the dq pass), where the TPU tool
+// runs five in one pass. Bound on the H100: the five products' 10 * B * S *
+// Nq * Nk * HD operations (the useful hd-48 work, 10 * B * 2 * Nq * Nk * 48,
+// at the hd 48 geometries) against ~(2 Nq + 2 Nk) * 128 * 2 bytes in and the
+// same out per item, far above the ridge, so the tensor cores bound it. On
+// an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md) hd 48 takes
+// 0.57-0.58 ms, 40% of that bound (0.96-0.99 ms, 24%, with mma.sync).
 
 #include "attention_bwd.cuh"
 

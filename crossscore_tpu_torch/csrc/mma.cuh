@@ -10,11 +10,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-namespace cs {
+#include "common.cuh"
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+namespace cs {
 
 // A fragment of a 16x16 bf16 tile at `tile` (row major, row stride ld).
 __device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld, int lane) {

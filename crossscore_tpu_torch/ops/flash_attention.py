@@ -618,6 +618,26 @@ def _bwd_recipe(qh, kh, vh, doh, lb, delta, dt):
             torch.matmul(p.transpose(-1, -2), doh))
 
 
+def _launch_bwd_stats(what: str, o: torch.Tensor, do: torch.Tensor, l: torch.Tensor, m: torch.Tensor):
+    """:func:`_bwd_stats_head_major` on the card, for bf16: the backward's lb
+    and delta (B, H, Nq) fp32 by one kernel (``cs_flash_attention_bwd_stats``)
+    from head-major o and do, each contiguous or a view whose rows of hd
+    elements start on 16-byte boundaries (the caller checks)."""
+    b, h, nq, hd = o.shape
+    strides = (ctypes.c_longlong * 6)(*(o.stride()[:3] + do.stride()[:3]))
+    l, m = l.contiguous(), m.contiguous()
+    lb = torch.empty(b, h, nq, dtype=torch.float32, device=o.device)
+    delta = torch.empty_like(lb)
+    lib = _build.load("flash_cross_bwd")
+    fn = lib.cs_flash_attention_bwd_stats
+    fn.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+    fn.restype = _I
+    rc = fn(o.data_ptr(), do.data_ptr(), ctypes.addressof(strides), l.data_ptr(), m.data_ptr(), lb.data_ptr(),
+            delta.data_ptr(), b, h, nq, hd, torch.cuda.current_stream(o.device).cuda_stream)
+    _build.check_rc(lib, rc, what)
+    return lb, delta
+
+
 def flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads: int):
     """Plain version of K4: the kernel's recipe (:func:`_bwd_recipe`) step by
     step for one batch row at a time, which bounds the memory of the score
@@ -651,7 +671,11 @@ def flash_cross_attention_bwd(q, k, v, o, do, l, m, num_heads: int):
     _build.check_cuda_operands("flash_cross_attention_bwd", q, k, v, o, do)
     _check_head_dim("flash_cross_attention_bwd", hd)
     _check_grid("flash_cross_attention_bwd", b, num_heads)
-    lb, delta = _bwd_stats(o, do, l, m, num_heads)
+    if q.dtype == torch.bfloat16:
+        lb, delta = _launch_bwd_stats("flash_cross_attention_bwd", _split_heads(o, num_heads),
+                                      _split_heads(do, num_heads), l, m)
+    else:  # the fp32 path as it was
+        lb, delta = _bwd_stats(o, do, l, m, num_heads)
     _build.check_cuda_operands("flash_cross_attention_bwd", lb, delta)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load("flash_cross_bwd")
@@ -736,6 +760,50 @@ def flash_attention_head_major_bwd_plain(q, k, v, o, do, l, m):
 flash_attention_bwd_single = types.SimpleNamespace(launches=0)  # K8, the JAX ``_bwd_pallas_single``
 flash_attention_bwd_multi = types.SimpleNamespace(launches=0)  # K9, the JAX ``_bwd_pallas_multi``
 
+# what a TMA tensor map takes (``cuTensorMapEncodeTiled``): a 16-byte aligned
+# base, byte strides that are multiples of 16 below 2**40, dimensions of at
+# most 2**32 elements
+TMA_MAX_STRIDE_BYTES = 1 << 40
+TMA_MAX_DIM = 1 << 32
+
+
+def tma_strides(shape, strides, elem_size: int, data_ptr: int) -> list[int] | None:
+    """The element strides (batch, head, row) with which the bf16 backward
+    maps one (B, H, N, hd) operand onto a TMA tensor map of dimensions (hd,
+    N, H, B), or None when TMA cannot take it: hd not contiguous, a base or
+    a stride off a 16-byte boundary, a stride of 2**40 bytes or more, a
+    stride of 0 on an axis longer than 1, or a dimension above 2**32. An axis
+    of length 1 is never stepped over, so its stride is reported as that of
+    a contiguous tensor."""
+    if len(shape) != 4 or len(strides) != 4 or strides[3] != 1 or data_ptr % 16:
+        return None
+    if any(not 0 < n <= TMA_MAX_DIM for n in shape):
+        return None
+    out, inner = [], shape[3]
+    for axis in (2, 1, 0):  # rows, heads, batch
+        st = strides[axis] if shape[axis] > 1 else inner
+        nbytes = st * elem_size
+        if st <= 0 or nbytes % 16 or nbytes >= TMA_MAX_STRIDE_BYTES:
+            return None
+        out.append(st)
+        inner *= shape[axis]
+    return out[::-1]
+
+
+def _tma_strides(what: str, *tensors) -> list[int]:
+    """:func:`tma_strides` of each operand, batch, head and row stride in
+    turn; raises ValueError, before any launch, for an operand TMA cannot
+    take."""
+    out = []
+    for t in tensors:
+        st = tma_strides(tuple(t.shape), t.stride(), t.element_size(), t.data_ptr())
+        if st is None:
+            raise ValueError(f"{what}: each operand needs contiguous rows of hd elements, a 16-byte aligned "
+                             f"base and positive strides that are 16-byte multiples, got shape "
+                             f"{tuple(t.shape)}, strides {t.stride()}")
+        out += st
+    return out
+
 
 def _launch_head_major_bwd(what: str, q, k, v, o, do, l, m):
     """Launch the head-major backward on CUDA tensors -> (dq, dk, dv)."""
@@ -748,8 +816,11 @@ def _launch_head_major_bwd(what: str, q, k, v, o, do, l, m):
         raise ValueError(f"{what}: q, k, v, o and do must all be float32 or all bfloat16")
     _check_head_dim(what, hd)
     _check_grid(what, b, h)
-    strides = (ctypes.c_longlong * 12)(*_strides_16b(what, q, do, k, v))
-    lb, delta = _bwd_stats_head_major(o, do, l, m)
+    strides = (ctypes.c_longlong * 12)(*_tma_strides(what, q, do, k, v))
+    if q.dtype == torch.bfloat16:
+        lb, delta = _launch_bwd_stats(what, _kernel_rows(o), do, l, m)
+    else:  # the fp32 path as it was
+        lb, delta = _bwd_stats_head_major(o, do, l, m)
     dq = torch.empty(b, nq, h * hd, dtype=q.dtype, device=q.device)
     dk = torch.empty(b, nk, h * hd, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -784,10 +855,10 @@ def flash_attention_head_major_bwd(q, k, v, o, do, l, m):
 
 
 def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or its contiguous copy when its hd columns are not one run of
-    16-byte aligned elements (an incoming gradient may be any view)."""
-    es = t.element_size()
-    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:-1]):
+    """``t``, or its contiguous copy when the backward's TMA loads cannot
+    read it in place (:func:`tma_strides`; an incoming gradient may be any
+    view)."""
+    if tma_strides(tuple(t.shape), t.stride(), t.element_size(), t.data_ptr()) is not None:
         return t
     return t.contiguous()
 

@@ -1,7 +1,8 @@
 """The port's microbenchmark entry points (``crossscore_tpu_torch.tools``):
 each runs with ``--cpu`` (the plain versions at small shapes) as a
-subprocess and exits 0, and without ``--cpu`` on a machine with no card
-exits 1; the attention tool keeps the TPU tool's spec grammar."""
+subprocess and exits 0 with its timed lines, and without ``--cpu`` on a
+machine with no card exits 1; the attention tool keeps the TPU tool's spec
+grammar."""
 
 import subprocess
 import sys
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from crossscore_tpu_torch.tools import attn_microbench, lane_pad_probe
+from crossscore_tpu_torch.tools import attn_microbench, bwd_microbench, lane_pad_probe
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -24,7 +25,8 @@ def _run(*args):
       "qkvp:688,2,nomax", "qkvp:688,2,nosum", "qkvp:688,2,mxu", "v1:688,1408,2", "xln:512,1024"], 7),
     (["crossscore_tpu_torch.tools.attn_microbench", "--cpu", "--decoder", "--layers", "2", "v2:1,1024,1",
       "v2noaug:1,1024,1", "v2bf16:1,1024,1", "v2noexp:1,1024,1", "v2mxu:1,1024,1"], 5),
-    (["crossscore_tpu_torch.tools.lane_pad_probe", "--cpu", "--reps", "5", "--step-ms", "98"], 6)])
+    (["crossscore_tpu_torch.tools.lane_pad_probe", "--cpu", "--reps", "5", "--step-ms", "98"], 6),
+    (["crossscore_tpu_torch.tools.bwd_microbench", "--cpu"], len(bwd_microbench.CONFIGS))])
 def test_tool_runs_on_the_cpu(args, lines):
     res = _run(*args)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -38,7 +40,7 @@ def test_tool_runs_on_the_cpu(args, lines):
         assert "maxdiff=0.0000" in out[2]  # the first spec against itself
 
 
-@pytest.mark.parametrize("tool", [attn_microbench, lane_pad_probe])
+@pytest.mark.parametrize("tool", [attn_microbench, lane_pad_probe, bwd_microbench])
 def test_tool_without_cpu_needs_a_card(tool, capsys):
     """``main`` is the exit code of ``python -m``: 1, with a message, when
     there is no card and ``--cpu`` was not given."""
