@@ -9,8 +9,10 @@ In order:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``crossscore_tpu_torch/csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time, each kernel's registers
-   and spills, and for the bf16 backward's kernels their static shared
-   memory and each head dim's tile plan with its dynamic shared memory;
+   and spills, and for the bf16 forward's and backward's wgmma kernels their
+   static shared memory, any wgmma ptxas serialised (C7515) and each head
+   dim's tile plan with its dynamic shared memory; fail on a spill or a
+   serialised wgmma in the forward at hd 48 or 64;
 3. hold K1 (backbone self-attention), K2 (fused LN->MLP) and K3 (decoder
    attention) against their plain PyTorch versions at the predict shapes
    (dinov2-small, 518 px, K=8 references, B=8), K4 (decoder attention
@@ -30,7 +32,12 @@ In order:
    at small shapes, K4 and K8/K9 at every head dim 16-128 and K4, K8 and K9
    at ragged and tiny lengths, Nq 1, 63, 65 over Nk 1, 65, 2049, views and
    contiguous; K4-K9 by the relative L2 error of each output; the backward
-   launched twice on the same inputs must give the same bits), and time
+   launched twice on the same inputs must give the same bits; the forward
+   K1, K3 and K7, views and contiguous, at every head dim 16-128, and K1,
+   K3, K5, K6 and K7 at the same ragged lengths at hd 48 and 128, K5 and K6
+   with a bias that masks a third of the columns, each held by the relative
+   L2 of each of o, l and m, as K1 and K3 also are at their main shapes, and
+   launched twice for the same bits), and time
    the kernel, the plain version
    and, for the attention kernels, one ``F.scaled_dot_product_attention``
    call (K4, K8, K9: one backward of it; K5/K6: with the bias as a float
@@ -140,12 +147,16 @@ K89_SHAPES = {
     "K8 backbone": (B, 6, 1370, 1370, 64, None),
 }
 
-# least time the card could take: the larger of ops / peak and bytes / rate.
-# Dense peaks from NVIDIA's data sheets (bf16 tensor cores, fp32 CUDA cores).
-PEAKS = {  # name fragment: (bf16 op/s, fp32 op/s, bytes/s)
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
-    "H100 NVL": (835e12, 60e12, 3.9e12),
-    "H100": (989e12, 67e12, 3.35e12),  # SXM
+# least time the card could take: the larger of ops / peak and bytes / rate,
+# and for attention of its exponentials / the special-function units' rate.
+# Dense peaks from NVIDIA's data sheets (bf16 tensor cores, fp32 CUDA cores);
+# exp2 rates: 3.9 T/s on the SXM part (FlashAttention-3, arXiv 2407.08608,
+# section 1: 16 a clock on each of 132 SMs), the others at 16 a clock per SM
+# at their boost clocks.
+PEAKS = {  # name fragment: (bf16 op/s, fp32 op/s, bytes/s, exp2/s)
+    "H100 PCIe": (756e12, 51e12, 2.0e12, 114 * 16 * 1.755e9),
+    "H100 NVL": (835e12, 60e12, 3.9e12, 132 * 16 * 1.785e9),
+    "H100": (989e12, 67e12, 3.35e12, 3.9e12),  # SXM
 }
 
 # kernel-vs-plain tolerances at the main-path shapes: the largest of
@@ -237,6 +248,18 @@ def _peaks(name: str):
     return "H100", PEAKS["H100"]
 
 
+def _bound(ops: float, nbytes: float, peak: float, peak_bw: float, exps: float = 0.0, peak_ex2: float = 1.0) -> dict:
+    """The least time the card could take for a kernel's work: the larger of
+    its products' floor (``ops`` at ``peak``), its bytes' floor (``nbytes``
+    at ``peak_bw``) and its exponentials' floor (``exps`` at ``peak_ex2``),
+    each floor's ms and which one binds (``bound_by``: bytes or operations,
+    the exponentials being operations of the special-function units)."""
+    floors = {"products": ops / peak, "bytes": nbytes / peak_bw, "exponentials": exps / peak_ex2}
+    by = max(floors, key=floors.get)
+    return dict(bound_ms=1e3 * floors[by], bound_by="bytes" if by == "bytes" else "operations", bound_floor=by,
+                products_ms=1e3 * floors["products"], exp_ms=1e3 * floors["exponentials"])
+
+
 def _time_ms(torch, fn, reps: int = 10) -> float:
     """Median of ``reps`` CUDA-event timings after two warm-up calls."""
     from crossscore_tpu_torch.tools._common import median_ms
@@ -274,8 +297,8 @@ def _rel_l2_or_zero(got, want) -> float:
         return float(got.float().abs().max())
     return _rel_l2(got, want)
 
-def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, *, views, n, d, h, f, eps, nq,
-                       dec_h) -> dict:
+def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, peak_ex2, *, views, n, d, h, f, eps,
+                       nq, dec_h) -> dict:
     """Step 3's part for K10-K12: fill ``report`` with each kernel or mode
     against its plain version at the shapes of its entry point, timed; return
     the inputs the kernels line names. Its inputs come from a generator of its
@@ -291,9 +314,8 @@ def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, *, v
     def randn(*shape, dtype, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def bound(ops, nbytes, peak):
-        return dict(bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-                    bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes")
+    def bound(ops, nbytes, peak, exps=0.0):
+        return _bound(ops, nbytes, peak, peak_bw, exps, peak_ex2)
 
     # K10 at the backbone's width over the predict point's 72 views, both dtypes:
     # against its plain version, timed beside K2 after the separate residual add
@@ -337,7 +359,8 @@ def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, *, v
     # K11 at the backbone's qkv of the predict point, K1 timed in the same run
     qkv = randn(views, n, 3 * d, dtype=bf16)
     k1_ms = _time_ms(torch, lambda: fa.flash_qkv_self_attention(qkv, h))
-    k1_bound = bound(4.0 * views * h * n * n * hd, views * n * 4 * d * es + 2 * views * h * n * 4, peak_bf16)
+    k1_work = (4.0 * views * h * n * n * hd, views * n * 4 * d * es + 2 * views * h * n * 4, peak_bf16)
+    k1_bound = bound(*k1_work, views * h * n * n)
     k1_plain = fa.flash_qkv_self_attention_plain(qkv, h)
     for probe in fa.QKV_PROBES:
         got = fa.flash_qkv_self_attention_probe(qkv, h, probe)
@@ -347,7 +370,8 @@ def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, *, v
             max_abs=_max_abs(got[0], want[0]),
             ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_probe(qkv, h, probe)),
             plain_ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_probe_plain(qkv, h, probe), reps=3),
-            library_ms=None, k1_ms=k1_ms, **k1_bound)
+            # mxu runs the products and loads only: no exponentials to floor
+            library_ms=None, k1_ms=k1_ms, **(bound(*k1_work) if probe == "mxu" else k1_bound))
         del got, want
     views_hm = [qkv.view(views, n, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)]
     sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(*views_hm))
@@ -386,7 +410,8 @@ def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, *, v
                 # bf16exp is softmax attention with a coarser exp: SDPA computes the same function
                 library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(q, k_, v_))
                 if variant == "bf16exp" else None,
-                k7_ms=k7_ms, **bound(ops, nbytes, peak_bf16))
+                # mxuprobe and noexp compute no exponentials: no floor for them
+                k7_ms=k7_ms, **bound(ops, nbytes, peak_bf16, bb * hh * n_q * nk if variant == "bf16exp" else 0.0))
             del got, want
         del q, k_, v_
         torch.cuda.empty_cache()
@@ -544,44 +569,86 @@ class _Tee:
         self.out.flush()
 
 
-def _bwd_build_report(_build) -> None:
-    """Print, for the bf16 backward's kernels (K4, K8, K9; K12 with PROBE),
-    what ``-Xptxas -v`` says of each (registers at launch, spill stores and
-    loads, static shared memory, any wgmma it serialised) and each head
-    dim's tile plan from the library (rows per block, q tile, KV tile,
-    stages, the dynamic shared memory of each pass); fail on a head dim
-    without a plan."""
+# the forward's head dims whose instantiations must compile without spills
+# or serialised wgmma (the main path's: the decoder's 48, the backbone's 64)
+FWD_STRICT_HDS = (48, 64)
+# the dynamic shared memory a block may take on the H100
+SMEM_LIMIT = 232448
+
+
+def _ptxas_entries(_build, src: str, pattern: str) -> dict:
+    """What ``-Xptxas -v`` says of each entry function of ``src`` whose
+    mangled name matches ``pattern``: {match groups: {registers, spill
+    stores, spill loads, static smem, wgmma serialised}}."""
+    log = (_build.BUILD_DIR / f"{src}.log").read_text().splitlines()
+    out, key = {}, None
+    for line in log:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(pattern, m.group(1))
+            key = k.groups() if k else None
+            if key:
+                out.setdefault(key, {})
+            continue
+        if "C7515" in line:  # the function the warning names, else the current entry
+            named = re.search(r"_Z\w+", line)
+            k = re.search(pattern, named.group(0)) if named else None
+            target = k.groups() if k else None if named else key
+            if target:
+                out.setdefault(target, {})["wgmma serialised"] = "yes"
+        if key is None:
+            continue
+        for name, pat in (("registers", r"Used (\d+) registers"), ("spill stores", r"(\d+) bytes spill stores"),
+                          ("spill loads", r"(\d+) bytes spill loads"), ("static smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out[key][name] = int(m.group(1))
+    return out
+
+
+def _wgmma_build_report(_build) -> None:
+    """Print, for the bf16 kernels on wgmma, what ``-Xptxas -v`` says of each
+    (registers at launch, spill stores and loads, static shared memory, any
+    wgmma it serialised) and each head dim's tile plan from the libraries:
+    the forward's (K1, K3, K5-K7, K11, K7'; ``attn_fwd_wgmma<HD, BIAS,
+    MODE>``: q rows a block, KV tile, stages, dynamic shared memory) and the
+    backward's (K4, K8, K9; K12 with PROBE). Fail on a spill or a serialised
+    wgmma in the forward's hd 48 or 64 instantiations, on a head dim without
+    a plan, or on a plan above the block's shared memory."""
     import ctypes
 
+    bad = []
+    for src in ("flash_qkv", "flash_cross"):
+        for (hd, bias, mode), info in _ptxas_entries(_build, src, r"attn_fwd_wgmmaILi(\d+)ELb(\d)ELi(\d)E").items():
+            print(f"  ptxas {src} attn_fwd_wgmma<{hd}, {'BIAS' if bias == '1' else 'no bias'}, mode {mode}>: "
+                  + ", ".join(f"{k} {v}" for k, v in info.items()))
+            if int(hd) in FWD_STRICT_HDS and (info.get("spill stores") or info.get("spill loads")
+                                              or "wgmma serialised" in info):
+                bad.append(f"{src} attn_fwd_wgmma<{hd}, {bias}, {mode}>")
     for src in ("flash_cross_bwd", "lane_pad_probe"):
-        log = (_build.BUILD_DIR / f"{src}.log").read_text().splitlines()
-        entry, info = None, {}
-        for line in log + ["Compiling entry function 'end'"]:
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                if entry:
-                    print(f"  ptxas {src} {entry}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
-                k = re.search(r"(attn_bwd_\w+_wgmma)ILi(\d+)ELb(\d)", m.group(1))
-                entry = k and f"{k.group(1)}<{k.group(2)}{', PROBE' if k.group(3) == '1' else ''}>"
-                info = {}
-            if not entry:
-                continue
-            for key, pat in (("registers", r"Used (\d+) registers"), ("spill stores", r"(\d+) bytes spill stores"),
-                             ("spill loads", r"(\d+) bytes spill loads"), ("static smem", r"(\d+) bytes smem")):
-                m = re.search(pat, line)
-                if m:
-                    info[key] = int(m.group(1))
-            if "C7515" in line:
-                info["wgmma serialised"] = "yes"
-    fn = _build.load("flash_cross_bwd").cs_flash_attention_bwd_plan
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+        for (kern, hd, probe), info in _ptxas_entries(_build, src, r"(attn_bwd_\w+_wgmma)ILi(\d+)ELb(\d)").items():
+            print(f"  ptxas {src} {kern}<{hd}{', PROBE' if probe == '1' else ''}>: "
+                  + ", ".join(f"{k} {v}" for k, v in info.items()))
+    fwd = _build.load("flash_cross").cs_flash_attention_fwd_plan
+    bwd = _build.load("flash_cross_bwd").cs_flash_attention_bwd_plan
+    for fn in (fwd, bwd):
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
     for hdim in range(16, 129, 16):
         out = (ctypes.c_int * 6)()
-        if fn(hdim, ctypes.addressof(out)) != 0:
+        if fwd(hdim, ctypes.addressof(out)) != 0:
+            _fail(f"the bf16 forward has no tile plan at hd {hdim}")
+        rows, bk, stages, smem = out[:4]
+        print(f"  bf16 forward plan hd {hdim}: {rows} q rows a block over KV tiles of {bk}, {stages} stages, "
+              f"dynamic shared memory {smem} bytes")
+        if smem > SMEM_LIMIT:
+            bad.append(f"forward plan hd {hdim}: {smem} bytes of shared memory")
+        if bwd(hdim, ctypes.addressof(out)) != 0:
             _fail(f"the bf16 backward has no tile plan at hd {hdim}")
         rows, bq, bk, stages, smem1, smem2 = out
         print(f"  bf16 backward plan hd {hdim}: pass 1 {rows} KV rows a block over q tiles of {bq}, pass 2 {rows} "
               f"q rows over KV tiles of {bk}, {stages} stages, dynamic shared memory {smem1} / {smem2} bytes")
+    if bad:
+        _fail("the forward's build: " + "; ".join(bad))
 
 
 def _twice(fn, *args):
@@ -859,10 +926,11 @@ def main() -> int:
 
     card = card_line()
     print(card)
+    print(f"name, power limit, max SM clock: {card_line('clocks.max.sm')}")
     name = torch.cuda.get_device_name(0)
-    peak_row, (peak_bf16, peak_f32, peak_bw) = _peaks(name)
+    peak_row, (peak_bf16, peak_f32, peak_bw, peak_ex2) = _peaks(name)
     print(f"peaks used for bounds: {peak_row} row: {peak_bf16 / 1e12:g} TFLOP/s bf16, "
-          f"{peak_f32 / 1e12:g} TFLOP/s fp32, {peak_bw / 1e12:g} TB/s")
+          f"{peak_f32 / 1e12:g} TFLOP/s fp32, {peak_bw / 1e12:g} TB/s, {peak_ex2 / 1e12:g} T exp2/s")
 
     t0 = time.perf_counter()
     secs = _build.build_all()
@@ -881,7 +949,7 @@ def main() -> int:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 print(f"  ptxas {src} {entry}: {m.group(1)} registers")
-    _bwd_build_report(_build)
+    _wgmma_build_report(_build)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -907,17 +975,16 @@ def main() -> int:
         qkv = randn(views, n, 3 * d, dtype=dtype)
         got = flash_qkv_self_attention(qkv, h)
         want = flash_qkv_self_attention_plain(qkv, h)
-        err = max(_rel_err(g, w) for g, w in zip(got, want))
+        err, l2 = _masked_errs([(got, want)])
         ops = 4.0 * views * h * n * n * hd
         nbytes = views * n * (3 * d + d) * es + 2 * views * h * n * 4
         report[("K1", tname)] = dict(
-            err=err, tol=TOL[tname], max_abs=_max_abs(got[0], want[0]),
+            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], max_abs=_max_abs(got[0], want[0]),
             ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
             plain_ms=_time_ms(torch, lambda: flash_qkv_self_attention_plain(qkv, h), reps=3),
             library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
                 *(qkv.view(views, n, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)))),
-            bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-            bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+            **_bound(ops, nbytes, peak, peak_bw, views * h * n * n, peak_ex2),
         )
         del qkv, got, want
 
@@ -939,9 +1006,7 @@ def main() -> int:
             err=err, tol=TOL[tname], max_abs=_max_abs(got, want),
             ms=_time_ms(torch, lambda: fused_ln_mlp(x, *mlp, vit.layer_norm_eps, "tanh")),
             plain_ms=_time_ms(torch, lambda: fused_ln_mlp_plain(x, *mlp, vit.layer_norm_eps, "tanh"), reps=3),
-            library_ms=None,
-            bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-            bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+            library_ms=None, **_bound(ops, nbytes, peak, peak_bw),
         )
         del x, mlp, got, want
 
@@ -950,19 +1015,18 @@ def main() -> int:
             k_, v_ = randn(B, nk, d, dtype=dtype), randn(B, nk, d, dtype=dtype)
             got = flash_cross_attention(q, k_, v_, dec_h)
             want = flash_cross_attention_plain(q, k_, v_, dec_h)
-            err = max(_rel_err(g, w) for g, w in zip(got, want))
+            err, l2 = _masked_errs([(got, want)])
             dhd = d // dec_h
             ops = 4.0 * B * dec_h * nq * nk * dhd
             nbytes = B * (2 * nq + 2 * nk) * d * es + 2 * B * dec_h * nq * 4
             heads = lambda t: t.view(B, -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
             report[(tag, tname)] = dict(
-                err=err, tol=TOL[tname], max_abs=_max_abs(got[0], want[0]),
+                err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], max_abs=_max_abs(got[0], want[0]),
                 ms=_time_ms(torch, lambda: flash_cross_attention(q, k_, v_, dec_h)),
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_plain(q, k_, v_, dec_h), reps=3),
                 library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
                     heads(q), heads(k_), heads(v_))),
-                bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-                bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+                **_bound(ops, nbytes, peak, peak_bw, B * dec_h * nq * nk, peak_ex2),
             )
             del k_, v_, got, want
         del q
@@ -993,8 +1057,9 @@ def main() -> int:
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_bwd_plain(*args), reps=3),
                 library_ms=_time_ms(torch, lambda: torch.autograd.grad(
                     oh, (qh, kh, vh), heads(do), retain_graph=True)),
-                bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-                bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+                # one exponential per score: the function needs p once, as it
+                # needs its 5 products, however often the kernel recomputes them
+                **_bound(ops, nbytes, peak, peak_bw, TB * dec_h * nq * nk, peak_ex2),
             )
             del k_, v_, o, l, m, args, got, want, qh, kh, vh, oh
         del q, do
@@ -1024,8 +1089,7 @@ def main() -> int:
             library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
                 *(qkv.view(PB, nb + 1, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)),
                 attn_mask=mask)),
-            bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-            bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+            **_bound(ops, nbytes, peak, peak_bw, h * (nb + 1) * valid_cols, peak_ex2),
         )
         del qkv, got, want, mask
         q = randn(PB, nb, d, dtype=dtype)
@@ -1038,7 +1102,8 @@ def main() -> int:
                 flash_cross_attention_masked(q, k_, v_, bias6[1].contiguous(), dec_h),
                 flash_cross_attention_masked_plain(q, k_, v_, bias6[1].contiguous(), dec_h))])
             dhd = d // dec_h
-            ops = 4.0 * dec_h * nb * float((bias6 == 0).sum()) * dhd
+            exps = dec_h * nb * float((bias6 == 0).sum())  # masked columns need no work
+            ops = 4.0 * exps * dhd
             nbytes = PB * (2 * nb + 2 * reps_ * nb) * d * es + 2 * PB * dec_h * nb * 4 + bias6.numel() * 4
             heads = lambda t: t.view(PB, -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
             mask = bias6[:, None, None, :].to(dtype)
@@ -1049,8 +1114,7 @@ def main() -> int:
                                   reps=3),
                 library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
                     heads(q), heads(k_), heads(v_), attn_mask=mask)),
-                bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-                bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+                **_bound(ops, nbytes, peak, peak_bw, exps, peak_ex2),
             )
             del k_, v_, got, want, mask
         del q, item_bias, bias5, bias6
@@ -1083,8 +1147,7 @@ def main() -> int:
                     ms=_time_ms(torch, lambda: flash_attention_head_major(*hm)),
                     plain_ms=_time_ms(torch, lambda: flash_attention_head_major_plain(*hm), reps=3),
                     library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(*hm)),
-                    bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-                    bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+                    **_bound(ops, nbytes, peak, peak_bw, B * dec_h * nq * nk, peak_ex2),
                     # K3 on the token-major tensors the hm read: the same work
                     k3_ms=_time_ms(torch, lambda: flash_cross_attention(xq, xk, xv, dec_h)),
                 )
@@ -1097,7 +1160,8 @@ def main() -> int:
             report[("K7", tname)].update(
                 ms_nk10952=_time_ms(torch, lambda: flash_attention_head_major(*hm)),
                 k3_ms_nk10952=_time_ms(torch, lambda: flash_cross_attention(xq, xk, xv, dec_h)),
-                bound_ms_nk10952=1e3 * 4.0 * B * dec_h * nq * nk * dhd / peak)
+                bound_ms_nk10952=_bound(4.0 * B * dec_h * nq * nk * dhd, 0.0, peak, peak_bw,
+                                        B * dec_h * nq * nk, peak_ex2)["bound_ms"])
             del xq, xk, xv, hm
         torch.cuda.empty_cache()
 
@@ -1121,8 +1185,7 @@ def main() -> int:
             ms=_time_ms(torch, lambda: flash_attention_head_major(*hm)),
             plain_ms=_time_ms(torch, lambda: flash_attention_head_major_plain(*hm), reps=3),
             library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(*hm)),
-            bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-            bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+            **_bound(ops, nbytes, peak, peak_bw, bv * h * n * n, peak_ex2),
             # K1 on the fused qkv of the same projections: the flash route's form
             k1_ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
         )
@@ -1154,8 +1217,7 @@ def main() -> int:
                     plain_ms=_time_ms(torch, lambda: flash_attention_head_major_bwd_plain(*hm), reps=3),
                     library_ms=_time_ms(torch, lambda: torch.autograd.grad(oh, (qh, kh, vh), hm[4],
                                                                            retain_graph=True)),
-                    bound_ms=1e3 * max(ops / peak, nbytes / peak_bw),
-                    bound_by="operations" if ops / peak >= nbytes / peak_bw else "bytes",
+                    **_bound(ops, nbytes, peak, peak_bw, bb * hh * n_q * nk, peak_ex2),  # as K4's
                     # K4 on the token-major tensors the views read: the same work
                     k4_ms=_time_ms(torch, lambda: flash_cross_attention_bwd(*tm, hh)),
                 )
@@ -1169,20 +1231,72 @@ def main() -> int:
     # K10, K11, K7' and K12, the timing instruments of the sixth slice (no
     # model path reaches them): each against its plain version, the K11 and
     # K7' modes and K12 in bf16 (their CUDA kernels' only type), K10 in both
-    instruments = _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw,
+    instruments = _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, peak_ex2,
                                      views=views, n=n, d=d, h=h, f=f, eps=vit.layer_norm_eps,
                                      nq=nq, dec_h=dec_h)
 
-    # the other presets' widths, small shapes, correctness only: K1 at hd 16
-    # (dinov2-test) and 64 (base, large), K2 at D 64, 768, 1024, K3 and K4 at
-    # hd 96 and 128 (base, large decoders), K4 also at hd 64
+    # the other presets' widths, small shapes, correctness only: K1, K3 and K7
+    # (views and contiguous) at every head dim 16-128 (dinov2-test's 16, base's
+    # and large's 64, the decoders' 48, 96, 128), K2 at D 64, 768, 1024, K4 and
+    # K8/K9 at every head dim; the forward held by TOL and the relative L2 of
+    # each of o, l and m, each launched twice on the same inputs
+    def fwd_entry(pairs, tname):
+        """The report entry of forward (kernel, plain) output pairs, each kernel
+        output a (first launch, same bits again) pair from _twice."""
+        err, l2 = _masked_errs([(got, want) for (got, _), want in pairs])
+        return dict(err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname],
+                    bit_equal=all(same for (_, same), _ in pairs))
+
     for dtype in (torch.bfloat16, torch.float32):
         tname = str(dtype).split(".")[-1]
-        for heads, hdim in ((4, 16), (12, 64)):
-            qkv = randn(2, 300, 3 * heads * hdim, dtype=dtype)
-            err = max(_rel_err(g, w) for g, w in zip(
-                flash_qkv_self_attention(qkv, heads), flash_qkv_self_attention_plain(qkv, heads)))
-            report[(f"K1 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
+        for hdim in range(16, 129, 16):
+            qkv = randn(2, 300, 3 * 3 * hdim, dtype=dtype)
+            report[(f"K1 hd{hdim}", tname)] = fwd_entry(
+                [(_twice(flash_qkv_self_attention, qkv, 3), flash_qkv_self_attention_plain(qkv, 3))], tname)
+            q, k_, v_ = (randn(2, n_, 3 * hdim, dtype=dtype) for n_ in (300, 700, 700))
+            report[(f"K3 hd{hdim}", tname)] = fwd_entry(
+                [(_twice(flash_cross_attention, q, k_, v_, 3), flash_cross_attention_plain(q, k_, v_, 3))], tname)
+            hm = [t.view(2, -1, 3, hdim).transpose(1, 2) for t in (q, k_, v_)]
+            report[(f"K7 hd{hdim}", tname)] = fwd_entry(
+                [(_twice(flash_attention_head_major, *layout), flash_attention_head_major_plain(*layout))
+                 for layout in (hm, [t.contiguous() for t in hm])], tname)
+        # ragged and tiny shapes, where the bf16 forward's TMA boxes run past Nq
+        # or Nk and read zeros: K3, K6 and K7 (views and contiguous, without
+        # and with a shared bias) at Nq 1, 63, 65 over Nk 1, 65, 2049, and K1
+        # and K5 at N 1, 63, 65, 2049, at hd 48 and 128; K5 and K6 with a
+        # per-item bias and K7 with a shared one, each masking a third of the
+        # columns; each launched twice
+        def ragged_bias(rows, nk_):
+            col = torch.arange(nk_, device=dev)
+            off = -torch.rand(rows, nk_, generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
+            return torch.stack([torch.where((col + i) % 3 == 1, -1e30, off[i]) for i in range(rows)])
+
+        for hdim in (48, 128):
+            for nq_ in (1, 63, 65, 2049):
+                qkv = randn(2, nq_, 3 * 3 * hdim, dtype=dtype)
+                bias = ragged_bias(2, nq_)
+                report[(f"K1 n{nq_} hd{hdim}", tname)] = fwd_entry(
+                    [(_twice(flash_qkv_self_attention, qkv, 3), flash_qkv_self_attention_plain(qkv, 3))], tname)
+                report[(f"K5 n{nq_} hd{hdim}", tname)] = fwd_entry(
+                    [(_twice(flash_qkv_self_attention_masked, qkv, bias, 3),
+                      flash_qkv_self_attention_masked_plain(qkv, bias, 3))], tname)
+                if nq_ == 2049:
+                    continue
+                for nk_ in (1, 65, 2049):
+                    q = randn(2, nq_, 3 * hdim, dtype=dtype)
+                    k_, v_ = randn(2, nk_, 3 * hdim, dtype=dtype), randn(2, nk_, 3 * hdim, dtype=dtype)
+                    bias = ragged_bias(2, nk_)
+                    report[(f"K3 nq{nq_} nk{nk_} hd{hdim}", tname)] = fwd_entry(
+                        [(_twice(flash_cross_attention, q, k_, v_, 3), flash_cross_attention_plain(q, k_, v_, 3))],
+                        tname)
+                    report[(f"K6 nq{nq_} nk{nk_} hd{hdim}", tname)] = fwd_entry(
+                        [(_twice(flash_cross_attention_masked, q, k_, v_, bias, 3),
+                          flash_cross_attention_masked_plain(q, k_, v_, bias, 3))], tname)
+                    hm = [t.view(2, -1, 3, hdim).transpose(1, 2) for t in (q, k_, v_)]
+                    report[(f"K7 nq{nq_} nk{nk_} hd{hdim}", tname)] = fwd_entry(
+                        [(_twice(flash_attention_head_major, *layout, b_), flash_attention_head_major_plain(*layout, b_))
+                         for layout in (hm, [t.contiguous() for t in hm]) for b_ in (None, bias[0].contiguous())],
+                        tname)
         for width in (64, 768, 1024):
             x = randn(2, 300, width, dtype=dtype)
             mlp = (randn(width, dtype=torch.float32, scale=0.1) + 1,
@@ -1194,11 +1308,6 @@ def main() -> int:
             err = max(_rel_err(fused_ln_mlp(x, *mlp, 1e-6, g), fused_ln_mlp_plain(x, *mlp, 1e-6, g))
                       for g in ("tanh", "exact"))
             report[(f"K2 D{width}", tname)] = dict(err=err, tol=TOL[tname])
-        for heads, hdim in ((8, 96), (8, 128)):
-            q, k_, v_ = (randn(2, n_, heads * hdim, dtype=dtype) for n_ in (300, 700, 700))
-            err = max(_rel_err(g, w) for g, w in zip(
-                flash_cross_attention(q, k_, v_, heads), flash_cross_attention_plain(q, k_, v_, heads)))
-            report[(f"K3 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname])
         for hdim in range(16, 129, 16):  # K4 at every head dim it takes
             q, k_, v_ = (randn(2, n_, 8 * hdim, dtype=dtype) for n_ in (300, 700, 700))
             o, l, m = flash_cross_attention(q, k_, v_, 8)
@@ -1259,7 +1368,7 @@ def main() -> int:
         if "ms" in r:  # not a preset-width check
             line += (f" max|d| {r['max_abs']:.3e} kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms "
                      f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} ms "
-                     f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+                     f"bound {r['bound_ms']:.3f} ms ({r.get('bound_floor', r['bound_by'])})")
         if "k1_ms" in r:
             line += f" K1 same qkv {r['k1_ms']:.3f} ms"
         if "k3_ms" in r:
@@ -1993,8 +2102,8 @@ def main() -> int:
               "K7 backbone": f"q/k/v ({TB * (TK + 1)}, {h}, {n}, {hd}) bf16 head-major views, no bias",
               **{kern: "q/o/do ({0}, {1}, {2}, {4}), k/v ({0}, {1}, {3}, {4}) bf16 head-major views".format(
                   *K89_SHAPES[kern][:5]) for kern in ("K8", "K9")}}
-    stats = ("err", "tol", "l2", "tol_l2", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms", "k1_ms",
-             "k3_ms", "k4_ms")
+    stats = ("err", "tol", "l2", "tol_l2", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms", "bound_floor",
+             "k1_ms", "k3_ms", "k4_ms")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
@@ -2010,7 +2119,8 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "rel_err": r["err"], "tol": r["tol"],
                "err_kind": "relative L2 of dq, dk, dv" if kern in ("K4", "K8", "K9")
-               else "max |d| / (1 + |plain|)",
+               else "max |d| / (1 + |plain|)" if kern == "K2"
+               else "max |d| / (1 + |plain|); l2: relative L2 of o, l, m",
                "launches_by_path": {"predict": launches[kern], "bucketed_predict": cli["c"]["launches"][kern],
                                     "train_step": train_launches[kern],
                                     "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern],
@@ -2020,7 +2130,8 @@ def main() -> int:
         # K7: K3's on the same work, and both at the 1-rank length; K8/K9:
         # K4's on the same work
         row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms", "k3_ms", "ms_nk10952", "k3_ms_nk10952",
-                                      "bound_ms_nk10952", "k4_ms") if k in r})
+                                      "bound_ms_nk10952", "k4_ms", "bound_floor", "products_ms", "exp_ms")
+                    if k in r})
         if kern in ("K3", "K4", "K6"):
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
             row["self"] = {k: s[k] for k in stats if k in s}
@@ -2058,7 +2169,8 @@ def main() -> int:
                "err_kind": "relative L2 of o, l, m" if kern.startswith(("K11 n", "K11 m", "K7'"))
                else "relative L2 of dq, dk, dv on the written lanes" if kern.startswith("K12")
                else "max |d| / (1 + |plain|)", "shape": shape}
-        row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms", "k7_ms", "k2res_ms") if k in r})
+        row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms", "k7_ms", "k2res_ms", "bound_floor", "products_ms",
+                                      "exp_ms") if k in r})
         if kern == "K10":
             row["fp32"] = {k: v for k, v in report[("K10", "float32")].items()}
         if kern.startswith("K7'"):

@@ -83,10 +83,9 @@ __device__ __forceinline__ void load_stats(float* s_lb, float* s_dl, const BwdAr
 //
 // Registers: ptxas allocates the consumers' code up to the setmaxnreg
 // ceiling (240), not the launch bound (168), only if the kernel has no trap
-// instruction (with one it capped them at 168 and spilled).
-constexpr int WG_THREADS = 384;
-constexpr int PRODUCER_REGS = 24;   // one warp issuing loads
-constexpr int CONSUMER_REGS = 240;  // 128 * 24 + 256 * 240 <= 65536
+// instruction (with one it capped them at 168 and spilled). The block's
+// shape, the ring and the product helpers are shared with the forward
+// (tma.cuh, wgmma.cuh).
 constexpr int STAGES = 4;
 
 // The tile plan of head dim HD. Shared rows are hd padded to CB 64-column
@@ -118,44 +117,6 @@ struct BwdTiles {
   static constexpr uint32_t p2_bytes = p2_bar + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// the block's shared memory, aligned up to the 1024 bytes of a swizzle atom
-__device__ __forceinline__ unsigned char* smem_1024(unsigned char* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
-
-// bar[0] the resident tiles, bar[1 + s] stage s full, bar[1 + S + s] empty
-__device__ __forceinline__ void init_ring(uint64_t* bar, int stages, int full_count) {
-  if (threadIdx.x == 0) {
-    mbar_init(&bar[0], 1);
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&bar[1 + s], full_count);
-      mbar_init(&bar[1 + stages + s], 8);  // the two consumer warpgroups' eight warps
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-}
-
-// the CB column blocks of `rows`-row boxes at row r0 of `map` into `dst`
-template <int CB>
-__device__ __forceinline__ void tma_rows(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int rows,
-                                         int r0, int head, int b) {
-#pragma unroll
-  for (int cb = 0; cb < CB; ++cb) tma_load_4d(dst + cb * rows * 128, map, bar, cb * 64, r0, head, b);
-}
-
-// One consumer's score product: acc = A B^T over hd, A the warpgroup's 64
-// resident rows (a_rows per column block), B the streamed tile (b_rows).
-template <int HD, int N>
-__device__ __forceinline__ void score_product(float (&acc)[N / 2], uint32_t a, int a_rows, uint32_t b, int b_rows) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t kin = (kk % 4) * 32, cb = kk / 4;
-    Wgmma<N>::ss(acc, sw128_desc_at(a + cb * a_rows * 128 + kin, 16), sw128_desc_at(b + cb * b_rows * 128 + kin, 16),
-                 kk > 0);
-  }
-}
-
 // The two consumer warpgroups run the same loop over the same tiles; started
 // together they stay in step, both on the tensor cores and then both on
 // the exponentials. Warpgroup 1 therefore starts once warpgroup 0 has its
@@ -164,26 +125,6 @@ __device__ __forceinline__ void score_product(float (&acc)[N / 2], uint32_t a, i
 // the dk/dv pass as it was).
 __device__ __forceinline__ void start_after_warpgroup_0() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 __device__ __forceinline__ void release_warpgroup_1() { asm volatile("bar.arrive 1, 256;\n" ::: "memory"); }
-
-// acc += P B over the K rows of a streamed tile at `b` (b_rows rows per
-// column block): P's bf16 A registers, B MN-major
-template <int HD, int K>
-__device__ __forceinline__ void grad_product(float (&acc)[HD / 2], const uint32_t (&pa)[K / 16][4], uint32_t b,
-                                             int b_rows) {
-#pragma unroll
-  for (int ks = 0; ks < K / 16; ++ks)
-    Wgmma<HD>::rs_t(acc, pa[ks], sw128_desc_mn(b + ks * 2048, b_rows * 128));
-}
-
-// an accumulator tile's 4j..4j+3 values packed as A registers
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&pa)[N / 16][4], const float (&v)[N / 2]) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    pa[j / 2][(j % 2) * 2] = pack_bf16(v[4 * j], v[4 * j + 1]);
-    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(v[4 * j + 2], v[4 * j + 3]);
-  }
-}
 
 // a consumer's 64 x HD fp32 tile to rows [r0, r0 + 64) of a token-major
 // bf16 output (row stride rs), rows at or past n skipped

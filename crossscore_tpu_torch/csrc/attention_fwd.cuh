@@ -1,8 +1,8 @@
 // Flash-attention forward shared by K1 and K5 (flash_qkv.cu) and K3, K6 and
 // K7 (flash_cross.cu), and the timing modes K11 and K7' (below).
 //
-// softmax(Q K^T * scale) V for one (batch, head, q tile) per block,
-// with an online softmax over 64-row KV tiles, so the Nq x Nk score matrix
+// softmax(Q K^T * scale) V for one (batch, head, 128-row q tile) per block,
+// with an online softmax over 128-row KV tiles, so the Nq x Nk score matrix
 // never reaches device memory. Q, K, V and O are addressed by batch, head and
 // row strides with the HD columns of a row contiguous: K1 passes the three
 // sections of the fused (B, N, 3D) qkv projection and K3 the separate
@@ -13,6 +13,12 @@
 // JAX package's (o, l, m) convention.
 // Ragged tails are masked on both sides: q rows past Nq are computed from
 // zeros and never stored, KV columns past Nk get -inf logits (and zero V).
+//
+// It replaces the TPU kernels crossscore_tpu/ops/flash_attention.py
+// `_fwd_kernel_qkv` (:1347, K1), `_fwd_kernel_qkv_biased` (:1227, K5),
+// `_fwd_kernel_cross_ln` (:799, K3 and, with `per_item`, K6) and the bodies of
+// `_flash_fwd` (:285): `_fwd_kernel` (:69), `_fwd_kernel_single` (:118),
+// `_fwd_kernel_v2` (:186) and `_fwd_kernel_single_v2` (:231) (K7).
 //
 // K5 and K6 are the same kernels with BIAS = true: an fp32 additive bias over
 // the KV tokens (0 for a valid token, -1e30 for a bucket-padded one), one row
@@ -25,7 +31,8 @@
 // Timing modes (template parameter MODE of the bf16 kernel; kExact is every
 // kernel above). They are the counterparts of the TPU timing bodies, each
 // computing what its TPU body computes, wrong math included, and no model
-// path reaches them:
+// path reaches them. They are variants of the same kernel's score epilogue,
+// so they split the kernel that the model runs:
 //   K11 (`_fwd_kernel_qkv_probe`, `_fwd_kernel_qkv_chunked`, off K1's fused
 //   qkv; flash_qkv.cu):
 //     kNoMax   p = bf16(exp2(s * c1 - 8)), no row max; l = sum p, o / l, and
@@ -44,31 +51,58 @@
 //               bf16 exp2: bf16(exp(bf16(x * bf16(ln 2)))); o / l, l = sum p.
 //   The TPU computes kNoExp and kBf16Exp in its single-KV-block body, where
 //   m is the exact row max before any p is formed. A block here streams KV
-//   tiles, and a linear p (noexp) cannot be rescaled by a later max, so these
-//   two modes first take the exact row max in a QK-only pass over every KV
-//   tile and then run the PV pass with m fixed: the TPU's function and
-//   rounding, at the price of a third product (6 N^2 hd operations per head
-//   against 4). Every mode but kExact sums the bf16-rounded p into l, as the
-//   TPU bodies do. KV columns past Nk contribute nothing in any mode. The
-//   modes run on bf16 only and take no bias.
+//   tiles, and a linear p (noexp) cannot be rescaled by a later max, so for
+//   these two modes the producer streams every K tile twice: a Q K^T-only
+//   pass takes the exact row max, then the P V pass runs with m fixed (the
+//   TPU's function and rounding, at the price of a third product: 6 N^2 hd
+//   operations per head against 4). Every mode but kExact sums the
+//   bf16-rounded p into l, as the TPU bodies do. KV columns past Nk
+//   contribute nothing in any mode. The modes run on bf16 only and take no
+//   bias.
 //
-// Bound on the H100: at the main-path shapes (hd 64 and 48, N >= 1369) the
-// work is ~4*N*N*hd operations per head against ~N*hd*8 bytes, far above the
-// card's ~295 op/byte ridge, so the tensor cores bound it. bf16 runs both
-// products as mma.sync m16n8k16 (fp32 accumulators in registers, operands
-// through ldmatrix, K/V double-buffered with cp.async) and keeps S, P and O
-// in registers; fp32 inputs take a CUDA-core path in full fp32, because the
-// tensor cores' fp32 route is TF32. Not yet used: wgmma, TMA, warp
-// specialisation.
+// Bound on the H100 (SXM, 700 W): per head, 4 Nq Nk hd product operations at
+// 989 TFLOP/s (bf16 tensor cores) and Nq Nk exponentials at ~3.9 T/s (the
+// special-function units: 16 a clock on each of 132 SMs; FlashAttention-3,
+// arXiv 2407.08608, section 1) against (2 Nq + 2 Nk) hd * 2 bytes at 3.35
+// TB/s. The bytes are far below both: at hd 64 the products' and the
+// exponentials' floors are equal, at hd 48 the exponentials' is a third
+// higher. A kernel that runs a tile's products and then its exponentials
+// one after the other cannot pass half the bound, so the design overlaps
+// them (bf16):
+// - products on wgmma: S = Q K^T with both operands K-major in shared memory
+//   (m64n128, N the KV tile), O += P V with P packed to bf16 straight from the
+//   S accumulators into A registers and V read MN-major from the same
+//   128-byte swizzled tile (m64n{HD});
+// - loads by TMA: Q once per block, K and V through a ring of mbarrier stages
+//   fed by one producer warp, from one 4-D tensor map per operand (hd, rows,
+//   heads, batch), so that any stride layout maps in place and a ragged box
+//   reads zeros, never the next head's or batch item's rows;
+// - two consumer warpgroups of 64 q rows each, taking turns on the tensor
+//   cores (named barriers 2 and 3, FlashAttention-3's "ping-pong") and on
+//   the special-function units (4 and 5): one warpgroup's exponentials run
+//   while the other's products do, and the two softmaxes never share the
+//   units;
+// - inside a warpgroup, the previous tile's P V is issued behind this tile's
+//   Q K^T, its P packed in one of two register buffers while the other is
+//   this tile's. Every product is done by the end of its iteration: one
+//   left in flight across the loop's back edge makes ptxas serialise every
+//   wgmma of the kernel (C7515). ptxas places the wait for that P V right
+//   after the wait for Q K^T, ahead of the exponentials, whatever the source
+//   order (PERF.md), so within a warpgroup the softmax follows both of its
+//   products; the overlap is between the warpgroups.
+// fp32 inputs take a CUDA-core path in full fp32 (the tensor cores' fp32
+// route is TF32), unchanged.
 #pragma once
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace cs {
 
 constexpr int BQ = 64;  // q rows per block of the fp32 path (two threads per row)
-constexpr int BK = 64;  // KV rows per tile
+constexpr int BK = 64;  // KV rows per tile of the fp32 path
 constexpr int ATTN_THREADS = 128;
 
 struct AttnArgs {
@@ -86,15 +120,15 @@ struct AttnArgs {
   float c1;  // softmax scale * log2(e)
   const float* bias = nullptr;  // K5/K6: (Nk,) or (B, Nk) fp32, natural units
   long long bias_bs = 0;        // batch stride of bias: 0 (shared row) or Nk
-  // kPartial: KV rows per chunk (a multiple of BK) and the chunks' partial
-  // o (C, B, H, Nq, hd), l and m (C, B, H, Nq), fp32
+  // kPartial: KV rows per chunk and the chunks' partial o (C, B, H, Nq, hd),
+  // l and m (C, B, H, Nq), fp32
   int kv_chunk = 0;
   float* part_o = nullptr;
   float* part_l = nullptr;
   float* part_m = nullptr;
 };
 
-// the score-epilogue modes of attn_fwd_bf16 (see the top of this file)
+// the score-epilogue modes of attn_fwd_wgmma (see the top of this file)
 constexpr int kExact = 0;
 constexpr int kNoMax = 1;
 constexpr int kNoSum = 2;
@@ -126,324 +160,359 @@ __device__ __forceinline__ float2 bf16_exp2_pair(float s0, float s1, float c, fl
   return make_float2(ok0 ? ex2(u.x * kLog2e) : 0.f, ok1 ? ex2(u.y * kLog2e) : 0.f);
 }
 
-// bf16 tiling: MW 16-row m-atoms per warp (two when hd <= 64, so every K and
-// V fragment loaded from shared memory feeds two products), 4 warps, so a
-// block takes 64 * MW q rows.
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// The bf16 tile plan of head dim HD. Shared rows are hd padded to CB
+// 64-column SW128 blocks (the padding read as zeros from TMA and never by a
+// product: Q K^T stops at hd, P V is m64n{HD}). A consumer holds S (BK/2
+// fp32 registers), O (HD/2) and two buffers of P packed to bf16 (BK/4 each):
+// BK = 128 costs 128 + HD/2, within the consumers' 240 at every HD. The ring
+// holds the tile that P V still reads, the tile under Q K^T and the next:
+// four stages of 32 KB up to HD 64, three of 64 KB above (231,992 bytes with
+// Q and the bias rows, of the 232,448 a block may take); the block runs
+// alone on its SM, held there by its registers. K5 and K6 stage each tile's
+// bias row beside it (BK fp32 a stage, written by the producer warp).
 template <int HD>
-struct BfLayout {
-  static constexpr int MW = HD <= 64 ? 2 : 1;
-  static constexpr int ROWS = 64 * MW;  // q rows per block
-  static constexpr int LD = HD + 8;     // padded rows: ldmatrix without bank conflicts
-  static constexpr size_t tile = align128((size_t)BK * LD * 2);
-  static constexpr size_t kv_off = align128((size_t)ROWS * LD * 2);
-  static constexpr size_t total = kv_off + 4 * tile;  // K and V, two stages
+struct FwdTiles {
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128, "head dim");
+  static constexpr int CB = (HD + 63) / 64;
+  static constexpr int ROWS = 128;  // q rows a block: 64 per consumer warpgroup
+  static constexpr int BK = 128;    // KV rows a tile
+  static constexpr int STAGES = CB == 1 ? 4 : 3;
+  static constexpr uint32_t QB = CB * ROWS * 128;  // bytes of the Q tile
+  static constexpr uint32_t KT = CB * BK * 128;    // of a K or V tile
+  static constexpr uint32_t bias_off = QB + STAGES * 2 * KT;  // stage s: BK fp32 at bias_off + s*BK*4
+  static constexpr uint32_t bar_off = bias_off + STAGES * BK * 4;
+  static constexpr uint32_t bytes = bar_off + (1 + 2 * STAGES) * 8 + 1024;  // + alignment slack
 };
 
-// S = Q K^T for the MW m-atoms of this warp over one BK-row K tile in shared
-// memory (row stride LD): fp32 accumulators, K fragments through ldmatrix.
-template <int HD, int MW, int LD>
-__device__ __forceinline__ void qk_scores(float (&s)[MW][BK / 8][4], const uint32_t (&qa)[MW][HD / 16][4],
-                                          const __nv_bfloat16* sK, int lane) {
+// The two consumer warpgroups take turns to issue their products (named
+// barrier 2 + cw: warpgroup cw's turn) and to run their softmax (barrier
+// 4 + cw); warpgroup 1 arrives first on both, so warpgroup 0 starts. (A
+// single offset of half an iteration, as the backward's passes start, was
+// slower on the H100 at hd 48 and 64.)
+__device__ __forceinline__ void wait_turn(int cw) { asm volatile("bar.sync %0, 256;\n" ::"r"(2 + cw) : "memory"); }
+__device__ __forceinline__ void pass_turn(int cw) { asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - cw) : "memory"); }
+__device__ __forceinline__ void wait_sm_turn(int cw) { asm volatile("bar.sync %0, 256;\n" ::"r"(4 + cw) : "memory"); }
+__device__ __forceinline__ void pass_sm_turn(int cw) { asm volatile("bar.arrive %0, 256;\n" ::"r"(5 - cw) : "memory"); }
+
+// One consumer thread's softmax of a TILE-column tile: p in place of its
+// scores sc (rows g and g + 8 of its warp's 16; TILE/8 column pairs each),
+// with bc the bias of its columns (BIAS) and lim the tile's valid columns.
+// Keeps the running row maxima m_run (scaled log2 units) and the thread's
+// partial row sums l_run; alpha: the factor that rescales the earlier
+// tiles' o.
+template <int TILE, int MODE, bool BIAS>
+__device__ __forceinline__ void tile_softmax(float (&sc)[TILE / 2], const float (&bc)[TILE / 8][2], int lim, float c1,
+                                             float cs, int qd, float (&m_run)[2], float (&l_run)[2],
+                                             float (&alpha)[2]) {
+  constexpr bool TRACK_MAX = MODE == kExact || MODE == kNoSum || MODE == kPartial;
+  constexpr bool HAS_L = MODE != kNoSum && MODE != kMxu;
+  if constexpr (BIAS) {
 #pragma unroll
-  for (int mi = 0; mi < MW; ++mi)
+    for (int j = 0; j < TILE / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[mi][j][0] = s[mi][j][1] = s[mi][j][2] = s[mi][j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      uint32_t bb[4];
-      ldsm_b_nk_x2tiles(bb, sK + np * 16 * LD + kk * 16, LD, lane);
-#pragma unroll
-      for (int mi = 0; mi < MW; ++mi) {
-        mma_bf16(s[mi][2 * np], qa[mi][kk], bb[0], bb[1]);
-        mma_bf16(s[mi][2 * np + 1], qa[mi][kk], bb[2], bb[3]);
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = fmaf(sc[4 * j + e], c1, bc[j][e]);
+        sc[4 * j + 2 + e] = fmaf(sc[4 * j + 2 + e], c1, bc[j][e]);
       }
+  }
+  if (lim < TILE) {  // the ragged last tile: columns at or past Nk
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * j + 2 * qd + e >= lim) sc[4 * j + e] = sc[4 * j + 2 + e] = -INFINITY;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sh;  // this row's exponent shift, scaled units
+    alpha[h] = 1.f;
+    if constexpr (TRACK_MAX) {
+      // four independent chains, then their max: a short dependency path
+      float m4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) m4[j % 4] = fmaxf(m4[j % 4], fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      float mx = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // running maxima in scaled units (c1 > 0, so scaling keeps the max)
+      const float mn = fmaxf(m_run[h], mx * cs);
+      alpha[h] = ex2(m_run[h] - mn);
+      m_run[h] = sh = mn;
+    } else if constexpr (MODE == kNoMax) {
+      sh = 8.f;  // the TPU probe's constant shift in place of the row max
+    } else {
+      sh = m_run[h];  // FIXED_MAX: the exact row max (unused by the MXU modes)
     }
+    float r4[4] = {0.f, 0.f, 0.f, 0.f};  // the row sum in four chains
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      float& s0 = sc[4 * j + 2 * h];
+      float& s1 = sc[4 * j + 2 * h + 1];
+      const bool ok0 = s0 > -INFINITY, ok1 = s1 > -INFINITY;  // inside Nk
+      float p0, p1;
+      if constexpr (MODE == kBf16Exp) {
+        const float2 p = bf16_exp2_pair(s0, s1, cs, sh, ok0, ok1);
+        p0 = p.x, p1 = p.y;
+      } else {
+        p0 = score_to_p<MODE>(s0, cs, sh, ok0);
+        p1 = score_to_p<MODE>(s1, cs, sh, ok1);
+      }
+      if constexpr (MODE != kExact) {  // l sums the bf16 p that P V multiplies, as the TPU bodies do
+        p0 = bf16_round(p0);
+        p1 = bf16_round(p1);
+      }
+      r4[j % 4] += p0 + p1;
+      s0 = p0;
+      s1 = p1;
+    }
+    if constexpr (HAS_L) l_run[h] = l_run[h] * alpha[h] + ((r4[0] + r4[1]) + (r4[2] + r4[3]));
   }
 }
 
-// bf16: Q fragments stay in registers; K/V tiles stream through shared
-// memory (cp.async, two stages). S = Q K^T and O += P V run as mma.sync
-// m16n8k16 with fp32 accumulators in registers, and P is rounded to bf16
-// straight from the S accumulators into A fragments.
-template <int HD, bool BIAS, int MODE = kExact>
-__global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_bf16(AttnArgs a) {
+// bf16, on Hopper: one producer warp (TMA), two consumer warpgroups (wgmma;
+// see the top of this file). Grid: (q tiles [x KV chunks for kPartial],
+// heads, batch).
+template <int HD, bool BIAS, int MODE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    attn_fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, const AttnArgs a) {
   static_assert(MODE == kExact || !BIAS, "the timing modes take no bias");
-  using L = BfLayout<HD>;
+  using T = FwdTiles<HD>;
   using bf16 = __nv_bfloat16;
-  constexpr int MW = L::MW;
-  constexpr int NKT = HD / 16;  // k-steps of Q K^T
-  constexpr int NOT = HD / 8;   // n8 tiles of O
-  constexpr int NST = BK / 8;   // n8 tiles of S
-  constexpr int TILE = (int)(L::tile / 2);  // elements per K or V tile
-  // modes that keep an online row max (and rescale o by it), and that sum l
+  constexpr int BKV = T::BK, S = T::STAGES;
+  // modes that keep an online row max (and rescale o by it); that take the
+  // exact row max first, in a pass of their own
   constexpr bool TRACK_MAX = MODE == kExact || MODE == kNoSum || MODE == kPartial;
   constexpr bool FIXED_MAX = MODE == kNoExp || MODE == kBf16Exp;
-  constexpr bool HAS_L = MODE != kNoSum && MODE != kMxu;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = reinterpret_cast<bf16*>(smem + L::kv_off);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, qd = lane & 3;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sKV = smem + T::QB;  // stage s: K at 2s*KT, V at (2s+1)*KT
+  float* sBias = reinterpret_cast<float*>(smem + T::bias_off);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + T::bar_off);
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   // kPartial: blockIdx.x = chunk * (q tiles) + q tile; the block sees KV
   // rows [kv0, kv0 + nk) only
-  int qblk = blockIdx.x, nk = a.nk, chunk = 0;
-  long long kv0 = 0;
+  int qblk = blockIdx.x, nk = a.nk, chunk = 0, kv0 = 0;
   if constexpr (MODE == kPartial) {
-    const int nqt = (a.nq + L::ROWS - 1) / L::ROWS;
+    const int nqt = (a.nq + T::ROWS - 1) / T::ROWS;
     chunk = blockIdx.x / nqt;
     qblk = blockIdx.x - chunk * nqt;
-    kv0 = (long long)chunk * a.kv_chunk;
-    nk = min(a.kv_chunk, a.nk - (int)kv0);
+    kv0 = chunk * a.kv_chunk;
+    nk = min(a.kv_chunk, a.nk - kv0);
   }
-  const int q0 = qblk * L::ROWS, head = blockIdx.y, b = blockIdx.z;
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_bs + head * a.q_hs;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_bs + head * a.k_hs + kv0 * a.k_rs;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_bs + head * a.v_hs + kv0 * a.v_rs;
+  const int q0 = qblk * T::ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (nk + BKV - 1) / BKV;
   const float* bias = BIAS ? a.bias + b * a.bias_bs : nullptr;
-  // with a bias the scores are scaled (and biased) in place, so the softmax
-  // below runs at scale 1; without one it folds c1 into its FMAs
-  const float cs = BIAS ? 1.f : a.c1;
+  init_ring(bar, S, BIAS ? 33 : 1);  // full: the TMA bytes (with a bias, then the producer warp's 32 lanes)
 
-  cp_async_rows<L::ROWS, HD, ATTN_THREADS>(sQ, L::LD, Q, a.q_rs, q0, a.nq, tid);
-  cp_async_rows<BK, HD, ATTN_THREADS>(sKV, L::LD, K, a.k_rs, 0, nk, tid);
-  cp_async_rows<BK, HD, ATTN_THREADS>(sKV + TILE, L::LD, V, a.v_rs, 0, nk, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[MW][NKT][4];
-#pragma unroll
-  for (int mi = 0; mi < MW; ++mi)
-#pragma unroll
-    for (int kk = 0; kk < NKT; ++kk)
-      ldsm_a(qa[mi][kk], sQ + (warp * MW + mi) * 16 * L::LD + kk * 16, L::LD, lane);
-
-  float o[MW][NOT][4];
-  float m_run[MW][2], l_run[MW][2];  // rows g and g + 8 of each m-atom
-#pragma unroll
-  for (int mi = 0; mi < MW; ++mi) {
-#pragma unroll
-    for (int d = 0; d < NOT; ++d) o[mi][d][0] = o[mi][d][1] = o[mi][d][2] = o[mi][d][3] = 0.f;
-    m_run[mi][0] = m_run[mi][1] = -INFINITY;
-    l_run[mi][0] = l_run[mi][1] = 0.f;
-  }
-
-  const int ntiles = (nk + BK - 1) / BK;
-  if constexpr (FIXED_MAX) {
-    // the exact row max of the scaled scores, from a QK-only pass through
-    // the second stage's K slot (the first keeps tile 0 for the PV pass)
-    bf16* sK1 = sKV + 2 * TILE;
-    float mx[MW][2];
-#pragma unroll
-    for (int mi = 0; mi < MW; ++mi) mx[mi][0] = mx[mi][1] = -INFINITY;
-    for (int t = 0; t < ntiles; ++t) {
-      cp_async_rows<BK, HD, ATTN_THREADS>(sK1, L::LD, K, a.k_rs, t * BK, nk, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      float s[MW][NST][4];
-      qk_scores<HD, MW, L::LD>(s, qa, sK1, lane);
-#pragma unroll
-      for (int mi = 0; mi < MW; ++mi)
-#pragma unroll
-        for (int j = 0; j < NST; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (t * BK + j * 8 + qd * 2 + e < nk) {
-              mx[mi][0] = fmaxf(mx[mi][0], s[mi][j][e]);
-              mx[mi][1] = fmaxf(mx[mi][1], s[mi][j][2 + e]);
-            }
-      __syncthreads();  // sK1 is refilled next tile
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (BIAS ? tid >= 32 : tid != 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(&bar[0], T::QB);
+      tma_rows<T::CB>(sQ, &mq, &bar[0], T::ROWS, q0, head, b);
     }
-#pragma unroll
-    for (int mi = 0; mi < MW; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v = mx[mi][h];
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-        m_run[mi][h] = v * cs;
+    // FIXED_MAX streams the K tiles once alone (the row-max pass), then K and V
+    const int total = (FIXED_MAX ? 2 : 1) * ntiles;
+    for (int it = 0; it < total; ++it) {
+      const int s = it % S, t = it < ntiles ? it : it - ntiles;
+      const bool with_v = !FIXED_MAX || it >= ntiles;
+      if (it >= S) mbar_wait(&bar[1 + S + s], (it / S - 1) & 1);
+      if (lane == 0) {
+        unsigned char* kv = sKV + s * 2 * T::KT;
+        mbar_expect_tx(&bar[1 + s], (with_v ? 2 : 1) * T::KT);
+        tma_rows<T::CB>(kv, &mk, &bar[1 + s], BKV, kv0 + t * BKV, head, b);
+        if (with_v) tma_rows<T::CB>(kv + T::KT, &mv, &bar[1 + s], BKV, kv0 + t * BKV, head, b);
       }
+      if constexpr (BIAS) {  // the tile's bias row in log2 units, 0 past Nk
+        float* sb = sBias + s * BKV;
+#pragma unroll
+        for (int i = 0; i < BKV / 32; ++i) {
+          const int col = t * BKV + lane + 32 * i;
+          sb[lane + 32 * i] = col < nk ? __ldg(bias + col) * kLog2e : 0.f;
+        }
+        mbar_arrive(&bar[1 + s]);
+      }
+    }
+    return;
   }
 
-  for (int t = 0; t < ntiles; ++t) {
-    const bf16* sK = sKV + (t & 1) * 2 * TILE;
-    const bf16* sV = sK + TILE;
-    if (t + 1 < ntiles) {  // prefetch the next tile into the other stage
-      bf16* nK = sKV + ((t + 1) & 1) * 2 * TILE;
-      cp_async_rows<BK, HD, ATTN_THREADS>(nK, L::LD, K, a.k_rs, (t + 1) * BK, nk, tid);
-      cp_async_rows<BK, HD, ATTN_THREADS>(nK + TILE, L::LD, V, a.v_rs, (t + 1) * BK, nk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1, qd = lane & 3;
+  const uint32_t q_base = smem_addr(sQ) + cw * 64 * 128, kv_base = smem_addr(sKV);
+  // with a bias the scores are scaled (and biased) in place, so the softmax
+  // runs at scale 1; without one it folds c1 into its FMAs
+  const float cs = BIAS ? 1.f : a.c1;
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  mbar_wait(&bar[0], 0);
+
+  int it = 0;  // the ring's position, across both passes of FIXED_MAX
+  if constexpr (FIXED_MAX) {
+    // the exact row max of the scaled scores, from a Q K^T-only pass
+    float mx[2] = {-INFINITY, -INFINITY};
+    for (int t = 0; t < ntiles; ++t, ++it) {
+      const int s = it % S;
+      mbar_wait(&bar[1 + s], (it / S) & 1);
+      float sc[BKV / 2];
+      fence_regs(sc);
+      wgmma_fence();
+      score_product<HD, BKV>(sc, q_base, T::ROWS, kv_base + s * 2 * T::KT, BKV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(&bar[1 + S + s]);
+      const int lim = nk - t * BKV;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + 2 * qd + e < lim) {
+            mx[0] = fmaxf(mx[0], sc[4 * j + e]);
+            mx[1] = fmaxf(mx[1], sc[4 * j + 2 + e]);
+          }
     }
-    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = mx[h];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      m_run[h] = v * cs;
+    }
+  }
 
-    float s[MW][NST][4];
-    qk_scores<HD, MW, L::LD>(s, qa, sK, lane);
-
-    // bias, then mask the KV tail; online softmax in fp32, exp2 base (scale
-    // folded into the FMA unless the bias pass applied it)
-    float bcol[NST][2];
+  if (cw == 1) {  // warpgroup 0 goes first
+    pass_turn(1);
+    pass_sm_turn(1);
+  }
+  // P of the previous tile, packed: its P V runs behind this tile's Q K^T.
+  // Two buffers, one tile each in turn: this tile's P is packed while the
+  // previous tile's P V still reads the other (on the H100 no slower than
+  // one buffer packed after the wait).
+  uint32_t pa0[BKV / 16][4], pa1[BKV / 16][4];
+  uint32_t prev_v = 0;
+  int prev_s = 0;
+  auto step = [&](int t, const uint32_t(&pa_prev)[BKV / 16][4], uint32_t(&pa_next)[BKV / 16][4]) {
+    const int s = it % S;
+    mbar_wait(&bar[1 + s], (it / S) & 1);
+    const uint32_t k_base = kv_base + s * 2 * T::KT, v_base = k_base + T::KT;
+    float sc[BKV / 2];
+    fence_regs(sc);
+    fence_regs(o);
+    wait_turn(cw);
+    wgmma_fence();
+    score_product<HD, BKV>(sc, q_base, T::ROWS, k_base, BKV);  // S = Q K^T
+    wgmma_commit();
+    if (t > 0) grad_product<HD, BKV>(o, pa_prev, prev_v, BKV);  // O += P V, the previous tile's
+    wgmma_commit();
+    pass_turn(cw);
+    float bc[BKV / 8][2];  // this thread's columns of the staged bias row
     if constexpr (BIAS) {
 #pragma unroll
-      for (int j = 0; j < NST; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = t * BK + j * 8 + qd * 2 + e;
-          bcol[j][e] = col < nk ? __ldg(bias + col) * kLog2e : 0.f;
-        }
-    }
-    uint32_t pa[MW][BK / 16][4];
-#pragma unroll
-    for (int mi = 0; mi < MW; ++mi) {
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NST; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = t * BK + j * 8 + qd * 2 + e < nk;
-          if constexpr (BIAS) {
-            s[mi][j][e] = fmaf(s[mi][j][e], a.c1, bcol[j][e]);
-            s[mi][j][2 + e] = fmaf(s[mi][j][2 + e], a.c1, bcol[j][e]);
-          }
-          s[mi][j][e] = ok ? s[mi][j][e] : -INFINITY;
-          s[mi][j][2 + e] = ok ? s[mi][j][2 + e] : -INFINITY;
-          mx0 = fmaxf(mx0, s[mi][j][e]);
-          mx1 = fmaxf(mx1, s[mi][j][2 + e]);
-        }
-      }
-      // al: the rescale of the earlier tiles; sh: this tile's exponent shift
-      float al0 = 1.f, al1 = 1.f, sh0, sh1;
-      if constexpr (TRACK_MAX) {
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-        }
-        // running maxima in scaled units (c1 > 0, so scaling keeps the max)
-        const float mn0 = fmaxf(m_run[mi][0], mx0 * cs), mn1 = fmaxf(m_run[mi][1], mx1 * cs);
-        al0 = ex2(m_run[mi][0] - mn0);
-        al1 = ex2(m_run[mi][1] - mn1);
-        m_run[mi][0] = sh0 = mn0;
-        m_run[mi][1] = sh1 = mn1;
-      } else if constexpr (MODE == kNoMax) {
-        sh0 = sh1 = 8.f;  // the TPU probe's constant shift in place of the row max
-      } else {
-        sh0 = m_run[mi][0];  // FIXED_MAX: the exact row max (unused by the MXU modes)
-        sh1 = m_run[mi][1];
-      }
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NST; ++j) {
-        float p[4];
-        if constexpr (MODE == kBf16Exp) {
-          const int col = t * BK + j * 8 + qd * 2;
-          const float2 p01 = bf16_exp2_pair(s[mi][j][0], s[mi][j][1], cs, sh0, col < nk, col + 1 < nk);
-          const float2 p23 = bf16_exp2_pair(s[mi][j][2], s[mi][j][3], cs, sh1, col < nk, col + 1 < nk);
-          p[0] = p01.x, p[1] = p01.y, p[2] = p23.x, p[3] = p23.y;
-        } else {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool ok = t * BK + j * 8 + qd * 2 + e < nk;
-            p[e] = score_to_p<MODE>(s[mi][j][e], cs, sh0, ok);
-            p[2 + e] = score_to_p<MODE>(s[mi][j][2 + e], cs, sh1, ok);
-          }
-        }
-        const uint32_t w0 = pack_bf16(p[0], p[1]), w1 = pack_bf16(p[2], p[3]);
-        pa[mi][j / 2][(j % 2) * 2] = w0;
-        pa[mi][j / 2][(j % 2) * 2 + 1] = w1;
-        if constexpr (MODE == kExact) {
-          rs0 += p[0] + p[1];
-          rs1 += p[2] + p[3];
-        } else if constexpr (HAS_L) {  // l sums the bf16 p that P V multiplies, as the TPU bodies do
-          rs0 += __uint_as_float(w0 << 16) + __uint_as_float(w0 & 0xffff0000u);
-          rs1 += __uint_as_float(w1 << 16) + __uint_as_float(w1 & 0xffff0000u);
-        }
-      }
-      if constexpr (HAS_L) {
-        l_run[mi][0] = l_run[mi][0] * al0 + rs0;
-        l_run[mi][1] = l_run[mi][1] * al1 + rs1;
-      }
-      if constexpr (TRACK_MAX) {
-#pragma unroll
-        for (int d = 0; d < NOT; ++d) {
-          o[mi][d][0] *= al0;
-          o[mi][d][1] *= al0;
-          o[mi][d][2] *= al1;
-          o[mi][d][3] *= al1;
-        }
+      for (int j = 0; j < BKV / 8; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(sBias + s * BKV + 8 * j + 2 * qd);
+        bc[j][0] = v.x;
+        bc[j][1] = v.y;
       }
     }
+    wgmma_wait<1>();  // S
+    fence_regs(sc);
+    float alpha[2];
+    wait_sm_turn(cw);
+    tile_softmax<BKV, MODE, BIAS>(sc, bc, nk - t * BKV, a.c1, cs, qd, m_run, l_run, alpha);
+    pass_sm_turn(cw);
+    pack_a<BKV>(pa_next, sc);
+    fence_regs(pa_next);
+    wgmma_wait<0>();  // the previous tile's P V: its stage is free
+    fence_regs(o);
+    if (t > 0 && lane == 0) mbar_arrive(&bar[1 + S + prev_s]);
+    if constexpr (TRACK_MAX) {
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-#pragma unroll
-      for (int dp = 0; dp < NOT / 2; ++dp) {
-        uint32_t bb[4];
-        ldsm_b_kn_x2tiles(bb, sV + ks * 16 * L::LD + dp * 16, L::LD, lane);
-#pragma unroll
-        for (int mi = 0; mi < MW; ++mi) {
-          mma_bf16(o[mi][2 * dp], pa[mi][ks], bb[0], bb[1]);
-          mma_bf16(o[mi][2 * dp + 1], pa[mi][ks], bb[2], bb[3]);
-        }
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
     }
-    __syncthreads();  // this stage is refilled two tiles on
+    prev_v = v_base;
+    prev_s = s;
+    ++it;
+  };
+  for (int t = 0; t < ntiles; t += 2) {
+    step(t, pa1, pa0);
+    if (t + 1 < ntiles) step(t + 1, pa0, pa1);
+  }
+  if (ntiles > 0) {  // the last tile's P V: its P is in pa0 after an even tile, pa1 after an odd one
+    fence_regs(o);
+    wgmma_fence();
+    if ((ntiles - 1) % 2 == 0) {
+      grad_product<HD, BKV>(o, pa0, prev_v, BKV);
+    } else {
+      grad_product<HD, BKV>(o, pa1, prev_v, BKV);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  fence_regs(o);
+  if (cw == 0) {  // warpgroup 1's last hand-overs
+    wait_turn(0);
+    wait_sm_turn(0);
   }
 
+  const int warp = (tid >> 5) & 3, g = lane >> 2;
   bf16* out = static_cast<bf16*>(a.o) + b * a.o_bs + head * a.o_hs + qd * 2;
   const long long stat = ((long long)b * a.h + head) * a.nq;
 #pragma unroll
-  for (int mi = 0; mi < MW; ++mi) {
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = q0 + cw * 64 + warp * 16 + g + 8 * h;
+    if (r >= a.nq) continue;
+    if constexpr (MODE == kPartial) {  // the chunk's unnormalised fp32 o, its l and m (log2 units)
+      const long long pr = (long long)chunk * gridDim.z * a.h * a.nq + stat + r;
+      float* po = a.part_o + pr * HD + qd * 2;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float l = l_run[mi][h];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const int r = q0 + (warp * MW + mi) * 16 + g + 8 * h;
-      if (r >= a.nq) continue;
-      if constexpr (MODE == kPartial) {  // the chunk's unnormalised fp32 o, its l and m (log2 units)
-        const long long pr = (long long)chunk * gridDim.z * a.h * a.nq + stat + r;
-        float* po = a.part_o + pr * HD + qd * 2;
-#pragma unroll
-        for (int d = 0; d < NOT; ++d)
-          *reinterpret_cast<float2*>(po + d * 8) = make_float2(o[mi][d][2 * h], o[mi][d][2 * h + 1]);
-        if (qd == 0) {
-          a.part_l[pr] = l;
-          a.part_m[pr] = m_run[mi][h];
-        }
-        continue;
-      }
-      // what o is divided by, and the l and m outputs
-      float inv, l_out, m_out;
-      if constexpr (MODE == kNoSum) {
-        const float mr = m_run[mi][h] / a.c1;  // the raw row max
-        inv = mr == 0.f ? 1.f : 1.f / mr;
-        l_out = mr;
-        m_out = m_run[mi][h] * (1.f / kLog2e);
-      } else if constexpr (MODE == kMxu) {
-        inv = 1.f;
-        l_out = m_out = 0.f;
-      } else if constexpr (MODE == kMxuProbe) {
-        inv = 1.f;
-        l_out = l;
-        m_out = 0.f;
-      } else {
-        inv = l == 0.f ? 1.f : 1.f / l;
-        l_out = l;
-        m_out = MODE == kNoMax ? l * (a.c1 * (1.f / kLog2e)) : m_run[mi][h] * (1.f / kLog2e);
-      }
-#pragma unroll
-      for (int d = 0; d < NOT; ++d)
-        *reinterpret_cast<uint32_t*>(out + r * a.o_rs + d * 8) =
-            pack_bf16(o[mi][d][2 * h] * inv, o[mi][d][2 * h + 1] * inv);
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(po + j * 8) = make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
       if (qd == 0) {
-        a.l[stat + r] = l_out;
-        a.m[stat + r] = m_out;
+        a.part_l[pr] = l;
+        a.part_m[pr] = m_run[h];
       }
+      continue;
+    }
+    // what o is divided by, and the l and m outputs
+    float inv, l_out, m_out;
+    if constexpr (MODE == kNoSum) {
+      const float mr = m_run[h] / a.c1;  // the raw row max
+      inv = mr == 0.f ? 1.f : 1.f / mr;
+      l_out = mr;
+      m_out = m_run[h] * (1.f / kLog2e);
+    } else if constexpr (MODE == kMxu) {
+      inv = 1.f;
+      l_out = m_out = 0.f;
+    } else if constexpr (MODE == kMxuProbe) {
+      inv = 1.f;
+      l_out = l;
+      m_out = 0.f;
+    } else {
+      inv = l == 0.f ? 1.f : 1.f / l;
+      l_out = l;
+      m_out = MODE == kNoMax ? l * (a.c1 * (1.f / kLog2e)) : m_run[h] * (1.f / kLog2e);
+    }
+    bf16* row = out + (long long)r * a.o_rs;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + j * 8) = pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    if (qd == 0) {
+      a.l[stat + r] = l_out;
+      a.m[stat + r] = m_out;
     }
   }
 }
@@ -531,45 +600,48 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
   }
 }
 
+// The bf16 kernel at head dim HD: one tensor map per operand (Q in boxes of
+// the block's 128 rows, K and V in boxes of a KV tile), then the launch;
+// kPartial's grid takes `nchunks` q-tile rows. A map takes at least one row,
+// so Nk = 0 launches with no KV tile (o = 0, l = 0, m = -inf).
+template <int HD, bool BIAS, int MODE>
+int launch_fwd_wgmma(const AttnArgs& a, int batch, int nchunks, cudaStream_t st) {
+  using T = FwdTiles<HD>;
+  if (a.nq == 0 || a.h == 0 || batch == 0) return 0;
+  CUtensorMap mq, mk, mv;
+  const int nk_rows = a.nk > 0 ? a.nk : 1;
+  cudaError_t err = operand_map(&mq, a.q, HD, a.nq, a.h, batch, a.q_rs, a.q_hs, a.q_bs, T::ROWS);
+  if (err == cudaSuccess) err = operand_map(&mk, a.k, HD, nk_rows, a.h, batch, a.k_rs, a.k_hs, a.k_bs, T::BK);
+  if (err == cudaSuccess) err = operand_map(&mv, a.v, HD, nk_rows, a.h, batch, a.v_rs, a.v_hs, a.v_bs, T::BK);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = attn_fwd_wgmma<HD, BIAS, MODE>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.nq + T::ROWS - 1) / T::ROWS * nchunks, a.h, batch);
+  kernel<<<grid, WG_THREADS, T::bytes, st>>>(mq, mk, mv, a);
+  return (int)cudaGetLastError();
+}
+
 template <int HD, bool BIAS>
 int launch_attention_hd(const AttnArgs& a, int batch, int dtype, cudaStream_t st) {
-  const int rows = dtype == kBFloat16 ? BfLayout<HD>::ROWS : BQ;
-  const dim3 grid((a.nq + rows - 1) / rows, a.h, batch);
-  cudaError_t err;
-  if (dtype == kBFloat16) {
-    const int bytes = (int)BfLayout<HD>::total;
-    err = cudaFuncSetAttribute(attn_fwd_bf16<HD, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    attn_fwd_bf16<HD, BIAS><<<grid, ATTN_THREADS, bytes, st>>>(a);
-  } else {
-    const int bytes = (int)F32Layout<HD>::total;
-    err = cudaFuncSetAttribute(attn_fwd_f32<HD, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    attn_fwd_f32<HD, BIAS><<<grid, ATTN_THREADS, bytes, st>>>(a);
-  }
+  if (dtype == kBFloat16) return launch_fwd_wgmma<HD, BIAS, kExact>(a, batch, 1, st);
+  const dim3 grid((a.nq + BQ - 1) / BQ, a.h, batch);
+  const int bytes = (int)F32Layout<HD>::total;
+  const cudaError_t err =
+      cudaFuncSetAttribute(attn_fwd_f32<HD, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  attn_fwd_f32<HD, BIAS><<<grid, ATTN_THREADS, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // A timing mode (bf16, no bias) at head dims 48 and 64, the two shapes of
 // the microbenchmark (the wrappers reject the rest); kPartial's grid takes
 // `nchunks` q-tile rows.
-template <int HD, int MODE>
-int launch_attention_mode_hd(const AttnArgs& a, int batch, int nchunks, cudaStream_t st) {
-  using L = BfLayout<HD>;
-  const dim3 grid((a.nq + L::ROWS - 1) / L::ROWS * (MODE == kPartial ? nchunks : 1), a.h, batch);
-  const int bytes = (int)L::total;
-  const cudaError_t err =
-      cudaFuncSetAttribute(attn_fwd_bf16<HD, false, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  attn_fwd_bf16<HD, false, MODE><<<grid, ATTN_THREADS, bytes, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
 template <int MODE>
 int launch_attention_mode(const AttnArgs& a, int batch, int hd, int nchunks, cudaStream_t st) {
   switch (hd) {
-    case 48: return launch_attention_mode_hd<48, MODE>(a, batch, nchunks, st);
-    case 64: return launch_attention_mode_hd<64, MODE>(a, batch, nchunks, st);
+    case 48: return launch_fwd_wgmma<48, false, MODE>(a, batch, nchunks, st);
+    case 64: return launch_fwd_wgmma<64, false, MODE>(a, batch, nchunks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -590,6 +662,15 @@ int launch_attention(const AttnArgs& a, int batch, int hd, int dtype, cudaStream
     case 128: return launch_attention_hd<128, BIAS>(a, batch, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bf16 tile plan of head dim hd (FwdTiles): out[0..3] = q rows a block,
+// KV rows a tile, ring stages and dynamic shared memory in bytes.
+template <int HD>
+void fwd_plan(int* out) {
+  using T = FwdTiles<HD>;
+  const int p[4] = {T::ROWS, T::BK, T::STAGES, (int)T::bytes};
+  for (int i = 0; i < 4; ++i) out[i] = p[i];
 }
 
 }  // namespace cs

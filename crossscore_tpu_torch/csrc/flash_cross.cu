@@ -7,16 +7,18 @@
 // emit; heads are read at column offset h*hd. The TPU kernel pads hd 48 to 64
 // in HBM so that two heads fill a 128-lane block, and folds the true scale
 // into the q projection; here the kernel works at the true hd (48 on the main
-// path, three 16-wide tensor-core steps) with scale 1/sqrt(hd), and the KV
-// tail (Nk = 1369 or K*1369) is masked in the last 64-row tile instead of
+// path: three 16-deep steps of Q K^T, and P V as m64n48, over TMA boxes of 64
+// columns whose last 16 read as zeros) with scale 1/sqrt(hd), and the KV
+// tail (Nk = 1369 or K*1369) is masked in the last 128-row tile instead of
 // being padded in memory. What bounds it and how: see attention_fwd.cuh.
 //
 // K6 is the same body with `kv_bias` (`_fwd_kernel_cross_ln` with `per_item`):
 // a (Nk,) or (B, Nk) fp32 bias row, for the decoder's self-attention (Nk =
 // Nq) and its cross-attention over K bucket-padded reference grids (the
 // item's token mask tiled K times). The TPU kernel adds the pre-scaled bias
-// block to the score tile; here each thread reads its columns of the item's
-// row per KV tile and the tail mask still applies after it.
+// block to the score tile; here the producer warp stages each KV tile's
+// slice of the item's row beside the tile, the score epilogue adds it, and
+// the tail mask still applies after it.
 //
 // K7 is the same kernel on head-major operands, the counterpart of the TPU
 // kernels that `_flash_fwd` launches: `_fwd_kernel` and `_fwd_kernel_single`
@@ -28,12 +30,13 @@
 // 2) of a token-major projection, read in place. o is written to a contiguous
 // (B, H, Nq, hd). The TPU kernels pick one of two bodies by the KV length
 // (one exact-softmax block up to 2048 tokens, an online softmax over 1024-row
-// blocks beyond); here the 64-row online softmax covers both (Nk = 1369 or
+// blocks beyond); here the 128-row online softmax covers both (Nk = 1369 or
 // 5476 per shard on the view-parallel path), and the tail is masked in the
 // last tile instead of padded in memory. Bound and design as K3's: the tensor
-// cores bound it (4*Nq*Nk*hd operations per head against (2*Nq + 2*Nk)*hd
-// elements moved), and a view costs nothing over a contiguous tensor, since
-// every row of hd elements is one run of 16-byte loads either way.
+// cores and the exponentials bound it (4*Nq*Nk*hd operations and Nq*Nk
+// exponentials per head against (2*Nq + 2*Nk)*hd elements moved), and a view
+// costs nothing over a contiguous tensor: its tensor map takes the view's
+// head and row strides, and TMA reads each box of hd-wide rows either way.
 
 //
 // K7' is K7's geometry with a timing mode of attention_fwd.cuh: the TPU's MXU
@@ -153,6 +156,23 @@ extern "C" int cs_flash_attention_head_major_variant(const void* q, const void* 
     case cs::kMxuProbe: return cs::launch_attention_mode<cs::kMxuProbe>(a, batch, hd, 1, st);
     case cs::kNoExp: return cs::launch_attention_mode<cs::kNoExp>(a, batch, hd, 1, st);
     case cs::kBf16Exp: return cs::launch_attention_mode<cs::kBf16Exp>(a, batch, hd, 1, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 forward's tile plan of head dim hd (attention_fwd.cuh's
+// FwdTiles): out[0..3] = q rows a block, KV rows a tile, ring stages and
+// the dynamic shared memory in bytes.
+extern "C" int cs_flash_attention_fwd_plan(int hd, int* out) {
+  switch (hd) {
+    case 16: cs::fwd_plan<16>(out); return 0;
+    case 32: cs::fwd_plan<32>(out); return 0;
+    case 48: cs::fwd_plan<48>(out); return 0;
+    case 64: cs::fwd_plan<64>(out); return 0;
+    case 80: cs::fwd_plan<80>(out); return 0;
+    case 96: cs::fwd_plan<96>(out); return 0;
+    case 112: cs::fwd_plan<112>(out); return 0;
+    case 128: cs::fwd_plan<128>(out); return 0;
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,16 +6,18 @@
 // and v from the (B, N, 3*H*hd) projection output at column offsets
 // h*hd, D + h*hd and 2D + h*hd, and writes o into (B, N, H*hd), so no
 // head split or transpose touches device memory. The TPU kernel keeps the
-// whole KV row in VMEM; here a block streams KV in 64-row tiles with an
+// whole KV row in VMEM; here a block streams KV in 128-row tiles with an
 // online softmax (attention_fwd.cuh), since a block has at most 227 KB of
-// shared memory. What bounds it and how: see attention_fwd.cuh.
+// shared memory. The three sections map onto TMA in place: each is a 4-D
+// tensor map (hd, N, H, B) with row stride 3D and head stride hd. What
+// bounds it and how: see attention_fwd.cuh.
 //
 // K5 replaces `_fwd_kernel_qkv_biased` (`_flash_qkv_fwd` with `kv_bias`): the
 // bias is a (N,) row shared by the batch or a (B, N) row per item (0 valid,
 // -1e30 padded). The TPU kernel gets the bias pre-scaled by log2(e) as a
-// VMEM block holding every batch row; here the kernel reads its item's row
-// from device memory (16 columns per thread per KV tile, through the
-// read-only cache) and scales it in the score epilogue. The work is K1's plus
+// VMEM block holding every batch row; here the producer warp stages each KV
+// tile's slice of its item's row in shared memory beside the tile (scaled
+// by log2(e), 0 past Nk), and the score epilogue adds it. The work is K1's plus
 // one FMA per score, so the same tensor-core bound applies; masked columns are
 // still computed (bucket padding is 15-25% of the columns at the bucketed
 // predict shapes), which a later version could skip per tile.
@@ -159,7 +161,8 @@ extern "C" int cs_flash_qkv_self_attention_probe(const void* qkv, void* o, void*
   }
 }
 
-// K11 chunks: `nchunks` KV chunks of `kv_chunk` rows (the last one shorter),
+// K11 chunks: `nchunks` KV chunks of `kv_chunk` rows (the last one shorter;
+// a chunk ends inside a KV tile where it must, the rest of the tile masked),
 // partials in the caller's fp32 scratch part_o (C, B, H, N, hd), part_l and
 // part_m (C, B, H, N); bf16, hd 48 or 64.
 extern "C" int cs_flash_qkv_self_attention_chunked(const void* qkv, void* o, void* l, void* m,
@@ -172,7 +175,7 @@ extern "C" int cs_flash_qkv_self_attention_chunked(const void* qkv, void* o, voi
   a.part_l = static_cast<float*>(part_l);
   a.part_m = static_cast<float*>(part_m);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_chunk % cs::BK || nchunks < 1 || (long long)(nchunks - 1) * kv_chunk >= n) return (int)cudaErrorInvalidValue;
+  if (kv_chunk < 1 || nchunks < 1 || (long long)(nchunks - 1) * kv_chunk >= n) return (int)cudaErrorInvalidValue;
   const int rc = cs::launch_attention_mode<cs::kPartial>(a, batch, hd, nchunks, st);
   if (rc != 0) return rc;
   cs::CombineArgs c{a.part_o, a.part_l, a.part_m, static_cast<__nv_bfloat16*>(o), a.l, a.m,

@@ -1,7 +1,9 @@
 // Hopper asynchronous copies (sm_90a): TMA tile loads into shared memory
 // that complete on an mbarrier, the mbarrier operations of a producer /
-// consumer ring, register rebalancing between warpgroups (setmaxnreg), and
-// the host side: a 4-D tensor map of one bf16 attention operand.
+// consumer ring, register rebalancing between warpgroups (setmaxnreg), the
+// block shape that the attention kernels share (a producer warpgroup and
+// two consumer warpgroups), and the host side: a 4-D tensor map of one bf16
+// attention operand.
 //
 // The driver's cuTensorMapEncodeTiled is resolved at run time through the
 // runtime's driver entry point, so a library that includes this header
@@ -68,6 +70,40 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The warp-specialised attention block (forward and backward): warpgroup 0
+// the producer, of which one warp issues the TMA loads with its registers
+// handed to the consumers by setmaxnreg, and warpgroups 1 and 2 the
+// consumers, 64 rows each.
+constexpr int WG_THREADS = 384;
+constexpr int PRODUCER_REGS = 24;   // one warp issuing loads
+constexpr int CONSUMER_REGS = 240;  // 128 * 24 + 256 * 240 <= 65536
+
+// the block's shared memory, aligned up to the 1024 bytes of a swizzle atom
+__device__ __forceinline__ unsigned char* smem_1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// bar[0] the resident tiles, bar[1 + s] stage s full, bar[1 + S + s] empty
+__device__ __forceinline__ void init_ring(uint64_t* bar, int stages, int full_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&bar[1 + s], full_count);
+      mbar_init(&bar[1 + stages + s], 8);  // the two consumer warpgroups' eight warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// the CB column blocks of `rows`-row boxes at row r0 of `map` into `dst`
+template <int CB>
+__device__ __forceinline__ void tma_rows(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int rows,
+                                         int r0, int head, int b) {
+#pragma unroll
+  for (int cb = 0; cb < CB; ++cb) tma_load_4d(dst + cb * rows * 128, map, bar, cb * 64, r0, head, b);
 }
 
 using TensorMapEncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

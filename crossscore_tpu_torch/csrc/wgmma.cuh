@@ -26,6 +26,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma.cuh"  // pack_bf16
+
 namespace cs {
 
 // byte offset of element (row, col) in a swizzled K-major tile with `rows`
@@ -285,6 +287,38 @@ struct Wgmma<128> {
         : "memory");
   }
 };
+
+// One consumer's score product: acc = A B^T over hd, A the warpgroup's 64
+// resident rows (a_rows per column block), B the streamed tile (b_rows).
+template <int HD, int N>
+__device__ __forceinline__ void score_product(float (&acc)[N / 2], uint32_t a, int a_rows, uint32_t b, int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t kin = (kk % 4) * 32, cb = kk / 4;
+    Wgmma<N>::ss(acc, sw128_desc_at(a + cb * a_rows * 128 + kin, 16), sw128_desc_at(b + cb * b_rows * 128 + kin, 16),
+                 kk > 0);
+  }
+}
+
+// acc += P B over the K rows of a streamed tile at `b` (b_rows rows per
+// column block): P's bf16 A registers, B MN-major
+template <int HD, int K>
+__device__ __forceinline__ void grad_product(float (&acc)[HD / 2], const uint32_t (&pa)[K / 16][4], uint32_t b,
+                                             int b_rows) {
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks)
+    Wgmma<HD>::rs_t(acc, pa[ks], sw128_desc_mn(b + ks * 2048, b_rows * 128));
+}
+
+// an accumulator tile's 4j..4j+3 values packed as A registers
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[N / 16][4], const float (&v)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    pa[j / 2][(j % 2) * 2] = pack_bf16(v[4 * j], v[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(v[4 * j + 2], v[4 * j + 3]);
+  }
+}
 
 // d (+)= A B^T for a 64 x 16 A tile and an N x 16 B tile, both K-major in
 // shared memory; scale_d 0 overwrites d instead of accumulating.

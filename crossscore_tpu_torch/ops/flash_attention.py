@@ -118,13 +118,22 @@ def _launch_qkv(what: str, qkv: torch.Tensor, num_heads: int, kv_bias=None):
     return o, l, m
 
 
+def qkv_head_views(qkv: torch.Tensor, num_heads: int) -> list[torch.Tensor]:
+    """The q, k and v sections of a fused (B, N, 3*H*hd) projection (column
+    offsets 0, D and 2D) as head-major (B, H, N, hd) views: what the tensor
+    maps of K1, K5 and K11 read in place. The launch needs no check of them
+    beyond ``check_cuda_operands`` and the head dim: a contiguous 16-byte
+    aligned projection with hd a multiple of 16 meets every condition of
+    :func:`tma_strides` (tests/test_torch_fwd_plan.py), as K3's and K6's
+    token-major operands do."""
+    d = qkv.shape[2] // 3
+    return [_split_heads(qkv[..., i * d:(i + 1) * d], num_heads) for i in range(3)]
+
+
 def flash_qkv_self_attention_plain(qkv: torch.Tensor, num_heads: int, kv_bias=None):
     """Plain version of K1 (and of K5 with ``kv_bias``): split the fused
     projection, attend, re-pack."""
-    b, n, d3 = qkv.shape
-    d = d3 // 3
-    q, k, v = (_split_heads(qkv[..., i * d:(i + 1) * d], num_heads) for i in range(3))
-    o, _, l, m = attention_with_stats(q, k, v, kv_bias)
+    o, _, l, m = attention_with_stats(*qkv_head_views(qkv, num_heads), kv_bias)
     return _merge_heads(o), l, m
 
 
@@ -185,8 +194,7 @@ def _check_timing(what: str, dtype: torch.dtype, hd: int, *tensors) -> None:
 
 def _qkv_heads_f32(qkv: torch.Tensor, num_heads: int):
     """q, k, v (B, H, N, hd) in fp32 from the fused projection."""
-    d = qkv.shape[2] // 3
-    return (_split_heads(qkv[..., i * d:(i + 1) * d], num_heads).float() for i in range(3))
+    return (t.float() for t in qkv_head_views(qkv, num_heads))
 
 
 def flash_qkv_self_attention_probe_plain(qkv: torch.Tensor, num_heads: int, probe: str):
@@ -435,20 +443,6 @@ def _check_head_major(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         raise RuntimeError(f"{what} is forward only; an input requires grad")
 
 
-def _strides_16b(what: str, *tensors) -> list[int]:
-    """The batch, head and row strides of each (B, H, N, hd) operand, after
-    checking that its hd columns are contiguous and that every row starts on
-    a 16-byte boundary (the kernel's 16-byte loads)."""
-    out = []
-    for t in tensors:
-        es = t.element_size()
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(t.stride(i) * es % 16 for i in range(3)):
-            raise ValueError(f"{what}: each operand needs contiguous rows of hd elements starting "
-                             f"on 16-byte boundaries, got strides {t.stride()}")
-        out += [t.stride(0), t.stride(1), t.stride(2)]
-    return out
-
-
 def flash_attention_head_major_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias=None):
     """Plain version of K7: dense attention with fp32 logits on (B, H, N, hd)
     operands (strided views included) -> (o (B, H, Nq, hd), l, m)."""
@@ -477,7 +471,7 @@ def flash_attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"{what}: operands must all be float32 or bfloat16")
     _check_head_dim(what, hd)
     _check_grid(what, b, h)
-    strides = (ctypes.c_longlong * 9)(*_strides_16b(what, q, k, v))
+    strides = (ctypes.c_longlong * 9)(*_tma_strides(what, q, k, v))
     lib = _build.load("flash_cross")
     if kv_bias is None:
         fn, bias_types, bias_args = lib.cs_flash_attention_head_major, [], ()
@@ -555,7 +549,7 @@ def flash_attention_head_major_variant(q: torch.Tensor, k: torch.Tensor, v: torc
             raise ValueError(f"{what}: operands must share one CUDA device and dtype")
     _check_timing(what, q.dtype, hd)
     _check_grid(what, b, h)
-    strides = (ctypes.c_longlong * 9)(*_strides_16b(what, q, k, v))
+    strides = (ctypes.c_longlong * 9)(*_tma_strides(what, q, k, v))
     lib = _build.load("flash_cross")
     fn = lib.cs_flash_attention_head_major_variant
     fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
@@ -768,9 +762,10 @@ TMA_MAX_DIM = 1 << 32
 
 
 def tma_strides(shape, strides, elem_size: int, data_ptr: int) -> list[int] | None:
-    """The element strides (batch, head, row) with which the bf16 backward
-    maps one (B, H, N, hd) operand onto a TMA tensor map of dimensions (hd,
-    N, H, B), or None when TMA cannot take it: hd not contiguous, a base or
+    """The element strides (batch, head, row) with which the bf16 kernels
+    (the forward K1, K3, K5-K7, K11, K7' and the backward K4, K8, K9) map one
+    (B, H, N, hd) operand onto a TMA tensor map of dimensions (hd, N, H, B),
+    or None when TMA cannot take it: hd not contiguous, a base or
     a stride off a 16-byte boundary, a stride of 2**40 bytes or more, a
     stride of 0 on an axis longer than 1, or a dimension above 2**32. An axis
     of length 1 is never stepped over, so its stride is reported as that of
@@ -855,12 +850,12 @@ def flash_attention_head_major_bwd(q, k, v, o, do, l, m):
 
 
 def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or its contiguous copy when the backward's TMA loads cannot
-    read it in place (:func:`tma_strides`; an incoming gradient may be any
-    view)."""
+    """``t``, or its contiguous copy when the TMA loads cannot read it in
+    place (:func:`tma_strides`; an incoming gradient may be any view). A
+    fresh copy: a contiguous tensor may still start off a 16-byte boundary."""
     if tma_strides(tuple(t.shape), t.stride(), t.element_size(), t.data_ptr()) is not None:
         return t
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 class _FlashAttentionHeadMajor(torch.autograd.Function):

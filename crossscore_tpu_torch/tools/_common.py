@@ -21,9 +21,11 @@ def resolve_device(cpu: bool) -> torch.device | None:
     return torch.device("cuda")
 
 
-def card_line() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` gives them."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def card_line(*extra: str) -> str:
+    """The card's name and power limit, then any ``extra`` query fields, as
+    ``nvidia-smi`` gives them."""
+    query = ",".join(("name", "power.limit") + extra)
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     return out[0]
 

@@ -15,6 +15,7 @@ and the device busy share (kernel time over the profiled wall time).
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
@@ -25,7 +26,9 @@ B, K, HW, STEPS = 8, 8, 518, 3
 
 
 def _group(name: str) -> str:
-    if "attn_fwd_bf16<64>" in name or "attn_fwd_f32<64>" in name:
+    # the attention forward's kernels are templates on the head dim first:
+    # the backbone's is 64, the decoder's 48
+    if re.search(r"attn_fwd_\w+<64\b", name):
         return "K1 backbone attention"
     if "attn_fwd" in name:
         return "K3 decoder attention"
