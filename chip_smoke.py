@@ -9,13 +9,21 @@ In order:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``crossscore_tpu_torch/csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time, each kernel's registers
-   and spills, and for the bf16 forward's and backward's wgmma kernels their
-   static shared memory, any wgmma ptxas serialised (C7515) and each head
-   dim's tile plan with its dynamic shared memory; fail on a spill or a
-   serialised wgmma in the forward at hd 48 or 64;
+   and spills, and for the bf16 wgmma kernels (the forward's, the
+   backward's, the fused MLP's) their static shared memory, any wgmma ptxas
+   serialised (C7515 and the other notes that say so), each head dim's tile
+   plan and the fused MLP's plan at D 64 and 384 (rows a block, the
+   cluster, the hidden chunk, the ring stages, dynamic shared memory, W1/W2
+   bytes read from L2 per 1000 rows and at the predict point); fail on a
+   spill or a serialised wgmma in the forward at hd 48 or 64 or in the
+   fused MLP, on a plan above the block's shared memory, or on MLP weight
+   reads above half of what 64-row blocks that each read them would take;
 3. hold K1 (backbone self-attention), K2 (fused LN->MLP) and K3 (decoder
    attention) against their plain PyTorch versions at the predict shapes
-   (dinov2-small, 518 px, K=8 references, B=8), K4 (decoder attention
+   (dinov2-small, 518 px, K=8 references, B=8; K2 also timed beside the
+   unfused chain of PyTorch calls, a yardstick), K2 (tanh and exact) and
+   K10 on the bf16 body at D 64 and 384 over 1, 63, 65, 127, 129, 255, 257
+   and 2741 rows, each launched twice for the same bits, K4 (decoder attention
    backward) at the train shapes (B=24, K=5), and K5 and K6 (the masked
    forwards of shape-bucketed inference) at the bucketed predict shapes
    (540x960 images -> 518x921 -> a 560x1008 bucket, B=8, K=5; per-item and
@@ -99,10 +107,11 @@ In order:
     time-slicing one card: not a scaling number);
 13. drive the instruments through their entry points: K10's op forward and
     backward, ``tools.attn_microbench`` at the backbone and the decoder
-    shape, ``tools.lane_pad_probe`` and ``tools.bwd_microbench`` (K4 at the
-    train shape, hd 64 and 48), each with the counts zeroed just before it
-    and read just after: every mode launched, K4 by the last, every run
-    exit 0;
+    shape, ``tools.lane_pad_probe``, ``tools.bwd_microbench`` (K4 at the
+    train shape, hd 64 and 48) and ``tools.mlp_microbench`` (the unfused
+    chain and K2 at the predict point), each with the counts zeroed just
+    before it and read just after: every mode launched, K4 by
+    ``bwd_microbench``, K2 by ``mlp_microbench``, every run exit 0;
 14. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
@@ -120,6 +129,7 @@ from pathlib import Path
 
 SEED = 0
 B, K, HW = 8, 8, 518  # predict operating point: 72 backbone views of 1370 tokens
+PREDICT_ROWS = B * (1 + K) * ((HW // 14) ** 2 + 1)  # the backbone MLP's rows there: 98,640
 TB, TK = 24, 5  # train operating point (config/data/combined_training.yaml): 144 views
 # bucketed predict (config/data/SimpleReference.yaml, B=8, K=5): 540x960 images
 # resize to 518x921 (a 37x65 patch grid) and pad to the 560x1008 bucket (40x72)
@@ -590,7 +600,7 @@ def _ptxas_entries(_build, src: str, pattern: str) -> dict:
             if key:
                 out.setdefault(key, {})
             continue
-        if "C7515" in line:  # the function the warning names, else the current entry
+        if "C7515" in line or "instructions are serialized" in line:  # the function named, else the current entry
             named = re.search(r"_Z\w+", line)
             k = re.search(pattern, named.group(0)) if named else None
             target = k.groups() if k else None if named else key
@@ -606,18 +616,29 @@ def _ptxas_entries(_build, src: str, pattern: str) -> dict:
     return out
 
 
-def _wgmma_build_report(_build) -> None:
+def _wgmma_build_report(_build) -> dict:
     """Print, for the bf16 kernels on wgmma, what ``-Xptxas -v`` says of each
     (registers at launch, spill stores and loads, static shared memory, any
-    wgmma it serialised) and each head dim's tile plan from the libraries:
-    the forward's (K1, K3, K5-K7, K11, K7'; ``attn_fwd_wgmma<HD, BIAS,
-    MODE>``: q rows a block, KV tile, stages, dynamic shared memory) and the
-    backward's (K4, K8, K9; K12 with PROBE). Fail on a spill or a serialised
-    wgmma in the forward's hd 48 or 64 instantiations, on a head dim without
-    a plan, or on a plan above the block's shared memory."""
+    wgmma it serialised: C7515 and the other notes that say so) and the tile
+    plans from the libraries: the forward's at each head dim (K1, K3, K5-K7,
+    K11, K7'; ``attn_fwd_wgmma<HD, BIAS, MODE>``: q rows a block, KV tile,
+    stages, dynamic shared memory), the backward's (K4, K8, K9; K12 with
+    PROBE) and the fused MLP's at D 64 and 384 (K2, K10; ``ln_mlp_tma<D,
+    RES, TANH>``: rows a block, blocks a cluster, hidden chunk, the two
+    rings' stages, dynamic shared memory, W1/W2 bytes read from L2 per 1000
+    rows). Fail on a spill or a serialised wgmma in the forward's hd 48 or 64
+    instantiations or in any ``ln_mlp_tma``, on a head dim or width without
+    a plan, on a plan above the block's shared memory, or on an MLP plan
+    whose L2 weight reads at the predict point exceed half of 64-row blocks
+    that each read both matrices. Return the MLP's plan at D 384."""
     import ctypes
 
     bad = []
+    for (width, res, tanh), info in _ptxas_entries(_build, "fused_ln_mlp", r"ln_mlp_tmaILi(\d+)ELb(\d)ELb(\d)E").items():
+        print(f"  ptxas fused_ln_mlp ln_mlp_tma<{width}, {'K10' if res == '1' else 'K2'}, "
+              f"{'tanh' if tanh == '1' else 'erf'}>: " + ", ".join(f"{k} {v}" for k, v in info.items()))
+        if info.get("spill stores") or info.get("spill loads") or "wgmma serialised" in info:
+            bad.append(f"fused_ln_mlp ln_mlp_tma<{width}, {res}, {tanh}>")
     for src in ("flash_qkv", "flash_cross"):
         for (hd, bias, mode), info in _ptxas_entries(_build, src, r"attn_fwd_wgmmaILi(\d+)ELb(\d)ELi(\d)E").items():
             print(f"  ptxas {src} attn_fwd_wgmma<{hd}, {'BIAS' if bias == '1' else 'no bias'}, mode {mode}>: "
@@ -647,8 +668,31 @@ def _wgmma_build_report(_build) -> None:
         rows, bq, bk, stages, smem1, smem2 = out
         print(f"  bf16 backward plan hd {hdim}: pass 1 {rows} KV rows a block over q tiles of {bq}, pass 2 {rows} "
               f"q rows over KV tiles of {bk}, {stages} stages, dynamic shared memory {smem1} / {smem2} bytes")
+    mlp = _build.load("fused_ln_mlp").cs_fused_ln_mlp_plan
+    mlp.argtypes, mlp.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    plan = {}
+    for width in (64, 384):
+        out = (ctypes.c_int * 7)()
+        if mlp(width, ctypes.addressof(out)) != 0:
+            _fail(f"the bf16 fused MLP has no plan at D {width}")
+        rows, cl, fch, s1, s2, smem, per_1000 = out
+        # W1 and W2 (4 D^2 bf16 values) read once per cluster at the predict point
+        weights = 2 * 2 * width * 4 * width
+        l2 = -(-PREDICT_ROWS // (rows * cl)) * weights
+        old = -(-PREDICT_ROWS // 64) * weights
+        print(f"  bf16 fused MLP plan D {width}: {rows} rows a block, clusters of {cl}, hidden chunks of {fch}, "
+              f"{s1} + {s2} ring stages, dynamic shared memory {smem} bytes; W1/W2 read from L2: {per_1000} bytes "
+              f"per 1000 rows, {l2 / 1e9:.3f} GB at the predict point's {PREDICT_ROWS} rows (64-row blocks that "
+              f"each read them: {old / 1e9:.3f} GB)")
+        if smem > SMEM_LIMIT:
+            bad.append(f"fused MLP plan D {width}: {smem} bytes of shared memory")
+        if 2 * l2 > old:
+            bad.append(f"fused MLP plan D {width}: {l2} bytes of L2 weight reads at the predict point")
+        plan = dict(rows_per_block=rows, cluster=cl, hidden_chunk=fch, stages=[s1, s2], smem_bytes=smem,
+                    l2_weight_bytes_per_1000_rows=per_1000, l2_weight_bytes_predict=l2)
     if bad:
-        _fail("the forward's build: " + "; ".join(bad))
+        _fail("the wgmma kernels' build: " + "; ".join(bad))
+    return plan
 
 
 def _twice(fn, *args):
@@ -915,8 +959,11 @@ def main() -> int:
         flash_qkv_self_attention_plain, flash_attention_head_major, flash_attention_head_major_plain,
         flash_attention_head_major_bwd, flash_attention_head_major_bwd_plain,
     )
-    from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_plain
+    from crossscore_tpu_torch.ops.fused_mlp import (
+        fused_ln_mlp, fused_ln_mlp_plain, fused_res_ln_mlp, fused_res_ln_mlp_plain,
+    )
     from crossscore_tpu_torch.tools._common import card_line
+    from crossscore_tpu_torch.tools.mlp_microbench import unfused_chain
     from crossscore_tpu_torch.train.optim import make_optimizer
     from crossscore_tpu_torch.train.step import TrainState, loss_fn, make_predict_step, make_train_step
 
@@ -949,7 +996,7 @@ def main() -> int:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 print(f"  ptxas {src} {entry}: {m.group(1)} registers")
-    _wgmma_build_report(_build)
+    mlp_plan = _wgmma_build_report(_build)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1002,13 +1049,17 @@ def main() -> int:
         rows = views * n
         ops = 4.0 * rows * d * f
         nbytes = 2 * rows * d * es + 2 * d * f * es + (4 * d + f) * es
+        mlp_dt = [t.to(dtype) for t in mlp]
         report[("K2", tname)] = dict(
             err=err, tol=TOL[tname], max_abs=_max_abs(got, want),
             ms=_time_ms(torch, lambda: fused_ln_mlp(x, *mlp, vit.layer_norm_eps, "tanh")),
             plain_ms=_time_ms(torch, lambda: fused_ln_mlp_plain(x, *mlp, vit.layer_norm_eps, "tanh"), reps=3),
-            library_ms=None, **_bound(ops, nbytes, peak, peak_bw),
+            # no single call computes LN -> MLP; the unfused chain (separate
+            # PyTorch calls, weights already in x's dtype) is the yardstick
+            library_ms=None, unfused_ms=_time_ms(torch, lambda: unfused_chain(x, *mlp_dt, vit.layer_norm_eps)),
+            **_bound(ops, nbytes, peak, peak_bw),
         )
-        del x, mlp, got, want
+        del x, mlp, mlp_dt, got, want
 
         q = randn(B, nq, d, dtype=dtype)
         for tag, nk in (("K3", K * nq), ("K3self", nq)):  # cross, then self
@@ -1297,6 +1348,35 @@ def main() -> int:
                         [(_twice(flash_attention_head_major, *layout, b_), flash_attention_head_major_plain(*layout, b_))
                          for layout in (hm, [t.contiguous() for t in hm]) for b_ in (None, bias[0].contiguous())],
                         tname)
+        if dtype == torch.bfloat16:
+            # K2 (tanh and exact) and K10 on the bf16 body at D 64 and 384, at
+            # row counts that leave ragged 64-row tiles, tiles wholly past the
+            # end (the grid is a whole number of clusters of two) and odd
+            # cluster counts; each launched twice for the same bits. A
+            # generator of its own keeps the later draws what they were
+            g_mlp = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+            def mlp_randn(*shape, dtype, scale=1.0, gen=g_mlp):
+                return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+            for width in (64, 384):
+                mlp = (mlp_randn(width, dtype=torch.float32, scale=0.1) + 1,
+                       mlp_randn(width, dtype=torch.float32, scale=0.1),
+                       mlp_randn(4 * width, width, dtype=torch.float32, scale=width ** -0.5),
+                       mlp_randn(4 * width, dtype=torch.float32, scale=0.1),
+                       mlp_randn(width, 4 * width, dtype=torch.float32, scale=(4 * width) ** -0.5),
+                       mlp_randn(width, dtype=torch.float32, scale=0.1), mlp_randn(width, dtype=torch.float32) + 1)
+                ls1 = mlp_randn(width, dtype=torch.float32, scale=0.5) + 1
+                for rows_ in (1, 63, 65, 127, 129, 255, 257, 2 * n + 1):
+                    x, attn = mlp_randn(rows_, width, dtype=dtype), mlp_randn(rows_, width, dtype=dtype, scale=0.3)
+                    for g in ("tanh", "exact"):
+                        (got,), same = _twice(lambda *a: (fused_ln_mlp(*a),), x, *mlp, 1e-6, g)
+                        report[(f"K2 {g} D{width} rows{rows_}", tname)] = dict(
+                            err=_rel_err(got, fused_ln_mlp_plain(x, *mlp, 1e-6, g)), tol=TOL[tname], bit_equal=same)
+                    (got,), same = _twice(lambda *a: (fused_res_ln_mlp(*a),), x, attn, ls1, *mlp, 1e-6)
+                    report[(f"K10 D{width} rows{rows_}", tname)] = dict(
+                        err=_rel_err(got, fused_res_ln_mlp_plain(x, attn, ls1, *mlp, 1e-6)), tol=TOL[tname],
+                        bit_equal=same)
         for width in (64, 768, 1024):
             x = randn(2, 300, width, dtype=dtype)
             mlp = (randn(width, dtype=torch.float32, scale=0.1) + 1,
@@ -1379,6 +1459,8 @@ def main() -> int:
             line += f" K7 same inputs {r['k7_ms']:.3f} ms"
         if "k2res_ms" in r:
             line += f" residual add + K2 {r['k2res_ms']:.3f} ms"
+        if "unfused_ms" in r:
+            line += f" unfused chain {r['unfused_ms']:.3f} ms"
         if "ms_nk10952" in r:
             line += (f"; at Nk 10952: kernel {r['ms_nk10952']:.3f} ms, K3 {r['k3_ms_nk10952']:.3f} ms, "
                      f"bound {r['bound_ms_nk10952']:.3f} ms")
@@ -2014,7 +2096,7 @@ def main() -> int:
     from crossscore_tpu_torch.ops import flash_attention as fa
     from crossscore_tpu_torch.ops import lane_pad_probe as lpp
     from crossscore_tpu_torch.ops.fused_mlp import fused_res_ln_mlp
-    from crossscore_tpu_torch.tools import attn_microbench, bwd_microbench
+    from crossscore_tpu_torch.tools import attn_microbench, bwd_microbench, mlp_microbench
     from crossscore_tpu_torch.tools import lane_pad_probe as lane_pad_tool
 
     def modes():
@@ -2050,6 +2132,7 @@ def main() -> int:
             "v2bf16:1369,1024,1", "xln:1369,1024"]),
         "lane_pad_probe": (lane_pad_tool.main, ["--reps", "5", "--step-ms", f"{train_ms:.2f}"]),
         "bwd_microbench": (bwd_microbench.main, ["--reps", "5"]),
+        "mlp_microbench": (mlp_microbench.main, ["--reps", "5"]),
     }
     for tag, (tool, argv) in tool_runs.items():
         zero_launches()
@@ -2061,9 +2144,11 @@ def main() -> int:
               f"{ {k: v for k, v in inst[tag]['launches'].items() if v} }; per mode {inst[tag]['by_mode']}")
         if rc != 0:
             _fail(f"{tag} exited {rc}")
-    bb, dec, lp, _ = (inst[t]["by_mode"] for t in tool_runs)
+    bb, dec, lp, _, _ = (inst[t]["by_mode"] for t in tool_runs)
     if not inst["bwd_microbench"]["launches"]["K4"]:
         _fail("bwd_microbench never launched K4")
+    if not inst["mlp_microbench"]["launches"]["K2"]:
+        _fail("mlp_microbench never launched K2")
     missing = [f"K11 {m}" for m in fa.QKV_PROBES if not bb["K11 probe"].get(m)] \
         + [f"K11 chunks{c}" for c in (2, 3) if not bb["K11 chunks"].get(f"chunks{c}")] \
         + [f"K7' {m}" for m in fa.HEAD_MAJOR_VARIANTS if not (bb["K7'"].get(m) and dec["K7'"].get(m))] \
@@ -2103,7 +2188,7 @@ def main() -> int:
               **{kern: "q/o/do ({0}, {1}, {2}, {4}), k/v ({0}, {1}, {3}, {4}) bf16 head-major views".format(
                   *K89_SHAPES[kern][:5]) for kern in ("K8", "K9")}}
     stats = ("err", "tol", "l2", "tol_l2", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms", "bound_floor",
-             "k1_ms", "k3_ms", "k4_ms")
+             "k1_ms", "k3_ms", "k4_ms", "unfused_ms")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
@@ -2130,8 +2215,11 @@ def main() -> int:
         # K7: K3's on the same work, and both at the 1-rank length; K8/K9:
         # K4's on the same work
         row.update({k: r[k] for k in ("l2", "tol_l2", "k1_ms", "k3_ms", "ms_nk10952", "k3_ms_nk10952",
-                                      "bound_ms_nk10952", "k4_ms", "bound_floor", "products_ms", "exp_ms")
+                                      "bound_ms_nk10952", "k4_ms", "bound_floor", "products_ms", "exp_ms",
+                                      "unfused_ms")
                     if k in r})
+        if kern == "K2":  # the bf16 body's plan at D 384 (step 2)
+            row["plan"] = mlp_plan
         if kern in ("K3", "K4", "K6"):
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
             row["self"] = {k: s[k] for k in stats if k in s}

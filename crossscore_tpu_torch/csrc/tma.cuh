@@ -1,9 +1,10 @@
 // Hopper asynchronous copies (sm_90a): TMA tile loads into shared memory
-// that complete on an mbarrier, the mbarrier operations of a producer /
-// consumer ring, register rebalancing between warpgroups (setmaxnreg), the
-// block shape that the attention kernels share (a producer warpgroup and
-// two consumer warpgroups), and the host side: a 4-D tensor map of one bf16
-// attention operand.
+// that complete on an mbarrier (one block's, or multicast to the blocks of a
+// thread-block cluster), TMA tile stores, the mbarrier operations of a
+// producer / consumer ring (arrivals on a cluster partner's barriers too),
+// register rebalancing between warpgroups (setmaxnreg), the block shape that
+// the attention kernels share (a producer warpgroup and two consumer
+// warpgroups), and the host side: a 4-D tensor map of one bf16 operand.
 //
 // The driver's cuTensorMapEncodeTiled is resolved at run time through the
 // runtime's driver entry point, so a library that includes this header
@@ -59,6 +60,55 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The same box written into the shared memory of every block of the cluster
+// named in `mask` (bit r: rank r), at `dst`'s offset in each, completing on
+// the barrier at `bar`'s offset in each.
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                                      int c1, int c2, int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "h"(mask)
+      : "memory");
+}
+
+// one box of shared memory at `src` stored to a 4-D tensor map at (c0 .. c3)
+// (rows past the map's end are not written), then committed as a bulk group
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
+// commit this thread's bulk stores and wait until they have read shared memory
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this block's rank in its thread-block cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: arrive, then wait for all
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// one arrival on the barrier at `bar`'s offset in the cluster's block `cta`
+// (this block's own included)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\nmbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(cta)
       : "memory");
 }
 
@@ -126,8 +176,9 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The tensor map of one bf16 attention operand with hd contiguous elements
-// per row and element strides rs (row), hs (head) and bs (batch): dimensions
+// The tensor map of one bf16 operand with hd contiguous elements per row and
+// element strides rs (row), hs (head) and bs (batch) (the fused MLP maps a
+// 2-D matrix as one head of one batch item): dimensions
 // (hd, rows, heads, batch), so that a box never crosses into another head or
 // batch item: rows past `rows` and columns past hd read as zeros. Boxes are
 // 64 columns (128 bytes, the swizzle span) by `box_rows` rows, written

@@ -40,7 +40,7 @@ def _torch_args(args, dtype=torch.float32):
     # a rounding that flips on one side moves an output by one bf16 ulp (2^-6
     # at |out| < 4); these inputs read bit-equal
     ("bfloat16", 1.6e-2)])
-@pytest.mark.parametrize("n", [37, 13])
+@pytest.mark.parametrize("n", [37, 13, 1, 63])
 def test_k10_forward_matches_jax(dtype, atol, n):
     args = _args(0, n=n)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16

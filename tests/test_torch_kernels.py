@@ -56,9 +56,12 @@ def test_k1_flash_qkv_matches_jax(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("gelu", ["tanh", "exact"])
-def test_k2_fused_ln_mlp_matches_jax(dtype, gelu):
+# (2, 20) as before; one row, a row short of a 64-row tile, and rows that
+# leave a ragged last tile
+@pytest.mark.parametrize("b,n", [(2, 20), (1, 1), (1, 63), (3, 43)])
+def test_k2_fused_ln_mlp_matches_jax(dtype, gelu, b, n):
     rng = np.random.default_rng(2)
-    b, n, d, f = 2, 20, 64, 256
+    d, f = 64, 256
     x = rng.standard_normal((b, n, d)).astype(np.float32)
     lns = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
     lnb = (0.1 * rng.standard_normal(d)).astype(np.float32)

@@ -8,7 +8,8 @@ point (dinov2-small, 518 px, K=8 references, B=8, bf16, flash attention and
 the fused MLP, seeded random weights, uint8 images), warms up, then records
 three steps under ``torch.profiler``. Prints the card, the
 step time (CUDA events, no profiler), the device time per kernel (top 25),
-the device time per layer group (K1, K2, K3 kernels, matrix products, the rest)
+the device time per layer group (K1, K2, K3 kernels, K10 where launched, matrix
+products, the rest)
 and the device busy share (kernel time over the profiled wall time).
 """
 
@@ -26,12 +27,18 @@ B, K, HW, STEPS = 8, 8, 518, 3
 
 
 def _group(name: str) -> str:
+    """The layer group of a kernel, from its name as the profiler gives it
+    (demangled, ``cs::ln_mlp_tma<384, false, true>(...)``) or mangled
+    (``_ZN2cs10ln_mlp_tmaILi384ELb0ELb1EE...``)."""
     # the attention forward's kernels are templates on the head dim first:
     # the backbone's is 64, the decoder's 48
-    if re.search(r"attn_fwd_\w+<64\b", name):
+    if re.search(r"attn_fwd_\w*?(<64\b|ILi64E)", name):
         return "K1 backbone attention"
     if "attn_fwd" in name:
         return "K3 decoder attention"
+    # the fused MLP's bf16 and fp32 kernels take RES (K10) second
+    if re.search(r"ln_mlp_(tma|f32)(<\s*\d+\s*,\s*(true|1)\b|ILi\d+ELb1E)", name):
+        return "K10 fused residual LN-MLP"
     if "ln_mlp" in name:
         return "K2 fused LN-MLP"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")):
