@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
-the predict CLI, view-parallel predict, and tensor- and view-parallel training.
+the predict CLI, view-parallel predict, tensor- and view-parallel training, and
+token-space training.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -112,7 +113,23 @@ In order:
     chain and K2 at the predict point), each with the counts zeroed just
     before it and read just after: every mode launched, K4 by
     ``bwd_microbench``, K2 by ``mlp_microbench``, every run exit 0;
-14. print one ``{"kernels": [...]}`` line, then, last, the device line.
+14. token-space training: (i) the full-width token step through
+    ``make_train_step`` (B=24, K=5, 1369-token windows, bf16 compute, fp32
+    master weights) with the counters zeroed: K3 4 and K4 4 launches and no
+    other, a finite loss, the decoder and head changed, the backbone and PE
+    bit-identical; time it, read its peak memory and print its device-time
+    breakdown; (ii) at B=1, fp32 and bf16, the token graph on tokens encoded
+    from the same 518 px crops against the pixel graph, and against the
+    all-plain token graph (score-map MAE and every gradient leaf, the bounds
+    of steps 5 and 7); (iii) the train CLI with ``train_recipe=token_fast``
+    on a synthetic tree like step 8's (540x720 images, encoded whole at
+    532x714: 1939 tokens; pools of 6 references), B=2, 2 steps and a resume
+    to 4: K4 4 a step, K3 4 a step
+    and a validation batch, K1 and K2 12 a call of the encoder (cache misses)
+    or a validation batch, both counted; (iv) ``tasks.encode_tokens`` into a
+    store, then a ``token_fast`` run on it whose encoder is never called and
+    whose K1/K2 launches are validation's alone;
+15. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -924,6 +941,216 @@ def _profile(torch, fn, step_ms: float, top: int = 16, what: str = "train step")
           f"({100 * busy / step_ms:.1f}% busy, {len(rows)} kernel names)")
     for ms, count, key in rows[:top]:
         print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<4d} {key[:110]}")
+
+
+def _token_phases(torch, dev, params, vit, zero_launches, read_launches) -> dict:
+    """Step 14, token-space training on the card: (i) the full-width token
+    step through ``make_train_step``; (ii) at B=1 the token graph against
+    the pixel graph on tokens encoded from the same crops, and against the
+    all-plain token graph, fp32 and bf16; (iii) the train CLI with
+    ``train_recipe=token_fast`` and a resume; (iv) ``tasks.encode_tokens``,
+    then a ``token_fast`` run on the warm store. Returns the readings."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import numpy as np
+
+    import crossscore_tpu_torch.tasks.train as train_mod
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.data.synthetic import generate
+    from crossscore_tpu_torch.io.convert import load_into
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
+    from crossscore_tpu_torch.tasks.encode_tokens import main as encode_main
+    from crossscore_tpu_torch.train.optim import make_optimizer
+    from crossscore_tpu_torch.train.step import TrainState, loss_fn, make_train_step
+
+    tok: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    d = vit.hidden_size
+    nq = (HW // vit.patch_size) ** 2  # 1369 tokens a view
+
+    # (i) the token step at the train point: B=24, K=5, 37x37 windows, bf16
+    tcfg = load_config("default")
+    mcfg = CrossScoreConfig.from_config(tcfg)
+    n_dec = 2 * mcfg.decoder_layers
+    model = load_into(CrossScoreNet(mcfg, device=dev), params)
+    optimizer, scheduler, _ = make_optimizer(tcfg, model, steps_per_epoch=1)
+    step = make_train_step(model, optimizer, scheduler)
+    batch = {"query/tokens": torch.randn(TB, nq, d, generator=gen, device=dev).to(torch.bfloat16),
+             "reference/cross/tokens": torch.randn(TB, TK, nq, d, generator=gen, device=dev).to(torch.bfloat16),
+             "query/score_map": torch.rand(TB, HW, HW, generator=gen, device=dev),
+             "_valid": torch.tensor(TB, device=dev)}
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    zero_launches()
+    state, metrics = step(TrainState(), batch)
+    torch.cuda.synchronize()
+    tok["launches"] = read_launches()
+    want = _launches(K3=n_dec, K4=n_dec)
+    print(f"token train step launches: {tok['launches']} (expected {want})")
+    if tok["launches"] != want:
+        _fail(f"token train launch counts {tok['launches']} != {want}")
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss) or tuple(metrics["pred"].shape) != (TB, HW, HW):
+        _fail(f"token train step loss {loss} / pred shape {tuple(metrics['pred'].shape)}")
+    after = model.state_dict()
+    frozen = [k for k in after if k.startswith("backbone.") or k == "pos_enc_fn.PE"]
+    trained = [k for k, prm in model.named_parameters() if prm.requires_grad]
+    moved_frozen = [k for k in frozen if not torch.equal(after[k], before[k])]
+    unmoved = [k for k in trained if torch.equal(after[k], before[k])]
+    if moved_frozen or unmoved or not all(k.startswith("ref_cross.") for k in trained):
+        _fail(f"token step: frozen parameters moved {moved_frozen[:3]}, trained ones did not {unmoved[:3]}")
+    torch.cuda.reset_peak_memory_stats()
+    tok["step_ms"] = _time_ms(torch, lambda: step(state, batch), reps=5)
+    tok["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    tok["loss"] = loss
+    print(f"token train step: loss {loss:.6f}, {len(trained)} decoder/head tensors updated, {len(frozen)} "
+          f"backbone/PE tensors bit-identical; {tok['step_ms']:.2f} ms per step of B={TB}, K={TK} "
+          f"({nq} tokens a view, bf16 compute, fp32 master weights; median of 5 after warm-up); peak memory "
+          f"{tok['peak_gib']:.2f} GiB")
+    _profile(torch, lambda: step(state, batch), tok["step_ms"], what="token train step")
+    del model, optimizer, scheduler, step, batch, before, after, metrics, state
+    torch.cuda.empty_cache()
+
+    # (ii) B=1: the token graph on tokens encoded from the same crops against
+    # the pixel graph (the same function: the encoder runs the pixel graph's
+    # backbone batch), and against the all-plain token graph
+    q1 = torch.randint(0, 256, (1, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    r1 = torch.randint(0, 256, (1, TK, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    gt1 = torch.rand(1, HW, HW, generator=gen, device=dev)
+    tok["b1"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        nets = {impl: load_into(CrossScoreNet(dataclasses.replace(mcfg, compute_dtype=dtype, attention_impl=impl,
+                                                                  mlp_impl=mlp), device=dev), params)
+                for impl, mlp in (("flash", "fused_exact"), ("dense", "unfused"))}
+        tokens = make_backbone_encoder(nets["flash"].cfg)(nets["flash"], torch.cat([q1, r1[0]]))
+        token_batch = {"query/tokens": tokens[:1], "reference/cross/tokens": tokens[1:][None],
+                       "query/score_map": gt1}
+        runs = {}
+        for tag, net, b1 in (("pixel", nets["flash"], {"query/img": q1, "reference/cross/imgs": r1,
+                                                        "query/score_map": gt1}),
+                             ("token", nets["flash"], token_batch), ("token plain", nets["dense"], token_batch)):
+            net.zero_grad(set_to_none=True)
+            loss, (pred, _, _) = loss_fn(net, b1)
+            loss.backward()
+            runs[tag] = (pred.detach().float(),
+                         {n: prm.grad.clone() for n, prm in net.named_parameters() if prm.grad is not None})
+        for ref in ("pixel", "token plain"):
+            mae = float((runs["token"][0] - runs[ref][0]).abs().mean())
+            errs = []
+            for leaf, g in runs[ref][1].items():
+                got = runs["token"][1][leaf]
+                errs.append(float((got - g).abs().max() / g.abs().max()) if dtype == torch.float32
+                            else float(torch.linalg.vector_norm(got - g) / torch.linalg.vector_norm(g)))
+            tok["b1"][f"{tname} vs {ref}"] = {"mae": mae, "grad_err": max(errs), "leaves": len(errs)}
+            print(f"token graph B=1 {tname} vs {ref}: score MAE {mae:.3e} (tol {NET_TOL[tname]:.1e}), "
+                  f"{len(errs)} gradient leaves, worst {max(errs):.3e} (tol {GRAD_TOL[tname]:.1e})")
+            if not (mae < NET_TOL[tname] and max(errs) <= GRAD_TOL[tname]
+                    and runs["token"][1].keys() == runs[ref][1].keys()):
+                _fail(f"token graph {tname} against {ref}: MAE {mae}, gradients {max(errs)}")
+    del nets, tokens, token_batch, runs
+    torch.cuda.empty_cache()
+
+    # (iii) the train CLI with train_recipe=token_fast, then a resume; and
+    # (iv) tasks.encode_tokens, then a token_fast run on the warm store. The
+    # encoder's and the eval step's calls are counted, so that K1 and K2
+    # (12 a call) are held to cache misses and validation exactly
+    calls = {"encode": 0, "eval": 0}
+    make_encoder, make_eval = train_mod.make_backbone_encoder, train_mod.make_eval_step
+
+    def counted(factory, key):
+        def make(*args):
+            fn = factory(*args)
+
+            def call(*a, **kw):
+                calls[key] += 1
+                return fn(*a, **kw)
+            return call
+        return make
+
+    def rows(run):
+        return [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+
+    train_mod.make_backbone_encoder = counted(make_encoder, "encode")
+    train_mod.make_eval_step = counted(make_eval, "eval")
+    n_layers = vit.num_layers
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            # step 8's tree with pools of 6 references, at least K: no reference
+            # slot is padded with the empty placeholder, whose tokens no store holds
+            generate(Path(tmp) / "datadir", hw=(540, 720), scenes_per_split={"train": 1, "test": 1}, seed=SEED,
+                     n_train_imgs=6, n_test_imgs=6)
+            ov = [f"data.dataset.path=[{tmp}/datadir]", f"run.dir={tmp}/log",
+                  "data.loader.train.batch_size=2", "data.loader.validation.batch_size=2",
+                  "data.loader.train.num_workers=4", "data.loader.validation.num_workers=4",
+                  "trainer.num_sanity_val_steps=1", "trainer.limit_val_batches=1",
+                  "logger.vis_scalar_every_n_train_steps=1", "this_main.train_recipe=token_fast"]
+            zero_launches()
+            tee = _Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                run1 = train_mod.main(ov + ["trainer.max_steps=2", "alias=token_first"])
+                run2 = train_mod.main(ov + ["trainer.max_steps=4", f"trainer.ckpt_path_to_load={run1 / 'ckpt'}",
+                                            "alias=token_resumed"])
+            torch.cuda.synchronize()
+            cli = {"launches": read_launches(), **calls, "s": time.perf_counter() - t0}
+            text = "".join(tee.text)
+            steps1 = [r["step"] for r in rows(run1) if "train/loss" in r]
+            steps2 = [r["step"] for r in rows(run2) if "train/loss" in r]
+            losses = [r["train/loss"] for r in rows(run1) + rows(run2) if "train/loss" in r]
+            val = [r["validation/loss"] for r in rows(run1) + rows(run2) if "validation/loss" in r]
+            ckpts = sorted(p.name for p in (run2 / "ckpt").glob("*.ckpt"))
+            n_steps = len(steps1) + len(steps2)
+            want = _launches(K1=n_layers * (cli["encode"] + cli["eval"]), K2=n_layers * (cli["encode"] + cli["eval"]),
+                             K3=n_dec * (n_steps + cli["eval"]), K4=n_dec * n_steps)
+            tok["cli"] = cli | {"steps": steps1 + steps2, "losses": losses, "val": val}
+            print(f"token_fast train CLI (dinov2-small, 518 px windows of 532x714 grids, B=2, K={TK}, bf16): steps "
+                  f"{steps1} then, resumed, {steps2}; losses {[round(x, 6) for x in losses]}; validation losses "
+                  f"{[round(x, 6) for x in val]}; checkpoints {ckpts}; encoder calls {cli['encode']}, validation "
+                  f"batches {cli['eval']}; launches {cli['launches']} (expected {want}); {cli['s']:.1f} s")
+            if steps1 != [1, 2] or steps2 != [3, 4] or not all(np.isfinite(losses)) or len(val) < 2 \
+                    or ckpts != ["step_00000004.ckpt"] or cli["launches"] != want or not cli["encode"] \
+                    or text.count("token cache: ") != 2:
+                _fail("token_fast train CLI run or resume")
+
+            t0 = time.perf_counter()
+            store = f"{tmp}/tokens"
+            zero_launches()
+            n_images = encode_main(ov + [f"this_main.ref_token_cache_dir={store}"])
+            torch.cuda.synchronize()
+            enc_launches = read_launches()
+            n_chunks = math.ceil(n_images / 16)
+            want = _launches(K1=n_layers * n_chunks, K2=n_layers * n_chunks)
+            tok["encode_tokens"] = {"images": n_images, "launches": enc_launches, "s": time.perf_counter() - t0,
+                                    "files": len(list(Path(store).glob("*.npz")))}
+            print(f"encode_tokens: {n_images} images ({tok['encode_tokens']['files']} files) in "
+                  f"{tok['encode_tokens']['s']:.1f} s; launches {enc_launches} (expected {want})")
+            if n_images != 24 or tok["encode_tokens"]["files"] != n_images or enc_launches != want:
+                _fail("encode_tokens")
+
+            calls.update(encode=0, eval=0)
+            zero_launches()
+            tee = _Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                run3 = train_mod.main(ov + ["trainer.max_steps=2", f"this_main.ref_token_cache_dir={store}",
+                                            "alias=token_warm"])
+            torch.cuda.synchronize()
+            warm = {"launches": read_launches(), **calls}
+            cache_line = re.search(r"token cache: (\d+) hits, (\d+) misses, (\d+) disk hits", "".join(tee.text))
+            steps3 = [r["step"] for r in rows(run3) if "train/loss" in r]
+            want = _launches(K1=n_layers * warm["eval"], K2=n_layers * warm["eval"],
+                             K3=n_dec * (len(steps3) + warm["eval"]), K4=n_dec * len(steps3))
+            tok["warm"] = warm | {"steps": steps3, "cache": cache_line.groups() if cache_line else None}
+            print(f"token_fast on the warm store: steps {steps3}; encoder calls {warm['encode']}; token cache "
+                  f"{tok['warm']['cache']} (hits, misses, disk hits); launches {warm['launches']} (expected {want})")
+            if steps3 != [1, 2] or warm["encode"] or warm["launches"] != want or cache_line is None \
+                    or cache_line.group(2) != "0" or cache_line.group(3) == "0":
+                _fail("token_fast run on the warm store encoded or launched K1/K2 outside validation")
+    finally:
+        train_mod.make_backbone_encoder, train_mod.make_eval_step = make_encoder, make_eval
+    return tok
 
 
 def main() -> int:
@@ -2156,7 +2383,11 @@ def main() -> int:
     if missing:
         _fail("a timing mode was never launched by its entry point: " + ", ".join(missing))
 
-    # --- 14. the kernels line, then the device line ---------------------------
+    # --- 14. token-space training: the token step, the token graph at B=1, the
+    # token_fast train CLI, encode_tokens and a run on the warm store -----------
+    tok = _token_phases(torch, dev, params, vit, zero_launches, read_launches)
+
+    # --- 15. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -2208,6 +2439,7 @@ def main() -> int:
                else "max |d| / (1 + |plain|); l2: relative L2 of o, l, m",
                "launches_by_path": {"predict": launches[kern], "bucketed_predict": cli["c"]["launches"][kern],
                                     "train_step": train_launches[kern],
+                                    "token_train_step": tok["launches"][kern],
                                     "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern],
                                     "tp_train_step": tp_launches[kern]},
                "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
@@ -2270,6 +2502,7 @@ def main() -> int:
     # (a) is the reference of the agreement check: it has no reading of its own
     print(json.dumps({"kernels": kernels, "card": card, "maps_per_s": 1e3 * B / step_ms,
                       "step_ms": step_ms, "train_step_ms": train_ms, "train_peak_gib": train_peak,
+                      "token_train": tok,
                       "predict_cli": {tag: {k: v for k, v in r.items() if k not in ("maps", "launches")}
                                       | ({"mae_vs_a": agree[tag][0], "max_vs_a": agree[tag][1]}
                                          if tag in agree else {})

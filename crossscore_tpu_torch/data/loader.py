@@ -91,8 +91,9 @@ class Loader:
 
     def _plan(self, epoch: int) -> list:
         """Batch plan: a list of (index_chunk, n_valid, extra); ``extra`` is an
-        opaque value handed to :meth:`_pre_collate` (ShapeBucketedLoader's
-        bucket shape)."""
+        opaque value handed to :meth:`_pre_collate` and :meth:`_finalize`
+        (ShapeBucketedLoader's bucket shape, TokenSpaceLoader's epoch and
+        indices)."""
         indices = self._epoch_indices(epoch)
         bs = self.batch_size
         plan = []
@@ -107,6 +108,11 @@ class Loader:
         """Per-item hook before collation (subclasses pad mixed-shape items
         to a common shape here so that they stack)."""
         return items
+
+    def _finalize(self, batch: dict, extra) -> dict:
+        """Post-collate hook (TokenSpaceLoader turns pixels into token
+        windows here)."""
+        return batch
 
     def epoch(self, epoch: int = 0, start_batch: int = 0) -> Iterator[dict]:
         """Yield collated numpy batches for one epoch.
@@ -152,7 +158,7 @@ class Loader:
                     )
                     if len(items) < bs and self.pad_last:
                         items = items + [items[-1]] * (bs - len(items))
-                    batch = collate(self._pre_collate(items, extra))
+                    batch = self._finalize(collate(self._pre_collate(items, extra)), extra)
                     batch["_valid"] = np.asarray(n_valid, np.int32)
                     if not put_checked(batch):
                         return

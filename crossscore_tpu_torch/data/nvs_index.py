@@ -407,6 +407,13 @@ def get_dataset(cfg, data_split: str, return_item_paths: bool = False, crop_mode
     return ConcatDataset(datasets)
 
 
+def leaf_datasets(ds) -> list:
+    """The NvsDataset leaves of ``ds``: itself, or a ConcatDataset's parts.
+    Per-leaf settings (the crop geometry, the neighbour config) are read on
+    the leaves; a ConcatDataset carries none of them."""
+    return list(ds.datasets) if isinstance(ds, ConcatDataset) else [ds]
+
+
 class ConcatDataset:
     def __init__(self, datasets):
         self.datasets = datasets
@@ -422,3 +429,9 @@ class ConcatDataset:
     def get_item(self, idx: int, rng: np.random.Generator) -> dict:
         ds, local = self._locate(idx)
         return ds.get_item(local, rng)
+
+    def get_item_shape(self, idx: int) -> tuple:
+        """Post-pipeline query (H, W) of item ``idx``, read by the leaf that
+        holds it (shape bucketing, the token_fast coverage guard)."""
+        ds, local = self._locate(idx)
+        return ds.get_item_shape(local)

@@ -23,7 +23,9 @@ Design:
   the item's true (h, w): tokens are a function of both.
 
 The JAX package's loader-side decode skip needs its native decoder, which the
-port does not have, so every reference slot here carries decoded pixels.
+port does not have, so every reference slot here carries decoded pixels (the
+JAX ``gather``'s ``skipped`` argument is not ported; ``has`` is, and the
+token-space loader, ``data/token_train.py``, reads the grids unstacked).
 """
 
 from __future__ import annotations
@@ -125,14 +127,32 @@ class RefTokenCache:
                  shape=np.asarray(tokens.shape), dtype=str(tokens.dtype))
         tmp.replace(p)
 
-    def gather(self, ref_paths: list[list[str]], ref_imgs: np.ndarray, valid_hw=None) -> torch.Tensor:
+    def has(self, path: str, hw: tuple) -> bool:
+        """True when the tokens of ``path`` at the pixel shape ``hw`` are in
+        the host LRU (which this touches, so that the entry is not evicted
+        before a ``gather`` consumes it) or in the disk store (loaded into
+        the LRU)."""
+        key = self._key(path, hw)
+        with self._lock:
+            try:
+                self._cache.move_to_end(key)
+                return True
+            except KeyError:
+                pass
+        return self._disk_load(key) is not None
+
+    def gather(self, ref_paths: list[list[str]], ref_imgs: np.ndarray, valid_hw=None, stack: bool = True):
         """:param ref_paths: per-view path lists ``[k][b]`` (the collated
             ``batch["item_paths"]["reference/cross/imgs"]`` layout).
         :param ref_imgs: (B, K, H, W, 3) host pixels.
         :param valid_hw: optional true pixel extents of bucket-padded
             batches, (B, 2) per item or (2,) shared: an item's K refs share
             its extent; misses encode with the mask and are keyed by it.
-        :return: (B, K, N_patch, D) host tokens in encode_fn's dtype."""
+        :param stack: False returns ``[b][k]`` lists of the cache's own
+            (N_patch, D) host tensors, without a stacked copy (token-space
+            training slices windows out of them); callers only read them.
+        :return: (B, K, N_patch, D) host tokens in encode_fn's dtype, or the
+            ``[b][k]`` lists."""
         b, k = ref_imgs.shape[:2]
         if valid_hw is None:
             valids = [None] * b
@@ -175,8 +195,8 @@ class RefTokenCache:
                 for j in range(n_valid):
                     self._put(miss_keys[i0 + j], tokens[j].clone())
 
-        return torch.stack([torch.stack([self._get(keys[bb][kk]) for kk in range(k)])
-                            for bb in range(b)])
+        grids = [[self._get(keys[bb][kk]) for kk in range(k)] for bb in range(b)]
+        return torch.stack([torch.stack(row) for row in grids]) if stack else grids
 
     def _put(self, key: tuple, tokens: torch.Tensor, write_disk: bool = True) -> None:
         with self._lock:

@@ -2,9 +2,12 @@
 
 1. query (B, H, W, 3) + references (B, K, H, W, 3), ImageNet-normalised (or
    raw uint8, normalised here in fp32), or the references' cached backbone
-   tokens (``ref_tokens``, from :func:`make_backbone_encoder`)
+   tokens (``ref_tokens``, from :func:`make_backbone_encoder`), or both sides
+   as tokens (``query_tokens`` + ``ref_tokens``: the decoder-only graph of
+   token-space training, ``data/token_train.py``)
 2. all B*(1+K) images (or the B queries alone) through the frozen DINOv2
-   encoder in one batch, under ``torch.no_grad()``; CLS stripped
+   encoder in one batch, under ``torch.no_grad()``; CLS stripped (skipped by
+   the decoder-only graph)
 3. the multi-view PE added to query and reference tokens (trainable only
    with ``pe_trainable``)
 4. the 2-layer cross-reference decoder
@@ -190,16 +193,46 @@ class CrossScoreNet(nn.Module):
         :param ref_grid: the (gh_r, gw_r) patch grid of ``ref_tokens`` when it
             differs from the query's (only with ``ref_tokens``, not with
             ``valid_hw``).
+        :param query_tokens: (B, N, D) backbone tokens of the queries with
+            ``query_img=None``: the decoder-only graph. Needs ``ref_tokens``
+            and ``token_grid``; the backbone does not run, and the query
+            tokens take no gradient.
+        :param token_grid: the (gh, gw) patch grid of ``query_tokens`` (the
+            score map is (B, gh*patch, gw*patch)).
         """
-        for name, val in (("query_tokens", query_tokens), ("token_grid", token_grid)):
-            if val is not None:
-                raise NotImplementedError(f"{name} is not ported yet")
         c = self.cfg
-        for name, img in (("query_img", query_img), ("ref_imgs", ref_imgs), ("ref_tokens", ref_tokens)):
+        if query_tokens is not None:
+            if ref_tokens is None or token_grid is None:
+                raise ValueError("query_tokens (the decoder-only graph) requires ref_tokens "
+                                 "and a token_grid=(gh, gw)")
+            if query_img is not None:
+                raise ValueError("pass query_img or query_tokens, not both")
+            if norm_img:
+                raise ValueError("norm_img is pixel-space; tokens are post-encode")
+            if valid_hw is not None:
+                raise ValueError("bucket masking (valid_hw) is pixel-space; token inputs must be "
+                                 "pre-sliced to their valid grid instead")
+            if token_grid[0] * token_grid[1] != query_tokens.shape[1]:
+                raise ValueError(f"query_tokens carry {query_tokens.shape[1]} patches but "
+                                 f"token_grid is {tuple(token_grid)}")
+        elif token_grid is not None:
+            raise ValueError("token_grid is only meaningful with query_tokens")
+        for name, img in (("query_img", query_img), ("ref_imgs", ref_imgs), ("ref_tokens", ref_tokens),
+                          ("query_tokens", query_tokens)):
             if img is not None and img.device != self.img_mean_std.device:
                 raise ValueError(f"{name} is on {img.device}, the model on {self.img_mean_std.device}")
         if ref_tokens is not None and ref_imgs is not None:
             raise ValueError("pass ref_imgs or ref_tokens, not both")
+        if query_tokens is not None:
+            gh, gw = token_grid
+            # the decoder-only graph: the tokens are constants of the frozen
+            # backbone, so the query side takes no gradient
+            q_tok = query_tokens.to(c.compute_dtype).detach()
+            if not (c.do_reference_cross and ref_tokens.shape[1] > 0):
+                return {}
+            self._check_ref_grid(ref_tokens, gh, gw)
+            return self._decode(q_tok, ref_tokens.to(c.compute_dtype), gh, gw, gh, gw,
+                                need_attn_weights, need_attn_weights_head_id)
         if query_img.dtype == torch.uint8 or (ref_imgs is not None and ref_imgs.dtype == torch.uint8):
             if norm_img:
                 raise ValueError("norm_img expects [0,1] float pixels, got uint8")
@@ -245,22 +278,37 @@ class CrossScoreNet(nn.Module):
 
         with torch.no_grad():  # frozen backbone
             tokens = self.backbone(all_imgs, enc_valid_grid)[:, 1:]
-        q_tok = tokens[:b]
-        results: dict = {}
         if not (c.do_reference_cross and k_ref > 0):
-            return results
+            return {}
 
         if ref_grid is not None and ref_tokens is None:
             raise ValueError("ref_grid is only meaningful with ref_tokens")
-        n_patch_r = ref_tokens.shape[2] if ref_tokens is not None else n_patch
         gh_r, gw_r = ref_grid if ref_grid is not None else (gh, gw)
-        if gh_r * gw_r != n_patch_r:
-            raise ValueError(f"ref_tokens carry {n_patch_r} patches per view but the reference "
-                             f"grid is {(gh_r, gw_r)}")
+        r_tok = tokens[b:].reshape(b, k_ref, n_patch, d) if ref_tokens is None \
+            else ref_tokens.to(c.compute_dtype)
+        self._check_ref_grid(r_tok, gh_r, gw_r)
         if (gh_r, gw_r) != (gh, gw) and valid_hw is not None:
             raise ValueError("shape-bucketed inference (valid_hw) needs the query and reference "
                              "grids to match: the bucket masks assume one grid per item")
-        r_tok = tokens[b:] if ref_tokens is None else ref_tokens.to(c.compute_dtype)
+        return self._decode(tokens[:b], r_tok, gh, gw, gh_r, gw_r, need_attn_weights,
+                            need_attn_weights_head_id, valid_grid, tok_bias, per_item)
+
+    @staticmethod
+    def _check_ref_grid(r_tok: torch.Tensor, gh_r: int, gw_r: int) -> None:
+        if gh_r * gw_r != r_tok.shape[2]:
+            raise ValueError(f"ref_tokens carry {r_tok.shape[2]} patches per view but the reference "
+                             f"grid is {(gh_r, gw_r)}")
+
+    def _decode(self, q_tok, r_tok, gh, gw, gh_r, gw_r, need_attn_weights, need_attn_weights_head_id,
+                valid_grid=None, tok_bias=None, per_item=False) -> dict:
+        """The PE, the decoder, the head and the jigsaw on (B, gh*gw, D) query
+        and (B, K, gh_r*gw_r, D) reference tokens in the compute dtype."""
+        c = self.cfg
+        d = c.backbone.hidden_size
+        p = c.patch_size
+        n_patch = gh * gw
+        b, k_ref, n_patch_r = r_tok.shape[:3]
+        results: dict = {}
         feat_query = self.pos_enc_fn(q_tok, 1, gh, gw, valid_grid)
         # view parallelism: the PE meets only this rank's reference views on
         # the reference side, so that share of its gradient is summed over
@@ -273,7 +321,7 @@ class CrossScoreNet(nn.Module):
         if tok_bias is not None:
             # the same mask for every view: each item's refs share its extent
             cross = np.tile(tok_bias, (1, k_ref) if per_item else k_ref)
-            self_bias, cross_bias = (torch.from_numpy(t).to(query_img.device) for t in (tok_bias, cross))
+            self_bias, cross_bias = (torch.from_numpy(t).to(q_tok.device) for t in (tok_bias, cross))
         decoded, weights = self.ref_cross.attn(
             feat_query, feat_ref, need_weights=need_attn_weights,
             need_weights_head_id=need_attn_weights_head_id, self_bias=self_bias,

@@ -1,14 +1,17 @@
-"""Training entry point on one CUDA card (pixel-space crops); the port's
-counterpart of ``crossscore_tpu/tasks/train.py``.
+"""Training entry point on one CUDA card; the port's counterpart of
+``crossscore_tpu/tasks/train.py``.
 
     python -m crossscore_tpu_torch.tasks.train data.dataset.path=[<root>] alias=run1 \\
-        trainer.max_epochs=9 trainer.optimizer.lr=5e-4
+        trainer.max_epochs=9 trainer.optimizer.lr=5e-4 [this_main.train_recipe=token_fast]
 
 One process, one device (``trainer.devices=1``; more, or a launch of several
 ranks, raises): ``trainer.accelerator=cuda`` (the default) or
 ``cpu`` (the plain PyTorch versions of every kernel). Each step is forward
 (frozen backbone), L1 loss, backward (K4 for the decoder attention) and an
-AdamW update. Checkpoints (``io/checkpoint.py``) keep the model, the
+AdamW update. With ``this_main.token_space_train=true`` (or the
+``token_fast`` recipe) the train batches are windows of full-image token grids
+(``data/token_train.py``) and the step is the decoder-only graph; validation
+stays on pixel crops. Checkpoints (``io/checkpoint.py``) keep the model, the
 optimiser, the scheduler and the exact loop cursor; resume with
 ``trainer.ckpt_path_to_load=<run_dir>/ckpt``.
 """
@@ -17,16 +20,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from crossscore_tpu_torch.data.loader import Loader
-from crossscore_tpu_torch.data.nvs_index import get_dataset
+from crossscore_tpu_torch.data.nvs_index import get_dataset, leaf_datasets
+from crossscore_tpu_torch.data.token_cache import RefTokenCache
+from crossscore_tpu_torch.data.token_train import TokenSpaceLoader, token_working_set
 from crossscore_tpu_torch.io.checkpoint import CheckpointManager, load_hparams
 from crossscore_tpu_torch.io.convert import init_params, load_into
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import (
     JsonlLogger, config_diff, parse_cli, refuse_multi_rank, refuse_tensor_parallel, resolve_accelerator,
     resolve_limit, save_config_snapshot, timestamp, weighted_mean,
@@ -37,10 +44,65 @@ from crossscore_tpu_torch.utils.check_config import ConfigChecker
 from crossscore_tpu_torch.utils.metric_logger import MetricLoggerScalar
 
 
+def apply_train_recipe(cfg) -> str:
+    """``this_main.train_recipe``: ``token_fast`` turns on token-space
+    training (``this_main.token_space_train``) and uint8 pixels on the wire
+    (``data.dataset.wire_uint8``), and sizes the token cache to the loader's
+    in-flight working set. ``default`` and ``pixel`` change nothing; another
+    name raises. Returns ``token_fast`` or ``default``. Whether the crop
+    covers enough of the image for the token path is checked once the
+    dataset is built (:func:`token_fast_coverage_guard`)."""
+    recipe = str(cfg.this_main.get("train_recipe", "default") or "default")
+    if recipe in ("default", "pixel"):
+        return "default"
+    if recipe != "token_fast":
+        raise ValueError(f"unknown this_main.train_recipe {recipe!r}; expected default | pixel | token_fast")
+    cfg.this_main.token_space_train = True
+    cfg.data.dataset.wire_uint8 = True
+    need = token_working_set(int(cfg.data.loader.train.prefetch_factor), int(cfg.data.loader.train.batch_size),
+                             int(cfg.data.neighbour_config.cross))
+    if int(cfg.this_main.get("ref_token_cache_max_items", 0)) < need:
+        cfg.this_main.ref_token_cache_max_items = need
+    print(f"train_recipe=token_fast: token-space training + uint8 wire, token cache sized >= {need} items",
+          flush=True)
+    return "token_fast"
+
+
+def token_fast_coverage_guard(cfg, ds_train) -> bool:
+    """True when the ``token_fast`` recipe keeps the token path, False (with
+    a warning) to fall back to pixel crops: the crop's area over the
+    (resized, trimmed) image, ``crop^2 / (H*W)``, must reach
+    ``this_main.token_fast_min_coverage`` (0.6) on every leaf of the dataset,
+    each probed once through ``get_item_shape`` (PNG headers only). The JAX
+    package reads item 0 only, so a multi-root corpus whose other roots fall
+    below the bound keeps the token path there. The JAX package's A/B runs
+    set the bound: token matched pixel at 0.69 coverage and fell behind at
+    0.45 and 0.16. ``this_main.token_space_train=true`` without the recipe
+    is never second-guessed."""
+    crop = int(cfg.data.transforms.crop_size)
+    min_cov = float(cfg.this_main.get("token_fast_min_coverage", 0.6) or 0)
+    leaves = [leaf for leaf in leaf_datasets(ds_train) if len(leaf)]
+    if not leaves or min_cov <= 0:
+        return True
+    shapes = [leaf.get_item_shape(0) for leaf in leaves]
+    cov, (h, w) = min((crop * crop / float(h * w), (h, w)) for h, w in shapes)
+    if cov >= min_cov:
+        return True
+    warnings.warn(
+        f"train_recipe=token_fast: the {crop}px crop covers only {cov:.0%} of the {h}x{w} image "
+        f"(< token_fast_min_coverage={min_cov:.0%}), where the token path's full-image attention context "
+        "lost quality in the JAX package's A/B runs (45% and 16% coverage); falling back to pixel crops. "
+        "Set this_main.token_space_train=true to force the token path, or lower "
+        "this_main.token_fast_min_coverage",
+        RuntimeWarning, stacklevel=2)
+    return False
+
+
 def train(cfg) -> Path:
     ConfigChecker(cfg).check_train_val()
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
     refuse_multi_rank(cfg)
+    recipe = apply_train_recipe(cfg)
     device = resolve_accelerator(cfg)
     if device.type == "cuda":
         # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)
@@ -55,14 +117,22 @@ def train(cfg) -> Path:
     # ------------------------------------------------------------------ data
     overfit = cfg.trainer.overfit_batches
     deterministic_crop = overfit > 0
-    ds_train = get_dataset(cfg, "train", crop_mode="dataset_default",
-                           resize_short_side=cfg.this_main.resize_short_side,
+    # token-space training: the train dataset yields full images trimmed to
+    # whole patches with their paths; the loader crops in token space.
+    # Validation stays on pixel crops
+    token_train = bool(cfg.this_main.get("token_space_train", False))
+    ds_train = get_dataset(cfg, "train", crop_mode="integer_patches" if token_train else "dataset_default",
+                           return_item_paths=token_train, resize_short_side=cfg.this_main.resize_short_side,
                            deterministic_crop=deterministic_crop)
+    if token_train and recipe == "token_fast" and not token_fast_coverage_guard(cfg, ds_train):
+        token_train = cfg.this_main.token_space_train = False
+        ds_train = get_dataset(cfg, "train", crop_mode="dataset_default",
+                               resize_short_side=cfg.this_main.resize_short_side,
+                               deterministic_crop=deterministic_crop)
     ds_val = get_dataset(cfg, "test", crop_mode="dataset_default",
                          resize_short_side=cfg.this_main.resize_short_side,
                          deterministic_crop=deterministic_crop)
-    loader_train = Loader(
-        ds_train,
+    train_loader_kw = dict(
         batch_size=cfg.data.loader.train.batch_size,
         shuffle=cfg.data.loader.train.shuffle and overfit == 0,
         num_workers=cfg.data.loader.train.num_workers,
@@ -70,6 +140,22 @@ def train(cfg) -> Path:
         seed=cfg.seed,
         drop_last=True,
     )
+    token_cache = None
+    if token_train:
+        # the encoder is bound to the model's frozen backbone once the model
+        # is built and resumed (below); the loader encodes nothing before its
+        # first epoch starts
+        encode_cell: dict = {}
+        token_cache = RefTokenCache(
+            lambda imgs, valid_hw=None: encode_cell["fn"](imgs),
+            encode_batch=int(cfg.this_main.get("ref_token_cache_encode_batch", 16)),
+            max_items=int(cfg.this_main.get("ref_token_cache_max_items", 2048)),
+            persist_dir=cfg.this_main.get("ref_token_cache_dir"),
+        )
+        loader_train = TokenSpaceLoader(ds_train, token_cache, crop_size=int(cfg.data.transforms.crop_size),
+                                        deterministic_crop=deterministic_crop, **train_loader_kw)
+    else:
+        loader_train = Loader(ds_train, **train_loader_kw)
     loader_val = Loader(
         ds_val,
         batch_size=cfg.data.loader.validation.batch_size,
@@ -129,6 +215,12 @@ def train(cfg) -> Path:
         if start_batch >= actual_steps_per_epoch:
             start_epoch, start_batch = start_epoch + 1, 0
         print(f"resumed from step {state.step} (epoch {start_epoch}, batch {start_batch})")
+
+    if token_train:
+        # the backbone is frozen, so tokens of the resumed (or fresh) weights
+        # stay valid for the whole run
+        encoder = make_backbone_encoder(mcfg)
+        encode_cell["fn"] = lambda imgs: encoder(model, torch.from_numpy(imgs).to(device))
 
     train_step = make_train_step(model, optimizer, scheduler)
     eval_step = make_eval_step(model)
@@ -248,6 +340,9 @@ def train(cfg) -> Path:
         logger.log({"train/sustained_ms_per_step": ms, "train/sustained_steps": n}, state.step)
     if cfg.trainer.checkpointing.save_last:
         ckpt_mgr.save(state.step, model, optimizer, scheduler, dataclasses.asdict(state))
+    if token_cache is not None:
+        print(f"token cache: {token_cache.hits} hits, {token_cache.misses} misses, "
+              f"{token_cache.disk_hits} disk hits")
     logger.close()
     print(f"train done: {state.step} steps -> {run_dir}")
     return run_dir

@@ -1,8 +1,9 @@
 """Train, eval and predict steps; counterpart of ``crossscore_tpu/train/step.py``.
 
-The train step is forward (frozen backbone under ``torch.no_grad``), L1
-loss, backward (K4 for the decoder attention; K8/K9 on the ``tp`` and ``cp``
-routes), AdamW update and the per-step schedule. Loss parity: reference
+The train step is forward (frozen backbone under ``torch.no_grad``; on a
+token batch, ``query/tokens``, the decoder-only graph), L1 loss, backward
+(K4 for the decoder attention; K8/K9 on the ``tp`` and ``cp`` routes), AdamW
+update and the per-step schedule. Loss parity: reference
 ``task/core.py:277-293``, the mean |pred - gt| over the (B, H, W) score maps,
 with loader-padded rows weighted out.
 
@@ -54,9 +55,10 @@ class TrainState:
 
 
 def batch_to_device(batch: dict, device) -> dict:
-    """numpy loader batch -> tensors on ``device`` (``item_paths`` dropped)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items() if k != "item_paths"}
+    """Loader batch (numpy arrays, or host tensors: the token loader's
+    tokens) -> tensors on ``device`` (``item_paths`` dropped)."""
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v)))
+            .to(device, non_blocking=True) for k, v in batch.items() if k != "item_paths"}
 
 
 def _weights(batch: dict, shape) -> Optional[torch.Tensor]:
@@ -83,11 +85,19 @@ def loss_fn(model: CrossScoreNet, batch: dict, weight_sum: Optional[torch.Tensor
     """-> (loss, (pred, l1, w)). ``weight_sum``: the global sum of the
     weights over the data group (each rank then returns its weighted L1 sum
     over it, its share of the global mean)."""
-    if batch.get("query/tokens") is not None:
-        raise NotImplementedError("token-space training (query/tokens) is not ported yet")
     w = _weights(batch, batch["query/score_map"].shape)
-    out = model(batch["query/img"], batch.get("reference/cross/imgs"),
-                ref_tokens=batch.get("reference/cross/tokens"))
+    q_tokens = batch.get("query/tokens")
+    if q_tokens is not None:
+        # token-space training (data/token_train.py): both sides arrive as
+        # frozen-backbone tokens, the step is the decoder-only graph on the
+        # score map's patch grid
+        _, hgt, wdt = batch["query/score_map"].shape
+        p = model.cfg.patch_size
+        out = model(None, None, ref_tokens=batch["reference/cross/tokens"], query_tokens=q_tokens,
+                    token_grid=(hgt // p, wdt // p))
+    else:
+        out = model(batch["query/img"], batch.get("reference/cross/imgs"),
+                    ref_tokens=batch.get("reference/cross/tokens"))
     pred = out["score_map_ref_cross"]
     gt = batch["query/score_map"]
     l1 = torch.abs(pred.float() - gt.float())

@@ -196,13 +196,16 @@ def test_attention_weight_map_shape_and_values(dinov2_test_params):
 
 
 def test_unported_inputs_raise(dinov2_test_params):
-    """The token-space inputs (queue 1 item 9) are not ported yet;
-    ``valid_hw`` and ``ref_tokens`` are (tests/test_torch_masked.py)."""
+    """Every input of the JAX net is ported: ``valid_hw`` and ``ref_tokens``
+    (tests/test_torch_masked.py) and, since the token-space slice, the
+    decoder-only graph's ``query_tokens`` and ``token_grid``
+    (tests/test_torch_token_train.py). Given incompletely, the token inputs
+    raise instead of being ignored."""
     port = _port_net("dinov2-test", 6, dinov2_test_params)
     q, r = (torch.from_numpy(a) for a in _images(16, 1, 1, 56))
-    with pytest.raises(NotImplementedError, match="query_tokens"):
+    with pytest.raises(ValueError, match="query_tokens"):
         port(None, None, ref_tokens=torch.zeros(1, 1, 16, 64), query_tokens=torch.zeros(1, 16, 64))
-    with pytest.raises(NotImplementedError, match="token_grid"):
+    with pytest.raises(ValueError, match="token_grid"):
         port(q, r, token_grid=(4, 4))
 
 

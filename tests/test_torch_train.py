@@ -229,5 +229,9 @@ def test_unported_batch_forms_raise(test_params):
     batch = _torch(_batch(40, 1, 1, 56))
     with pytest.raises(NotImplementedError, match="_valid_hw"):
         loss_fn(model, dict(batch, _valid_hw=torch.tensor([56, 56])))
-    with pytest.raises(NotImplementedError, match="query/tokens"):
-        loss_fn(model, dict(batch, **{"query/tokens": torch.zeros(1, 16, 64)}))
+    # token batches are ported (tests/test_torch_token_train.py); bucket
+    # weights are not, on them either
+    tokens = {"query/tokens": torch.zeros(1, 16, 64), "reference/cross/tokens": torch.zeros(1, 1, 16, 64),
+              "query/score_map": torch.zeros(1, 56, 56)}
+    with pytest.raises(NotImplementedError, match="_valid_hw"):
+        loss_fn(model, dict(tokens, _valid_hw=torch.tensor([56, 56])))
