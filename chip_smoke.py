@@ -40,7 +40,9 @@ In order:
    tensors, in bf16 and fp32 (and at the other presets' head dims and widths
    at small shapes, K4 and K8/K9 at every head dim 16-128 and K4, K8 and K9
    at ragged and tiny lengths, Nq 1, 63, 65 over Nk 1, 65, 2049, views and
-   contiguous; K4-K9 by the relative L2 error of each output; the backward
+   contiguous; K1 and K2 (tanh and exact) at the token cache's encode shape,
+   qkv (16, 1939, 1152) and x (16, 1939, 384): 532x714 images, 38x51 patches
+   and CLS; K4-K9 by the relative L2 error of each output; the backward
    launched twice on the same inputs must give the same bits; the forward
    K1, K3 and K7, views and contiguous, at every head dim 16-128, and K1,
    K3, K5, K6 and K7 at the same ragged lengths at hd 48 and 128, K5 and K6
@@ -122,13 +124,15 @@ In order:
     from the same 518 px crops against the pixel graph, and against the
     all-plain token graph (score-map MAE and every gradient leaf, the bounds
     of steps 5 and 7); (iii) the train CLI with ``train_recipe=token_fast``
-    on a synthetic tree like step 8's (540x720 images, encoded whole at
-    532x714: 1939 tokens; pools of 6 references), B=2, 2 steps and a resume
+    on step 8's synthetic tree (540x720 images, encoded whole at 532x714:
+    1939 tokens; pools of 4 and 3 references, padded to K=5 with the empty
+    placeholder), B=2, 2 steps and a resume
     to 4: K4 4 a step, K3 4 a step
     and a validation batch, K1 and K2 12 a call of the encoder (cache misses)
     or a validation batch, both counted; (iv) ``tasks.encode_tokens`` into a
-    store, then a ``token_fast`` run on it whose encoder is never called and
-    whose K1/K2 launches are validation's alone;
+    store (the images and the placeholder), then a ``token_fast`` run on it
+    whose encoder is never called and whose K1/K2 launches are validation's
+    alone;
 15. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
@@ -1079,10 +1083,9 @@ def _token_phases(torch, dev, params, vit, zero_launches, read_launches) -> dict
     try:
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
-            # step 8's tree with pools of 6 references, at least K: no reference
-            # slot is padded with the empty placeholder, whose tokens no store holds
-            generate(Path(tmp) / "datadir", hw=(540, 720), scenes_per_split={"train": 1, "test": 1}, seed=SEED,
-                     n_train_imgs=6, n_test_imgs=6)
+            # step 8's tree: reference pools of 4 and 3 captures, so that the
+            # empty placeholder pads K=5 slots and its tokens are cached too
+            generate(Path(tmp) / "datadir", hw=(540, 720), scenes_per_split={"train": 1, "test": 1}, seed=SEED)
             ov = [f"data.dataset.path=[{tmp}/datadir]", f"run.dir={tmp}/log",
                   "data.loader.train.batch_size=2", "data.loader.validation.batch_size=2",
                   "data.loader.train.num_workers=4", "data.loader.validation.num_workers=4",
@@ -1121,13 +1124,17 @@ def _token_phases(torch, dev, params, vit, zero_launches, read_launches) -> dict
             n_images = encode_main(ov + [f"this_main.ref_token_cache_dir={store}"])
             torch.cuda.synchronize()
             enc_launches = read_launches()
-            n_chunks = math.ceil(n_images / 16)
+            # the images and the empty placeholder at their one shape, in
+            # chunks of the encode batch
+            n_chunks = math.ceil((n_images + 1) / int(tcfg.this_main.ref_token_cache_encode_batch))
             want = _launches(K1=n_layers * n_chunks, K2=n_layers * n_chunks)
             tok["encode_tokens"] = {"images": n_images, "launches": enc_launches, "s": time.perf_counter() - t0,
                                     "files": len(list(Path(store).glob("*.npz")))}
-            print(f"encode_tokens: {n_images} images ({tok['encode_tokens']['files']} files) in "
-                  f"{tok['encode_tokens']['s']:.1f} s; launches {enc_launches} (expected {want})")
-            if n_images != 24 or tok["encode_tokens"]["files"] != n_images or enc_launches != want:
+            print(f"encode_tokens: {n_images} images ({tok['encode_tokens']['files']} files, the empty "
+                  f"placeholder among them) in {tok['encode_tokens']['s']:.1f} s; launches {enc_launches} "
+                  f"(expected {want})")
+            # one train scene: 4 + 3 renders and as many captures
+            if n_images != 14 or tok["encode_tokens"]["files"] != n_images + 1 or enc_launches != want:
                 _fail("encode_tokens")
 
             calls.update(encode=0, eval=0)
@@ -1663,6 +1670,35 @@ def main() -> int:
                                      flash_cross_attention_masked_plain(q, k_, k_, b_, heads_))
                                     for b_ in (bias, bias[1].contiguous())])
             report[(f"K6 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname])
+
+    # the token cache's encode shape (tasks.encode_tokens and the token_fast
+    # loader's misses): chunks of ref_token_cache_encode_batch whole images of
+    # step 8's tree, 540x720 trimmed to 532x714, 38x51 patches and CLS (1939
+    # rows: a ragged last tile); K1 and K2 (tanh and exact) against their
+    # plain versions at step 3's bounds, each launched twice. A generator of
+    # its own keeps the other draws what they were
+    g_enc = torch.Generator(device=dev).manual_seed(SEED + 5)
+    enc_b = int(load_config("default").this_main.ref_token_cache_encode_batch)
+    enc_n = (540 // vit.patch_size) * (720 // vit.patch_size) + 1
+
+    def enc_randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=g_enc, device=dev) * scale).to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        qkv = enc_randn(enc_b, enc_n, 3 * d, dtype=dtype)
+        report[(f"K1 encode ({enc_b}, {enc_n})", tname)] = fwd_entry(
+            [(_twice(flash_qkv_self_attention, qkv, h), flash_qkv_self_attention_plain(qkv, h))], tname)
+        x = enc_randn(enc_b, enc_n, d, dtype=dtype)
+        mlp = (enc_randn(d, dtype=torch.float32, scale=0.1) + 1, enc_randn(d, dtype=torch.float32, scale=0.1),
+               enc_randn(f, d, dtype=torch.float32, scale=d ** -0.5), enc_randn(f, dtype=torch.float32, scale=0.1),
+               enc_randn(d, f, dtype=torch.float32, scale=f ** -0.5), enc_randn(d, dtype=torch.float32, scale=0.1),
+               enc_randn(d, dtype=torch.float32, scale=0.5) + 1)
+        for g in ("tanh", "exact"):
+            (got,), same = _twice(lambda *a: (fused_ln_mlp(*a),), x, *mlp, vit.layer_norm_eps, g)
+            report[(f"K2 {g} encode ({enc_b}, {enc_n})", tname)] = dict(
+                err=_rel_err(got, fused_ln_mlp_plain(x, *mlp, vit.layer_norm_eps, g)), tol=TOL[tname], bit_equal=same)
+        del qkv, x, mlp, got
 
     bad = []
     for (kern, tname), r in report.items():

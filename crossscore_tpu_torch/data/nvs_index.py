@@ -414,6 +414,28 @@ def leaf_datasets(ds) -> list:
     return list(ds.datasets) if isinstance(ds, ConcatDataset) else [ds]
 
 
+def unique_image_paths(ds) -> list[str]:
+    """Every image the token trainer could read: all query renders and the
+    whole reference pools (the sampler may pick any of them over the epochs),
+    each once, in index order."""
+    if isinstance(ds, ConcatDataset):
+        return list(dict.fromkeys(p for sub in ds.datasets for p in unique_image_paths(sub)))
+    paths: dict = {}
+    tree = ds.neighbour_selector.paths
+    for scene in sorted(tree):
+        for key in ("gs_train", "gs_test"):
+            sp = tree[scene].get(key)
+            if not sp:
+                continue
+            groups = [sp["query"]["images"]]
+            if "reference" in sp:
+                groups.append(sp["reference"]["cross"]["images"])
+            for group in groups:
+                for it in sorted(group):
+                    paths.update(dict.fromkeys(group[it]))
+    return list(paths)
+
+
 class ConcatDataset:
     def __init__(self, datasets):
         self.datasets = datasets

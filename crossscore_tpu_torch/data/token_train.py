@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from crossscore_tpu_torch.data.loader import Loader, _fold_rng
-from crossscore_tpu_torch.data.nvs_index import leaf_datasets
+from crossscore_tpu_torch.data.nvs_index import leaf_datasets, unique_image_paths
 
 # the window stream: the dataset's own per-item stream (seed, epoch, idx)
 # draws the neighbours, and reusing it would tie windows to reference choices
@@ -123,8 +123,6 @@ class TokenSpaceLoader(Loader):
         per geometry: (resize_short_side, crop_mode) per leaf. The JAX
         package counts resize_short_side only, and under-counts leaves that
         share a resize but trim differently."""
-        from crossscore_tpu_torch.tasks.encode_tokens import unique_image_paths
-
         leaves = leaf_datasets(dataset)
         k = max((int(leaf.neighbour_config.get("cross", 0)) for leaf in leaves), default=0)
         need = token_working_set(self.prefetch_batches, self.batch_size, k)

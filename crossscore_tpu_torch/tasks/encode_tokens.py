@@ -13,8 +13,10 @@ encodes nothing.
         'data.dataset.path=[<root>]' trainer.ckpt_path_to_load=<ckpt> \\
         this_main.ref_token_cache_dir=<store>
 
-A reference pool smaller than K pads its slots with the empty placeholder,
-which no store holds: a training run encodes its zeros once.
+A reference pool smaller than K pads its slots with the empty placeholder
+(the dataset's zero image); the store holds its tokens too, at each training
+shape. Images already in the store are neither decoded nor encoded again, so
+a run over a partly filled store resumes it.
 
 Several processes may write one store (``data/token_cache.py``); split a large
 corpus over them with ``this_main.encode_shard=i/n`` (each encodes every n-th
@@ -28,8 +30,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from PIL import Image
 
-from crossscore_tpu_torch.data.nvs_index import get_dataset
+from crossscore_tpu_torch.data.nvs_index import get_dataset, unique_image_paths
+from crossscore_tpu_torch.data.samplers import EMPTY_IMAGE
 from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.io.images import image_read, normalize_imagenet
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
@@ -37,28 +41,6 @@ from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import (
     load_model_params, parse_cli, refuse_tensor_parallel, resolve_accelerator,
 )
-
-
-def unique_image_paths(ds) -> list[str]:
-    """Every image the token trainer could read: all query renders and the
-    whole reference pools (the sampler may pick any of them over the epochs),
-    each once, in index order."""
-    if hasattr(ds, "datasets"):  # ConcatDataset
-        return list(dict.fromkeys(p for sub in ds.datasets for p in unique_image_paths(sub)))
-    paths: dict = {}
-    tree = ds.neighbour_selector.paths
-    for scene in sorted(tree):
-        for key in ("gs_train", "gs_test"):
-            sp = tree[scene].get(key)
-            if not sp:
-                continue
-            groups = [sp["query"]["images"]]
-            if "reference" in sp:
-                groups.append(sp["reference"]["cross"]["images"])
-            for group in groups:
-                for it in sorted(group):
-                    paths.update(dict.fromkeys(group[it]))
-    return list(paths)
 
 
 def parse_shard(shard) -> tuple[int, int]:
@@ -96,31 +78,41 @@ def encode_tokens(cfg) -> int:
     )
     probe = ds.datasets[0] if hasattr(ds, "datasets") else ds
 
-    def load(path: str) -> np.ndarray:
+    def shape_of(path: str) -> tuple[int, int]:
+        """The training shape of ``path`` from its header alone."""
+        with Image.open(path) as im:
+            w, h = im.size
+        return probe.resized_hw(h, w)
+
+    def load(item: tuple) -> np.ndarray:
+        path, hw = item
+        if path == EMPTY_IMAGE:
+            return normalize_imagenet(np.zeros((*hw, 3), np.float32)).astype(np.float32)
         img = image_read(path)
         if probe.resize_short_side > 0:
             img = probe._resize(img)
         h, w = img.shape[0] - img.shape[0] % 14, img.shape[1] - img.shape[1] % 14
         return normalize_imagenet(img[:h, :w]).astype(np.float32)
 
-    done = stored = 0
+    hws = [shape_of(p) for p in paths]
+    todo = [(p, hw) for p, hw in zip(paths, hws) if not cache.has(p, hw)]
+    stored = len(paths) - len(todo)
+    todo += [(EMPTY_IMAGE, hw) for hw in sorted(set(hws)) if not cache.has(EMPTY_IMAGE, hw)]
+    print(f"encode_tokens: {len(paths)} images, {stored} already in the store", flush=True)
     with ThreadPoolExecutor(max(1, int(cfg.data.loader.train.num_workers))) as pool:
-        for i0 in range(0, len(paths), enc_batch):
-            chunk = paths[i0:i0 + enc_batch]
+        for i0 in range(0, len(todo), enc_batch):
+            chunk = todo[i0:i0 + enc_batch]
             imgs = list(pool.map(load, chunk))
             shapes = {im.shape for im in imgs}
             if len(shapes) != 1:
                 raise ValueError(f"mixed post-resize shapes in one dataset: {sorted(shapes)}; "
                                  "token-space training needs one training resolution")
-            misses = cache.misses
-            cache.gather([chunk], np.stack(imgs)[:, None])  # one view of len(chunk) items
-            # a disk hit counts as a hit too, so what was stored is what did not miss
-            stored += len(chunk) - (cache.misses - misses)
-            done += len(chunk)
+            cache.gather([[p for p, _ in chunk]], np.stack(imgs)[:, None])  # one view of len(chunk) items
             if (i0 // enc_batch) % 20 == 0:
-                print(f"encode_tokens: {done}/{len(paths)} ({stored} already in store)", flush=True)
-    print(f"encode_tokens done: {done} images, {stored} were already in the store -> {store_dir}", flush=True)
-    return done
+                print(f"encode_tokens: {i0 + len(chunk)}/{len(todo)} encoded", flush=True)
+    print(f"encode_tokens done: {len(paths)} images, {stored} were already in the store -> {store_dir}",
+          flush=True)
+    return len(paths)
 
 
 def main(argv=None):

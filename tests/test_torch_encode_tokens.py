@@ -1,7 +1,11 @@
 """The port's ``tasks/encode_tokens.py`` on the CPU: it walks the JAX
 package's unique image paths (its shards disjoint and covering), fills the
-disk store, encodes nothing on a warm store, and a token-space loader or a
-``token_fast`` training run pointed at the store encodes nothing either."""
+disk store with them and the empty placeholder, encodes nothing on a warm
+store and only what is missing from a partly filled one, and a token-space
+loader or a ``token_fast`` training run pointed at the store encodes nothing
+either."""
+
+import shutil
 
 import numpy as np
 import pytest
@@ -10,7 +14,7 @@ import torch
 from crossscore_tpu.data.nvs_index import ConcatDataset as JaxConcat
 from crossscore_tpu.data.nvs_index import NvsDataset as JaxNvsDataset
 from crossscore_tpu.tasks.encode_tokens import unique_image_paths as jax_unique_image_paths
-from crossscore_tpu_torch.data.nvs_index import ConcatDataset, NvsDataset
+from crossscore_tpu_torch.data.nvs_index import ConcatDataset, NvsDataset, unique_image_paths
 from crossscore_tpu_torch.data.synthetic import generate
 from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.data.token_train import TokenSpaceLoader
@@ -20,7 +24,7 @@ from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import parse_cli
 from crossscore_tpu_torch.tasks.encode_tokens import main as encode_main
-from crossscore_tpu_torch.tasks.encode_tokens import parse_shard, unique_image_paths
+from crossscore_tpu_torch.tasks.encode_tokens import parse_shard
 from crossscore_tpu_torch.tasks.train import main as train_main
 
 BASE = [
@@ -48,9 +52,9 @@ def store(tree, tmp_path_factory):
     return path, encode_main(BASE + [f"data.dataset.path=[{tree}]", f"this_main.ref_token_cache_dir={path}"])
 
 
-def _dataset(cls, root):
+def _dataset(cls, root, cross=2):
     return cls(dataset_path=str(root), resolution="res_540", data_split="train",
-               neighbour_config={"strategy": "random", "cross": 2}, metric_type="ssim", metric_min=0, metric_max=1,
+               neighbour_config={"strategy": "random", "cross": cross}, metric_type="ssim", metric_min=0, metric_max=1,
                crop_size=None, crop_mode="integer_patches", return_item_paths=True)
 
 
@@ -91,10 +95,27 @@ def test_bad_arguments_raise(tree):
 def test_warm_store_encodes_nothing(tree, store, capsys):
     full_dir, n_all = store
     files = sorted(full_dir.glob("*.npz"))
-    assert len(files) == n_all == 28
+    assert len(files) == n_all + 1 == 29  # the images and the empty placeholder
     assert encode_main(BASE + [f"data.dataset.path=[{tree}]", f"this_main.ref_token_cache_dir={full_dir}"]) == n_all
     assert f"encode_tokens done: {n_all} images, {n_all} were already in the store" in capsys.readouterr().out
     assert sorted(full_dir.glob("*.npz")) == files
+
+
+def test_partly_filled_store_encodes_only_what_is_missing(tree, store, tmp_path, capsys):
+    """Images already in the store are skipped before they are decoded
+    (``RefTokenCache.has``); the rest, the placeholder among them, are
+    encoded again under the same names."""
+    full_dir, n_all = store
+    part = tmp_path / "tokens"
+    shutil.copytree(full_dir, part)
+    files = sorted(p.name for p in part.glob("*.npz"))
+    for name in files[::3]:
+        (part / name).unlink()
+    kept = len(list(part.glob("*.npz")))
+    assert encode_main(BASE + [f"data.dataset.path=[{tree}]", f"this_main.ref_token_cache_dir={part}"]) == n_all
+    out = capsys.readouterr().out
+    assert f"encode_tokens: {len(files) - kept}/{len(files) - kept} encoded" in out
+    assert sorted(p.name for p in part.glob("*.npz")) == files
 
 
 def test_store_holds_the_seeded_backbone_tokens(tree, store):
@@ -130,6 +151,23 @@ def test_loader_on_a_warm_store_encodes_nothing(tree, store):
                               num_workers=2, seed=5)
     batches = list(loader.epoch(0))
     assert len(batches) == loader.batches_per_epoch() == 7 and cache.misses == 0 and cache.disk_hits > 0
+
+
+def test_loader_padding_short_pools_encodes_nothing(tree, store):
+    """K=5 over pools of 4 and 3 captures: the padded slots are the empty
+    placeholder, whose tokens the store holds (the JAX package's store does
+    not, and its run encodes them once)."""
+    full_dir, _ = store
+
+    def forbidden(imgs, valid_hw=None):
+        raise AssertionError("encoder called despite a warm store")
+
+    cache = RefTokenCache(forbidden, persist_dir=full_dir)
+    loader = TokenSpaceLoader(_dataset(NvsDataset, tree, cross=5), cache, crop_size=56, batch_size=7,
+                              shuffle=False, num_workers=1, seed=0)
+    batches = list(loader.epoch(0))
+    assert len(batches) == 2 and cache.misses == 0
+    assert all(b["reference/cross/tokens"].shape[1] == 5 for b in batches)
 
 
 def test_token_fast_run_on_a_warm_store_encodes_nothing(tree, store, tmp_path, monkeypatch, capsys):
