@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
-the predict CLI, view-parallel predict, tensor- and view-parallel training, and
-token-space training.
+the predict CLI, view-parallel predict, tensor- and view-parallel training,
+token-space training and the test CLI.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -133,7 +133,21 @@ In order:
     store (the images and the placeholder), then a ``token_fast`` run on it
     whose encoder is never called and whose K1/K2 launches are validation's
     alone;
-15. print one ``{"kernels": [...]}`` line, then, last, the device line.
+15. run the test CLI (``tasks/test.py``: dinov2-small, bf16, 518 px short
+    side, B=8, K=5, seeded weights) over seeded NVS trees of 540x720 renders
+    (20 test frames: 3 batches, the last partial) and, with a third test
+    scene of 720x540 renders, for the bucketed modes, in four modes: (a)
+    buckets off, cache off; (b) cache on, then again on its warm disk store;
+    (c) buckets and cache on; (d) buckets on, cache off. Check each mode's
+    launches (K1/K2/K3 or K5/K2/K6, the cache's misses counted), one
+    ``metrics.csv`` row per batch and a finite ``mean`` row, the misses
+    (the reference pool; 0 on the warm store), the mean losses against (a)
+    and (d) against (c); one bucketed batch at B=1 through
+    ``make_eval_step`` on the kernels against the all-plain net, bf16 and
+    fp32; ``summarise_score_gt`` paired row for row with the predicted
+    summary; print maps/s per mode over the whole run and each mode's
+    device step alone;
+16. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -265,6 +279,16 @@ CLI_TOL = 1e-2
 # error of a leaf (each path's own bf16 gradient is 5-10% off the fp32 one
 # at small sizes, tests/test_torch_train.py)
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 0.1}
+# the test CLI (step 15): seeded NVS trees of 540x720 renders (518 px short
+# side, trimmed to 518x686: a 37x49 patch grid) and, for the bucketed modes,
+# the same tree with a third test scene of 720x540 renders; each scene half
+# holds PK frames, so every query takes the whole pool of its scene's other
+# half as its K=5 references
+EVAL_HW, EVAL_HW_T = (540, 720), (720, 540)
+# the test CLI's overrides besides the tree and the mode: B=8, K=5, no figures
+# (they need matplotlib, which the card's machine lacks)
+EVAL_OVERRIDES = [f"data.loader.validation.batch_size={PB}", f"data.neighbour_config.cross={PK}",
+                  "logger.test.write.config.vis_img_every_n_steps=-1"]
 
 
 def _fail(msg: str) -> None:
@@ -289,6 +313,224 @@ def _bound(ops: float, nbytes: float, peak: float, peak_bw: float, exps: float =
     by = max(floors, key=floors.get)
     return dict(bound_ms=1e3 * floors[by], bound_by="bytes" if by == "bytes" else "operations", bound_floor=by,
                 products_ms=1e3 * floors["products"], exp_ms=1e3 * floors["exponentials"])
+
+
+def _eval_plan(scene_groups: list, n: int, batch: int, encode_batch: int) -> tuple[int, int, int]:
+    """The test CLI's batches, the token cache's encoder calls and its misses
+    on a step-15 tree: ``scene_groups`` lists the test scenes of each batch
+    group (a bucket, or the whole tree) in loader order; a scene's items are
+    its ``n`` train-half queries, whose references are its ``n`` test-half
+    captures, then the reverse. A batch's misses are the pools it meets first,
+    encoded in chunks of ``encode_batch``."""
+    import math
+
+    n_batches = n_calls = 0
+    seen: set = set()
+    for group in scene_groups:
+        items = [(scene, half) for scene in group for half in ("test", "train") for _ in range(n)]
+        for i0 in range(0, len(items), batch):
+            new = set(items[i0:i0 + batch]) - seen
+            seen |= new
+            n_batches += 1
+            n_calls += math.ceil(len(new) * n / encode_batch)
+    return n_batches, n_calls, len(seen) * n
+
+
+def _eval_phases(torch, dev, zero_launches, read_launches) -> dict:
+    """Step 15, the test CLI on the card (dinov2-small, bf16, 518 px short
+    side, B=8, K=5, seeded weights): four modes, buckets off / on and the
+    reference-token cache off / on, and the cached run again on its warm
+    disk store; launches per mode, ``metrics.csv``, the cache's misses, the
+    modes' mean losses against each other; one bucketed batch at B=1 through
+    ``make_eval_step`` on the kernels against the all-plain net, bf16 and
+    fp32; ``summarise_score_gt`` paired with the predicted summary; and each
+    mode's device step alone on one batch. Returns the readings."""
+    import csv
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.data.bucketing import ShapeBucketedLoader
+    from crossscore_tpu_torch.data.loader import Loader
+    from crossscore_tpu_torch.data.nvs_index import get_dataset
+    from crossscore_tpu_torch.data.synthetic import generate
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.io.summariser import SummaryReader
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
+    from crossscore_tpu_torch.tasks.summarise_score_gt import main as summarise_main
+    from crossscore_tpu_torch.tasks.test import main as test_main
+    from crossscore_tpu_torch.train.step import batch_to_device, make_eval_step
+
+    ev: dict = {"modes": {}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # <method>/<dataset>/res_540: the summaries group by the two names
+        single, mixed = tmp / "gaussian" / "single", tmp / "gaussian" / "mixed"
+        generate(single, hw=EVAL_HW, scenes_per_split={"train": 1, "test": 2}, n_train_imgs=PK, n_test_imgs=PK,
+                 seed=SEED)
+        # the same draws, then a third test scene of the other aspect
+        generate(mixed, hw=[EVAL_HW, EVAL_HW, EVAL_HW, EVAL_HW_T], scenes_per_split={"train": 1, "test": 3},
+                 n_train_imgs=PK, n_test_imgs=PK, seed=SEED)
+        cfg = load_config("default_test", EVAL_OVERRIDES)
+        mcfg = CrossScoreConfig.from_config(cfg)
+        params = init_params(mcfg, SEED, dev)
+        ckpt = tmp / "run" / "ckpt" / "seeded.ckpt"
+        ckpt.parent.mkdir(parents=True)
+        torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in params.items()}}, ckpt)
+        enc_batch = int(cfg.this_main.ref_token_cache_encode_batch)
+        n_layers, n_dec = mcfg.backbone.num_layers, 2 * mcfg.decoder_layers
+        # (tree, buckets, cache, the plan's scene groups); "b warm" reruns (b)
+        # on the disk store (b) filled
+        modes = {"a": (single, "off", "off", [[1, 2]]), "b": (single, "off", "on", [[1, 2]]),
+                 "b warm": (single, "off", "on", [[1, 2]]), "c": (mixed, "on", "on", [[1, 2], [3]]),
+                 "d": (mixed, "on", "off", [[1, 2], [3]])}
+        bad = []
+        for tag, (tree, buckets, cache, groups) in modes.items():
+            argv = EVAL_OVERRIDES + [f"trainer.ckpt_path_to_load={ckpt}", f"data.dataset.path=[{tree}]",
+                                     f"this_main.shape_buckets={buckets}", f"this_main.ref_token_cache={cache}",
+                                     f"this_main.ref_token_cache_dir={tmp / ('store_' + tree.name)}",
+                                     f"logger.test.out_dir={tmp / ('out_' + tag.replace(' ', '_'))}"]
+            tee = _Tee(sys.stdout)
+            zero_launches()
+            with contextlib.redirect_stdout(tee):
+                out = test_main(argv)
+            launches = read_launches()
+            text = "".join(tee.text)
+            rate = re.search(r"test: (\d+) maps in ([0-9.]+) s = ([0-9.]+) maps/s", text)
+            counts = re.search(r"ref-token cache: (\d+) hits, (\d+) unique misses, (\d+) disk hits", text)
+            with open(out / "metrics.csv") as f:
+                rows = list(csv.DictReader(f))
+            n_b, n_calls, pool = _eval_plan(groups, PK, PB, enc_batch)
+            fwd = n_b + (n_calls if cache == "on" and tag != "b warm" else 0)  # backbone forwards
+            att, dec = ("K5", "K6") if buckets == "on" else ("K1", "K3")
+            want = _launches(K2=n_layers * fwd, **{att: n_layers * fwd, dec: n_dec * n_b})
+            r = {"launches": launches, "maps": int(rate.group(1)), "seconds": float(rate.group(2)),
+                 "maps_per_s": float(rate.group(3)), "batches": len(rows) - 1,
+                 "hits": int(counts.group(1)) if counts else None, "misses": int(counts.group(2)) if counts else None,
+                 "disk_hits": int(counts.group(3)) if counts else None,
+                 "mean": {k: float(v) for k, v in rows[-1].items() if k != "batch_idx"},
+                 "rows": [{k: (v if k == "batch_idx" else float(v)) for k, v in row.items()} for row in rows]}
+            ev["modes"][tag] = r
+            print(f"test CLI ({tag}) buckets {buckets}, cache {cache}: launches "
+                  f"{ {k: v for k, v in launches.items() if v} } (expected { {k: v for k, v in want.items() if v} }); "
+                  f"{r['maps']} maps in {r['seconds']:.3f} s = {r['maps_per_s']:.2f} maps/s; {r['batches']} batches; "
+                  f"cache hits {r['hits']}, misses {r['misses']}, disk hits {r['disk_hits']}; mean {r['mean']}")
+            values = [v for row in r["rows"] for k, v in row.items() if k != "batch_idx"]
+            if launches != want or r["batches"] != n_b or rows[-1]["batch_idx"] != "mean" \
+                    or not np.isfinite(values).all() or r["maps"] != 2 * PK * sum(map(len, groups)):
+                bad.append(f"{tag} launches/rows/maps")
+            want_misses = None if cache == "off" else 0 if tag == "b warm" else pool
+            if r["misses"] != want_misses or (tag == "b warm" and r["disk_hits"] != pool):
+                bad.append(f"{tag} cache misses {r['misses']} (disk hits {r['disk_hits']}), expected {want_misses}")
+        # the mean losses: (b) and its warm run against (a) on the same tree;
+        # (c) and (d) against (a) over the batches of (a)'s frames (the mixed
+        # tree's first bucket holds them, batched alike), and (d) against (c)
+        m = ev["modes"]
+        n_a = m["a"]["batches"]
+        weights = [PB] * (n_a - 1) + [m["a"]["maps"] - PB * (n_a - 1)]
+
+        def first_mean(tag: str) -> float:
+            return float(np.average([row["test/loss"] for row in m[tag]["rows"][:n_a]], weights=weights))
+
+        agree = {"b": abs(m["b"]["mean"]["test/loss"] - m["a"]["mean"]["test/loss"]),
+                 "b warm": abs(m["b warm"]["mean"]["test/loss"] - m["a"]["mean"]["test/loss"]),
+                 "c": abs(first_mean("c") - m["a"]["mean"]["test/loss"]),
+                 "d": abs(first_mean("d") - m["a"]["mean"]["test/loss"]),
+                 "d vs c": abs(m["d"]["mean"]["test/loss"] - m["c"]["mean"]["test/loss"])}
+        ev["loss_agreement"] = agree
+        print("test CLI mean-loss agreement, |difference| (tol "
+              f"{CLI_TOL:.0e}): " + ", ".join(f"{k} {v:.3e}" for k, v in agree.items()))
+        bad += [f"{k} mean loss off by {v}" for k, v in agree.items() if not v <= CLI_TOL]
+
+        # the GT summary of the tree, paired row for row with (a)'s predictions
+        summarise_main(["--dir_in", str(single / "res_540"), "--dir_out", str(tmp / "gt_summary"), "-n", "8"])
+        gt = SummaryReader.read_summary(tmp / "gt_summary", "single", ["gaussian"], ["s00001", "s00002"], [""], [])
+        pred = SummaryReader.read_summary(tmp / "out_a" / "score_summary", "single", ["gaussian"], [""], [""], [])
+        try:
+            SummaryReader.check_summary_gt_prediction_rows(gt, pred)
+        except ValueError as e:
+            bad.append(f"summaries: {e}")
+        ev["summary_rows"] = len(pred)
+        print(f"summarise_score_gt: {len(gt)} GT rows paired with {len(pred)} predicted rows")
+        if len(pred) != 4 * PK:
+            bad.append(f"{len(pred)} predicted summary rows")
+
+        def dataset(tree: Path):
+            return get_dataset(load_config("default_test", EVAL_OVERRIDES + [f"data.dataset.path=[{tree}]"]),
+                               "test", return_item_paths=True, crop_mode="integer_patches",
+                               resize_short_side=cfg.this_main.resize_short_side, deterministic_crop=True)
+
+        # one batch of each shape class at B=1 through make_eval_step, the
+        # kernels against the all-plain net: a 37x49 batch (K1, K2, K3: q
+        # 1813 over 5 * 1813 keys) and a bucketed 540x720 one (K5, K2, K6 in
+        # its bucket). The score maps' MAE over the valid region holds the
+        # kernels (a mean loss lets their errors cancel); loss and correlation
+        # are held too
+        ds_mixed = dataset(mixed)
+        b1s = {"unbucketed": (next(iter(Loader(dataset(single), 1, shuffle=False, num_workers=1).epoch(0))),
+                              _launches(K1=n_layers, K2=n_layers, K3=n_dec)),
+               "bucketed": (next(iter(ShapeBucketedLoader(ds_mixed, 1, num_workers=1, seed=cfg.seed).epoch(0))),
+                            _launches(K5=n_layers, K2=n_layers, K6=n_dec))}
+        ev["b1"] = {}
+        p = mcfg.patch_size
+        for kind, (b1, want) in b1s.items():
+            hgt, wdt = b1["query/score_map"].shape[1:3]
+            if "_valid_hw" in b1:
+                hgt, wdt = (int(v) // p * p for v in b1["_valid_hw"][0])
+            for dtype in (torch.bfloat16, torch.float32):
+                tname = str(dtype).split(".")[-1]
+                got = {}
+                for impl, mlp_impl in (("flash", "fused_exact"), ("dense", "unfused")):
+                    c = dataclasses.replace(mcfg, compute_dtype=dtype, attention_impl=impl, mlp_impl=mlp_impl)
+                    net = load_into(CrossScoreNet(c, device=dev), params)
+                    zero_launches()
+                    got[impl] = make_eval_step(net)(batch_to_device(b1, dev))
+                    got[impl + " launches"] = read_launches()
+                mae = float((got["flash"][0] - got["dense"][0])[:, :hgt, :wdt].float().abs().mean())
+                errs = {k: abs(float(got["flash"][1][k]) - float(got["dense"][1][k]))
+                        for k in ("loss", "correlation_cross")}
+                ev["b1"][f"{kind} {tname}"] = {"score_mae": mae, **errs}
+                print(f"eval step B=1 {kind} {tname} (valid {hgt}x{wdt} in {b1['query/img'].shape[1:3]}), "
+                      f"kernels vs all-plain: score MAE {mae:.3e}, |d loss| {errs['loss']:.3e}, "
+                      f"|d corr| {errs['correlation_cross']:.3e} (tol {NET_TOL[tname]:.0e}); launches "
+                      f"{ {k: v for k, v in got['flash launches'].items() if v} } (expected "
+                      f"{ {k: v for k, v in want.items() if v} }), plain "
+                      f"{ {k: v for k, v in got['dense launches'].items() if v} }")
+                if not max(mae, *errs.values()) < NET_TOL[tname] or got["flash launches"] != want \
+                        or any(got["dense launches"].values()):
+                    bad.append(f"B=1 {kind} {tname} kernels vs plain: score MAE {mae}, {errs}")
+        if bad:
+            _fail("test CLI: " + ", ".join(bad))
+
+        # each mode's device step alone, on one batch already on the card
+        host_a = next(iter(Loader(dataset(single), PB, shuffle=False, num_workers=8).epoch(0)))
+        host_c = next(iter(ShapeBucketedLoader(ds_mixed, PB, num_workers=8).epoch(0)))
+        net = load_into(CrossScoreNet(mcfg, device=dev), params)
+        step, encode = make_eval_step(net), make_backbone_encoder(mcfg)
+        batch_a, batch_d = batch_to_device(host_a, dev), batch_to_device(host_c, dev)
+
+        def cached(batch: dict, valid_hw=None) -> dict:
+            refs = batch["reference/cross/imgs"]
+            vhw = None if valid_hw is None else np.repeat(valid_hw, PK, axis=0)
+            tokens = encode(net, refs.reshape(PB * PK, *refs.shape[2:]), vhw)
+            tokens = tokens.reshape(PB, PK, -1, mcfg.backbone.hidden_size)
+            return {k: v for k, v in batch.items() if k != "reference/cross/imgs"} | {"reference/cross/tokens": tokens}
+
+        batch_b, batch_c = cached(batch_a), cached(batch_d, host_c["_valid_hw"])
+        device_ms = {tag: _time_ms(torch, lambda b=b: step(b), reps=5)
+                     for tag, b in (("a", batch_a), ("b", batch_b), ("c", batch_c), ("d", batch_d))}
+        for tag, ms in device_ms.items():
+            m[tag]["device_step_ms"] = ms
+        print("test CLI breakdown: device step alone (eval step with its metrics), ms per batch of 8 (maps/s): "
+              + ", ".join(f"({k}) {v:.2f} ({1e3 * PB / v:.1f})" for k, v in device_ms.items()))
+        del net, step, batch_a, batch_b, batch_c, batch_d, params
+    ev["seconds"] = time.perf_counter() - t0
+    print(f"test CLI step: {ev['seconds']:.1f} s")
+    return ev
 
 
 def _time_ms(torch, fn, reps: int = 10) -> float:
@@ -2423,7 +2665,12 @@ def main() -> int:
     # token_fast train CLI, encode_tokens and a run on the warm store -----------
     tok = _token_phases(torch, dev, params, vit, zero_launches, read_launches)
 
-    # --- 15. the kernels line, then the device line ---------------------------
+    # --- 15. the test CLI: four modes and a warm store, B=1 kernels against the
+    # all-plain net, the GT summary -----------------------------------------------
+    ev = _eval_phases(torch, dev, zero_launches, read_launches)
+    torch.cuda.empty_cache()
+
+    # --- 16. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -2477,7 +2724,8 @@ def main() -> int:
                                     "train_step": train_launches[kern],
                                     "token_train_step": tok["launches"][kern],
                                     "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern],
-                                    "tp_train_step": tp_launches[kern]},
+                                    "tp_train_step": tp_launches[kern],
+                                    "eval_cli": {tag: r["launches"][kern] for tag, r in ev["modes"].items()}},
                "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
         # K5-K7: the relative L2 of o, l, m; K5: K1's time on the same qkv;
         # K7: K3's on the same work, and both at the 1-rank length; K8/K9:
@@ -2545,7 +2793,10 @@ def main() -> int:
                                       | {"device_step_ms": device_ms[tag]}
                                       for tag, r in cli.items()},
                       "predict_loader_maps_per_s": loader_rate, "view_parallel": vp,
-                      "tensor_parallel": tp, "instruments": inst, "seconds": seconds}))
+                      "tensor_parallel": tp, "instruments": inst,
+                      "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
+                                                        for k, v in r.items()} for tag, r in ev["modes"].items()}},
+                      "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
     return 0

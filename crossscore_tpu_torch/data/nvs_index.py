@@ -41,6 +41,12 @@ from crossscore_tpu_torch.io.images import image_read, metric_map_read, normaliz
 from crossscore_tpu_torch.ops.interpolate import resize_bilinear_antialias
 
 
+def to_wire_uint8(img: np.ndarray) -> np.ndarray:
+    """[0, 1] float pixels -> the uint8 wire format (``wire_uint8``); exact
+    for unresized 8-bit sources (k/255 * 255 rounds back to k)."""
+    return np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+
+
 class NeighbourSelector:
     """Flattens (scene, gs_split, iter, image) into a global index and returns
     query/score-map/reference paths per element."""
@@ -353,9 +359,7 @@ class NvsDataset:
             refs = self.reference_crop(refs, rng=rng)["out"]
 
         if self.wire_uint8:
-            # raw pixels on the wire; [0,1] float -> u8 is exact for unresized
-            # 8-bit sources (k/255 * 255 rounds back to k)
-            q_out = np.clip(np.rint(q * 255.0), 0, 255).astype(np.uint8)
+            q_out = to_wire_uint8(q)  # raw pixels on the wire
         else:
             q_out = normalize_imagenet(q).astype(np.float32)
         out = {
@@ -364,9 +368,7 @@ class NvsDataset:
         }
         if refs is not None:
             if self.wire_uint8:
-                out["reference/cross/imgs"] = np.clip(
-                    np.rint(refs * 255.0), 0, 255
-                ).astype(np.uint8)
+                out["reference/cross/imgs"] = to_wire_uint8(refs)
             else:
                 out["reference/cross/imgs"] = normalize_imagenet(refs).astype(np.float32)
         if self.return_item_paths:

@@ -17,6 +17,9 @@ import torch
 import yaml
 
 from crossscore_tpu_torch.confsys import Config, load_config
+from crossscore_tpu_torch.data.bucketing import ShapeBucketedLoader
+from crossscore_tpu_torch.data.loader import Loader
+from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.device import resolve_device
 from crossscore_tpu_torch.io.checkpoint import latest_step, step_path
 from crossscore_tpu_torch.io.convert import init_params, load_into
@@ -131,6 +134,43 @@ def load_model_params(cfg: Config, model: torch.nn.Module) -> torch.nn.Module:
     return load_into(model, blob.get("state_dict", blob))
 
 
+def eval_loader(cfg: Config, dataset, cli: str):
+    """The predict and test CLIs' loader over ``dataset`` in order -> (loader,
+    whether it buckets shapes). ``this_main.shape_buckets`` on|off|auto:
+    never under the dataset's own crop, and under ``auto`` only when the
+    items have more than one shape (padding one shape buys nothing). A
+    bucketed loader pads each item to multiples of ``bucket_multiple``."""
+    bucket_mode = tristate(cfg.this_main.get("shape_buckets", "auto"))
+    use_buckets = bucket_mode != "off" and cfg.this_main.crop_mode != "dataset_default"
+    if use_buckets:
+        shapes = {dataset.get_item_shape(i) for i in range(len(dataset))}
+        use_buckets = bucket_mode == "on" or len(shapes) > 1
+    loader_kw = dict(
+        batch_size=cfg.data.loader.validation.batch_size,
+        num_workers=cfg.data.loader.validation.num_workers,
+        prefetch_batches=cfg.data.loader.validation.prefetch_factor,
+        seed=cfg.seed,
+    )
+    if not use_buckets:
+        return Loader(dataset, shuffle=False, **loader_kw), False
+    loader = ShapeBucketedLoader(dataset, bucket_multiple=int(cfg.this_main.get("bucket_multiple", 112)),
+                                 **loader_kw)
+    print(f"shape-bucketed {cli}: {len(shapes)} item shapes -> {len(loader.distinct_buckets())} bucket shape(s)")
+    return loader, True
+
+
+def ref_token_cache(cfg: Config, encode) -> RefTokenCache:
+    """The predict and test CLIs' reference-token cache around
+    ``encode(imgs, valid_hw=None)``, sized and persisted by
+    ``this_main.ref_token_cache_{encode_batch,max_items,dir}``."""
+    return RefTokenCache(
+        encode,
+        encode_batch=int(cfg.this_main.get("ref_token_cache_encode_batch", 16)),
+        max_items=int(cfg.this_main.get("ref_token_cache_max_items", 2048)),
+        persist_dir=cfg.this_main.get("ref_token_cache_dir"),
+    )
+
+
 def crop_bucketed(batch: dict, outputs: dict) -> tuple[dict, dict]:
     """Crop bucket-padded batch arrays and model outputs back to the item's
     true shape for writers, visualisers and summarisers; a no-op without
@@ -188,6 +228,40 @@ def iter_bucketed_items(batch: dict, outputs: dict):
         yield i, *crop_bucketed(b1, o1)
 
 
+def write_batch_outputs(batch_idx: int, batch: dict, outputs: dict, *, summariser, writer, visualiser,
+                        vis_dir: Path, vis_every: int) -> None:
+    """Hand one batch's host outputs to the per-frame summariser, the batch
+    writer (or None) and, every ``vis_every`` batches, a figure
+    ``vis_dir/r0_B<batch>_b0.png`` (matplotlib); the test and predict CLIs'
+    consumers. A bucket-packed batch (per-item ``_valid_hw``) goes to them
+    as individually cropped B=1 slices, since none can hold a batch of mixed
+    image sizes as one array."""
+    vis = vis_every > 0 and batch_idx % vis_every == 0
+
+    def save_vis(b: dict, o: dict) -> None:
+        import matplotlib.pyplot as plt
+
+        fig = visualiser.vis(b, o)
+        fig.savefig(Path(vis_dir) / f"r0_B{batch_idx:04}_b0.png")
+        plt.close(fig)
+
+    vhw = batch.get("_valid_hw")
+    if vhw is not None and np.ndim(vhw) == 2:
+        for i, b1, o1 in iter_bucketed_items(batch, outputs):
+            summariser.update(batch_input=b1, batch_output=o1)
+            if i == 0 and vis:
+                save_vis(b1, o1)
+            if writer is not None:
+                writer.write_out(b1, o1, local_rank=0, batch_idx=batch_idx, item_offset=i)
+        return
+    batch, outputs = crop_bucketed(batch, outputs)
+    summariser.update(batch_input=batch, batch_output=outputs)
+    if vis:
+        save_vis(batch, outputs)
+    if writer is not None:
+        writer.write_out(batch, outputs, local_rank=0, batch_idx=batch_idx)
+
+
 def refuse_tensor_parallel(attention_impl: str) -> None:
     """The CLIs build no model group, as the JAX CLIs build no model axis
     (``tasks/train.py:202`` there): the ``tp`` route is an API of
@@ -198,20 +272,23 @@ def refuse_tensor_parallel(attention_impl: str) -> None:
                                   "train.step.make_train_step")
 
 
-def refuse_multi_rank(cfg: Config) -> None:
-    """The train CLI runs one process on one device. The JAX CLI builds its
-    data mesh from ``trainer.devices`` (``tasks/train.py:195-203`` there);
-    until the port's DDP CLI lands (ROADMAP queue 1 item 6), a request for
-    more than one device, or a launch of several ranks (``WORLD_SIZE`` > 1),
-    raises rather than training on one card, or running independent copies."""
+def refuse_multi_rank(cfg: Config, cli: str = "train") -> None:
+    """The train and test CLIs run one process on one device. The JAX CLIs
+    build their data mesh from ``trainer.devices`` (``tasks/train.py:195-203``
+    there; the test CLI reduces its metrics over processes with
+    ``all_process_weighted_mean``); until the port's data-parallel CLIs land
+    (ROADMAP queue 1 item 6), a request for more than one device, or a
+    launch of several ranks (``WORLD_SIZE`` > 1), raises rather than running
+    on one card, or running independent copies."""
     devices = cfg.trainer.get("devices", 1)
     n_dev = devices if isinstance(devices, int) else len(devices) if devices is not None else -1
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if n_dev != 1 or world > 1:
+        hint = ", or call train.step.make_train_step with a data group" if cli == "train" else ""
         raise NotImplementedError(
-            f"trainer.devices={devices!r} with WORLD_SIZE={world}: the train CLI runs one process on one "
-            "device; data-parallel training is not ported (ROADMAP queue 1 item 6). Run one rank with "
-            "trainer.devices=1, or call train.step.make_train_step with a data group"
+            f"trainer.devices={devices!r} with WORLD_SIZE={world}: the {cli} CLI runs one process on one "
+            f"device; a data-parallel {cli} CLI is not ported (ROADMAP queue 1 item 6). Run one rank with "
+            f"trainer.devices=1{hint}"
         )
 
 

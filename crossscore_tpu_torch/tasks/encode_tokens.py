@@ -18,6 +18,13 @@ A reference pool smaller than K pads its slots with the empty placeholder
 shape. Images already in the store are neither decoded nor encoded again, so
 a run over a partly filled store resumes it.
 
+The store holds what the loader of the run it serves would encode. When that
+run puts uint8 pixels on the wire (``data.dataset.wire_uint8``, which
+``this_main.train_recipe=token_fast`` turns on), the resized pixels are
+rounded to uint8 as the dataset rounds them (``data/nvs_index.py``) and the
+encoder normalises them on the device; otherwise they are normalised in fp32
+on the host. The JAX package normalises the unrounded pixels in both cases.
+
 Several processes may write one store (``data/token_cache.py``); split a large
 corpus over them with ``this_main.encode_shard=i/n`` (each encodes every n-th
 image). Tokens are a function of the backbone's weights: key the store's
@@ -32,7 +39,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from crossscore_tpu_torch.data.nvs_index import get_dataset, unique_image_paths
+from crossscore_tpu_torch.data.nvs_index import get_dataset, to_wire_uint8, unique_image_paths
 from crossscore_tpu_torch.data.samplers import EMPTY_IMAGE
 from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.io.images import image_read, normalize_imagenet
@@ -41,6 +48,7 @@ from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import (
     load_model_params, parse_cli, refuse_tensor_parallel, resolve_accelerator,
 )
+from crossscore_tpu_torch.tasks.train import apply_train_recipe
 
 
 def parse_shard(shard) -> tuple[int, int]:
@@ -59,6 +67,8 @@ def encode_tokens(cfg) -> int:
     if not store_dir:
         raise ValueError("encode_tokens requires this_main.ref_token_cache_dir")
 
+    # the config of the run the store serves: token_fast puts uint8 on the wire
+    apply_train_recipe(cfg)
     ds = get_dataset(cfg, cfg.this_main.get("data_split", "train"), crop_mode="integer_patches",
                      return_item_paths=True, resize_short_side=cfg.this_main.resize_short_side)
     i_sh, n_sh = parse_shard(cfg.this_main.get("encode_shard", "0/1"))
@@ -69,6 +79,8 @@ def encode_tokens(cfg) -> int:
         print("WARNING: the tokens match only a training run that starts from the same seeded init")
     model = load_model_params(cfg, CrossScoreNet(mcfg, device=device))
     encoder = make_backbone_encoder(mcfg)
+    # the loader of a uint8-wire run rounds the resized pixels before the encoder sees them
+    wire_uint8 = bool(cfg.data.dataset.get("wire_uint8", False))
     enc_batch = int(cfg.this_main.get("ref_token_cache_encode_batch", 16))
     cache = RefTokenCache(
         lambda imgs, valid_hw=None: encoder(model, torch.from_numpy(imgs).to(device)),
@@ -85,14 +97,15 @@ def encode_tokens(cfg) -> int:
         return probe.resized_hw(h, w)
 
     def load(item: tuple) -> np.ndarray:
+        """The pixels the training loader hands the encoder for ``item``."""
         path, hw = item
-        if path == EMPTY_IMAGE:
-            return normalize_imagenet(np.zeros((*hw, 3), np.float32)).astype(np.float32)
-        img = image_read(path)
-        if probe.resize_short_side > 0:
+        img = np.zeros((*hw, 3), np.float32) if path == EMPTY_IMAGE else image_read(path)
+        if path != EMPTY_IMAGE and probe.resize_short_side > 0:
             img = probe._resize(img)
-        h, w = img.shape[0] - img.shape[0] % 14, img.shape[1] - img.shape[1] % 14
-        return normalize_imagenet(img[:h, :w]).astype(np.float32)
+        img = img[:img.shape[0] - img.shape[0] % 14, :img.shape[1] - img.shape[1] % 14]
+        if wire_uint8:
+            return to_wire_uint8(img)
+        return normalize_imagenet(img).astype(np.float32)
 
     hws = [shape_of(p) for p in paths]
     todo = [(p, hw) for p, hw in zip(paths, hws) if not cache.has(p, hw)]

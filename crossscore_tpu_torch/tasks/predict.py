@@ -44,10 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from crossscore_tpu_torch.data.bucketing import ShapeBucketedLoader
-from crossscore_tpu_torch.data.loader import Loader
 from crossscore_tpu_torch.data.simple_reference import SimpleReference
-from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.io.batch_writer import BatchWriter
 from crossscore_tpu_torch.io.summariser import SummaryWriterPredictedOnlineTestPrediction
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
@@ -60,8 +57,8 @@ from crossscore_tpu_torch.parallel.view_parallel import (
     make_view_parallel_apply, make_view_parallel_apply_tokens, view_shard,
 )
 from crossscore_tpu_torch.tasks.common import (
-    confirm_batch_size, crop_bucketed, iter_bucketed_items, load_model_params, parse_cli,
-    refuse_tensor_parallel, resolve_accelerator, resolve_limit, resolve_out_dir, tristate,
+    confirm_batch_size, eval_loader, load_model_params, parse_cli, ref_token_cache, refuse_tensor_parallel,
+    resolve_accelerator, resolve_limit, resolve_out_dir, tristate, write_batch_outputs,
 )
 from crossscore_tpu_torch.train.step import make_predict_step, make_predict_step_cached
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
@@ -167,12 +164,7 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         return_item_paths=True,
         wire_uint8=bool(cfg.data.dataset.get("wire_uint8", False)),
     )
-    bucket_mode = tristate(cfg.this_main.get("shape_buckets", "auto"))
-    use_buckets = bucket_mode != "off" and cfg.this_main.crop_mode != "dataset_default"
-    if use_buckets:
-        shapes = {dataset.get_item_shape(i) for i in range(len(dataset))}
-        if bucket_mode == "auto" and len(shapes) <= 1:
-            use_buckets = False  # one shape: padding buys nothing
+    loader, use_buckets = eval_loader(cfg, dataset, "predict")
 
     k_refs = int(cfg.data.neighbour_config.cross)
     batch_size = cfg.data.loader.validation.batch_size
@@ -189,21 +181,6 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         data_mesh_size=top.n_nodes * _per_process_data_par(top.local_world_size, 1, batch_size),
     )
     use_vp, use_cache = plan.use_vp, plan.use_cache
-
-    loader_kw = dict(
-        batch_size=batch_size,
-        num_workers=cfg.data.loader.validation.num_workers,
-        prefetch_batches=cfg.data.loader.validation.prefetch_factor,
-        seed=cfg.seed,
-    )
-    if use_buckets:
-        loader = ShapeBucketedLoader(
-            dataset, bucket_multiple=int(cfg.this_main.get("bucket_multiple", 112)), **loader_kw
-        )
-        print(f"shape-bucketed predict: {len(shapes)} item shapes -> "
-              f"{len(loader.distinct_buckets())} bucket shape(s)")
-    else:
-        loader = Loader(dataset, shuffle=False, **loader_kw)
 
     mcfg = CrossScoreConfig.from_config(cfg)
     if use_vp:
@@ -231,12 +208,8 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
     if use_cache:
         encoder = make_backbone_encoder(mcfg)
         # under view parallelism each rank caches the tokens of its own views
-        token_cache = RefTokenCache(
-            lambda imgs, valid_hw=None: encoder(model, to_device(imgs), valid_hw),
-            encode_batch=int(cfg.this_main.get("ref_token_cache_encode_batch", 16)),
-            max_items=int(cfg.this_main.get("ref_token_cache_max_items", 2048)),
-            persist_dir=cfg.this_main.get("ref_token_cache_dir"),
-        )
+        token_cache = ref_token_cache(
+            cfg, lambda imgs, valid_hw=None: encoder(model, to_device(imgs), valid_hw))
         step_cached = make_view_parallel_apply_tokens(model) if use_vp else make_predict_step_cached(model)
         print(f"{tag}reference-token cache: on (frozen backbone; decode-skip off"
               f"{'; bucketed' if use_buckets else ''}{'; view-parallel' if use_vp else ''})")
@@ -274,36 +247,13 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
     max_batches = resolve_limit(cfg.trainer.limit_test_batches, loader.batches_per_epoch())
     digest = hashlib.sha256()
 
-    def save_vis(batch_idx: int, batch: dict, outputs: dict) -> None:
-        import matplotlib.pyplot as plt
-
-        fig = visualiser.vis(batch, outputs)
-        fig.savefig(out_dir / "vis" / f"r0_B{batch_idx:04}_b0.png")
-        plt.close(fig)
-
     def process(batch_idx: int, batch: dict, outputs_dev: dict) -> None:
         # the device copy waits for the step; everything after is host-side
         outputs = {k: v.float().cpu().numpy() for k, v in outputs_dev.items()}
         digest.update(outputs["score_map_ref_cross"].tobytes())
-        if top.rank != 0:  # the other ranks computed the same maps
-            return
-        vhw = batch.get("_valid_hw")
-        if vhw is not None and np.ndim(vhw) == 2:
-            # a bucket-packed batch (mixed item shapes): the consumers take
-            # individually cropped B=1 slices
-            for i, b1, o1 in iter_bucketed_items(batch, outputs):
-                summariser.update(batch_input=b1, batch_output=o1)
-                if i == 0 and vis_every > 0 and batch_idx % vis_every == 0:
-                    save_vis(batch_idx, b1, o1)
-                if writer is not None:
-                    writer.write_out(b1, o1, local_rank=0, batch_idx=batch_idx, item_offset=i)
-            return
-        batch, outputs = crop_bucketed(batch, outputs)
-        summariser.update(batch_input=batch, batch_output=outputs)
-        if vis_every > 0 and batch_idx % vis_every == 0:
-            save_vis(batch_idx, batch, outputs)
-        if writer is not None:
-            writer.write_out(batch, outputs, local_rank=0, batch_idx=batch_idx)
+        if top.rank == 0:  # the other ranks computed the same maps
+            write_batch_outputs(batch_idx, batch, outputs, summariser=summariser, writer=writer,
+                                visualiser=visualiser, vis_dir=out_dir / "vis", vis_every=vis_every)
 
     # one-deep pipeline: dispatch batch i+1 before materialising batch i's
     # outputs, overlapping device work with host-side writing. Every rank

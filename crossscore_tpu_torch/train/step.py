@@ -56,36 +56,55 @@ class TrainState:
 
 def batch_to_device(batch: dict, device) -> dict:
     """Loader batch (numpy arrays, or host tensors: the token loader's
-    tokens) -> tensors on ``device`` (``item_paths`` dropped)."""
-    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v)))
+    tokens) -> tensors on ``device`` (``item_paths`` dropped). ``_valid_hw``
+    stays a host array: the model reads the bucket extents on the host."""
+    return {k: v if k == "_valid_hw" else
+            (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v)))
             .to(device, non_blocking=True) for k, v in batch.items() if k != "item_paths"}
 
 
-def _weights(batch: dict, shape) -> Optional[torch.Tensor]:
-    """(B, H, W) 0/1 weights excluding loader padding from the loss and the
-    metrics: duplicate items in the final partial batch, given as the
-    ``_valid`` prefix count or its per-row ``_valid_mask`` form. None when
-    the batch carries neither."""
-    if batch.get("_valid_hw") is not None:
-        raise NotImplementedError("_valid_hw (shape-bucketed batches) is not ported yet")
-    valid = batch.get("_valid")
-    valid_mask = batch.get("_valid_mask")
-    if valid is None and valid_mask is None:
+def _weights(batch: dict, shape, patch: int = 14, device="cpu") -> Optional[torch.Tensor]:
+    """(B, H, W) 0/1 fp32 weights excluding loader padding from the loss and
+    the metrics; the port's copy of the JAX ``_weights``. Two sources, both
+    from the loaders:
+
+    - duplicate items in the final partial batch: the ``_valid`` prefix
+      count, or its per-row ``_valid_mask`` form;
+    - bucket-padded image regions under shape bucketing (``_valid_hw``,
+      (2,) shared or (B, 2) per item): the valid jigsaw extent is
+      ``(h // patch * patch, w // patch * patch)``, ``patch`` the model's
+      patch size.
+
+    None when the batch carries none of them. The padding may come as numpy
+    arrays or tensors; the weights are made on ``device``."""
+    b, hgt, wdt = shape
+    valid, valid_mask, valid_hw = batch.get("_valid"), batch.get("_valid_mask"), batch.get("_valid_hw")
+    if valid is None and valid_mask is None and valid_hw is None:
         return None
-    b = shape[0]
-    device = (valid_mask if valid_mask is not None else valid).device
+    w = torch.ones((b, 1, 1), dtype=torch.float32, device=device)
     if valid_mask is not None:
-        rows = valid_mask.float()
-    else:
-        rows = (torch.arange(b, device=device) < valid).float()
-    return rows[:, None, None].expand(shape)
+        w = torch.as_tensor(valid_mask, device=device).float()[:, None, None]
+    elif valid is not None:
+        w = (torch.arange(b, device=device) < torch.as_tensor(valid, device=device)).float()[:, None, None]
+    if valid_hw is not None:
+        vhw = torch.as_tensor(valid_hw, device=device)
+        ch, cw = vhw[..., 0] // patch * patch, vhw[..., 1] // patch * patch
+        rows, cols = torch.arange(hgt, device=device), torch.arange(wdt, device=device)
+        if vhw.ndim == 2:  # (B, 2) per item (bucket-packed)
+            region = (rows[None, :, None] < ch[:, None, None]) & (cols[None, None, :] < cw[:, None, None])
+        else:
+            region = ((rows[:, None] < ch) & (cols[None, :] < cw))[None]
+        w = w * region.float()
+    # without bucket padding the rows' weights are a view: no (B, H, W) buffer
+    return w.expand(shape)
 
 
 def loss_fn(model: CrossScoreNet, batch: dict, weight_sum: Optional[torch.Tensor] = None):
     """-> (loss, (pred, l1, w)). ``weight_sum``: the global sum of the
     weights over the data group (each rank then returns its weighted L1 sum
     over it, its share of the global mean)."""
-    w = _weights(batch, batch["query/score_map"].shape)
+    gt = batch["query/score_map"]
+    w = _weights(batch, gt.shape, model.cfg.patch_size, gt.device)
     q_tokens = batch.get("query/tokens")
     if q_tokens is not None:
         # token-space training (data/token_train.py): both sides arrive as
@@ -96,10 +115,11 @@ def loss_fn(model: CrossScoreNet, batch: dict, weight_sum: Optional[torch.Tensor
         out = model(None, None, ref_tokens=batch["reference/cross/tokens"], query_tokens=q_tokens,
                     token_grid=(hgt // p, wdt // p))
     else:
+        # valid_hw: the host (2,) shared or (B, 2) per-item extents of a
+        # bucket-padded batch; the model branches on its ndim
         out = model(batch["query/img"], batch.get("reference/cross/imgs"),
-                    ref_tokens=batch.get("reference/cross/tokens"))
+                    ref_tokens=batch.get("reference/cross/tokens"), valid_hw=batch.get("_valid_hw"))
     pred = out["score_map_ref_cross"]
-    gt = batch["query/score_map"]
     l1 = torch.abs(pred.float() - gt.float())
     if weight_sum is not None:
         loss = (l1.sum() if w is None else torch.sum(l1 * w)) / torch.clamp(weight_sum, min=1.0)
@@ -114,9 +134,10 @@ def _data_parallel_loss(model: CrossScoreNet, batch: dict, group):
     """The global weighted mean over the data group: -> (this rank's share of
     the loss, the global loss, (this rank's pred, pred and w gathered over
     the group))."""
-    shape = batch["query/score_map"].shape
-    w = _weights(batch, shape)
-    ws = torch.tensor(float(np.prod(shape)), device=batch["query/score_map"].device) if w is None \
+    gt = batch["query/score_map"]
+    shape = gt.shape
+    w = _weights(batch, shape, model.cfg.patch_size, gt.device)
+    ws = torch.tensor(float(np.prod(shape)), device=gt.device) if w is None \
         else w.sum()
     ws = all_reduce(ws.float(), dist.ReduceOp.SUM, group)
     loss, (pred, _, w) = loss_fn(model, batch, weight_sum=ws)

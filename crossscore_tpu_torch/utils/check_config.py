@@ -24,7 +24,7 @@ def check_reference_type(do_reference_cross) -> str:
 
 
 class ConfigChecker:
-    """Entry-point config validation for the train and predict entry points."""
+    """Entry-point config validation for the train, test and predict entry points."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -38,6 +38,9 @@ class ConfigChecker:
         )
 
     def check_train_val(self):
+        self._check_common()
+
+    def check_test(self):
         self._check_common()
 
     def check_predict(self):

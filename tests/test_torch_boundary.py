@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
         "crossscore_tpu_torch.io.batch_writer, crossscore_tpu_torch.io.summariser, "
         "crossscore_tpu_torch.utils.vis, crossscore_tpu_torch.ops.context_parallel, "
         "crossscore_tpu_torch.parallel.mesh, crossscore_tpu_torch.parallel.launch, "
-        "crossscore_tpu_torch.parallel.view_parallel\n"
+        "crossscore_tpu_torch.parallel.view_parallel, crossscore_tpu_torch.tasks.test, "
+        "crossscore_tpu_torch.tasks.summarise_score_gt, crossscore_tpu_torch.tasks.encode_tokens\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -129,6 +130,36 @@ def test_predict_composes_its_own_root_and_needs_cuda_unless_told_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main([f"data.dataset.query_dir={tmp_path}", f"data.dataset.reference_dir={tmp_path}",
                   f"logger.predict.out_dir={tmp_path / 'out'}"])
+
+
+def test_test_composes_its_own_root_and_needs_cuda_unless_told_cpu(tmp_path):
+    """The test root of the port's tree: the JAX root's keys with the GPU
+    device rule (one card, ``cuda``); without a card the CLI raises unless
+    told ``trainer.accelerator=cpu``, and several devices or a ``tp`` route
+    raise on every machine."""
+    import yaml
+
+    from crossscore_tpu_torch import confsys
+    from crossscore_tpu_torch.tasks.test import main
+
+    cfg = confsys.load_config("default_test")
+    want = yaml.safe_load((ROOT / "crossscore_tpu" / "config" / "default_test.yaml").read_text())
+    got = yaml.safe_load((ROOT / "crossscore_tpu_torch" / "config" / "default_test.yaml").read_text())
+    assert got["trainer"].pop("accelerator") == "cuda" and want["trainer"].pop("accelerator") == "tpu"
+    assert got["trainer"].pop("devices") == 1 and want["trainer"].pop("devices") == -1
+    assert got == want
+    assert "tpu" not in cfg.model and cfg.model.gpu.attention_impl == "flash"
+    assert cfg.this_main.crop_mode == "integer_patches" and cfg.this_main.data_split == "test"
+    assert cfg.data.loader.validation.batch_size == 24 and cfg.data.neighbour_config.cross == 5
+    assert cfg.logger.test.write.config.vis_img_every_n_steps == 1
+    base = [f"data.dataset.path=[{tmp_path}]", f"logger.test.out_dir={tmp_path / 'out'}"]
+    with pytest.raises(NotImplementedError, match="attention_impl=tp"):
+        main(base + ["model.gpu.attention_impl=tp"])
+    with pytest.raises(NotImplementedError, match="the test CLI runs one process.*item 6"):
+        main(base + ["trainer.devices=2"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(base)
 
 
 def test_train_entry_point_needs_cuda_unless_told_cpu():

@@ -185,3 +185,51 @@ def test_token_fast_run_on_a_warm_store_encodes_nothing(tree, store, tmp_path, m
     line = next(x for x in out.splitlines() if x.startswith("token cache: "))
     assert " 0 misses" in line and not line.endswith(" 0 disk hits"), line
     assert (run_dir / "ckpt" / "step_00000003.ckpt").exists()
+
+
+@pytest.fixture(scope="module")
+def resized_store(tmp_path_factory):
+    """A tree whose 300x400 sources the dataset resizes (short side 224:
+    224x299, trimmed to 224x294), and the store that ``encode_tokens`` fills
+    for a ``token_fast`` run on it."""
+    root = tmp_path_factory.mktemp("resized_tree")
+    generate(root, hw=(300, 400), scenes_per_split={"train": 1, "val": 0, "test": 0})
+    store_dir = root / "tokens"
+    encode_main(BASE[:-2] + ["this_main.resize_short_side=224", "seed=0", f"data.dataset.path=[{root}]",
+                             "this_main.train_recipe=token_fast", f"this_main.ref_token_cache_dir={store_dir}"])
+    return root, store_dir
+
+
+def test_token_fast_store_holds_the_loaders_encode_of_resized_images(resized_store):
+    """The tokens ``encode_tokens`` stores for a ``token_fast`` run equal the
+    token loader's own encode of the uint8-wire pixels (2e-5, fp32 reduction
+    order), while the unrounded pixels' encode differs there: the store
+    serves the run the tokens a cold cache would have encoded."""
+    root, store_dir = resized_store
+    cfg = CrossScoreConfig.from_config(parse_cli("default", BASE))
+    model = load_into(CrossScoreNet(cfg, device="cpu"), init_params(cfg, 0, "cpu"))
+    encoder = make_backbone_encoder(cfg)
+    ds = NvsDataset(dataset_path=str(root), resolution="res_540", data_split="train",
+                    neighbour_config={"strategy": "random", "cross": 2}, metric_type="ssim", metric_min=0,
+                    metric_max=1, crop_size=None, crop_mode="integer_patches", resize_short_side=224,
+                    return_item_paths=True, wire_uint8=True)
+    assert ds.get_item_shape(0) == (224, 294)
+    loaded = RefTokenCache(lambda imgs, valid_hw=None: encoder(model, torch.from_numpy(imgs)), max_items=64)
+    loader = TokenSpaceLoader(ds, loaded, crop_size=56, batch_size=2, shuffle=False, num_workers=1, seed=0)
+    list(loader.epoch(0))
+
+    def forbidden(imgs, valid_hw=None):
+        raise AssertionError("encoder called despite a warm store")
+
+    stored = RefTokenCache(forbidden, persist_dir=store_dir)
+    assert len(loaded) == len(unique_image_paths(ds)) == 14
+    worst_unrounded = 0.0
+    for (path, _, hw), want in loaded._cache.items():
+        assert stored.has(path, hw), path
+        got = stored.gather([[path]], np.zeros((1, 1, *hw, 3), np.uint8))[0, 0]
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        img = ds._resize(image_read(path))[:hw[0], :hw[1]]
+        unrounded = encoder(model, torch.from_numpy(normalize_imagenet(img).astype(np.float32)[None]))[0]
+        worst_unrounded = max(worst_unrounded, float((unrounded - want).abs().max()))
+    assert stored.misses == 0
+    assert worst_unrounded > 1e-3, worst_unrounded  # the JAX package's store: 50x the bound off

@@ -225,13 +225,25 @@ def test_bf16_train_step_matches_jax_loosely(test_params):
 
 
 def test_unported_batch_forms_raise(test_params):
+    """Bucket-padded batches (``_valid_hw``) are ported: an extent that
+    covers the whole image weighs nothing out, on pixel and token batches
+    alike (the token graph is not given the extent, as in JAX: only the
+    weights read it); a malformed extent raises in the model, and so does a
+    bucketed batch under autograd (K5/K6 are forward only, eval's kernels)."""
     model = _port("dinov2-test", 6, test_params)
     batch = _torch(_batch(40, 1, 1, 56))
-    with pytest.raises(NotImplementedError, match="_valid_hw"):
-        loss_fn(model, dict(batch, _valid_hw=torch.tensor([56, 56])))
-    # token batches are ported (tests/test_torch_token_train.py); bucket
-    # weights are not, on them either
+    with pytest.raises(RuntimeError, match="forward only"):
+        loss_fn(model, dict(batch, _valid_hw=np.asarray([56, 56])))
+    torch.set_grad_enabled(False)
+    try:
+        whole, _ = loss_fn(model, batch)
+        for vhw in (np.asarray([56, 56]), np.asarray([[56, 56]]), torch.tensor([56, 60])):
+            assert loss_fn(model, dict(batch, _valid_hw=vhw))[0].item() == whole.item()
+        with pytest.raises(ValueError, match="valid_hw must be"):
+            loss_fn(model, dict(batch, _valid_hw=np.asarray([56, 56, 3])))
+    finally:
+        torch.set_grad_enabled(True)
     tokens = {"query/tokens": torch.zeros(1, 16, 64), "reference/cross/tokens": torch.zeros(1, 1, 16, 64),
               "query/score_map": torch.zeros(1, 56, 56)}
-    with pytest.raises(NotImplementedError, match="_valid_hw"):
-        loss_fn(model, dict(tokens, _valid_hw=torch.tensor([56, 56])))
+    loss, (_, l1, w) = loss_fn(model, dict(tokens, _valid_hw=np.asarray([28, 56])))
+    assert float(w.sum()) == 28 * 56 and loss.item() == pytest.approx(l1[:, :28].mean().item(), rel=1e-6)
