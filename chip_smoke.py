@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
 the predict CLI, view-parallel predict, tensor- and view-parallel training,
-token-space training and the test CLI.
+token-space training, the test CLI and the scoring daemon.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -147,7 +147,24 @@ In order:
     fp32; ``summarise_score_gt`` paired row for row with the predicted
     summary; print maps/s per mode over the whole run and each mode's
     device step alone;
-16. print one ``{"kernels": [...]}`` line, then, last, the device line.
+16. the scoring daemon (``tasks/serve.py``; dinov2-small, 518x518, K=8,
+    bf16, seeded weights): (a) the warm-cache step alone through
+    ``make_predict_step_cached`` at B=8, timed (median of 5 CUDA-event steps,
+    the spread, the peak memory) on per-item tokens and on the daemon's one
+    token set broadcast to the batch (the same bits as its contiguous copy),
+    K1 12, K2 12 and K3 4 launches and no other, and at B=1 against the
+    uncached step and the all-plain cached net, bf16 and fp32; (b) the
+    daemon in this process on an ephemeral port (8 references, micro-batches
+    of up to 8): its startup and launches, ``/healthz``, one ``map=npy``
+    map against the predict CLI's on the same query and references, the
+    load bench at 1, 4 and 8 workers x 16 requests (req/s, p50/p95/p99, the
+    dispatches and launches per dispatch), a reload to seed 1's weights in
+    the middle of a storm, and the typed 503s of a full queue; (c) the CLI
+    in a child process: SIGTERM in the middle of a storm with a request in
+    flight (every accepted request 200, the later ones a typed 503,
+    ``/livez`` 200 and ``/healthz`` 503 during the drain, exit 0), then a
+    warm-up-only run on the token store the first run filled;
+17. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -533,11 +550,460 @@ def _eval_phases(torch, dev, zero_launches, read_launches) -> dict:
     return ev
 
 
+def _event_times(torch, fn, reps: int = 5, warmup: int = 2) -> list:
+    """``reps`` CUDA-event timings of ``fn`` in ms, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+class _Lines:
+    """A child process's merged output, read on a thread (so that its pipe
+    never fills), with an event set on the first line that matches."""
+
+    def __init__(self, proc, pattern: str):
+        import threading
+
+        self.lines, self.match = [], None
+        self.found = threading.Event()
+        self._re = re.compile(pattern)
+        self._thread = threading.Thread(target=self._read, args=(proc,), daemon=True)
+        self._thread.start()
+
+    def _read(self, proc):
+        for line in proc.stdout:
+            self.lines.append(line)
+            if self.match is None and self._re.search(line):
+                self.match = self._re.search(line)
+                self.found.set()
+
+    def text(self) -> str:
+        self._thread.join(timeout=10)
+        return "".join(self.lines)
+
+
+def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dict:
+    """Step 16, the scoring daemon on the card (dinov2-small, 518x518, K=8,
+    bf16, seeded weights): (a) the warm-cache step alone at B=8 (the
+    benchmark's point, then the daemon's one token set broadcast to the
+    batch), its launches, and at B=1 against the uncached step and the
+    all-plain cached net; (b) the daemon in this process on an ephemeral
+    port: startup, ``/healthz``, one map against the predict CLI's, the load
+    bench at 1, 4 and 8 workers, a reload mid-storm and the typed 503 of a
+    full queue; (c) the CLI in a child process, SIGTERM mid-storm with a
+    request in flight, then a warm-up-only run on the token store the first
+    run filled. Returns the readings."""
+    import http.client
+    import os
+    import signal
+    import subprocess
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from crossscore_tpu_torch.client import ScoreClient, ScoreClientError
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.io.images import image_read_bytes, metric_map_read
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
+    from crossscore_tpu_torch.tasks.common import parse_cli
+    from crossscore_tpu_torch.tasks.predict import main as predict_main
+    from crossscore_tpu_torch.tasks.serve import make_server
+    from crossscore_tpu_torch.tools.serve_load_bench import run as load_bench
+    from crossscore_tpu_torch.train.step import make_predict_step, make_predict_step_cached
+
+    t_step = time.perf_counter()
+    sv: dict = {"card": card}
+    root = Path(__file__).resolve().parent
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    per_dispatch = _launches(K1=12, K2=12, K3=4)
+
+    # --- (a) the warm-cache step alone ----------------------------------------
+    cfg = CrossScoreConfig()  # dinov2-small, bf16, flash, fused
+    model = load_into(CrossScoreNet(cfg, device=dev), params)
+    encode = make_backbone_encoder(cfg)
+    step = make_predict_step_cached(model)
+    query = torch.randint(0, 256, (B, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    refs = torch.randint(0, 256, (B, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    tokens = torch.cat([encode(model, refs[i]) for i in range(B)]).reshape(B, K, -1, cfg.backbone.hidden_size)
+    shared = tokens[:1].expand(B, *tokens.shape[1:])  # the daemon's form: one set, stride 0 over the batch
+    forms = {"per_item": tokens, "broadcast": shared}
+    sv["warm_cache_step"] = {}
+    for form, tok in forms.items():
+        zero_launches()
+        score = step(query, tok)["score_map_ref_cross"]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != per_dispatch:
+            _fail(f"warm-cache step ({form}) launches {launches} != {per_dispatch}")
+        if tuple(score.shape) != (B, HW, HW) or not bool(torch.isfinite(score).all()) \
+                or float(score.min()) < 0.0 or float(score.max()) > 1.0:
+            _fail(f"warm-cache step ({form}) score map shape / finite / range check failed")
+        torch.cuda.reset_peak_memory_stats()
+        times = _event_times(torch, lambda tok=tok: step(query, tok), reps=5)
+        med = sorted(times)[2]
+        r = {"ms": times, "median_ms": med, "maps_per_s": 1e3 * B / med,
+             "maps_per_s_spread": [1e3 * B / max(times), 1e3 * B / min(times)],
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": {k: v for k, v in launches.items() if v}}
+        sv["warm_cache_step"][form] = r
+        print(f"warm-cache step ({form} tokens (B, K, N, D) = {tuple(tok.shape)}, strides {tok.stride()}): "
+              f"median {med:.3f} ms per batch of {B} = {r['maps_per_s']:.2f} maps/s (5 steps: "
+              + ", ".join(f"{t:.3f}" for t in times) + f" ms; {r['maps_per_s_spread'][0]:.2f}-"
+              f"{r['maps_per_s_spread'][1]:.2f} maps/s); peak {r['peak_gib']:.2f} GiB; launches {r['launches']}; "
+              f"{HW} px, K={K}, bf16; {card}")
+    # where the step's time goes: the device's busy share (torch.profiler),
+    # and the host's time to enqueue the step (the wall of the call, no sync)
+    r = sv["warm_cache_step"]["per_item"]
+    r["device_busy_ms"] = _profile(torch, lambda: step(query, forms["per_item"]), r["median_ms"], top=10,
+                                   what="warm-cache step (per-item tokens)")
+
+    def enqueue_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(query, forms["per_item"])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (t1 - t0)
+
+    r["host_enqueue_ms"] = sorted(enqueue_ms() for _ in range(5))[2]
+    print(f"warm-cache step: the host enqueues it in {r['host_enqueue_ms']:.3f} ms (median of 5; the CUDA-event "
+          f"step {r['median_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms); {card}")
+    same = torch.equal(step(query, shared)["score_map_ref_cross"],
+                       step(query, shared.contiguous())["score_map_ref_cross"])
+    print(f"warm-cache step: the broadcast (stride-0) tokens give the contiguous copy's bits: {same}")
+    if not same:
+        _fail("the stride-0 broadcast tokens and their contiguous copy give other score maps")
+    del tokens, shared, forms, model, step
+
+    # B=1: the cached step against the uncached one on the same images, and
+    # against the all-plain cached net
+    q1, r1 = query[:1], refs[:1]
+    sv["b1"] = {}
+    for dtype, mlp in ((torch.bfloat16, "fused"), (torch.float32, "fused_exact")):
+        tname = str(dtype).split(".")[-1]
+        nets = {impl: load_into(CrossScoreNet(CrossScoreConfig(compute_dtype=dtype, attention_impl=impl,
+                                                               mlp_impl=m), device=dev), params)
+                for impl, m in (("flash", mlp), ("dense", "unfused"))}
+        maps = {}
+        for impl, net in nets.items():
+            tok = encode(net, r1[0])[None]
+            maps[impl] = make_predict_step_cached(net)(q1, tok)["score_map_ref_cross"]
+        uncached = make_predict_step(nets["flash"])(q1, r1)["score_map_ref_cross"]
+        mae_unc = float((maps["flash"] - uncached).abs().mean())
+        mae_plain = float((maps["flash"] - maps["dense"]).abs().mean())
+        sv["b1"][tname] = {"mae_vs_uncached": mae_unc, "mae_vs_all_plain_cached": mae_plain, "tol": NET_TOL[tname]}
+        print(f"warm-cache B=1 {tname} ({mlp}): score MAE against the uncached step {mae_unc:.3e}, against the "
+              f"all-plain cached net {mae_plain:.3e} (tol {NET_TOL[tname]:.0e})")
+        if not (mae_unc < NET_TOL[tname] and mae_plain < NET_TOL[tname]):
+            _fail(f"warm-cache B=1 {tname}: MAE {mae_unc} / {mae_plain} >= {NET_TOL[tname]}")
+        del nets, maps, uncached
+    del query, refs, q1, r1
+    torch.cuda.empty_cache()
+    sv["seconds_a"] = time.perf_counter() - t_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        qdir, rdir = _write_predict_dirs(tmp, 1, K, hw=(HW, HW))
+        qpath = next(qdir.iterdir())
+        qbytes = qpath.read_bytes()
+        ckpt = {}
+        for seed in (0, 1):
+            ckpt[seed] = tmp / "run" / "ckpt" / f"seed{seed}.ckpt"
+            ckpt[seed].parent.mkdir(parents=True, exist_ok=True)
+            torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in init_params(cfg, seed, dev).items()}},
+                       ckpt[seed])
+        base = [f"data.dataset.reference_dir={rdir}", f"trainer.ckpt_path_to_load={ckpt[0]}",
+                f"this_main.resize_short_side={HW}", "this_main.serve_port=0", "this_main.serve_batch_window_ms=2"]
+
+        # --- (b) the daemon in this process ------------------------------------
+        servers = []
+
+        def start(extra):
+            zero_launches()
+            t0 = time.perf_counter()
+            srv, scorer = make_server(parse_cli("default_predict", base + extra))
+            seconds = time.perf_counter() - t0
+            srv.RequestHandlerClass.log_message = lambda *a: None  # one line a request otherwise
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            servers.append((srv, thread))
+            host, port = srv.server_address[:2]
+            return srv, scorer, ScoreClient(f"http://{host}:{port}", timeout=120), seconds, read_launches()
+
+        try:
+            srv, scorer, client, seconds, launches = start(["this_main.serve_max_batch=8"])
+            # one encode call (8 references in a batch of 16) and a warm-up
+            # dispatch at each bucket 1/2/4/8
+            want = _launches(K1=12 * 5, K2=12 * 5, K3=4 * 4)
+            sv["startup"] = {"seconds": seconds, "split": scorer.startup_s,
+                             "launches": {k: v for k, v in launches.items() if v}}
+            print(f"daemon startup: {seconds:.2f} s (kernels loaded {scorer.startup_s['kernels']:.2f} s, "
+                  f"{K} references read and encoded {scorer.startup_s['references']:.2f} s, warm-up of buckets "
+                  f"1/2/4/8 {scorer.startup_s['warmup']:.2f} s); launches {sv['startup']['launches']}")
+            if launches != want:
+                _fail(f"daemon startup launches {launches} != {want}")
+            health = client.health()
+            sv["healthz"] = health
+            print(f"daemon /healthz: {json.dumps(health)}")
+
+            zero_launches()
+            got = client.score_map(qbytes)
+            launches = read_launches()
+            if launches != per_dispatch or got.shape != (HW, HW):
+                _fail(f"daemon map=npy: launches {launches}, shape {got.shape}")
+            out = predict_main(base[:3] + [
+                f"data.dataset.query_dir={qdir}", f"data.neighbour_config.cross={K}",
+                "data.loader.validation.batch_size=1", "data.loader.validation.num_workers=0",
+                "logger.predict.write.config.vis_img_every_n_steps=-1",
+                "logger.predict.write.config.score_map_colour_mode=gray",
+                "logger.predict.write.flag.image_query=false", "logger.predict.write.flag.image_reference=false",
+                f"logger.predict.out_dir={tmp / 'predict_out'}"])
+            written = next((out / "batch" / "score_map_ref_cross").glob("*.png"))
+            want_map = metric_map_read(written, [-1, 1])  # SSIM maps are written in [-1, 1]
+            mae = float(np.abs(got - want_map).mean())
+            sv["map_vs_predict_cli"] = {"mae": mae, "max": float(np.abs(got - want_map).max()),
+                                        "tol": NET_TOL["bfloat16"]}
+            print(f"daemon map=npy against the predict CLI on the same query and references: MAE {mae:.3e} "
+                  f"(max {sv['map_vs_predict_cli']['max']:.3e}; tol {NET_TOL['bfloat16']:.0e})")
+            if not mae <= NET_TOL["bfloat16"]:
+                _fail(f"daemon map against the predict CLI: MAE {mae}")
+
+            sv["load"] = {}
+            for workers in (1, 4, 8):
+                zero_launches()
+                r = load_bench(client.base_url, qbytes, workers, 16)
+                launches = read_launches()
+                disp = r["daemon"]["dispatches"]
+                want = _launches(**{k: v * disp for k, v in per_dispatch.items()})
+                r["launches"] = {k: v for k, v in launches.items() if v}
+                r["launches_per_dispatch"] = {k: v / disp for k, v in r["launches"].items()}
+                r["mean_batch"] = r["daemon"]["requests"] / disp
+                sv["load"][workers] = r
+                lat = r["latency_ms"]
+                print(f"load bench {workers} workers x 16 JSON requests: {r['throughput_rps']:.2f} req/s, p50 "
+                      f"{lat['p50']:.2f} / p95 {lat['p95']:.2f} / p99 {lat['p99']:.2f} ms (max {lat['max']:.2f}); "
+                      f"{r['daemon']['requests']} requests in {disp} dispatches (mean batch {r['mean_batch']:.2f}, "
+                      f"max_batch_seen {r['daemon']['max_batch_seen']}); launches per dispatch "
+                      f"{r['launches_per_dispatch']}; errors {r['errors']}; {card}")
+                if r["errors"] or launches != want:
+                    _fail(f"load bench at {workers} workers: {r['errors']} errors {r['error_messages']}, "
+                          f"launches {launches} != {want}")
+            if not (sv["load"][8]["daemon"]["max_batch_seen"] > 1 and sv["load"][8]["mean_batch"] > 1):
+                _fail("8 concurrent workers never shared a dispatch")
+
+            # one request's parts alone, each the median of 10 on the idle daemon
+            def host_ms(fn, n: int = 10):
+                times = []
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    out = fn()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                return sorted(times)[n // 2], out
+
+            decode_ms, img = host_ms(lambda: image_read_bytes(qbytes))
+            prep_ms, q = host_ms(lambda: scorer._preprocess(img))
+            dispatch_ms, _ = host_ms(lambda: scorer._run_device(q[None], False, count=False))
+            q_dev = torch.from_numpy(q[None]).to(dev)
+            device_ms = sorted(_event_times(torch, lambda: scorer._forward(scorer.model, q_dev, scorer.tokens),
+                                            reps=10))[5]
+            busy_ms = _profile(torch, lambda: scorer._forward(scorer.model, q_dev, scorer.tokens), device_ms, top=0,
+                               what="the daemon's B=1 forward")
+            req_ms = sv["load"][1]["latency_ms"]["p50"]
+            sv["request_split"] = {"request_p50_ms": req_ms, "decode_ms": decode_ms, "preprocess_ms": prep_ms,
+                                   "dispatch_ms": dispatch_ms, "device_ms": device_ms, "device_busy_ms": busy_ms,
+                                   "rest_ms": req_ms - decode_ms - prep_ms - dispatch_ms}
+            print(f"one request (1 worker, p50 {req_ms:.2f} ms), its parts alone: PNG decode {decode_ms:.2f} ms, "
+                  f"preprocess {prep_ms:.2f} ms, the B=1 dispatch {dispatch_ms:.2f} ms of host wall (upload, "
+                  f"launches, the mean's fetch) of which {device_ms:.2f} ms between CUDA events around the forward "
+                  f"({busy_ms:.2f} ms device busy); "
+                  f"the rest (HTTP, the 2 ms batch window, the client, threads) "
+                  f"{sv['request_split']['rest_ms']:.2f} ms; {card}")
+
+            # a reload to seed 1's weights in the middle of a storm
+            old_mean = client.score(qbytes)["mean_score"]
+            first = scorer.reload(str(ckpt[1]))
+            new_mean = client.score(qbytes)["mean_score"]
+            scorer.reload(str(ckpt[0]))
+            means, errors = [], []
+            lock = threading.Lock()
+
+            def storm_worker():
+                for _ in range(12):
+                    try:
+                        m = client.score(qbytes)["mean_score"]
+                    except Exception as e:  # counted and reported below
+                        with lock:
+                            errors.append(repr(e))
+                        continue
+                    with lock:
+                        means.append(m)
+
+            threads = [threading.Thread(target=storm_worker) for _ in range(8)]
+            for t in threads:
+                t.start()
+            while not means and not errors:
+                time.sleep(0.001)
+            res = client.reload(str(ckpt[1]))
+            for t in threads:
+                t.join(timeout=120)
+            off = max(min(abs(m - old_mean), abs(m - new_mean)) for m in means)
+            n_new = sum(abs(m - new_mean) < abs(m - old_mean) for m in means)
+            sv["reload_storm"] = {"errors": len(errors), "requests": len(means), "after_swap": n_new,
+                                  "old_mean": old_mean, "new_mean": new_mean, "max_off": off,
+                                  "reload": res, "reload_alone": first}
+            print(f"reload mid-storm (8 workers x 12): {len(means)} answered, {len(errors)} errors, {n_new} on the "
+                  f"new weights; means {old_mean:.6f} -> {new_mean:.6f}, every one within {off:.3e} of one (tol "
+                  f"2e-3); /reload {res['seconds']} s, peak {res['peak_memory_gib']} GiB (alone: "
+                  f"{first['seconds']} s, {first['peak_memory_gib']} GiB); {card}")
+            if errors or len(means) != 96 or off > 2e-3 or old_mean == new_mean:
+                _fail(f"reload storm: {errors[:3]}, {len(means)} answered, max off {off}")
+
+            # a full queue: with the card held, serve_max_queue=1 gives typed 503s
+            srv2, scorer2, client2, _, _ = start(["this_main.serve_max_batch=2", "this_main.serve_max_queue=1"])
+            results = []
+
+            def one():
+                try:
+                    results.append(client2.score(qbytes)["mean_score"])
+                except ScoreClientError as e:
+                    results.append(e)
+
+            with scorer2._lock:
+                threads = [threading.Thread(target=one) for _ in range(8)]
+                for t in threads:
+                    t.start()
+                deadline = time.monotonic() + 60
+                while scorer2._rejected.value < 5 and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            for t in threads:
+                t.join(timeout=60)
+            refused = [r for r in results if isinstance(r, ScoreClientError)]
+            typed = all("503" in str(e) and "ServerOverloaded" in str(e) for e in refused)
+            sv["backpressure"] = {"requests": len(results), "refused_503": len(refused),
+                                  "rejected_503": client2.health()["rejected_503"]}
+            print(f"backpressure (serve_max_queue=1, the card held): {len(refused)} of {len(results)} refused with "
+                  f"a typed 503, /healthz rejected_503 {sv['backpressure']['rejected_503']}")
+            if not (refused and typed and len(results) == 8 and sv["backpressure"]["rejected_503"] == len(refused)):
+                _fail(f"backpressure: {sv['backpressure']}, typed {typed}")
+        finally:
+            for srv, thread in servers:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=30)
+
+        sv["seconds_b"] = time.perf_counter() - t_step - sv["seconds_a"]
+
+        # --- (c) the CLI in a child process ------------------------------------
+        store = tmp / "token_store"
+        cli = [sys.executable, "-m", "crossscore_tpu_torch.tasks.serve", *base,
+               "this_main.serve_max_batch=8", f"this_main.ref_token_cache_dir={store}"]
+        env = dict(os.environ, PYTHONPATH=str(root))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cli, cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            out = _Lines(proc, r"serve: ready on http://([\d.]+):(\d+)")
+            if not out.found.wait(timeout=300):
+                _fail("the serve CLI never printed its ready line:\n" + "".join(out.lines)[-3000:])
+            ready_s = time.perf_counter() - t0
+            host, port = out.match.group(1), int(out.match.group(2))
+            client = ScoreClient(f"http://{host}:{port}", timeout=120)
+            print(f"serve CLI: ready after {ready_s:.1f} s (process start included): {out.match.string.strip()}")
+            oks, drains, refused_conn, errors = [], [], [], []
+            sent_term = threading.Event()
+
+            def cli_worker():
+                for _ in range(400):
+                    try:
+                        oks.append(client.score(qbytes)["mean_score"])
+                    except ScoreClientError as e:
+                        if "503" in str(e) and "ServerDraining" in str(e) and sent_term.is_set():
+                            drains.append(str(e))
+                        else:
+                            errors.append(str(e))
+                        return
+                    except OSError as e:  # the listener closed once the drain ended
+                        (refused_conn if sent_term.is_set() else errors).append(repr(e))
+                        return
+
+            threads = [threading.Thread(target=cli_worker) for _ in range(4)]
+            for t in threads:
+                t.start()
+            # a request in flight across the drain: its body half sent
+            slow = http.client.HTTPConnection(host, port, timeout=120)
+            slow.putrequest("POST", "/score", skip_accept_encoding=True)
+            slow.putheader("Content-Length", str(len(qbytes)))
+            slow.endheaders()
+            slow.send(qbytes[:4096])
+            while len(oks) < 20 and not errors:
+                time.sleep(0.01)
+            time.sleep(0.5)
+            sent_term.set()
+            proc.send_signal(signal.SIGTERM)
+            time.sleep(0.5)
+            probes = {}
+            for path in ("/livez", "/healthz"):
+                conn = http.client.HTTPConnection(host, port, timeout=30)
+                conn.request("GET", path)
+                r = conn.getresponse()
+                probes[path] = (r.status, json.loads(r.read())["status"])
+            try:
+                client.score(qbytes)
+                late = "200"
+            except ScoreClientError as e:
+                late = str(e)
+            slow.send(qbytes[4096:])
+            r = slow.getresponse()
+            slow_status = r.status
+            r.read()
+            for t in threads:
+                t.join(timeout=120)
+            rc = proc.wait(timeout=120)
+            text = out.text()
+            drain_line = next((ln.strip() for ln in text.splitlines() if "SIGTERM drain" in ln), None)
+            sv["cli"] = {"ready_s": ready_s, "ok": len(oks), "drain_503": len(drains), "refused": len(refused_conn),
+                         "errors": errors[:5], "probes": probes, "late_post": late, "in_flight_status": slow_status,
+                         "rc": rc, "drain_line": drain_line, "seconds": time.perf_counter() - t0}
+            print(f"serve CLI under SIGTERM mid-storm: {len(oks)} requests 200, {len(drains)} typed 503 after the "
+                  f"signal, {len(refused_conn)} refused after the listener closed, errors {errors[:3]}; during the "
+                  f"drain /livez {probes['/livez']}, /healthz {probes['/healthz']}, a new POST -> {late[:80]}; the "
+                  f"request in flight -> {slow_status}; exit {rc}; {drain_line}")
+            if (errors or rc != 0 or slow_status != 200 or probes["/livez"] != (200, "draining")
+                    or probes["/healthz"] != (503, "draining") or "ServerDraining" not in late
+                    or drain_line is None or "drain complete" not in drain_line):
+                _fail(f"serve CLI drain: {sv['cli']}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+        t0 = time.perf_counter()
+        res = subprocess.run(cli + ["this_main.serve_warmup_only=true"], cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=300)
+        line = next((ln for ln in res.stdout.splitlines() if "warmup-only done" in ln), "")
+        sv["warmup_only"] = {"rc": res.returncode, "line": line, "seconds": time.perf_counter() - t0}
+        print(f"serve CLI warm-up only on the token store: exit {res.returncode} in {sv['warmup_only']['seconds']:.1f} "
+              f"s: {line.strip()}")
+        if res.returncode != 0 or f"{K} references encoded ({K} from the token store)" not in line:
+            _fail(f"serve_warmup_only run: {res.returncode}\n{(res.stdout + res.stderr)[-3000:]}")
+    sv["seconds"] = time.perf_counter() - t_step
+    print(f"serving daemon step: {sv['seconds']:.1f} s ((a) the warm-cache step {sv['seconds_a']:.1f} s, (b) the "
+          f"daemon in process {sv['seconds_b']:.1f} s, (c) the CLI {sv['seconds'] - sv['seconds_a'] - sv['seconds_b']:.1f}"
+          f" s)")
+    return sv
+
+
 def _time_ms(torch, fn, reps: int = 10) -> float:
     """Median of ``reps`` CUDA-event timings after two warm-up calls."""
-    from crossscore_tpu_torch.tools._common import median_ms
-
-    return median_ms(fn, torch.device("cuda"), reps)
+    return sorted(_event_times(torch, fn, reps))[reps // 2]
 
 
 def _rel_err(got, want) -> float:
@@ -1159,11 +1625,11 @@ def _vp_cli_rank(argv: list) -> dict:
     return {"text": out.getvalue(), "launches": {k: w.launches for k, w in wrappers.items()}}
 
 
-def _profile(torch, fn, step_ms: float, top: int = 16, what: str = "train step") -> None:
+def _profile(torch, fn, step_ms: float, top: int = 16, what: str = "train step") -> float:
     """Print the device-time breakdown of one call of ``fn`` (torch.profiler,
     after the caller's warm-up): device ms per kernel, launches, and the
-    device's busy share of ``step_ms``, the call's unprofiled time. Fails
-    when the trace holds no kernel."""
+    device's busy share of ``step_ms``, the call's unprofiled time; return
+    the busy ms. Fails when the trace holds no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1187,6 +1653,7 @@ def _profile(torch, fn, step_ms: float, top: int = 16, what: str = "train step")
           f"({100 * busy / step_ms:.1f}% busy, {len(rows)} kernel names)")
     for ms, count, key in rows[:top]:
         print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<4d} {key[:110]}")
+    return busy
 
 
 def _token_phases(torch, dev, params, vit, zero_launches, read_launches) -> dict:
@@ -2670,7 +3137,12 @@ def main() -> int:
     ev = _eval_phases(torch, dev, zero_launches, read_launches)
     torch.cuda.empty_cache()
 
-    # --- 16. the kernels line, then the device line ---------------------------
+    # --- 16. the serving daemon: the warm-cache step, the daemon in this
+    # process, the CLI in a child process ----------------------------------------
+    sv = _serve_phases(torch, dev, params, card, zero_launches, read_launches)
+    torch.cuda.empty_cache()
+
+    # --- 17. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -2725,7 +3197,8 @@ def main() -> int:
                                     "token_train_step": tok["launches"][kern],
                                     "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern],
                                     "tp_train_step": tp_launches[kern],
-                                    "eval_cli": {tag: r["launches"][kern] for tag, r in ev["modes"].items()}},
+                                    "eval_cli": {tag: r["launches"][kern] for tag, r in ev["modes"].items()},
+                                    "serve_dispatch": sv["load"][8]["launches_per_dispatch"].get(kern, 0)},
                "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
         # K5-K7: the relative L2 of o, l, m; K5: K1's time on the same qkv;
         # K7: K3's on the same work, and both at the 1-rank length; K8/K9:
@@ -2794,6 +3267,7 @@ def main() -> int:
                                       for tag, r in cli.items()},
                       "predict_loader_maps_per_s": loader_rate, "view_parallel": vp,
                       "tensor_parallel": tp, "instruments": inst,
+                      "serving": sv,
                       "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
                                                         for k, v in r.items()} for tag, r in ev["modes"].items()}},
                       "seconds": seconds}))

@@ -36,6 +36,19 @@ def image_read(path: str | Path) -> np.ndarray:
     return f32(img)
 
 
+def image_read_bytes(data: bytes) -> np.ndarray:
+    """Encoded PNG/JPEG bytes (a scoring request's body) -> float32 (H, W, 3)
+    in [0, 1], as :func:`image_read`. A raw-tensor payload of the record
+    shards (``CSRT``) raises: the shards are not ported (ROADMAP queue 1
+    item 4)."""
+    import io as _io
+
+    if data[:4] == b"CSRT":
+        raise ValueError("raw-tensor (CSRT) payloads come from record shards, which are not ported "
+                         "(ROADMAP queue 1 item 4); send PNG or JPEG bytes")
+    return image_read(_io.BytesIO(data))
+
+
 def image_write(path: str | Path, img: np.ndarray) -> None:
     """float32 (H, W, 3) in [0, 1] -> PNG."""
     Image.fromarray(u8(np.clip(img, 0.0, 1.0))).save(path)

@@ -25,6 +25,11 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+def test_the_scan_covers_the_serving_daemon():
+    for rel in ("tasks/serve.py", "client.py", "tools/serve_load_bench.py"):
+        assert ROOT / "crossscore_tpu_torch" / rel in PORT_FILES, rel
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
@@ -46,7 +51,9 @@ def test_importing_the_port_loads_no_jax():
         "crossscore_tpu_torch.utils.vis, crossscore_tpu_torch.ops.context_parallel, "
         "crossscore_tpu_torch.parallel.mesh, crossscore_tpu_torch.parallel.launch, "
         "crossscore_tpu_torch.parallel.view_parallel, crossscore_tpu_torch.tasks.test, "
-        "crossscore_tpu_torch.tasks.summarise_score_gt, crossscore_tpu_torch.tasks.encode_tokens\n"
+        "crossscore_tpu_torch.tasks.summarise_score_gt, crossscore_tpu_torch.tasks.encode_tokens, "
+        "crossscore_tpu_torch.tasks.serve, crossscore_tpu_torch.client, "
+        "crossscore_tpu_torch.tools.serve_load_bench\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -116,8 +123,11 @@ def test_the_port_composes_its_own_yaml_tree():
 
 def test_predict_composes_its_own_root_and_needs_cuda_unless_told_cpu(tmp_path):
     """The predict root of the port's tree: the GPU knobs under ``model.gpu``
-    (view parallelism among them), no serving-daemon knobs; without a card
-    the CLI raises unless told ``trainer.accelerator=cpu``."""
+    (view parallelism among them), and the serving daemon's ``serve_*``
+    knobs with the JAX root's defaults; without a card the CLI raises unless
+    told ``trainer.accelerator=cpu``."""
+    import yaml
+
     from crossscore_tpu_torch import confsys
     from crossscore_tpu_torch.tasks.predict import main
 
@@ -125,7 +135,10 @@ def test_predict_composes_its_own_root_and_needs_cuda_unless_told_cpu(tmp_path):
     assert "tpu" not in cfg.model and cfg.model.gpu.view_parallel == "auto"
     assert cfg.model.gpu.attention_impl == "flash" and cfg.trainer.accelerator == "cuda"
     assert cfg.data.neighbour_config.cross == 5 and cfg.data.loader.validation.batch_size == 8
-    assert not any(k.startswith("serve_") for k in cfg.this_main)
+    want = yaml.safe_load((ROOT / "crossscore_tpu" / "config" / "default_predict.yaml").read_text())["this_main"]
+    serve_keys = {k: v for k, v in cfg.this_main.to_dict().items() if k.startswith("serve_")}
+    assert serve_keys == {k: v for k, v in want.items() if k.startswith("serve_")}
+    assert len(serve_keys) == 13 and serve_keys["serve_max_batch"] == 1 and serve_keys["serve_port"] == 8642
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main([f"data.dataset.query_dir={tmp_path}", f"data.dataset.reference_dir={tmp_path}",
