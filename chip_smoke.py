@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
 the predict CLI, view-parallel predict, tensor- and view-parallel training,
-token-space training, the test CLI and the scoring daemon.
+token-space training, the test CLI, the scoring daemon and the native host
+input path.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -164,7 +165,29 @@ In order:
     flight (every accepted request 200, the later ones a typed 503,
     ``/livez`` 200 and ``/healthz`` 503 during the drain, exit 0), then a
     warm-up-only run on the token store the first run filled;
-17. print one ``{"kernels": [...]}`` line, then, last, the device line.
+17. the native host input path (``data/fastimage.py``, ``data/records.py``,
+    the decode skip): (a) build ``csrc/fastimage.cpp`` with g++ (its
+    version, whether ``png.h`` is found, the seconds) and decode a seeded
+    540x960 PNG natively against the Pillow path: float32 resized to a short
+    side of 518 and trimmed to whole patches, the uint8 wire cropped and
+    resized, and a ``CSRT`` payload of it (the cropped wire and every
+    ``CSRT`` decode bit-equal; a missing ``png.h`` is printed and the rest
+    runs on Pillow, any other build error fails); (b) the predict CLI on
+    step 9's renders and pool (B=8, K=5, unbucketed), uncached and cached,
+    from files on Pillow (``CROSSSCORE_NO_NATIVE=1``) and natively and from
+    the shards of ``data.pack`` and ``data.pack --decoded``: launches as in
+    step 9, hits + decode-skips + the miss batch's slots = the reference
+    slots, decode-skips above 0 with the skip on, the maps byte-equal
+    between one decoder's sources and within MAE 1e-2 of Pillow's, maps/s;
+    (c) the test CLI, cached, from decoded shards against files: the
+    ``metrics.csv`` mean within 1e-6; (d) the ``token_fast`` CLI on step
+    14's warm store with the skip: no encoder call, no image of the train
+    split decoded (score maps only), every slot that holds an image
+    decode-skipped, the losses within 1e-6 of a Pillow run's; (e)
+    ``tools.ingest_bench`` and ``tools.token_assembly_bench`` (the loader's
+    retained malloc arena, and glibc's defaults), beside the host's CPU
+    count;
+18. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -290,6 +313,11 @@ NET_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # cached runs encode the references in other batches, and bf16 rounds each
 # path differently through 12 blocks
 CLI_TOL = 1e-2
+# step 17: the native decoder's float32 pixels (ImageNet-normalised) against
+# the Pillow path's, resized 540x960 -> 518x921: a few float32 ulps apart
+# (the C path multiplies by 1/255 where numpy divides, and g++ contracts
+# multiply-adds under -march=native)
+DECODE_TOL = 1e-5
 # whole-step decoder/head gradients, kernel path vs all-plain path, B=1:
 # fp32, the largest |difference| of a leaf over its largest entry (summation
 # order through 12 backbone layers and the decoder); bf16, the relative L2
@@ -1656,13 +1684,14 @@ def _profile(torch, fn, step_ms: float, top: int = 16, what: str = "train step")
     return busy
 
 
-def _token_phases(torch, dev, params, vit, zero_launches, read_launches) -> dict:
+def _token_phases(torch, dev, params, vit, zero_launches, read_launches, work: Path) -> dict:
     """Step 14, token-space training on the card: (i) the full-width token
     step through ``make_train_step``; (ii) at B=1 the token graph against
     the pixel graph on tokens encoded from the same crops, and against the
     all-plain token graph, fp32 and bf16; (iii) the train CLI with
     ``train_recipe=token_fast`` and a resume; (iv) ``tasks.encode_tokens``,
-    then a ``token_fast`` run on the warm store. Returns the readings."""
+    then a ``token_fast`` run on the warm store. The tree and the store stay
+    in ``work`` (``datadir``, ``tokens``) for step 17. Returns the readings."""
     import dataclasses
     import math
     import tempfile
@@ -1790,7 +1819,7 @@ def _token_phases(torch, dev, params, vit, zero_launches, read_launches) -> dict
     train_mod.make_eval_step = counted(make_eval, "eval")
     n_layers = vit.num_layers
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.nullcontext(str(work)) as tmp:
             t0 = time.perf_counter()
             # step 8's tree: reference pools of 4 and 3 captures, so that the
             # empty placeholder pads K=5 slots and its tokens are cached too
@@ -1867,6 +1896,393 @@ def _token_phases(torch, dev, params, vit, zero_launches, read_launches) -> dict
     finally:
         train_mod.make_backbone_encoder, train_mod.make_eval_step = make_encoder, make_eval
     return tok
+
+
+@contextlib.contextmanager
+def _pillow_only(on: bool):
+    """``CROSSSCORE_NO_NATIVE=1`` for the block when ``on``: the dataset
+    decodes with Pillow (the port reads the variable at every call)."""
+    import os
+
+    old = os.environ.pop("CROSSSCORE_NO_NATIVE", None)
+    if on:
+        os.environ["CROSSSCORE_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CROSSSCORE_NO_NATIVE", None)
+        if old is not None:
+            os.environ["CROSSSCORE_NO_NATIVE"] = old
+
+
+def _decoder_build() -> dict:
+    """Step 17(a), the build: g++'s version, whether ``png.h`` is found, the
+    build's seconds; fails on any build error but a missing ``png.h``."""
+    import os
+    import shutil
+    import subprocess
+
+    from crossscore_tpu_torch.data import fastimage
+    from crossscore_tpu_torch.ops import _build
+
+    import ctypes.util
+
+    gxx = shutil.which("g++")
+    version = subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0] if gxx else None
+
+    def header(name: str) -> bool:
+        return gxx is not None and subprocess.run([gxx, "-E", "-x", "c++", "-", "-o", os.devnull],
+                                                  input=f"#include <{name}>\n", capture_output=True, text=True,
+                                                  timeout=60).returncode == 0
+
+    png_h = header("png.h")
+    # what a decoder without libpng's headers could link against instead
+    print(f"host libraries: zlib.h {'found' if header('zlib.h') else 'not found'}; shared libpng "
+          f"{ctypes.util.find_library('png16') or ctypes.util.find_library('png')}; shared zlib "
+          f"{ctypes.util.find_library('z')}")
+    built_before = _build.host_library_path().exists()
+    t0 = time.perf_counter()
+    error = None
+    try:
+        _build.build_host()
+    except RuntimeError as e:
+        error = str(e)
+    info = {"gxx": version, "png_h": png_h, "build_s": time.perf_counter() - t0, "built_before": built_before,
+            "native": error is None, "error": error}
+    print(f"native decoder: {version}; png.h {'found' if png_h else 'not found'}; g++ build "
+          f"{info['build_s']:.1f} s{' (the library was there)' if built_before else ''}; "
+          f"{'built' if error is None else 'NOT built'}")
+    if error is not None:
+        print("native decoder build error: " + " | ".join(error.splitlines()[-8:]))
+        if png_h or "png.h" not in error:
+            _fail("the native decoder failed to build for another reason than a missing png.h")
+    elif not fastimage.available():
+        _fail(f"the native decoder built but does not load: {fastimage.load_error()}")
+    return info
+
+
+def _decoder_equality(tmp: Path) -> dict:
+    """Step 17(a), a seeded 540x960 PNG decoded natively against the Pillow
+    path: float32 resized to a short side of 518 and trimmed to whole
+    patches, the uint8 wire (cropped, and resized), and a ``CSRT`` payload
+    of it."""
+    import numpy as np
+
+    from crossscore_tpu_torch.data import fastimage
+    from crossscore_tpu_torch.data.nvs_index import to_wire_uint8
+    from crossscore_tpu_torch.data.records import encode_raw_payload
+    from crossscore_tpu_torch.io.images import image_read, image_read_bytes, normalize_imagenet
+    from crossscore_tpu_torch.ops.interpolate import resize_bilinear_antialias
+
+    qdir, _ = _write_predict_dirs(tmp, 1, 1)
+    path = str(qdir / "frame_00000.png")
+    h, w = PHW
+    rh, rw = HW, round(w * HW / h)  # 518x921
+    trim = (0, 0, rh - rh % 14, rw - rw % 14)  # 518x910
+    crop = (11, 25, rh - rh % 14, rw - rw % 14)  # an unresized crop of the same size
+    sl = lambda c: (slice(c[0], c[0] + c[2]), slice(c[1], c[1] + c[3]))  # noqa: E731
+    px = image_read(path)
+    resized = resize_bilinear_antialias(px, rh, rw)
+    payload = encode_raw_payload(path)
+    pairs = {
+        "float32 resized+trimmed, native vs Pillow": (
+            fastimage.load_rgb(path, resize_hw=(rh, rw), crop=trim), normalize_imagenet(resized[sl(trim)])),
+        "uint8 wire cropped, native vs Pillow": (
+            fastimage.load_rgb(path, crop=crop, as_uint8=True), to_wire_uint8(px[sl(crop)])),
+        "uint8 wire resized+trimmed, native vs Pillow": (
+            fastimage.load_rgb(path, resize_hw=(rh, rw), crop=trim, as_uint8=True), to_wire_uint8(resized[sl(trim)])),
+        "CSRT float32 resized+trimmed, native vs native PNG": (
+            fastimage.load_rgb_bytes(payload, resize_hw=(rh, rw), crop=trim),
+            fastimage.load_rgb(path, resize_hw=(rh, rw), crop=trim)),
+        "CSRT uint8 wire resized+trimmed, native vs native PNG": (
+            fastimage.load_rgb_bytes(payload, resize_hw=(rh, rw), crop=trim, as_uint8=True),
+            fastimage.load_rgb(path, resize_hw=(rh, rw), crop=trim, as_uint8=True)),
+        "CSRT, Pillow path vs Pillow PNG": (image_read_bytes(payload), px),
+    }
+    out = {}
+    for name, (got, want) in pairs.items():
+        d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+        out[name] = {"bit_equal": bool(np.array_equal(got, want)), "max_abs": float(d.max()),
+                     "n_differ": int((d > 0).sum()), "n": int(d.size)}
+        r = out[name]
+        print(f"decode {name} ({got.shape} {got.dtype}): bit-equal {r['bit_equal']}; max |d| {r['max_abs']:.3e}, "
+              f"{r['n_differ']} of {r['n']} elements differ")
+    # exact: the cropped uint8 wire (a copy of the PNG's bytes) and every
+    # CSRT comparison (the stored tensor is the decode's output). The float
+    # and the resized uint8 Pillow comparisons may differ by roundings: the
+    # Pillow path divides by 255 and sums in numpy, the C path multiplies by
+    # 1/255 and g++ contracts multiply-adds under -march=native (the C path
+    # equals the JAX package's decoder built with the same flags bit for bit)
+    exact = [n for n in out if "cropped" in n or n.startswith("CSRT")]
+    bad = [n for n in exact if not out[n]["bit_equal"]]
+    bad += [n for n in out if "float32" in n and out[n]["max_abs"] > DECODE_TOL]
+    bad += [n for n in out if "uint8" in n and out[n]["max_abs"] > 1]
+    if bad:
+        _fail("native decode against the Pillow path: " + ", ".join(bad))
+    return out
+
+
+def _input_phases(torch, tok_work: Path, zero_launches, read_launches) -> dict:
+    """Step 17, the native host input path on the card's host: (a) the
+    decoder's build and its decodes against the Pillow path; (b) the predict
+    CLI from files on Pillow and natively and from PNG and decoded shards,
+    uncached and cached with the decode skip; (c) the test CLI from decoded
+    shards against files; (d) the ``token_fast`` CLI on step 14's warm store
+    with the decode skip, against a Pillow run; (e) ``ingest_bench`` and
+    ``token_assembly_bench``. Returns the readings."""
+    import csv
+    import json as _json
+    import os
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    import crossscore_tpu_torch.tasks.train as train_mod
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.data import fastimage
+    from crossscore_tpu_torch.data.pack import main as pack_main
+    from crossscore_tpu_torch.data.synthetic import generate
+    from crossscore_tpu_torch.io.convert import init_params
+    from crossscore_tpu_torch.models import CrossScoreConfig
+    from crossscore_tpu_torch.tasks.predict import main as predict_main
+    from crossscore_tpu_torch.tasks.test import main as test_main
+
+    t_start = time.perf_counter()
+    inp: dict = {"cpus": os.cpu_count(), "usable_cpus": len(os.sched_getaffinity(0))}
+    print(f"host: {inp['cpus']} CPUs, {inp['usable_cpus']} usable")
+    inp["build"] = _decoder_build()
+    native = inp["build"]["native"]
+
+    def save_ckpt(path: Path, cfg_name: str) -> Path:
+        mcfg = CrossScoreConfig.from_config(load_config(cfg_name))
+        path.parent.mkdir(parents=True)
+        torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in init_params(mcfg, SEED).items()}}, path)
+        return path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if native:
+            inp["decode"] = _decoder_equality(tmp / "one")
+
+        # (b) the predict CLI: step 9's 24 renders and pool of 5, unbucketed,
+        # (a) uncached and (b) cached, the decode skip on in (b) natively
+        data = tmp / "predict_data"
+        qdir, rdir = _write_predict_dirs(data, 3 * PB, PK)
+        t0 = time.perf_counter()
+        pack_main([str(data), str(tmp / "png")])
+        pack_main([str(data), str(tmp / "raw"), "--decoded"])
+        inp["pack_s"] = time.perf_counter() - t0
+        ckpt = save_ckpt(tmp / "run" / "ckpt" / "seeded.ckpt", "default_predict")
+        common = [f"trainer.ckpt_path_to_load={ckpt}", f"data.dataset.query_dir={qdir}",
+                  f"data.dataset.reference_dir={rdir}", f"data.neighbour_config.cross={PK}",
+                  f"data.loader.validation.batch_size={PB}", "this_main.shape_buckets=off",
+                  "logger.predict.write.config.score_map_colour_mode=gray",
+                  "logger.predict.write.config.vis_img_every_n_steps=-1",
+                  "logger.predict.write.flag.image_query=false",
+                  "logger.predict.write.flag.image_reference=false"]
+        decoder = "native" if native else "pillow"
+        sources = {"pillow files": (False, None), f"{decoder} png shards": (native, "png"),
+                   f"{decoder} decoded shards": (native, "raw")}
+        if native:
+            sources = {"pillow files": (False, None), "native files": (True, None)} | {
+                k: v for k, v in sources.items() if k.startswith("native")}
+        pcfg = CrossScoreConfig.from_config(load_config("default_predict"))
+        n_b, n_layers, n_dec = 3, pcfg.backbone.num_layers, 2 * pcfg.decoder_layers
+        runs, bad = {}, []
+        for src, (use_native, store) in sources.items():
+            for mode, cache in (("a", "off"), ("b", "on")):
+                tag = f"{src} ({mode})"
+                argv = common + [f"this_main.ref_token_cache={cache}",
+                                 f"logger.predict.out_dir={tmp}/out_{src.replace(' ', '_')}_{mode}"]
+                if store:
+                    argv.append(f"+data.dataset.record_dir={tmp / store}")
+                tee = _Tee(sys.stdout)
+                zero_launches()
+                with _pillow_only(not use_native), contextlib.redirect_stdout(tee):
+                    out = predict_main(argv)
+                torch.cuda.synchronize()
+                text = "".join(tee.text)
+                rate = re.search(r"= ([0-9.]+) maps/s", text)
+                counts = re.search(r"ref-token cache: (\d+) hits, (\d+) unique misses, (\d+) decode-skips", text)
+                skip_on = "decode-skip on" in text
+                r = {"launches": read_launches(), "maps_per_s": float(rate.group(1)), "skip_on": skip_on,
+                     "hits": int(counts.group(1)) if counts else None,
+                     "misses": int(counts.group(2)) if counts else None,
+                     "skips": int(counts.group(3)) if counts else None,
+                     "maps": sorted((out / "batch" / "score_map_ref_cross").glob("*.png"))}
+                runs[tag] = r
+                enc = n_layers * (n_b + (cache == "on"))
+                want = _launches(K1=enc, K2=enc, K3=n_dec * n_b)
+                print(f"predict CLI from {tag}: {r['maps_per_s']:.2f} maps/s; decode-skip "
+                      f"{'on' if skip_on else 'off'}; cache hits {r['hits']}, misses {r['misses']}, decode-skips "
+                      f"{r['skips']}; launches { {k: v for k, v in r['launches'].items() if v} } (expected "
+                      f"{ {k: v for k, v in want.items() if v} }); {len(r['maps'])} maps")
+                if r["launches"] != want or len(r["maps"]) != 3 * PB:
+                    bad.append(f"{tag} launches/maps")
+                if cache == "on":
+                    # the first batch's slots resolve from its PK misses; every
+                    # later slot is a hit or, with the skip, a decode skip
+                    if r["misses"] != PK or r["hits"] + r["skips"] != (n_b - 1) * PB * PK:
+                        bad.append(f"{tag} hits + misses + skips")
+                    if skip_on != use_native or (r["skips"] > 0) != use_native:
+                        bad.append(f"{tag} decode skip {'on' if skip_on else 'off'}, {r['skips']} skips")
+
+        def read_maps(tag):
+            return [np.asarray(Image.open(p)).astype(np.int64) for p in runs[tag]["maps"]]
+
+        inp["predict"] = {}
+        for tag, r in runs.items():
+            mode = tag[-3:]
+            ref_tag = f"pillow files {mode}"
+            if tag != ref_tag:
+                got, want = read_maps(tag), read_maps(ref_tag)
+                r["byte_equal_vs_pillow_files"] = all(np.array_equal(x, y) for x, y in zip(got, want))
+                r["mae_vs_pillow_files"] = float(np.mean([np.abs(x - y).mean() for x, y in zip(got, want)])) / 32767
+                print(f"predict CLI maps {tag} vs {ref_tag}: byte-equal {r['byte_equal_vs_pillow_files']}; "
+                      f"MAE {r['mae_vs_pillow_files']:.3e} (tol {CLI_TOL:.0e})")
+                if not r["mae_vs_pillow_files"] <= CLI_TOL:
+                    bad.append(f"{tag} maps against Pillow's")
+            # one decoder gives the same pixels from files and from either shard
+            first = f"{decoder} {'files' if native else 'png shards'} {mode}"
+            if tag.startswith(decoder) and tag != first and not all(
+                    np.array_equal(x, y) for x, y in zip(read_maps(tag), read_maps(first))):
+                bad.append(f"{tag} maps differ from {first}'s")
+            inp["predict"][tag] = {k: v for k, v in r.items() if k != "maps"}
+        if bad:
+            _fail("step 17 predict CLI: " + ", ".join(bad))
+
+        # (c) the test CLI, mode (b), from decoded shards against files
+        tree = tmp / "gaussian" / "single"
+        generate(tree, hw=EVAL_HW, scenes_per_split={"train": 1, "test": 2}, n_train_imgs=PK, n_test_imgs=PK,
+                 seed=SEED)
+        pack_main([str(tree), str(tmp / "test_raw"), "--decoded"])
+        ckpt = save_ckpt(tmp / "test_run" / "ckpt" / "seeded.ckpt", "default_test")
+        inp["test"] = {}
+        for src, extra in (("files", []), ("decoded shards", [f"data.dataset.record_dir={tmp / 'test_raw'}"])):
+            tee = _Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                out = test_main(EVAL_OVERRIDES + [f"trainer.ckpt_path_to_load={ckpt}", f"data.dataset.path=[{tree}]",
+                                                  "this_main.shape_buckets=off", "this_main.ref_token_cache=on",
+                                                  f"logger.test.out_dir={tmp / ('test_out_' + src[0])}"] + extra)
+            rate = re.search(r"= ([0-9.]+) maps/s", "".join(tee.text))
+            with open(out / "metrics.csv") as f:
+                mean = {k: float(v) for k, v in list(csv.DictReader(f))[-1].items() if k != "batch_idx"}
+            inp["test"][src] = {"maps_per_s": float(rate.group(1)), "mean": mean}
+            print(f"test CLI (b) from {src} ({decoder}): {inp['test'][src]['maps_per_s']:.2f} maps/s; mean {mean}")
+        diff = max(abs(inp["test"]["decoded shards"]["mean"][k] - v) for k, v in inp["test"]["files"]["mean"].items())
+        inp["test"]["max_mean_diff"] = diff
+        print(f"test CLI (b) metrics.csv mean, decoded shards vs files: max |difference| {diff:.3e} (tol 1e-6)")
+        if not diff <= 1e-6:
+            _fail(f"test CLI from decoded shards: mean off by {diff}")
+
+    # (d) token_fast on step 14's warm store, with the decode skip, against a
+    # Pillow run: no encoder call, no query or reference decode, the same losses
+    ov = [f"data.dataset.path=[{tok_work}/datadir]", f"run.dir={tok_work}/log17",
+          "data.loader.train.batch_size=2", "data.loader.validation.batch_size=2",
+          "data.loader.train.num_workers=4", "data.loader.validation.num_workers=4",
+          "trainer.num_sanity_val_steps=0", "trainer.limit_val_batches=1", "trainer.max_steps=2",
+          "logger.vis_scalar_every_n_train_steps=1", "this_main.train_recipe=token_fast",
+          f"this_main.ref_token_cache_dir={tok_work}/tokens"]
+    res = tok_work / "datadir" / "res_540"
+    train_scenes = json.loads((res / "split.json").read_text())["train"]
+    decodes: list = []
+    wrapped = {name: getattr(fastimage, name) for name in ("load_rgb", "load_rgb_bytes", "load_metric",
+                                                            "load_metric_bytes")}
+
+    def counting(name, fn):
+        def call(src, *a, **kw):
+            decodes.append((name, src if isinstance(src, str) else "<payload>"))
+            return fn(src, *a, **kw)
+        return call
+
+    calls = {"encode": 0}
+    make_encoder = train_mod.make_backbone_encoder
+
+    def counted_encoder(*args):
+        fn = make_encoder(*args)
+
+        def call(*a, **kw):
+            calls["encode"] += 1
+            return fn(*a, **kw)
+        return call
+
+    tf = {}
+    try:
+        train_mod.make_backbone_encoder = counted_encoder
+        for name, fn in wrapped.items():
+            setattr(fastimage, name, counting(name, fn))
+        for src in (decoder, "pillow") if native else ("pillow",):
+            decodes.clear()
+            calls["encode"] = 0
+            tee = _Tee(sys.stdout)
+            zero_launches()
+            with _pillow_only(src == "pillow"), contextlib.redirect_stdout(tee):
+                run = train_mod.main(ov + [f"alias=token_input_{src}"])
+            torch.cuda.synchronize()
+            text = "".join(tee.text)
+            cache = re.search(r"token cache: (\d+) hits, (\d+) misses, (\d+) disk hits", text)
+            skips = re.search(r"decode skip: (\d+) images", text)
+            rows = [_json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+            in_train = lambda p: any(f"/res_540/{s}/" in p for s in train_scenes)  # noqa: E731
+            tf[src] = {"losses": [r["train/loss"] for r in rows if "train/loss" in r],
+                       "encode_calls": calls["encode"], "launches": read_launches(),
+                       "hits": int(cache.group(1)), "misses": int(cache.group(2)), "skips": int(skips.group(1)),
+                       "train_rgb_decodes": sum(n.startswith("load_rgb") and in_train(p) for n, p in decodes),
+                       "train_metric_decodes": sum(n.startswith("load_metric") and in_train(p) for n, p in decodes)}
+            r = tf[src]
+            print(f"token_fast on the warm store ({src}): losses {r['losses']}; encoder calls {r['encode_calls']}; "
+                  f"cache hits {r['hits']}, misses {r['misses']}, decode-skips {r['skips']}; native decodes of the "
+                  f"train split: {r['train_rgb_decodes']} images, {r['train_metric_decodes']} score maps")
+    finally:
+        train_mod.make_backbone_encoder = make_encoder
+        for name, fn in wrapped.items():
+            setattr(fastimage, name, fn)
+    slots = 2 * 2 * (1 + PK)  # 2 steps of B=2, a query and K=5 references each
+    if native:
+        r, p = tf[decoder], tf["pillow"]
+        tf["max_loss_diff"] = max(abs(a - b) for a, b in zip(r["losses"], p["losses"]))
+        print(f"token_fast losses, native skip vs Pillow: bit-equal {r['losses'] == p['losses']}; max |difference| "
+              f"{tf['max_loss_diff']:.3e} (tol 1e-6)")
+        # the placeholder slots (pools of 4 and 3 padded to K=5) are cache
+        # hits: they carry no image to decode
+        if r["encode_calls"] or r["misses"] or r["skips"] + r["hits"] != slots or not r["skips"] \
+                or r["train_rgb_decodes"] or not r["train_metric_decodes"] \
+                or len(r["losses"]) != 2 or not tf["max_loss_diff"] <= 1e-6:
+            _fail("step 17 token_fast on the warm store with the decode skip")
+    elif tf["pillow"]["encode_calls"] or tf["pillow"]["misses"]:
+        _fail("step 17 token_fast on the warm store encoded")
+    inp["token_fast"] = tf
+
+    # (e) the two host benchmarks, each in its own process (mallopt is
+    # process-wide), with the host's CPU count beside them
+    benches = {"ingest": ["-m", "crossscore_tpu_torch.tools.ingest_bench", "10"],
+               "assembly loader": ["-m", "crossscore_tpu_torch.tools.token_assembly_bench"],
+               "assembly glibc": ["-m", "crossscore_tpu_torch.tools.token_assembly_bench", "--arena", "glibc"]}
+    inp["bench"] = {}
+    for name, args in benches.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], cwd=Path(__file__).resolve().parent, capture_output=True,
+                              text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines:
+            print(f"  {name}: {line}")
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:])
+            _fail(f"{name} bench exit {proc.returncode}")
+        rows = {m.group(1).strip(): float(m.group(2))
+                for m in (re.match(r"(.+?)\s*: +([0-9.]+) items/s", x) for x in lines) if m}
+        fin = next((re.search(r"_finalize: ([0-9.]+) ms \(min ([0-9.]+), p50 ([0-9.]+)\)", x) for x in lines
+                    if x.startswith("_finalize")), None)
+        h2d = next((x for x in lines if x.startswith("host-to-device")), None)
+        inp["bench"][name] = {"items_per_s": rows} if rows else {
+            "finalize_ms": [float(g) for g in fin.groups()] if fin else None, "h2d": h2d}
+        inp["bench"][name]["s"] = time.perf_counter() - t0
+    inp["s"] = time.perf_counter() - t_start
+    print(f"step 17: {inp['s']:.1f} s")
+    return inp
 
 
 def main() -> int:
@@ -3130,7 +3546,8 @@ def main() -> int:
 
     # --- 14. token-space training: the token step, the token graph at B=1, the
     # token_fast train CLI, encode_tokens and a run on the warm store -----------
-    tok = _token_phases(torch, dev, params, vit, zero_launches, read_launches)
+    tok_work = tempfile.TemporaryDirectory()  # step 14's tree and token store, read again in step 17
+    tok = _token_phases(torch, dev, params, vit, zero_launches, read_launches, Path(tok_work.name))
 
     # --- 15. the test CLI: four modes and a warm store, B=1 kernels against the
     # all-plain net, the GT summary -----------------------------------------------
@@ -3142,7 +3559,14 @@ def main() -> int:
     sv = _serve_phases(torch, dev, params, card, zero_launches, read_launches)
     torch.cuda.empty_cache()
 
-    # --- 17. the kernels line, then the device line ---------------------------
+    # --- 17. the native host input path: the decoder's build and decodes, the
+    # predict, test and token_fast CLIs from files and record shards with the
+    # decode skip, the two host benchmarks ----------------------------------------
+    inp = _input_phases(torch, Path(tok_work.name), zero_launches, read_launches)
+    tok_work.cleanup()
+    torch.cuda.empty_cache()
+
+    # --- 18. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -3198,7 +3622,12 @@ def main() -> int:
                                     "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern],
                                     "tp_train_step": tp_launches[kern],
                                     "eval_cli": {tag: r["launches"][kern] for tag, r in ev["modes"].items()},
-                                    "serve_dispatch": sv["load"][8]["launches_per_dispatch"].get(kern, 0)},
+                                    "serve_dispatch": sv["load"][8]["launches_per_dispatch"].get(kern, 0),
+                                    "host_input_predict": {tag: r["launches"][kern]
+                                                           for tag, r in inp["predict"].items()},
+                                    "host_input_token_fast": {src: r["launches"][kern]
+                                                              for src, r in inp["token_fast"].items()
+                                                              if isinstance(r, dict)}},
                "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
         # K5-K7: the relative L2 of o, l, m; K5: K1's time on the same qkv;
         # K7: K3's on the same work, and both at the 1-rank length; K8/K9:
@@ -3267,7 +3696,7 @@ def main() -> int:
                                       for tag, r in cli.items()},
                       "predict_loader_maps_per_s": loader_rate, "view_parallel": vp,
                       "tensor_parallel": tp, "instruments": inst,
-                      "serving": sv,
+                      "serving": sv, "host_input": inp,
                       "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
                                                         for k, v in r.items()} for tag, r in ev["modes"].items()}},
                       "seconds": seconds}))

@@ -1,7 +1,13 @@
 """NVS dataset: filesystem index, neighbour selection, per-item loading; the
-port's own copy of ``crossscore_tpu/data/nvs_index.py`` on the Pillow path
-(the JAX package's native fused decoder and packed record store are not
-ported).
+port's own copy of ``crossscore_tpu/data/nvs_index.py``.
+
+An item is decoded by the native fused decoder (``data/fastimage.py``: decode,
+resize, crop and normalise in one C call per image, without the GIL) when it
+is available and every image of the item is a PNG, else by Pillow and numpy.
+Both paths draw the same rng and give the same geometry. Images may come
+from packed record shards (``record_dir``, ``data/records.py``) instead of
+one file each. The fused path can skip the decode of an image whose tokens a
+consumer already holds (``query_pixel_skip``, ``ref_pixel_skip``).
 
 Behavioural parity with reference ``dataloading/dataset/nvs_dataset.py``:
 
@@ -35,9 +41,12 @@ from typing import Optional
 import numpy as np
 from PIL import Image
 
-from crossscore_tpu_torch.data.crop import CropperSame, CropperSeparate
+from crossscore_tpu_torch.data import fastimage
+from crossscore_tpu_torch.data.crop import CropperSame, CropperSeparate, get_crop_params
 from crossscore_tpu_torch.data.samplers import EMPTY_IMAGE, make_sampler
-from crossscore_tpu_torch.io.images import image_read, metric_map_read, normalize_imagenet
+from crossscore_tpu_torch.io.images import (
+    image_read, image_read_bytes, metric_map_read, metric_map_read_bytes, normalize_imagenet,
+)
 from crossscore_tpu_torch.ops.interpolate import resize_bilinear_antialias
 
 
@@ -126,10 +135,20 @@ class NvsDataset:
         num_gaussians_iters: int = -1,
         zero_reference: bool = False,
         return_item_paths: bool = False,
+        record_dir: Optional[str] = None,
         wire_uint8: bool = False,
     ):
         if data_split not in ("train", "test", "val", "val_small", "test_small"):
             raise ValueError(f"Unknown data_split {data_split}")
+        # optional record-shard store (data/records.py): a few large files
+        # read sequentially instead of one open and seek per PNG. Its keys
+        # are paths relative to the dataset root
+        self._record_root = Path(dataset_path)
+        self._store = None
+        if record_dir:
+            from crossscore_tpu_torch.data.records import RecordStore
+
+            self._store = RecordStore(record_dir)
         self.neighbour_config = dict(neighbour_config)
         self.zero_reference = zero_reference
         # wire-compact batches: emit raw uint8 pixels; the model normalises
@@ -261,23 +280,41 @@ class NvsDataset:
     def __len__(self) -> int:
         return len(self.neighbour_selector)
 
+    def _store_payload(self, path: str):
+        """The record store's payload of ``path``, or None (read the file)."""
+        if self._store is None or path == EMPTY_IMAGE:
+            return None
+        try:
+            key = Path(path).resolve().relative_to(self._record_root.resolve()).as_posix()
+        except ValueError:
+            return None
+        return self._store.read(key) if key in self._store else None
+
+    def _read_image(self, path: str) -> np.ndarray:
+        payload = self._store_payload(path)
+        return image_read(path) if payload is None else image_read_bytes(payload)
+
+    def _read_metric_map(self, path: str, vrange) -> np.ndarray:
+        payload = self._store_payload(path)
+        return metric_map_read(path, vrange) if payload is None else metric_map_read_bytes(payload, vrange)
+
     def load_content(self, item_paths: dict) -> dict:
         mc = self.metric_config
-        query = image_read(item_paths["query/img"])  # (H, W, 3)
+        query = self._read_image(item_paths["query/img"])  # (H, W, 3)
 
         sm_path = item_paths["query/score_map"]
         if mc["type"] == "ssim":
             if sm_path == EMPTY_IMAGE:
                 score_map = np.zeros(query.shape[:2], np.float32)
             else:
-                score_map = metric_map_read(sm_path, vrange=[-1, 1])
+                score_map = self._read_metric_map(sm_path, vrange=[-1, 1])
                 if mc["vrange"] == [0, 1]:
                     score_map = np.clip(score_map, 0, 1)
         elif mc["type"] in ("mae", "mse"):
             if sm_path == EMPTY_IMAGE:
                 score_map = np.full(query.shape[:2], np.nan, np.float32)
             else:
-                score_map = metric_map_read(sm_path, vrange=[0, 1])
+                score_map = self._read_metric_map(sm_path, vrange=[0, 1])
                 if mc["type"] == "mse":
                     score_map = np.square(score_map)
         else:  # None: SimpleReference — no GT maps
@@ -288,11 +325,30 @@ class NvsDataset:
             if p == EMPTY_IMAGE:
                 refs.append(np.zeros_like(query))
             else:
-                refs.append(image_read(p))
+                refs.append(self._read_image(p))
         ref_imgs = np.stack(refs) if refs else None
         if ref_imgs is not None and self.zero_reference:
             ref_imgs = np.zeros_like(ref_imgs)
         return {"query/img": query, "query/score_map": score_map, "reference/cross/imgs": ref_imgs}
+
+    def load_image(self, path: str) -> np.ndarray:
+        """One whole image as an item of this dataset carries it, for a
+        dataset trimmed to whole patches (``crop_mode="integer_patches"``):
+        the decode path, resize, trim and wire of :meth:`get_item`, so what
+        the token loader hands the encoder for it (``tasks/encode_tokens.py``
+        fills the token store with these)."""
+        if self.crop_mode != "integer_patches":
+            raise ValueError("load_image needs crop_mode='integer_patches': other crops draw from the item's rng")
+        if fastimage.available() and path.lower().endswith(".png"):
+            payload = self._store_payload(path)
+            resize_hw, crop, _, _ = self._plan_geometry(path, None, is_query=True, payload=payload)
+            return self._fi_load_rgb(path, payload, resize_hw=resize_hw, crop=crop, normalize=True,
+                                     as_uint8=self.wire_uint8)
+        img = self._read_image(path)
+        if self.resize_short_side > 0:
+            img = self._resize(img)
+        img = img[:img.shape[0] - img.shape[0] % 14, :img.shape[1] - img.shape[1] % 14]
+        return to_wire_uint8(img) if self.wire_uint8 else normalize_imagenet(img).astype(np.float32)
 
     def resized_hw(self, h: int, w: int) -> tuple[int, int]:
         """Post-pipeline (H, W) for an original (h, w) image: the rounding of
@@ -331,8 +387,17 @@ class NvsDataset:
             return np.zeros((out_h, out_w, *img.shape[2:]), np.float32)
         return resize_bilinear_antialias(img, out_h, out_w)
 
+    @staticmethod
+    def _all_png(item_paths: dict) -> bool:
+        paths = [item_paths["query/img"], item_paths["query/score_map"], *item_paths["reference/cross/imgs"]]
+        return all(p == EMPTY_IMAGE or p.lower().endswith(".png") for p in paths)
+
     def get_item(self, idx: int, rng: np.random.Generator) -> dict:
         item_paths = self.neighbour_selector.select(idx, rng)
+        # the fused path decodes PNG only (files or record-shard payloads);
+        # JPEG and the rest go through Pillow
+        if fastimage.available() and self._all_png(item_paths):
+            return self._get_item_fused(item_paths, rng)
         content = self.load_content(item_paths)
 
         q = content["query/img"]
@@ -366,11 +431,134 @@ class NvsDataset:
             "query/img": q_out,
             "query/score_map": sm.astype(np.float32),
         }
+        # the decode skip is the fused path's; with the hooks set this path
+        # emits the same keys, all False, so that a corpus mixing PNG and
+        # other items still collates into one batch
+        if getattr(self, "query_pixel_skip", None) is not None:
+            out["query/skipped"] = np.asarray(False)
         if refs is not None:
             if self.wire_uint8:
                 out["reference/cross/imgs"] = to_wire_uint8(refs)
             else:
                 out["reference/cross/imgs"] = normalize_imagenet(refs).astype(np.float32)
+            if getattr(self, "ref_pixel_skip", None) is not None:
+                out["reference/skipped"] = np.zeros(len(refs), bool)
+        if self.return_item_paths:
+            out["item_paths"] = item_paths
+        return out
+
+    # ------------------------------------------------- the native fused path
+
+    @staticmethod
+    def _fi_load_rgb(path: str, payload, **kw) -> np.ndarray:
+        if payload is not None:
+            return fastimage.load_rgb_bytes(payload, **kw)
+        return fastimage.load_rgb(path, **kw)
+
+    @staticmethod
+    def _fi_load_metric(path: str, payload, **kw) -> np.ndarray:
+        if payload is not None:
+            return fastimage.load_metric_bytes(payload, **kw)
+        return fastimage.load_metric(path, **kw)
+
+    def _plan_geometry(self, path: str, rng, is_query: bool, payload=None):
+        """(resize_hw, crop, out_hw, pre_crop_hw) of one image from its header,
+        drawing from ``rng`` what the Pillow path draws for it, so that both
+        paths cut the same windows."""
+        h, w, _, _ = fastimage.image_info(path) if payload is None else fastimage.image_info_bytes(payload)
+        resize_hw = None
+        if self.resize_short_side > 0 and min(h, w) != self.resize_short_side:
+            s = self.resize_short_side
+            resize_hw = (s, max(1, round(w * s / h))) if h <= w else (max(1, round(h * s / w)), s)
+            h, w = resize_hw
+        if self.crop_mode == "integer_patches":
+            nh, nw = h - h % 14, w - w % 14
+            return resize_hw, (0, 0, nh, nw), (nh, nw), (h, w)
+        cropper = self.query_crop if is_query else self.reference_crop
+        if cropper is not None:
+            p = get_crop_params((h, w), cropper.output_size, rng, cropper.deterministic)
+            return resize_hw, tuple(int(x) for x in p), tuple(cropper.output_size), (h, w)
+        return resize_hw, None, (h, w), (h, w)
+
+    def _get_item_fused(self, item_paths: dict, rng: np.random.Generator) -> dict:
+        mc = self.metric_config
+        qpath = item_paths["query/img"]
+        q_payload = self._store_payload(qpath)
+        resize_hw, crop, out_hw, pre_crop_hw = self._plan_geometry(qpath, rng, is_query=True, payload=q_payload)
+        # the query decode skip (token-space training, data/token_train.py):
+        # once the token cache holds this image's grid its pixels are never
+        # read (the window comes from the cached tokens, the supervision from
+        # the score map below). This path draws no rng for it, and the
+        # consumer resolves a skipped slot from the cache alone
+        qskip_fn = getattr(self, "query_pixel_skip", None)
+        q_skipped = bool(qskip_fn is not None and qskip_fn(qpath, out_hw))
+        wire_dt = np.uint8 if self.wire_uint8 else np.float32
+        if q_skipped:
+            q = np.zeros((*out_hw, 3), wire_dt)  # a placeholder
+        else:
+            q = self._fi_load_rgb(qpath, q_payload, resize_hw=resize_hw, crop=crop, normalize=True,
+                                  as_uint8=self.wire_uint8)
+
+        sm_path = item_paths["query/score_map"]
+        if sm_path == EMPTY_IMAGE or mc["type"] is None:
+            if mc["type"] in ("mae", "mse") and sm_path == EMPTY_IMAGE:
+                sm = np.full(out_hw, np.nan, np.float32)
+            else:
+                sm = np.zeros(out_hw, np.float32)
+        elif mc["type"] == "ssim":
+            sm = self._fi_load_metric(sm_path, self._store_payload(sm_path), vrange=[-1, 1],
+                                      clamp01=(mc["vrange"] == [0, 1]), resize_hw=resize_hw, crop=crop)
+        else:  # mae / mse
+            sm = self._fi_load_metric(sm_path, self._store_payload(sm_path), vrange=[0, 1],
+                                      square=(mc["type"] == "mse"), resize_hw=resize_hw, crop=crop)
+
+        refs = skipped = None
+        # the reference decode skip (the predict CLI's token cache, the token
+        # loader): a reference whose tokens the cache holds is a placeholder,
+        # and the consumer (RefTokenCache.gather) resolves its slot from the
+        # cache alone. Exact: the crops here draw what the Pillow path draws
+        skip_fn = getattr(self, "ref_pixel_skip", None)
+        ref_paths = item_paths["reference/cross/imgs"]
+        if ref_paths:
+            if self.wire_uint8:
+                # raw zeros on the wire: the device normalise maps them to
+                # the -mean/std that the float path ships normalised
+                zero_ref = np.zeros((*out_hw, 3), np.uint8)
+            else:
+                zero_ref = normalize_imagenet(np.zeros((*out_hw, 3), np.float32))
+            refs = np.empty((len(ref_paths), *out_hw, 3), wire_dt)
+            skipped = np.zeros(len(ref_paths), bool)
+            for i, rp in enumerate(ref_paths):
+                if rp == EMPTY_IMAGE:
+                    # the Pillow path crops a zeros image of the query's
+                    # pre-crop size: draw the same, the output is zeros
+                    if self.reference_crop is not None:
+                        get_crop_params(pre_crop_hw, self.reference_crop.output_size, rng,
+                                        self.reference_crop.deterministic)
+                    refs[i] = zero_ref
+                    continue
+                r_payload = self._store_payload(rp)
+                r_resize, r_crop, r_hw, _ = self._plan_geometry(rp, rng, is_query=False, payload=r_payload)
+                if self.zero_reference:
+                    refs[i] = zero_ref
+                    continue
+                if r_hw != out_hw:
+                    raise ValueError(f"reference {rp} output {r_hw} != query {out_hw}; "
+                                     "set a crop or resize for mixed-size inputs")
+                if skip_fn is not None and skip_fn(rp, r_hw):
+                    refs[i] = 0  # a placeholder; the tokens come from the cache
+                    skipped[i] = True
+                    continue
+                self._fi_load_rgb(rp, r_payload, resize_hw=r_resize, crop=r_crop, normalize=True,
+                                  as_uint8=self.wire_uint8, out=refs[i])
+
+        out = {"query/img": q, "query/score_map": sm}
+        if qskip_fn is not None:
+            out["query/skipped"] = np.asarray(q_skipped)
+        if refs is not None:
+            out["reference/cross/imgs"] = refs
+            if skip_fn is not None:
+                out["reference/skipped"] = skipped
         if self.return_item_paths:
             out["item_paths"] = item_paths
         return out
@@ -400,6 +588,7 @@ def get_dataset(cfg, data_split: str, return_item_paths: bool = False, crop_mode
             num_gaussians_iters=cfg.data.dataset.num_gaussians_iters,
             zero_reference=cfg.data.dataset.zero_reference,
             return_item_paths=return_item_paths,
+            record_dir=cfg.data.dataset.get("record_dir"),
             wire_uint8=bool(cfg.data.dataset.get("wire_uint8", False)),
         )
         for p in paths
@@ -412,7 +601,9 @@ def get_dataset(cfg, data_split: str, return_item_paths: bool = False, crop_mode
 def leaf_datasets(ds) -> list:
     """The NvsDataset leaves of ``ds``: itself, or a ConcatDataset's parts.
     Per-leaf settings (the crop geometry, the neighbour config) are read on
-    the leaves; a ConcatDataset carries none of them."""
+    the leaves, and the per-item hooks (``ref_pixel_skip``,
+    ``query_pixel_skip``) are set on them; a ConcatDataset carries none of
+    them."""
     return list(ds.datasets) if isinstance(ds, ConcatDataset) else [ds]
 
 

@@ -4,7 +4,8 @@ directories; the port's own copy of ``crossscore_tpu/data/simple_reference.py``.
 Behavioural parity with reference ``dataloading/dataset/simple_reference.py:10-85``:
 builds the same nested path index as NvsDataset from a bare ``query_dir`` +
 ``reference_dir`` (one fake scene, ``gs_test`` split, iter -1), with an empty
-metric config so score maps load as zeros.
+metric config so score maps load as zeros. The port may also read the images
+from record shards (``record_dir``).
 """
 
 from __future__ import annotations
@@ -30,11 +31,21 @@ class SimpleReference(NvsDataset):
         zero_reference: bool = False,
         return_item_paths: bool = True,
         wire_uint8: bool = False,
+        record_dir=None,
     ):
         self.neighbour_config = dict(neighbour_config)
         self.zero_reference = zero_reference
         self.return_item_paths = return_item_paths
         self.wire_uint8 = wire_uint8
+        # record shards (data/records.py) keyed relative to the deepest
+        # directory holding both directories; the JAX package reads files only
+        self._store = None
+        if record_dir:
+            from crossscore_tpu_torch.data.records import RecordStore
+
+            self._record_root = Path(os.path.commonpath(
+                [os.path.abspath(os.path.expanduser(d)) for d in (query_dir, reference_dir)]))
+            self._store = RecordStore(record_dir)
         self.resize_short_side = resize_short_side
         self.crop_mode = crop_mode
         self.metric_config = self._build_metric_config(None, None, None)

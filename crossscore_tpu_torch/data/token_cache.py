@@ -22,10 +22,11 @@ Design:
   Under shape bucketing the pixel shape is the bucket and the valid extent
   the item's true (h, w): tokens are a function of both.
 
-The JAX package's loader-side decode skip needs its native decoder, which the
-port does not have, so every reference slot here carries decoded pixels (the
-JAX ``gather``'s ``skipped`` argument is not ported; ``has`` is, and the
-token-space loader, ``data/token_train.py``, reads the grids unstacked).
+The loader may skip the decode of an image whose tokens are cached (the
+native fused path's ``ref_pixel_skip`` / ``query_pixel_skip`` hooks, set to
+:meth:`RefTokenCache.has`): such a slot carries placeholder pixels, and
+``gather(..., skipped=)`` resolves it from the cache alone. The token-space
+loader (``data/token_train.py``) reads the grids unstacked.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ class RefTokenCache:
                     pass  # another sweeper got it first
         self.hits = 0
         self.misses = 0
+        self.skipped_decodes = 0  # slots whose host decode the loader skipped
         self.disk_hits = 0
 
     @staticmethod
@@ -141,10 +143,17 @@ class RefTokenCache:
                 pass
         return self._disk_load(key) is not None
 
-    def gather(self, ref_paths: list[list[str]], ref_imgs: np.ndarray, valid_hw=None, stack: bool = True):
+    def gather(self, ref_paths: list[list[str]], ref_imgs: np.ndarray, skipped=None, valid_hw=None,
+               stack: bool = True):
         """:param ref_paths: per-view path lists ``[k][b]`` (the collated
             ``batch["item_paths"]["reference/cross/imgs"]`` layout).
         :param ref_imgs: (B, K, H, W, 3) host pixels.
+        :param skipped: optional (B, K) bools: slots whose pixels are
+            placeholders because the loader skipped their decode on a cache
+            hit. Each resolves from the host LRU, the disk store, or a slot
+            of the same batch that carries the same image's pixels (whose
+            miss encode fills the key); with none of them it raises (raise
+            ``max_items``).
         :param valid_hw: optional true pixel extents of bucket-padded
             batches, (B, 2) per item or (2,) shared: an item's K refs share
             its extent; misses encode with the mask and are keyed by it.
@@ -162,11 +171,20 @@ class RefTokenCache:
         keys = [[self._key(ref_paths[kk][bb], ref_imgs.shape[2:4], valids[bb]) for kk in range(k)]
                 for bb in range(b)]
 
-        miss: "OrderedDict[tuple, tuple]" = OrderedDict()  # first-occurrence order
-        n_miss_slots = 0
+        # unique misses in first-occurrence order. Skipped slots are checked
+        # after the miss pass, so that an entry evicted between a loader
+        # thread's has() and this gather is rescued by another slot of the
+        # batch that carries the same image's pixels
+        miss: "OrderedDict[tuple, tuple]" = OrderedDict()
+        n_miss_slots = n_skipped = 0
+        skipped_keys = []
         for bb in range(b):
             for kk in range(k):
                 key = keys[bb][kk]
+                if skipped is not None and skipped[bb][kk]:
+                    n_skipped += 1
+                    skipped_keys.append(key)
+                    continue
                 with self._lock:
                     in_ram = key in self._cache
                 if key in miss:
@@ -174,7 +192,16 @@ class RefTokenCache:
                 elif not in_ram and self._disk_load(key) is None:
                     miss[key] = (ref_imgs[bb, kk], valids[bb])
                     n_miss_slots += 1
-        self.hits += b * k - n_miss_slots
+        for key in skipped_keys:
+            with self._lock:
+                in_ram = key in self._cache
+            if not in_ram and key not in miss and self._disk_load(key) is None:
+                raise RuntimeError(f"decode-skipped reference evicted from the token cache before use: {key[0]} — "
+                                   "raise this_main.ref_token_cache_max_items")
+        # a skipped slot resolves from the cache by construction: it counts
+        # as a decode skip, not as a hit
+        self.skipped_decodes += n_skipped
+        self.hits += b * k - n_skipped - n_miss_slots
         self.misses += len(miss)
 
         if miss:

@@ -31,12 +31,34 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from crossscore_tpu_torch.data import fastimage
 from crossscore_tpu_torch.data.loader import Loader, _fold_rng
 from crossscore_tpu_torch.data.nvs_index import leaf_datasets, unique_image_paths
 
 # the window stream: the dataset's own per-item stream (seed, epoch, idx)
 # draws the neighbours, and reusing it would tie windows to reference choices
 _WINDOW_SEED_OFFSET = 7919
+
+
+def _retain_malloc_arena() -> None:
+    """Keep glibc's arena mapped for the per-batch window tensors.
+
+    A token batch is ~144 MiB of new host tensors (B=24, K=5, 37x37
+    windows, D=384 bf16). glibc serves allocations that large by mmap and
+    unmaps them when they are freed, so every batch faults its pages in
+    again. A 1 GiB mmap threshold and no trimming keep the freed arena
+    mapped for the next batch: on the 8-core host of an H100 machine this
+    took ``_finalize`` from 160.85 to 29.18 ms a batch (median, one thread;
+    ``tools/token_assembly_bench.py``). Process-wide and resident by design
+    (a training host wants its working set mapped); a no-op off glibc."""
+    import ctypes
+
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+        libc.mallopt(ctypes.c_int(-1), ctypes.c_int(2**31 - 1))  # M_TRIM_THRESHOLD
+        libc.mallopt(ctypes.c_int(-3), ctypes.c_int(1 << 30))    # M_MMAP_THRESHOLD
+    except (OSError, AttributeError):
+        pass
 
 
 def aligned_window(full_grid: tuple[int, int], crop_grid: tuple[int, int], rng: np.random.Generator,
@@ -111,18 +133,24 @@ class TokenSpaceLoader(Loader):
         self.deterministic_crop = deterministic_crop
         self._slice_pool = None  # made on first use, kept for the loader's life
         self._check_cache_capacity(dataset, cache)
+        _retain_malloc_arena()
 
     def _check_cache_capacity(self, dataset, cache) -> None:
-        """Warn at start-up, not mid-epoch, when the cache cannot hold the
-        in-flight working set. An entry evicted between the miss pass and a
-        later batch is encoded again (every slot carries decoded pixels: the
-        port has no decode skip), so this warns where the JAX package with
-        its native decoder raises. A cache that holds the whole corpus never
-        evicts, so the corpus bounds the need; cache keys carry the image's
-        shape, so a path read by leaves of different geometry holds one key
-        per geometry: (resize_short_side, crop_mode) per leaf. The JAX
-        package counts resize_short_side only, and under-counts leaves that
-        share a resize but trim differently."""
+        """Refuse an undersized cache at start-up, not mid-epoch. With the
+        native decoder the train CLI sets the decode-skip hooks, so a cached
+        image arrives as placeholder pixels; an entry evicted between a
+        loader thread's ``has`` and the consuming ``gather`` cannot be
+        encoded again, and the exposure spans the prefetch pipeline
+        (:func:`token_working_set`). So this raises where there is no disk
+        store and the native decoder is present, as the JAX package does,
+        and warns otherwise (a disk store turns an eviction into a reload;
+        without the decoder every slot carries pixels and an eviction is
+        encoded again). A cache that holds the whole corpus never evicts, so
+        the corpus bounds the need; cache keys carry the image's shape, so a
+        path read by leaves of different geometry holds one key per
+        geometry: (resize_short_side, crop_mode) per leaf. The JAX package
+        counts resize_short_side only, and under-counts leaves that share a
+        resize but trim differently."""
         leaves = leaf_datasets(dataset)
         k = max((int(leaf.neighbour_config.get("cross", 0)) for leaf in leaves), default=0)
         need = token_working_set(self.prefetch_batches, self.batch_size, k)
@@ -131,13 +159,14 @@ class TokenSpaceLoader(Loader):
         need = min(need, len(unique_image_paths(dataset)) * n_geoms)
         if cache._max >= need:
             return
-        warnings.warn(
-            f"token cache max_items={cache._max} is below the in-flight working set ~{need} "
-            f"(2 x {self.prefetch_batches + 1} batches x batch_size {self.batch_size} x (K+1)={k + 1}); "
-            f"raise this_main.ref_token_cache_max_items to >= {need}"
-            + (" (disk store present: evictions degrade to reloads)" if cache._dir is not None
-               else " (no decode skip: evictions degrade to re-encodes)"),
-            RuntimeWarning, stacklevel=3)
+        msg = (f"token cache max_items={cache._max} is below the in-flight working set ~{need} "
+               f"(2 x {self.prefetch_batches + 1} batches x batch_size {self.batch_size} x (K+1)={k + 1}); "
+               f"eviction races with the decode skip: raise this_main.ref_token_cache_max_items to >= {need}")
+        if cache._dir is None and fastimage.available():
+            raise ValueError(msg)
+        warnings.warn(msg + (" (disk store present: evictions degrade to reloads)" if cache._dir is not None
+                             else " (no native decoder: the decode skip is off, evictions degrade to re-encodes)"),
+                      RuntimeWarning, stacklevel=3)
 
     def _plan(self, epoch: int) -> list:
         return [(chunk, n_valid, {"epoch": epoch, "indices": chunk})
@@ -154,9 +183,15 @@ class TokenSpaceLoader(Loader):
         ch, cw = self.crop_grid
 
         # full-image grids, encoded once per (path, shape); [b][k] lists of
-        # the cache's own tensors: windows are copied straight out of them
-        q_grids = self.cache.gather([list(paths["query/img"])], q[:, None], stack=False)
-        r_grids = self.cache.gather(paths["reference/cross/imgs"], refs, stack=False)
+        # the cache's own tensors: windows are copied straight out of them.
+        # With the decode skip the dataset emits placeholder pixels for the
+        # cached images (queries and references) and gather resolves those
+        # slots from the cache: once it is warm only score maps are decoded
+        q_skip = batch.get("query/skipped")
+        q_grids = self.cache.gather([list(paths["query/img"])], q[:, None], stack=False,
+                                    skipped=None if q_skip is None else q_skip[:, None])
+        r_grids = self.cache.gather(paths["reference/cross/imgs"], refs, stack=False,
+                                    skipped=batch.get("reference/skipped"))
         tok_dtype, tok_d = q_grids[0][0].dtype, q_grids[0][0].shape[-1]
 
         # per-item windows; a pad_last batch repeats its final index, and the

@@ -37,15 +37,16 @@ def image_read(path: str | Path) -> np.ndarray:
 
 
 def image_read_bytes(data: bytes) -> np.ndarray:
-    """Encoded PNG/JPEG bytes (a scoring request's body) -> float32 (H, W, 3)
-    in [0, 1], as :func:`image_read`. A raw-tensor payload of the record
-    shards (``CSRT``) raises: the shards are not ported (ROADMAP queue 1
-    item 4)."""
+    """Encoded PNG/JPEG bytes (a scoring request's body, a record store's
+    payload) or a pre-decoded raw-tensor payload of the decoded record shards
+    (``CSRT``, ``data/records.py::encode_raw_payload``) -> float32 (H, W, 3)
+    in [0, 1], as :func:`image_read`."""
     import io as _io
 
     if data[:4] == b"CSRT":
-        raise ValueError("raw-tensor (CSRT) payloads come from record shards, which are not ported "
-                         "(ROADMAP queue 1 item 4); send PNG or JPEG bytes")
+        from crossscore_tpu_torch.data.records import decode_raw_payload
+
+        return f32(decode_raw_payload(data))
     return image_read(_io.BytesIO(data))
 
 
@@ -66,6 +67,18 @@ def _metric_range(m: np.ndarray, vrange) -> np.ndarray:
 def metric_map_read(path: str | Path, vrange: list | tuple) -> np.ndarray:
     """16-bit PNG -> float32 (H, W) in the requested value range."""
     return _metric_range(np.array(Image.open(path)).astype(np.float32), vrange)
+
+
+def metric_map_read_bytes(data: bytes, vrange: list | tuple) -> np.ndarray:
+    """Encoded 16-bit PNG bytes or a pre-decoded uint16 ``CSRT`` payload ->
+    float32 (H, W) in the requested value range, as :func:`metric_map_read`."""
+    import io as _io
+
+    if data[:4] == b"CSRT":
+        from crossscore_tpu_torch.data.records import decode_raw_payload
+
+        return _metric_range(decode_raw_payload(data).astype(np.float32), vrange)
+    return metric_map_read(_io.BytesIO(data), vrange)
 
 
 def metric_map_write(path: str | Path, m: np.ndarray, vrange: list | tuple) -> None:

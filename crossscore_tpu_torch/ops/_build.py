@@ -1,10 +1,14 @@
-"""Build the CUDA kernels under ``csrc/`` with ``nvcc`` and bind them with ctypes.
+"""Build the CUDA kernels under ``csrc/`` with ``nvcc`` and bind them with ctypes,
+and build the host decoder ``csrc/fastimage.cpp`` with ``g++``.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 ``build/crossscore_tpu_torch/<name>-<hash>.so`` at the repository root, where
-the hash covers every source in ``csrc/`` and the compiler flags. A library is
-built at its first use; :func:`build_all` starts one ``nvcc`` per source at
-once. Nothing here runs when the module is imported.
+the hash covers every CUDA source in ``csrc/`` and the compiler flags. A
+library is built at its first use; :func:`build_all` starts one ``nvcc`` per
+source at once. The host decoder (:func:`build_host`) is hashed on its own
+source, its flags and the host CPU (``-march=native``), so that a change to
+one side rebuilds neither the other nor a library built for another CPU.
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -24,6 +29,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the JAX package's flags for its copy (native/Makefile), so that both copies
+# compute the same bits on one machine
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-Wall")
+GXX_LIBS = ("-lpng", "-lz")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -88,6 +98,46 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _libs[name] = lib
     return lib
+
+
+def _cpu_identity() -> bytes:
+    """The host CPU's model and feature flags: ``-march=native`` compiles for
+    them, so a library built on one CPU is not reused on another."""
+    try:
+        info = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return platform.processor().encode()
+    keep = [line for line in info if line.startswith(("model name", "flags", "Features", "CPU part"))]
+    return "\n".join(dict.fromkeys(keep)).encode()
+
+
+def host_library_path(name: str = "fastimage") -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS + GXX_LIBS).encode())
+    h.update((CSRC / f"{name}.cpp").read_bytes())
+    h.update(_cpu_identity())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str = "fastimage") -> tuple[Path, float]:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` unless built -> (library, wall
+    seconds of the compile, 0 when it was there). Raises with the compiler's
+    output when the compile fails (``png.h`` missing among the causes)."""
+    out = host_library_path(name)
+    if out.exists():
+        return out, 0.0
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host decoder is built with g++ and libpng")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    res = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp"), *GXX_LIBS],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {name} (rc {res.returncode}):\n{(res.stdout + res.stderr)[-4000:]}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
 
 
 # dtype codes of the C entry points (csrc/common.cuh)

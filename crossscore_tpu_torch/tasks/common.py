@@ -17,8 +17,10 @@ import torch
 import yaml
 
 from crossscore_tpu_torch.confsys import Config, load_config
+from crossscore_tpu_torch.data import fastimage
 from crossscore_tpu_torch.data.bucketing import ShapeBucketedLoader
 from crossscore_tpu_torch.data.loader import Loader
+from crossscore_tpu_torch.data.nvs_index import leaf_datasets
 from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.device import resolve_device
 from crossscore_tpu_torch.io.checkpoint import latest_step, step_path
@@ -169,6 +171,21 @@ def ref_token_cache(cfg: Config, encode) -> RefTokenCache:
         max_items=int(cfg.this_main.get("ref_token_cache_max_items", 2048)),
         persist_dir=cfg.this_main.get("ref_token_cache_dir"),
     )
+
+
+def set_decode_skip(dataset, cache: RefTokenCache, *, query: bool) -> bool:
+    """Set ``cache.has`` as the reference decode-skip hook (and the query's
+    too when ``query``) on every leaf of ``dataset``, when the native decoder
+    is present (the skip is the fused path's) -> whether it was set. A
+    skipped image arrives as placeholder pixels with its ``*/skipped`` flag,
+    and ``cache.gather(..., skipped=)`` resolves it."""
+    if not fastimage.available():
+        return False
+    for leaf in leaf_datasets(dataset):
+        leaf.ref_pixel_skip = cache.has
+        if query:
+            leaf.query_pixel_skip = cache.has
+    return True
 
 
 def crop_bucketed(batch: dict, outputs: dict) -> tuple[dict, dict]:

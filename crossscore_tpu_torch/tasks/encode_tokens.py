@@ -18,12 +18,14 @@ A reference pool smaller than K pads its slots with the empty placeholder
 shape. Images already in the store are neither decoded nor encoded again, so
 a run over a partly filled store resumes it.
 
-The store holds what the loader of the run it serves would encode. When that
+The store holds what the loader of the run it serves would encode: each image
+is decoded by the dataset itself (``NvsDataset.load_image``: the native
+decoder where it builds, else Pillow; its resize, trim and wire). When that
 run puts uint8 pixels on the wire (``data.dataset.wire_uint8``, which
 ``this_main.train_recipe=token_fast`` turns on), the resized pixels are
-rounded to uint8 as the dataset rounds them (``data/nvs_index.py``) and the
-encoder normalises them on the device; otherwise they are normalised in fp32
-on the host. The JAX package normalises the unrounded pixels in both cases.
+rounded to uint8 as the dataset rounds them and the encoder normalises them
+on the device; otherwise they are normalised in fp32 on the host. The JAX
+package normalises the unrounded Pillow pixels in both cases.
 
 Several processes may write one store (``data/token_cache.py``); split a large
 corpus over them with ``this_main.encode_shard=i/n`` (each encodes every n-th
@@ -42,7 +44,7 @@ from PIL import Image
 from crossscore_tpu_torch.data.nvs_index import get_dataset, to_wire_uint8, unique_image_paths
 from crossscore_tpu_torch.data.samplers import EMPTY_IMAGE
 from crossscore_tpu_torch.data.token_cache import RefTokenCache
-from crossscore_tpu_torch.io.images import image_read, normalize_imagenet
+from crossscore_tpu_torch.io.images import normalize_imagenet
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import (
@@ -97,15 +99,13 @@ def encode_tokens(cfg) -> int:
         return probe.resized_hw(h, w)
 
     def load(item: tuple) -> np.ndarray:
-        """The pixels the training loader hands the encoder for ``item``."""
+        """The pixels the training loader hands the encoder for ``item``: the
+        dataset's own decode (native or Pillow), resize, trim and wire."""
         path, hw = item
-        img = np.zeros((*hw, 3), np.float32) if path == EMPTY_IMAGE else image_read(path)
-        if path != EMPTY_IMAGE and probe.resize_short_side > 0:
-            img = probe._resize(img)
-        img = img[:img.shape[0] - img.shape[0] % 14, :img.shape[1] - img.shape[1] % 14]
-        if wire_uint8:
-            return to_wire_uint8(img)
-        return normalize_imagenet(img).astype(np.float32)
+        if path != EMPTY_IMAGE:
+            return probe.load_image(path)
+        img = np.zeros((*hw, 3), np.float32)
+        return to_wire_uint8(img) if wire_uint8 else normalize_imagenet(img).astype(np.float32)
 
     hws = [shape_of(p) for p in paths]
     todo = [(p, hw) for p, hw in zip(paths, hws) if not cache.has(p, hw)]

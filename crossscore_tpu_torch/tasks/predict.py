@@ -20,6 +20,15 @@ Two modes decide which kernels run (``plan_serving_modes``):
   ``bucket_multiple`` and the padded tokens masked, through K5 in every
   backbone block and K6 in every decoder attention.
 
+With the cache on, no buckets, no figures, no reference copies written and
+the whole reference pool within ``ref_token_cache_max_items``, the native
+decoder (``data/fastimage.py``) skips the decode of every reference the
+cache holds (the start line says ``decode-skip on``; the last cache line
+counts the skips). ``+data.dataset.record_dir=<dir>`` reads the images
+from record shards (``python -m crossscore_tpu_torch.data.pack <root> <dir>
+[--decoded]``, where ``<root>`` is the deepest directory that holds both the
+query and the reference directory); the JAX CLI has no such key.
+
 One process per card: ``trainer.accelerator=cuda`` (the default) or ``cpu``
 (the plain PyTorch versions of every kernel). Several ranks of one node
 (``torchrun --nproc_per_node N -m crossscore_tpu_torch.tasks.predict
@@ -58,7 +67,7 @@ from crossscore_tpu_torch.parallel.view_parallel import (
 )
 from crossscore_tpu_torch.tasks.common import (
     confirm_batch_size, eval_loader, load_model_params, parse_cli, ref_token_cache, refuse_tensor_parallel,
-    resolve_accelerator, resolve_limit, resolve_out_dir, tristate, write_batch_outputs,
+    resolve_accelerator, resolve_limit, resolve_out_dir, set_decode_skip, tristate, write_batch_outputs,
 )
 from crossscore_tpu_torch.train.step import make_predict_step, make_predict_step_cached
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
@@ -163,6 +172,7 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         zero_reference=cfg.data.dataset.zero_reference,
         return_item_paths=True,
         wire_uint8=bool(cfg.data.dataset.get("wire_uint8", False)),
+        record_dir=cfg.data.dataset.get("record_dir"),
     )
     loader, use_buckets = eval_loader(cfg, dataset, "predict")
 
@@ -211,16 +221,26 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         token_cache = ref_token_cache(
             cfg, lambda imgs, valid_hw=None: encoder(model, to_device(imgs), valid_hw))
         step_cached = make_view_parallel_apply_tokens(model) if use_vp else make_predict_step_cached(model)
-        print(f"{tag}reference-token cache: on (frozen backbone; decode-skip off"
+        # skip the host decode of the references the cache holds (the loader
+        # emits placeholders) when nothing downstream reads reference pixels
+        # and the whole pool fits the cache, so that nothing is evicted.
+        # Bucketed batches keep decoding: their keys carry the bucket shape,
+        # which the loader's header probe does not know
+        use_skip = (vis_every <= 0 and not use_buckets and not cfg.logger.predict.write.flag.image_reference
+                    and dataset.reference_pool_size() <= int(cfg.this_main.get("ref_token_cache_max_items", 2048))
+                    and set_decode_skip(dataset, token_cache, query=False))
+        print(f"{tag}reference-token cache: on (frozen backbone; decode-skip {'on' if use_skip else 'off'}"
               f"{'; bucketed' if use_buckets else ''}{'; view-parallel' if use_vp else ''})")
 
         def step(batch: dict) -> dict:
             nonlocal h2d_bytes
             vhw = batch.get("_valid_hw")
             paths, refs = batch["item_paths"]["reference/cross/imgs"], batch["reference/cross/imgs"]
+            skipped = batch.get("reference/skipped")
             if use_vp:
                 paths, refs = paths[shard], refs[:, shard]
-            tokens = token_cache.gather(paths, refs, valid_hw=vhw)
+                skipped = None if skipped is None else skipped[:, shard]
+            tokens = token_cache.gather(paths, refs, skipped=skipped, valid_hw=vhw)
             h2d_bytes += batch["query/img"].nbytes + tokens.numel() * tokens.element_size()
             query, tokens = to_device(batch["query/img"]), tokens.to(device, non_blocking=True)
             if use_vp:
@@ -278,7 +298,8 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
     if summariser is not None:
         summariser.summarise()
     if use_cache:
-        print(f"{tag}ref-token cache: {token_cache.hits} hits, {token_cache.misses} unique misses")
+        print(f"{tag}ref-token cache: {token_cache.hits} hits, {token_cache.misses} unique misses, "
+              f"{token_cache.skipped_decodes} decode-skips")
     per_batch = h2d_bytes / max(n_batches, 1) / 2**20
     shared = f" ({ranks} ranks in step)" if ranks > 1 else ""
     print(f"{tag}predict: {n_maps} maps in {seconds:.3f} s = {n_maps / max(seconds, 1e-9):.2f} maps/s "

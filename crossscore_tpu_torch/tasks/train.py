@@ -11,7 +11,11 @@ ranks, raises): ``trainer.accelerator=cuda`` (the default) or
 AdamW update. With ``this_main.token_space_train=true`` (or the
 ``token_fast`` recipe) the train batches are windows of full-image token grids
 (``data/token_train.py``) and the step is the decoder-only graph; validation
-stays on pixel crops. Checkpoints (``io/checkpoint.py``) keep the model, the
+stays on pixel crops; with the native decoder (``data/fastimage.py``) the
+loader skips the decode of every image whose tokens are cached, so a run on
+a warm store decodes only the score maps. Packed record shards are read with
+``data.dataset.record_dir=<dir>`` (``python -m crossscore_tpu_torch.data.pack``).
+Checkpoints (``io/checkpoint.py``) keep the model, the
 optimiser, the scheduler and the exact loop cursor; resume with
 ``trainer.ckpt_path_to_load=<run_dir>/ckpt``.
 """
@@ -36,7 +40,7 @@ from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import (
     JsonlLogger, config_diff, parse_cli, refuse_multi_rank, refuse_tensor_parallel, resolve_accelerator,
-    resolve_limit, save_config_snapshot, timestamp, weighted_mean,
+    resolve_limit, save_config_snapshot, set_decode_skip, timestamp, weighted_mean,
 )
 from crossscore_tpu_torch.train.optim import make_optimizer
 from crossscore_tpu_torch.train.step import TrainState, batch_to_device, make_eval_step, make_train_step
@@ -154,6 +158,12 @@ def train(cfg) -> Path:
         )
         loader_train = TokenSpaceLoader(ds_train, token_cache, crop_size=int(cfg.data.transforms.crop_size),
                                         deterministic_crop=deterministic_crop, **train_loader_kw)
+        # the decode skip: the token path never reads the pixels of a cached
+        # image (windows come from its tokens, supervision from the score
+        # map), so the native path skips their decode. Exact: integer-patch
+        # trims draw no rng. On a warm store (tasks.encode_tokens) only the
+        # score maps are decoded from the first step on
+        set_decode_skip(ds_train, token_cache, query=True)
     else:
         loader_train = Loader(ds_train, **train_loader_kw)
     loader_val = Loader(
@@ -343,6 +353,7 @@ def train(cfg) -> Path:
     if token_cache is not None:
         print(f"token cache: {token_cache.hits} hits, {token_cache.misses} misses, "
               f"{token_cache.disk_hits} disk hits")
+        print(f"decode skip: {token_cache.skipped_decodes} images not decoded (their tokens were cached)")
     logger.close()
     print(f"train done: {state.step} steps -> {run_dir}")
     return run_dir

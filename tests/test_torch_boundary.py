@@ -3,6 +3,7 @@
 no read of the JAX package's YAML tree, and no silent move to the CPU."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -30,6 +31,19 @@ def test_the_scan_covers_the_serving_daemon():
         assert ROOT / "crossscore_tpu_torch" / rel in PORT_FILES, rel
 
 
+def test_the_scan_covers_the_host_input_path():
+    """The native decoder's bindings, the record shards and their CLI, and
+    the two host benchmarks; the decoder's C++ source is the port's own copy,
+    and nothing of the port loads the JAX package's ``native/`` library."""
+    for rel in ("data/fastimage.py", "data/records.py", "data/pack.py", "tools/ingest_bench.py",
+                "tools/token_assembly_bench.py"):
+        assert ROOT / "crossscore_tpu_torch" / rel in PORT_FILES, rel
+    assert (ROOT / "crossscore_tpu_torch" / "csrc" / "fastimage.cpp").is_file()
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert "libfastimage" not in text and not re.search(r'/\s*"native"', text), path
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
@@ -53,7 +67,12 @@ def test_importing_the_port_loads_no_jax():
         "crossscore_tpu_torch.parallel.view_parallel, crossscore_tpu_torch.tasks.test, "
         "crossscore_tpu_torch.tasks.summarise_score_gt, crossscore_tpu_torch.tasks.encode_tokens, "
         "crossscore_tpu_torch.tasks.serve, crossscore_tpu_torch.client, "
-        "crossscore_tpu_torch.tools.serve_load_bench\n"
+        "crossscore_tpu_torch.tools.serve_load_bench, crossscore_tpu_torch.data.fastimage, "
+        "crossscore_tpu_torch.data.records, crossscore_tpu_torch.data.pack, "
+        "crossscore_tpu_torch.data.token_train, crossscore_tpu_torch.tools.ingest_bench, "
+        "crossscore_tpu_torch.tools.token_assembly_bench\n"
+        "from crossscore_tpu_torch.data import fastimage\n"
+        "fastimage.available()\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -95,9 +114,10 @@ def test_csrc_builds_only_from_the_package_sources():
 
 
 def test_the_port_composes_its_own_yaml_tree():
-    """The port's copy of the config tree: the same data groups (less the
-    packed record store), the model schema with a ``model.gpu`` block in
-    place of ``model.tpu``, and a train root the port's CLI reads."""
+    """The port's copy of the config tree: the same data groups (the packed
+    record store's ``record_dir`` among them), the model schema with a
+    ``model.gpu`` block in place of ``model.tpu``, and a train root the
+    port's CLI reads."""
     import yaml
 
     from crossscore_tpu_torch import confsys
@@ -109,7 +129,6 @@ def test_the_port_composes_its_own_yaml_tree():
         sorted(p.name for p in (jax_dir / "data").glob("*.yaml"))
     for path in (port_dir / "data").glob("*.yaml"):
         want = yaml.safe_load((jax_dir / "data" / path.name).read_text())
-        want["dataset"].pop("record_dir", None)
         assert yaml.safe_load(path.read_text()) == want, path.name
     cfg = confsys.load_config("default")
     assert "tpu" not in cfg.model

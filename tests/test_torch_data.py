@@ -1,7 +1,8 @@
 """The port's data path against the JAX package's: the synthetic generator
 writes the same files for a seed, and the dataset and the loader yield the
-same items and batches for the same seed and epoch. The JAX package's native
-fused decoder is switched off so that both sides take the Pillow path."""
+same items and batches for the same seed and epoch. Both packages' native
+fused decoders are switched off so that both sides take the Pillow path
+(tests/test_torch_fastimage.py holds the native paths)."""
 
 from pathlib import Path
 
@@ -14,6 +15,7 @@ from crossscore_tpu.data.loader import Loader as JaxLoader
 from crossscore_tpu.data.nvs_index import get_dataset as jax_get_dataset
 from crossscore_tpu.data.synthetic import generate as jax_generate
 from crossscore_tpu_torch.confsys import load_config
+from crossscore_tpu_torch.data import fastimage as port_fastimage
 from crossscore_tpu_torch.data.loader import Loader
 from crossscore_tpu_torch.data.nvs_index import get_dataset
 from crossscore_tpu_torch.data.synthetic import generate
@@ -40,6 +42,7 @@ def data_root(tmp_path_factory):
 
 def _datasets(root: Path, monkeypatch, extra=()):
     monkeypatch.setattr(fastimage, "available", lambda: False)
+    monkeypatch.setattr(port_fastimage, "available", lambda: False)
     ov = [f"data.dataset.path=[{root}]", "data.neighbour_config.cross=3", "data.transforms.crop_size=56",
           *extra]
     jcfg, tcfg = jax_load_config("default", ov), load_config("default", ov)

@@ -1,7 +1,7 @@
 """The port's microbenchmark entry points (``crossscore_tpu_torch.tools``):
-each runs with ``--cpu`` (the plain versions at small shapes) as a
-subprocess and exits 0 with its timed lines, and without ``--cpu`` on a
-machine with no card exits 1; the attention tool keeps the TPU tool's spec
+each runs with ``--cpu`` (the plain versions at small shapes; the two host
+benchmarks at a small size) as a subprocess and exits 0 with its timed
+lines, and without ``--cpu`` on a machine with no card exits 1; the attention tool keeps the TPU tool's spec
 grammar and the MLP tool its modes and ``block_m`` integers. And the step
 profile's layer groups (``tools/torch_step_profile.py``) of the kernels'
 names as the profiler gives them."""
@@ -14,7 +14,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from crossscore_tpu_torch.tools import attn_microbench, bwd_microbench, lane_pad_probe, mlp_microbench
+from crossscore_tpu_torch.data import fastimage
+from crossscore_tpu_torch.tools import (
+    attn_microbench, bwd_microbench, ingest_bench, lane_pad_probe, mlp_microbench, token_assembly_bench,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -30,13 +33,19 @@ def _run(*args):
       "v2noaug:1,1024,1", "v2bf16:1,1024,1", "v2noexp:1,1024,1", "v2mxu:1,1024,1"], 5),
     (["crossscore_tpu_torch.tools.lane_pad_probe", "--cpu", "--reps", "5", "--step-ms", "98"], 6),
     (["crossscore_tpu_torch.tools.bwd_microbench", "--cpu"], len(bwd_microbench.CONFIGS)),
-    (["crossscore_tpu_torch.tools.mlp_microbench", "--cpu"], len(mlp_microbench.MODES))])
+    (["crossscore_tpu_torch.tools.mlp_microbench", "--cpu"], len(mlp_microbench.MODES)),
+    # the host tools: two Pillow rows, and three native ones where the decoder builds
+    (["crossscore_tpu_torch.tools.ingest_bench", "--cpu"], None),
+    (["crossscore_tpu_torch.tools.token_assembly_bench", "--cpu"], 1)])
 def test_tool_runs_on_the_cpu(args, lines):
+    if lines is None:
+        lines = 5 if fastimage.available() else 2
     res = _run(*args)
     assert res.returncode == 0, res.stdout + res.stderr
     out = res.stdout.splitlines()
     assert out[0].startswith("device: cpu")
-    timed = [line for line in out if " ms" in line and ("ms/layer" in line or "saving" in line or "TFLOP" in line)]
+    timed = [line for line in out if " items/s" in line or " ms" in line and (
+        "ms/layer" in line or "saving" in line or "TFLOP" in line or "per batch" in line)]
     assert len(timed) == lines, res.stdout
     if "attn_microbench" in args[0]:
         assert sum("PROBE(wrong math)" in line for line in out) == sum(
@@ -44,7 +53,8 @@ def test_tool_runs_on_the_cpu(args, lines):
         assert "maxdiff=0.0000" in out[2]  # the first spec against itself
 
 
-@pytest.mark.parametrize("tool", [attn_microbench, lane_pad_probe, bwd_microbench, mlp_microbench])
+@pytest.mark.parametrize("tool", [attn_microbench, lane_pad_probe, bwd_microbench, mlp_microbench, ingest_bench,
+                                  token_assembly_bench])
 def test_tool_without_cpu_needs_a_card(tool, capsys):
     """``main`` is the exit code of ``python -m``: 1, with a message, when
     there is no card and ``--cpu`` was not given."""

@@ -21,6 +21,7 @@ from crossscore_tpu.tasks.common import iter_bucketed_items as jax_iter_bucketed
 from crossscore_tpu.tasks.predict import main as jax_main
 from crossscore_tpu.tasks.predict import plan_serving_modes as jax_plan
 from crossscore_tpu_torch.confsys import load_config
+from crossscore_tpu_torch.data import fastimage as port_fastimage
 from crossscore_tpu_torch.data.bucketing import ShapeBucketedLoader, bucket_hw
 from crossscore_tpu_torch.data.simple_reference import SimpleReference
 from crossscore_tpu_torch.data.synthetic import generate
@@ -53,10 +54,12 @@ COUNTS = 32
 def ws(tmp_path_factory):
     """A synthetic 84x112 tree and one checkpoint written by the port
     (seeded weights, reference Lightning keys) under ``run/ckpt/``; the CLIs
-    run with cwd inside it, and the JAX loader on its Pillow path (the port's
-    only one), so that both see the same pixels."""
+    run with cwd inside it, and both loaders on their Pillow paths, so that
+    both see the same pixels (tests/test_torch_fastimage.py holds the native
+    ones)."""
     mp = pytest.MonkeyPatch()
     mp.setattr(fastimage, "available", lambda: False)
+    mp.setattr(port_fastimage, "available", lambda: False)
     root = tmp_path_factory.mktemp("torch_predict_ws")
     generate(root / "datadir", hw=(84, 112), scenes_per_split={"train": 1, "test": 1})
     cfg = CrossScoreConfig.from_config(load_config("default_predict", ["model.backbone.preset=dinov2-test"]))
@@ -212,7 +215,8 @@ def mixed_dirs(tmp_path):
 
 
 def test_bucketed_loader_matches_jax(mixed_dirs, monkeypatch):
-    monkeypatch.setattr(fastimage, "available", lambda: False)  # the JAX package's Pillow path
+    monkeypatch.setattr(fastimage, "available", lambda: False)  # both packages' Pillow paths
+    monkeypatch.setattr(port_fastimage, "available", lambda: False)
     q, r = mixed_dirs
     nc = {"strategy": "random", "cross": 2, "deterministic": False}
     ds_t = SimpleReference(str(q), str(r), nc, resize_short_side=-1)

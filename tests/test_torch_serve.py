@@ -26,6 +26,7 @@ from crossscore_tpu.models import CrossScoreNet as JaxNet
 from crossscore_tpu.tasks.common import parse_cli as jax_parse_cli
 from crossscore_tpu.tasks.serve import Scorer as JaxScorer
 from crossscore_tpu_torch.client import ScoreClient, ScoreClientError
+from crossscore_tpu_torch.data.records import encode_raw_payload
 from crossscore_tpu_torch.data.synthetic import generate
 from crossscore_tpu_torch.io.convert import load_into, state_dict_from_jax
 from crossscore_tpu_torch.io.images import image_read, image_read_bytes, metric_map_read
@@ -259,7 +260,9 @@ def _raw_post(srv, path: str, headers: dict, body: bytes = b""):
                                   "bad_json", "no_paths", "raw_payload"])
 def test_bad_requests_are_typed(server, case):
     """Typed 4xx answers: the 413 comes before any of the body is read (none
-    is sent), the bad lengths and bodies give 400s, an unknown path 404."""
+    is sent), the bad lengths and bodies (a malformed ``CSRT`` raw-tensor
+    header among them, as the JAX daemon answers it) give 400s, an unknown
+    path 404."""
     srv, _, _ = server
     status, err = {
         "non_numeric_length": lambda: _raw_post(srv, "/score", {"Content-Length": "abc"}),
@@ -273,15 +276,18 @@ def test_bad_requests_are_typed(server, case):
     want = {"non_numeric_length": (400, "BadRequest: non-numeric"), "negative_length": (400, "BadRequest: negative"),
             "too_large": (413, "PayloadTooLarge"), "unknown_path": (404, "unknown path"),
             "bad_json": (400, "JSONDecodeError"), "no_paths": (400, "needs 'path' or 'paths'"),
-            "raw_payload": (400, "ROADMAP queue 1 item 4")}[case]
+            "raw_payload": (400, "ValueError: not a CSRT raw-tensor payload")}[case]
     assert status == want[0] and want[1] in err
 
 
-@pytest.mark.parametrize("kind", ["rgb", "gray", "rgba"])
-def test_image_read_bytes_matches_jax(kind):
+@pytest.mark.parametrize("kind", ["rgb", "gray", "rgba", "csrt"])
+def test_image_read_bytes_matches_jax(kind, tmp_path):
     rng = np.random.default_rng(3)
-    shape = {"rgb": (20, 30, 3), "gray": (20, 30), "rgba": (20, 30, 4)}[kind]
+    shape = {"rgb": (20, 30, 3), "gray": (20, 30), "rgba": (20, 30, 4), "csrt": (20, 30, 3)}[kind]
     body = _png(rng.integers(0, 256, shape, dtype=np.uint8))
+    if kind == "csrt":  # a decoded record shard's raw-tensor payload of the PNG
+        (tmp_path / "a.png").write_bytes(body)
+        body = encode_raw_payload(tmp_path / "a.png")
     got = image_read_bytes(body)
     assert got.shape == (20, 30, 3) and got.dtype == np.float32
     np.testing.assert_array_equal(got, jax_image_read_bytes(body))

@@ -18,6 +18,7 @@ from PIL import Image
 from crossscore_tpu.data import fastimage
 from crossscore_tpu.tasks.test import main as jax_main
 from crossscore_tpu_torch.confsys import load_config
+from crossscore_tpu_torch.data import fastimage as port_fastimage
 from crossscore_tpu_torch.data.synthetic import generate
 from crossscore_tpu_torch.io.convert import init_params
 from crossscore_tpu_torch.models import CrossScoreConfig
@@ -52,10 +53,11 @@ PAIRS = {
 def ws(tmp_path_factory):
     """Two synthetic trees, 84x112 (one test scene: 7 frames) and mixed-aspect
     (two test scenes of 84x112 and 112x84), and one checkpoint written by the
-    port under ``run/ckpt/``; the CLIs run with cwd inside, the JAX loader
-    on its Pillow path (the port's only one)."""
+    port under ``run/ckpt/``; the CLIs run with cwd inside, both loaders on
+    their Pillow paths (tests/test_torch_fastimage.py holds the native ones)."""
     mp = pytest.MonkeyPatch()
     mp.setattr(fastimage, "available", lambda: False)
+    mp.setattr(port_fastimage, "available", lambda: False)
     root = tmp_path_factory.mktemp("torch_test_ws")
     generate(root / "datadir", hw=(84, 112), scenes_per_split={"train": 1, "test": 1})
     generate(root / "mixed", hw=[(84, 112), (112, 84)], scenes_per_split={"train": 1, "test": 2})

@@ -30,6 +30,7 @@ from crossscore_tpu.tasks.common import parse_cli as jax_parse_cli
 from crossscore_tpu.tasks.train import apply_train_recipe as jax_apply_recipe
 from crossscore_tpu.tasks.train import token_fast_coverage_guard as jax_coverage_guard
 from crossscore_tpu.train.step import loss_fn as jax_loss_fn
+from crossscore_tpu_torch.data import fastimage as port_fastimage
 from crossscore_tpu_torch.data.loader import _fold_rng
 from crossscore_tpu_torch.data.nvs_index import ConcatDataset, NvsDataset
 from crossscore_tpu_torch.data.synthetic import generate
@@ -218,10 +219,12 @@ def _loaders(nets, tree, **kw):
 def test_token_loader_matches_jax(nets, tree, monkeypatch):
     """Seven items at batch 3 (the last batch padded by repeating its final
     index): the plans, score-map crops and _valid equal JAX's exactly for the
-    same seed and epoch (the JAX package on its Pillow path, the port's only
-    decoder); the token windows equal JAX's within the encoder's bound (a
-    window off by one patch would differ by O(1))."""
+    same seed and epoch (both packages on their Pillow paths;
+    tests/test_torch_records.py holds the native path with the decode skip);
+    the token windows equal JAX's within the encoder's bound (a window off by
+    one patch would differ by O(1))."""
     monkeypatch.setattr(jax_fastimage, "available", lambda: False)
+    monkeypatch.setattr(port_fastimage, "available", lambda: False)
     jl, tl = _loaders(nets, tree)
     for epoch in (0, 1):
         plan_j, plan_t = jl._plan(epoch), tl._plan(epoch)
@@ -284,28 +287,44 @@ def test_loader_guards(tree):
         TokenSpaceLoader(_datasets(tree)[1], None, crop_size=50, batch_size=2)
 
 
-def _capacity_warned(loader_cls, leaf, ds, cache) -> bool:
-    """Whether the cache-capacity check of a loader (batch 8, prefetch 8:
-    a working set of 432 grids) warns for ``ds`` and ``cache``. It is called
-    on a loader built over one leaf, since the JAX loader refuses a
-    ConcatDataset (it reads return_item_paths on the dataset itself)."""
+def _capacity_outcome(loader_cls, leaf, ds, cache) -> str:
+    """What the cache-capacity check of a loader (batch 8, prefetch 8: a
+    working set of 432 grids) does for ``ds`` and ``cache``: "silent",
+    "warns" or "raises". It is called on a loader built over one leaf, since
+    the JAX loader refuses a ConcatDataset (it reads return_item_paths on the
+    dataset itself)."""
     loader = loader_cls(leaf, (JaxCache if loader_cls is JaxTokenLoader else RefTokenCache)(None),
                         crop_size=56, batch_size=8, num_workers=2, prefetch_batches=8)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        loader._check_cache_capacity(ds, cache)
-    return any("working set" in str(w.message) for w in caught)
+        try:
+            loader._check_cache_capacity(ds, cache)
+        except ValueError as e:
+            assert "working set" in str(e)
+            return "raises"
+    return "warns" if any("working set" in str(w.message) for w in caught) else "silent"
 
 
-def test_cache_capacity_agrees_with_jax_on_one_geometry(tree, monkeypatch):
-    """One leaf: a cache that holds the corpus (14 images) passes silently,
-    one of 2 items warns, in both packages (the JAX package without its
-    native decoder, which the port does not have, warns rather than raises)."""
-    monkeypatch.setattr(jax_fastimage, "available", lambda: False)
+def _capacity_warned(loader_cls, leaf, ds, cache) -> bool:
+    return _capacity_outcome(loader_cls, leaf, ds, cache) == "warns"
+
+
+def test_cache_capacity_agrees_with_jax_on_one_geometry(tree, monkeypatch, tmp_path):
+    """One leaf: a cache that holds the corpus (14 images) passes silently;
+    one of 2 items raises in both packages where the native decoder is
+    present and no disk store is (the decode skip could lose an evicted
+    slot), and warns otherwise (a store reloads an eviction; without the
+    decoder every slot carries pixels)."""
     ds_j, ds_t = _datasets(tree)
-    for max_items, warned in ((14, False), (2, True)):
-        assert _capacity_warned(JaxTokenLoader, ds_j, ds_j, JaxCache(None, max_items=max_items)) is warned
-        assert _capacity_warned(TokenSpaceLoader, ds_t, ds_t, RefTokenCache(None, max_items=max_items)) is warned
+    for native in (False, True):
+        monkeypatch.setattr(jax_fastimage, "available", lambda: native)
+        monkeypatch.setattr(port_fastimage, "available", lambda: native)
+        small = "raises" if native else "warns"
+        for max_items, store, want in ((14, None, "silent"), (2, None, small), (2, tmp_path / "store", "warns")):
+            assert _capacity_outcome(JaxTokenLoader, ds_j, ds_j, JaxCache(None, max_items=max_items,
+                                                                          persist_dir=store)) == want, native
+            assert _capacity_outcome(TokenSpaceLoader, ds_t, ds_t, RefTokenCache(None, max_items=max_items,
+                                                                                  persist_dir=store)) == want, native
 
 
 def test_cache_capacity_counts_crop_mode_geometries(tree, monkeypatch):
@@ -313,8 +332,10 @@ def test_cache_capacity_counts_crop_mode_geometries(tree, monkeypatch):
     patches and one not, key each image twice. The port counts both
     geometries and warns for a cache of the 14-image corpus; the JAX package
     counts resize_short_side only and stays silent (the ADVICE r5 finding at
-    its ``data/token_train.py:162-166``)."""
+    its ``data/token_train.py:162-166``). Both on the Pillow path, where the
+    check warns."""
     monkeypatch.setattr(jax_fastimage, "available", lambda: False)
+    monkeypatch.setattr(port_fastimage, "available", lambda: False)
     (j1, t1), (j2, t2) = _datasets(tree), _datasets(tree, crop_mode=None)
     assert _capacity_warned(JaxTokenLoader, j1, JaxConcat([j1, j2]), JaxCache(None, max_items=14)) is False
     assert _capacity_warned(TokenSpaceLoader, t1, ConcatDataset([t1, t2]), RefTokenCache(None, max_items=14))
