@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
 the predict CLI, view-parallel predict, tensor- and view-parallel training,
-token-space training, the test CLI, the scoring daemon and the native host
-input path.
+token-space training, the test CLI, the scoring daemon, the native host
+input path and the data-parallel CLIs.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -187,7 +187,23 @@ In order:
     ``tools.ingest_bench`` and ``tools.token_assembly_bench`` (the loader's
     retained malloc arena, and glibc's defaults), beside the host's CPU
     count;
-18. print one ``{"kernels": [...]}`` line, then, last, the device line.
+18. data parallelism on two gloo ranks that share the card (one node):
+    (a) the train CLI (dinov2-small, 518 px crops, bf16, K=5, B=4 a step,
+    2 a rank) for 4 steps with validation and a checkpoint at step 2: per
+    rank per step K1 12, K2 12, K3 4, K4 4 (and a validation batch's), the
+    step's loss on both ranks the logged global one, the parameters'
+    sha256 equal across ranks, one checkpoint set written by rank 0, a
+    resume from step 2 within 1e-6 of the uninterrupted run; then fp32, 2
+    ranks x B=1 against one rank x B=2 for 2 steps (losses 1e-5, parameters
+    2e-5); ms/step and the gradient all-reduce's ms per rank, reported
+    only; (b) ``token_fast`` on step 14's warm store: no encoder call, K3 4
+    and K4 4 a step per rank, the losses equal on both ranks; (c) the test
+    CLI, modes (a) and (c), against one rank: the same rows within 1e-2, the
+    mean the rows' weighted mean, each rank's misses the pools of its
+    blocks; (d) the predict CLI, modes (b) and (d), data parallel against
+    one rank: the same file names, maps within MAE 1e-2, maps/s per rank;
+    (e) ``tools.dryrun_multichip 4`` through its entry point: exit 0;
+19. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -1803,8 +1819,8 @@ def _token_phases(torch, dev, params, vit, zero_launches, read_launches, work: P
     make_encoder, make_eval = train_mod.make_backbone_encoder, train_mod.make_eval_step
 
     def counted(factory, key):
-        def make(*args):
-            fn = factory(*args)
+        def make(*args, **kw):
+            fn = factory(*args, **kw)
 
             def call(*a, **kw):
                 calls[key] += 1
@@ -2283,6 +2299,393 @@ def _input_phases(torch, tok_work: Path, zero_launches, read_launches) -> dict:
     inp["s"] = time.perf_counter() - t_start
     print(f"step 17: {inp['s']:.1f} s")
     return inp
+
+
+# step 18: the data-parallel CLIs on two gloo ranks that share the card. The
+# fp32 comparison's parameters are held as tests/test_torch_data_parallel_train.py
+# holds them: every leaf within DP_PARAM_TOL but the key projections' biases,
+# whose gradient is 0 in exact arithmetic (the bias shifts each query's logits
+# by one constant, which the softmax removes), so AdamW steps them by
+# normalised rounding noise, at most lr a step from their zero init
+DP_LOSS_TOL, DP_PARAM_TOL, DP_RESUME_TOL = 1e-5, 2e-5, 1e-6
+# the test CLI's rows and the predict CLI's maps against one rank: bf16, the
+# existing bounds (step 15's mean losses, step 9's maps); the mean row against
+# the rows it weighs: the CSV's 6 decimals
+DP_ROW_TOL, DP_MAP_TOL, DP_MEAN_TOL = 1e-2, 1e-2, 2e-6
+
+
+def _dp_cli_rank(task: str, argv: list) -> dict:
+    """One rank of a data-parallel CLI (gloo, the ranks share the card), its
+    report lines captured and its kernels' launches counted from 0; for the
+    train CLI also each step's loss (the step's own metric) and ms, each
+    gradient all-reduce's ms, the encoder's and the eval step's calls, and a
+    sha256 of the model's parameters after the run."""
+    import hashlib
+    import importlib
+    import io
+
+    import torch
+
+    from crossscore_tpu_torch.train import step as step_mod
+
+    mod = importlib.import_module(f"crossscore_tpu_torch.tasks.{task}")
+    wrappers = _rank_launches()
+    for w in wrappers.values():
+        w.launches = 0
+    rec = {"losses": [], "step_ms": [], "allreduce_ms": [], "encode": 0, "eval": 0}
+    models = []
+    saved = {}
+    if task == "train":
+        saved = {"make_train_step": mod.make_train_step, "make_backbone_encoder": mod.make_backbone_encoder,
+                 "make_eval_step": mod.make_eval_step}
+        sum_gradients = step_mod._sum_gradients
+
+        def make_train_step(model, *args):
+            models.append(model)
+            fn = saved["make_train_step"](model, *args)
+
+            def train_step(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = fn(state, batch)
+                rec["losses"].append(float(metrics["loss"]))
+                rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                return state, metrics
+            return train_step
+
+        def counted(name, key):
+            def make(*args, **kw):
+                fn = saved[name](*args, **kw)
+
+                def call(*a, **k):
+                    rec[key] += 1
+                    return fn(*a, **k)
+                return call
+            return make
+
+        def timed_sum(params, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sum_gradients(params, group)
+            torch.cuda.synchronize()
+            rec["allreduce_ms"].append(1e3 * (time.perf_counter() - t0))
+
+        mod.make_train_step = make_train_step
+        mod.make_backbone_encoder = counted("make_backbone_encoder", "encode")
+        mod.make_eval_step = counted("make_eval_step", "eval")
+        step_mod._sum_gradients = timed_sum
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            ret = mod.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            setattr(mod, k, v)
+        if saved:
+            step_mod._sum_gradients = sum_gradients
+    digest = None
+    if models:
+        h = hashlib.sha256()
+        for v in models[0].state_dict().values():
+            h.update(v.detach().float().cpu().numpy().tobytes())
+        digest = h.hexdigest()
+    return {"out": None if ret is None else str(ret), "text": out.getvalue(),
+            "launches": {k: w.launches for k, w in wrappers.items()}, "sha256": digest, **rec}
+
+
+def _dp_misses(groups: list, n: int, batch: int, rank: int, ranks: int) -> int:
+    """A rank's token-cache misses on a step-15 tree (``_eval_plan``'s item
+    order): the pools of the scene halves its block of each batch meets,
+    the padding rows repeating the batch's last item."""
+    seen: set = set()
+    b = batch // ranks
+    for group in groups:
+        items = [(scene, half) for scene in group for half in ("test", "train") for _ in range(n)]
+        for i0 in range(0, len(items), batch):
+            chunk = items[i0:i0 + batch]
+            block = chunk[rank * b:(rank + 1) * b] or chunk[-1:]
+            seen |= set(block)
+    return len(seen) * n
+
+
+def _dp_phases(torch, zero_launches, read_launches, tok_work: Path, card: str) -> dict:
+    """Step 18, the data-parallel CLIs on two gloo ranks that share the card
+    (one node of 2 ranks; two ranks time-slicing one card are no scaling
+    measurement): (a) the pixel train CLI (dinov2-small, 518 px crops, bf16,
+    K=5, B=4 a step: 2 a rank) for 4 steps with validation and a checkpoint
+    at step 2, a resume from it, and fp32 2 ranks x B=1 against one rank x
+    B=2; (b) ``token_fast`` on step 14's warm store; (c) the test CLI on step
+    15's tree, modes (a) and (c), against one rank; (d) the predict CLI on
+    step 9's renders, modes (b) and (d), against one rank; (e)
+    ``tools.dryrun_multichip 4``. Returns the readings."""
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.data.synthetic import generate
+    from crossscore_tpu_torch.io.convert import init_params
+    from crossscore_tpu_torch.models import CrossScoreConfig
+    from crossscore_tpu_torch.parallel.launch import RankPool
+    from crossscore_tpu_torch.tasks.predict import main as predict_main
+    from crossscore_tpu_torch.tasks.test import main as test_main
+    from crossscore_tpu_torch.tasks.train import main as train_main
+    from crossscore_tpu_torch.tools import dryrun_multichip
+
+    dp: dict = {}
+    t_all = time.perf_counter()
+    mcfg = CrossScoreConfig.from_config(load_config("default"))
+    n_layers, n_dec = mcfg.backbone.num_layers, 2 * mcfg.decoder_layers
+    bad = []
+
+    def rows(run) -> list:
+        return [json.loads(line) for line in (Path(run) / "metrics.jsonl").read_text().splitlines()]
+
+    def series(run, key) -> list:
+        return [r[key] for r in rows(run) if key in r]
+
+    def same_dir(res) -> Path:
+        outs = {r["out"] for r in res}
+        if len(outs) != 1 or None in outs:
+            _fail(f"step 18: the ranks name different output dirs {outs}")
+        return Path(outs.pop())
+
+    with tempfile.TemporaryDirectory() as tmp, RankPool(2) as pool:
+        tmp = Path(tmp)
+        # --- (a) the pixel train CLI ----------------------------------------------
+        t0 = time.perf_counter()
+        # step 8's tree with a second train scene: 14 items, 3 steps of 4
+        generate(tmp / "datadir", hw=(540, 720), scenes_per_split={"train": 2, "test": 1}, seed=SEED)
+        ov = [f"data.dataset.path=[{tmp}/datadir]", f"run.dir={tmp}/log", "data.loader.train.batch_size=4",
+              "data.loader.validation.batch_size=4", "data.loader.train.num_workers=4",
+              "data.loader.validation.num_workers=4", "trainer.num_sanity_val_steps=0",
+              "trainer.limit_train_batches=2", "trainer.limit_val_batches=2",
+              "trainer.checkpointing.every_n_train_steps=2", "logger.vis_scalar_every_n_train_steps=1",
+              "model.gpu.dist_backend=gloo"]
+        full = pool.run(_dp_cli_rank, "train", ov + ["trainer.max_epochs=2", "alias=dp_full"], timeout=600)
+        first = pool.run(_dp_cli_rank, "train", ov + ["trainer.max_epochs=1", "alias=dp_first"], timeout=600)
+        run_first = same_dir(first)
+        second = pool.run(_dp_cli_rank, "train", ov + ["trainer.max_epochs=2", "alias=dp_second",
+                                                       f"trainer.ckpt_path_to_load={run_first / 'ckpt'}"],
+                          timeout=600)
+        run_full, run_second = same_dir(full), same_dir(second)
+        want = _launches(K1=n_layers * (4 + 4), K2=n_layers * (4 + 4), K3=n_dec * (4 + 4), K4=n_dec * 4)
+        logged = series(run_full, "train/loss_cross")
+        resumed = series(run_first, "train/loss_cross") + series(run_second, "train/loss_cross")
+        files = sorted(str(p.relative_to(run_full)) for p in run_full.rglob("*") if p.is_file())
+        runs = sorted(p.name for p in (tmp / "log").iterdir())
+        a = {"launches_per_rank": [r["launches"] for r in full], "expected": want,
+             "losses_per_rank": [r["losses"] for r in full], "logged": logged, "resumed": resumed,
+             "sha256": [r["sha256"] for r in full], "files": files, "run_dirs": runs,
+             "ms_per_step_per_rank": [r["step_ms"] for r in full],
+             "allreduce_ms_per_rank": [r["allreduce_ms"] for r in full]}
+        ok = (all(r["launches"] == want for r in full) and len(logged) == 4
+              and all(len(r["losses"]) == 4 and max(abs(x - y) for x, y in zip(r["losses"], logged)) <= DP_LOSS_TOL
+                      for r in full)
+              and len(set(a["sha256"])) == 1 and len(resumed) == 4
+              and max(abs(x - y) for x, y in zip(resumed[2:], logged[2:])) <= DP_RESUME_TOL
+              and files == ["ckpt/hparams.yaml", "ckpt/step_00000002.ckpt", "ckpt/step_00000004.ckpt",
+                            "config.yaml", "metrics.jsonl"]
+              and len(runs) == 3 and len(series(run_full, "validation/loss")) == 2
+              and all(np.isfinite(logged)))
+        print(f"step 18 (a) train CLI on 2 gloo ranks sharing the card (dinov2-small, 518 px crops, bf16, K=5, "
+              f"B=4 a step, 2 a rank): launches per rank "
+              f"{[{k: v for k, v in x.items() if v} for x in a['launches_per_rank']]} (expected "
+              f"{ {k: v for k, v in want.items() if v} }: 4 steps, 4 validation batches); the step's loss per "
+              f"rank {[[round(x, 6) for x in r] for r in a['losses_per_rank']]} against the logged "
+              f"{[round(x, 6) for x in logged]}; parameters' sha256 per rank {[h[:12] for h in a['sha256']]}; "
+              f"resumed steps 3-4 {[round(x, 8) for x in resumed[2:]]} against {[round(x, 8) for x in logged[2:]]} "
+              f"(tol {DP_RESUME_TOL:.0e}); files {files}; ms/step per rank "
+              f"{[[round(x, 1) for x in r] for r in a['ms_per_step_per_rank']]}, gradient all-reduce ms per rank "
+              f"{[[round(x, 1) for x in r] for r in a['allreduce_ms_per_rank']]} (gloo through host memory, two "
+              f"ranks time-slicing one card: not a scaling number); {card}")
+        if not ok:
+            bad.append("(a) the train CLI on two ranks")
+
+        # fp32: 2 ranks x B=1 against one rank x B=2, 2 steps, from the same seed
+        ov32 = [x for x in ov if not x.startswith(("data.loader.train.batch_size", "data.loader.validation.batch_size",
+                                                   "trainer.checkpointing.every_n_train_steps"))] + [
+            "model.gpu.compute_dtype=float32", "model.gpu.mlp_impl=fused_exact", "trainer.max_steps=2",
+            "trainer.limit_val_batches=1", "data.loader.validation.batch_size=2", "data.loader.train.batch_size=2"]
+        two = pool.run(_dp_cli_rank, "train", ov32 + ["alias=dp32_two"], timeout=600)
+        zero_launches()
+        one = train_main(ov32 + ["alias=dp32_one"])
+        run_two = same_dir(two)
+        l_two, l_one = series(run_two, "train/loss_cross"), series(one, "train/loss_cross")
+        sd = [torch.load(r / "ckpt" / "step_00000002.ckpt", map_location="cpu", weights_only=True)["state_dict"]
+              for r in (run_two, one)]
+        lr = float(load_config("default").trainer.optimizer.lr)
+
+        def held(state: dict) -> tuple[dict, list]:
+            """Every leaf, the packed in_proj_bias without its key third
+            (q, k, v): -> (the held leaves, the key biases)."""
+            out, keys = {}, []
+            for k, v in state.items():
+                v = v.float().reshape(-1)
+                if k.endswith("in_proj_bias"):
+                    n = v.numel() // 3
+                    keys.append(v[n:2 * n])
+                    v = torch.cat([v[:n], v[2 * n:]])
+                out[k] = v
+            return out, keys
+
+        (h_two, k_two), (h_one, k_one) = held(sd[0]), held(sd[1])
+        worst = max(float((h_two[k] - h_one[k]).abs().max()) for k in h_one)
+        noise_max = max(float(v.abs().max()) for v in k_two + k_one)
+        a["fp32"] = {"loss_two_ranks": l_two, "loss_one_rank": l_one, "param_max_abs": worst,
+                     "key_biases": len(k_one), "key_bias_max_abs": noise_max}
+        print(f"step 18 (a) fp32, 2 ranks x B=1 against one rank x B=2, 2 steps: losses {l_two} against {l_one} "
+              f"(tol {DP_LOSS_TOL:.0e}); parameters max |d| {worst:.3e} (tol {DP_PARAM_TOL:.0e}) over every "
+              f"element but the {len(k_one)} key-projection biases (no gradient in exact arithmetic), those within "
+              f"{noise_max:.2e} of 0 (bound 2 x lr = {2 * lr:.0e})")
+        if not (len(l_two) == len(l_one) == 2 and max(abs(x - y) for x, y in zip(l_two, l_one)) <= DP_LOSS_TOL
+                and worst <= DP_PARAM_TOL and noise_max <= 2 * lr):
+            bad.append("(a) fp32 two ranks against one")
+        a["s"] = time.perf_counter() - t0
+        dp["train"] = a
+
+        # --- (b) token_fast on step 14's warm store ---------------------------------
+        t0 = time.perf_counter()
+        work = Path(tok_work)
+        ovt = [f"data.dataset.path=[{work}/datadir]", f"run.dir={tmp}/log_tok", "data.loader.train.batch_size=2",
+               "data.loader.validation.batch_size=2", "data.loader.train.num_workers=4",
+               "data.loader.validation.num_workers=4", "trainer.num_sanity_val_steps=1",
+               "trainer.limit_val_batches=1", "logger.vis_scalar_every_n_train_steps=1",
+               "this_main.train_recipe=token_fast", f"this_main.ref_token_cache_dir={work}/tokens",
+               "trainer.max_steps=2", "model.gpu.dist_backend=gloo"]
+        tok = pool.run(_dp_cli_rank, "train", ovt + ["alias=dp_tok"], timeout=600)
+        run_tok = same_dir(tok)
+        b = {"encode_calls": [r["encode"] for r in tok], "eval_calls": [r["eval"] for r in tok],
+             "launches_per_rank": [r["launches"] for r in tok], "losses_per_rank": [r["losses"] for r in tok],
+             "logged": series(run_tok, "train/loss_cross")}
+        wants = [_launches(K1=n_layers * r["eval"], K2=n_layers * r["eval"], K3=n_dec * (2 + r["eval"]),
+                           K4=n_dec * 2) for r in tok]
+        print(f"step 18 (b) token_fast on 2 ranks, step 14's warm store: encoder calls per rank {b['encode_calls']}, "
+              f"validation batches {b['eval_calls']}; launches per rank "
+              f"{[ {k: v for k, v in x.items() if v} for x in b['launches_per_rank']]} (expected "
+              f"{[ {k: v for k, v in x.items() if v} for x in wants]}); the step's loss per rank "
+              f"{b['losses_per_rank']}, logged {b['logged']}")
+        if any(b["encode_calls"]) or [r["launches"] for r in tok] != wants \
+                or b["losses_per_rank"][0] != b["losses_per_rank"][1] or len(b["logged"]) != 2 \
+                or max(abs(x - y) for x, y in zip(b["losses_per_rank"][0], b["logged"])) > DP_LOSS_TOL:
+            bad.append("(b) token_fast on two ranks")
+        b["s"] = time.perf_counter() - t0
+        dp["token_fast"] = b
+
+        # --- (c) the test CLI on step 15's tree, modes (a) and (c) ----------------------
+        t0 = time.perf_counter()
+        single, mixed = tmp / "gaussian" / "single", tmp / "gaussian" / "mixed"
+        generate(single, hw=EVAL_HW, scenes_per_split={"train": 1, "test": 2}, n_train_imgs=PK, n_test_imgs=PK,
+                 seed=SEED)
+        generate(mixed, hw=[EVAL_HW, EVAL_HW, EVAL_HW, EVAL_HW_T], scenes_per_split={"train": 1, "test": 3},
+                 n_train_imgs=PK, n_test_imgs=PK, seed=SEED)
+        ckpt = tmp / "run" / "ckpt" / "seeded.ckpt"
+        ckpt.parent.mkdir(parents=True)
+        tcfg = CrossScoreConfig.from_config(load_config("default_test", EVAL_OVERRIDES))
+        torch.save({"state_dict": {f"model.{k}": v for k, v in init_params(tcfg, SEED).items()}}, ckpt)
+        c = {}
+        for tag, (tree, buckets, cache, groups) in {"a": (single, "off", "off", [[1, 2]]),
+                                                    "c": (mixed, "on", "on", [[1, 2], [3]])}.items():
+            argv = EVAL_OVERRIDES + [f"trainer.ckpt_path_to_load={ckpt}", f"data.dataset.path=[{tree}]",
+                                     f"this_main.shape_buckets={buckets}", f"this_main.ref_token_cache={cache}"]
+            one_out = test_main(argv + [f"logger.test.out_dir={tmp / ('test_one_' + tag)}"])
+            res = pool.run(_dp_cli_rank, "test", argv + ["model.gpu.dist_backend=gloo",
+                                                         f"logger.test.out_dir={tmp / ('test_two_' + tag)}"],
+                           timeout=600)
+            two_out = same_dir(res)
+
+            def table(out):
+                with open(Path(out) / "metrics.csv") as f:
+                    return list(csv.DictReader(f))
+
+            t_one, t_two = table(one_out), table(two_out)
+            keys = [k for k in t_one[0] if k != "batch_idx"]
+            cells = max(abs(float(x[k]) - float(y[k])) for x, y in zip(t_one, t_two) for k in keys)
+            # the mean row against its rows, weighed by each global batch's items
+            n_items = [min(PB, 2 * PK * len(g) - i0) for g in groups for i0 in range(0, 2 * PK * len(g), PB)]
+            w = np.asarray(n_items, np.float64)
+            mean_err = max(abs(float(t_two[-1][k]) - float(np.sum(w * [float(r[k]) for r in t_two[:-1]]) / w.sum()))
+                           for k in keys)
+            misses = [re.search(r"ref-token cache: \d+ hits, (\d+) unique misses", r["text"]) for r in res]
+            want_miss = [_dp_misses(groups, PK, PB, r, 2) for r in range(2)]
+            c[tag] = {"launches_per_rank": [r["launches"] for r in res],
+                      "rows_one": len(t_one), "rows_two": len(t_two), "max_cell_diff": cells,
+                      "mean_row_err": mean_err, "mean": {k: float(t_two[-1][k]) for k in keys},
+                      "misses_per_rank": [int(m.group(1)) if m else None for m in misses],
+                      "expected_misses": want_miss if cache == "on" else None,
+                      "maps_per_s_per_rank": [float(re.search(r"= ([0-9.]+) maps/s", r["text"]).group(1))
+                                              for r in res]}
+            print(f"step 18 (c) test CLI ({tag}) buckets {buckets}, cache {cache} on 2 ranks against one rank: "
+                  f"{len(t_two) - 1} batch rows, largest cell difference {cells:.3e} (tol {DP_ROW_TOL:.0e}); the "
+                  f"mean row against its rows weighed by the global batches' items {mean_err:.1e} (tol "
+                  f"{DP_MEAN_TOL:.0e}); misses per rank {c[tag]['misses_per_rank']} (expected "
+                  f"{c[tag]['expected_misses']}); maps/s per rank {c[tag]['maps_per_s_per_rank']}")
+            if len(t_one) != len(t_two) or [r["batch_idx"] for r in t_one] != [r["batch_idx"] for r in t_two] \
+                    or cells > DP_ROW_TOL or mean_err > DP_MEAN_TOL \
+                    or not all(np.isfinite(list(c[tag]["mean"].values()))) \
+                    or (cache == "on" and c[tag]["misses_per_rank"] != want_miss):
+                bad.append(f"(c) the test CLI, mode {tag}")
+        c["s"] = time.perf_counter() - t0
+        dp["test"] = c
+
+        # --- (d) the predict CLI on step 9's renders, modes (b) and (d) -------------------
+        t0 = time.perf_counter()
+        qdir, rdir = _write_predict_dirs(tmp / "predict", 3 * PB, PK)
+        pcfg = CrossScoreConfig.from_config(load_config("default_predict"))
+        pckpt = tmp / "prun" / "ckpt" / "seeded.ckpt"
+        pckpt.parent.mkdir(parents=True)
+        torch.save({"state_dict": {f"model.{k}": v for k, v in init_params(pcfg, SEED).items()}}, pckpt)
+        common = [f"trainer.ckpt_path_to_load={pckpt}", f"data.dataset.query_dir={qdir}",
+                  f"data.dataset.reference_dir={rdir}", f"data.neighbour_config.cross={PK}",
+                  f"data.loader.validation.batch_size={PB}", "model.gpu.view_parallel=off",
+                  "logger.predict.write.config.score_map_colour_mode=gray",
+                  "logger.predict.write.config.vis_img_every_n_steps=-1",
+                  "logger.predict.write.flag.image_query=false", "logger.predict.write.flag.image_reference=false"]
+        d = {}
+        from PIL import Image
+
+        for tag, (buckets, cache) in {"b": ("off", "on"), "d": ("on", "off")}.items():
+            argv = common + [f"this_main.shape_buckets={buckets}", f"this_main.ref_token_cache={cache}"]
+            one_out = predict_main(argv + [f"logger.predict.out_dir={tmp / ('pred_one_' + tag)}"])
+            res = pool.run(_dp_cli_rank, "predict", argv + ["model.gpu.dist_backend=gloo",
+                                                            f"logger.predict.out_dir={tmp / ('pred_two_' + tag)}"],
+                           timeout=600)
+            two_out = same_dir(res)
+            names = [sorted(p.name for p in (Path(o) / "batch" / "score_map_ref_cross").glob("*.png"))
+                     for o in (one_out, two_out)]
+            maes = [float(np.abs(np.asarray(Image.open(Path(one_out) / "batch" / "score_map_ref_cross" / n),
+                                            np.float64) -
+                                 np.asarray(Image.open(Path(two_out) / "batch" / "score_map_ref_cross" / n),
+                                            np.float64)).mean()) / 32767.0 for n in names[0] if n in names[1]]
+            d[tag] = {"maps": len(names[1]), "same_names": names[0] == names[1], "max_mae": max(maes or [1.0]),
+                      "launches_per_rank": [{k: v for k, v in r["launches"].items() if v} for r in res],
+                      "maps_per_s_per_rank": [float(re.search(r"= ([0-9.]+) maps/s", r["text"]).group(1))
+                                              for r in res]}
+            print(f"step 18 (d) predict CLI ({tag}) buckets {buckets}, cache {cache}, data parallel on 2 ranks "
+                  f"against one rank: {d[tag]['maps']} maps, the same names {d[tag]['same_names']}, worst map MAE "
+                  f"{d[tag]['max_mae']:.3e} (tol {DP_MAP_TOL:.0e}); launches per rank {d[tag]['launches_per_rank']}; "
+                  f"maps/s per rank {d[tag]['maps_per_s_per_rank']} (two ranks time-slicing one card)")
+            if not d[tag]["same_names"] or d[tag]["maps"] != 3 * PB or d[tag]["max_mae"] > DP_MAP_TOL \
+                    or not all("data-parallel predict: 2 data ranks" in r["text"] for r in res):
+                bad.append(f"(d) the predict CLI, mode {tag}")
+        d["s"] = time.perf_counter() - t0
+        dp["predict"] = d
+
+    # --- (e) the dry run through its entry point ------------------------------------------
+    t0 = time.perf_counter()
+    rc = dryrun_multichip.main(["4"])
+    dp["dryrun_multichip"] = {"rc": rc, "s": time.perf_counter() - t0}
+    print(f"step 18 (e) tools.dryrun_multichip 4 (4 gloo ranks sharing the card): exit {rc} in "
+          f"{dp['dryrun_multichip']['s']:.1f} s")
+    if rc != 0:
+        bad.append("(e) dryrun_multichip 4")
+    dp["s"] = time.perf_counter() - t_all
+    print(f"step 18: {dp['s']:.1f} s")
+    if bad:
+        _fail("step 18: " + "; ".join(bad))
+    return dp
 
 
 def main() -> int:
@@ -3563,10 +3966,15 @@ def main() -> int:
     # predict, test and token_fast CLIs from files and record shards with the
     # decode skip, the two host benchmarks ----------------------------------------
     inp = _input_phases(torch, Path(tok_work.name), zero_launches, read_launches)
+    torch.cuda.empty_cache()
+
+    # --- 18. data parallelism: the train (pixel and token_fast), test and
+    # predict CLIs on two gloo ranks that share the card, and the dry run ------
+    dpr = _dp_phases(torch, zero_launches, read_launches, Path(tok_work.name), card)
     tok_work.cleanup()
     torch.cuda.empty_cache()
 
-    # --- 18. the kernels line, then the device line ---------------------------
+    # --- 19. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -3627,7 +4035,15 @@ def main() -> int:
                                                            for tag, r in inp["predict"].items()},
                                     "host_input_token_fast": {src: r["launches"][kern]
                                                               for src, r in inp["token_fast"].items()
-                                                              if isinstance(r, dict)}},
+                                                              if isinstance(r, dict)},
+                                    # step 18, per rank of the two (rank 0's; both read the same)
+                                    "data_parallel_rank0": {
+                                        "train_cli_4_steps_4_val": dpr["train"]["launches_per_rank"][0][kern],
+                                        "token_fast_2_steps": dpr["token_fast"]["launches_per_rank"][0][kern],
+                                        "test_cli": {tag: dpr["test"][tag]["launches_per_rank"][0][kern]
+                                                     for tag in ("a", "c")},
+                                        "predict_cli": {tag: dpr["predict"][tag]["launches_per_rank"][0].get(kern, 0)
+                                                        for tag in ("b", "d")}}},
                "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
         # K5-K7: the relative L2 of o, l, m; K5: K1's time on the same qkv;
         # K7: K3's on the same work, and both at the 1-rank length; K8/K9:
@@ -3697,6 +4113,7 @@ def main() -> int:
                       "predict_loader_maps_per_s": loader_rate, "view_parallel": vp,
                       "tensor_parallel": tp, "instruments": inst,
                       "serving": sv, "host_input": inp,
+                      "data_parallel": dpr,
                       "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
                                                         for k, v in r.items()} for tag, r in ev["modes"].items()}},
                       "seconds": seconds}))

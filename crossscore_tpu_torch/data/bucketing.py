@@ -22,7 +22,7 @@ from collections import defaultdict
 
 import numpy as np
 
-from crossscore_tpu_torch.data.loader import Loader
+from crossscore_tpu_torch.data.loader import Loader, shard_split
 
 
 def bucket_hw(h: int, w: int, multiple: int = 112) -> tuple[int, int]:
@@ -45,7 +45,14 @@ class ShapeBucketedLoader(Loader):
 
     Batches PACK items of different shapes that round up to the same bucket
     (each item padded right/bottom on its own); ``_valid_hw`` is per item
-    (B, 2) and the model masks per item."""
+    (B, 2) and the model masks per item.
+
+    Over several nodes each bucket's items are split as the base loader
+    splits the index space (:func:`~crossscore_tpu_torch.data.loader.shard_split`),
+    so that every node steps through the same buckets the same number of
+    times. The JAX loader takes the shard arguments and ignores them, so
+    each of its processes evaluates every item (ROADMAP, Known
+    deviations); on one node the two plans are the same."""
 
     def __init__(self, dataset, batch_size: int, bucket_multiple: int = 112, **kw):
         kw.setdefault("pad_last", True)
@@ -56,16 +63,16 @@ class ShapeBucketedLoader(Loader):
     def distinct_buckets(self) -> set:
         return {bucket_hw(*s, self.bucket_multiple) for s in self._shapes}
 
-    def _plan(self, epoch: int) -> list:
+    def _node_plan(self, epoch: int) -> list:
         groups: dict = defaultdict(list)
         for i, s in enumerate(self._shapes):
             groups[bucket_hw(*s, self.bucket_multiple)].append(i)
         plan = []
         for bucket in sorted(groups):
-            idxs = groups[bucket]
+            idxs, n_real = shard_split(np.asarray(groups[bucket]), self.shard_index, self.num_shards)
             for start in range(0, len(idxs), self.batch_size):
-                chunk = np.asarray(idxs[start : start + self.batch_size])
-                plan.append((chunk, len(chunk), {"bucket": bucket}))
+                chunk = idxs[start : start + self.batch_size]
+                plan.append((chunk, max(0, min(len(chunk), n_real - start)), {"bucket": bucket}))
         return plan
 
     def _pre_collate(self, items: list, extra) -> list:

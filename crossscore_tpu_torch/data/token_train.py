@@ -153,14 +153,15 @@ class TokenSpaceLoader(Loader):
         resize but trim differently."""
         leaves = leaf_datasets(dataset)
         k = max((int(leaf.neighbour_config.get("cross", 0)) for leaf in leaves), default=0)
-        need = token_working_set(self.prefetch_batches, self.batch_size, k)
+        # per rank: a rank's cache holds the images of its own rows
+        need = token_working_set(self.prefetch_batches, self.rank_batch_size, k)
         n_geoms = len({(getattr(leaf, "resize_short_side", None) or -1, getattr(leaf, "crop_mode", None))
                        for leaf in leaves}) or 1
         need = min(need, len(unique_image_paths(dataset)) * n_geoms)
         if cache._max >= need:
             return
         msg = (f"token cache max_items={cache._max} is below the in-flight working set ~{need} "
-               f"(2 x {self.prefetch_batches + 1} batches x batch_size {self.batch_size} x (K+1)={k + 1}); "
+               f"(2 x {self.prefetch_batches + 1} batches x batch_size {self.rank_batch_size} x (K+1)={k + 1}); "
                f"eviction races with the decode skip: raise this_main.ref_token_cache_max_items to >= {need}")
         if cache._dir is None and fastimage.available():
             raise ValueError(msg)

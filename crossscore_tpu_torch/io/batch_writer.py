@@ -67,16 +67,19 @@ class BatchWriter:
     # ------------------------------------------------------------------ api
 
     def write_out(self, batch_input: dict, batch_output: dict, local_rank: int,
-                  batch_idx: int, item_offset: int = 0):
+                  batch_idx: int, item_offset: int = 0, item_paths: bool = True):
         """``item_offset`` shifts the ``b{i}`` filename index — used when a
-        bucket-PACKED batch (per-item shapes) is written one item at a time."""
+        bucket-PACKED batch (per-item shapes) is written one item at a time,
+        and by a data rank for its rows of a node batch. ``item_paths=False``
+        leaves the batch's item-path JSON to the caller (a data rank holds
+        only its rows of it)."""
         self._item_offset = item_offset
         n_valid = int(batch_input.get("_valid", len(batch_input["item_paths"]["query/img"])))
         if self.write_flag["score_map_prediction"]:
             self._write_score_maps(batch_input, batch_output, local_rank, batch_idx, n_valid)
         if self.write_flag["score_map_gt"]:
             self._write_gt_maps(batch_input, local_rank, batch_idx, n_valid)
-        if self.write_flag["item_path_json"]:
+        if self.write_flag["item_path_json"] and item_paths:
             self._write_item_paths(batch_input, local_rank, batch_idx, n_valid)
         if self.write_flag["image_query"]:
             self._write_query_images(batch_input, local_rank, batch_idx, n_valid)

@@ -55,25 +55,33 @@ class CheckpointManager:
         hparams: Optional[dict] = None,
     ):
         self.directory = Path(directory)
-        self.directory.mkdir(parents=True, exist_ok=True)
-        if hparams is not None:
+        if hparams is not None:  # the writer's manager; the others touch no file until they save
+            self.directory.mkdir(parents=True, exist_ok=True)
             (self.directory / "hparams.yaml").write_text(yaml.safe_dump(hparams, sort_keys=False))
         self.interval_s = train_time_interval_hours * 3600 if train_time_interval_hours else None
         self.every_n_train_steps = every_n_train_steps
         self.every_n_epochs = every_n_epochs
         self._last_save_t = time.monotonic()
 
-    def should_save(self, step: int, epoch_end: bool = False, epoch: int = 0) -> bool:
+    def should_save(self, step: int, epoch_end: bool = False, epoch: int = 0, wall_clock: bool = True) -> bool:
+        """``wall_clock=False`` keeps to the step and epoch cadences, which are
+        functions of (config, step) and so the same on every rank; the
+        wall-clock interval is a per-host clock, on which the ranks agree
+        separately (:meth:`wall_clock_due` and a broadcast)."""
         if self.every_n_train_steps and step > 0 and step % self.every_n_train_steps == 0:
             return True
         if epoch_end and self.every_n_epochs and (epoch + 1) % self.every_n_epochs == 0:
             return True
+        return wall_clock and self.wall_clock_due()
+
+    def wall_clock_due(self) -> bool:
         return self.interval_s is not None and time.monotonic() - self._last_save_t >= self.interval_s
 
     def save(self, step: int, model: torch.nn.Module, optimizer, scheduler, loop: dict) -> Path:
         """Write step ``step``; a step already on disk is written again. The
         file appears whole or not at all (written aside, then renamed)."""
         path = step_path(self.directory, step)
+        self.directory.mkdir(parents=True, exist_ok=True)
         blob = {
             "state_dict": {f"model.{k}": v.detach().cpu() for k, v in model.state_dict().items()},
             "optimizer_states": [optimizer.state_dict()],

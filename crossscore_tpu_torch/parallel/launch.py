@@ -1,7 +1,8 @@
-"""Start N ranks of one node as spawned processes and run functions in them.
+"""Start N ranks as spawned processes and run functions in them.
 
     with RankPool(2) as pool:
         results = pool.run(fn, arg)   # fn(arg) in every rank, results by rank
+    RankPool(4, local_world_size=2)   # 4 ranks laid out as 2 nodes x 2
 
 A :class:`RankPool` spawns its ranks once (``multiprocessing`` spawn start
 method) and gives each the launcher's environment of ``torchrun``: ``RANK``,
@@ -41,10 +42,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, inbox, outbox) -> None:
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                      TORCHELASTIC_USE_AGENT_STORE="True")
+def _rank_main(rank: int, world: int, local_world: int, inbox, outbox) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank % local_world),
+                      LOCAL_WORLD_SIZE=str(local_world), GROUP_RANK=str(rank // local_world),
+                      MASTER_ADDR="127.0.0.1", TORCHELASTIC_USE_AGENT_STORE="True")
     while True:
         task = inbox.get()
         if task is None:
@@ -58,19 +59,24 @@ def _rank_main(rank: int, world: int, inbox, outbox) -> None:
 
 
 class RankPool:
-    """``nprocs`` ranks of one node, spawned once and reused by :meth:`run`.
+    """``nprocs`` ranks, spawned once and reused by :meth:`run`.
 
-    ``env``: extra environment variables for every rank."""
+    ``local_world_size``: the ranks of each node (all of them by default: one
+    node); rank r is local rank ``r % local_world_size`` of node ``r //
+    local_world_size``, as ``torchrun --nnodes`` numbers them. ``env``: extra
+    environment variables for every rank."""
 
-    def __init__(self, nprocs: int, env: dict | None = None):
-        if nprocs < 1:
-            raise ValueError(f"nprocs must be >= 1, got {nprocs}")
+    def __init__(self, nprocs: int, env: dict | None = None, local_world_size: int | None = None):
+        local_world_size = nprocs if local_world_size is None else local_world_size
+        if nprocs < 1 or local_world_size < 1 or nprocs % local_world_size:
+            raise ValueError(f"nprocs must be >= 1 and a multiple of local_world_size, got {nprocs} and "
+                             f"{local_world_size}")
         ctx = multiprocessing.get_context("spawn")
         self.nprocs = nprocs
         self._inboxes = [ctx.Queue() for _ in range(nprocs)]
         self._outbox = ctx.Queue()
-        self._procs = [ctx.Process(target=_rank_main, args=(r, nprocs, self._inboxes[r], self._outbox),
-                                   daemon=True)
+        self._procs = [ctx.Process(target=_rank_main,
+                                   args=(r, nprocs, local_world_size, self._inboxes[r], self._outbox), daemon=True)
                        for r in range(nprocs)]
         # a spawned rank starts with this process's environment; ``env`` has to
         # be in it from the start, since a rank imports torch (which reads

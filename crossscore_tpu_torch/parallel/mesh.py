@@ -1,5 +1,5 @@
-"""Process groups of one node: the port's counterpart of the process half of
-``crossscore_tpu/parallel/mesh.py``.
+"""Process groups over ranks and nodes: the port's counterpart of the process
+half of ``crossscore_tpu/parallel/mesh.py``.
 
 The JAX package runs one controller over a device mesh; the port runs one
 process per card (``torchrun`` or :mod:`crossscore_tpu_torch.parallel.launch`)
@@ -132,38 +132,95 @@ class Grid:
         return self.model_rank is not None
 
 
-def make_groups(model_parallel: int = 1, batch_size: Optional[int] = None,
-                n_ranks: Optional[int] = None) -> Grid:
-    """Lay the first ``n_ranks`` ranks (all by default) out as a (data,
-    model) grid and register this rank's model and data groups; the
-    counterpart of the JAX ``make_mesh(n_devices, model_parallel,
-    batch_size)``. Rank r sits at data index r // mp and model index r % mp,
-    so the model axis is the fast one, as ``devices.reshape(n // mp, mp)``.
+def _node_sizes(world: int) -> list[int]:
+    """Every rank's ``LOCAL_WORLD_SIZE``, gathered over the process group (a
+    collective): how many ranks each node launched."""
+    local = topology_from_env().local_world_size
+    sizes = [None] * world
+    dist.all_gather_object(sizes, local)
+    return sizes
 
-    ``batch_size`` (the global batch) clamps the data axis to the largest
-    width that divides it (:func:`_per_process_data_par`); ranks past the
-    grid get no groups. Raises when ``model_parallel`` exceeds the ranks or
-    does not divide them. Every rank of the process group must call this
-    (each new group is a collective)."""
-    if not dist.is_initialized():
-        raise RuntimeError("make_groups needs a process group: call init_distributed first")
+
+def requested_ranks(devices, world: int) -> int:
+    """``trainer.devices`` as a number of ranks: -1 (or None) is every launched
+    rank, an int is that many, a list its length. More than were launched
+    raises: one process drives one card, so the ranks come from the launcher."""
+    n = world if devices in (-1, None) else devices if isinstance(devices, int) else len(devices)
+    if n < 1 or n > world:
+        raise ValueError(
+            f"trainer.devices={devices!r} asks for {n} ranks, and {world} were launched: one process "
+            f"drives one card; launch one rank per card (torchrun --nproc_per_node {max(n, 1)} ..., "
+            "--nnodes with the rendezvous flags for several nodes) or set trainer.devices=-1")
+    return n
+
+
+def grid_members(world: int, node_sizes: list[int], model_parallel: int, batch_size: Optional[int],
+                 n_ranks: Optional[int] = None) -> list[int]:
+    """The ranks of the (data, model) grid of :func:`make_groups`, in grid
+    order (data-major), from each rank's ``LOCAL_WORLD_SIZE``; the rank
+    counterpart of the devices the JAX ``make_mesh`` keeps. Raises where it
+    raises, and for nodes of unequal rank counts."""
     mp = model_parallel
-    world, rank = dist.get_world_size(), dist.get_rank()
     n = world if n_ranks in (None, -1) else min(n_ranks, world)
     if mp < 1 or n < mp:
         raise ValueError(f"model_parallel={mp} exceeds the {n} available ranks")
+    local = node_sizes[0] if node_sizes else 0
+    if len(set(node_sizes)) != 1 or local < 1 or world % local:
+        raise ValueError(f"the nodes launched unequal numbers of ranks (LOCAL_WORLD_SIZE by rank: {node_sizes}); "
+                         "a data layout needs an equal rank count per node: launch every node with the same "
+                         "--nproc_per_node")
+    n_nodes = world // local
+    if batch_size is not None and n_nodes > 1:
+        per_node = local
+        if n_ranks not in (None, -1):
+            if n < n_nodes:
+                raise ValueError(f"trainer.devices={n_ranks} is below the {n_nodes} nodes; a multi-node data "
+                                 "layout needs >= 1 rank per node")
+            per_node = min(per_node, n // n_nodes)
+        d = _per_process_data_par(per_node, mp, batch_size)
+        return [node * local + j for node in range(n_nodes) for j in range(d * mp)]
     if batch_size is not None:
         n = _per_process_data_par(n, mp, batch_size) * mp
     if n % mp:
         raise ValueError(f"{n} ranks not divisible by model_parallel={mp}")
-    dp = n // mp
-    model_groups = [dist.new_group([d * mp + m for m in range(mp)]) for d in range(dp)]
-    data_groups = [dist.new_group([d * mp + m for d in range(dp)]) for m in range(mp)]
+    return list(range(n))
+
+
+def make_groups(model_parallel: int = 1, batch_size: Optional[int] = None,
+                n_ranks: Optional[int] = None) -> Grid:
+    """Lay the ranks out as a (data, model) grid and register this rank's
+    model and data groups; the counterpart of the JAX ``make_mesh(n_devices,
+    model_parallel, batch_size)``, with one node for one JAX process.
+
+    On one node the first ``n_ranks`` ranks (all by default) take part: rank
+    r sits at data index r // mp and model index r % mp, so the model axis is
+    the fast one, as ``devices.reshape(n // mp, mp)``. ``batch_size`` clamps
+    the data axis to the largest width that divides it
+    (:func:`_per_process_data_par`).
+
+    Over several nodes with a ``batch_size`` (each node's own batch, as each
+    JAX process loads its own), every node keeps the same ranks: its first
+    ``d * mp``, ``d`` the data width of ``_per_process_data_par`` over the
+    node's ranks (capped by ``n_ranks // nodes`` when ``n_ranks`` is given),
+    so the data index is ``node * d + local // mp``. Nodes that launched
+    different numbers of ranks, and a cap below one rank a node, raise.
+
+    Ranks past the grid get no groups. Raises when ``model_parallel``
+    exceeds the ranks or does not divide them. Every rank of the process
+    group must call this (each new group is a collective)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_groups needs a process group: call init_distributed first")
+    mp = model_parallel
+    world, rank = dist.get_world_size(), dist.get_rank()
+    members = grid_members(world, _node_sizes(world), mp, batch_size, n_ranks)
+    dp = len(members) // mp
+    model_groups = [dist.new_group(members[i * mp:(i + 1) * mp]) for i in range(dp)]
+    data_groups = [dist.new_group(members[m::mp]) for m in range(mp)]
     global _MODEL_GROUP, _DATA_GROUP
-    if rank >= n:
+    if rank not in members:
         _MODEL_GROUP = _DATA_GROUP = None
         return Grid(dp, mp, None, None)
-    d, m = divmod(rank, mp)
+    d, m = divmod(members.index(rank), mp)
     _MODEL_GROUP, _DATA_GROUP = model_groups[d], data_groups[m]
     return Grid(dp, mp, d, m)
 

@@ -1,9 +1,11 @@
 """Shared task-entry plumbing: CLI parsing, run and output dirs, weights,
-bucketed-output crops, logging and the accelerator rule; the port's
-counterpart of ``crossscore_tpu/tasks/common.py`` for one process."""
+bucketed-output crops, logging, the accelerator rule and the CLIs' data
+ranks; the port's counterpart of ``crossscore_tpu/tasks/common.py``."""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -14,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from crossscore_tpu_torch.confsys import Config, load_config
@@ -25,6 +28,8 @@ from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.device import resolve_device
 from crossscore_tpu_torch.io.checkpoint import latest_step, step_path
 from crossscore_tpu_torch.io.convert import init_params, load_into
+from crossscore_tpu_torch.parallel import mesh
+from crossscore_tpu_torch.parallel.collectives import all_reduce
 
 
 def tristate(value) -> str:
@@ -136,29 +141,38 @@ def load_model_params(cfg: Config, model: torch.nn.Module) -> torch.nn.Module:
     return load_into(model, blob.get("state_dict", blob))
 
 
-def eval_loader(cfg: Config, dataset, cli: str):
+def eval_loader(cfg: Config, dataset, cli: str, split: Optional[dict] = None):
     """The predict and test CLIs' loader over ``dataset`` in order -> (loader,
-    whether it buckets shapes). ``this_main.shape_buckets`` on|off|auto:
-    never under the dataset's own crop, and under ``auto`` only when the
-    items have more than one shape (padding one shape buys nothing). A
-    bucketed loader pads each item to multiples of ``bucket_multiple``."""
-    bucket_mode = tristate(cfg.this_main.get("shape_buckets", "auto"))
-    use_buckets = bucket_mode != "off" and cfg.this_main.crop_mode != "dataset_default"
-    if use_buckets:
-        shapes = {dataset.get_item_shape(i) for i in range(len(dataset))}
-        use_buckets = bucket_mode == "on" or len(shapes) > 1
+    whether it buckets shapes, :func:`use_shape_buckets`). A bucketed loader
+    pads each item to multiples of ``bucket_multiple``.
+    ``split``: the loader's node shard and rank block
+    (:meth:`DataRanks.loader_kw`; none: every batch whole)."""
+    use_buckets, n_shapes = use_shape_buckets(cfg, dataset)
     loader_kw = dict(
         batch_size=cfg.data.loader.validation.batch_size,
         num_workers=cfg.data.loader.validation.num_workers,
         prefetch_batches=cfg.data.loader.validation.prefetch_factor,
         seed=cfg.seed,
+        **(split or {}),
     )
     if not use_buckets:
         return Loader(dataset, shuffle=False, **loader_kw), False
     loader = ShapeBucketedLoader(dataset, bucket_multiple=int(cfg.this_main.get("bucket_multiple", 112)),
                                  **loader_kw)
-    print(f"shape-bucketed {cli}: {len(shapes)} item shapes -> {len(loader.distinct_buckets())} bucket shape(s)")
+    print(f"shape-bucketed {cli}: {n_shapes} item shapes -> {len(loader.distinct_buckets())} bucket shape(s)")
     return loader, True
+
+
+def use_shape_buckets(cfg: Config, dataset) -> tuple[bool, int]:
+    """``this_main.shape_buckets`` on|off|auto over ``dataset`` -> (whether to
+    bucket, the number of item shapes read, 0 when none were): never under
+    the dataset's own crop, and under ``auto`` only when the items have more
+    than one shape (padding one shape buys nothing)."""
+    bucket_mode = tristate(cfg.this_main.get("shape_buckets", "auto"))
+    if bucket_mode == "off" or cfg.this_main.crop_mode == "dataset_default":
+        return False, 0
+    shapes = {dataset.get_item_shape(i) for i in range(len(dataset))}
+    return bucket_mode == "on" or len(shapes) > 1, len(shapes)
 
 
 def ref_token_cache(cfg: Config, encode) -> RefTokenCache:
@@ -246,20 +260,27 @@ def iter_bucketed_items(batch: dict, outputs: dict):
 
 
 def write_batch_outputs(batch_idx: int, batch: dict, outputs: dict, *, summariser, writer, visualiser,
-                        vis_dir: Path, vis_every: int) -> None:
+                        vis_dir: Path, vis_every: int, node: int = 0, row_offset: int = 0,
+                        write_paths: bool = True) -> None:
     """Hand one batch's host outputs to the per-frame summariser, the batch
     writer (or None) and, every ``vis_every`` batches, a figure
-    ``vis_dir/r0_B<batch>_b0.png`` (matplotlib); the test and predict CLIs'
-    consumers. A bucket-packed batch (per-item ``_valid_hw``) goes to them
-    as individually cropped B=1 slices, since none can hold a batch of mixed
-    image sizes as one array."""
-    vis = vis_every > 0 and batch_idx % vis_every == 0
+    ``vis_dir/r<node>_B<batch>_b0.png`` (matplotlib); the test and predict
+    CLIs' consumers. A bucket-packed batch (per-item ``_valid_hw``) goes to
+    them as individually cropped B=1 slices, since none can hold a batch of
+    mixed image sizes as one array.
+
+    Over data ranks the batch is this rank's rows of node ``node``'s batch,
+    which begin at row ``row_offset``: the files are named as the one rank's
+    (``r<node>_B<batch>_b<offset + i>``), the figure is drawn by the rank
+    that holds row 0, and ``write_paths=False`` leaves the batch's
+    item-path JSON to :func:`write_node_item_paths`."""
+    vis = vis_every > 0 and batch_idx % vis_every == 0 and row_offset == 0
 
     def save_vis(b: dict, o: dict) -> None:
         import matplotlib.pyplot as plt
 
         fig = visualiser.vis(b, o)
-        fig.savefig(Path(vis_dir) / f"r0_B{batch_idx:04}_b0.png")
+        fig.savefig(Path(vis_dir) / f"r{node}_B{batch_idx:04}_b0.png")
         plt.close(fig)
 
     vhw = batch.get("_valid_hw")
@@ -269,14 +290,64 @@ def write_batch_outputs(batch_idx: int, batch: dict, outputs: dict, *, summarise
             if i == 0 and vis:
                 save_vis(b1, o1)
             if writer is not None:
-                writer.write_out(b1, o1, local_rank=0, batch_idx=batch_idx, item_offset=i)
+                writer.write_out(b1, o1, local_rank=node, batch_idx=batch_idx, item_offset=row_offset + i,
+                                 item_paths=write_paths)
         return
     batch, outputs = crop_bucketed(batch, outputs)
     summariser.update(batch_input=batch, batch_output=outputs)
     if vis:
         save_vis(batch, outputs)
     if writer is not None:
-        writer.write_out(batch, outputs, local_rank=0, batch_idx=batch_idx)
+        writer.write_out(batch, outputs, local_rank=node, batch_idx=batch_idx, item_offset=row_offset,
+                         item_paths=write_paths)
+
+
+def write_node_item_paths(writer, ranks: "DataRanks", batch_idx: int, batch: dict) -> None:
+    """The item-path JSON of one node batch under data ranks: every rank's
+    paths and ``_valid`` gathered over the data group (a collective: every
+    rank calls it), and written by the node's first data rank as the one rank
+    writes it, ``r<node>_B<batch>.json`` (a bucket-packed batch holds its
+    last valid item, as the one rank's per-item writes leave it)."""
+    mine = (ranks.node, dict(batch["item_paths"]), int(batch["_valid"]))
+    every = [None] * ranks.data_world
+    dist.all_gather_object(every, mine, group=ranks.group)
+    if ranks.node_data_rank != 0 or writer is None or not writer.write_flag["item_path_json"]:
+        return
+    parts = [(paths, n) for node, paths, n in every if node == ranks.node]
+    merged = {key: [] for key in ("query/img", "query/score_map")}
+    k = len(parts[0][0].get("reference/cross/imgs", []))
+    merged["reference/cross/imgs"] = [[] for _ in range(k)]
+    for paths, _ in parts:  # each rank's rows, padding included: the node batch in row order
+        for key in ("query/img", "query/score_map"):
+            merged[key].extend(paths[key])
+        for kk in range(k):
+            merged["reference/cross/imgs"][kk].extend(paths["reference/cross/imgs"][kk])
+    n_valid = sum(n for _, n in parts)
+    if np.ndim(batch.get("_valid_hw")) == 2:
+        last = n_valid - 1
+        merged = {"query/img": merged["query/img"][last:last + 1],
+                  "query/score_map": merged["query/score_map"][last:last + 1],
+                  "reference/cross/imgs": [v[last:last + 1] for v in merged["reference/cross/imgs"]]}
+        n_valid = 1
+    writer._write_item_paths({"item_paths": merged}, ranks.node, batch_idx, n_valid)
+
+
+def gather_summary(summariser, group, main: bool) -> bool:
+    """Collect the per-frame summary rows of every rank of ``group`` on the
+    main rank (a collective; a rank without a summariser contributes none)
+    -> whether this rank holds them all and writes the summary."""
+    if group is None or dist.get_world_size(group) == 1:
+        return summariser is not None
+    import pandas as pd
+
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, None if summariser is None else summariser.rows, group=group)
+    if not main:
+        return False
+    frames = [f for f in every if f is not None and not f.empty]
+    if frames:
+        summariser.rows = pd.concat(frames)
+    return True
 
 
 def refuse_tensor_parallel(attention_impl: str) -> None:
@@ -289,24 +360,129 @@ def refuse_tensor_parallel(attention_impl: str) -> None:
                                   "train.step.make_train_step")
 
 
-def refuse_multi_rank(cfg: Config, cli: str = "train") -> None:
-    """The train and test CLIs run one process on one device. The JAX CLIs
-    build their data mesh from ``trainer.devices`` (``tasks/train.py:195-203``
-    there; the test CLI reduces its metrics over processes with
-    ``all_process_weighted_mean``); until the port's data-parallel CLIs land
-    (ROADMAP queue 1 item 6), a request for more than one device, or a
-    launch of several ranks (``WORLD_SIZE`` > 1), raises rather than running
-    on one card, or running independent copies."""
-    devices = cfg.trainer.get("devices", 1)
+def refuse_multi_rank(cfg: Config) -> None:
+    """The scoring daemon runs one process over its local devices, as the JAX
+    daemon does; a router over replicas is a feature the JAX package lacks.
+    A launch of several ranks (``WORLD_SIZE`` > 1), or a ``trainer.devices``
+    other than 1 or -1, raises rather than running independent copies
+    behind one port."""
+    devices = cfg.trainer.get("devices", -1)
     n_dev = devices if isinstance(devices, int) else len(devices) if devices is not None else -1
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if n_dev != 1 or world > 1:
-        hint = ", or call train.step.make_train_step with a data group" if cli == "train" else ""
+    if n_dev not in (1, -1) or world > 1:
         raise NotImplementedError(
-            f"trainer.devices={devices!r} with WORLD_SIZE={world}: the {cli} CLI runs one process on one "
-            f"device; a data-parallel {cli} CLI is not ported (ROADMAP queue 1 item 6). Run one rank with "
-            f"trainer.devices=1{hint}"
+            f"trainer.devices={devices!r} with WORLD_SIZE={world}: the serve daemon runs one process over "
+            "its local devices (the constructor's devices=, model.gpu.serve_data_parallel), as the JAX "
+            "daemon does; run one process, and one daemon per card behind a router of your own"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DataRanks:
+    """This rank's place in the CLIs' data layout (:func:`data_ranks`): one
+    node of the port for one JAX process, the node's first ``node_width``
+    ranks taking contiguous blocks of each node batch."""
+
+    top: mesh.Topology
+    device: torch.device
+    group: Optional[dist.ProcessGroup]  # the data group; None on one rank or outside the grid
+    data_world: int                     # the data ranks over every node
+    node_width: int                     # the data ranks of each node
+    node_data_rank: Optional[int]       # this rank's block in its node's batches; None outside the grid
+
+    @property
+    def active(self) -> bool:
+        return self.node_data_rank is not None
+
+    @property
+    def is_main(self) -> bool:
+        return self.top.rank == 0
+
+    @property
+    def node(self) -> int:
+        return self.top.rank // self.top.local_world_size
+
+    @property
+    def tag(self) -> str:
+        return f"[rank {self.top.rank}/{self.top.world_size}] " if self.top.world_size > 1 else ""
+
+    def loader_kw(self) -> dict:
+        """The loader's node shard and this rank's block of each node batch."""
+        return dict(shard_index=self.node, num_shards=self.top.n_nodes,
+                    rank_index=self.node_data_rank or 0, rank_count=self.node_width)
+
+    def row_offset(self, batch_size: int) -> int:
+        """The node-batch row where this rank's block begins."""
+        return (self.node_data_rank or 0) * (batch_size // self.node_width)
+
+    def broadcast(self, obj):
+        """Rank 0's ``obj`` on every rank of the data group."""
+        if self.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+
+def layout_data(top: mesh.Topology, device: torch.device, batch_size: int, n_ranks: int, cli: str) -> DataRanks:
+    """Lay the joined ranks out for data parallelism
+    (``parallel.mesh.make_groups(1, batch_size)`` over the first ``n_ranks``,
+    every node keeping the same ranks) -> this rank's :class:`DataRanks`. A
+    rank past the grid says so on stdout."""
+    grid = mesh.make_groups(1, batch_size, n_ranks=n_ranks)
+    width = grid.data_parallel // top.n_nodes  # every node keeps the same ranks
+    ranks = DataRanks(top, device, mesh.data_group() if grid.active else None, grid.data_parallel, width,
+                      None if not grid.active else grid.data_rank % width)
+    if not grid.active:
+        print(f"{ranks.tag}{cli}: this rank is outside the data layout ({grid.data_parallel} data ranks over "
+              f"{top.n_nodes} node(s), batch {batch_size} a node); it waits for the others", flush=True)
+    return ranks
+
+
+@contextlib.contextmanager
+def joined_ranks(cfg: Config):
+    """Join the launcher's process group when there are several ranks ->
+    yields (topology, this rank's device). One rank per card, launched by
+    ``torchrun`` (``--nnodes`` with the rendezvous flags for several nodes)
+    or ``parallel.launch``; ``model.gpu.dist_backend``: ``nccl`` for one
+    rank per card, ``gloo`` on the CPU and for ranks that share a card. The
+    kernels are built once per node. A rank that cannot join raises; on the
+    way out every rank waits for the others, then leaves the group.
+    ``trainer.devices`` above the launched ranks raises before anything."""
+    top = mesh.topology_from_env()
+    mesh.requested_ranks(cfg.trainer.get("devices", -1), top.world_size)
+    if top.world_size == 1:
+        yield top, resolve_accelerator(cfg)
+        return
+    _, device = mesh.init_distributed(str(cfg.model.gpu.get("dist_backend", "nccl")),
+                                      str(cfg.trainer.get("accelerator", "cuda")))
+    try:
+        if device.type == "cuda":  # one build for the node's ranks
+            if top.local_rank == 0:
+                from crossscore_tpu_torch.ops import _build
+
+                _build.build_all()
+            dist.barrier()
+        yield top, device
+        dist.barrier()
+    finally:
+        mesh.teardown()
+
+
+@contextlib.contextmanager
+def data_ranks(cfg: Config, batch_size: int, cli: str):
+    """The train and test CLIs' ranks (:func:`joined_ranks`), laid out as the
+    JAX ``make_mesh(n_devices, batch_size=...)`` lays out devices over
+    processes (:func:`layout_data`): ``trainer.devices`` counts ranks (-1:
+    every launched rank), the data width of each node divides its
+    ``batch_size``, and a rank past the grid only waits for the others.
+    Yields this rank's :class:`DataRanks`."""
+    with joined_ranks(cfg) as (top, device):
+        if top.world_size == 1:
+            yield DataRanks(top, device, None, 1, 1, 0)
+        else:
+            yield layout_data(top, device, batch_size, mesh.requested_ranks(cfg.trainer.get("devices", -1),
+                                                                       top.world_size), cli)
 
 
 def resolve_accelerator(cfg: Config) -> torch.device:
@@ -350,9 +526,24 @@ def config_diff(old, new, prefix: str = "") -> list[str]:
 def weighted_mean(series: list, weights: list) -> list[float]:
     """Weighted means of one or more metric series (the reference's epoch
     reduction of ``self.log``, ``task/core.py:449``, for one process)."""
+    return all_process_weighted_mean(series, weights)
+
+
+def all_process_weighted_mean(series: list, weights: list, group=None, device="cpu") -> list[float]:
+    """Weighted means of one or more metric series over the ranks of
+    ``group`` (the reference's ``self.log(..., sync_dist=True)``): each rank
+    contributes float64 (sum(w*x), sum(w)), summed over the group, so the
+    mean covers every rank's data; the port's counterpart of the JAX
+    ``all_process_weighted_mean``. With no group, or one rank, the local
+    weighted mean. A collective: every rank of the group must call it.
+    ``device``: where the sums meet (a CUDA device under nccl)."""
     w = np.asarray(weights, np.float64)
-    denom = max(float(w.sum()), 1e-12)
-    return [float(np.sum(w * np.asarray(s, np.float64))) / denom for s in series]
+    sums = [float(np.sum(w * np.asarray(s, np.float64))) for s in series] + [float(w.sum())]
+    if group is not None and dist.get_world_size(group) > 1:
+        t = all_reduce(torch.tensor(sums, dtype=torch.float64, device=device), dist.ReduceOp.SUM, group)
+        sums = t.cpu().tolist()
+    denom = max(sums[-1], 1e-12)
+    return [x / denom for x in sums[:-1]]
 
 
 class JsonlLogger:

@@ -30,15 +30,27 @@ from record shards (``python -m crossscore_tpu_torch.data.pack <root> <dir>
 query and the reference directory); the JAX CLI has no such key.
 
 One process per card: ``trainer.accelerator=cuda`` (the default) or ``cpu``
-(the plain PyTorch versions of every kernel). Several ranks of one node
-(``torchrun --nproc_per_node N -m crossscore_tpu_torch.tasks.predict
-model.gpu.view_parallel=on ...``, or ``parallel.launch``) run view-parallel
-predict: each rank loads every batch, encodes the queries and its K/N
-reference views (or keeps a token cache of those views alone), and the
-decoder combines the views exactly over the ranks (``model.gpu.dist_backend``:
-``nccl``, or ``gloo`` on the CPU and for ranks that share a card). Every rank
-computes the same maps; rank 0 alone writes them, so the output layout is the
-single rank's.
+(the plain PyTorch versions of every kernel). Several ranks (``torchrun
+--nproc_per_node N -m crossscore_tpu_torch.tasks.predict ...``, ``--nnodes``
+with the rendezvous flags for several nodes, or ``parallel.launch``;
+``model.gpu.dist_backend``: ``nccl``, or ``gloo`` on the CPU and for ranks
+that share a card) take the JAX package's plan (``plan_serving_modes``), one
+node standing for one JAX process:
+
+- data parallel (the default): each node takes its shard of the queries,
+  its ranks contiguous blocks of each node batch, and each rank writes its
+  own rows under the node's index and its row offset, so that one node's
+  files are those of one rank (``r<node>_B<batch>_b<row>``);
+- view parallel (``model.gpu.view_parallel=on``, or ``auto`` when the batch
+  cannot fill the ranks; K divisible by the ranks): each rank loads every
+  batch, encodes the queries and its K/N reference views (or keeps a token
+  cache of those views alone), and the decoder combines the views exactly
+  over the ranks; rank 0 alone writes;
+- over several nodes with the cache on, view parallel within each node
+  (``vp_local``): each node takes its shard of the queries, and its first
+  rank writes them under the node's index.
+
+Rank 0 writes the per-frame summary of every rank's rows.
 """
 
 from __future__ import annotations
@@ -58,16 +70,15 @@ from crossscore_tpu_torch.io.batch_writer import BatchWriter
 from crossscore_tpu_torch.io.summariser import SummaryWriterPredictedOnlineTestPrediction
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
-from crossscore_tpu_torch.ops import _build
-from crossscore_tpu_torch.parallel.mesh import (
-    Topology, _per_process_data_par, init_distributed, teardown, topology_from_env,
-)
+from crossscore_tpu_torch.parallel import mesh
+from crossscore_tpu_torch.parallel.mesh import Topology, _per_process_data_par
 from crossscore_tpu_torch.parallel.view_parallel import (
     make_view_parallel_apply, make_view_parallel_apply_tokens, view_shard,
 )
 from crossscore_tpu_torch.tasks.common import (
-    confirm_batch_size, eval_loader, load_model_params, parse_cli, ref_token_cache, refuse_tensor_parallel,
-    resolve_accelerator, resolve_limit, resolve_out_dir, set_decode_skip, tristate, write_batch_outputs,
+    confirm_batch_size, eval_loader, gather_summary, joined_ranks, layout_data, load_model_params, parse_cli,
+    ref_token_cache, refuse_tensor_parallel, resolve_limit, resolve_out_dir, set_decode_skip, tristate,
+    use_shape_buckets, write_batch_outputs, write_node_item_paths,
 )
 from crossscore_tpu_torch.train.step import make_predict_step, make_predict_step_cached
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
@@ -78,7 +89,7 @@ class ServingPlan(NamedTuple):
     """The serving composition (the port's copy of the JAX ``ServingPlan``)."""
 
     use_vp: bool      # K reference views sharded over the ranks
-    vp_local: bool    # ... over one node's ranks of a multi-node run (JAX only)
+    vp_local: bool    # ... over one node's ranks of a multi-node run
     use_cache: bool   # reference-token cache on
 
 
@@ -99,11 +110,9 @@ def plan_serving_modes(
     ``n_local`` on each of ``n_proc`` nodes, and a data-parallel width of
     ``data_mesh_size``. The views are sharded when asked (``on``), or under
     ``auto`` when the batch cannot fill the ranks, with K divisible by the
-    ranks, no buckets and no attention weights.
-
-    One node only: a multi-node plan, and a multi-rank plan that is not view
-    parallel (data-parallel predict, which comes with DDP), raise
-    ``NotImplementedError`` (ROADMAP queue 1 item 6)."""
+    ranks, no buckets and no attention weights; over several nodes with the
+    cache on, within each node (``vp_local``). Otherwise several ranks run
+    data parallel."""
     cache_ok = cache_mode != "off" and not need_attn_weights and k_refs > 0 and not zero_reference
 
     def vp_fits(n: int) -> bool:
@@ -113,14 +122,6 @@ def plan_serving_modes(
     vp_local = n_proc > 1 and cache_ok and vp_fits(n_local)
     use_vp = vp_local or vp_fits(n_dev)
     use_cache = cache_ok and not (n_proc > 1 and use_vp and not vp_local)
-    if n_proc > 1:
-        raise NotImplementedError(f"predict over {n_proc} nodes is not ported (ROADMAP queue 1 item 6)")
-    if n_dev > 1 and not use_vp:
-        raise NotImplementedError(
-            f"{n_dev} ranks without view parallelism would be data-parallel predict, which is not "
-            "ported (ROADMAP queue 1 item 6): run one rank, or set model.gpu.view_parallel=on "
-            f"with K={k_refs} divisible by the ranks and no shape buckets"
-        )
     return ServingPlan(use_vp, vp_local, use_cache)
 
 
@@ -130,15 +131,8 @@ def predict(cfg) -> Path:
     every rank."""
     ConfigChecker(cfg).check_predict()
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
-    top = topology_from_env()
-    if top.world_size == 1:
-        return _predict(cfg, top, resolve_accelerator(cfg))
-    _, device = init_distributed(str(cfg.model.gpu.get("dist_backend", "nccl")),
-                                 str(cfg.trainer.get("accelerator", "cuda")))
-    try:
+    with joined_ranks(cfg) as (top, device):
         return _predict(cfg, top, device)
-    finally:
-        teardown()
 
 
 def _predict(cfg, top: Topology, device: torch.device) -> Path:
@@ -148,10 +142,6 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        if ranks > 1:  # one build for the node's ranks
-            if top.local_rank == 0:
-                _build.build_all()
-            dist.barrier()
     confirm_batch_size(cfg)
     out_dir = None
     if top.rank == 0:  # rank 0 alone writes
@@ -161,6 +151,7 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         box = [None if out_dir is None else str(out_dir)]
         dist.broadcast_object_list(box, src=0)
         out_dir = Path(box[0])
+        cfg.logger.predict.out_dir = str(out_dir)
 
     dataset = SimpleReference(
         query_dir=cfg.data.dataset.query_dir,
@@ -174,10 +165,9 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         wire_uint8=bool(cfg.data.dataset.get("wire_uint8", False)),
         record_dir=cfg.data.dataset.get("record_dir"),
     )
-    loader, use_buckets = eval_loader(cfg, dataset, "predict")
-
+    use_buckets, _ = use_shape_buckets(cfg, dataset)
     k_refs = int(cfg.data.neighbour_config.cross)
-    batch_size = cfg.data.loader.validation.batch_size
+    batch_size = int(cfg.data.loader.validation.batch_size)
     plan = plan_serving_modes(
         vp_mode=tristate(cfg.model.gpu.get("view_parallel", "auto")),
         cache_mode=tristate(cfg.this_main.get("ref_token_cache", "auto")),
@@ -192,16 +182,45 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
     )
     use_vp, use_cache = plan.use_vp, plan.use_cache
 
+    # who loads what and who writes: data parallel, each rank its rows of its
+    # node's shard; view parallel over every rank, every batch on every rank
+    # and rank 0 writing; view parallel within nodes (vp_local), each node its
+    # shard and its first rank writing
+    data = None
+    node = top.rank // top.local_world_size
+    if ranks > 1 and plan.vp_local:
+        groups = [dist.new_group(list(range(n * top.local_world_size, (n + 1) * top.local_world_size)))
+                  for n in range(top.n_nodes)]
+        mesh.set_view_group(groups[node])
+        split, writes, gather_group = (dict(shard_index=node, num_shards=top.n_nodes), top.local_rank == 0,
+                                       dist.group.WORLD)
+    elif ranks > 1 and not use_vp:
+        data = layout_data(top, device, batch_size, mesh.requested_ranks(cfg.trainer.get("devices", -1), ranks),
+                           "predict")
+        if not data.active:
+            return out_dir
+        split, writes, gather_group = data.loader_kw(), True, data.group
+    else:
+        split, writes, gather_group, node = None, top.rank == 0, None, 0
+    multi_writer = data is not None and data.data_world > 1
+    row_offset = data.row_offset(batch_size) if data is not None else 0
+    loader, _ = eval_loader(cfg, dataset, "predict", split)
+
     mcfg = CrossScoreConfig.from_config(cfg)
     if use_vp:
         mcfg = dataclasses.replace(mcfg, attention_impl="cp")
+        n_vp = dist.get_world_size(mesh.view_group())
         shard = view_shard(k_refs)
-        print(f"{tag}view-parallel predict: K={k_refs} references over {ranks} ranks; this rank "
+        print(f"{tag}view-parallel predict: K={k_refs} references over {n_vp} ranks; this rank "
               f"takes views [{shard.start}, {shard.stop})")
+    elif data is not None and data.data_world > 1:
+        b = batch_size // data.node_width
+        print(f"{tag}data-parallel predict: {data.data_world} data ranks over {top.n_nodes} node(s); this rank "
+              f"takes rows [{row_offset}, {row_offset + b}) of node {node}'s batches of {batch_size}")
     model = load_model_params(cfg, CrossScoreNet(mcfg, device=device))
 
     writer = summariser = visualiser = None
-    if top.rank == 0:
+    if writes:
         writer = BatchWriter(cfg, "predict") if cfg.logger.predict.write.flag.batch else None
         summariser = SummaryWriterPredictedOnlineTestPrediction(
             metric_type=cfg.model.predict.metric.type,
@@ -271,14 +290,17 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         # the device copy waits for the step; everything after is host-side
         outputs = {k: v.float().cpu().numpy() for k, v in outputs_dev.items()}
         digest.update(outputs["score_map_ref_cross"].tobytes())
-        if top.rank == 0:  # the other ranks computed the same maps
+        if writes:  # under view parallelism the other ranks computed the same maps
             write_batch_outputs(batch_idx, batch, outputs, summariser=summariser, writer=writer,
-                                visualiser=visualiser, vis_dir=out_dir / "vis", vis_every=vis_every)
+                                visualiser=visualiser, vis_dir=out_dir / "vis", vis_every=vis_every,
+                                node=node, row_offset=row_offset, write_paths=not multi_writer)
+        if multi_writer and writer is not None:
+            write_node_item_paths(writer, data, batch_idx, batch)
 
     # one-deep pipeline: dispatch batch i+1 before materialising batch i's
-    # outputs, overlapping device work with host-side writing. Every rank
-    # steps through every batch, the partial last one included: each decoder
-    # layer is a collective.
+    # outputs, overlapping device work with host-side writing. Under view
+    # parallelism every rank steps through every batch, the partial last one
+    # included: each decoder layer is a collective.
     n_batches = n_maps = 0
     pending = None
     t0 = time.perf_counter()
@@ -295,7 +317,7 @@ def _predict(cfg, top: Topology, device: torch.device) -> Path:
         process(*pending)
     seconds = time.perf_counter() - t0
 
-    if summariser is not None:
+    if gather_summary(summariser, gather_group, top.rank == 0):
         summariser.summarise()
     if use_cache:
         print(f"{tag}ref-token cache: {token_cache.hits} hits, {token_cache.misses} unique misses, "

@@ -137,7 +137,7 @@ class Scorer:
 
     def __init__(self, cfg, devices=None):
         device = resolve_accelerator(cfg)
-        refuse_multi_rank(cfg, "serve")
+        refuse_multi_rank(cfg)
         refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
         for key in ("serve_aot_save", "serve_aot_load"):
             if cfg.this_main.get(key):

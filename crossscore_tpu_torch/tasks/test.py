@@ -25,10 +25,17 @@ Two modes decide which kernels run, as in the predict CLI:
   through the frozen backbone once per run (exact: test crops are
   deterministic per path), keyed by its valid extent under buckets.
 
-One process on one device: ``trainer.accelerator=cuda`` (the default) or
-``cpu`` (the plain PyTorch versions of every kernel). Several devices or
-ranks raise (the JAX CLI's mean over processes comes with ROADMAP queue 1
-item 6).
+One rank per card: ``trainer.accelerator=cuda`` (the default) or ``cpu``
+(the plain PyTorch versions of every kernel). Several ranks (``torchrun
+--nproc_per_node N -m crossscore_tpu_torch.tasks.test ...``, ``--nnodes``
+for several nodes) evaluate data parallel as the train CLI trains, one node
+for one JAX process: each node takes its shard of the items, its ranks
+contiguous blocks of each node batch. The metrics of each batch are the
+global batch's; rank 0 writes ``metrics.csv`` (a row per global batch, the
+mean summed over the ranks) and the per-frame summary, and each rank writes
+its own rows' maps and images under the node's index and its row offset, so
+that the files are those of one rank (``r<node>_B<batch>_b<row>``). Each
+rank keeps its own token cache, over the shared disk store when there is one.
 """
 
 from __future__ import annotations
@@ -45,33 +52,47 @@ from crossscore_tpu_torch.io.summariser import SummaryWriterPredictedOnlineTestP
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import (
-    confirm_batch_size, eval_loader, load_model_params, parse_cli, ref_token_cache, refuse_multi_rank,
-    refuse_tensor_parallel, resolve_accelerator, resolve_limit, resolve_out_dir, tristate, weighted_mean,
-    write_batch_outputs,
+    DataRanks, all_process_weighted_mean, confirm_batch_size, data_ranks, eval_loader, gather_summary,
+    load_model_params, parse_cli, ref_token_cache, refuse_tensor_parallel, resolve_limit, resolve_out_dir,
+    tristate, write_batch_outputs, write_node_item_paths,
 )
 from crossscore_tpu_torch.train.step import batch_to_device, make_eval_step
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
 from crossscore_tpu_torch.utils.vis import make_visualiser
 
 
-def test(cfg) -> Path:
-    """Run the CLI; returns the output dir."""
+def test(cfg) -> Path | None:
+    """Run the CLI on this rank; joins (and leaves) the launcher's process
+    group when there are several ranks. Returns the output dir, the same on
+    every rank of the data layout (None on a rank outside it)."""
     ConfigChecker(cfg).check_test()
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
-    refuse_multi_rank(cfg, "test")
-    device = resolve_accelerator(cfg)
+    with data_ranks(cfg, int(cfg.data.loader.validation.batch_size), "test") as ranks:
+        if not ranks.active:
+            return None
+        return _test(cfg, ranks)
+
+
+def _test(cfg, ranks: DataRanks) -> Path:
+    device = ranks.device
     if device.type == "cuda":
         # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     confirm_batch_size(cfg)
-    out_dir = resolve_out_dir(cfg, "test")
-    (out_dir / "vis").mkdir(parents=True, exist_ok=True)
+    out_dir = None
+    if ranks.is_main:  # rank 0 makes the output dir; every rank writes into it
+        out_dir = resolve_out_dir(cfg, "test")
+        (out_dir / "vis").mkdir(parents=True, exist_ok=True)
+    out_dir = Path(ranks.broadcast(None if out_dir is None else str(out_dir)))
+    cfg.logger.test.out_dir = str(out_dir)
 
     dataset = get_dataset(cfg, cfg.this_main.data_split, return_item_paths=True,
                           crop_mode=cfg.this_main.crop_mode, resize_short_side=cfg.this_main.resize_short_side,
                           deterministic_crop=True)
-    loader, use_buckets = eval_loader(cfg, dataset, "test")
+    loader, use_buckets = eval_loader(cfg, dataset, "test", ranks.loader_kw())
+    multi = ranks.data_world > 1
+    row_offset = ranks.row_offset(int(cfg.data.loader.validation.batch_size))
     use_cache = (tristate(cfg.this_main.get("ref_token_cache", "auto")) != "off"
                  and int(cfg.data.neighbour_config.cross) > 0 and not cfg.data.dataset.zero_reference)
 
@@ -92,7 +113,7 @@ def test(cfg) -> Path:
         encoder = make_backbone_encoder(mcfg)
         token_cache = ref_token_cache(
             cfg, lambda imgs, valid_hw=None: encoder(model, torch.from_numpy(imgs).to(device), valid_hw))
-        print(f"reference-token cache: on (frozen backbone, exact{'; bucketed' if use_buckets else ''})")
+        print(f"{ranks.tag}reference-token cache: on (frozen backbone, exact{'; bucketed' if use_buckets else ''})")
 
     def step(batch: dict):
         # _valid (and _valid_hw) ride into the step: the metrics weigh out
@@ -122,9 +143,13 @@ def test(cfg) -> Path:
         })
         row_weights.append(int(batch.get("_valid", len(batch["query/img"]))))
         # the metrics above are masked per item already; the consumers take
-        # bucket-packed batches as cropped B=1 slices
+        # bucket-packed batches as cropped B=1 slices. Over ranks each writes
+        # its own rows, and the node's item paths are gathered for one JSON
         write_batch_outputs(batch_idx, batch, outputs, summariser=summariser, writer=writer,
-                            visualiser=visualiser, vis_dir=out_dir / "vis", vis_every=vis_every)
+                            visualiser=visualiser, vis_dir=out_dir / "vis", vis_every=vis_every,
+                            node=ranks.node, row_offset=row_offset, write_paths=not multi)
+        if multi and writer is not None:
+            write_node_item_paths(writer, ranks, batch_idx, batch)
 
     # one-deep pipeline: dispatch batch i+1 before materialising batch i's
     # outputs, overlapping device work with host-side writing
@@ -145,22 +170,27 @@ def test(cfg) -> Path:
 
     if rows:
         # the CSVLogger's epoch metrics: the mean row weighs each batch by its
-        # valid item count, so every item counts once
+        # valid item count, summed over the ranks (sync_dist), so every item
+        # counts once. A collective; each row is already the global batch's
         keys = [k for k in rows[0] if k != "batch_idx"]
-        agg = dict(zip(keys, weighted_mean([[r[k] for r in rows] for k in keys], row_weights)))
+        agg = dict(zip(keys, all_process_weighted_mean([[r[k] for r in rows] for k in keys], row_weights,
+                                                       ranks.group, device)))
+    if rows and ranks.is_main:
         with open(out_dir / "metrics.csv", "w", newline="") as f:
             w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
             w.writeheader()
             w.writerows(rows)
             w.writerow({"batch_idx": "mean", **{k: round(v, 6) for k, v in agg.items()}})
         print("test metrics:", agg)
-    summariser.summarise()
+    if gather_summary(summariser, ranks.group, ranks.is_main):
+        summariser.summarise()
     if token_cache is not None:
-        print(f"ref-token cache: {token_cache.hits} hits, {token_cache.misses} unique misses, "
+        print(f"{ranks.tag}ref-token cache: {token_cache.hits} hits, {token_cache.misses} unique misses, "
               f"{token_cache.disk_hits} disk hits")
-    print(f"test: {n_maps} maps in {seconds:.3f} s = {n_maps / max(seconds, 1e-9):.2f} maps/s "
-          "(loader, device, metrics and writers in the loop)")
-    print(f"test done: {len(rows)} batches -> {out_dir}")
+    shared = f" ({ranks.top.world_size} ranks in step)" if multi else ""
+    print(f"{ranks.tag}test: {n_maps} maps in {seconds:.3f} s = {n_maps / max(seconds, 1e-9):.2f} maps/s "
+          f"(loader, device, metrics and writers in the loop{shared})")
+    print(f"{ranks.tag}test done: {len(rows)} batches -> {out_dir}")
     return out_dir
 
 

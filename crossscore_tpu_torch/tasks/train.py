@@ -1,12 +1,20 @@
-"""Training entry point on one CUDA card; the port's counterpart of
+"""Training entry point, one rank per CUDA card; the port's counterpart of
 ``crossscore_tpu/tasks/train.py``.
 
     python -m crossscore_tpu_torch.tasks.train data.dataset.path=[<root>] alias=run1 \\
         trainer.max_epochs=9 trainer.optimizer.lr=5e-4 [this_main.train_recipe=token_fast]
+    torchrun --nproc_per_node N -m crossscore_tpu_torch.tasks.train ...   # data parallel
 
-One process, one device (``trainer.devices=1``; more, or a launch of several
-ranks, raises): ``trainer.accelerator=cuda`` (the default) or
-``cpu`` (the plain PyTorch versions of every kernel). Each step is forward
+``trainer.accelerator=cuda`` (the default) or ``cpu`` (the plain PyTorch
+versions of every kernel). Several ranks (``torchrun``, ``--nnodes`` with
+the rendezvous flags for several nodes; ``model.gpu.dist_backend`` nccl or
+gloo) train data parallel, one node standing for one JAX process: each node
+loads its shard of the index space (``data.loader.train.batch_size`` rows a
+step, as each JAX process does), its ranks take contiguous blocks of those
+rows, and the loss, the gradients and the metrics are the global batch's
+(``train/step.py``). ``trainer.devices`` counts ranks (-1: every launched
+rank). Rank 0 alone writes the run dir, the log, the checkpoints and the
+profile. Each step is forward
 (frozen backbone), L1 loss, backward (K4 for the decoder attention) and an
 AdamW update. With ``this_main.token_space_train=true`` (or the
 ``token_fast`` recipe) the train batches are windows of full-image token grids
@@ -39,8 +47,8 @@ from crossscore_tpu_torch.io.convert import init_params, load_into
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import (
-    JsonlLogger, config_diff, parse_cli, refuse_multi_rank, refuse_tensor_parallel, resolve_accelerator,
-    resolve_limit, save_config_snapshot, set_decode_skip, timestamp, weighted_mean,
+    DataRanks, JsonlLogger, all_process_weighted_mean, config_diff, data_ranks, parse_cli, refuse_tensor_parallel,
+    resolve_limit, save_config_snapshot, set_decode_skip, timestamp,
 )
 from crossscore_tpu_torch.train.optim import make_optimizer
 from crossscore_tpu_torch.train.step import TrainState, batch_to_device, make_eval_step, make_train_step
@@ -102,21 +110,33 @@ def token_fast_coverage_guard(cfg, ds_train) -> bool:
     return False
 
 
-def train(cfg) -> Path:
+def train(cfg) -> Path | None:
+    """Run the CLI on this rank; joins (and leaves) the launcher's process
+    group when there are several ranks. Returns the run dir, the same on
+    every rank of the data layout (None on a rank outside it)."""
     ConfigChecker(cfg).check_train_val()
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
-    refuse_multi_rank(cfg)
     recipe = apply_train_recipe(cfg)
-    device = resolve_accelerator(cfg)
+    with data_ranks(cfg, int(cfg.data.loader.train.batch_size), "train") as ranks:
+        if not ranks.active:
+            return None
+        return _train(cfg, recipe, ranks)
+
+
+def _train(cfg, recipe: str, ranks: DataRanks) -> Path:
+    device = ranks.device
     if device.type == "cuda":
         # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-
-    run_dir = Path(cfg.run.dir) / (f"{timestamp()}_{cfg.alias}" if cfg.alias else timestamp())
-    run_dir.mkdir(parents=True, exist_ok=True)
-    save_config_snapshot(cfg, run_dir)
-    logger = JsonlLogger(run_dir)
+    main = ranks.is_main
+    run_dir = Path(ranks.broadcast(str(Path(cfg.run.dir) / (f"{timestamp()}_{cfg.alias}" if cfg.alias
+                                                             else timestamp()))))
+    logger = None
+    if main:  # rank 0 alone writes the run dir
+        run_dir.mkdir(parents=True, exist_ok=True)
+        save_config_snapshot(cfg, run_dir)
+        logger = JsonlLogger(run_dir)
 
     # ------------------------------------------------------------------ data
     overfit = cfg.trainer.overfit_batches
@@ -128,7 +148,9 @@ def train(cfg) -> Path:
     ds_train = get_dataset(cfg, "train", crop_mode="integer_patches" if token_train else "dataset_default",
                            return_item_paths=token_train, resize_short_side=cfg.this_main.resize_short_side,
                            deterministic_crop=deterministic_crop)
-    if token_train and recipe == "token_fast" and not token_fast_coverage_guard(cfg, ds_train):
+    # the guard reads the files, so rank 0 decides for every rank
+    if token_train and recipe == "token_fast" and not ranks.broadcast(
+            token_fast_coverage_guard(cfg, ds_train) if main else None):
         token_train = cfg.this_main.token_space_train = False
         ds_train = get_dataset(cfg, "train", crop_mode="dataset_default",
                                resize_short_side=cfg.this_main.resize_short_side,
@@ -143,6 +165,7 @@ def train(cfg) -> Path:
         prefetch_batches=cfg.data.loader.train.prefetch_factor,
         seed=cfg.seed,
         drop_last=True,
+        **ranks.loader_kw(),
     )
     token_cache = None
     if token_train:
@@ -166,9 +189,13 @@ def train(cfg) -> Path:
         set_decode_skip(ds_train, token_cache, query=True)
     else:
         loader_train = Loader(ds_train, **train_loader_kw)
+    # the data width is sized for the train batch; a validation batch it does
+    # not divide is evaluated whole on every rank (the JAX CLI replicates it)
+    val_bs = int(cfg.data.loader.validation.batch_size)
+    val_split = val_bs % ranks.node_width == 0
     loader_val = Loader(
         ds_val,
-        batch_size=cfg.data.loader.validation.batch_size,
+        batch_size=val_bs,
         shuffle=cfg.data.loader.validation.shuffle,
         num_workers=cfg.data.loader.validation.num_workers,
         prefetch_batches=cfg.data.loader.validation.prefetch_factor,
@@ -177,6 +204,7 @@ def train(cfg) -> Path:
         # drop_last=False): its padded duplicates are weighted out of the
         # metrics through _valid, so every val sample is scored once
         drop_last=False,
+        **(ranks.loader_kw() if val_split else dict(shard_index=ranks.node, num_shards=ranks.top.n_nodes)),
     )
 
     steps_per_epoch = loader_train.batches_per_epoch()
@@ -198,18 +226,19 @@ def train(cfg) -> Path:
     optimizer, scheduler, lr_schedule = make_optimizer(cfg, model, actual_steps_per_epoch)
     state = TrainState()
 
+    # every rank keeps the cadences; rank 0 alone writes
     ckpt_mgr = CheckpointManager(
         run_dir / "ckpt",
         train_time_interval_hours=cfg.trainer.checkpointing.train_time_interval,
         every_n_train_steps=cfg.trainer.checkpointing.every_n_train_steps,
         every_n_epochs=cfg.trainer.checkpointing.every_n_epochs,
-        hparams=cfg.to_dict(),
+        hparams=cfg.to_dict() if main else None,
     )
     start_epoch, start_batch = 0, 0
     if cfg.trainer.ckpt_path_to_load is not None:
         # a resume under a different config is legal (e.g. a new lr) but must
         # be loud: silent drift makes archived runs unreproducible
-        old_hparams = load_hparams(cfg.trainer.ckpt_path_to_load)
+        old_hparams = load_hparams(cfg.trainer.ckpt_path_to_load) if main else None
         if old_hparams is not None:
             diffs = [d for d in config_diff(old_hparams, cfg.to_dict())
                      if not d.startswith(("alias:", "run.", "logger.", "trainer.ckpt_path_to_load:"))]
@@ -224,7 +253,7 @@ def train(cfg) -> Path:
         start_epoch, start_batch = state.epoch, state.batch_in_epoch
         if start_batch >= actual_steps_per_epoch:
             start_epoch, start_batch = start_epoch + 1, 0
-        print(f"resumed from step {state.step} (epoch {start_epoch}, batch {start_batch})")
+        print(f"{ranks.tag}resumed from step {state.step} (epoch {start_epoch}, batch {start_batch})")
 
     if token_train:
         # the backbone is frozen, so tokens of the resumed (or fresh) weights
@@ -233,7 +262,7 @@ def train(cfg) -> Path:
         encode_cell["fn"] = lambda imgs: encoder(model, torch.from_numpy(imgs).to(device))
 
     train_step = make_train_step(model, optimizer, scheduler)
-    eval_step = make_eval_step(model)
+    eval_step = make_eval_step(model, data_parallel=val_split)
     train_cache = {"loss": MetricLoggerScalar(cfg.logger.cache_size.train.n_scalar)}
 
     def run_validation(epoch: int, step: int, max_batches: int):
@@ -248,9 +277,11 @@ def train(cfg) -> Path:
             corrs.append(float(metrics["correlation_cross"]))
             weights.append(float(vbatch["_valid"]))
         if losses:
-            # weighted by the valid items of each batch (the reference's
-            # epoch-level self.log reduction, task/core.py:449)
-            loss, corr = weighted_mean([losses, corrs], weights)
+            # weighted by the valid items of each batch and summed over the
+            # ranks (the reference's self.log(sync_dist=True), task/core.py:449):
+            # the mean covers every rank's rows. A collective
+            loss, corr = all_process_weighted_mean([losses, corrs], weights, ranks.group, device)
+        if losses and logger is not None:
             logger.log({
                 "validation/loss": loss,
                 "validation/loss_cross": loss,
@@ -264,7 +295,7 @@ def train(cfg) -> Path:
     stop = False
     # profiling (reference PyTorchProfiler schedule wait=10 warmup=2
     # active=10, task/train.py:134-144): trace steps 12..22 as a chrome trace
-    profile_window = (12, 22) if cfg.trainer.do_profiling else None
+    profile_window = (12, 22) if cfg.trainer.do_profiling and main else None
     profile_dir = Path(cfg.trainer.get("profile_dir") or (run_dir / "profiler"))
     profiler = None
 
@@ -274,8 +305,23 @@ def train(cfg) -> Path:
     pending_losses: list = []  # device scalars; pulled to the host at log cadence
     # sustained end-to-end throughput window (loader in the loop): warm up for
     # N steps, then time to the end of the run
-    sustain_after = int(cfg.this_main.get("sustained_report_after_steps", 0) or 0)
+    sustain_after = int(cfg.this_main.get("sustained_report_after_steps", 0) or 0) if main else 0
     sustain_t0 = sustain_s0 = None
+
+    def ckpt_due(step: int, epoch_end: bool = False, epoch: int = 0) -> bool:
+        """The same checkpoint decision on every rank (the JAX ``ckpt_due``):
+        the step and epoch cadences are functions of (config, step); the
+        wall-clock interval is rank 0's clock, broadcast at a coarse step
+        cadence so that the loop does not pay a collective every step."""
+        if ckpt_mgr.should_save(step, epoch_end=epoch_end, epoch=epoch, wall_clock=False):
+            return True
+        if not (epoch_end or step % 16 == 0):
+            return False
+        return bool(ranks.broadcast(main and ckpt_mgr.wall_clock_due()))
+
+    def save() -> None:
+        if main:
+            ckpt_mgr.save(state.step, model, optimizer, scheduler, dataclasses.asdict(state))
     loop_steps = 0
     metrics: dict = {}
 
@@ -311,8 +357,9 @@ def train(cfg) -> Path:
             # cache the loss every step (reference MetricLoggerScalar,
             # task/core.py:330-338) as a device scalar; one host pull per
             # logging cadence
-            pending_losses.append(metrics["loss"])
-            if state.step % cfg.logger.vis_scalar_every_n_train_steps == 0:
+            if main:
+                pending_losses.append(metrics["loss"])
+            if main and state.step % cfg.logger.vis_scalar_every_n_train_steps == 0:
                 for x in torch.stack(pending_losses).cpu().numpy():
                     train_cache["loss"].update(float(x))
                 pending_losses.clear()
@@ -327,8 +374,8 @@ def train(cfg) -> Path:
                     "train/steps_per_sec": state.step / max(1e-9, time.time() - t_start),
                 }, state.step)
 
-            if ckpt_mgr.should_save(state.step):
-                ckpt_mgr.save(state.step, model, optimizer, scheduler, dataclasses.asdict(state))
+            if ckpt_due(state.step):
+                save()
             if max_steps > 0 and state.step >= max_steps:
                 stop = True
                 break
@@ -337,8 +384,8 @@ def train(cfg) -> Path:
         # Lightning semantics: validate when (epoch+1) % n == 0
         if (epoch + 1) % max(1, int(cfg.trainer.get("check_val_every_n_epoch", 1) or 1)) == 0:
             run_validation(epoch, state.step, limit_val)
-        if ckpt_mgr.should_save(state.step, epoch_end=True, epoch=epoch):
-            ckpt_mgr.save(state.step, model, optimizer, scheduler, dataclasses.asdict(state))
+        if ckpt_due(state.step, epoch_end=True, epoch=epoch):
+            save()
 
     if profiler is not None:  # the run ended inside the window
         profiler.__exit__(None, None, None)
@@ -349,13 +396,15 @@ def train(cfg) -> Path:
         print(f"sustained: {ms:.1f} ms/step over {n} steps (loader in loop)")
         logger.log({"train/sustained_ms_per_step": ms, "train/sustained_steps": n}, state.step)
     if cfg.trainer.checkpointing.save_last:
-        ckpt_mgr.save(state.step, model, optimizer, scheduler, dataclasses.asdict(state))
+        save()
     if token_cache is not None:
-        print(f"token cache: {token_cache.hits} hits, {token_cache.misses} misses, "
+        print(f"{ranks.tag}token cache: {token_cache.hits} hits, {token_cache.misses} misses, "
               f"{token_cache.disk_hits} disk hits")
-        print(f"decode skip: {token_cache.skipped_decodes} images not decoded (their tokens were cached)")
-    logger.close()
-    print(f"train done: {state.step} steps -> {run_dir}")
+        print(f"{ranks.tag}decode skip: {token_cache.skipped_decodes} images not decoded (their tokens were "
+              "cached)")
+    if logger is not None:
+        logger.close()
+    print(f"{ranks.tag}train done: {state.step} steps -> {run_dir}")
     return run_dir
 
 

@@ -172,9 +172,7 @@ def make_train_step(model: CrossScoreNet, optimizer: torch.optim.Optimizer, sche
     (``parallel.mesh.make_groups``) the batch is this rank's rows, and the
     loss, the gradients and the metrics are the global ones; ``"pred"`` stays
     this rank's rows."""
-    group = mesh.data_group()
-    if group is not None and dist.get_world_size(group) == 1:
-        group = None  # one data rank: its batch is the global one
+    group = _one_data_rank(mesh.data_group())
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: dict):
@@ -200,13 +198,29 @@ def make_train_step(model: CrossScoreNet, optimizer: torch.optim.Optimizer, sche
     return train_step
 
 
-def make_eval_step(model: CrossScoreNet) -> Callable:
-    """``eval_step(batch) -> (pred, metrics)`` without gradients."""
+def _one_data_rank(group):
+    """None for no data group or a group of one rank (its batch is the global one)."""
+    return None if group is None or dist.get_world_size(group) == 1 else group
+
+
+def make_eval_step(model: CrossScoreNet, data_parallel: bool = True) -> Callable:
+    """``eval_step(batch) -> (pred, metrics)`` without gradients. With a data
+    group registered (``parallel.mesh.make_groups``) and ``data_parallel``,
+    the batch is this rank's rows and the metrics are those of the global
+    batch, as the JAX step computes them over a sharded batch: the loss is
+    the global weighted mean and pred, gt and w are gathered over the group
+    for the correlation (as the train step's, ``_data_parallel_loss``);
+    ``pred`` stays this rank's rows. A collective then: every rank of the
+    group steps through the same batches."""
+    group = _one_data_rank(mesh.data_group()) if data_parallel else None
 
     def eval_step(batch: dict):
         with torch.no_grad():
-            loss, (pred, _, w) = loss_fn(model, batch)
-            return pred, _metrics(loss, pred, batch["query/score_map"], w)
+            if group is None:
+                loss, (pred, _, w) = loss_fn(model, batch)
+                return pred, _metrics(loss, pred, batch["query/score_map"], w)
+            _, total, (pred, pred_all, w_all) = _data_parallel_loss(model, batch, group)
+            return pred, _metrics(total, pred_all, all_gather(batch["query/score_map"], group), w_all)
 
     return eval_step
 

@@ -44,6 +44,16 @@ def test_the_scan_covers_the_host_input_path():
         assert "libfastimage" not in text and not re.search(r'/\s*"native"', text), path
 
 
+def test_the_scan_covers_the_data_parallel_modules():
+    """The data-parallel slice's modules: the loader's shards and rank
+    blocks, the data layout, the CLIs' rank plumbing, the launcher and the
+    dry run."""
+    for rel in ("data/loader.py", "data/bucketing.py", "data/token_train.py", "parallel/mesh.py",
+                "parallel/launch.py", "tasks/common.py", "tasks/train.py", "tasks/test.py", "tasks/predict.py",
+                "train/step.py", "tools/dryrun_multichip.py"):
+        assert ROOT / "crossscore_tpu_torch" / rel in PORT_FILES, rel
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
@@ -70,7 +80,8 @@ def test_importing_the_port_loads_no_jax():
         "crossscore_tpu_torch.tools.serve_load_bench, crossscore_tpu_torch.data.fastimage, "
         "crossscore_tpu_torch.data.records, crossscore_tpu_torch.data.pack, "
         "crossscore_tpu_torch.data.token_train, crossscore_tpu_torch.tools.ingest_bench, "
-        "crossscore_tpu_torch.tools.token_assembly_bench\n"
+        "crossscore_tpu_torch.tools.token_assembly_bench, crossscore_tpu_torch.tasks.common, "
+        "crossscore_tpu_torch.tools.dryrun_multichip\n"
         "from crossscore_tpu_torch.data import fastimage\n"
         "fastimage.available()\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -133,7 +144,7 @@ def test_the_port_composes_its_own_yaml_tree():
     cfg = confsys.load_config("default")
     assert "tpu" not in cfg.model
     assert cfg.model.gpu.to_dict() == {"parity": False, "compute_dtype": "bfloat16",
-                                       "attention_impl": "flash", "mlp_impl": "fused"}
+                                       "attention_impl": "flash", "mlp_impl": "fused", "dist_backend": "nccl"}
     assert cfg.trainer.accelerator == "cuda" and cfg.trainer.optimizer.lr == 5e-4
     assert cfg.data.loader.train.batch_size == 24 and cfg.data.neighbour_config.cross == 5
     with pytest.raises(KeyError, match="tpu"):
@@ -178,7 +189,7 @@ def test_test_composes_its_own_root_and_needs_cuda_unless_told_cpu(tmp_path):
     want = yaml.safe_load((ROOT / "crossscore_tpu" / "config" / "default_test.yaml").read_text())
     got = yaml.safe_load((ROOT / "crossscore_tpu_torch" / "config" / "default_test.yaml").read_text())
     assert got["trainer"].pop("accelerator") == "cuda" and want["trainer"].pop("accelerator") == "tpu"
-    assert got["trainer"].pop("devices") == 1 and want["trainer"].pop("devices") == -1
+    assert got["trainer"].pop("devices") == want["trainer"].pop("devices") == -1
     assert got == want
     assert "tpu" not in cfg.model and cfg.model.gpu.attention_impl == "flash"
     assert cfg.this_main.crop_mode == "integer_patches" and cfg.this_main.data_split == "test"
@@ -187,7 +198,8 @@ def test_test_composes_its_own_root_and_needs_cuda_unless_told_cpu(tmp_path):
     base = [f"data.dataset.path=[{tmp_path}]", f"logger.test.out_dir={tmp_path / 'out'}"]
     with pytest.raises(NotImplementedError, match="attention_impl=tp"):
         main(base + ["model.gpu.attention_impl=tp"])
-    with pytest.raises(NotImplementedError, match="the test CLI runs one process.*item 6"):
+    with pytest.raises(ValueError, match=r"trainer.devices=2 asks for 2 ranks, and 1 were launched.*"
+                                         r"torchrun --nproc_per_node 2"):
         main(base + ["trainer.devices=2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

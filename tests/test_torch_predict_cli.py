@@ -168,18 +168,13 @@ PLAN_CASES = [(4, 1, 1, 1, "auto", 2), (4, 2, 2, 1, "on", 2), (4, 4, 4, 1, "auto
 @pytest.mark.parametrize("buckets", [False, True])
 @pytest.mark.parametrize("cache", ["auto", "off"])
 def test_serving_plan_matches_jax(k_refs, n_dev, n_local, n_proc, vp, bs, buckets, cache):
-    """One rank per card: the port takes the JAX plan on one node, and
-    raises for a multi-node plan and for a multi-rank plan that is not view
-    parallel (data-parallel predict)."""
+    """One rank per card and one node per JAX process: the port takes the
+    JAX plan on every topology, data-parallel and multi-node plans
+    included."""
     kw = dict(vp_mode=vp, cache_mode=cache, use_buckets=buckets, need_attn_weights=False,
               zero_reference=False, k_refs=k_refs, n_dev=n_dev, n_local=n_local, n_proc=n_proc,
               data_mesh_size=n_proc * _per_process_data_par(n_local, 1, bs))
-    want = jax_plan(**kw)
-    if n_proc > 1 or (n_dev > 1 and not want.use_vp):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            plan_serving_modes(**kw)
-    else:
-        assert tuple(plan_serving_modes(**kw)) == tuple(want)
+    assert tuple(plan_serving_modes(**kw)) == tuple(jax_plan(**kw))
 
 
 @pytest.mark.parametrize("group,mp,bs", [(1, 1, 8), (2, 1, 8), (4, 1, 6), (8, 2, 3), (3, 1, 7), (4, 4, 5)])
@@ -189,17 +184,18 @@ def test_per_process_data_par_matches_jax(group, mp, bs):
 
 def test_view_parallel_plan_raises():
     """view_parallel=on with K divisible by the ranks takes the view-parallel
-    plan (cached or not); without it several ranks, or several nodes, raise."""
+    plan (cached or not); without it, or with buckets, several ranks take
+    the data-parallel plan, and several nodes with the cache the node-local
+    view-parallel plan: none of them raises any more."""
     kw = dict(cache_mode="auto", use_buckets=False, need_attn_weights=False, zero_reference=False,
               k_refs=8, n_dev=2, n_local=2, n_proc=1, data_mesh_size=2)
     assert plan_serving_modes(vp_mode="on", **kw) == (True, False, True)
     assert plan_serving_modes(vp_mode="on", **kw | {"cache_mode": "off"}) == (True, False, False)
-    with pytest.raises(NotImplementedError, match="data-parallel predict.*item 6"):
-        plan_serving_modes(vp_mode="off", **kw)
-    with pytest.raises(NotImplementedError, match="data-parallel predict.*item 6"):
-        plan_serving_modes(vp_mode="on", **kw | {"use_buckets": True})
-    with pytest.raises(NotImplementedError, match="2 nodes.*item 6"):
-        plan_serving_modes(vp_mode="on", **kw | {"n_dev": 4, "n_proc": 2})
+    assert plan_serving_modes(vp_mode="off", **kw) == (False, False, True)
+    assert plan_serving_modes(vp_mode="on", **kw | {"use_buckets": True}) == (False, False, True)
+    assert plan_serving_modes(vp_mode="on", **kw | {"n_dev": 4, "n_proc": 2}) == (True, True, True)
+    assert plan_serving_modes(vp_mode="on", **kw | {"n_dev": 4, "n_proc": 2, "cache_mode": "off"}) \
+        == (True, False, False)
 
 
 @pytest.fixture

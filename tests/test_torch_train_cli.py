@@ -137,18 +137,36 @@ def test_profiler_window_and_sustained_report(ws, capsys):
     assert max(r["step"] for r in rows) == 24
 
 
-@pytest.mark.parametrize("overrides,world", [(["trainer.devices=2"], None), (["trainer.devices=-1"], None),
-                                             ([], "2")])
-def test_more_than_one_device_or_rank_is_refused(ws, monkeypatch, overrides, world):
-    """``trainer.devices`` other than 1, or a launch of several ranks, raises
-    before any run dir is made: the CLI would otherwise train on one card, or
-    run independent copies (data-parallel training is not ported)."""
+@pytest.mark.parametrize("overrides,world,error,match", [
+    (["trainer.devices=2"], None, ValueError, r"trainer.devices=2 asks for 2 ranks, and 1 were launched.*"
+                                              r"torchrun --nproc_per_node 2"),
+    (["trainer.devices=[0,1]"], None, ValueError, r"asks for 2 ranks, and 1 were launched"),
+    (["model.gpu.dist_backend=gloo"], "2", RuntimeError, "MASTER_PORT is not set: start the ranks with torchrun"),
+])
+def test_more_than_one_device_or_rank_is_refused(ws, monkeypatch, overrides, world, error, match):
+    """``trainer.devices`` above the launched ranks (one process drives one
+    card), or a launch of several ranks that cannot join its process group,
+    raises before any run dir is made; the data-parallel runs themselves are
+    held in ``tests/test_torch_data_parallel*.py``."""
+    for key in ("MASTER_PORT", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
     if world is None:
         monkeypatch.delenv("WORLD_SIZE", raising=False)
     else:
         monkeypatch.setenv("WORLD_SIZE", world)
     before = set((ws / "log").rglob("*")) if (ws / "log").exists() else set()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(error, match=match):
         main(BASE + overrides + ["alias=refused"])
     after = set((ws / "log").rglob("*")) if (ws / "log").exists() else set()
     assert after == before
+
+
+def test_devices_minus_one_runs_on_the_one_launched_rank(ws, monkeypatch):
+    """``trainer.devices=-1`` (the default, as in the JAX config) takes every
+    launched rank: without a launcher, the one process, whose run equals
+    ``trainer.devices=1``'s step for step."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    ov = BASE + ["trainer.num_sanity_val_steps=0", "trainer.max_steps=2"]
+    runs = [main(ov + [f"trainer.devices={d}", f"alias=dev{d}"]) for d in (-1, 1)]
+    losses = [[r["train/loss"] for r in _rows(run) if "train/loss" in r] for run in runs]
+    assert len(losses[0]) == 2 and losses[0] == losses[1]

@@ -203,3 +203,88 @@ def tp_refusals(cfg) -> dict:
             out["buckets"] = error(lambda: model(torch.zeros(1, hw, hw, 3), torch.zeros(1, 2, hw, hw, 3),
                                                  valid_hw=(hw, hw)))
         return out
+
+
+def run_cli(n_active: int, local_world: int, task: str, argv: list[str], cwd: str, env: dict | None = None):
+    """``crossscore_tpu_torch.tasks.<task>.main(argv)`` from ``cwd`` on the
+    first ``n_active`` ranks of the pool, laid out as nodes of
+    ``local_world`` ranks (the launcher's variables set for the run, as
+    ``torchrun --nnodes n_active // local_world --nproc_per_node
+    local_world`` sets them), with ``env`` set too -> (what it returned, as a
+    string or None, and what it printed); None on the other ranks."""
+    import importlib
+
+    rank = int(os.environ["RANK"])
+    if rank >= n_active:
+        return None
+    saved = {k: os.environ.get(k) for k in ("WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", *(env or {}))}
+    os.environ.update(WORLD_SIZE=str(n_active), LOCAL_RANK=str(rank % local_world),
+                      LOCAL_WORLD_SIZE=str(local_world), **(env or {}))
+    cwd0 = os.getcwd()
+    out = io.StringIO()
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(out):
+            ret = importlib.import_module(f"crossscore_tpu_torch.tasks.{task}").main(argv)
+    finally:
+        os.chdir(cwd0)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return (None if ret is None else str(ret)), out.getvalue()
+
+
+def weighted_mean(n_active: int, series_by_rank: list, weights_by_rank: list):
+    """``tasks.common.all_process_weighted_mean`` over a group of the first
+    ``n_active`` ranks, each rank its own series and weights -> the means on
+    the active ranks, None on the others."""
+    from crossscore_tpu_torch.tasks.common import all_process_weighted_mean
+
+    with _process_group():
+        group = dist.new_group(list(range(n_active)))
+        r = dist.get_rank()
+        if r >= n_active:
+            return None
+        return all_process_weighted_mean(series_by_rank[r], weights_by_rank[r], group)
+
+
+def data_layout(batch_size: int, n_ranks, local_world_by_rank: list | None = None):
+    """``mesh.make_groups(1, batch_size, n_ranks)`` on the pool's ranks, each
+    rank's ``LOCAL_WORLD_SIZE`` optionally replaced (uneven nodes) -> (data
+    width, data rank, the ranks of its data group), or the error it raised."""
+    rank = int(os.environ["RANK"])
+    saved = os.environ["LOCAL_WORLD_SIZE"], os.environ["LOCAL_RANK"]
+    if local_world_by_rank is not None:
+        local = local_world_by_rank[rank]
+        os.environ.update(LOCAL_WORLD_SIZE=str(local), LOCAL_RANK=str(rank % local))
+    try:
+        with _process_group():
+            try:
+                grid = mesh.make_groups(1, batch_size, n_ranks=n_ranks)
+            except ValueError as e:
+                return ("raised", str(e))
+            group = mesh.data_group()
+            return (grid.data_parallel, grid.data_rank,
+                    None if group is None else dist.get_process_group_ranks(group))
+    finally:
+        os.environ["LOCAL_WORLD_SIZE"], os.environ["LOCAL_RANK"] = saved
+
+
+def store_one_key(store: str, n_writes: int) -> list:
+    """Every rank writes the same key of one token store ``n_writes`` times,
+    the ranks released together -> the store's file names afterwards."""
+    from pathlib import Path
+
+    from crossscore_tpu_torch.data.token_cache import RefTokenCache
+
+    with _process_group():
+        cache = RefTokenCache(lambda imgs, valid_hw=None: None, persist_dir=store)
+        key = cache._key("shared/frame_00000.png", (56, 56))
+        tokens = torch.arange(16 * 64, dtype=torch.float32).reshape(16, 64) * (1 + dist.get_rank())
+        dist.barrier()
+        for _ in range(n_writes):
+            cache._disk_store(key, tokens)
+        dist.barrier()
+        return sorted(p.name for p in Path(store).iterdir())
