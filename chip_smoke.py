@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
 the predict CLI, view-parallel predict, tensor- and view-parallel training,
 token-space training, the test CLI, the scoring daemon, the native host
-input path and the data-parallel CLIs.
+input path, the data-parallel CLIs and the ViT-L stress path.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -14,18 +14,20 @@ In order:
    and spills, and for the bf16 wgmma kernels (the forward's, the
    backward's, the fused MLP's) their static shared memory, any wgmma ptxas
    serialised (C7515 and the other notes that say so), each head dim's tile
-   plan and the fused MLP's plan at D 64 and 384 (rows a block, the
-   cluster, the hidden chunk, the ring stages, dynamic shared memory, W1/W2
-   bytes read from L2 per 1000 rows and at the predict point); fail on a
-   spill or a serialised wgmma in the forward at hd 48 or 64 or in the
-   fused MLP, on a plan above the block's shared memory, or on MLP weight
-   reads above half of what 64-row blocks that each read them would take;
+   plan and the fused MLP's plans at D 64, 384, 768 and 1024 (rows a block
+   or tile, the cluster, the hidden chunk, the ring stages, dynamic shared
+   memory, W1/W2 bytes read from L2 per 1000 rows and at the main point);
+   fail on a spill or a serialised wgmma in the forward at hd 48 or 64 or in
+   the fused MLP, on a plan above the block's shared memory, or on MLP weight
+   reads above half of what 64-row blocks that each read them would take (D
+   768 and 1024: above once per 64-row tile);
 3. hold K1 (backbone self-attention), K2 (fused LN->MLP) and K3 (decoder
    attention) against their plain PyTorch versions at the predict shapes
    (dinov2-small, 518 px, K=8 references, B=8; K2 also timed beside the
    unfused chain of PyTorch calls, a yardstick), K2 (tanh and exact) and
    K10 on the bf16 body at D 64 and 384 over 1, 63, 65, 127, 129, 255, 257
-   and 2741 rows, each launched twice for the same bits, K4 (decoder attention
+   and 2741 rows, each launched twice for the same bits (K2 and K10 at D 768
+   and 1024 too, 2 x 300 rows, bf16 and fp32), K4 (decoder attention
    backward) at the train shapes (B=24, K=5), and K5 and K6 (the masked
    forwards of shape-bucketed inference) at the bucketed predict shapes
    (540x960 images -> 518x921 -> a 560x1008 bucket, B=8, K=5; per-item and
@@ -203,7 +205,25 @@ In order:
     blocks; (d) the predict CLI, modes (b) and (d), data parallel against
     one rank: the same file names, maps within MAE 1e-2, maps/s per rank;
     (e) ``tools.dryrun_multichip 4`` through its entry point: exit 0;
-19. print one ``{"kernels": [...]}`` line, then, last, the device line.
+19. the ViT-L stress path (BASELINE config #5: dinov2-large at 1036 px, a
+    74x74 patch grid): (a) K2 (tanh and exact) and K10 on the wide bf16 body
+    at D 1024 (32,862 rows, F 4096: B=1, K=5) and D 768 (dinov2-base's
+    predict point, 98,640 rows, F 3072) and at 1, 63 and 300 rows against
+    their plain versions, each launched twice for the same bits, timed beside
+    the plain version, the unfused chain of PyTorch calls and the bound, and
+    K1 on a fused qkv of more than 2^31 elements (B=8,
+    K=16: the last views bit-equal to the same views alone); (b) from the
+    port's seeded init, the forward at K=5
+    (B 1, 2, 4) and K=16 (B 1) and the pixel and token train steps at K=5,
+    B=1: launches (K1 24, K2 24, K3 4 a forward; K3 4 and K4 4 a step),
+    ms, maps/s, MFU, peak memory, the device-time breakdown (``torch.profiler``)
+    of the K=5, B=1 forward and of both steps, the decoder and head updated
+    and the backbone and PE bit-identical; (c) B=1 against the all-plain net,
+    dinov2-large at 1036 px (K=2) and dinov2-base at 518 px (K=8, K2 at D
+    768); (d) ``tools.stress_vitl``, ``tools.probe_vitl_token_bwd`` and
+    ``tools.batch_sweep`` through their entry points at small arguments,
+    each exit 0 with its JSON line;
+20. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -222,6 +242,11 @@ SEED = 0
 B, K, HW = 8, 8, 518  # predict operating point: 72 backbone views of 1370 tokens
 PREDICT_ROWS = B * (1 + K) * ((HW // 14) ** 2 + 1)  # the backbone MLP's rows there: 98,640
 TB, TK = 24, 5  # train operating point (config/data/combined_training.yaml): 144 views
+# the ViT-L stress path (BASELINE config #5, tools/stress_vitl.py): dinov2-large
+# at 1036 px, twice the 518 px training crop: a 74x74 patch grid, 5477 tokens
+# a view; K=5 (and K=16) references
+VITL_HW, VITL_K = 1036, 5
+VITL_ROWS = (1 + VITL_K) * ((VITL_HW // 14) ** 2 + 1)  # K2's rows at B=1, K=5: 32,862
 # bucketed predict (config/data/SimpleReference.yaml, B=8, K=5): 540x960 images
 # resize to 518x921 (a 37x65 patch grid) and pad to the 560x1008 bucket (40x72)
 PB, PK, PHW, BUCKET_GRID = 8, 5, (540, 960), (40, 72)
@@ -1407,11 +1432,13 @@ def _wgmma_build_report(_build) -> dict:
     import ctypes
 
     bad = []
-    for (width, res, tanh), info in _ptxas_entries(_build, "fused_ln_mlp", r"ln_mlp_tmaILi(\d+)ELb(\d)ELb(\d)E").items():
-        print(f"  ptxas fused_ln_mlp ln_mlp_tma<{width}, {'K10' if res == '1' else 'K2'}, "
-              f"{'tanh' if tanh == '1' else 'erf'}>: " + ", ".join(f"{k} {v}" for k, v in info.items()))
-        if info.get("spill stores") or info.get("spill loads") or "wgmma serialised" in info:
-            bad.append(f"fused_ln_mlp ln_mlp_tma<{width}, {res}, {tanh}>")
+    for body in ("ln_mlp_tma", "ln_mlp_wide"):
+        entries = _ptxas_entries(_build, "fused_ln_mlp", body + r"ILi(\d+)ELb(\d)ELb(\d)E")
+        for (width, res, tanh), info in entries.items():
+            print(f"  ptxas fused_ln_mlp {body}<{width}, {'K10' if res == '1' else 'K2'}, "
+                  f"{'tanh' if tanh == '1' else 'erf'}>: " + ", ".join(f"{k} {v}" for k, v in info.items()))
+            if info.get("spill stores") or info.get("spill loads") or "wgmma serialised" in info:
+                bad.append(f"fused_ln_mlp {body}<{width}, {res}, {tanh}>")
     for src in ("flash_qkv", "flash_cross"):
         for (hd, bias, mode), info in _ptxas_entries(_build, src, r"attn_fwd_wgmmaILi(\d+)ELb(\d)ELi(\d)E").items():
             print(f"  ptxas {src} attn_fwd_wgmma<{hd}, {'BIAS' if bias == '1' else 'no bias'}, mode {mode}>: "
@@ -1443,29 +1470,35 @@ def _wgmma_build_report(_build) -> dict:
               f"q rows over KV tiles of {bk}, {stages} stages, dynamic shared memory {smem1} / {smem2} bytes")
     mlp = _build.load("fused_ln_mlp").cs_fused_ln_mlp_plan
     mlp.argtypes, mlp.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    plan = {}
-    for width in (64, 384):
+    plans = {}
+    for width in (64, 384, 768, 1024):
         out = (ctypes.c_int * 7)()
         if mlp(width, ctypes.addressof(out)) != 0:
             _fail(f"the bf16 fused MLP has no plan at D {width}")
         rows, cl, fch, s1, s2, smem, per_1000 = out
-        # W1 and W2 (4 D^2 bf16 values) read once per cluster at the predict point
+        # W1 and W2 (4 D^2 bf16 values) read once per cluster (D 64, 384: of
+        # two 64-row tiles) or once per 64-row tile (D 768, 1024: the cluster
+        # shares one tile) at the main point: the predict point at D <= 384,
+        # dinov2-large's K=5 forward at 1024, dinov2-base's predict point at 768
+        wide = width >= 768
         weights = 2 * 2 * width * 4 * width
-        l2 = -(-PREDICT_ROWS // (rows * cl)) * weights
-        old = -(-PREDICT_ROWS // 64) * weights
-        print(f"  bf16 fused MLP plan D {width}: {rows} rows a block, clusters of {cl}, hidden chunks of {fch}, "
-              f"{s1} + {s2} ring stages, dynamic shared memory {smem} bytes; W1/W2 read from L2: {per_1000} bytes "
-              f"per 1000 rows, {l2 / 1e9:.3f} GB at the predict point's {PREDICT_ROWS} rows (64-row blocks that "
-              f"each read them: {old / 1e9:.3f} GB)")
+        point = VITL_ROWS if width == 1024 else PREDICT_ROWS
+        l2 = -(-point // (rows * (1 if wide else cl))) * weights
+        alone = -(-point // 64) * weights  # 64-row blocks that each read them
+        print(f"  bf16 fused MLP plan D {width}: {rows} rows a {'tile' if wide else 'block'}, clusters of {cl}, "
+              f"hidden chunks of {fch}, {s1} + {s2} ring stages, dynamic shared memory {smem} bytes; W1/W2 read "
+              f"from L2: {per_1000} bytes per 1000 rows, {l2 / 1e9:.3f} GB at {point} rows"
+              + ("" if wide else f" (64-row blocks that each read them: {alone / 1e9:.3f} GB)"))
         if smem > SMEM_LIMIT:
             bad.append(f"fused MLP plan D {width}: {smem} bytes of shared memory")
-        if 2 * l2 > old:
-            bad.append(f"fused MLP plan D {width}: {l2} bytes of L2 weight reads at the predict point")
-        plan = dict(rows_per_block=rows, cluster=cl, hidden_chunk=fch, stages=[s1, s2], smem_bytes=smem,
-                    l2_weight_bytes_per_1000_rows=per_1000, l2_weight_bytes_predict=l2)
+        # D <= 384: at most half of 64-row blocks' reads; wide: once per 64-row tile
+        if (l2 > alone) if wide else (2 * l2 > alone):
+            bad.append(f"fused MLP plan D {width}: {l2} bytes of L2 weight reads at {point} rows")
+        plans[width] = dict(rows_per_block=rows, cluster=cl, hidden_chunk=fch, stages=[s1, s2], smem_bytes=smem,
+                            l2_weight_bytes_per_1000_rows=per_1000, l2_weight_bytes_at_point=l2, rows_at_point=point)
     if bad:
         _fail("the wgmma kernels' build: " + "; ".join(bad))
-    return plan
+    return plans
 
 
 def _twice(fn, *args):
@@ -2688,6 +2721,248 @@ def _dp_phases(torch, zero_launches, read_launches, tok_work: Path, card: str) -
     return dp
 
 
+def _vitl_phases(torch, dev, card: str, peaks, zero_launches, read_launches) -> dict:
+    """Step 19, the ViT-L stress path on the card: (a) K2 (tanh and exact)
+    and K10 at D 1024 and 768 against their plain versions at the ViT-L
+    shape (32,862 rows, F 4096), at dinov2-base's predict point (98,640
+    rows, F 3072) and at ragged rows, each launched twice for the same bits,
+    timed beside the plain version, the unfused chain of PyTorch calls (the
+    library yardstick) and the bound, and K1 past
+    2^31 elements (the 32-bit audit); (b) dinov2-large at 1036 px from the
+    port's seeded init: the forward at K=5 (B 1, 2, 4) and K=16 (B 1), the
+    pixel and the token train step at K=5, B=1, with launches, ms, maps/s,
+    MFU and peak memory, and the device-time breakdown of the K=5, B=1
+    forward and of both steps; (c) B=1 parity
+    against the all-plain net, dinov2-large at 1036 px (K=2) and
+    dinov2-base at 518 px (K=8); (d) the three tools through their entry
+    points. Returns the readings."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet, VIT_PRESETS
+    from crossscore_tpu_torch.ops.flash_attention import flash_qkv_self_attention
+    from crossscore_tpu_torch.ops.fused_mlp import (
+        fused_ln_mlp, fused_ln_mlp_plain, fused_res_ln_mlp, fused_res_ln_mlp_plain,
+    )
+    from crossscore_tpu_torch.tools import batch_sweep, probe_vitl_token_bwd, stress_vitl
+    from crossscore_tpu_torch.tools.mlp_microbench import unfused_chain
+    from crossscore_tpu_torch.train.optim import make_optimizer
+    from crossscore_tpu_torch.train.step import TrainState, make_predict_step, make_train_step
+
+    t_step = time.perf_counter()
+    peak_bf16, peak_bw = peaks
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    out, bad = {"wide": {}, "forward": {}, "train": {}, "parity": {}, "tools": {}}, []
+
+    def rn(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    # --- (a) K2 and K10 at D 1024 and 768 ------------------------------------
+    for width, rows in ((1024, VITL_ROWS), (768, PREDICT_ROWS)):
+        f = 4 * width
+        mlp = (rn(width, scale=0.1, shift=1.0), rn(width, scale=0.1), rn(f, width, scale=width ** -0.5),
+               rn(f, scale=0.1), rn(width, f, scale=f ** -0.5), rn(width, scale=0.1), rn(width, shift=1.0))
+        ls1 = rn(width, scale=0.5, shift=1.0)
+        checks = {}
+        for rows_ in (1, 63, 300, rows):
+            x, attn = rn(rows_, width, dtype=bf16), rn(rows_, width, scale=0.3, dtype=bf16)
+            for g in ("tanh", "exact"):
+                (got,), same = _twice(lambda *a: (fused_ln_mlp(*a),), x, *mlp, 1e-6, g)
+                checks[f"K2 {g} rows{rows_}"] = (_rel_err(got, fused_ln_mlp_plain(x, *mlp, 1e-6, g)), same)
+            (got,), same = _twice(lambda *a: (fused_res_ln_mlp(*a),), x, attn, ls1, *mlp, 1e-6)
+            checks[f"K10 rows{rows_}"] = (_rel_err(got, fused_res_ln_mlp_plain(x, attn, ls1, *mlp, 1e-6)), same)
+        # x and attn hold the main shape's rows now
+        mb = [m.to(bf16) for m in mlp]
+        ls1b = ls1.to(bf16)
+        ops = 4.0 * rows * width * f
+        k2_bytes = 2 * 2 * rows * width + 2 * 2 * width * f + 2 * (f + 5 * width)
+        got, want = fused_ln_mlp(x, *mlp, 1e-6, "tanh"), fused_ln_mlp_plain(x, *mlp, 1e-6, "tanh")
+        k2 = dict(rows=rows, F=f, err=checks[f"K2 tanh rows{rows}"][0], max_abs=_max_abs(got, want),
+                  ms=_time_ms(torch, lambda: fused_ln_mlp(x, *mlp, 1e-6, "tanh")),
+                  plain_ms=_time_ms(torch, lambda: fused_ln_mlp_plain(x, *mlp, 1e-6, "tanh"), reps=3),
+                  library_ms=_time_ms(torch, lambda: unfused_chain(x, *mb)),
+                  **_bound(ops, k2_bytes, peak_bf16, peak_bw))
+        got, want = fused_res_ln_mlp(x, attn, ls1, *mlp, 1e-6), fused_res_ln_mlp_plain(x, attn, ls1, *mlp, 1e-6)
+        k10 = dict(rows=rows, F=f, err=checks[f"K10 rows{rows}"][0], max_abs=_max_abs(got, want),
+                   ms=_time_ms(torch, lambda: fused_res_ln_mlp(x, attn, ls1, *mlp, 1e-6)),
+                   plain_ms=_time_ms(torch, lambda: fused_res_ln_mlp_plain(x, attn, ls1, *mlp, 1e-6), reps=3),
+                   library_ms=_time_ms(torch, lambda: unfused_chain(x + attn * ls1b, *mb)),
+                   **_bound(ops, k2_bytes + 2 * rows * width + 2 * width, peak_bf16, peak_bw))
+        worst = max(e for e, _ in checks.values())
+        same = all(s_ for _, s_ in checks.values())
+        out["wide"][f"D{width}"] = {"K2": k2, "K10": k10, "worst_err": worst, "bit_equal": same}
+        print(f"step 19 (a) K2/K10 bf16 D {width}, F {f}, rows 1, 63, 300 and {rows}: worst max|d|/(1+|plain|) "
+              f"{worst:.3e} (tol {TOL['bfloat16']:.1e}), reruns bit-equal {same}; at {rows} rows: K2 "
+              f"{k2['ms']:.3f} ms (plain {k2['plain_ms']:.3f} ms, unfused "
+              f"chain {k2['library_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms, {k2['bound_by']}), K10 "
+              f"{k10['ms']:.3f} ms (plain {k10['plain_ms']:.3f} ms, residual add + unfused chain "
+              f"{k10['library_ms']:.3f} ms, bound {k10['bound_ms']:.3f} ms); {card}")
+        if not (worst <= TOL["bfloat16"] and same):
+            bad.append(f"(a) K2/K10 at D {width}: " + ", ".join(
+                k for k, (e, s_) in checks.items() if e > TOL["bfloat16"] or not s_))
+        del x, attn, got, want, mlp, mb
+    torch.cuda.empty_cache()
+    # the 32-bit audit's one tensor past 2^31 elements on this path: K1's fused
+    # qkv at B=8, K=16 (136 views x 5477 tokens x 3072); the last views, whose
+    # element offsets pass 2^31, against the same views launched alone
+    views, n_tok = 8 * 17, (VITL_HW // 14) ** 2 + 1
+    qkv = rn(views, n_tok, 3 * 1024, dtype=bf16)
+    big = flash_qkv_self_attention(qkv, 16)
+    alone = flash_qkv_self_attention(qkv[-2:].contiguous(), 16)
+    same = all(torch.equal(a[-2:], b_) for a, b_ in zip(big, alone))
+    out["k1_past_2_31"] = {"elements": qkv.numel(), "last_views_bit_equal": same}
+    print(f"step 19 (a) K1 at qkv ({views}, {n_tok}, 3072) bf16, {qkv.numel()} elements (2^31 = {2 ** 31}): the "
+          f"last 2 views bit-equal to the same views launched alone: {same}")
+    if not same:
+        bad.append("(a) K1 past 2^31 elements")
+    del qkv, big, alone
+    torch.cuda.empty_cache()
+
+    # --- (b) dinov2-large at 1036 px: forward and train steps -----------------
+    cfg, mcfg, model = stress_vitl.build("dinov2-large", [], dev, SEED)
+    vit = mcfg.backbone
+    d, n_dec = vit.hidden_size, 2 * mcfg.decoder_layers
+    print(f"step 19 (b) dinov2-large ({vit.num_layers} layers, D {d}, {vit.num_heads} heads) at {VITL_HW} px, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.0f} M parameters, seeded init, bf16 compute")
+    step = make_predict_step(model)
+    want_fwd = _launches(K1=vit.num_layers, K2=vit.num_layers, K3=n_dec)
+    for k, b in ((VITL_K, 1), (VITL_K, 2), (VITL_K, 4), (16, 1)):
+        batch = stress_vitl.make_batch(gen, dev, b, k, VITL_HW, d)
+        q, r = batch["query/img"], batch["reference/cross/imgs"]
+        zero_launches()
+        score = step(q, r)["score_map_ref_cross"]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        ok = (launches == want_fwd and tuple(score.shape) == (b, VITL_HW, VITL_HW)
+              and bool(torch.isfinite(score).all()) and 0.0 <= float(score.min()) <= float(score.max()) <= 1.0)
+        torch.cuda.reset_peak_memory_stats()
+        ts = sorted(_event_times(torch, lambda: step(q, r), reps=5))
+        ms = ts[2]
+        enc_f, dec_f = stress_vitl.model_flops(VITL_HW, k, vit, d, mcfg.decoder_layers, mcfg.decoder_ffn_ratio,
+                                               mcfg.patch_size)
+        row = {"ms": ms, "spread_ms": [ts[0], ts[-1]], "maps_per_s": b / (ms / 1e3),
+               "mfu": b * (enc_f + dec_f) / (ms / 1e3) / peak_bf16,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {k_: v for k_, v in launches.items() if v}}
+        out["forward"][f"K{k} B{b}"] = row
+        print(f"step 19 (b) forward K={k} B={b}: {ms:.2f} ms (spread {ts[0]:.2f}-{ts[-1]:.2f}), "
+              f"{row['maps_per_s']:.3f} maps/s, MFU {row['mfu']:.3f} of {peak_bf16 / 1e12:g} TFLOP/s "
+              f"({(enc_f + dec_f) / 1e12:.2f} TFLOP a map), peak {row['peak_gib']:.2f} GiB, launches "
+              f"{row['launches']} (expected K1 {vit.num_layers}, K2 {vit.num_layers}, K3 {n_dec}); {card}")
+        if not ok:
+            bad.append(f"(b) forward K={k} B={b}: launches {launches} / score map check")
+        if (k, b) == (VITL_K, 1):
+            row["busy_ms"] = _profile(torch, lambda: step(q, r), ms, what=f"step 19 (b) forward K={k} B={b}")
+        del batch, q, r, score
+    out["k2_launches"] = out["forward"][f"K{VITL_K} B1"]["launches"]["K2"]
+    optimizer, scheduler, _ = make_optimizer(cfg, model, steps_per_epoch=1)
+    train_step = make_train_step(model, optimizer, scheduler)
+    enc_f, dec_f = stress_vitl.model_flops(VITL_HW, VITL_K, vit, d, mcfg.decoder_layers, mcfg.decoder_ffn_ratio,
+                                           mcfg.patch_size)
+    for mode in ("pixel", "token"):
+        token = mode == "token"
+        batch = stress_vitl.make_batch(gen, dev, 1, VITL_K, VITL_HW, d, with_map=True, token=token)
+        before = {k_: v.detach().clone() for k_, v in model.state_dict().items()}
+        zero_launches()
+        state, metrics = train_step(TrainState(), batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = _launches(K3=n_dec, K4=n_dec) if token else _launches(
+            K1=vit.num_layers, K2=vit.num_layers, K3=n_dec, K4=n_dec)
+        loss = float(metrics["loss"])
+        after = model.state_dict()
+        frozen = [k_ for k_ in after if k_.startswith("backbone.") or k_ == "pos_enc_fn.PE"]
+        trained = [k_ for k_, prm in model.named_parameters() if prm.requires_grad]
+        moved = [k_ for k_ in frozen if not torch.equal(after[k_], before[k_])]
+        unmoved = [k_ for k_ in trained if torch.equal(after[k_], before[k_])]
+        del before
+        torch.cuda.reset_peak_memory_stats()
+        ts = sorted(_event_times(torch, lambda: train_step(state, batch), reps=5))
+        ms = ts[2]
+        row = {"ms": ms, "spread_ms": [ts[0], ts[-1]], "ms_per_map": ms,
+               "mfu": ((0 if token else enc_f) + 3 * dec_f) / (ms / 1e3) / peak_bf16,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss": loss,
+               "launches": {k_: v for k_, v in launches.items() if v}, "updated": len(trained),
+               "frozen_bit_identical": len(frozen) - len(moved)}
+        row["busy_ms"] = _profile(torch, lambda: train_step(state, batch), ms, what=f"step 19 (b) {mode} train step")
+        out["train"][mode] = row
+        print(f"step 19 (b) {mode} train step K={VITL_K} B=1: loss {loss:.6f}, {len(trained) - len(unmoved)} of "
+              f"{len(trained)} decoder/head tensors updated, {len(frozen) - len(moved)} of {len(frozen)} "
+              f"backbone/PE tensors bit-identical; {ms:.2f} ms (spread {ts[0]:.2f}-{ts[-1]:.2f}), MFU "
+              f"{row['mfu']:.3f}, peak {row['peak_gib']:.2f} GiB, launches {row['launches']} (expected "
+              f"{ {k_: v for k_, v in want.items() if v} }); {card}")
+        if launches != want or not np.isfinite(loss) or moved or unmoved \
+                or not all(k_.startswith("ref_cross.") for k_ in trained):
+            bad.append(f"(b) {mode} train step: launches, loss or parameters")
+        del batch, metrics
+    del model, optimizer, scheduler, train_step, step
+    torch.cuda.empty_cache()
+
+    # --- (c) B=1 against the all-plain net -----------------------------------
+    for preset, hw, k in (("dinov2-large", VITL_HW, 2), ("dinov2-base", HW, 8)):
+        vit_ = VIT_PRESETS[preset]
+        params = init_params(CrossScoreConfig(backbone=vit_), SEED, dev)
+        batch = stress_vitl.make_batch(gen, dev, 1, k, hw, vit_.hidden_size)
+        maps, launches = {}, {}
+        for impl, mlp_impl in (("flash", "fused_exact"), ("dense", "unfused")):
+            c = CrossScoreConfig(backbone=vit_, compute_dtype=bf16, attention_impl=impl, mlp_impl=mlp_impl)
+            net = load_into(CrossScoreNet(c, device=dev), params)
+            zero_launches()
+            maps[impl] = make_predict_step(net)(batch["query/img"], batch["reference/cross/imgs"])[
+                "score_map_ref_cross"]
+            torch.cuda.synchronize()
+            launches[impl] = read_launches()
+            del net
+            torch.cuda.empty_cache()
+        mae = float((maps["flash"] - maps["dense"]).abs().mean())
+        want = _launches(K1=vit_.num_layers, K2=vit_.num_layers, K3=n_dec)
+        out["parity"][preset] = {"hw": hw, "k": k, "mae": mae, "tol": NET_TOL["bfloat16"],
+                                 "launches": {k_: v for k_, v in launches["flash"].items() if v}}
+        print(f"step 19 (c) {preset} at {hw} px, B=1, K={k}, bf16, kernels (exact GELU) against the all-plain "
+              f"net: score MAE {mae:.3e} (tol {NET_TOL['bfloat16']:.0e}); kernel-path launches "
+              f"{out['parity'][preset]['launches']} (expected K1 {vit_.num_layers}, K2 {vit_.num_layers} at D "
+              f"{vit_.hidden_size}, K3 {n_dec}), plain-path launches {sum(launches['dense'].values())}")
+        if not (mae < NET_TOL["bfloat16"]) or launches["flash"] != want or any(launches["dense"].values()):
+            bad.append(f"(c) {preset} parity or launches")
+        del params, batch, maps
+        torch.cuda.empty_cache()
+
+    # --- (d) the three tools through their entry points ----------------------
+    runs = {"stress_vitl": (stress_vitl.main, ["--batches", "1", "--k", "2"]),
+            "probe_vitl_token_bwd": (probe_vitl_token_bwd.main, ["--k", "2"]),
+            "batch_sweep": (batch_sweep.main, ["--batches", "16", "--modes", "token"])}
+    for tag, (tool, argv) in runs.items():
+        buf = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tool(argv)
+        torch.cuda.synchronize()
+        lines = buf.getvalue().strip().splitlines()
+        try:
+            last = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            last = None
+        errors = "error" in json.dumps(last) if last is not None else True
+        run = {"rc": rc, "s": time.perf_counter() - t0, "launches": {k_: v for k_, v in read_launches().items() if v},
+               "last_line": last}
+        out["tools"][tag] = run
+        print(f"step 19 (d) tools.{tag} {' '.join(argv)}: exit {rc} in {run['s']:.1f} s, launches {run['launches']}; "
+              f"its card line: {lines[0] if lines else None}; its last line: {lines[-1] if lines else None}")
+        if rc != 0 or last is None or errors or not run["launches"]:
+            bad.append(f"(d) tools.{tag}")
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_step
+    print(f"step 19: {out['s']:.1f} s")
+    if bad:
+        _fail("step 19: " + "; ".join(bad))
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -3150,6 +3425,22 @@ def main() -> int:
             err = max(_rel_err(fused_ln_mlp(x, *mlp, 1e-6, g), fused_ln_mlp_plain(x, *mlp, 1e-6, g))
                       for g in ("tanh", "exact"))
             report[(f"K2 D{width}", tname)] = dict(err=err, tol=TOL[tname])
+        # K10 at the wide widths (bf16: the wide body; fp32: the CUDA cores),
+        # from a generator of its own so that the later draws stay what they were
+        g_wide = torch.Generator(device=dev).manual_seed(SEED + 7)
+        for width in (768, 1024):
+            def wide_randn(*shape, scale=1.0):
+                return torch.randn(*shape, generator=g_wide, device=dev) * scale
+
+            x, attn = wide_randn(2, 300, width).to(dtype), wide_randn(2, 300, width, scale=0.3).to(dtype)
+            mlp = (wide_randn(width, scale=0.1) + 1, wide_randn(width, scale=0.1),
+                   wide_randn(4 * width, width, scale=width ** -0.5), wide_randn(4 * width, scale=0.1),
+                   wide_randn(width, 4 * width, scale=(4 * width) ** -0.5), wide_randn(width, scale=0.1),
+                   wide_randn(width) + 1)
+            ls1 = wide_randn(width, scale=0.5) + 1
+            (got,), same = _twice(lambda *a: (fused_res_ln_mlp(*a),), x, attn, ls1, *mlp, 1e-6)
+            report[(f"K10 D{width}", tname)] = dict(
+                err=_rel_err(got, fused_res_ln_mlp_plain(x, attn, ls1, *mlp, 1e-6)), tol=TOL[tname], bit_equal=same)
         for hdim in range(16, 129, 16):  # K4 at every head dim it takes
             q, k_, v_ = (randn(2, n_, 8 * hdim, dtype=dtype) for n_ in (300, 700, 700))
             o, l, m = flash_cross_attention(q, k_, v_, 8)
@@ -3974,7 +4265,12 @@ def main() -> int:
     tok_work.cleanup()
     torch.cuda.empty_cache()
 
-    # --- 19. the kernels line, then the device line ---------------------------
+    # --- 19. the ViT-L stress path: K2 and K10 at D 768 and 1024, dinov2-large
+    # at 1036 px (forward and train steps), parity on the card, the three tools
+    vitl = _vitl_phases(torch, dev, card, (peak_bf16, peak_bw), zero_launches, read_launches)
+    torch.cuda.empty_cache()
+
+    # --- 20. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -4052,8 +4348,10 @@ def main() -> int:
                                       "bound_ms_nk10952", "k4_ms", "bound_floor", "products_ms", "exp_ms",
                                       "unfused_ms")
                     if k in r})
-        if kern == "K2":  # the bf16 body's plan at D 384 (step 2)
+        if kern == "K2":  # the bf16 bodies' plans (step 2) and the D 768 / 1024 readings (step 19)
             row["plan"] = mlp_plan
+            row["wide"] = {w: r_["K2"] for w, r_ in vitl["wide"].items()}
+            row["launches_by_path"]["vitl"] = vitl["k2_launches"]
         if kern in ("K3", "K4", "K6"):
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
             row["self"] = {k: s[k] for k in stats if k in s}
@@ -4095,6 +4393,7 @@ def main() -> int:
                                       "exp_ms") if k in r})
         if kern == "K10":
             row["fp32"] = {k: v for k, v in report[("K10", "float32")].items()}
+            row["wide"] = {w: r_["K10"] for w, r_ in vitl["wide"].items()}
         if kern.startswith("K7'"):
             row["backbone"] = {k: v for k, v in report[(f"{kern} backbone", "bfloat16")].items()} \
                 | {"launches": bb["K7'"][kern.split()[1]]}
@@ -4113,7 +4412,7 @@ def main() -> int:
                       "predict_loader_maps_per_s": loader_rate, "view_parallel": vp,
                       "tensor_parallel": tp, "instruments": inst,
                       "serving": sv, "host_input": inp,
-                      "data_parallel": dpr,
+                      "data_parallel": dpr, "vitl": {k: v for k, v in vitl.items() if k != "wide"},
                       "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
                                                         for k, v in r.items()} for tag, r in ev["modes"].items()}},
                       "seconds": seconds}))

@@ -60,11 +60,34 @@
 //   and stores them by TMA (rows past the end are not written).
 // - Deterministic: a fixed order, no atomics, no split over blocks.
 //
-// At D = 768 and 1024, where a warpgroup cannot hold 64 x D accumulators,
-// both products run on mma.sync m16n8k16 fed by ldmatrix with cp.async
-// double buffers (`ln_mlp_bf16`). The fp32 variant (the parity preset) runs
-// on the CUDA cores in full fp32, because the tensor cores' fp32 route is
-// TF32.
+// bf16 at D = 768 and 1024 (`ln_mlp_wide`): a block cannot hold 64 x D fp32
+// accumulators (65,536 registers at D 1024, the whole register file), so the
+// two blocks of a cluster of two share one 64-row tile and split fc2's output
+// columns, D / 2 each, over two fc2 warpgroups of D / 4 (m64n192 at D 768,
+// m64n256 at 1024 as two n128 halves of 64 registers a thread each, at
+// setmaxnreg 176). A cluster of four (n128 a warpgroup) would send each
+// hidden tile to three peers and give each block a quarter of fc1; two keep
+// one peer, and the registers fit once LN(x) moves to shared memory.
+// - fc1 runs once per tile: block r computes the hidden chunks c with c % 2
+//   == r (m64n64k16, A = LN(x) from shared memory, W1 from its own ring),
+//   writes GELU(h) as bf16 into its hidden tile r and copies the tile into
+//   the peer's tile r over distributed shared memory (cp.async.bulk
+//   completing on the peer's barrier). Every fc2 warp of the cluster
+//   releases tile r on block r's barrier before block r writes it again.
+// - LN(x) stays in shared memory as fc1's A operand (96 / 128 KB): the fc2
+//   warpgroups normalise the tile's rows from device memory (fp32
+//   statistics) while the first weights load.
+// - W1 and W2 stream through TMA rings, one producer warp each: ring 1 the
+//   [64 hidden][64 D] boxes of this block's chunks (8 slots at D 768, 4 at
+//   1024), ring 2 this block's W2 rows of every chunk, half an fc2
+//   warpgroup's a slot (4 slots of 12 KB, 3 of 16 KB). No weight slice is
+//   read by both blocks, so there is nothing to multicast: each weight byte
+//   is read from L2 once per 64 rows.
+// - The epilogue reads x (and attn) from device memory and writes out =
+//   x + ls2 (acc + b2) straight from the accumulators.
+// - Deterministic: a fixed order, no atomics, no split-K.
+// The fp32 variant (the parity preset) runs on the CUDA cores in full fp32,
+// because the tensor cores' fp32 route is TF32.
 //
 // Numerics follow the TPU kernel: LN statistics in fp32, bf16 products with
 // fp32 accumulation, GELU in fp32 (the tanh form on bf16 by default, else the
@@ -82,8 +105,8 @@
 // is written. Its GELU has no option, as on the TPU: the tanh form on bf16,
 // the erf polynomial on fp32. It adds one (B*N, D) read to K2's bytes
 // and no operation of note, so the same tensor-core bound holds. RES = false
-// compiles K2. K10 takes D = 64 and 384 in bf16 (`ln_mlp_tma`) and the fp32
-// widths; no model path calls it (nor the TPU's).
+// compiles K2. K10 takes D = 64 and 384 in bf16 (`ln_mlp_tma`), 768 and 1024
+// (`ln_mlp_wide`) and the fp32 widths; no model path calls it (nor the TPU's).
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -192,149 +215,6 @@ __device__ void layer_norm_rows(TO* dst, int ld, const T* X, const T* S, const T
     const float rstd = rsqrtf(warp_sum(var) / D + eps);
     for (int c = lane; c < D; c += 32)
       out[c] = from_f32<TO>((stream_in<RES>(X, ATT, LS1, r0 + c, c) - mean) * rstd * to_f32(S[c]) + to_f32(B[c]));
-  }
-}
-
-// bf16 tiling: RG row groups x CG column groups of warps (RG * CG = 8);
-// BM = 16 * RG rows per block, each warp owns 16 rows x NT*8 output columns
-// of the accumulator and FCH/CG columns of each hidden chunk.
-template <int RG, int NT, int FCH, int NW>
-struct MmaMlp {
-  static constexpr int THREADS = 32 * NW;
-  static constexpr int CG = NW / RG;
-  static constexpr int D = CG * NT * 8;
-  static constexpr int BM = 16 * RG;
-  static constexpr int NT1 = FCH / CG / 8;  // fc1 n8 tiles per warp
-  static constexpr int LDL = D + 8;         // LN tile and W1 chunk rows
-  static constexpr int LDC = FCH + 8;       // W2 chunk and hidden tile rows
-  static constexpr size_t w1_off = align128((size_t)BM * LDL * 2);
-  static constexpr size_t w2_off = w1_off + align128((size_t)FCH * LDL * 2);
-  static constexpr size_t h_off = w2_off + align128((size_t)D * LDC * 2);
-  static constexpr size_t total = h_off + align128((size_t)BM * LDC * 2);
-};
-
-template <int RG, int NT, int FCH, int NW>
-__global__ void __launch_bounds__(32 * NW) ln_mlp_bf16(MlpArgs a) {
-  using L = MmaMlp<RG, NT, FCH, NW>;
-  using bf16 = __nv_bfloat16;
-  static_assert(NT % 2 == 0 && (L::NT1 == 1 || L::NT1 % 2 == 0), "tile shape");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sLn = reinterpret_cast<bf16*>(smem);
-  bf16* sW1 = reinterpret_cast<bf16*>(smem + L::w1_off);
-  bf16* sW2 = reinterpret_cast<bf16*>(smem + L::w2_off);
-  bf16* sH = reinterpret_cast<bf16*>(smem + L::h_off);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = warp % RG, cg = warp / RG, g = lane >> 2, qd = lane & 3;
-  const int m0 = blockIdx.x * L::BM, F = a.f;
-  const bf16* X = static_cast<const bf16*>(a.x);
-  const bf16* W1 = static_cast<const bf16*>(a.w1);
-  const bf16* W2 = static_cast<const bf16*>(a.w2);
-  const bf16* B1 = static_cast<const bf16*>(a.b1);
-  // W1 chunk: rows f0..f0+FCH of (F, D); W2 chunk: columns f0..f0+FCH of (D, F)
-  auto load_w1 = [&](int f0) {
-    cp_async_rows<FCH, L::D, L::THREADS>(sW1, L::LDL, W1, L::D, f0, F, tid);
-    cp_async_commit();
-  };
-  auto load_w2 = [&](int f0) {
-    cp_async_rows<L::D, FCH, L::THREADS>(sW2, L::LDC, W2 + f0, F, 0, L::D, tid);
-    cp_async_commit();
-  };
-  load_w1(0);
-  load_w2(0);
-  layer_norm_rows<NW>(sLn, L::LDL, X, static_cast<const bf16*>(a.lns), static_cast<const bf16*>(a.lnb),
-                      m0, L::BM, a.rows, L::D, a.eps);
-
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const bf16* lnw = sLn + rg * 16 * L::LDL;
-  const int nchunks = F / FCH;
-  for (int c = 0; c < nchunks; ++c) {
-    const int f0 = c * FCH;
-    cp_async_wait<1>();  // W1 chunk c (W2 chunk c may still be in flight)
-    __syncthreads();
-
-    // fc1: this warp's 16 rows x FCH/CG hidden columns, then bias + GELU
-    float hc[L::NT1][4];
-#pragma unroll
-    for (int j = 0; j < L::NT1; ++j) hc[j][0] = hc[j][1] = hc[j][2] = hc[j][3] = 0.f;
-    const bf16* w1t = sW1 + cg * (FCH / L::CG) * L::LDL;
-#pragma unroll 4
-    for (int kk = 0; kk < L::D / 16; ++kk) {
-      uint32_t af[4];
-      ldsm_a(af, lnw + kk * 16, L::LDL, lane);
-      if constexpr (L::NT1 == 1) {
-        uint32_t bb[2];
-        ldsm_b_nk_1tile(bb, w1t + kk * 16, L::LDL, lane);
-        mma_bf16(hc[0], af, bb[0], bb[1]);
-      } else {
-#pragma unroll
-        for (int np = 0; np < L::NT1 / 2; ++np) {
-          uint32_t bb[4];
-          ldsm_b_nk_x2tiles(bb, w1t + np * 16 * L::LDL + kk * 16, L::LDL, lane);
-          mma_bf16(hc[2 * np], af, bb[0], bb[1]);
-          mma_bf16(hc[2 * np + 1], af, bb[2], bb[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < L::NT1; ++j) {
-      const int col = cg * (FCH / L::CG) + j * 8 + qd * 2;
-      const float c0 = to_f32(B1[f0 + col]), c1 = to_f32(B1[f0 + col + 1]);
-      const int row = rg * 16 + g;
-      *reinterpret_cast<uint32_t*>(sH + row * L::LDC + col) =
-          pack_bf16(gelu(hc[j][0] + c0, a.tanh_gelu), gelu(hc[j][1] + c1, a.tanh_gelu));
-      *reinterpret_cast<uint32_t*>(sH + (row + 8) * L::LDC + col) =
-          pack_bf16(gelu(hc[j][2] + c0, a.tanh_gelu), gelu(hc[j][3] + c1, a.tanh_gelu));
-    }
-    __syncthreads();  // the hidden tile is complete and W1 chunk c is free
-    if (c + 1 < nchunks) {
-      load_w1(f0 + FCH);
-      cp_async_wait<1>();  // W2 chunk c
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // fc2: acc (16 rows x NT*8 columns) += h W2[cols, chunk]^T
-    const bf16* w2t = sW2 + cg * NT * 8 * L::LDC;
-    const bf16* hw = sH + rg * 16 * L::LDC;
-#pragma unroll
-    for (int ks = 0; ks < FCH / 16; ++ks) {
-      uint32_t af[4];
-      ldsm_a(af, hw + ks * 16, L::LDC, lane);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bb[4];
-        ldsm_b_nk_x2tiles(bb, w2t + np * 16 * L::LDC + ks * 16, L::LDC, lane);
-        mma_bf16(acc[2 * np], af, bb[0], bb[1]);
-        mma_bf16(acc[2 * np + 1], af, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // W2 chunk c and the hidden tile are free
-    if (c + 1 < nchunks) load_w2(f0 + FCH);
-  }
-
-  const bf16* B2 = static_cast<const bf16*>(a.b2);
-  const bf16* LS2 = static_cast<const bf16*>(a.ls2);
-  bf16* OUT = static_cast<bf16*>(a.out);
-  const int r0 = m0 + rg * 16 + g;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = cg * NT * 8 + j * 8 + qd * 2;
-    const float bb0 = to_f32(B2[col]), bb1 = to_f32(B2[col + 1]);
-    const float s0 = to_f32(LS2[col]), s1 = to_f32(LS2[col + 1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r < a.rows) {
-        const long long gi = (long long)r * L::D + col;
-        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(X + gi);
-        *reinterpret_cast<uint32_t*>(OUT + gi) =
-            pack_bf16(__low2float(xv) + (acc[j][2 * h] + bb0) * s0,
-                      __high2float(xv) + (acc[j][2 * h + 1] + bb1) * s1);
-      }
-    }
   }
 }
 
@@ -719,6 +599,309 @@ void mlp_plan(int* out) {
   for (int i = 0; i < 7; ++i) out[i] = p[i];
 }
 
+// bf16 at D = 768 and 1024 (dinov2-base, dinov2-large) on Hopper: the two
+// blocks of a cluster share one 64-row tile and split fc2's output columns,
+// D / 2 each. See the top of this file.
+constexpr int WIDE_FC2_REGS = 176;  // 24 + 128 (fc1, as launched) + 2 * 176 <= 512
+
+template <int D>
+struct WideTiles {
+  static_assert(D == 768 || D == 1024, "D");
+  static constexpr int ROWS = 64;                 // rows of the cluster's tile
+  static constexpr int FCH = 64;                  // hidden columns a chunk
+  static constexpr int CL = 2;                    // blocks a cluster: chunks c % CL == rank run fc1 here
+  static constexpr int KB = D / 64;               // 64-column blocks of LN(x) and of a W1 row
+  static constexpr int N2 = D / CL / 2;           // output columns of each fc2 warpgroup: 192, 256
+  static constexpr int NH = N2 / 2;               // ... in two halves, one W2-ring slot each: 96, 128
+  static constexpr uint32_t LNB = ROWS * D * 2;   // LN(x), fc1's A operand, KB swizzled [64][64] blocks
+  static constexpr uint32_t HB = ROWS * FCH * 2;  // a hidden tile
+  static constexpr int NB = CL;                   // hidden tiles: tile b holds the chunks block b computes
+  static constexpr uint32_t SLOT1 = FCH * 128;    // a W1-ring slot: one [64 hidden][64 D] box
+  static constexpr uint32_t SLOT2 = NH * 128;     // a W2-ring slot: NH output rows of one chunk
+  static constexpr int S2 = D == 768 ? 4 : 3;
+  static constexpr int NBAR = 2 * 8 + 2 * S2 + 2 * NB;
+  static constexpr int FIT = (int)((kMaxSmem - LNB - NB * HB - S2 * SLOT2 - NBAR * 8 - 1024) / SLOT1);
+  static constexpr int S1 = FIT < 8 ? FIT : 8;    // 8 at D 768, 4 at D 1024
+  static constexpr int G1 = S1 / 2;               // W1 slots fc1 takes per product group
+  static constexpr uint32_t h_off = LNB;
+  static constexpr uint32_t ring1_off = h_off + NB * HB;
+  static constexpr uint32_t ring2_off = ring1_off + S1 * SLOT1;
+  static constexpr uint32_t bar_off = ring2_off + S2 * SLOT2;
+  static constexpr uint32_t bytes = bar_off + NBAR * 8 + 1024;  // + alignment slack
+  static_assert(G1 >= 1 && KB % G1 == 0 && NH % 16 == 0 && bytes <= kMaxSmem, "tile plan");
+};
+
+template <int D, bool RES, bool TANH>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(MLP_WG_THREADS, 1)
+    ln_mlp_wide(const __grid_constant__ CUtensorMap mw1, const __grid_constant__ CUtensorMap mw2, const MlpArgs a) {
+  using T = WideTiles<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int S1 = T::S1, S2 = T::S2, G1 = T::G1;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  unsigned char* sLn = smem;
+  unsigned char* sH = smem + T::h_off;
+  unsigned char* ring1 = smem + T::ring1_off;
+  unsigned char* ring2 = smem + T::ring2_off;
+  uint64_t* full1 = reinterpret_cast<uint64_t*>(smem + T::bar_off);
+  uint64_t* empty1 = full1 + 8;
+  uint64_t* full2 = empty1 + 8;
+  uint64_t* empty2 = full2 + S2;
+  uint64_t* hfull = empty2 + S2;
+  uint64_t* hempty = hfull + T::NB;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int warp = (tid >> 5) & 3, g = lane >> 2, qd = lane & 3;
+  const uint32_t rank = cluster_rank();
+  const int m0 = (blockIdx.x / T::CL) * T::ROWS, nchunks = a.f / T::FCH;
+  const int mine = nchunks / T::CL;  // the chunks whose fc1 runs in this block: rank, rank + CL, ...
+  if (tid == 0) {
+    for (int s = 0; s < S1; ++s) {
+      mbar_init(&full1[s], 1);
+      mbar_init(&empty1[s], 4);  // the fc1 warpgroup's warps
+    }
+    for (int s = 0; s < S2; ++s) {
+      mbar_init(&full2[s], 1);
+      mbar_init(&empty2[s], 4);  // one fc2 warpgroup's warps
+    }
+    for (int b = 0; b < T::NB; ++b) {
+      mbar_init(&hfull[b], 1);            // block b's fc1: an arrival here, or one that expects its copy
+      mbar_init(&hempty[b], 8 * T::CL);   // every fc2 warp of the cluster (used in block b only)
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();  // every block's barriers exist before any remote arrival or copy
+
+  if (wg == 0) {  // the producers: warp 0 feeds ring 1 (W1), warp 1 ring 2 (W2)
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      // W1's rows of this block's chunks, one 64-column block of D a slot
+      for (int j = 0, it = 0; j < mine; ++j)
+        for (int kb = 0; kb < T::KB; ++kb, ++it) {
+          const int s = it % S1;
+          if (it >= S1) mbar_wait(&empty1[s], (it / S1 - 1) & 1);
+          mbar_expect_tx(&full1[s], T::SLOT1);
+          tma_load_4d(ring1 + s * T::SLOT1, &mw1, &full1[s], kb * 64, (j * T::CL + rank) * T::FCH, 0, 0);
+        }
+    } else if (tid == 32) {
+      // W2's rows of this block's output columns, for every chunk: fc2
+      // warpgroup p's two halves at positions 4 c + 2 p, + 1
+      for (int c = 0, it = 0; c < nchunks; ++c)
+        for (int q = 0; q < 4; ++q, ++it) {
+          const int s = it % S2;
+          if (it >= S2) mbar_wait(&empty2[s], (it / S2 - 1) & 1);
+          mbar_expect_tx(&full2[s], T::SLOT2);
+          tma_load_4d(ring2 + s * T::SLOT2, &mw2, &full2[s], c * T::FCH, rank * (D / 2) + q * T::NH, 0, 0);
+        }
+    }
+    return;
+  }
+
+  auto release = [&](uint64_t* bar) {  // one arrival of this warp, its reads of the slot done
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto pair = [](const bf16* q) { return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q)); };
+  // the residual stream at (row, col), a pair: x, or K10's x2 = x + attn *
+  // ls1 rounded as the TPU kernel rounds it (a product, then a sum)
+  auto xin = [&](long long gi, int col) {
+    float2 v = pair(static_cast<const bf16*>(a.x) + gi);
+    if constexpr (RES) {
+      const float2 at = pair(static_cast<const bf16*>(a.attn) + gi);
+      const float2 l1 = pair(static_cast<const bf16*>(a.ls1) + col);
+      v.x = __fadd_rn(v.x, __fmul_rn(at.x, l1.x));
+      v.y = __fadd_rn(v.y, __fmul_rn(at.y, l1.y));
+    }
+    return v;
+  };
+
+  if (wg == 1) {  // fc1 and the GELU of this block's chunks, each sent to both blocks
+    asm volatile("bar.sync 1, 384;\n" ::: "memory");  // LN(x) is in shared memory
+    const uint32_t ln_base = smem_addr(sLn), ring1_base = smem_addr(ring1);
+    unsigned char* hb = sH + rank * T::HB;
+    const uint32_t peer = rank ^ 1u;
+    const uint32_t hb_peer = cluster_addr(hb, peer), hfull_peer = cluster_addr(&hfull[rank], peer);
+    const bf16* B1 = static_cast<const bf16*>(a.b1) + 2 * qd;
+    const int rw[2] = {warp * 16 + g, warp * 16 + g + 8};
+    float hc[T::FCH / 2];
+    int it = 0;
+    for (int j = 0; j < mine; ++j) {
+      const int c = j * T::CL + rank;
+      // fc1: hc = LN(x) W1[chunk]^T over D, G1 slots of W1 a product group.
+      // No barrier wait and no branch sits between a group's issue and its
+      // wait (ptxas would serialise every wgmma)
+      for (int k0 = 0; k0 < T::KB; k0 += G1) {
+#pragma unroll
+        for (int q = 0; q < G1; ++q) mbar_wait(&full1[(it + q) % S1], ((it + q) / S1) & 1);
+        fence_regs(hc);
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < G1; ++q) {
+          uint32_t w1 = ring1_base + ((it + q) % S1) * T::SLOT1, ln = ln_base + (k0 + q) * (T::ROWS * 128);
+          asm volatile("" : "+r"(w1), "+r"(ln));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Wgmma<T::FCH>::ss(hc, sw128_desc_at(ln + kk * 32, 16), sw128_desc_at(w1 + kk * 32, 16),
+                              k0 > 0 || q > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(hc);
+#pragma unroll
+        for (int q = 0; q < G1; ++q) release(&empty1[(it + q) % S1]);
+        it += G1;
+      }
+      // the tile is free once every fc2 warp of the cluster has read chunk c - CL
+      if (j > 0) mbar_wait_cluster(&hempty[rank], (j - 1) & 1);
+      const bf16* b1 = B1 + c * T::FCH;
+#pragma unroll
+      for (int jj = 0; jj < T::FCH / 8; ++jj) {
+        const float2 bb = pair(b1 + 8 * jj);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(hb + sw128_offset(rw[h], 8 * jj + 2 * qd, T::ROWS)) = pack_bf16(
+              gelu<true>(hc[4 * jj + 2 * h] + bb.x, TANH), gelu<true>(hc[4 * jj + 2 * h + 1] + bb.y, TANH));
+      }
+      fence_async_shared();  // read next by wgmma here and by the copy to the peer
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");
+      if (tid == 128) {
+        mbar_arrive(&hfull[rank]);
+        bulk_copy_to_cluster(hb_peer, hb, T::HB, hfull_peer);
+      }
+    }
+    // stay until every fc2 warp of the cluster has read the last tile: their
+    // arrivals land on this block's barrier
+    if (mine > 0) mbar_wait_cluster(&hempty[rank], (mine - 1) & 1);
+    return;
+  }
+
+  // fc2: warpgroup p owns output columns col0.. (N2 of them, two halves of
+  // NH) of the tile's 64 rows: acc += h W2[cols, chunk]^T over every chunk
+  const int p = wg - 2, col0 = rank * (D / 2) + p * T::N2;
+  setmaxnreg_inc<WIDE_FC2_REGS>();
+  {  // first the LayerNorm of 8 rows a warp (fp32 statistics, two passes)
+     // from x in device memory, written as bf16 into the swizzled LN(x)
+     // tile; a lane holds columns 64 i + 2 lane, + 1. Rows past the end are 0
+    float2 sc[T::KB], bi[T::KB];
+#pragma unroll
+    for (int i = 0; i < T::KB; ++i) {
+      sc[i] = pair(static_cast<const bf16*>(a.lns) + 64 * i + 2 * lane);
+      bi[i] = pair(static_cast<const bf16*>(a.lnb) + 64 * i + 2 * lane);
+    }
+    for (int r = (p * 4 + warp) * 8; r < (p * 4 + warp) * 8 + 8; ++r) {
+      const bool live = m0 + r < a.rows;
+      float2 v[T::KB];
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < T::KB; ++i) {
+        v[i] = live ? xin((long long)(m0 + r) * D + 64 * i + 2 * lane, 64 * i + 2 * lane) : make_float2(0.f, 0.f);
+        sum += v[i].x + v[i].y;
+      }
+      const float mean = warp_sum(sum) / D;
+      float var = 0.f;
+#pragma unroll
+      for (int i = 0; i < T::KB; ++i) var += (v[i].x - mean) * (v[i].x - mean) + (v[i].y - mean) * (v[i].y - mean);
+      const float rstd = rsqrtf(warp_sum(var) / D + a.eps);
+#pragma unroll
+      for (int i = 0; i < T::KB; ++i)
+        *reinterpret_cast<uint32_t*>(sLn + sw128_offset(r, 64 * i + 2 * lane, T::ROWS)) =
+            live ? pack_bf16((v[i].x - mean) * rstd * sc[i].x + bi[i].x, (v[i].y - mean) * rstd * sc[i].y + bi[i].y)
+                 : 0u;
+    }
+    fence_async_shared();  // read next by fc1's wgmma
+    asm volatile("bar.arrive 1, 384;\n" ::: "memory");
+  }
+  float acc0[T::NH / 2], acc1[T::NH / 2];
+  const uint32_t h_base = smem_addr(sH), ring2_base = smem_addr(ring2);
+  // one half of this warpgroup's columns over chunk c's hidden tile at hb
+  auto half = [&](float(&acc)[T::NH / 2], int c, int pos, uint32_t hb) {
+    const int s = pos % S2;
+    mbar_wait(&full2[s], (pos / S2) & 1);
+    uint32_t w2 = ring2_base + s * T::SLOT2;
+    asm volatile("" : "+r"(w2));
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < T::FCH / 16; ++ks)
+      Wgmma<T::NH>::ss(acc, sw128_desc_at(hb + ks * 32, 16), sw128_desc_at(w2 + ks * 32, 16), c > 0 || ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(&empty2[s]);
+  };
+  for (int c = 0; c < nchunks; ++c) {
+    const int b = c % T::CL;
+    mbar_wait(&hfull[b], (c / T::CL) & 1);
+    uint32_t hb = h_base + b * T::HB;
+    asm volatile("" : "+r"(hb));
+    half(acc0, c, 4 * c + 2 * p, hb);
+    half(acc1, c, 4 * c + 2 * p + 1, hb);
+    // this warp has read the tile: one arrival on block b's barrier
+    __syncwarp();
+    if (lane == 0) mbar_arrive_release_cluster(&hempty[b], b);
+  }
+
+  // out = x + ls2 * (acc + b2) in fp32, one rounding (K10: x2, unrounded),
+  // from x (and attn) in device memory, rows past the end not written
+  const bf16* B2 = static_cast<const bf16*>(a.b2);
+  const bf16* LS2 = static_cast<const bf16*>(a.ls2);
+  bf16* OUT = static_cast<bf16*>(a.out);
+  auto store = [&](const float(&acc)[T::NH / 2], int cbase) {
+#pragma unroll 4
+    for (int j = 0; j < T::NH / 8; ++j) {
+      const int col = cbase + 8 * j + 2 * qd;
+      const float2 bb = pair(B2 + col), ls = pair(LS2 + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + warp * 16 + g + 8 * h;
+        if (r < a.rows) {
+          const long long gi = (long long)r * D + col;
+          const float2 xv = xin(gi, col);
+          *reinterpret_cast<uint32_t*>(OUT + gi) =
+              pack_bf16(xv.x + (acc[4 * j + 2 * h] + bb.x) * ls.x, xv.y + (acc[4 * j + 2 * h + 1] + bb.y) * ls.y);
+        }
+      }
+    }
+  };
+  store(acc0, col0);
+  store(acc1, col0 + T::NH);
+}
+
+// The wide bf16 kernel at width D: tensor maps of W1 (F, D) in [64 hidden][64
+// D] boxes and of W2 (D, F) in [NH rows][64 hidden] boxes, then the launch
+// on two blocks per 64-row tile.
+template <int D, bool RES, bool TANH>
+int launch_wide(const MlpArgs& a, cudaStream_t st) {
+  using T = WideTiles<D>;
+  if (a.d != D || a.f <= 0 || a.f % (T::FCH * T::CL)) return (int)cudaErrorInvalidValue;
+  if (a.rows == 0) return 0;
+  const long long ws = (long long)a.f * D;
+  CUtensorMap mw1, mw2;
+  cudaError_t err = operand_map(&mw1, a.w1, D, a.f, 1, 1, D, ws, ws, T::FCH);
+  if (err == cudaSuccess) err = operand_map(&mw2, a.w2, a.f, D, 1, 1, a.f, ws, ws, T::NH);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = ln_mlp_wide<D, RES, TANH>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (a.rows + T::ROWS - 1) / T::ROWS;
+  kernel<<<(unsigned)(tiles * T::CL), MLP_WG_THREADS, T::bytes, st>>>(mw1, mw2, a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_k2_wide(const MlpArgs& a, cudaStream_t st) {
+  return a.tanh_gelu ? launch_wide<D, false, true>(a, st) : launch_wide<D, false, false>(a, st);
+}
+
+// The wide plan at width D (WideTiles), as mlp_plan: each cluster reads both
+// matrices once per 64-row tile.
+template <int D>
+void wide_plan(int* out) {
+  using T = WideTiles<D>;
+  const long long weights = 2LL * D * (4 * D) * 2;
+  const int p[7] = {T::ROWS, T::CL, T::FCH, T::S1, T::S2, (int)T::bytes, (int)(weights * 1000 / T::ROWS)};
+  for (int i = 0; i < 7; ++i) out[i] = p[i];
+}
+
 // fp32 layout: LN tile (F32_BM x D), the W1 chunk (FC x D) and the W2 chunk
 // (D x FC) staged with one padding column so that neighbouring threads read
 // neighbouring banks, and the hidden chunk (F32_BM x FC).
@@ -832,22 +1015,11 @@ int launch_f32(const MlpArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int RG, int NT, int FCH, int NW>
-int launch_bf16(const MlpArgs& a, cudaStream_t st) {
-  using L = MmaMlp<RG, NT, FCH, NW>;
-  if (a.d != L::D || a.f % FCH || L::total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(ln_mlp_bf16<RG, NT, FCH, NW>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
-  if (err != cudaSuccess) return (int)err;
-  ln_mlp_bf16<RG, NT, FCH, NW><<<(a.rows + L::BM - 1) / L::BM, L::THREADS, L::total, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace cs
 
 // Shapes the wrappers guarantee: for bf16 D in {64, 384, 768, 1024} (the ViT
-// presets' widths), for fp32 D % 8 == 0 and D <= 1024; F % 64 == 0;
-// contiguous row-major tensors of one dtype.
+// presets' widths), for fp32 D % 8 == 0 and D <= 1024; F % 64 == 0 (bf16 at
+// D 768 and 1024: F % 128 == 0); contiguous row-major tensors of one dtype.
 extern "C" int cs_fused_ln_mlp(const void* x, const void* lns, const void* lnb, const void* w1,
                                const void* b1, const void* w2, const void* b2, const void* ls2,
                                void* out, int rows, int d, int f, float eps, int tanh_gelu,
@@ -858,8 +1030,8 @@ extern "C" int cs_fused_ln_mlp(const void* x, const void* lns, const void* lnb, 
     switch (d) {
       case 64: return cs::launch_k2_tma<64>(a, st);
       case 384: return cs::launch_k2_tma<384>(a, st);
-      case 768: return cs::launch_bf16<2, 24, 32, 8>(a, st);
-      case 1024: return cs::launch_bf16<2, 32, 32, 8>(a, st);
+      case 768: return cs::launch_k2_wide<768>(a, st);
+      case 1024: return cs::launch_k2_wide<1024>(a, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -867,8 +1039,8 @@ extern "C" int cs_fused_ln_mlp(const void* x, const void* lns, const void* lnb, 
 }
 
 // K10: x2 = x + attn * ls1, then K2 on x2 with x2 as the residual; the GELU
-// by the dtype (tanh on bf16, erf on fp32). Shapes as K2's, with D in {64,
-// 384} for bf16; attn (rows, D) and ls1 (D,) in x's dtype.
+// by the dtype (tanh on bf16, erf on fp32). Shapes as K2's; attn (rows, D)
+// and ls1 (D,) in x's dtype.
 extern "C" int cs_fused_res_ln_mlp(const void* x, const void* attn, const void* ls1, const void* lns,
                                    const void* lnb, const void* w1, const void* b1, const void* w2,
                                    const void* b2, const void* ls2, void* out, int rows, int d, int f,
@@ -879,17 +1051,22 @@ extern "C" int cs_fused_res_ln_mlp(const void* x, const void* attn, const void* 
     switch (d) {
       case 64: return cs::launch_tma<64, true, true>(a, st);
       case 384: return cs::launch_tma<384, true, true>(a, st);
+      case 768: return cs::launch_wide<768, true, true>(a, st);
+      case 1024: return cs::launch_wide<1024, true, true>(a, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   return d <= 512 ? cs::launch_f32<32, true>(a, st) : cs::launch_f32<16, true>(a, st);
 }
 
-// The bf16 plan of width d (64 or 384) into out[0..6]; see cs::mlp_plan.
+// The bf16 plan of width d (64, 384, 768 or 1024) into out[0..6]; see
+// cs::mlp_plan and cs::wide_plan.
 extern "C" int cs_fused_ln_mlp_plan(int d, int* out) {
   switch (d) {
     case 64: cs::mlp_plan<64>(out); return 0;
     case 384: cs::mlp_plan<384>(out); return 0;
+    case 768: cs::wide_plan<768>(out); return 0;
+    case 1024: cs::wide_plan<1024>(out); return 0;
     default: return (int)cudaErrorInvalidValue;
   }
 }

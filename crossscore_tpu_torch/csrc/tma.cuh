@@ -112,6 +112,48 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta)
       : "memory");
 }
 
+// the shared::cluster address of `p`'s offset in the cluster's block `cta`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(cta));
+  return r;
+}
+
+// one arrival, released to the cluster, on the barrier at `bar`'s offset in
+// the cluster's block `cta`
+__device__ __forceinline__ void mbar_arrive_release_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(cluster_addr(bar, cta))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed, acquiring what the
+// arrivals of other blocks of the cluster released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, "
+        "0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` of this block's shared memory at `src` copied into the block of the
+// cluster whose shared::cluster addresses `dst` and `bar` are (mapa): one
+// arrival on that barrier that expects the bytes, then the copy, which
+// completes them there. `src` is read by the async proxy: fence the writes
+// that filled it first.
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.release.cluster.shared::cluster.b64 _, [%3], %2;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // every warp of a warpgroup together: lower or raise its register ceiling
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {

@@ -91,12 +91,7 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, eps: float = 1e-6,
     dt = x.dtype
     params = [t.to(dt).contiguous() for t in (ln_scale, ln_bias, w1, b1, w2, b2, ls2)]
     _build.check_cuda_operands("fused_ln_mlp", x, *params)
-    widths = (64, 384, 768, 1024) if dt == torch.bfloat16 else range(8, 1025, 8)
-    if d not in widths or f % 64:
-        raise ValueError("fused_ln_mlp: the CUDA kernel takes D in (64, 384, 768, 1024) for "
-                         "bfloat16, D % 8 == 0 and D <= 1024 for float32, and F % 64 == 0; "
-                         f"got D={d}, F={f}")
-    rows = x.numel() // d
+    _check_widths("fused_ln_mlp", dt, d, f)
     lib = _build.load("fused_ln_mlp")
     fn = lib.cs_fused_ln_mlp
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float] \
@@ -104,7 +99,7 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, eps: float = 1e-6,
     fn.restype = ctypes.c_int
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), rows, d, f,
+    rc = fn(x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), x.numel() // d, d, f,
             float(eps), int(tanh), _build.DTYPE_CODES[str(dt)], stream)
     _build.check_rc(lib, rc, "fused_ln_mlp")
     fused_ln_mlp.launches += 1
@@ -112,6 +107,21 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, eps: float = 1e-6,
 
 
 fused_ln_mlp.launches = 0
+
+# bf16 widths of the Hopper bodies: D 64 and 384 on ``ln_mlp_tma``, D 768 and
+# 1024 (dinov2-base, dinov2-large) on ``ln_mlp_wide``, which splits F's chunks
+# over a cluster of two and so takes F % 128 == 0
+BF16_WIDTHS = (64, 384, 768, 1024)
+WIDE_WIDTHS = (768, 1024)
+
+
+def _check_widths(what: str, dt: torch.dtype, d: int, f: int) -> None:
+    widths = BF16_WIDTHS if dt == torch.bfloat16 else range(8, 1025, 8)
+    step = 128 if dt == torch.bfloat16 and d in WIDE_WIDTHS else 64
+    if d not in widths or f % step:
+        raise ValueError(f"{what}: the CUDA kernel takes D in {BF16_WIDTHS} for bfloat16 (F % 128 == 0 at "
+                         f"{WIDE_WIDTHS}), D % 8 == 0 and D <= 1024 for float32, and F % 64 == 0; "
+                         f"got D={d}, F={f}")
 
 
 # --- K10: K2 with the attention half's LayerScale residual folded in ---------
@@ -151,10 +161,7 @@ def _launch_res(x, attn, ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2, eps):
     f = w1.shape[0]
     params = [t.to(dt).contiguous() for t in (ls1, ln_scale, ln_bias, w1, b1, w2, b2, ls2)]
     _build.check_cuda_operands(what, x, attn, *params)
-    widths = (64, 384) if dt == torch.bfloat16 else range(8, 1025, 8)
-    if d not in widths or f % 64:
-        raise ValueError(f"{what}: the CUDA kernel takes D in (64, 384) for bfloat16, D % 8 == 0 and "
-                         f"D <= 1024 for float32, and F % 64 == 0; got D={d}, F={f}")
+    _check_widths(what, dt, d, f)
     lib = _build.load("fused_ln_mlp")
     fn = lib.cs_fused_res_ln_mlp
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]

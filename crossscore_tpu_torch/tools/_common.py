@@ -37,9 +37,22 @@ def device_line(device: torch.device) -> str:
     return f"device: {torch.cuda.get_device_name(device)} ({card_line()})"
 
 
+# the H100 SXM's dense bf16 tensor-core peak and memory rate (NVIDIA's data
+# sheet), the denominators of the tools' MFU and floors
+H100_BF16_PEAK = 989e12
+H100_BYTES_PER_S = 3.35e12
+
+
 def median_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> float:
     """The median, in ms, of ``reps`` runs of ``fn`` after ``warmup`` runs:
     CUDA events on the card, the host clock on the CPU."""
+    times = times_ms(fn, device, reps, warmup)
+    return sorted(times)[len(times) // 2]
+
+
+def times_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> list[float]:
+    """``reps`` timings of ``fn`` in ms after ``warmup`` runs: CUDA events on
+    the card, the host clock on the CPU."""
     for _ in range(warmup):
         fn()
     times = []
@@ -55,4 +68,4 @@ def median_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> float:
             t0 = time.perf_counter()
             fn()
             times.append(1e3 * (time.perf_counter() - t0))
-    return sorted(times)[len(times) // 2]
+    return times

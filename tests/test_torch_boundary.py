@@ -54,6 +54,14 @@ def test_the_scan_covers_the_data_parallel_modules():
         assert ROOT / "crossscore_tpu_torch" / rel in PORT_FILES, rel
 
 
+def test_the_scan_covers_the_vitl_stress_tools():
+    """The ViT-L stress path's tools, which keep their own copy of the TPU
+    tool's ``model_flops``."""
+    for rel in ("tools/stress_vitl.py", "tools/probe_vitl_token_bwd.py", "tools/batch_sweep.py"):
+        assert ROOT / "crossscore_tpu_torch" / rel in PORT_FILES, rel
+    assert "def model_flops" in (ROOT / "crossscore_tpu_torch" / "tools" / "stress_vitl.py").read_text()
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)

@@ -126,7 +126,11 @@ def _profile_group():
     ("void cs::ln_mlp_f32<32, false>(cs::MlpArgs)", "K2 fused LN-MLP"),
     ("void cs::ln_mlp_f32<32, true>(cs::MlpArgs)", "K10 fused residual LN-MLP"),
     ("_ZN2cs10ln_mlp_f32ILi16ELb1EEEvNS_7MlpArgsE", "K10 fused residual LN-MLP"),
-    ("void cs::ln_mlp_bf16<2, 24, 32, 8>(cs::MlpArgs)", "K2 fused LN-MLP"),
+    ("void cs::ln_mlp_wide<1024, false, true>(CUtensorMap_st, CUtensorMap_st, cs::MlpArgs)", "K2 fused LN-MLP"),
+    ("_ZN2cs11ln_mlp_wideILi1024ELb0ELb1EEEv14CUtensorMap_stS1_NS_7MlpArgsE", "K2 fused LN-MLP"),
+    ("void cs::ln_mlp_wide<768, true, true>(CUtensorMap_st, CUtensorMap_st, cs::MlpArgs)",
+     "K10 fused residual LN-MLP"),
+    ("_ZN2cs11ln_mlp_wideILi768ELb1ELb1EEEv14CUtensorMap_stS1_NS_7MlpArgsE", "K10 fused residual LN-MLP"),
     # the attention forward at the backbone's hd 64 and the decoder's 48
     ("void cs::attn_fwd_wgmma<64, false, 0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, cs::AttnArgs)",
      "K1 backbone attention"),

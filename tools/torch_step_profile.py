@@ -37,7 +37,7 @@ def _group(name: str) -> str:
     if "attn_fwd" in name:
         return "K3 decoder attention"
     # the fused MLP's bf16 and fp32 kernels take RES (K10) second
-    if re.search(r"ln_mlp_(tma|f32)(<\s*\d+\s*,\s*(true|1)\b|ILi\d+ELb1E)", name):
+    if re.search(r"ln_mlp_(tma|wide|f32)(<\s*\d+\s*,\s*(true|1)\b|ILi\d+ELb1E)", name):
         return "K10 fused residual LN-MLP"
     if "ln_mlp" in name:
         return "K2 fused LN-MLP"
