@@ -2,7 +2,8 @@
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
 the predict CLI, view-parallel predict, tensor- and view-parallel training,
 token-space training, the test CLI, the scoring daemon, the native host
-input path, the data-parallel CLIs and the ViT-L stress path.
+input path, the data-parallel CLIs, the ViT-L stress path and the
+training-quality workflow.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -223,7 +224,30 @@ In order:
     768); (d) ``tools.stress_vitl``, ``tools.probe_vitl_token_bwd`` and
     ``tools.batch_sweep`` through their entry points at small arguments,
     each exit 0 with its JSON line;
-20. print one ``{"kernels": [...]}`` line, then, last, the device line.
+20. the training-quality workflow: (a) K3, K6, K7, K4 and K8/K9 at hd 8
+    (the dinov2-test decoder's; the wrappers zero-pad it to the hd 16 bodies
+    at the scale 1/sqrt(8)) against their plain versions at hd 8, bf16 and
+    fp32, at B 4, 36 queries over 72 keys and at 1369 over 6845, each
+    launched twice for the same bits and timed beside the plain version,
+    SDPA and the bound; then the route given a launcher that passes the
+    padded width's scale, which K3's check must catch; (b) the train CLI at the tiny geometry (dinov2-test,
+    fp32, B=4, K=2, crop 84) for 3 steps and a validation batch, the
+    backbone from a seeded HuggingFace-keyed file (``init_path``) and the
+    histograms every step: K3 4 and K4 4 a step, a finite loss, the
+    backbone after the run the file's bit for bit, the histogram rows
+    summing to the batch's pixels, and a run with figures on stopped at
+    startup with matplotlib missing; (c) ``tools.overfit_convergence``
+    (80 steps, its correlation past 0.5, ms/step),
+    ``tools.ab_token_vs_pixel --preset gpu-medium`` (both arms, 4 steps,
+    then one validation batch), ``tools.multimethod_eval --train-steps 4 --ks
+    4,8,16``, ``tools.k_sweep`` on its corpus and checkpoint and
+    ``tools.bench_stress_attention`` (K7 and K3 at B 2, 16 heads, hd 64,
+    5476 queries over 87,616 keys beside SDPA and the bound, o within
+    relative L2 8e-3 of SDPA's, and K7's o scaled by 0.85 caught), each
+    through its entry point, exit 0 with its output lines, the launches
+    of the A/B arms' and ``multimethod_eval``'s CLI child processes
+    counted through ``chip_smoke.py --count-launches``;
+21. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -375,6 +399,9 @@ EVAL_HW, EVAL_HW_T = (540, 720), (720, 540)
 # (they need matplotlib, which the card's machine lacks)
 EVAL_OVERRIDES = [f"data.loader.validation.batch_size={PB}", f"data.neighbour_config.cross={PK}",
                   "logger.test.write.config.vis_img_every_n_steps=-1"]
+# the train CLI's figures need matplotlib too: every train CLI run turns them
+# off (tasks/train.py stops a run that would draw one without it)
+FIGURES_OFF = ["logger.vis_imgs_every_n_train_steps=100000", "logger.cache_size.validation.n_fig=0"]
 
 
 def _fail(msg: str) -> None:
@@ -1877,7 +1904,7 @@ def _token_phases(torch, dev, params, vit, zero_launches, read_launches, work: P
                   "data.loader.train.batch_size=2", "data.loader.validation.batch_size=2",
                   "data.loader.train.num_workers=4", "data.loader.validation.num_workers=4",
                   "trainer.num_sanity_val_steps=1", "trainer.limit_val_batches=1",
-                  "logger.vis_scalar_every_n_train_steps=1", "this_main.train_recipe=token_fast"]
+                  "logger.vis_scalar_every_n_train_steps=1", "this_main.train_recipe=token_fast"] + FIGURES_OFF
             zero_launches()
             tee = _Tee(sys.stdout)
             with contextlib.redirect_stdout(tee):
@@ -2234,7 +2261,7 @@ def _input_phases(torch, tok_work: Path, zero_launches, read_launches) -> dict:
           "data.loader.train.num_workers=4", "data.loader.validation.num_workers=4",
           "trainer.num_sanity_val_steps=0", "trainer.limit_val_batches=1", "trainer.max_steps=2",
           "logger.vis_scalar_every_n_train_steps=1", "this_main.train_recipe=token_fast",
-          f"this_main.ref_token_cache_dir={tok_work}/tokens"]
+          f"this_main.ref_token_cache_dir={tok_work}/tokens"] + FIGURES_OFF
     res = tok_work / "datadir" / "res_540"
     train_scenes = json.loads((res / "split.json").read_text())["train"]
     decodes: list = []
@@ -2496,7 +2523,7 @@ def _dp_phases(torch, zero_launches, read_launches, tok_work: Path, card: str) -
               "data.loader.validation.num_workers=4", "trainer.num_sanity_val_steps=0",
               "trainer.limit_train_batches=2", "trainer.limit_val_batches=2",
               "trainer.checkpointing.every_n_train_steps=2", "logger.vis_scalar_every_n_train_steps=1",
-              "model.gpu.dist_backend=gloo"]
+              "model.gpu.dist_backend=gloo"] + FIGURES_OFF
         full = pool.run(_dp_cli_rank, "train", ov + ["trainer.max_epochs=2", "alias=dp_full"], timeout=600)
         first = pool.run(_dp_cli_rank, "train", ov + ["trainer.max_epochs=1", "alias=dp_first"], timeout=600)
         run_first = same_dir(first)
@@ -2587,7 +2614,7 @@ def _dp_phases(torch, zero_launches, read_launches, tok_work: Path, card: str) -
                "data.loader.validation.num_workers=4", "trainer.num_sanity_val_steps=1",
                "trainer.limit_val_batches=1", "logger.vis_scalar_every_n_train_steps=1",
                "this_main.train_recipe=token_fast", f"this_main.ref_token_cache_dir={work}/tokens",
-               "trainer.max_steps=2", "model.gpu.dist_backend=gloo"]
+               "trainer.max_steps=2", "model.gpu.dist_backend=gloo"] + FIGURES_OFF
         tok = pool.run(_dp_cli_rank, "train", ovt + ["alias=dp_tok"], timeout=600)
         run_tok = same_dir(tok)
         b = {"encode_calls": [r["encode"] for r in tok], "eval_calls": [r["eval"] for r in tok],
@@ -2963,6 +2990,375 @@ def _vitl_phases(torch, dev, card: str, peaks, zero_launches, read_launches) -> 
     return out
 
 
+# step 20 (a): the kernels' hd 8 route at the dinov2-test decoder (B 4, 8
+# heads of hd 8, crop 84 and K=2: 36 queries over 72 keys) and at a ragged
+# larger shape: name -> (B, Nq, Nk)
+HD8_SHAPES = {"tiny": (4, 36, 72), "ragged": (1, 1369, 6845)}
+# step 20 (c): the overfit run's steps and the correlation they must pass.
+# The TPU tool's protocol is 300 steps and 0.95; on the H100 the port reads
+# 0.74 at step 76 and a plateau of 0.947-0.948 from step 176 at ~363 ms a
+# step, as the JAX CLI plateaus at 0.949 on the CPU from the same corpus
+# (tests/overfit_curves.py; PERF.md, PR 16), so step 20 takes the first 80
+# steps
+OVERFIT_STEPS, OVERFIT_MIN_CORR = 80, 0.5
+
+
+def _hd8_phases(torch, F, dev, peaks, zero_launches, read_launches) -> dict:
+    """Step 20 (a): K3, K6, K7, K4 and K8/K9 at hd 8, where every wrapper
+    zero-pads the heads to 16 lanes, launches the hd 16 body at the scale
+    1/sqrt(8) and slices the outputs back, against their plain versions at hd
+    8 itself, bf16 and fp32, at step 3's tolerances; each launched twice for
+    the same bits, timed beside the plain version, SDPA (its backward for K4
+    and K8/K9) and the bound of the hd 8 work. Then the route is given a
+    launcher that passes the padded width's 1/sqrt(16) in place of the
+    route's scale, and K3's check must fail.
+    Returns the readings by kernel, shape and dtype."""
+    import math
+
+    from crossscore_tpu_torch.ops import flash_attention as fa
+
+    peak_bf16, peak_f32, peak_bw, peak_ex2 = peaks
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    h, hd = 8, fa.NARROW_HEAD_DIM
+    d = h * hd
+    out: dict = {"readings": {}}
+    bad = []
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def heads(t):
+        return t.view(t.shape[0], -1, h, hd).transpose(1, 2)
+
+    def sdpa_bwd(q, k, v, do):
+        qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k, v))
+        oh = F.scaled_dot_product_attention(qh, kh, vh)
+        return lambda: torch.autograd.grad(oh, (qh, kh, vh), heads(do), retain_graph=True)
+
+    zero_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        es, peak = dtype.itemsize, (peak_bf16 if dtype == torch.bfloat16 else peak_f32)
+        for sname, (b, nq, nk) in HD8_SHAPES.items():
+            q, do = randn(b, nq, d, dtype=dtype), randn(b, nq, d, dtype=dtype)
+            k, v = randn(b, nk, d, dtype=dtype), randn(b, nk, d, dtype=dtype)
+            bias = torch.zeros(b, nk, device=dev)
+            for i in range(b):  # each item masks another third of the keys
+                bias[i, i % 3::3] = -1e30
+            exps = float(b * h * nq * nk)
+            fwd_bytes = (2 * b * nq * d + 2 * b * nk * d) * es + 2 * b * h * nq * 4
+            bwd_bytes = b * (3 * nq + 2 * nk) * d * es + 2 * b * h * nq * 4 + b * (nq + 2 * nk) * d * es
+            rows = {}
+            hq, hk, hv = heads(q), heads(k), heads(v)
+            fwd = {"K3": (lambda: fa.flash_cross_attention(q, k, v, h), lambda: fa.flash_cross_attention_plain(q, k, v, h),
+                          lambda: F.scaled_dot_product_attention(hq, hk, hv), exps),
+                   "K6": (lambda: fa.flash_cross_attention_masked(q, k, v, bias, h),
+                          lambda: fa.flash_cross_attention_masked_plain(q, k, v, bias, h),
+                          lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias[:, None, None, :].to(dtype)),
+                          h * nq * float((bias == 0).sum())),
+                   "K7": (lambda: fa.flash_attention_head_major(hq, hk, hv),
+                          lambda: fa.flash_attention_head_major_plain(hq, hk, hv),
+                          lambda: F.scaled_dot_product_attention(hq, hk, hv), exps)}
+            for kern, (fn, plain, lib, n_exp) in fwd.items():
+                got, same = _twice(fn)
+                want = plain()
+                err, l2 = _masked_errs([(got, want)])
+                rows[kern] = dict(err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], bit_equal=same,
+                                  max_abs=_max_abs(got[0], want[0]), ms=_time_ms(torch, fn),
+                                  plain_ms=_time_ms(torch, plain, reps=3), library_ms=_time_ms(torch, lib),
+                                  **_bound(4.0 * n_exp * hd, fwd_bytes, peak, peak_bw, n_exp, peak_ex2))
+                if not same or err > TOL[tname] or l2 > TOL_L2[tname]:
+                    bad.append(f"{kern} hd 8 {sname} {tname}: err {err:.3e}, l2 {l2:.3e}, same bits {same}")
+            o, l, m = fa.flash_cross_attention(q, k, v, h)
+            oh, lh, mh = fa.flash_attention_head_major(hq, hk, hv)
+            kb = "K8" if nk <= fa.BWD_SINGLE_MAX_NK else "K9"
+            bwd = {"K4": (lambda: fa.flash_cross_attention_bwd(q, k, v, o, do, l, m, h),
+                          lambda: fa.flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, h)),
+                   kb: (lambda: fa.flash_attention_head_major_bwd(hq, hk, hv, oh, heads(do), lh, mh),
+                        lambda: fa.flash_attention_head_major_bwd_plain(hq, hk, hv, oh, heads(do), lh, mh))}
+            lib = sdpa_bwd(q, k, v, do)
+            for kern, (fn, plain) in bwd.items():
+                got, same = _twice(fn)
+                want = plain()
+                err = max(_rel_l2(g, w) for g, w in zip(got, want))
+                rows[kern] = dict(err=err, tol=TOL_K4[tname], bit_equal=same,
+                                  max_abs=max(_max_abs(g, w) for g, w in zip(got, want)), ms=_time_ms(torch, fn),
+                                  plain_ms=_time_ms(torch, plain, reps=3), library_ms=_time_ms(torch, lib),
+                                  **_bound(10.0 * exps * hd, bwd_bytes, peak, peak_bw, exps, peak_ex2))
+                if not same or err > TOL_K4[tname]:
+                    bad.append(f"{kern} hd 8 {sname} {tname}: relative L2 {err:.3e}, same bits {same}")
+            for kern, r in rows.items():
+                out["readings"][(kern, sname, tname)] = r
+                print(f"step 20 (a) {kern} hd 8 {sname} (B {b}, {h} heads, Nq {nq}, Nk {nk}) {tname}: err "
+                      f"{r['err']:.3e} (tol {r['tol']:g})" + (f", l2 {r['l2']:.3e}" if "l2" in r else "")
+                      + f", same bits {r['bit_equal']}; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
+                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_floor']})")
+            del q, k, v, do, o, l, m, oh, lh, mh, hq, hk, hv, lib, got, want
+    out["launches"] = {kk: c for kk, c in read_launches().items() if c}
+
+    # the planted fault: the route with a launcher that passes the padded
+    # width's scale in place of the one the route gives it
+    b, nq, nk = HD8_SHAPES["tiny"]
+    q, k, v = (randn(b, n, d, dtype=torch.bfloat16) for n in (nq, nk, nk))
+    wrong = fa.narrow_head_route(lambda q, k, v, scale: fa._launch_cross(
+        "flash_cross_attention", q, k, v, h, scale=1.0 / math.sqrt(fa.NARROW_PADDED)), (q, k, v), 1)
+    err, l2 = _masked_errs([(wrong, fa.flash_cross_attention_plain(q, k, v, h))])
+    out["planted_scale"] = {"err": err, "l2": l2, "caught": err > TOL["bfloat16"] or l2 > TOL_L2["bfloat16"]}
+    print(f"step 20 (a) planted fault, scale 1/sqrt(16) in the hd 8 route: K3 err {err:.3e}, l2 {l2:.3e} "
+          f"(bounds {TOL['bfloat16']:g}, {TOL_L2['bfloat16']:g}): caught {out['planted_scale']['caught']}")
+    if not out["planted_scale"]["caught"]:
+        bad.append("the planted wrong scale was not caught")
+    if bad:
+        _fail("step 20 (a): " + "; ".join(bad))
+    return out
+
+
+def _quality_train(torch, zero_launches, read_launches, work: Path) -> dict:
+    """Step 20 (b): the train CLI at the cpu-tiny geometry on the card
+    (dinov2-test, fp32, B=4, K=2, crop 84), 3 steps and a validation batch,
+    the backbone from a seeded HuggingFace-keyed torch file
+    (``model.backbone.init_path``) and the histograms every step: K3 4 and
+    K4 4 launches a step, a finite loss, the backbone after the run the
+    file's bit for bit, the ``train/score_hist_*`` and
+    ``train/l1_diff_hist_*`` rows summing to the batch's pixels; then a run
+    with the figures on must stop at startup, matplotlib missing, with the
+    startup check's message."""
+    import importlib.util
+
+    import numpy as np
+
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.data.synthetic import generate
+    from crossscore_tpu_torch.io.convert import init_params
+    from crossscore_tpu_torch.models import CrossScoreConfig, VIT_PRESETS
+    from crossscore_tpu_torch.tasks.train import main as train_main
+
+    t0 = time.perf_counter()
+    generate(work / "tiny", hw=(112, 140), scenes_per_split={"train": 2, "val": 1, "test": 1}, seed=SEED)
+    mcfg = CrossScoreConfig.from_config(load_config("default", ["model.backbone.preset=dinov2-test"]))
+    backbone = {k[len("backbone."):]: v for k, v in init_params(mcfg, SEED + 7).items() if k.startswith("backbone.")}
+    torch.save(backbone, work / "backbone_hf.pt")
+    crop, batch, n_layers = 84, 4, VIT_PRESETS["dinov2-test"].num_layers
+    ov = [f"data.dataset.path=[{work}/tiny]", f"run.dir={work}/log20", "model.gpu.compute_dtype=float32",
+          "model.backbone.preset=dinov2-test", "data.neighbour_config.cross=2",
+          f"data.loader.train.batch_size={batch}", f"data.loader.validation.batch_size={batch}",
+          f"data.transforms.crop_size={crop}", "this_main.resize_short_side=-1", "trainer.max_steps=3",
+          "trainer.num_sanity_val_steps=1", "trainer.limit_val_batches=1", "logger.vis_scalar_every_n_train_steps=1",
+          "logger.vis_histogram_every_n_train_steps=1", f"model.backbone.init_path={work / 'backbone_hf.pt'}"]
+    zero_launches()
+    run = train_main(ov + FIGURES_OFF + ["alias=tiny"])
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in read_launches().items() if c}
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    sd = torch.load(run / "ckpt" / "step_00000003.ckpt", map_location="cpu", weights_only=True)["state_dict"]
+    bb_equal = all(torch.equal(sd[f"model.backbone.{k}"], v) for k, v in backbone.items())
+    hists = {name: [sum(r[f"{name}_{i}"] for i in range(10)) for r in rows if f"{name}_0" in r]
+             for name in ("train/score_hist", "train/l1_diff_hist")}
+    want = _launches(K1=4 * n_layers, K2=4 * n_layers, K3=4 * 4, K4=4 * 3)  # 3 steps and 1 validation batch
+    res = {"losses": losses, "launches": launches, "backbone_equal": bb_equal, "hist_sums": hists,
+           "validation": [r["validation/loss"] for r in rows if "validation/loss" in r]}
+    # the figures on, matplotlib missing (as on the card's machine): the run stops before a step
+    res["matplotlib_importable"] = importlib.util.find_spec("matplotlib") is not None
+    saved = sys.modules.get("matplotlib", ...)
+    sys.modules["matplotlib"] = None
+    try:
+        train_main(ov + ["logger.vis_imgs_every_n_train_steps=1", "alias=tiny_figures"])
+        res["startup_check"] = None
+    except RuntimeError as e:
+        res["startup_check"] = str(e)
+    finally:
+        if saved is ...:
+            del sys.modules["matplotlib"]
+        else:
+            sys.modules["matplotlib"] = saved
+    res["s"] = time.perf_counter() - t0
+    print(f"step 20 (b) train CLI, dinov2-test fp32 at crop {crop}, B={batch}, K=2, init_path: losses "
+          f"{[round(x, 6) for x in losses]}, validation {res['validation']}, launches {launches} (expected "
+          f"{ {k: c for k, c in want.items() if c} }), backbone after the run the file's: {bb_equal}; histogram "
+          f"sums {hists} (pixels a batch {batch * crop * crop}); with figures on, matplotlib missing "
+          f"(importable here: {res['matplotlib_importable']}): {res['startup_check']!r}; {res['s']:.1f} s")
+    ok = (len(losses) == 3 and all(np.isfinite(losses)) and len(res["validation"]) == 1 and bb_equal
+          and {k: launches.get(k, 0) for k in want} == want
+          and all(v == [batch * crop * crop] * 3 for v in hists.values())
+          and res["startup_check"] is not None and "logger.vis_imgs_every_n_train_steps" in res["startup_check"]
+          and "logger.cache_size.validation.n_fig" in res["startup_check"])
+    if not ok:
+        _fail("step 20 (b): the train CLI at the tiny geometry")
+    return res
+
+
+def _trailing_json(text: str):
+    """The indented JSON object that ends a tool's output, or None."""
+    try:
+        return json.loads(text[text.rindex("\n{\n") + 1:])
+    except ValueError:
+        return None
+
+
+def _quality_tools(torch, zero_launches, read_launches, work: Path) -> dict:
+    """Step 20 (c): the quality tools through their entry points at
+    dinov2-small width, 518 px: ``overfit_convergence`` (B=4, K=2, 224 px
+    crops, OVERFIT_STEPS steps: its correlation must pass
+    OVERFIT_MIN_CORR), ``ab_token_vs_pixel --preset gpu-medium`` (both arms,
+    4 steps, then one validation batch each), ``multimethod_eval
+    --train-steps 4 --ks 4,8,16`` and ``k_sweep`` on its corpus and
+    checkpoint, and ``bench_stress_attention`` (K7 and K3 beside SDPA at
+    5476 queries over 87,616 keys). Each must exit 0 with its output lines
+    and launch its kernels. ``ab_token_vs_pixel`` and ``multimethod_eval``
+    run their CLIs in child processes, as the TPU tools do: each child runs
+    through :func:`_counted_cli`, and its launches add to the tool's."""
+    import io
+    from unittest import mock
+
+    from crossscore_tpu_torch.tools import (
+        _common, ab_token_vs_pixel, bench_stress_attention, k_sweep, multimethod_eval, overfit_convergence,
+    )
+
+    import subprocess
+
+    # the host's busiest processes when the step starts: the children share
+    # its 8 cores with whatever an earlier step left running
+    ps = subprocess.run(["ps", "-eo", "pid,ppid,pcpu,rss,etime,comm", "--sort=-pcpu"], capture_output=True,
+                        text=True).stdout.splitlines()
+    print("step 20 (c) host processes, busiest first:\n  " + "\n  ".join(ps[:8]) + f"\n  ({len(ps) - 1} in all)")
+    res: dict = {}
+    bad = []
+    counts = work / "cli_launches"
+    counts.mkdir(parents=True, exist_ok=True)
+
+    def counted_command(task):
+        n = len(list(counts.iterdir()))
+        (counts / f"{n}.json").write_text('{"launches": {}}')  # the slot; the child overwrites it
+        return [sys.executable, str(Path(__file__).resolve()), "--count-launches", str(counts / f"{n}.json"),
+                "-m", f"crossscore_tpu_torch.tasks.{task}"]
+
+    def run(tag, tool, argv):
+        buf = io.StringIO()
+        zero_launches()
+        for f in counts.iterdir():
+            f.unlink()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), mock.patch.object(_common, "cli_command", counted_command):
+            rc = tool(argv)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        launches = read_launches()
+        children = [json.loads(f.read_text()) for f in sorted(counts.iterdir(), key=lambda f: int(f.stem))]
+        for child in children:
+            for k, c in child["launches"].items():
+                launches[k] += c
+        r = {"rc": rc, "s": time.perf_counter() - t0, "launches": {k: c for k, c in launches.items() if c},
+             "children": [[round(c.get("import_s", -1), 1), round(c.get("s", -1), 1)] for c in children],
+             "text": buf.getvalue()}
+        res[tag] = r
+        return r
+
+    r = run("overfit_convergence", overfit_convergence.main,
+            [str(OVERFIT_STEPS), str(work / "overfit"), "--min-corr", str(OVERFIT_MIN_CORR)])
+    final = re.search(r"final: step (\d+) L1 ([\d.]+) corr (-?[\d.]+) \(best corr (-?[\d.]+)\)", r["text"])
+    ms = re.search(r"ms/step: ([\d.]+)", r["text"])
+    r.update(final_step=int(final.group(1)) if final else None, final_l1=float(final.group(2)) if final else None,
+             final_corr=float(final.group(3)) if final else None, best_corr=float(final.group(4)) if final else None,
+             ms_per_step=float(ms.group(1)) if ms else None)
+    if r["rc"] != 0 or not final or not ms or not all(r["launches"].get(k) for k in ("K1", "K2", "K3", "K4")):
+        bad.append("overfit_convergence")
+
+    # 4 steps, then one validation batch: the epoch cut to 4 batches and
+    # validated (trainer.max_steps would stop the run before the epoch-end
+    # validation); the sustained window over steps 3 and 4
+    r = run("ab_token_vs_pixel", ab_token_vs_pixel.main,
+            ["--preset", "gpu-medium", "--out", str(work / "ab"), "--sustained", "2",
+             "--extra", "trainer.max_epochs=1", "--extra", "trainer.limit_train_batches=4",
+             "--extra", "trainer.check_val_every_n_epoch=1", "--extra", "trainer.limit_val_batches=1"])
+    report = _trailing_json(r["text"])
+    r["arms"] = [{k: a.get(k) for k in ("arm", "steps", "wall_s", "sustained_ms_per_step", "final_val_loss",
+                                         "final_val_corr", "error")} for a in (report or {}).get("arms", [])]
+    if r["rc"] != 0 or [a["arm"] for a in r["arms"]] != ["pixel", "token"] \
+            or any(a["steps"] != 4 or a["final_val_loss"] is None or a["error"] for a in r["arms"]) \
+            or not all(r["launches"].get(k) for k in ("K1", "K2", "K3", "K4")):
+        bad.append("ab_token_vs_pixel")
+
+    r = run("multimethod_eval", multimethod_eval.main,
+            ["--out", str(work / "mm"), "--train-steps", "4", "--ks", "4,8,16"])
+    report = _trailing_json(r["text"])
+    r["report"] = report
+    if r["rc"] != 0 or report is None or [x["K"] for x in report["runs"]] != [4, 8, 16] \
+            or any(set(x["per_method"]) != set(multimethod_eval.METHODS) for x in report["runs"]) \
+            or not all(r["launches"].get(k) for k in ("K1", "K2", "K3", "K4")):
+        bad.append("multimethod_eval")
+        report = None
+
+    if report is not None:
+        base = multimethod_eval.geometry(False)[4] + [multimethod_eval.TEST_FIGURES_OFF]
+        root = work / "mm" / "corpus" / multimethod_eval.METHODS[0] / multimethod_eval.DATASET
+        r = run("k_sweep", k_sweep.main, [str(root), report["ckpt"]] + base)
+        r["lines"] = [line for line in r["text"].splitlines() if line.startswith("k_sweep K=")]
+        if r["rc"] != 0 or len(r["lines"]) != 3 or not r["launches"].get("K3"):
+            bad.append("k_sweep")
+    else:
+        bad.append("k_sweep (no checkpoint)")
+
+    r = run("bench_stress_attention", bench_stress_attention.main, [])
+    try:
+        last = json.loads(r["text"].strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        last = None
+    r["last_line"] = last
+    # the planted fault: K7's o at the stress point scaled by 0.85 must fail
+    # the check the tool's readings pass (relative L2 of o against SDPA)
+    from crossscore_tpu_torch.ops.flash_attention import flash_attention_head_major
+
+    q, k, v = bench_stress_attention.inputs(torch.device("cuda"), 74, torch.bfloat16)
+    want = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    r["planted"] = bench_stress_attention.errors(0.85 * flash_attention_head_major(q, k, v)[0], want)
+    r["planted"]["caught"] = r["planted"]["rel_l2_vs_sdpa"] > TOL_L2["bfloat16"]
+    del q, k, v, want
+    if r["rc"] != 0 or last is None or set(last["kernels"]) != {"head-major K7", "layout-native K3"} \
+            or any(x["rel_l2_vs_sdpa"] > TOL_L2["bfloat16"] for x in last["kernels"].values()) \
+            or not (r["launches"].get("K3") and r["launches"].get("K7")) or not r["planted"]["caught"]:
+        bad.append("bench_stress_attention")
+
+    for tag, r in res.items():
+        text = r.pop("text")
+        print(f"step 20 (c) tools.{tag}: exit {r['rc']} in {r['s']:.1f} s, launches {r['launches']} (of them in "
+              f"{len(r['children'])} child processes, [import s, s] each {r['children']}); "
+              f"its last line: {text.strip().splitlines()[-1] if text.strip() else None}")
+        if any(b.startswith(tag) for b in bad):
+            print(f"step 20 (c) tools.{tag} output, the last 3000 characters:\n{text[-3000:]}")
+    o = res["overfit_convergence"]
+    print(f"step 20 (c) overfit: step {o['final_step']} L1 {o['final_l1']} corr {o['final_corr']} (best "
+          f"{o['best_corr']}), {o['ms_per_step']} ms/step (wall clock, loader in the loop)")
+    print(f"step 20 (c) A/B arms: {res['ab_token_vs_pixel']['arms']}")
+    st = res["bench_stress_attention"]
+    print(f"step 20 (c) stress point against SDPA (relative L2 of o, bound {TOL_L2['bfloat16']:g}): "
+          + ", ".join(f"{name} {x['rel_l2_vs_sdpa']:.3e} (max |d| {x['max_abs_vs_sdpa']:.3e})"
+                      for name, x in ((st["last_line"] or {}).get("kernels") or {}).items())
+          + f"; planted, K7's o x 0.85: {st['planted']['rel_l2_vs_sdpa']:.3e} (max |d| "
+            f"{st['planted']['max_abs_vs_sdpa']:.3e}), caught {st['planted']['caught']}")
+    if bad:
+        _fail("step 20 (c): " + ", ".join(bad))
+    return res
+
+
+def _quality_phases(torch, F, dev, peaks, zero_launches, read_launches) -> dict:
+    """Step 20, the training-quality workflow: (a) the kernels at hd 8, (b)
+    the train CLI at the tiny geometry, (c) the quality tools at full width.
+    Returns the readings."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"hd8": _hd8_phases(torch, F, dev, peaks, zero_launches, read_launches)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["train_cli"] = _quality_train(torch, zero_launches, read_launches, Path(tmp))
+        torch.cuda.empty_cache()
+        out["tools"] = _quality_tools(torch, zero_launches, read_launches, Path(tmp))
+    out["s"] = time.perf_counter() - t0
+    print(f"step 20: {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -3050,6 +3446,7 @@ def main() -> int:
 
     report = {}
 
+    _lap(t_start, 2)
     # --- 3. kernels vs plain versions at the main-path shapes ----------------
     for dtype in (torch.bfloat16, torch.float32):
         tname = str(dtype).split(".")[-1]
@@ -3555,6 +3952,7 @@ def main() -> int:
         print("chip_smoke: kernel checks passed; --kernels-only stops here")
         return 0
 
+    _lap(t_start, 3)
     # --- 4. the full-width forward through make_predict_step ------------------
     cfg = CrossScoreConfig()  # dinov2-small, bf16, flash, fused
     params = init_params(cfg, SEED, dev)
@@ -3592,6 +3990,7 @@ def main() -> int:
           f"(518 px, K={K}, bf16, median of 5 after warm-up); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    _lap(t_start, 4)
     # --- 5. the same net at B=1, kernels vs all-plain, bf16 and fp32 ----------
     q1, r1 = query[:1], refs[:1]
     for dtype, kernel_mlp in ((torch.bfloat16, "fused_exact"), (torch.bfloat16, "fused"),
@@ -3611,6 +4010,7 @@ def main() -> int:
     del model, step, query, refs, net, maps
     torch.cuda.empty_cache()
 
+    _lap(t_start, 5)
     # --- 6. the full-width train step through make_train_step -----------------
     tcfg = load_config("default")  # dinov2-small, bf16, flash, fused; AdamW 5e-4, StepLR
     mcfg = CrossScoreConfig.from_config(tcfg)
@@ -3656,6 +4056,7 @@ def main() -> int:
     del model, optimizer, scheduler, train_step, before, after, metrics
     torch.cuda.empty_cache()
 
+    _lap(t_start, 6)
     # --- 7. whole-step gradients at B=1, kernels vs all-plain, fp32 and bf16 --
     batch1 = {k: (v[:1] if v.ndim else torch.tensor(1, device=dev)) for k, v in batch.items()}
     for dtype in (torch.float32, torch.bfloat16):
@@ -3681,6 +4082,7 @@ def main() -> int:
     del batch1, net, grads  # the batch serves the tp route's step (step 11)
     torch.cuda.empty_cache()
 
+    _lap(t_start, 7)
     # --- 8. the train CLI end to end, then a resume ----------------------------
     import tempfile
 
@@ -3695,7 +4097,7 @@ def main() -> int:
               "data.loader.train.batch_size=2", "data.loader.validation.batch_size=2",
               "data.loader.train.num_workers=4", "data.loader.validation.num_workers=4",
               "trainer.num_sanity_val_steps=1", "trainer.limit_val_batches=1",
-              "logger.vis_scalar_every_n_train_steps=1"]
+              "logger.vis_scalar_every_n_train_steps=1"] + FIGURES_OFF
         zero_launches()
         run1 = train_main(ov + ["trainer.max_steps=2", "alias=first"])
         run2 = train_main(ov + ["trainer.max_steps=4", f"trainer.ckpt_path_to_load={run1 / 'ckpt'}",
@@ -3718,6 +4120,7 @@ def main() -> int:
                 or ckpts != ["step_00000004.ckpt"] or cli_launches["K4"] != 4 * (len(steps1) + len(steps2)):
             _fail("train CLI run or resume")
 
+    _lap(t_start, 8)
     # --- 9. the predict CLI at full width, four modes --------------------------
     import contextlib
 
@@ -3837,6 +4240,7 @@ def main() -> int:
         del model, step, step_cached, tokens, tokens_b, q_img, r_img, host
         torch.cuda.empty_cache()
 
+    _lap(t_start, 9)
     # --- 10. view-parallel predict ----------------------------------------------
     # The card's machine has one H100: NCCL runs with one rank, and the
     # two-rank runs use gloo ranks that share the card (NCCL refuses two
@@ -3952,6 +4356,7 @@ def main() -> int:
         vp["cli"] = vp_cli
     torch.cuda.empty_cache()
 
+    _lap(t_start, 10)
     # --- 11. tensor-parallel training over one NCCL rank ------------------------
     import dataclasses
 
@@ -4025,6 +4430,7 @@ def main() -> int:
         del xs, xs_k, o_cp, g, got, want_g
     torch.cuda.empty_cache()
 
+    _lap(t_start, 11)
     # --- 12. two gloo ranks sharing the card: TP = 2, then view-parallel training
     # fp32 gradients at full width meet three kinks: the L1 loss where a score
     # equals its target (268324 pixels), and the decoder's ReLUs and the
@@ -4171,6 +4577,7 @@ def main() -> int:
     del batch, batch1, batch2, vp_batch, p_ref, r32, r16, rv
     torch.cuda.empty_cache()
 
+    _lap(t_start, 12)
     # --- 13. the timing instruments through their entry points -------------------
     # K10 through its op (forward and backward at the predict point's 72 views),
     # then one short run of each tool; the counts zeroed just before each and
@@ -4238,39 +4645,53 @@ def main() -> int:
     if missing:
         _fail("a timing mode was never launched by its entry point: " + ", ".join(missing))
 
+    _lap(t_start, 13)
     # --- 14. token-space training: the token step, the token graph at B=1, the
     # token_fast train CLI, encode_tokens and a run on the warm store -----------
     tok_work = tempfile.TemporaryDirectory()  # step 14's tree and token store, read again in step 17
     tok = _token_phases(torch, dev, params, vit, zero_launches, read_launches, Path(tok_work.name))
 
+    _lap(t_start, 14)
     # --- 15. the test CLI: four modes and a warm store, B=1 kernels against the
     # all-plain net, the GT summary -----------------------------------------------
     ev = _eval_phases(torch, dev, zero_launches, read_launches)
     torch.cuda.empty_cache()
 
+    _lap(t_start, 15)
     # --- 16. the serving daemon: the warm-cache step, the daemon in this
     # process, the CLI in a child process ----------------------------------------
     sv = _serve_phases(torch, dev, params, card, zero_launches, read_launches)
     torch.cuda.empty_cache()
 
+    _lap(t_start, 16)
     # --- 17. the native host input path: the decoder's build and decodes, the
     # predict, test and token_fast CLIs from files and record shards with the
     # decode skip, the two host benchmarks ----------------------------------------
     inp = _input_phases(torch, Path(tok_work.name), zero_launches, read_launches)
     torch.cuda.empty_cache()
 
+    _lap(t_start, 17)
     # --- 18. data parallelism: the train (pixel and token_fast), test and
     # predict CLIs on two gloo ranks that share the card, and the dry run ------
     dpr = _dp_phases(torch, zero_launches, read_launches, Path(tok_work.name), card)
     tok_work.cleanup()
     torch.cuda.empty_cache()
 
+    _lap(t_start, 18)
     # --- 19. the ViT-L stress path: K2 and K10 at D 768 and 1024, dinov2-large
     # at 1036 px (forward and train steps), parity on the card, the three tools
     vitl = _vitl_phases(torch, dev, card, (peak_bf16, peak_bw), zero_launches, read_launches)
     torch.cuda.empty_cache()
 
-    # --- 20. the kernels line, then the device line ---------------------------
+    _lap(t_start, 19)
+    # --- 20. the training-quality workflow: the kernels at hd 8, the train CLI
+    # at the tiny geometry with init_path and the histograms, the quality tools
+    # at full width ----------------------------------------------------------------
+    qual = _quality_phases(torch, F, dev, (peak_bf16, peak_f32, peak_bw, peak_ex2), zero_launches, read_launches)
+    torch.cuda.empty_cache()
+
+    _lap(t_start, 20)
+    # --- 21. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -4339,7 +4760,11 @@ def main() -> int:
                                         "test_cli": {tag: dpr["test"][tag]["launches_per_rank"][0][kern]
                                                      for tag in ("a", "c")},
                                         "predict_cli": {tag: dpr["predict"][tag]["launches_per_rank"][0].get(kern, 0)
-                                                        for tag in ("b", "d")}}},
+                                                        for tag in ("b", "d")}},
+                                    # step 20: the tiny train CLI (3 steps, 1 validation batch)
+                                    "quality_train_cli": qual["train_cli"]["launches"].get(kern, 0),
+                                    "quality_tools": {tag: r["launches"].get(kern, 0)
+                                                      for tag, r in qual["tools"].items()}},
                "fp32": {k: r32[k] for k in stats if k in r32}, "shape": shapes[kern]}
         # K5-K7: the relative L2 of o, l, m; K5: K1's time on the same qkv;
         # K7: K3's on the same work, and both at the 1-rank length; K8/K9:
@@ -4356,6 +4781,16 @@ def main() -> int:
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
             row["self"] = {k: s[k] for k in stats if k in s}
             row["self_fp32"] = {k: s32[k] for k in stats if k in s32}
+        # step 20 (a): hd 8 through the zero-pad route, at the tiny decoder's
+        # shape and a ragged one; step 20 (c): the stress point beside SDPA
+        hd8 = {f"{sname} {tname}": {k: v for k, v in r_.items() if k in stats or k == "bit_equal"}
+               for (kern_, sname, tname), r_ in qual["hd8"]["readings"].items() if kern_ == kern}
+        if hd8:
+            row["hd8"] = hd8
+        stress = qual["tools"]["bench_stress_attention"]["last_line"]
+        if kern in ("K3", "K7"):
+            row["stress"] = stress["kernels"]["layout-native K3" if kern == "K3" else "head-major K7"] \
+                | {"sdpa_ms": stress["sdpa_ms"], "bound_ms": stress["bound_ms"], "geometry": stress["geometry"]}
         if kern == "K7":  # the tp train step's backbone shape, 12 of its 16 launches
             s, s32 = report[("K7 backbone", "bfloat16")], report[("K7 backbone", "float32")]
             row["backbone"] = {k: s[k] for k in stats if k in s} | {"shape": shapes["K7 backbone"]}
@@ -4413,6 +4848,10 @@ def main() -> int:
                       "tensor_parallel": tp, "instruments": inst,
                       "serving": sv, "host_input": inp,
                       "data_parallel": dpr, "vitl": {k: v for k, v in vitl.items() if k != "wide"},
+                      "quality": {"s": qual["s"], "hd8_planted_scale": qual["hd8"]["planted_scale"],
+                                  "train_cli": qual["train_cli"],
+                                  "tools": {tag: {k: v for k, v in r.items() if k != "report"}
+                                            for tag, r in qual["tools"].items()}},
                       "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
                                                         for k, v in r.items()} for tag, r in ev["modes"].items()}},
                       "seconds": seconds}))
@@ -4421,5 +4860,35 @@ def main() -> int:
     return 0
 
 
+def _lap(t_start: float, step: int) -> None:
+    """The script's time when a step ends: the breakdown of its time limit."""
+    print(f"chip_smoke: steps 1-{step} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def _counted_cli(argv: list) -> None:
+    """``chip_smoke.py --count-launches FILE -m MODULE ARGS...``: MODULE run
+    as ``python -m`` runs it, with every kernel's count from 0; the counts
+    go to FILE as JSON when it ends, with the seconds from here to the
+    module's start (the port's import) and to its end. Step 20 (c) runs the
+    tools' CLI children so, to read their launches."""
+    import runpy
+
+    t0 = time.perf_counter()
+    path, module = argv[1], argv[3]
+    wrappers = _rank_launches()
+    for w in wrappers.values():
+        w.launches = 0
+    sys.argv = [module] + argv[4:]
+    t_import = time.perf_counter() - t0
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        Path(path).write_text(json.dumps({"launches": {k: w.launches for k, w in wrappers.items()},
+                                          "import_s": t_import, "s": time.perf_counter() - t0}))
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--count-launches"]:
+        _counted_cli(sys.argv[1:])
+        sys.exit(0)
     sys.exit(main())

@@ -22,11 +22,19 @@ and the ssim target is a deterministic monotone map of sigma. A model can
 estimate sigma locally from the query and sharpen the estimate against the
 clean reference views — exactly the reference task's structure
 (reference ``README.md:1-4``: score a render against unaligned real captures).
+
+The arrays are drawn in order from one seeded stream; the PNG files are
+encoded on up to 8 threads (Pillow's encoder releases the GIL), the same
+bytes as one thread's. :func:`generate_method_tree` writes the
+multi-method layout of the JAX package's ``generate_method_tree``.
 """
 
 from __future__ import annotations
 
 import json
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -84,6 +92,30 @@ DEGRADATIONS = {
 }
 
 
+class _Writes:
+    """File writes on a thread pool, at most ``4 * workers`` in flight (each
+    holds its image); inline with one worker."""
+
+    def __init__(self, workers: int):
+        self.workers = max(1, workers)
+        self.pool = ThreadPoolExecutor(self.workers) if self.workers > 1 else None
+        self.pending: deque = deque()
+
+    def __call__(self, fn, *args) -> None:
+        if self.pool is None:
+            fn(*args)
+            return
+        self.pending.append(self.pool.submit(fn, *args))
+        while len(self.pending) > 4 * self.workers:
+            self.pending.popleft().result()
+
+    def close(self) -> None:
+        if self.pool is not None:
+            while self.pending:
+                self.pending.popleft().result()
+            self.pool.shutdown()
+
+
 def generate(
     root: str | Path,
     resolution: str = "res_540",
@@ -97,6 +129,7 @@ def generate(
     degradation: str = "gauss",
 ) -> Path:
     scenes_per_split = scenes_per_split or {"train": 2, "val": 1, "test": 1}
+    write = _Writes(min(8, os.cpu_count() or 1))
     root = Path(root)
     res_dir = root / resolution
     res_dir.mkdir(parents=True, exist_ok=True)
@@ -154,14 +187,38 @@ def generate(
                             ssim = _smooth_field(rng, hw, (6, 8)) * 1.6 - 0.8
                         mae = np.abs(render - gt).mean(-1)
 
-                        image_write(base / "renders" / name, render)
-                        image_write(base / "gt" / name, gt)
-                        metric_map_write(base / "metric_map/ssim" / name, ssim, [-1, 1])
-                        metric_map_write(base / "metric_map/mae" / name, mae, [0, 1])
+                        write(image_write, base / "renders" / name, render)
+                        write(image_write, base / "gt" / name, gt)
+                        write(metric_map_write, base / "metric_map/ssim" / name, ssim, [-1, 1])
+                        write(metric_map_write, base / "metric_map/mae" / name, mae, [0, 1])
+    write.close()
 
     with open(res_dir / "split.json", "w") as f:
         json.dump(split_json, f, indent=2)
     return root
+
+
+def generate_method_tree(
+    root: str | Path,
+    methods: tuple = ("gaussian", "tensorf", "nerfacto"),
+    dataset_name: str = "synthmfr",
+    seed: int = 0,
+    **kw,
+) -> list[Path]:
+    """A multi-method corpus in the reference's processed-tree layout
+    ``<root>/<method>/<dataset>/res_*``, which the summariser's (dataset,
+    method) grouping parses from item paths (reference
+    ``utils/io/score_summariser.py:170-195``). Each method gets its own
+    degradation process (``DEGRADATIONS``) with its own score scale, so the
+    per-(dataset, method) summaries rank apart. Returns the method roots,
+    for ``data.dataset.path=[...]``."""
+    degr = list(DEGRADATIONS)
+    roots = []
+    for i, m in enumerate(methods):
+        r = Path(root) / m / dataset_name
+        generate(r, seed=seed, degradation=degr[i % len(degr)], learnable=True, **kw)
+        roots.append(r)
+    return roots
 
 
 def main(argv=None) -> None:

@@ -13,6 +13,11 @@ reference Lightning ``state_dict``, or from a seed.
   parameters into every rank.
 - :func:`init_params` draws the port's own seeded parameters with the flax
   initialisers' distributions.
+- :func:`load_backbone` loads the frozen backbone from a local torch file
+  (``model.backbone.init_path``): a HuggingFace ``Dinov2Model`` state dict,
+  whose keys are the port's backbone keys, or a reference Lightning
+  checkpoint, whose ``model.backbone.*`` part it takes. The JAX package reads
+  an orbax directory there instead.
 
 Layouts: a flax Dense kernel (in, out) is a torch Linear weight (out, in)
 transposed; the patch-embed kernel (P*P*3, D) is the conv weight (D, 3, P, P)
@@ -121,6 +126,31 @@ def load_into(model: torch.nn.Module, sd: Mapping) -> torch.nn.Module:
         key = k[len(prefix):] if k.startswith(prefix) else k
         state[key] = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, np.float32))
     model.load_state_dict(state, strict=True)
+    return model
+
+
+def load_backbone(model: torch.nn.Module, path) -> torch.nn.Module:
+    """Load the backbone's tensors in a local torch file into
+    ``model.backbone``: a HuggingFace ``Dinov2Model`` state dict
+    (``embeddings.*``, ``encoder.layer.*``, ``layernorm.*``) as it is, or the
+    ``model.backbone.*`` (or ``backbone.*``) entries of a reference Lightning
+    checkpoint or a state dict, their prefix dropped. A missing or
+    unexpected key, or a shape that differs, raises ValueError naming them.
+    Returns the model."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    for prefix in ("model.backbone.", "backbone."):
+        if any(k.startswith(prefix) for k in state):
+            state = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+            break
+    own = model.backbone.state_dict()
+    missing, extra = sorted(set(own) - set(state)), sorted(set(state) - set(own))
+    shapes = [f"{k} {tuple(state[k].shape)} != {tuple(v.shape)}" for k, v in own.items()
+              if k in state and tuple(state[k].shape) != tuple(v.shape)]
+    if missing or extra or shapes:
+        raise ValueError(f"model.backbone.init_path={path} does not fit the backbone: missing {missing[:5]} "
+                         f"({len(missing)}), unexpected {extra[:5]} ({len(extra)}), shapes {shapes[:5]}")
+    model.backbone.load_state_dict({k: torch.as_tensor(state[k]).to(v.dtype) for k, v in own.items()}, strict=True)
     return model
 
 

@@ -25,14 +25,16 @@ def _bias(kv_bias: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
     return kv_bias.to(acc)
 
 
-def attention_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias=None):
+def attention_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias=None, scale=None):
     """(B, H, Nq, hd) x (B, H, Nk, hd) -> (o (B, H, Nq, hd), probs, l, m).
 
     ``m`` is the row max of the scaled (and biased) logits (natural units),
     ``l`` is sum(exp(scaled - m)) -- the (o, l, m) convention of the flash
-    kernels."""
+    kernels. ``scale`` defaults to 1/sqrt(hd); the kernels' zero-padded
+    hd 8 route passes the true head dim's."""
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if kv_bias is not None:
         logits = logits + _bias(kv_bias, acc)

@@ -25,6 +25,14 @@ K5, K11), ``csrc/flash_cross.cu`` (K3, K6, K7, K7'), ``csrc/flash_cross_bwd.cu``
 (K4, K8, K9)) or raises; on a CPU tensor it runs the plain PyTorch version
 beside it. Each wrapper counts its kernel launches in ``.launches`` (K11 and
 K7' also per mode, in ``.launches_by_mode``).
+
+The kernels take head dims that are multiples of 16 up to 128. The
+decoder's wrappers (K3, K4, K6, K7, K8/K9) also take hd 8, the decoder's at
+the ``dinov2-test`` preset (width 64, 8 heads), through
+:func:`narrow_head_route`, which zero-pads each head to 16 lanes, launches
+the hd 16 body at the true scale 1/sqrt(8) and slices the outputs back, as
+the TPU kernels compute hd 8 beside zero lanes. The backbone's K1, K5 and
+K11 refuse hd 8: no backbone preset has it (``dinov2-test`` has hd 16).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import math
 import types
 
 import torch
+import torch.nn.functional as F
 
 from crossscore_tpu_torch.ops import _build
 from crossscore_tpu_torch.ops.attention import attention_with_stats
@@ -53,12 +62,51 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b, n, h * hd)
 
 
-def _check_head_dim(what: str, hd: int) -> None:
-    if hd % 16 or not 16 <= hd <= 128:
+# hd 8 runs on the hd 16 bodies beside zero lanes (narrow_head_route), at
+# the true head dim's softmax scale
+NARROW_HEAD_DIM, NARROW_PADDED = 8, 16
+NARROW_SCALE = 1.0 / math.sqrt(NARROW_HEAD_DIM)
+
+
+def _check_head_dim(what: str, hd: int, narrow: bool = True) -> None:
+    """A multiple of 16 up to 128, or hd 8 where the wrapper takes the
+    narrow route (``narrow``)."""
+    if not (narrow and hd == NARROW_HEAD_DIM) and (hd % 16 or not 16 <= hd <= 128):
         raise ValueError(
             f"{what}: head dim {hd} is not supported by the CUDA kernel "
-            "(a multiple of 16 up to 128)"
+            f"({f'{NARROW_HEAD_DIM}, or ' if narrow else ''}a multiple of 16 up to 128)"
         )
+
+
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad every 8-lane head slice of the last axis to 16 lanes:
+    token-major (B, N, n*8) -> (B, N, n*16) (a fused qkv included) or
+    head-major (B, H, N, 8) -> (B, H, N, 16), contiguous."""
+    *lead, d = x.shape
+    w = NARROW_HEAD_DIM
+    return F.pad(x.reshape(*lead, d // w, w), (0, NARROW_PADDED - w)).reshape(*lead, d * NARROW_PADDED // w)
+
+
+def unpad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`pad_head_dim`: the first 8 lanes of every
+    16-lane head slice, as a contiguous tensor."""
+    *lead, d = x.shape
+    w = NARROW_PADDED
+    return x.reshape(*lead, d // w, w)[..., :NARROW_HEAD_DIM].reshape(*lead, d * NARROW_HEAD_DIM // w).contiguous()
+
+
+def narrow_head_route(launch, operands, n_sliced: int):
+    """hd 8 on the hd 16 kernels: ``launch(*padded, scale=NARROW_SCALE)``
+    on each operand zero-padded by :func:`pad_head_dim`, then the first
+    ``n_sliced`` outputs sliced back to 8 lanes (o; or dq, dk, dv), the rest
+    (l, m) as they come. Zero q and k lanes add nothing to q k^T and zero v
+    lanes give zero o lanes, so o, l and m are hd 8's at the true scale. In
+    the backward the zero lanes of q, k, o and do give zero dq, dk and dv
+    lanes and leave delta = rowsum(do o) as it is. Head-major outputs come
+    back contiguous. ``launch`` is a kernel's launcher, or on the CPU a
+    plain version at the padded width, which the tests put in its place."""
+    out = launch(*(pad_head_dim(t) for t in operands), scale=NARROW_SCALE)
+    return tuple(unpad_head_dim(t) for t in out[:n_sliced]) + tuple(out[n_sliced:])
 
 
 def _check_grid(what: str, b: int, num_heads: int) -> None:
@@ -101,7 +149,7 @@ def _launch_qkv(what: str, qkv: torch.Tensor, num_heads: int, kv_bias=None):
     d = d3 // 3
     hd = d // num_heads
     _build.check_cuda_operands(what, qkv)
-    _check_head_dim(what, hd)
+    _check_head_dim(what, hd, narrow=False)
     _check_grid(what, b, num_heads)
     bias_types, bias_args = _bias_args(what, kv_bias, qkv.device)
     lib = _build.load("flash_qkv")
@@ -356,13 +404,17 @@ def _check_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: i
 
 
 def _launch_cross(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-                  kv_bias=None):
-    """Launch K3, or K6 with ``kv_bias``, on CUDA tensors -> (o, l, m)."""
+                  kv_bias=None, scale=None):
+    """Launch K3, or K6 with ``kv_bias``, on CUDA tensors -> (o, l, m). The
+    bias is per key, so the hd 8 route passes it as it is."""
     b, nq, d = q.shape
     nk = k.shape[1]
     hd = d // num_heads
     _build.check_cuda_operands(what, q, k, v)
     _check_head_dim(what, hd)
+    if hd == NARROW_HEAD_DIM:
+        return narrow_head_route(
+            lambda q, k, v, scale: _launch_cross(what, q, k, v, num_heads, kv_bias, scale), (q, k, v), 1)
     _check_grid(what, b, num_heads)
     bias_types, bias_args = _bias_args(what, kv_bias, q.device)
     lib = _build.load("flash_cross")
@@ -374,17 +426,18 @@ def _launch_cross(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     m = torch.empty_like(l)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *bias_args, o.data_ptr(), l.data_ptr(), m.data_ptr(),
-            b, nq, nk, num_heads, hd, _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
+            b, nq, nk, num_heads, hd, _build.DTYPE_CODES[str(q.dtype)],
+            1.0 / math.sqrt(hd) if scale is None else scale, stream)
     _build.check_rc(lib, rc, what)
     return o, l, m
 
 
 def flash_cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-                                kv_bias=None):
+                                kv_bias=None, scale=None):
     """Plain version of K3 (and of K6 with ``kv_bias``) on token-major
     (B, N, H*hd) projections."""
     o, _, l, m = attention_with_stats(
-        _split_heads(q, num_heads), _split_heads(k, num_heads), _split_heads(v, num_heads), kv_bias
+        _split_heads(q, num_heads), _split_heads(k, num_heads), _split_heads(v, num_heads), kv_bias, scale
     )
     return _merge_heads(o), l, m
 
@@ -443,10 +496,11 @@ def _check_head_major(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         raise RuntimeError(f"{what} is forward only; an input requires grad")
 
 
-def flash_attention_head_major_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias=None):
+def flash_attention_head_major_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias=None,
+                                     scale=None):
     """Plain version of K7: dense attention with fp32 logits on (B, H, N, hd)
     operands (strided views included) -> (o (B, H, Nq, hd), l, m)."""
-    o, _, l, m = attention_with_stats(q, k, v, kv_bias)
+    o, _, l, m = attention_with_stats(q, k, v, kv_bias, scale)
     return o, l, m
 
 
@@ -462,6 +516,13 @@ def flash_attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     _check_head_major(what, q, k, v, kv_bias)
     if _build.device_type(q) == "cpu":
         return flash_attention_head_major_plain(q, k, v, kv_bias)
+    out = _launch_head_major(what, q, k, v, kv_bias)
+    flash_attention_head_major.launches += 1
+    return out
+
+
+def _launch_head_major(what: str, q, k, v, kv_bias, scale=None):
+    """Launch K7 on CUDA tensors -> (o, l, m)."""
     b, h, nq, hd = q.shape
     nk = k.shape[2]
     for t in (k, v) + (() if kv_bias is None else (kv_bias,)):
@@ -470,6 +531,9 @@ def flash_attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if str(q.dtype) not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{what}: operands must all be float32 or bfloat16")
     _check_head_dim(what, hd)
+    if hd == NARROW_HEAD_DIM:
+        return narrow_head_route(lambda q, k, v, scale: _launch_head_major(what, q, k, v, kv_bias, scale),
+                                 (q, k, v), 1)
     _check_grid(what, b, h)
     strides = (ctypes.c_longlong * 9)(*_tma_strides(what, q, k, v))
     lib = _build.load("flash_cross")
@@ -487,9 +551,8 @@ def flash_attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.addressof(strides), *bias_args,
             o.data_ptr(), l.data_ptr(), m.data_ptr(), b, h, nq, nk, hd,
-            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
+            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd) if scale is None else scale, stream)
     _build.check_rc(lib, rc, what)
-    flash_attention_head_major.launches += 1
     return o, l, m
 
 
@@ -595,14 +658,15 @@ def _bwd_stats_head_major(o: torch.Tensor, do: torch.Tensor, l: torch.Tensor, m:
     return _log_normaliser(l, m, acc), (o.to(acc) * do.to(acc)).sum(-1).contiguous()
 
 
-def _bwd_recipe(qh, kh, vh, doh, lb, delta, dt):
+def _bwd_recipe(qh, kh, vh, doh, lb, delta, dt, scale=None):
     """The backward kernels' recipe on one batch row of head-major (H, N, hd)
     operands in the accumulation dtype: recompute ``p = exp2(s * scale *
     log2e - lb)``, form ``ds = p * (dp - delta) * scale``, then take the
     products, with p and ds rounded to ``dt`` (the input dtype) before their
     products and every product summed in fp32 -> (dq, dk, dv), (H, N, hd)."""
     acc = qh.dtype
-    scale = 1.0 / math.sqrt(qh.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(qh.shape[-1])
     s = torch.matmul(qh, kh.transpose(-1, -2))  # (H, Nq, Nk)
     p = torch.exp2(s * (scale * LOG2E) - lb[..., None])
     dp = torch.matmul(doh, vh.transpose(-1, -2))
@@ -632,7 +696,7 @@ def _launch_bwd_stats(what: str, o: torch.Tensor, do: torch.Tensor, l: torch.Ten
     return lb, delta
 
 
-def flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads: int):
+def flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads: int, scale=None):
     """Plain version of K4: the kernel's recipe (:func:`_bwd_recipe`) step by
     step for one batch row at a time, which bounds the memory of the score
     tensors."""
@@ -641,7 +705,7 @@ def flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads: int):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     for i in range(q.shape[0]):
         qh, kh, vh, doh = (_split_heads(t[i:i + 1].to(acc), num_heads)[0] for t in (q, k, v, do))
-        gq, gk, gv = _bwd_recipe(qh, kh, vh, doh, lb[i], delta[i], q.dtype)
+        gq, gk, gv = _bwd_recipe(qh, kh, vh, doh, lb[i], delta[i], q.dtype, scale)
         dq[i], dk[i], dv[i] = (_merge_heads(g[None])[0].to(q.dtype) for g in (gq, gk, gv))
     return dq, dk, dv
 
@@ -659,18 +723,28 @@ def flash_cross_attention_bwd(q, k, v, o, do, l, m, num_heads: int):
         )
     if _build.device_type(q) == "cpu":
         return flash_cross_attention_bwd_plain(q, k, v, o, do, l, m, num_heads)
+    out = _launch_cross_bwd("flash_cross_attention_bwd", q, k, v, o, do, l, m, num_heads)
+    flash_cross_attention_bwd.launches += 1
+    return out
+
+
+def _launch_cross_bwd(what: str, q, k, v, o, do, l, m, num_heads: int, scale=None):
+    """Launch K4 on CUDA tensors -> (dq, dk, dv)."""
     b, nq, d = q.shape
     nk = k.shape[1]
     hd = d // num_heads
-    _build.check_cuda_operands("flash_cross_attention_bwd", q, k, v, o, do)
-    _check_head_dim("flash_cross_attention_bwd", hd)
-    _check_grid("flash_cross_attention_bwd", b, num_heads)
+    _build.check_cuda_operands(what, q, k, v, o, do)
+    _check_head_dim(what, hd)
+    if hd == NARROW_HEAD_DIM:
+        return narrow_head_route(
+            lambda q, k, v, o, do, scale: _launch_cross_bwd(what, q, k, v, o, do, l, m, num_heads, scale),
+            (q, k, v, o, do), 3)
+    _check_grid(what, b, num_heads)
     if q.dtype == torch.bfloat16:
-        lb, delta = _launch_bwd_stats("flash_cross_attention_bwd", _split_heads(o, num_heads),
-                                      _split_heads(do, num_heads), l, m)
+        lb, delta = _launch_bwd_stats(what, _split_heads(o, num_heads), _split_heads(do, num_heads), l, m)
     else:  # the fp32 path as it was
         lb, delta = _bwd_stats(o, do, l, m, num_heads)
-    _build.check_cuda_operands("flash_cross_attention_bwd", lb, delta)
+    _build.check_cuda_operands(what, lb, delta)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load("flash_cross_bwd")
     fn = lib.cs_flash_cross_attention_bwd
@@ -679,9 +753,8 @@ def flash_cross_attention_bwd(q, k, v, o, do, l, m, num_heads: int):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lb.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, nq, nk, num_heads, hd,
-            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
-    _build.check_rc(lib, rc, "flash_cross_attention_bwd")
-    flash_cross_attention_bwd.launches += 1
+            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd) if scale is None else scale, stream)
+    _build.check_rc(lib, rc, what)
     return dq, dk, dv
 
 
@@ -731,7 +804,7 @@ def _check_head_major_bwd(what: str, q, k, v, o, do, l, m) -> None:
                          f"o {tuple(o.shape)}, do {tuple(do.shape)}, l {tuple(l.shape)}")
 
 
-def flash_attention_head_major_bwd_plain(q, k, v, o, do, l, m):
+def flash_attention_head_major_bwd_plain(q, k, v, o, do, l, m, scale=None):
     """Plain version of K8/K9: :func:`_bwd_recipe` for one batch row at a time
     on head-major operands (strided views included) -> (dq, dk, dv) as the
     kernel returns them, head-major views of token-major (B, N, H*hd)
@@ -745,7 +818,7 @@ def flash_attention_head_major_bwd_plain(q, k, v, o, do, l, m):
     dv = torch.empty_like(dk)
     for i in range(b):
         gq, gk, gv = _bwd_recipe(q[i].to(acc), k[i].to(acc), v[i].to(acc), do[i].to(acc), lb[i], delta[i],
-                                 q.dtype)
+                                 q.dtype, scale)
         dq[i], dk[i], dv[i] = (_merge_heads(g[None])[0].to(q.dtype) for g in (gq, gk, gv))
     return tuple(_split_heads(t, h) for t in (dq, dk, dv))
 
@@ -800,7 +873,7 @@ def _tma_strides(what: str, *tensors) -> list[int]:
     return out
 
 
-def _launch_head_major_bwd(what: str, q, k, v, o, do, l, m):
+def _launch_head_major_bwd(what: str, q, k, v, o, do, l, m, scale=None):
     """Launch the head-major backward on CUDA tensors -> (dq, dk, dv)."""
     b, h, nq, hd = q.shape
     nk = k.shape[2]
@@ -810,6 +883,10 @@ def _launch_head_major_bwd(what: str, q, k, v, o, do, l, m):
     if str(q.dtype) not in _build.DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise ValueError(f"{what}: q, k, v, o and do must all be float32 or all bfloat16")
     _check_head_dim(what, hd)
+    if hd == NARROW_HEAD_DIM:
+        return narrow_head_route(
+            lambda q, k, v, o, do, scale: _launch_head_major_bwd(what, q, k, v, o, do, l, m, scale),
+            (q, k, v, o, do), 3)
     _check_grid(what, b, h)
     strides = (ctypes.c_longlong * 12)(*_tma_strides(what, q, do, k, v))
     if q.dtype == torch.bfloat16:
@@ -826,7 +903,7 @@ def _launch_head_major_bwd(what: str, q, k, v, o, do, l, m):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), ctypes.addressof(strides),
             lb.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, hd,
-            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd), stream)
+            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd) if scale is None else scale, stream)
     _build.check_rc(lib, rc, what)
     return tuple(_split_heads(t, h) for t in (dq, dk, dv))
 
@@ -837,9 +914,9 @@ def flash_attention_head_major_bwd(q, k, v, o, do, l, m):
     contiguous or a strided view with hd contiguous; l, m (B, H, Nq) fp32 in
     K7's convention (the context-parallel backward passes the global ones)
     -> (dq, dk, dv) in the input dtype, the head-major views of token-major
-    (B, N, H*hd) buffers, ready for the projections' backward. A launch
-    counts as K8 (one KV block on the TPU) up to :data:`BWD_SINGLE_MAX_NK`
-    KV tokens, as K9 beyond."""
+    (B, N, H*hd) buffers, ready for the projections' backward (at hd 8,
+    contiguous head-major tensors). A launch counts as K8 (one KV block on
+    the TPU) up to :data:`BWD_SINGLE_MAX_NK` KV tokens, as K9 beyond."""
     what = "flash_attention_head_major_bwd"
     _check_head_major_bwd(what, q, k, v, o, do, l, m)
     if _build.device_type(q) == "cpu":

@@ -547,17 +547,50 @@ def all_process_weighted_mean(series: list, weights: list, group=None, device="c
 
 
 class JsonlLogger:
-    """Scalar metric logging to ``<run_dir>/metrics.jsonl``."""
+    """Metric logging to ``<run_dir>/metrics.jsonl``, and to wandb with
+    ``use_wandb`` where it is installed (else a message, and the file only),
+    as the JAX ``JsonlLogger``."""
 
-    def __init__(self, run_dir: Path):
+    def __init__(self, run_dir: Path, cfg=None, use_wandb: bool = False):
         self.path = Path(run_dir) / "metrics.jsonl"
         self.f = open(self.path, "a")
+        self.wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                self.wandb = wandb.init(project=cfg.project.name, dir=str(run_dir))
+            except Exception as e:  # offline, or not installed: the file only
+                print(f"wandb unavailable ({e}); logging to {self.path} only")
 
     def log(self, metrics: dict, step: int):
         row = {"step": step, "time": time.time()}
         row.update({k: float(v) for k, v in metrics.items()})
         self.f.write(json.dumps(row) + "\n")
         self.f.flush()
+        if self.wandb is not None:
+            self.wandb.log(metrics, step=step)
+
+    def log_histogram(self, name: str, values, step: int):
+        """The 10-bin counts of ``values`` as ``{name}_{i}`` rows (and a
+        ``wandb.Histogram``): the reference logs histograms of the scores and
+        the L1 differences (``task/core.py:351-362``)."""
+        counts, edges = np.histogram(np.asarray(values).reshape(-1), bins=10)
+        self.log({f"{name}_{i}": float(c) for i, c in enumerate(counts)}, step)
+        if self.wandb is not None:
+            import wandb
+
+            self.wandb.log({name: wandb.Histogram(np_histogram=(counts, edges))}, step=step)
+
+    def log_figure(self, name: str, fig, step: int):
+        """A matplotlib figure as a ``wandb.Image``; without wandb nothing
+        (the caller writes every figure to disk)."""
+        if self.wandb is not None:
+            import wandb
+
+            self.wandb.log({name: wandb.Image(fig)}, step=step)
 
     def close(self):
         self.f.close()
+        if self.wandb is not None:
+            self.wandb.finish()

@@ -25,7 +25,20 @@ a warm store decodes only the score maps. Packed record shards are read with
 ``data.dataset.record_dir=<dir>`` (``python -m crossscore_tpu_torch.data.pack``).
 Checkpoints (``io/checkpoint.py``) keep the model, the
 optimiser, the scheduler and the exact loop cursor; resume with
-``trainer.ckpt_path_to_load=<run_dir>/ckpt``.
+``trainer.ckpt_path_to_load=<run_dir>/ckpt``. ``model.backbone.init_path``
+loads the frozen backbone from a local torch file (a HuggingFace
+``Dinov2Model`` state dict, or a reference Lightning checkpoint) over the
+seeded init.
+
+Rank 0 also draws the train-batch figure (``vis/train_s<step>.png``, every
+``logger.vis_imgs_every_n_train_steps`` steps, pixel mode only) and the
+first ``logger.cache_size.validation.n_fig`` validation batches
+(``vis/val_e<epoch>_B<batch>.png``), and logs the 10-bin histograms of the
+training forward's scores and L1 differences (``train/score_hist_<i>``,
+``train/l1_diff_hist_<i>``, every ``logger.vis_histogram_every_n_train_steps``
+steps) into ``metrics.jsonl``. Figures need matplotlib: a run that would
+draw one without it stops before its first step; turn them off with
+``logger.vis_imgs_every_n_train_steps=100000 logger.cache_size.validation.n_fig=0``.
 """
 
 from __future__ import annotations
@@ -43,7 +56,7 @@ from crossscore_tpu_torch.data.nvs_index import get_dataset, leaf_datasets
 from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.data.token_train import TokenSpaceLoader, token_working_set
 from crossscore_tpu_torch.io.checkpoint import CheckpointManager, load_hparams
-from crossscore_tpu_torch.io.convert import init_params, load_into
+from crossscore_tpu_torch.io.convert import init_params, load_backbone, load_into
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
 from crossscore_tpu_torch.tasks.common import (
@@ -54,6 +67,10 @@ from crossscore_tpu_torch.train.optim import make_optimizer
 from crossscore_tpu_torch.train.step import TrainState, batch_to_device, make_eval_step, make_train_step
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
 from crossscore_tpu_torch.utils.metric_logger import MetricLoggerScalar
+from crossscore_tpu_torch.utils.vis import make_visualiser
+
+# the overrides that turn every figure off, named by the startup check
+FIGURES_OFF = ("logger.vis_imgs_every_n_train_steps=100000", "logger.cache_size.validation.n_fig=0")
 
 
 def apply_train_recipe(cfg) -> str:
@@ -110,6 +127,27 @@ def token_fast_coverage_guard(cfg, ds_train) -> bool:
     return False
 
 
+def require_figure_backend(cfg, token_train: bool, last_step: int, validates: bool) -> None:
+    """Raise before any step when the run would draw a figure and matplotlib
+    cannot be imported: the train-batch figure when
+    ``logger.vis_imgs_every_n_train_steps`` is within ``last_step``, the last
+    step the run can reach (none in token mode), or the validation figures
+    when ``logger.cache_size.validation.n_fig`` > 0 and the run validates.
+    The histograms need no matplotlib."""
+    every = int(cfg.logger.vis_imgs_every_n_train_steps)
+    train_figs = not token_train and 0 < every <= last_step
+    val_figs = validates and int(cfg.logger.cache_size.validation.n_fig) > 0
+    if not (train_figs or val_figs):
+        return
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            f"this run draws figures (logger.vis_imgs_every_n_train_steps={every}, "
+            f"logger.cache_size.validation.n_fig={int(cfg.logger.cache_size.validation.n_fig)}), which need "
+            f"matplotlib, and it cannot be imported ({e}); turn the figures off with {' '.join(FIGURES_OFF)}") from e
+
+
 def train(cfg) -> Path | None:
     """Run the CLI on this rank; joins (and leaves) the launcher's process
     group when there are several ranks. Returns the run dir, the same on
@@ -136,7 +174,7 @@ def _train(cfg, recipe: str, ranks: DataRanks) -> Path:
     if main:  # rank 0 alone writes the run dir
         run_dir.mkdir(parents=True, exist_ok=True)
         save_config_snapshot(cfg, run_dir)
-        logger = JsonlLogger(run_dir)
+        logger = JsonlLogger(run_dir, cfg, use_wandb=bool(cfg.logger.get("use_wandb", False)))
 
     # ------------------------------------------------------------------ data
     overfit = cfg.trainer.overfit_batches
@@ -216,10 +254,17 @@ def _train(cfg, recipe: str, ranks: DataRanks) -> Path:
     limit_val = resolve_limit(cfg.trainer.limit_val_batches, loader_val.batches_per_epoch())
     if limit_val is None:
         limit_val = loader_val.batches_per_epoch()
+    last_step = int(cfg.trainer.max_epochs) * max(1, min(steps_per_epoch, limit_train))
+    if cfg.trainer.max_steps > 0:
+        last_step = min(last_step, int(cfg.trainer.max_steps))
+    require_figure_backend(cfg, token_train, last_step,
+                           (limit_val > 0 and cfg.trainer.max_epochs > 0) or cfg.trainer.num_sanity_val_steps > 0)
 
     # ----------------------------------------------------------------- model
     mcfg = CrossScoreConfig.from_config(cfg)
     model = load_into(CrossScoreNet(mcfg, device=device), init_params(mcfg, cfg.seed, device))
+    if cfg.model.backbone.get("init_path"):  # a pretrained backbone over the seeded one
+        load_backbone(model, cfg.model.backbone.init_path)
     # the epoch-interval StepLR counts the optimiser steps actually taken per
     # epoch (limit_train_batches/overfit shrink the epoch)
     actual_steps_per_epoch = max(1, min(steps_per_epoch, limit_train))
@@ -264,6 +309,21 @@ def _train(cfg, recipe: str, ranks: DataRanks) -> Path:
     train_step = make_train_step(model, optimizer, scheduler)
     eval_step = make_eval_step(model, data_parallel=val_split)
     train_cache = {"loss": MetricLoggerScalar(cfg.logger.cache_size.train.n_scalar)}
+    visualiser = make_visualiser(cfg)
+    n_fig = int(cfg.logger.cache_size.validation.n_fig)
+    fig_every = int(cfg.logger.vis_imgs_every_n_train_steps)
+    hist_every = int(cfg.logger.vis_histogram_every_n_train_steps)
+
+    def save_figure(host_batch: dict, pred: torch.Tensor, name: str, step: int | None = None) -> None:
+        """Rank 0's figure of a batch's first item and its prediction."""
+        import matplotlib.pyplot as plt
+
+        fig = visualiser.vis(host_batch, {"score_map_ref_cross": pred.float().cpu().numpy()})
+        (run_dir / "vis").mkdir(exist_ok=True)
+        fig.savefig(run_dir / "vis" / name)
+        if step is not None:
+            logger.log_figure("train/batch_vis", fig, step)
+        plt.close(fig)
 
     def run_validation(epoch: int, step: int, max_batches: int):
         if max_batches <= 0:
@@ -272,7 +332,9 @@ def _train(cfg, recipe: str, ranks: DataRanks) -> Path:
         for vb_idx, vbatch in enumerate(loader_val.epoch(epoch)):
             if vb_idx >= max_batches:
                 break
-            _, metrics = eval_step(batch_to_device(vbatch, device))
+            pred, metrics = eval_step(batch_to_device(vbatch, device))
+            if main and vb_idx < n_fig:
+                save_figure(vbatch, pred, f"val_e{epoch:03}_B{vb_idx:02}.png")
             losses.append(float(metrics["loss"]))
             corrs.append(float(metrics["correlation_cross"]))
             weights.append(float(vbatch["_valid"]))
@@ -335,14 +397,14 @@ def _train(cfg, recipe: str, ranks: DataRanks) -> Path:
         ):
             if batch_idx >= limit_train:
                 break
-            batch = batch_to_device(batch, device)
+            host_batch, batch = batch, batch_to_device(batch, device)
             if profile_window and state.step == profile_window[0]:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
                 ] if device.type == "cuda" else [torch.profiler.ProfilerActivity.CPU])
                 profiler.__enter__()
             state, metrics = train_step(state, batch)
-            metrics.pop("pred")
+            pred = metrics.pop("pred")
             loop_steps += 1
             if sustain_after and loop_steps == sustain_after:
                 float(metrics["loss"])  # host fetch = device sync anchor
@@ -373,6 +435,17 @@ def _train(cfg, recipe: str, ranks: DataRanks) -> Path:
                     "train/lr": float(lr_schedule(state.step - 1)),
                     "train/steps_per_sec": state.step / max(1e-9, time.time() - t_start),
                 }, state.step)
+            # the train-batch figure and the histograms from the training
+            # forward's prediction (the reference reuses training_step's
+            # outputs, task/core.py:312-362); token batches carry no pixels
+            # to draw
+            if main and not token_train and fig_every > 0 and state.step % fig_every == 0:
+                save_figure(host_batch, pred, f"train_s{state.step:06}.png", state.step)
+            if main and hist_every > 0 and state.step % hist_every == 0:
+                p = pred.float().cpu().numpy()
+                gt = np.asarray(host_batch["query/score_map"], np.float32)
+                logger.log_histogram("train/score_hist", p, state.step)
+                logger.log_histogram("train/l1_diff_hist", np.abs(p - gt), state.step)
 
             if ckpt_due(state.step):
                 save()

@@ -1,13 +1,46 @@
-"""What the tools share: the device they time on, the card's line, and a
-median of timed runs."""
+"""What the tools share: the device they time on, the card's line, a
+median of timed runs, and the CLIs in child processes."""
 
 from __future__ import annotations
 
+import os
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
+
+REPO = Path(__file__).resolve().parents[2]
+
+
+def cli_command(task: str) -> list[str]:
+    """The command that runs ``crossscore_tpu_torch.tasks.<task>``."""
+    return [sys.executable, "-m", f"crossscore_tpu_torch.tasks.{task}"]
+
+
+def run_cli(task: str, argv: list[str], cwd: Path, timeout: float | None = None, tail: int = 2000) -> str:
+    """``tasks.<task>`` with ``argv`` in a child process in ``cwd`` (the repo
+    first on its PYTHONPATH), the last ``tail`` characters of its stdout
+    echoed -> its stdout. A nonzero exit raises with the end of its stderr;
+    past ``timeout`` seconds the child is killed and
+    ``subprocess.TimeoutExpired`` raised, so that a hung run ends."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(REPO), env.get("PYTHONPATH")]))
+    proc = subprocess.run(cli_command(task) + list(argv), env=env, cwd=cwd, capture_output=True, text=True,
+                          timeout=timeout)
+    sys.stdout.write(proc.stdout[-tail:])
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise RuntimeError(f"tasks.{task} failed (rc={proc.returncode})")
+    return proc.stdout
+
+
+def done_dir(stdout: str, what: str, cwd: Path) -> Path:
+    """The output dir a CLI names on its ``<what> done: N ... -> dir`` line,
+    absolute (relative to the child's ``cwd``)."""
+    return cwd / re.search(rf"{what} done: \d+ \w+ -> (.+)", stdout).group(1).strip()
 
 
 def resolve_device(cpu: bool) -> torch.device | None:

@@ -62,6 +62,40 @@ def test_the_scan_covers_the_vitl_stress_tools():
     assert "def model_flops" in (ROOT / "crossscore_tpu_torch" / "tools" / "stress_vitl.py").read_text()
 
 
+QUALITY_MODULES = ("tools/overfit_convergence.py", "tools/ab_token_vs_pixel.py", "tools/multimethod_eval.py",
+                   "tools/k_sweep.py", "tools/bench_stress_attention.py", "data/split_builder.py",
+                   "data/debug_vis.py")
+
+
+def test_the_scan_covers_the_training_quality_workflow():
+    """The quality tools and the small host CLIs; none loads the JAX
+    package's ``native/`` library."""
+    for rel in QUALITY_MODULES:
+        path = ROOT / "crossscore_tpu_torch" / rel
+        assert path in PORT_FILES, rel
+        text = path.read_text()
+        assert "libfastimage" not in text and not re.search(r'/\s*"native"', text), rel
+
+
+def test_predict_sh_runs_only_port_modules():
+    """The port's ``predict.sh`` names the port's predict CLI and nothing of
+    the JAX package."""
+    text = (ROOT / "crossscore_tpu_torch" / "predict.sh").read_text()
+    modules = re.findall(r"python3? -m ([\w.]+)", text)
+    assert modules == ["crossscore_tpu_torch.tasks.predict"], modules
+    assert not re.search(r"\bcrossscore_tpu(?!_torch)\b", text)
+    assert not re.search(r"\b(jax|flax|optax|orbax)\b", text) and "native/" not in text
+
+
+def test_importing_the_quality_tools_loads_no_jax():
+    mods = ", ".join("crossscore_tpu_torch." + rel[:-3].replace("/", ".") for rel in QUALITY_MODULES)
+    code = (f"import sys\nimport {mods}\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)

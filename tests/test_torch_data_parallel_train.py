@@ -166,7 +166,8 @@ def test_mid_epoch_resume_on_two_ranks_and_rank0_files(pool, ws):
         assert len(logged) == len(set(logged))
     assert sorted(p.name for p in (full / "ckpt").iterdir()) == ["hparams.yaml", "step_00000006.ckpt"]
     assert sorted(p.name for p in (first / "ckpt").iterdir()) == ["hparams.yaml", "step_00000002.ckpt"]
-    assert sorted(p.name for p in full.iterdir()) == ["ckpt", "config.yaml", "metrics.jsonl"]
+    # the validation figures too (logger.cache_size.validation.n_fig, 2 by default)
+    assert sorted(p.name for p in full.iterdir()) == ["ckpt", "config.yaml", "metrics.jsonl", "vis"]
 
 
 def test_token_fast_on_two_ranks_matches_one_rank(pool, ws):

@@ -25,14 +25,14 @@ from crossscore_tpu_torch.data.records import encode_raw_payload, pack
 from crossscore_tpu_torch.data.synthetic import generate
 from crossscore_tpu_torch.io.images import metric_map_write
 from crossscore_tpu_torch.ops import _build
+from torch_native import require_jax_native
 
 
 @pytest.fixture(autouse=True)
 def _native():
     if not fi.available():
         pytest.skip(f"the port's native decoder does not build here: {fi.load_error()}")
-    if not jax_fi.available():
-        pytest.skip("the JAX package's native decoder does not build here")
+    require_jax_native()
 
 
 @pytest.fixture(scope="module")

@@ -160,8 +160,15 @@ def test_wrappers_on_cpu_use_plain_versions_and_count_nothing():
 
 @pytest.mark.parametrize("hd", [8, 24, 144])
 def test_cuda_head_dim_rule(hd):
-    with pytest.raises(ValueError, match=f"head dim {hd}"):
+    """A multiple of 16 up to 128; hd 8 only where the wrapper takes the
+    zero-pad route (``fa.narrow_head_route``): the decoder's, not K1's."""
+    if hd == fa.NARROW_HEAD_DIM:
         fa._check_head_dim("k", hd)
+    else:
+        with pytest.raises(ValueError, match=f"head dim {hd}"):
+            fa._check_head_dim("k", hd)
+    with pytest.raises(ValueError, match=f"head dim {hd}"):
+        fa._check_head_dim("k", hd, narrow=False)
 
 
 def test_wrappers_reject_bad_shapes_and_devices():

@@ -36,6 +36,7 @@ from crossscore_tpu_torch.data.token_cache import RefTokenCache
 from crossscore_tpu_torch.data.token_train import TokenSpaceLoader
 from crossscore_tpu_torch.io.images import image_read, image_read_bytes, metric_map_read, metric_map_read_bytes
 from crossscore_tpu_torch.tasks.predict import main as predict_main
+from torch_native import require_jax_native
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -44,8 +45,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def native():
     if not fastimage.available():
         pytest.skip(f"the port's native decoder does not build here: {fastimage.load_error()}")
-    if not jax_fi.available():
-        pytest.skip("the JAX package's native decoder does not build here")
+    require_jax_native()
 
 
 @pytest.fixture(scope="module")
