@@ -2,8 +2,8 @@
 """Drive the PyTorch/H100 port on one CUDA card: the predict forward, the train step,
 the predict CLI, view-parallel predict, tensor- and view-parallel training,
 token-space training, the test CLI, the scoring daemon, the native host
-input path, the data-parallel CLIs, the ViT-L stress path and the
-training-quality workflow.
+input path, the data-parallel CLIs, the ViT-L stress path, the
+training-quality workflow and the int8 backbone.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -176,7 +176,7 @@ In order:
     resized, and a ``CSRT`` payload of it (the cropped wire and every
     ``CSRT`` decode bit-equal; a missing ``png.h`` is printed and the rest
     runs on Pillow, any other build error fails); (b) the predict CLI on
-    step 9's renders and pool (B=8, K=5, unbucketed), uncached and cached,
+    two batches of step 9's renders and its pool (B=8, K=5, unbucketed), uncached and cached,
     from files on Pillow (``CROSSSCORE_NO_NATIVE=1``) and natively and from
     the shards of ``data.pack`` and ``data.pack --decoded``: launches as in
     step 9, hits + decode-skips + the miss batch's slots = the reference
@@ -187,9 +187,9 @@ In order:
     14's warm store with the skip: no encoder call, no image of the train
     split decoded (score maps only), every slot that holds an image
     decode-skipped, the losses within 1e-6 of a Pillow run's; (e)
-    ``tools.ingest_bench`` and ``tools.token_assembly_bench`` (the loader's
-    retained malloc arena, and glibc's defaults), beside the host's CPU
-    count;
+    ``tools.ingest_bench`` (4 epochs) and ``tools.token_assembly_bench`` (10
+    batches; the loader's retained malloc arena, and glibc's defaults),
+    beside the host's CPU count;
 18. data parallelism on two gloo ranks that share the card (one node):
     (a) the train CLI (dinov2-small, 518 px crops, bf16, K=5, B=4 a step,
     2 a rank) for 4 steps with validation and a checkpoint at step 2: per
@@ -203,8 +203,9 @@ In order:
     and K4 4 a step per rank, the losses equal on both ranks; (c) the test
     CLI, modes (a) and (c), against one rank: the same rows within 1e-2, the
     mean the rows' weighted mean, each rank's misses the pools of its
-    blocks; (d) the predict CLI, modes (b) and (d), data parallel against
-    one rank: the same file names, maps within MAE 1e-2, maps/s per rank;
+    blocks; (d) the predict CLI, modes (b) and (d), on two batches of step
+    9's renders, data parallel against one rank: the same file names, maps
+    within MAE 1e-2, maps/s per rank;
     (e) ``tools.dryrun_multichip 4`` through its entry point: exit 0;
 19. the ViT-L stress path (BASELINE config #5: dinov2-large at 1036 px, a
     74x74 patch grid): (a) K2 (tanh and exact) and K10 on the wide bf16 body
@@ -247,7 +248,26 @@ In order:
     through its entry point, exit 0 with its output lines, the launches
     of the A/B arms' and ``multimethod_eval``'s CLI child processes
     counted through ``chip_smoke.py --count-launches``;
-21. print one ``{"kernels": [...]}`` line, then, last, the device line.
+21. the int8 W8A8 backbone (``model.gpu.backbone_quant=int8``): (a) Q1 (row
+    quantise) and Q2 (the int8 linear) against their plain versions at the
+    predict point's three products (98,640 rows: fc1, fc2, qkv), the
+    weights' shapes and 1, 17, 63, 129 and 2741 rows at K 64-4096, bf16 and
+    fp32: Q1's codes and scales bit-equal, Q2 within one ulp (and counted
+    where not bit-equal), each launched twice for the same bits; a scale of
+    1/126 planted in Q1 caught; each timed beside its plain version,
+    ``torch._int_mm`` and a PyTorch dequantisation, bf16 ``F.linear`` and
+    the bound; (b) the int8 predict step at the headline point (dinov2-small,
+    518 px, K=8, B=8, bf16, ``mlp_impl=fused`` requested): launches (K1 12,
+    K2 0, K3 4, Q1 96, Q2 48), the score map within JAX's int8 tier of the
+    unquantised step (MAE 5e-3, max 5e-2), maps/s of both in this call and
+    the backbone's device time split into Q1, Q2, K1 and the rest, and the
+    int8 pixel train step at B=24, K=5 beside the unquantised one (launches
+    K1 12, K3 4, K4 4, Q1 96, Q2 48; the loss finite, the backbone frozen);
+    (c) the predict CLI, mode (c), with and without int8: K5, K6, Q1 and Q2
+    launched and K2 not, the maps within the int8 tier; (d)
+    ``tools.matmul_microbench`` through its entry point; (e) dinov2-large at
+    1036 px, K=5, B=1: an int8 forward beside the bf16 one;
+22. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -402,6 +422,15 @@ EVAL_OVERRIDES = [f"data.loader.validation.batch_size={PB}", f"data.neighbour_co
 # the train CLI's figures need matplotlib too: every train CLI run turns them
 # off (tasks/train.py stops a run that would draw one without it)
 FIGURES_OFF = ["logger.vis_imgs_every_n_train_steps=100000", "logger.cache_size.validation.n_fig=0"]
+
+# step 21: the predict point's backbone products (K, N) over its 98,640
+# rows, and the ragged rows and widths Q1 and Q2 are held at besides
+INT8_PRODUCTS = {"fc1": (384, 1536), "fc2": (1536, 384), "qkv": (384, 1152)}
+INT8_ROWS = (1, 17, 63, 129, 2741)
+INT8_WIDTHS = ((64, 192), (768, 2304), (1024, 4096), (4096, 1024))
+# JAX's int8 tier (tests/test_quant.py:80-92): score maps (in [0, 1]) of
+# the int8 net against the same net unquantised, MAE and max
+INT8_TIER = (5e-3, 5e-2)
 
 
 def _fail(msg: str) -> None:
@@ -1102,6 +1131,25 @@ def _time_ms(torch, fn, reps: int = 10) -> float:
     return sorted(_event_times(torch, fn, reps))[reps // 2]
 
 
+def _stream_ms(torch, fn, calls: int = 20, turns: int = 3) -> float:
+    """The in-stream mean of one call of ``fn`` in ms: events around
+    ``calls`` back-to-back calls, the median of ``turns`` such means after
+    two warm-up calls. The host enqueues ahead of the card, so a short
+    kernel's time holds no Python of its wrapper's."""
+    for _ in range(2):
+        fn()
+    means = []
+    for _ in range(turns):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        means.append(a.elapsed_time(b) / calls)
+    return sorted(means)[turns // 2]
+
+
 def _rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     return float(((got - want).abs() / (1.0 + want.abs())).max())
@@ -1548,6 +1596,7 @@ def _rank_launches() -> dict:
     )
     from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_res_ln_mlp
     from crossscore_tpu_torch.ops.lane_pad_probe import lane_pad_probe
+    from crossscore_tpu_torch.ops.quant import int8_linear, quantize_rowwise
 
     return {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention,
             "K4": flash_cross_attention_bwd, "K5": flash_qkv_self_attention_masked,
@@ -1556,7 +1605,9 @@ def _rank_launches() -> dict:
             # the timing instruments (K11 and K7' also count per mode in .launches_by_mode)
             "K10": fused_res_ln_mlp, "K11 probe": flash_qkv_self_attention_probe,
             "K11 chunks": flash_qkv_self_attention_chunked, "K7'": flash_attention_head_major_variant,
-            "K12": lane_pad_probe}
+            "K12": lane_pad_probe,
+            # the int8 backbone's kernels, which have no Pallas counterpart
+            "Q1": quantize_rowwise, "Q2": int8_linear}
 
 
 def _launches(**counts) -> dict:
@@ -2146,7 +2197,7 @@ def _input_phases(torch, tok_work: Path, zero_launches, read_launches) -> dict:
         # (b) the predict CLI: step 9's 24 renders and pool of 5, unbucketed,
         # (a) uncached and (b) cached, the decode skip on in (b) natively
         data = tmp / "predict_data"
-        qdir, rdir = _write_predict_dirs(data, 3 * PB, PK)
+        qdir, rdir = _write_predict_dirs(data, 2 * PB, PK)  # two batches of step 9's renders
         t0 = time.perf_counter()
         pack_main([str(data), str(tmp / "png")])
         pack_main([str(data), str(tmp / "raw"), "--decoded"])
@@ -2166,7 +2217,7 @@ def _input_phases(torch, tok_work: Path, zero_launches, read_launches) -> dict:
             sources = {"pillow files": (False, None), "native files": (True, None)} | {
                 k: v for k, v in sources.items() if k.startswith("native")}
         pcfg = CrossScoreConfig.from_config(load_config("default_predict"))
-        n_b, n_layers, n_dec = 3, pcfg.backbone.num_layers, 2 * pcfg.decoder_layers
+        n_b, n_layers, n_dec = 2, pcfg.backbone.num_layers, 2 * pcfg.decoder_layers
         runs, bad = {}, []
         for src, (use_native, store) in sources.items():
             for mode, cache in (("a", "off"), ("b", "on")):
@@ -2196,7 +2247,7 @@ def _input_phases(torch, tok_work: Path, zero_launches, read_launches) -> dict:
                       f"{'on' if skip_on else 'off'}; cache hits {r['hits']}, misses {r['misses']}, decode-skips "
                       f"{r['skips']}; launches { {k: v for k, v in r['launches'].items() if v} } (expected "
                       f"{ {k: v for k, v in want.items() if v} }); {len(r['maps'])} maps")
-                if r["launches"] != want or len(r["maps"]) != 3 * PB:
+                if r["launches"] != want or len(r["maps"]) != n_b * PB:
                     bad.append(f"{tag} launches/maps")
                 if cache == "on":
                     # the first batch's slots resolve from its PK misses; every
@@ -2334,9 +2385,10 @@ def _input_phases(torch, tok_work: Path, zero_launches, read_launches) -> dict:
 
     # (e) the two host benchmarks, each in its own process (mallopt is
     # process-wide), with the host's CPU count beside them
-    benches = {"ingest": ["-m", "crossscore_tpu_torch.tools.ingest_bench", "10"],
-               "assembly loader": ["-m", "crossscore_tpu_torch.tools.token_assembly_bench"],
-               "assembly glibc": ["-m", "crossscore_tpu_torch.tools.token_assembly_bench", "--arena", "glibc"]}
+    benches = {"ingest": ["-m", "crossscore_tpu_torch.tools.ingest_bench", "4"],
+               "assembly loader": ["-m", "crossscore_tpu_torch.tools.token_assembly_bench", "--iters", "10"],
+               "assembly glibc": ["-m", "crossscore_tpu_torch.tools.token_assembly_bench", "--arena", "glibc",
+                                  "--iters", "10"]}
     inp["bench"] = {}
     for name, args in benches.items():
         t0 = time.perf_counter()
@@ -2477,7 +2529,7 @@ def _dp_phases(torch, zero_launches, read_launches, tok_work: Path, card: str) -
     at step 2, a resume from it, and fp32 2 ranks x B=1 against one rank x
     B=2; (b) ``token_fast`` on step 14's warm store; (c) the test CLI on step
     15's tree, modes (a) and (c), against one rank; (d) the predict CLI on
-    step 9's renders, modes (b) and (d), against one rank; (e)
+    two batches of step 9's renders, modes (b) and (d), against one rank; (e)
     ``tools.dryrun_multichip 4``. Returns the readings."""
     import csv
     import tempfile
@@ -2692,7 +2744,7 @@ def _dp_phases(torch, zero_launches, read_launches, tok_work: Path, card: str) -
 
         # --- (d) the predict CLI on step 9's renders, modes (b) and (d) -------------------
         t0 = time.perf_counter()
-        qdir, rdir = _write_predict_dirs(tmp / "predict", 3 * PB, PK)
+        qdir, rdir = _write_predict_dirs(tmp / "predict", 2 * PB, PK)  # two batches of step 9's renders
         pcfg = CrossScoreConfig.from_config(load_config("default_predict"))
         pckpt = tmp / "prun" / "ckpt" / "seeded.ckpt"
         pckpt.parent.mkdir(parents=True)
@@ -2727,7 +2779,7 @@ def _dp_phases(torch, zero_launches, read_launches, tok_work: Path, card: str) -
                   f"against one rank: {d[tag]['maps']} maps, the same names {d[tag]['same_names']}, worst map MAE "
                   f"{d[tag]['max_mae']:.3e} (tol {DP_MAP_TOL:.0e}); launches per rank {d[tag]['launches_per_rank']}; "
                   f"maps/s per rank {d[tag]['maps_per_s_per_rank']} (two ranks time-slicing one card)")
-            if not d[tag]["same_names"] or d[tag]["maps"] != 3 * PB or d[tag]["max_mae"] > DP_MAP_TOL \
+            if not d[tag]["same_names"] or d[tag]["maps"] != 2 * PB or d[tag]["max_mae"] > DP_MAP_TOL \
                     or not all("data-parallel predict: 2 data ranks" in r["text"] for r in res):
                 bad.append(f"(d) the predict CLI, mode {tag}")
         d["s"] = time.perf_counter() - t0
@@ -3356,6 +3408,427 @@ def _quality_phases(torch, F, dev, peaks, zero_launches, read_launches) -> dict:
         out["tools"] = _quality_tools(torch, zero_launches, read_launches, Path(tmp))
     out["s"] = time.perf_counter() - t0
     print(f"step 20: {out['s']:.1f} s")
+    return out
+
+
+def _ulps(torch, got, want) -> int:
+    """The largest distance between two tensors of one float dtype in units
+    in its last place (bit patterns ordered as their values)."""
+    bits, mask = (torch.int16, 0x7FFF) if got.dtype == torch.bfloat16 else (torch.int32, 0x7FFFFFFF)
+    a, b = (t.contiguous().view(bits).long() for t in (got, want))
+    a, b = (torch.where(v < 0, -(v & mask), v) for v in (a, b))
+    return int((a - b).abs().max())
+
+
+def _int8_kernels(torch, F, dev, rows_main: int, peaks) -> tuple[dict, list]:
+    """Step 21 (a): Q1 and Q2 against their plain versions, the planted
+    scale, and their times at the predict point's products."""
+    from crossscore_tpu_torch.ops import quant
+
+    peak_bf16, peak_bw = peaks
+    peak_int8 = 2 * peak_bf16  # Hopper's dense int8 rate is twice its bf16 rate
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bad, res = [], {"Q1": {"cases": 0, "reruns_bit_equal": True, "max_abs_err": 0.0},
+                    "Q2": {"cases": 0, "not_bit_equal": 0, "max_ulps": 0, "reruns_bit_equal": True,
+                           "max_abs_err": 0.0}}
+
+    def activation(rows, k, dtype):
+        x = torch.randn(rows, k, generator=gen, device=dev) * 2
+        x[0, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -1.5, 126.5], device=dev)  # ties at s = 1
+        if rows > 1:
+            x[1] = 0  # the eps scale
+        return x.to(dtype)
+
+    def weight(n, k):
+        return torch.randn(n, k, generator=gen, device=dev) / k ** 0.5
+
+    # Q1: codes and scales bit-equal to the plain version, and a rerun's bits
+    q1_cases = [(rows_main, k, dt) for k in (384, 1536) for dt in (torch.bfloat16, torch.float32)]
+    q1_cases += [(r, k, dt) for r in INT8_ROWS for k in (64, 768, 1024, 4096) for dt in (torch.bfloat16, torch.float32)]
+    q1_cases += [(n, k, torch.float32) for k, n in INT8_PRODUCTS.values()]  # the fp32 weights
+    for rows, k, dt in q1_cases:
+        x = activation(rows, k, dt)
+        (q, s), same = _twice(quant.quantize_rowwise, x)
+        qp, sp = quant.quantize_rowwise_plain(x)
+        res["Q1"]["cases"] += 1
+        res["Q1"]["reruns_bit_equal"] &= same
+        # the codes' and the scales' largest |kernel - plain|
+        res["Q1"]["max_abs_err"] = max(res["Q1"]["max_abs_err"], _max_abs(q, qp), _max_abs(s, sp))
+        if not (torch.equal(q, qp) and torch.equal(s, sp) and same):
+            bad.append(f"Q1 ({rows}, {k}) {dt}: {int((q != qp).sum())} codes, {int((s != sp).sum())} scales off, "
+                       f"rerun bit-equal {same}")
+    # Q2 on the plain version's codes: within one ulp (bit-equal expected), a rerun's bits
+    dtypes = (torch.bfloat16, torch.float32)
+    q2_cases = [(rows_main, k, n, dt, True) for k, n in INT8_PRODUCTS.values() for dt in dtypes]
+    q2_cases += [(rows_main, 384, 1536, torch.bfloat16, False)]
+    q2_cases += [(r, k, n, dt, True) for r in INT8_ROWS for k, n in INT8_WIDTHS for dt in dtypes]
+    for rows, k, n, dt, with_bias in q2_cases:
+        xq, sx = quant.quantize_rowwise_plain(activation(rows, k, dt))
+        wq, sw = quant.quantize_rowwise_plain(weight(n, k))
+        bias = (torch.randn(n, generator=gen, device=dev) * 0.1).to(dt) if with_bias else None
+        got, same = _twice(lambda *a: (quant.int8_linear(*a, bias, dt),), (xq, sx), (wq, sw))
+        want = quant.int8_product_plain(xq, sx, wq, sw, bias, dt)
+        ulps = _ulps(torch, got[0], want)
+        r = res["Q2"]
+        r["cases"] += 1
+        r["not_bit_equal"] += int(not torch.equal(got[0], want))
+        r["max_ulps"] = max(r["max_ulps"], ulps)
+        r["max_abs_err"] = max(r["max_abs_err"], _max_abs(got[0], want))
+        r["reruns_bit_equal"] &= same
+        if ulps > 1 or not same:
+            bad.append(f"Q2 ({rows}, {k} -> {n}) {dt}: {ulps} ulps, rerun bit-equal {same}")
+    print(f"step 21 (a) Q1 against its plain version over {res['Q1']['cases']} cases (98,640 rows at K 384 and "
+          f"1536, rows {INT8_ROWS} at K 64-4096, bf16 and fp32, the fp32 weights): codes and scales bit-equal "
+          f"{not any(b.startswith('Q1') for b in bad)}, reruns bit-equal {res['Q1']['reruns_bit_equal']}; Q2 over "
+          f"{res['Q2']['cases']} cases: max {res['Q2']['max_ulps']} ulps (bound 1), {res['Q2']['not_bit_equal']} "
+          f"cases not bit-equal, reruns bit-equal {res['Q2']['reruns_bit_equal']}")
+
+    # the planted fault: Q1 with the scale absmax / 126 must be caught, by
+    # Q1's check and through Q2 by the linear's
+    k, n = INT8_PRODUCTS["fc1"]
+    x, w = activation(rows_main, k, torch.bfloat16), weight(n, k)
+    bias = (torch.randn(n, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    q_bad, s_bad = quant._launch_q1(x, 126.0)
+    qp, sp = quant.quantize_rowwise_plain(x)
+    y_bad = quant.int8_linear((q_bad, s_bad), quant.quantize_rowwise(w), bias, torch.bfloat16)
+    planted = {"codes_off": int((q_bad != qp).sum()), "scales_off": int((s_bad != sp).sum()),
+               "linear_ulps": _ulps(torch, y_bad, quant.int8_linear_plain(x, w, bias))}
+    res["planted_scale"] = planted
+    print(f"step 21 (a) planted fault, scale absmax / 126 in Q1 at fc1's input: {planted['codes_off']} codes and "
+          f"{planted['scales_off']} scales off the plain version's, the linear {planted['linear_ulps']} ulps off")
+    if not (planted["codes_off"] and planted["scales_off"] and planted["linear_ulps"] > 1):
+        bad.append("the planted scale was not caught")
+
+    # times at the predict point's products, bf16 activations and the fp32
+    # weights, as the backbone runs them: in-stream means over back-to-back
+    # calls, every operand (the bf16 bias too) made before the timed calls
+    res["products"] = {}
+    for tag, (k, n) in INT8_PRODUCTS.items():
+        x, w = activation(rows_main, k, torch.bfloat16), weight(n, k)
+        bias = torch.randn(n, generator=gen, device=dev) * 0.1
+        b16, w16 = bias.to(torch.bfloat16), w.to(torch.bfloat16)
+        xq, sx = quant.quantize_rowwise(x)
+        wq, sw = quant.quantize_rowwise(w)
+        m = rows_main
+        q1 = {"ms": _stream_ms(torch, lambda: quant.quantize_rowwise(x)),
+              "plain_ms": _stream_ms(torch, lambda: quant.quantize_rowwise_plain(x), calls=5),
+              "weight_ms": _stream_ms(torch, lambda: quant.quantize_rowwise(w)), "library_ms": None,
+              **_bound(0.0, m * k * 2 + m * k + m * 4, peak_int8, peak_bw)}
+        q2 = {"ms": _stream_ms(torch, lambda: quant.int8_linear((xq, sx), (wq, sw), b16, torch.bfloat16)),
+              "plain_ms": _stream_ms(torch, lambda: quant.int8_product_plain(xq, sx, wq, sw, b16, torch.bfloat16),
+                                     calls=5),
+              "library_ms": _stream_ms(torch, lambda: (torch._int_mm(xq, wq.t()).float() * sx * sw.t()).to(
+                  torch.bfloat16) + b16),
+              "int_mm_ms": _stream_ms(torch, lambda: torch._int_mm(xq, wq.t())),
+              "bf16_linear_ms": _stream_ms(torch, lambda: F.linear(x, w16, b16)),
+              "linear_ms": _stream_ms(torch, lambda: quant.int8_linear(x, w, b16)),
+              **_bound(2.0 * m * k * n, m * k + n * k + 4 * (m + n) + 2 * n + 2 * m * n, peak_int8, peak_bw)}
+        res["products"][tag] = {"Q1": q1, "Q2": q2, "shape": f"x ({m}, {k}) bf16, weight ({n}, {k}) fp32"}
+        print(f"step 21 (a) {tag} ({m} x {k} -> {n}): Q1 on x {q1['ms']:.3f} ms (plain {q1['plain_ms']:.3f}, bound "
+              f"{q1['bound_ms']:.3f} {q1['bound_by']}), on the weight {q1['weight_ms']:.3f}; Q2 {q2['ms']:.3f} ms "
+              f"({2.0 * m * k * n / q2['ms'] / 1e9:.0f} TOP/s; plain {q2['plain_ms']:.3f}, torch._int_mm + dequant "
+              f"{q2['library_ms']:.3f}, torch._int_mm alone {q2['int_mm_ms']:.3f}, bound {q2['bound_ms']:.3f} "
+              f"{q2['bound_by']}); the int8 linear {q2['linear_ms']:.3f} against bf16 F.linear "
+              f"{q2['bf16_linear_ms']:.3f}")
+    return res, bad
+
+
+def _int8_rows(int8: dict) -> list:
+    """The kernels line's rows of Q1 and Q2 from step 21's readings: the
+    port's own kernels (the JAX package leaves these functions to XLA); the
+    main path's launches are the int8 predict step's."""
+    ik, rows = int8["kernels"], []
+    for kern, fn, replaces, err in (
+            ("Q1", "quantize_rowwise", "crossscore_tpu/ops/quant.py:35", "bit-equal codes and scales"),
+            ("Q2", "int8_linear", "crossscore_tpu/ops/quant.py:51", "ulps of the output dtype")):
+        r = ik["products"]["fc1"][kern]
+        row = {"name": fn, "route": "cuda", "source": "crossscore_tpu_torch/csrc/int8_linear.cu",
+               "replaces": replaces, "pallas_counterpart": None,
+               "launches": int8["predict_step"]["launches"].get(kern, 0),
+               "max_abs_err": ik[kern]["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "err_kind": err, "shape": ik["products"]["fc1"]["shape"],
+               "products": {tag: v[kern] for tag, v in ik["products"].items()},
+               "launches_by_path": {"int8_predict": int8["predict_step"]["launches"].get(kern, 0),
+                                    "int8_predict_cli_c": int8["predict_cli"]["int8"]["launches"].get(kern, 0),
+                                    "int8_vitl_forward": int8["vitl"]["launches"].get(kern, 0),
+                                    "matmul_microbench": int8["matmul_microbench"]["launches"].get(kern, 0)}}
+        if kern == "Q2":
+            row["max_ulps"], row["cases_not_bit_equal"] = ik["Q2"]["max_ulps"], ik["Q2"]["not_bit_equal"]
+        rows.append(row)
+    return rows
+
+
+def _backbone_split(torch, fn) -> dict:
+    """Device ms of one call of ``fn`` by group: Q1, Q2, K1 and the rest
+    (``tools/torch_step_profile.py``'s kernel names)."""
+    import importlib.util
+
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = importlib.util.spec_from_file_location("torch_step_profile",
+                                                  Path(__file__).resolve().parent / "tools" / "torch_step_profile.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for evt in prof.key_averages():
+        if "CUDA" not in str(evt.device_type):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        dev_us = evt.self_cuda_time_total if dev_us is None else dev_us
+        if dev_us > 0:
+            g = tool._group(evt.key)
+            split[g] = split.get(g, 0.0) + dev_us / 1e3
+    if not split:
+        _fail("the profiler recorded no kernel of the int8 backbone")
+    return split
+
+
+def _int8_phases(torch, F, dev, card: str, peaks, params, zero_launches, read_launches) -> dict:
+    """Step 21, the int8 W8A8 backbone: (a) Q1 and Q2 against their plain
+    versions (:func:`_int8_kernels`); (b) the int8 predict step at the
+    headline point beside the unquantised one, both from ``params`` (step
+    4's seeded init) on seeded uint8 images, then the pixel train step at
+    the train point, int8 beside unquantised; (c) the predict CLI, mode (c),
+    with and without int8; (d) ``tools.matmul_microbench``; (e) dinov2-large
+    at 1036 px, K=5, B=1, int8 beside bf16. Returns the readings."""
+    import dataclasses
+    import io
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
+    from crossscore_tpu_torch.tasks.predict import main as predict_main
+    from crossscore_tpu_torch.tools import matmul_microbench, stress_vitl
+    from crossscore_tpu_torch.train.optim import make_optimizer
+    from crossscore_tpu_torch.train.step import TrainState, make_predict_step, make_train_step
+
+    t_all = time.perf_counter()
+    out: dict = {}
+    cfg = CrossScoreConfig()
+    vit, n_dec = cfg.backbone, 2 * cfg.decoder_layers
+    views = B * (1 + K)
+    out["kernels"], bad = _int8_kernels(torch, F, dev, views * ((HW // vit.patch_size) ** 2 + 1), peaks)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    query = torch.randint(0, 256, (B, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    refs = torch.randint(0, 256, (B, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    torch.cuda.empty_cache()
+
+    def tier(got, want) -> tuple[float, float]:
+        d = (got.float() - want.float()).abs()
+        return float(d.mean()), float(d.max())
+
+    # --- (b) the int8 predict step at the headline point -----------------------
+    cfg8 = dataclasses.replace(cfg, backbone_quant="int8")  # mlp_impl "fused" requested
+    nets = {"default": load_into(CrossScoreNet(cfg, device=dev), params),
+            "int8": load_into(CrossScoreNet(cfg8, device=dev), params)}
+    steps = {tag: make_predict_step(net) for tag, net in nets.items()}
+    maps, launches = {}, {}
+    for tag, step in steps.items():
+        zero_launches()
+        maps[tag] = step(query, refs)["score_map_ref_cross"]
+        torch.cuda.synchronize()
+        launches[tag] = read_launches()
+    q_per = 4 * vit.num_layers  # qkv, out, fc1, fc2
+    want = _launches(K1=vit.num_layers, K3=n_dec, Q1=2 * q_per, Q2=q_per)
+    s8 = maps["int8"]
+    mae, mx = tier(s8, maps["default"])
+    b = {"launches": {k: v for k, v in launches["int8"].items() if v}, "expected": {k: v for k, v in want.items() if v},
+         "mae_vs_default": mae, "max_vs_default": mx}
+    ok = (launches["int8"] == want and tuple(s8.shape) == (B, HW, HW) and bool(torch.isfinite(s8).all())
+          and 0.0 <= float(s8.min()) <= float(s8.max()) <= 1.0 and mae < INT8_TIER[0] and mx < INT8_TIER[1])
+    times = {}
+    for tag in ("default", "int8", "int8", "default"):  # in turns
+        times.setdefault(tag, []).extend(_event_times(torch, lambda s=steps[tag]: s(query, refs), reps=5))
+    for tag, ts in times.items():
+        ts = sorted(ts)
+        b[tag] = {"ms": ts[len(ts) // 2], "spread_ms": [ts[0], ts[-1]], "maps_per_s": 1e3 * B / ts[len(ts) // 2]}
+    encode = make_backbone_encoder(cfg8)
+    imgs = torch.cat([query[:, None], refs], dim=1).reshape(views, HW, HW, 3)
+    b["backbone_split_ms"] = _backbone_split(torch, lambda: encode(nets["int8"], imgs))
+    b["backbone_split_ms_default"] = _backbone_split(torch, lambda: make_backbone_encoder(cfg)(nets["default"], imgs))
+    out["predict_step"] = b
+    print(f"step 21 (b) int8 predict step (dinov2-small, {HW} px, K={K}, B={B}, bf16, mlp_impl fused requested): "
+          f"launches {b['launches']} (expected {b['expected']}); score map against the unquantised step: MAE "
+          f"{mae:.3e} (tier {INT8_TIER[0]:g}), max {mx:.3e} (tier {INT8_TIER[1]:g}); int8 {b['int8']['ms']:.2f} ms "
+          f"= {b['int8']['maps_per_s']:.2f} maps/s (spread {b['int8']['spread_ms'][0]:.2f}-"
+          f"{b['int8']['spread_ms'][1]:.2f}), default {b['default']['ms']:.2f} ms = {b['default']['maps_per_s']:.2f} "
+          f"maps/s (spread {b['default']['spread_ms'][0]:.2f}-{b['default']['spread_ms'][1]:.2f}), median of 10 "
+          f"in turns; {card}")
+    for tag in ("backbone_split_ms", "backbone_split_ms_default"):
+        print(f"step 21 (b) {'int8' if tag == 'backbone_split_ms' else 'default'} backbone device ms over {views} "
+              "views: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(b[tag].items(), key=lambda kv: -kv[1])))
+    if not ok:
+        bad.append("(b) the int8 predict step: launches, score map or tier")
+    del nets, steps, maps
+    torch.cuda.empty_cache()
+
+    # the int8 pixel train step at the train operating point (B=24, K=5),
+    # beside the unquantised one: K4 per decoder layer, Q1/Q2 per backbone
+    # forward, the loss finite, the backbone frozen, the decoder updated
+    tcfg = load_config("default")
+    tbatch = {
+        "query/img": torch.randint(0, 256, (TB, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8),
+        "reference/cross/imgs": torch.randint(0, 256, (TB, TK, HW, HW, 3), generator=gen, device=dev,
+                                              dtype=torch.uint8),
+        "query/score_map": torch.rand(TB, HW, HW, generator=gen, device=dev),
+        "_valid": torch.tensor(TB, device=dev),
+    }
+    train, tsteps = {}, {}
+    for tag, c_ in (("default", cfg), ("int8", cfg8)):
+        tnet = load_into(CrossScoreNet(c_, device=dev), params)
+        optimizer, scheduler, _ = make_optimizer(tcfg, tnet, steps_per_epoch=1)
+        tsteps[tag] = make_train_step(tnet, optimizer, scheduler)
+        before = {k_: v.detach().clone() for k_, v in tnet.state_dict().items()}
+        zero_launches()
+        state, metrics = tsteps[tag](TrainState(), tbatch)
+        torch.cuda.synchronize()
+        got = read_launches()
+        after = tnet.state_dict()
+        frozen = [k_ for k_ in after if k_.startswith("backbone.") or k_ == "pos_enc_fn.PE"]
+        trained = [k_ for k_, prm in tnet.named_parameters() if prm.requires_grad]
+        train[tag] = {"loss": float(metrics["loss"]), "launches": {k_: v for k_, v in got.items() if v},
+                      "frozen_moved": sum(not torch.equal(after[k_], before[k_]) for k_ in frozen),
+                      "trained_unmoved": sum(torch.equal(after[k_], before[k_]) for k_ in trained),
+                      "state": state}
+        del before, after, metrics
+    want_t = {"default": _launches(K1=vit.num_layers, K2=vit.num_layers, K3=n_dec, K4=n_dec),
+              "int8": _launches(K1=vit.num_layers, K3=n_dec, K4=n_dec, Q1=2 * q_per, Q2=q_per)}
+    times = {}
+    for tag in ("default", "int8", "int8", "default"):  # in turns
+        times.setdefault(tag, []).extend(_event_times(
+            torch, lambda s=tsteps[tag], st=train[tag]["state"]: s(st, tbatch), reps=3))
+    for tag, ts in times.items():
+        ts = sorted(ts)
+        train[tag].pop("state")
+        train[tag].update(ms=ts[len(ts) // 2], spread_ms=[ts[0], ts[-1]],
+                          expected={k_: v for k_, v in want_t[tag].items() if v})
+    b["train_step"] = train
+    t8, t0_ = train["int8"], train["default"]
+    print(f"step 21 (b) int8 pixel train step (B={TB}, K={TK}, {HW} px, bf16): launches {t8['launches']} (expected "
+          f"{t8['expected']}); loss {t8['loss']:.6f} against {t0_['loss']:.6f} unquantised; backbone/PE tensors "
+          f"moved {t8['frozen_moved']}, decoder/head tensors not updated {t8['trained_unmoved']}; int8 "
+          f"{t8['ms']:.2f} ms (spread {t8['spread_ms'][0]:.2f}-{t8['spread_ms'][1]:.2f}), default {t0_['ms']:.2f} "
+          f"ms (spread {t0_['spread_ms'][0]:.2f}-{t0_['spread_ms'][1]:.2f}), median of 6 in turns; {card}")
+    for tag in ("default", "int8"):
+        r_ = train[tag]
+        if r_["launches"] != r_["expected"] or not np.isfinite(r_["loss"]) or r_["frozen_moved"] \
+                or r_["trained_unmoved"]:
+            bad.append(f"(b) the {tag} pixel train step: launches, loss or parameters")
+    del tsteps, tbatch
+    torch.cuda.empty_cache()
+
+    # --- (c) the predict CLI, mode (c), with and without int8 ------------------
+    n_b = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        qdir, rdir = _write_predict_dirs(tmp, n_b * PB, PK)
+        pcfg = CrossScoreConfig.from_config(load_config("default_predict"))
+        ckpt = tmp / "run" / "ckpt" / "seeded.ckpt"
+        ckpt.parent.mkdir(parents=True)
+        torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in init_params(pcfg, SEED).items()}}, ckpt)
+        common = [f"trainer.ckpt_path_to_load={ckpt}", f"data.dataset.query_dir={qdir}",
+                  f"data.dataset.reference_dir={rdir}", f"data.neighbour_config.cross={PK}",
+                  f"data.loader.validation.batch_size={PB}", "this_main.shape_buckets=on",
+                  "this_main.ref_token_cache=on", "logger.predict.write.config.score_map_colour_mode=gray",
+                  "logger.predict.write.config.vis_img_every_n_steps=-1",
+                  "logger.predict.write.flag.image_query=false", "logger.predict.write.flag.image_reference=false"]
+        c = {}
+        for quant_mode in ("none", "int8"):
+            tee = _Tee(sys.stdout)
+            zero_launches()
+            with contextlib.redirect_stdout(tee):
+                run = predict_main(common + [f"model.gpu.backbone_quant={quant_mode}",
+                                             f"logger.predict.out_dir={tmp}/out_{quant_mode}"])
+            torch.cuda.synchronize()
+            rate = re.search(r"= ([0-9.]+) maps/s", "".join(tee.text))
+            c[quant_mode] = {"launches": {k: v for k, v in read_launches().items() if v},
+                             "maps_per_s": float(rate.group(1)),
+                             "maps": sorted((run / "batch" / "score_map_ref_cross").glob("*.png"))}
+        enc = vit.num_layers * (n_b + 1)  # a cached run encodes one miss batch more
+        wants = {"none": {"K2": enc, "K5": enc, "K6": n_dec * n_b},
+                 "int8": {"K5": enc, "K6": n_dec * n_b, "Q1": 8 * enc, "Q2": 4 * enc}}
+        names = [p.name for p in c["none"]["maps"]]
+        diffs = [np.abs(np.asarray(Image.open(x)).astype(np.float64) - np.asarray(Image.open(y)).astype(np.float64))
+                 / 65535.0 for x, y in zip(c["int8"]["maps"], c["none"]["maps"])]  # [0, 1] scores, uint16
+        c["mae"] = float(np.mean([dd.mean() for dd in diffs]))
+        c["max"] = float(max(dd.max() for dd in diffs))
+        for tag in ("none", "int8"):
+            c[tag]["n_maps"] = len(c[tag].pop("maps"))
+        print(f"step 21 (c) predict CLI (c) buckets on, cache on, {n_b * PB} maps: int8 launches "
+              f"{c['int8']['launches']} (expected {wants['int8']}), {c['int8']['maps_per_s']:.2f} maps/s; without "
+              f"int8 {c['none']['launches']} (expected {wants['none']}), {c['none']['maps_per_s']:.2f} maps/s; maps "
+              f"int8 against none: MAE {c['mae']:.3e}, max {c['max']:.3e} (tier {INT8_TIER[0]:g}, {INT8_TIER[1]:g})")
+        if c["none"]["launches"] != wants["none"] or c["int8"]["launches"] != wants["int8"] \
+                or {c["none"]["n_maps"], c["int8"]["n_maps"], len(names)} != {n_b * PB} \
+                or not (c["mae"] < INT8_TIER[0] and c["max"] < INT8_TIER[1]):
+            bad.append("(c) the predict CLI under int8")
+        out["predict_cli"] = c
+
+    # --- (d) tools.matmul_microbench through its entry point -------------------
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    zero_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = matmul_microbench.main([])
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    timed = [x for x in lines if " ms " in x and ("TOP/s" in x or "TFLOP/s" in x)]
+    d = {"rc": rc, "s": time.perf_counter() - t0, "launches": {k: v for k, v in read_launches().items() if v},
+         "lines": lines}
+    out["matmul_microbench"] = d
+    print("step 21 (d) tools.matmul_microbench:\n  " + "\n  ".join(lines))
+    print(f"step 21 (d) exit {rc} in {d['s']:.1f} s, launches {d['launches']}")
+    if rc != 0 or len(timed) != len(matmul_microbench.PRODUCTS) * len(matmul_microbench.MODES) \
+            or not d["launches"].get("Q1") or not d["launches"].get("Q2"):
+        bad.append("(d) matmul_microbench")
+
+    # --- (e) dinov2-large at 1036 px, K=5, B=1: int8 beside bf16 -------------
+    _, mcfg_l, model_l = stress_vitl.build("dinov2-large", [], dev, SEED)
+    vit_l = mcfg_l.backbone
+    model_l8 = load_into(CrossScoreNet(dataclasses.replace(mcfg_l, backbone_quant="int8"), device=dev),
+                         model_l.state_dict())
+    batch = stress_vitl.make_batch(gen, dev, 1, VITL_K, VITL_HW, vit_l.hidden_size)
+    q, r = batch["query/img"], batch["reference/cross/imgs"]
+    steps = {"bf16": make_predict_step(model_l), "int8": make_predict_step(model_l8)}
+    zero_launches()
+    s8 = steps["int8"](q, r)["score_map_ref_cross"]
+    torch.cuda.synchronize()
+    got_l = read_launches()
+    q_per = 4 * vit_l.num_layers
+    want_l = _launches(K1=vit_l.num_layers, K3=2 * mcfg_l.decoder_layers, Q1=2 * q_per, Q2=q_per)
+    mae, mx = tier(s8, steps["bf16"](q, r)["score_map_ref_cross"])
+    times = {}
+    for tag in ("bf16", "int8", "int8", "bf16"):
+        times.setdefault(tag, []).extend(_event_times(torch, lambda s=steps[tag]: s(q, r), reps=3))
+    e = {"launches": {k: v for k, v in got_l.items() if v}, "mae_vs_bf16": mae, "max_vs_bf16": mx}
+    for tag, ts in times.items():
+        ts = sorted(ts)
+        e[tag] = {"ms": ts[len(ts) // 2], "spread_ms": [ts[0], ts[-1]]}
+    out["vitl"] = e
+    print(f"step 21 (e) dinov2-large at {VITL_HW} px, K={VITL_K}, B=1 forward: int8 {e['int8']['ms']:.2f} ms (spread "
+          f"{e['int8']['spread_ms'][0]:.2f}-{e['int8']['spread_ms'][1]:.2f}) against bf16 {e['bf16']['ms']:.2f} "
+          f"(spread {e['bf16']['spread_ms'][0]:.2f}-{e['bf16']['spread_ms'][1]:.2f}), median of 6 in turns; int8 "
+          f"launches {e['launches']} (expected {({k: v for k, v in want_l.items() if v})}); score map against bf16 "
+          f"MAE {mae:.3e}, max {mx:.3e} (reported); {card}")
+    if got_l != want_l or not bool(torch.isfinite(s8).all()) or not 0.0 <= float(s8.min()) <= float(s8.max()) <= 1.0:
+        bad.append("(e) the ViT-L int8 forward")
+    del model_l, model_l8, steps, batch, q, r, s8
+    torch.cuda.empty_cache()
+
+    out["s"] = time.perf_counter() - t_all
+    print(f"step 21: {out['s']:.1f} s")
+    if bad:
+        _fail("step 21: " + "; ".join(bad))
     return out
 
 
@@ -4691,7 +5164,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     _lap(t_start, 20)
-    # --- 21. the kernels line, then the device line ---------------------------
+    # --- 21. the int8 backbone: Q1 and Q2 against their plain versions, the
+    # int8 predict step, the predict CLI, matmul_microbench, ViT-L -----------------
+    int8 = _int8_phases(torch, F, dev, card, (peak_bf16, peak_bw), params, zero_launches, read_launches)
+    torch.cuda.empty_cache()
+
+    _lap(t_start, 21)
+    # --- 22. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -4777,6 +5256,9 @@ def main() -> int:
             row["plan"] = mlp_plan
             row["wide"] = {w: r_["K2"] for w, r_ in vitl["wide"].items()}
             row["launches_by_path"]["vitl"] = vitl["k2_launches"]
+            # step 21: the int8 backbone takes the unfused chain
+            row["launches_by_path"]["int8_predict"] = int8["predict_step"]["launches"].get("K2", 0)
+            row["launches_by_path"]["int8_predict_cli_c"] = int8["predict_cli"]["int8"]["launches"].get("K2", 0)
         if kern in ("K3", "K4", "K6"):
             s, s32 = report[(f"{kern}self", "bfloat16")], report[(f"{kern}self", "float32")]
             row["self"] = {k: s[k] for k in stats if k in s}
@@ -4833,6 +5315,7 @@ def main() -> int:
             row["backbone"] = {k: v for k, v in report[(f"{kern} backbone", "bfloat16")].items()} \
                 | {"launches": bb["K7'"][kern.split()[1]]}
         kernels.append(row)
+    kernels += _int8_rows(int8)
     seconds = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {seconds:.1f} s")
     # (a) is the reference of the agreement check: it has no reading of its own
@@ -4852,6 +5335,8 @@ def main() -> int:
                                   "train_cli": qual["train_cli"],
                                   "tools": {tag: {k: v for k, v in r.items() if k != "report"}
                                             for tag, r in qual["tools"].items()}},
+                      "int8": {k: v for k, v in int8.items() if k != "kernels"}
+                      | {"planted_scale": int8["kernels"]["planted_scale"]},
                       "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
                                                         for k, v in r.items()} for tag, r in ev["modes"].items()}},
                       "seconds": seconds}))

@@ -1,5 +1,6 @@
 // Warp-level tensor-core and copy primitives (sm_80+ PTX, used on sm_90a):
-// ldmatrix, mma.sync m16n8k16 bf16 with fp32 accumulators, cp.async.
+// ldmatrix, mma.sync m16n8k16 bf16 with fp32 accumulators, mma.sync m16n8k32
+// int8 with int32 accumulators, cp.async.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, q = lane % 4):
 //   A (16x16, row major): a0 = (g, 2q..2q+1), a1 = (g+8, 2q..), a2 = (g, 2q+8..), a3 = (g+8, 2q+8..)
@@ -56,6 +57,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
       "{%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices (8 rows of 16 bytes each, any element type) from
+// shared memory: lane l gives the address of row l % 8 of matrix l / 8, and
+// r[j] holds the 4 bytes (lane % 4) of row lane / 4 of matrix j. For int8
+// tiles that is mma.m16n8k32's A fragment (matrices: rows 0-7 and 8-15 at
+// bytes 0-15, then the same at bytes 16-31) and two n8 tiles' B fragments.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// int8 x int8 -> int32, m16n8k32 (g = lane / 4, q = lane % 4):
+//   A (16x32, row major): a0 = (g, 4q..4q+3), a1 = (g+8, 4q..), a2 = (g, 16+4q..), a3 = (g+8, 16+4q..)
+//   B (32x8, "col"):      b0 = (k 4q..4q+3, n g), b1 = (k 16+4q.., n g)
+//   C (16x8, int32):      c0,c1 = (g, 2q..2q+1), c2,c3 = (g+8, 2q..2q+1)
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

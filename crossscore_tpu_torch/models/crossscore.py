@@ -47,6 +47,7 @@ from crossscore_tpu_torch.models.dinov2 import (
 from crossscore_tpu_torch.models.positional import MultiViewPositionalEmbedding
 from crossscore_tpu_torch.models.regression import regression_activation
 from crossscore_tpu_torch.ops.jigsaw import jigsaw_to_image
+from crossscore_tpu_torch.ops.quant import check_quant
 from crossscore_tpu_torch.parallel.mesh import model_group, view_group
 from crossscore_tpu_torch.parallel.tensor_parallel import check_divisible, column_linear, row_linear
 
@@ -72,9 +73,11 @@ class CrossScoreConfig:
     ``"tp"`` (JAX's ``tp:<axis>``: heads, MLP features and the head's hidden
     features sharded over the model group, ``parallel.tensor_parallel``;
     every attention on K7, the decoder's backward on K8/K9); ``mlp_impl`` is
-    ``"fused"``, ``"fused_exact"`` (K2) or ``"unfused"``. ``parity=True`` is
-    the JAX ``model.tpu.parity`` rule: fp32 compute, exact GELU in K2.
-    ``pe_trainable`` is ``model.pos_enc.multi_view.req_grad``."""
+    ``"fused"``, ``"fused_exact"`` (K2) or ``"unfused"``. ``backbone_quant``
+    is ``"none"`` or ``"int8"`` (the W8A8 backbone, ``ops/quant.py``; its MLP
+    then takes the unfused chain). ``parity=True`` is the JAX
+    ``model.tpu.parity`` rule: fp32 compute, exact GELU in K2, no
+    quantisation. ``pe_trainable`` is ``model.pos_enc.multi_view.req_grad``."""
 
     backbone: ViTConfig = VIT_PRESETS["dinov2-small"]
     patch_size: int = 14
@@ -93,6 +96,7 @@ class CrossScoreConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "flash"
     mlp_impl: str = "fused"
+    backbone_quant: str = "none"
     parity: bool = False
     pe_trainable: bool = False
 
@@ -105,8 +109,10 @@ class CrossScoreConfig:
             raise ValueError("compute_dtype must be torch.float32 or torch.bfloat16")
         if self.parity:
             object.__setattr__(self, "compute_dtype", torch.float32)
+            object.__setattr__(self, "backbone_quant", "none")
             if self.mlp_impl == "fused":
                 object.__setattr__(self, "mlp_impl", "fused_exact")
+        check_quant(self.backbone_quant)
 
     @staticmethod
     def from_config(cfg) -> "CrossScoreConfig":
@@ -136,6 +142,7 @@ class CrossScoreConfig:
             compute_dtype=dtypes[str(gpu.compute_dtype)],
             attention_impl=str(gpu.attention_impl),
             mlp_impl=str(gpu.mlp_impl),
+            backbone_quant=str(gpu.get("backbone_quant", "none")),
             parity=bool(gpu.get("parity", False)),
             pe_trainable=bool(m.pos_enc.multi_view.get("req_grad", False)),
         )
@@ -171,7 +178,7 @@ class CrossScoreNet(nn.Module):
         # backbone's heads too)
         backbone_impl = "flash" if cfg.attention_impl == "cp" else cfg.attention_impl
         self.backbone = Dinov2Encoder(cfg.backbone, cfg.compute_dtype, backbone_impl,
-                                      cfg.mlp_impl, device)
+                                      cfg.mlp_impl, device, cfg.backbone_quant)
         self.pos_enc_fn = MultiViewPositionalEmbedding(cfg.pe_h, cfg.pe_w, d, device)
         self.ref_cross = _RefCross(cfg, device)
         self.backbone.requires_grad_(False)

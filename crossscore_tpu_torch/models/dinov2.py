@@ -20,6 +20,13 @@ on their head-major views, and sums its share of the output projection over
 the group (``parallel.tensor_parallel``). Forward only: the backbone is
 frozen. The MLP under ``tp`` is K2 on the whole fc1/fc2 weights on every rank
 (``fused``/``fused_exact``), or column-/row-parallel (``unfused``).
+
+``quant="int8"`` (``model.gpu.backbone_quant``, JAX's ``model.tpu.backbone_quant``)
+runs the qkv, out, fc1 and fc2 products through the W8A8 linear
+(:func:`crossscore_tpu_torch.ops.quant.int8_linear`: Q1 quantises the
+activation and the fp32 weight on each call, Q2 multiplies), and the MLP half
+then takes the unfused exact-GELU chain whatever ``mlp_impl`` says, as the
+JAX block does. The parameters are the same under both settings.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from crossscore_tpu_torch.ops.flash_attention import (
 )
 from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from crossscore_tpu_torch.ops.interpolate import interpolate_bicubic, interpolate_bicubic_dyn
+from crossscore_tpu_torch.ops.quant import check_quant, int8_linear
 from crossscore_tpu_torch.parallel.mesh import model_group
 from crossscore_tpu_torch.parallel.tensor_parallel import check_divisible, column_linear, row_linear
 
@@ -104,6 +112,15 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
+def backbone_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, quant: str) -> torch.Tensor:
+    """A backbone product in x's dtype: ``F.linear`` on the parameters cast to
+    it, or under ``"int8"`` the W8A8 linear, which quantises the fp32
+    parameter itself (JAX's ``QuantDense``), not its cast."""
+    if quant == "int8":
+        return int8_linear(x, weight, bias)
+    return F.linear(x, weight.to(x.dtype), bias.to(x.dtype))
+
+
 class LayerNorm(nn.Module):
     def __init__(self, dim: int, eps: float, device=None):
         super().__init__()
@@ -132,10 +149,15 @@ class _Output(nn.Module):
 class ViTAttention(nn.Module):
     """Multi-head self-attention through one fused (D, 3D) projection."""
 
-    def __init__(self, cfg: ViTConfig, attention_impl: str = "flash", device=None):
+    def __init__(self, cfg: ViTConfig, attention_impl: str = "flash", device=None, quant: str = "none"):
         super().__init__()
         if attention_impl not in BACKBONE_IMPLS:
             raise ValueError(f"attention_impl must be one of {BACKBONE_IMPLS}, got {attention_impl!r}")
+        if check_quant(quant) == "int8" and attention_impl == "tp":
+            # JAX takes each token's absmax over the whole feature axis
+            # (GSPMD), so a row-parallel product needs an all-reduce MAX first
+            raise NotImplementedError("model.gpu.backbone_quant=int8 under the tp attention route")
+        self.quant = quant
         mp = tp_ranks(attention_impl)
         self.num_heads = check_divisible("heads", cfg.num_heads, mp)  # this rank's heads
         self.attention_impl = attention_impl
@@ -149,9 +171,10 @@ class ViTAttention(nn.Module):
         a = self.attention
         if self.attention_impl == "tp":
             return self._forward_tp(x, kv_bias)
-        w = torch.cat([a.query.weight, a.key.weight, a.value.weight]).to(x.dtype)
-        bias = torch.cat([a.query.bias, a.key.bias, a.value.bias]).to(x.dtype)
-        qkv = F.linear(x, w, bias)  # (B, N, 3D)
+        # per-output-channel weight scales commute with this concatenation
+        w = torch.cat([a.query.weight, a.key.weight, a.value.weight])
+        bias = torch.cat([a.query.bias, a.key.bias, a.value.bias])
+        qkv = backbone_linear(x, w, bias, self.quant)  # (B, N, 3D)
         if self.attention_impl == "flash" and kv_bias is None:
             out, _, _ = flash_qkv_self_attention(qkv, self.num_heads)
         elif self.attention_impl == "flash":
@@ -159,7 +182,8 @@ class ViTAttention(nn.Module):
         else:
             q, k, v = (_split_heads(t, self.num_heads) for t in qkv.chunk(3, dim=-1))
             out = _merge_heads(dense_attention(q, k, v, kv_bias=kv_bias))
-        return linear(out, self.output.dense)
+        dense = self.output.dense
+        return backbone_linear(out, dense.weight, dense.bias, self.quant)
 
     def _forward_tp(self, x, kv_bias):
         """This rank's heads on K7, then the row-parallel output projection
@@ -188,18 +212,19 @@ class _MLP(nn.Module):
 
 class ViTBlock(nn.Module):
     def __init__(self, cfg: ViTConfig, attention_impl: str = "flash", mlp_impl: str = "fused",
-                 device=None):
+                 device=None, quant: str = "none"):
         super().__init__()
         if mlp_impl not in MLP_IMPLS:
             raise ValueError(f"mlp_impl must be one of {MLP_IMPLS}, got {mlp_impl!r}")
         d = cfg.hidden_size
         self.eps = cfg.layer_norm_eps
         self.mlp_impl = mlp_impl
+        self.quant = quant
         # under tp the unfused MLP is column-/row-parallel; K2 takes whole weights
         self.tp = attention_impl == "tp" and mlp_impl == "unfused"
         f = cfg.mlp_ratio * d
         self.norm1 = LayerNorm(d, self.eps, device)
-        self.attention = ViTAttention(cfg, attention_impl, device)
+        self.attention = ViTAttention(cfg, attention_impl, device, quant)
         self.layer_scale1 = LayerScale(d, cfg.layerscale_init, device)
         self.norm2 = LayerNorm(d, self.eps, device)
         self.mlp = _MLP(d, check_divisible("MLP features", f, tp_ranks(attention_impl)) if self.tp else f, device)
@@ -208,7 +233,7 @@ class ViTBlock(nn.Module):
     def forward(self, x, kv_bias=None):
         y = self.attention(self.norm1(x), kv_bias)
         x = x + y * self.layer_scale1.lambda1.to(x.dtype)
-        if self.mlp_impl != "unfused":
+        if self.mlp_impl != "unfused" and self.quant == "none":
             n2, m = self.norm2, self.mlp
             gelu = "exact" if self.mlp_impl == "fused_exact" else "tanh"
             return fused_ln_mlp(x, n2.weight, n2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight,
@@ -218,8 +243,9 @@ class ViTBlock(nn.Module):
             y = column_linear(self.norm2(x), fc1.weight, fc1.bias, group)
             y = row_linear(F.gelu(y, approximate="none"), fc2.weight, fc2.bias, group)
         else:
-            y = linear(self.norm2(x), self.mlp.fc1)
-            y = linear(F.gelu(y, approximate="none"), self.mlp.fc2)
+            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+            y = backbone_linear(self.norm2(x), fc1.weight, fc1.bias, self.quant)
+            y = backbone_linear(F.gelu(y, approximate="none"), fc2.weight, fc2.bias, self.quant)
         return x + y * self.layer_scale2.lambda1.to(x.dtype)
 
 
@@ -243,10 +269,10 @@ class _Embeddings(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: ViTConfig, attention_impl: str, mlp_impl: str, device):
+    def __init__(self, cfg: ViTConfig, attention_impl: str, mlp_impl: str, device, quant: str):
         super().__init__()
         self.layer = nn.ModuleList(
-            ViTBlock(cfg, attention_impl, mlp_impl, device) for _ in range(cfg.num_layers)
+            ViTBlock(cfg, attention_impl, mlp_impl, device, quant) for _ in range(cfg.num_layers)
         )
 
 
@@ -254,12 +280,12 @@ class Dinov2Encoder(nn.Module):
     """Frozen DINOv2-style backbone: (B, H, W, 3) -> (B, 1+N, D) tokens (token 0 is CLS)."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "flash", mlp_impl: str = "fused", device=None):
+                 attention_impl: str = "flash", mlp_impl: str = "fused", device=None, quant: str = "none"):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.embeddings = _Embeddings(cfg, device)
-        self.encoder = _Encoder(cfg, attention_impl, mlp_impl, device)
+        self.encoder = _Encoder(cfg, attention_impl, mlp_impl, device, quant)
         self.layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device)
 
     def forward(self, images: torch.Tensor, valid_grid=None) -> torch.Tensor:

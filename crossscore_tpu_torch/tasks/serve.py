@@ -89,8 +89,9 @@ from crossscore_tpu_torch.tasks.common import (
 )
 from crossscore_tpu_torch.train.step import make_predict_step_cached
 
-# the kernels of the daemon's path: K1 (flash_qkv), K3 (flash_cross), K2 (fused_ln_mlp)
-KERNEL_SOURCES = ("flash_qkv", "flash_cross", "fused_ln_mlp")
+# the kernels of the daemon's path: K1 (flash_qkv), K3 (flash_cross), K2 (fused_ln_mlp), and Q1/Q2
+# (int8_linear) under model.gpu.backbone_quant=int8
+KERNEL_SOURCES = ("flash_qkv", "flash_cross", "fused_ln_mlp", "int8_linear")
 
 
 class ServerOverloaded(RuntimeError):

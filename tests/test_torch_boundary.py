@@ -186,7 +186,8 @@ def test_the_port_composes_its_own_yaml_tree():
     cfg = confsys.load_config("default")
     assert "tpu" not in cfg.model
     assert cfg.model.gpu.to_dict() == {"parity": False, "compute_dtype": "bfloat16",
-                                       "attention_impl": "flash", "mlp_impl": "fused", "dist_backend": "nccl"}
+                                       "attention_impl": "flash", "mlp_impl": "fused", "backbone_quant": "none",
+                                       "dist_backend": "nccl"}
     assert cfg.trainer.accelerator == "cuda" and cfg.trainer.optimizer.lr == 5e-4
     assert cfg.data.loader.train.batch_size == 24 and cfg.data.neighbour_config.cross == 5
     with pytest.raises(KeyError, match="tpu"):

@@ -16,7 +16,8 @@ import torch
 
 from crossscore_tpu_torch.data import fastimage
 from crossscore_tpu_torch.tools import (
-    attn_microbench, bwd_microbench, ingest_bench, lane_pad_probe, mlp_microbench, token_assembly_bench,
+    attn_microbench, bwd_microbench, ingest_bench, lane_pad_probe, matmul_microbench, mlp_microbench,
+    token_assembly_bench,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -34,6 +35,8 @@ def _run(*args):
     (["crossscore_tpu_torch.tools.lane_pad_probe", "--cpu", "--reps", "5", "--step-ms", "98"], 6),
     (["crossscore_tpu_torch.tools.bwd_microbench", "--cpu"], len(bwd_microbench.CONFIGS)),
     (["crossscore_tpu_torch.tools.mlp_microbench", "--cpu"], len(mlp_microbench.MODES)),
+    (["crossscore_tpu_torch.tools.matmul_microbench", "--cpu"],
+     len(matmul_microbench.PRODUCTS) * len(matmul_microbench.MODES)),
     # the host tools: two Pillow rows, and three native ones where the decoder builds
     (["crossscore_tpu_torch.tools.ingest_bench", "--cpu"], None),
     (["crossscore_tpu_torch.tools.token_assembly_bench", "--cpu"], 1)])
@@ -45,7 +48,7 @@ def test_tool_runs_on_the_cpu(args, lines):
     out = res.stdout.splitlines()
     assert out[0].startswith("device: cpu")
     timed = [line for line in out if " items/s" in line or " ms" in line and (
-        "ms/layer" in line or "saving" in line or "TFLOP" in line or "per batch" in line)]
+        "ms/layer" in line or "saving" in line or "TFLOP" in line or "TOP/s" in line or "per batch" in line)]
     assert len(timed) == lines, res.stdout
     if "attn_microbench" in args[0]:
         assert sum("PROBE(wrong math)" in line for line in out) == sum(
@@ -54,7 +57,7 @@ def test_tool_runs_on_the_cpu(args, lines):
 
 
 @pytest.mark.parametrize("tool", [attn_microbench, lane_pad_probe, bwd_microbench, mlp_microbench, ingest_bench,
-                                  token_assembly_bench])
+                                  token_assembly_bench, matmul_microbench])
 def test_tool_without_cpu_needs_a_card(tool, capsys):
     """``main`` is the exit code of ``python -m``: 1, with a message, when
     there is no card and ``--cpu`` was not given."""
@@ -131,6 +134,16 @@ def _profile_group():
     ("void cs::ln_mlp_wide<768, true, true>(CUtensorMap_st, CUtensorMap_st, cs::MlpArgs)",
      "K10 fused residual LN-MLP"),
     ("_ZN2cs11ln_mlp_wideILi768ELb1ELb1EEEv14CUtensorMap_stS1_NS_7MlpArgsE", "K10 fused residual LN-MLP"),
+    # the int8 backbone's two kernels, demangled and mangled
+    ("void (anonymous namespace)::quantize_rows_kernel<__nv_bfloat16>(__nv_bfloat16 const*, signed char*, "
+     "float*, long long, int, float)", "Q1 int8 row quantise"),
+    ("_ZN47_GLOBAL__N__b3ac4818_14_int8_linear_cu_4f29afe420quantize_rows_kernelIfEEvPKT_PaPfxif",
+     "Q1 int8 row quantise"),
+    ("void (anonymous namespace)::int8_linear_kernel<__nv_bfloat16>(signed char const*, float const*, "
+     "signed char const*, float const*, __nv_bfloat16 const*, __nv_bfloat16*, long long, int, int)",
+     "Q2 int8 linear"),
+    ("_ZN47_GLOBAL__N__b3ac4818_14_int8_linear_cu_4f29afe418int8_linear_kernelIfEEvPKaPKfS2_S4_PKT_PS5_xii",
+     "Q2 int8 linear"),
     # the attention forward at the backbone's hd 64 and the decoder's 48
     ("void cs::attn_fwd_wgmma<64, false, 0>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, cs::AttnArgs)",
      "K1 backbone attention"),

@@ -62,7 +62,8 @@ FIGURES_OFF = ["logger.vis_imgs_every_n_train_steps=100000", "logger.cache_size.
 # knobs (model.tpu.*) and the GPU knobs (model.gpu.*)
 TPU_ONLY = {"tpu.parity", "tpu.compute_dtype", "tpu.attention_impl", "tpu.mlp_impl", "tpu.remat_backbone",
             "tpu.backbone_quant", "tpu.view_parallel", "tpu.scoped_vmem_kib"}
-GPU_ONLY = {"gpu.parity", "gpu.compute_dtype", "gpu.attention_impl", "gpu.mlp_impl", "gpu.dist_backend"}
+GPU_ONLY = {"gpu.parity", "gpu.compute_dtype", "gpu.attention_impl", "gpu.mlp_impl", "gpu.backbone_quant",
+            "gpu.dist_backend"}
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,11 @@ def _group(name: str) -> str:
         return "K10 fused residual LN-MLP"
     if "ln_mlp" in name:
         return "K2 fused LN-MLP"
+    # the int8 backbone's kernels (model.gpu.backbone_quant=int8)
+    if "quantize_rows_kernel" in name:
+        return "Q1 int8 row quantise"
+    if "int8_linear_kernel" in name:
+        return "Q2 int8 linear"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")):
         return "matrix products (cuBLAS)"
     return "elementwise, reductions, copies"
