@@ -3,7 +3,8 @@
 the predict CLI, view-parallel predict, tensor- and view-parallel training,
 token-space training, the test CLI, the scoring daemon, the native host
 input path, the data-parallel CLIs, the ViT-L stress path, the
-training-quality workflow and the int8 backbone.
+training-quality workflow and the int8 backbone, alone and under tensor
+parallelism.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
@@ -267,7 +268,35 @@ In order:
     launched and K2 not, the maps within the int8 tier; (d)
     ``tools.matmul_microbench`` through its entry point; (e) dinov2-large at
     1036 px, K=5, B=1: an int8 forward beside the bf16 one;
-22. print one ``{"kernels": [...]}`` line, then, last, the device line.
+22. the int8 backbone under tensor parallelism (``attention_impl="tp"``
+    with ``backbone_quant="int8"``): (a) the row layer's split forms, Q1a
+    (row absmax), Q1b (codes from a given absmax) and Q2's int32 form,
+    against their plain versions at the predict point's three products and
+    at 1-2741 rows, bf16 and fp32, each bit-equal and launched twice for the
+    same bits, Q1a then Q1b bit-equal to Q1 and the PyTorch dequantisation
+    of the int32 products to Q2's epilogue, each timed beside Q1 / Q2, its
+    plain version and the bound; (b) TP = 1 on one NCCL rank at the headline
+    point (dinov2-small, 518 px, K=8, B=8, bf16): the int8 tp forward with
+    the MLP split (``unfused``) and whole (``fused`` requested) against the
+    int8 ``flash`` forward (score-map MAE 5e-3) with its launches, every
+    row-parallel product bit-equal to the one-rank int8 linear on the same
+    operands, and the int8 tp train step at B=24, K=5 (launches, a finite
+    loss, the backbone and PE bit-identical, the decoder updated) timed in
+    turns beside the int8 ``flash`` step; (c) TP = 2 on two gloo ranks
+    sharing the card: the fp32 B=1 forward against the one-rank int8 net on
+    the same kernels (MAE 1e-4), and against the one-rank all-plain int8 net
+    beside the one-rank kernel net's own distance to it (within JAX's int8
+    tier, 5e-3: the fp32 summation order of the kernels and the plain
+    versions flips codes at rounding boundaries, which the 12 quantised
+    blocks carry to the map), each rank's bf16 B=2 train step against one rank's
+    (maps and loss within 5e-3), block 0's out and fc2 products bit-equal to
+    the one-rank product on the gathered operands, and the planted fault
+    (their MAX all-reduce left out) caught; (d) K11 (probes and chunks) at
+    qkv (8, 1370, 3 x 8 x 128) and K7' at the ViT-L decoder's cross shape (B
+    1, 8 heads, 5476 queries over 27,380 keys) at hd 128, held as step 3
+    holds them at hd 48/64, launched twice for the same bits, timed beside
+    K1 / K7 at hd 128 and the bound;
+23. print one ``{"kernels": [...]}`` line, then, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository. No JAX is imported.
@@ -431,6 +460,11 @@ INT8_WIDTHS = ((64, 192), (768, 2304), (1024, 4096), (4096, 1024))
 # JAX's int8 tier (tests/test_quant.py:80-92): score maps (in [0, 1]) of
 # the int8 net against the same net unquantised, MAE and max
 INT8_TIER = (5e-3, 5e-2)
+# step 22 (d): the timing modes at hd 128, the ViT-L decoder's head dim. K7'
+# at its cross-attention at 1036 px, K=5 (B 1, 8 heads, 5476 queries over
+# 27,380 keys); K11 at a qkv of 8 views of 1370 tokens, 8 heads of hd 128
+HD128_K7 = (1, 8, 5476, 5 * 5476, 128)
+HD128_QKV = (8, 1370, 8, 128)
 
 
 def _fail(msg: str) -> None:
@@ -1180,6 +1214,74 @@ def _rel_l2_or_zero(got, want) -> float:
         return float(got.float().abs().max())
     return _rel_l2(got, want)
 
+def _k11_modes(torch, F, fa, qkv, h: int, bound) -> dict:
+    """K11's probes and chunks on ``qkv`` (B, N, 3*h*hd) bf16 against their
+    plain versions (the probes by the relative L2 of each of o, l and m; the
+    chunks as K1, against the plain chunked version and K1's), each launched
+    twice for the same bits, timed beside K1 on the same qkv, with SDPA beside
+    the chunks; ``bound(ops, nbytes, exps)``."""
+    b, n, d3 = qkv.shape
+    hd = d3 // 3 // h
+    k1_ms = _time_ms(torch, lambda: fa.flash_qkv_self_attention(qkv, h))
+    work = (4.0 * b * h * n * n * hd, b * n * 4 * h * hd * 2 + 2 * b * h * n * 4)
+    k1_plain = fa.flash_qkv_self_attention_plain(qkv, h)
+    out = {}
+    for probe in fa.QKV_PROBES:
+        got, same = _twice(fa.flash_qkv_self_attention_probe, qkv, h, probe)
+        want = fa.flash_qkv_self_attention_probe_plain(qkv, h, probe)
+        out[f"K11 {probe}"] = dict(
+            err=max(_rel_l2_or_zero(g, w) for g, w in zip(got, want)), tol=TOL_L2["bfloat16"], bit_equal=same,
+            max_abs=_max_abs(got[0], want[0]),
+            ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_probe(qkv, h, probe)),
+            plain_ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_probe_plain(qkv, h, probe), reps=3),
+            # mxu runs the products and loads only: no exponentials to floor
+            library_ms=None, k1_ms=k1_ms, **(bound(*work) if probe == "mxu" else bound(*work, b * h * n * n)))
+        del got, want
+    views_hm = [qkv.view(b, n, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)]
+    sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(*views_hm))
+    for chunks in (2, 3):
+        got, same = _twice(fa.flash_qkv_self_attention_chunked, qkv, h, chunks)
+        want = fa.flash_qkv_self_attention_chunked_plain(qkv, h, chunks)
+        # against the plain chunked version, and K1's plain version (the same function)
+        err, l2 = _masked_errs([(got, want), (got, k1_plain)])
+        out[f"K11 chunks{chunks}"] = dict(
+            err=err, tol=TOL["bfloat16"], l2=l2, tol_l2=TOL_L2["bfloat16"], bit_equal=same,
+            max_abs=_max_abs(got[0], want[0]),
+            ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_chunked(qkv, h, chunks)),
+            plain_ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_chunked_plain(qkv, h, chunks), reps=3),
+            library_ms=sdpa_ms, k1_ms=k1_ms, **bound(*work, b * h * n * n))
+        del got, want
+    return out
+
+
+def _k7p_modes(torch, F, fa, q, k_, v_, bound) -> dict:
+    """K7' (mxuprobe, noexp, bf16exp) on contiguous head-major q (B, H, Nq,
+    hd) and k/v (B, H, Nk, hd) bf16 against their plain versions by the
+    relative L2 of each of o, l and m, each launched twice for the same bits,
+    timed beside K7 on the same inputs (and bf16exp beside SDPA, which
+    computes the same function with a finer exp); ``bound(ops, nbytes, exps)``."""
+    bb, hh, n_q, hdim = q.shape
+    nk = k_.shape[2]
+    k7_ms = _time_ms(torch, lambda: fa.flash_attention_head_major(q, k_, v_))
+    ops, nbytes = 4.0 * bb * hh * n_q * nk * hdim, bb * hh * (2 * n_q + 2 * nk) * hdim * 2 + 2 * bb * hh * n_q * 4
+    out = {}
+    for variant in fa.HEAD_MAJOR_VARIANTS:
+        got, same = _twice(fa.flash_attention_head_major_variant, q, k_, v_, variant)
+        want = fa.flash_attention_head_major_variant_plain(q, k_, v_, variant)
+        out[f"K7' {variant}"] = dict(
+            err=max(_rel_l2_or_zero(g, w) for g, w in zip(got, want)), tol=TOL_L2["bfloat16"], bit_equal=same,
+            max_abs=_max_abs(got[0], want[0]),
+            ms=_time_ms(torch, lambda: fa.flash_attention_head_major_variant(q, k_, v_, variant)),
+            plain_ms=_time_ms(torch, lambda: fa.flash_attention_head_major_variant_plain(q, k_, v_, variant),
+                              reps=3),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(q, k_, v_))
+            if variant == "bf16exp" else None,
+            # mxuprobe and noexp compute no exponentials: no floor for them
+            k7_ms=k7_ms, **bound(ops, nbytes, bb * hh * n_q * nk if variant == "bf16exp" else 0.0))
+        del got, want
+    return out
+
+
 def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, peak_ex2, *, views, n, d, h, f, eps,
                        nq, dec_h) -> dict:
     """Step 3's part for K10-K12: fill ``report`` with each kernel or mode
@@ -1241,35 +1343,12 @@ def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, peak
 
     # K11 at the backbone's qkv of the predict point, K1 timed in the same run
     qkv = randn(views, n, 3 * d, dtype=bf16)
-    k1_ms = _time_ms(torch, lambda: fa.flash_qkv_self_attention(qkv, h))
-    k1_work = (4.0 * views * h * n * n * hd, views * n * 4 * d * es + 2 * views * h * n * 4, peak_bf16)
-    k1_bound = bound(*k1_work, views * h * n * n)
-    k1_plain = fa.flash_qkv_self_attention_plain(qkv, h)
-    for probe in fa.QKV_PROBES:
-        got = fa.flash_qkv_self_attention_probe(qkv, h, probe)
-        want = fa.flash_qkv_self_attention_probe_plain(qkv, h, probe)
-        report[(f"K11 {probe}", "bfloat16")] = dict(
-            err=max(_rel_l2_or_zero(g, w) for g, w in zip(got, want)), tol=TOL_L2["bfloat16"],
-            max_abs=_max_abs(got[0], want[0]),
-            ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_probe(qkv, h, probe)),
-            plain_ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_probe_plain(qkv, h, probe), reps=3),
-            # mxu runs the products and loads only: no exponentials to floor
-            library_ms=None, k1_ms=k1_ms, **(bound(*k1_work) if probe == "mxu" else k1_bound))
-        del got, want
-    views_hm = [qkv.view(views, n, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)]
-    sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(*views_hm))
-    for chunks in (2, 3):
-        got = fa.flash_qkv_self_attention_chunked(qkv, h, chunks)
-        want = fa.flash_qkv_self_attention_chunked_plain(qkv, h, chunks)
-        # against the plain chunked version, and K1's plain version (the same function)
-        err, l2 = _masked_errs([(got, want), (got, k1_plain)])
-        report[(f"K11 chunks{chunks}", "bfloat16")] = dict(
-            err=err, tol=TOL["bfloat16"], l2=l2, tol_l2=TOL_L2["bfloat16"], max_abs=_max_abs(got[0], want[0]),
-            ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_chunked(qkv, h, chunks)),
-            plain_ms=_time_ms(torch, lambda: fa.flash_qkv_self_attention_chunked_plain(qkv, h, chunks), reps=3),
-            library_ms=sdpa_ms, k1_ms=k1_ms, **k1_bound)
-        del got, want
-    del qkv, views_hm, k1_plain
+    def bound_bf16(ops, nbytes, exps=0.0):
+        return bound(ops, nbytes, peak_bf16, exps)
+
+    for kern, r in _k11_modes(torch, F, fa, qkv, h, bound_bf16).items():
+        report[(kern, "bfloat16")] = r
+    del qkv
     torch.cuda.empty_cache()
 
     # K7' at the backbone shape and at the decoder's cross shape over K=8
@@ -1278,24 +1357,8 @@ def _check_instruments(torch, F, dev, report, peak_bf16, peak_f32, peak_bw, peak
     shapes = {"backbone": (views, h, n, n, hd), "decoder": (8, dec_h, nq, 8 * nq, d // dec_h)}
     for where, (bb, hh, n_q, nk, hdim) in shapes.items():
         q, k_, v_ = (randn(bb, hh, m_, hdim, dtype=bf16) for m_ in (n_q, nk, nk))
-        k7_ms = _time_ms(torch, lambda: fa.flash_attention_head_major(q, k_, v_))
-        ops = 4.0 * bb * hh * n_q * nk * hdim
-        nbytes = bb * hh * (2 * n_q + 2 * nk) * hdim * es + 2 * bb * hh * n_q * 4
-        for variant in fa.HEAD_MAJOR_VARIANTS:
-            got = fa.flash_attention_head_major_variant(q, k_, v_, variant)
-            want = fa.flash_attention_head_major_variant_plain(q, k_, v_, variant)
-            report[(f"K7' {variant}" + (" backbone" if where == "backbone" else ""), "bfloat16")] = dict(
-                err=max(_rel_l2_or_zero(g, w) for g, w in zip(got, want)), tol=TOL_L2["bfloat16"],
-                max_abs=_max_abs(got[0], want[0]),
-                ms=_time_ms(torch, lambda: fa.flash_attention_head_major_variant(q, k_, v_, variant)),
-                plain_ms=_time_ms(torch, lambda: fa.flash_attention_head_major_variant_plain(q, k_, v_, variant),
-                                  reps=3),
-                # bf16exp is softmax attention with a coarser exp: SDPA computes the same function
-                library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(q, k_, v_))
-                if variant == "bf16exp" else None,
-                # mxuprobe and noexp compute no exponentials: no floor for them
-                k7_ms=k7_ms, **bound(ops, nbytes, peak_bf16, bb * hh * n_q * nk if variant == "bf16exp" else 0.0))
-            del got, want
+        for kern, r in _k7p_modes(torch, F, fa, q, k_, v_, bound_bf16).items():
+            report[(kern + (" backbone" if where == "backbone" else ""), "bfloat16")] = r
         del q, k_, v_
         torch.cuda.empty_cache()
 
@@ -1514,7 +1577,7 @@ def _wgmma_build_report(_build) -> dict:
                   f"{'tanh' if tanh == '1' else 'erf'}>: " + ", ".join(f"{k} {v}" for k, v in info.items()))
             if info.get("spill stores") or info.get("spill loads") or "wgmma serialised" in info:
                 bad.append(f"fused_ln_mlp {body}<{width}, {res}, {tanh}>")
-    for src in ("flash_qkv", "flash_cross"):
+    for src in ("flash_qkv", "flash_cross", "attention_modes"):
         for (hd, bias, mode), info in _ptxas_entries(_build, src, r"attn_fwd_wgmmaILi(\d+)ELb(\d)ELi(\d)E").items():
             print(f"  ptxas {src} attn_fwd_wgmma<{hd}, {'BIAS' if bias == '1' else 'no bias'}, mode {mode}>: "
                   + ", ".join(f"{k} {v}" for k, v in info.items()))
@@ -1596,7 +1659,9 @@ def _rank_launches() -> dict:
     )
     from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_res_ln_mlp
     from crossscore_tpu_torch.ops.lane_pad_probe import lane_pad_probe
-    from crossscore_tpu_torch.ops.quant import int8_linear, quantize_rowwise
+    from crossscore_tpu_torch.ops.quant import (
+        int8_linear, int8_matmul_s32, quantize_rowwise, quantize_rowwise_given, row_absmax,
+    )
 
     return {"K1": flash_qkv_self_attention, "K2": fused_ln_mlp, "K3": flash_cross_attention,
             "K4": flash_cross_attention_bwd, "K5": flash_qkv_self_attention_masked,
@@ -1606,8 +1671,10 @@ def _rank_launches() -> dict:
             "K10": fused_res_ln_mlp, "K11 probe": flash_qkv_self_attention_probe,
             "K11 chunks": flash_qkv_self_attention_chunked, "K7'": flash_attention_head_major_variant,
             "K12": lane_pad_probe,
-            # the int8 backbone's kernels, which have no Pallas counterpart
-            "Q1": quantize_rowwise, "Q2": int8_linear}
+            # the int8 backbone's kernels, which have no Pallas counterpart, and
+            # the split forms of its tensor-parallel row layer
+            "Q1": quantize_rowwise, "Q2": int8_linear, "Q1a": row_absmax, "Q1b": quantize_rowwise_given,
+            "Q2s32": int8_matmul_s32}
 
 
 def _launches(**counts) -> dict:
@@ -3832,6 +3899,505 @@ def _int8_phases(torch, F, dev, card: str, peaks, params, zero_launches, read_la
     return out
 
 
+@contextlib.contextmanager
+def _drop_max_reduce():
+    """The planted fault of the int8 row layer: its all-reduce MAX of the
+    absmaxes left out, every other collective untouched, so each rank
+    quantises its shard at its own scales."""
+    import torch.distributed as dist
+
+    import crossscore_tpu_torch.parallel.tensor_parallel as tp
+
+    real = tp.all_reduce
+    tp.all_reduce = lambda t, op=dist.ReduceOp.SUM, group=None: t if op == dist.ReduceOp.MAX else real(t, op, group)
+    try:
+        yield
+    finally:
+        tp.all_reduce = real
+
+
+@contextlib.contextmanager
+def _row_products(check=None):
+    """Every call of the backbone's int8 row layer recorded as (x, weight,
+    bias, output); with ``check``, each call's ``check(*record)`` kept instead."""
+    from crossscore_tpu_torch.models import dinov2
+
+    real, seen = dinov2.int8_row_linear, []
+
+    def record(x, w, b, group):
+        y = real(x, w, b, group)
+        seen.append((x, w, b, y) if check is None else check(x, w, b, y))
+        return y
+
+    dinov2.int8_row_linear = record
+    try:
+        yield seen
+    finally:
+        dinov2.int8_row_linear = real
+
+
+def _tp_int8_rank(batch1_np: dict, batch2_np: dict) -> dict:
+    """One rank of TP = 2 under int8 (gloo; the ranks share the card), the
+    seeded dinov2-small net with every backbone product split (``unfused``):
+    (i) the fp32 B=1 forward -> its score map and launches; its first
+    block's out and fc2 products against the one-rank int8 linear on the
+    operands gathered over the group, and again with the MAX all-reduce left
+    out (the planted fault); (ii) one bf16 B=2 train step -> the loss, the
+    score map, the launches and ms/step."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.ops.quant import int8_linear
+    from crossscore_tpu_torch.parallel import mesh
+    from crossscore_tpu_torch.parallel.collectives import all_gather
+    from crossscore_tpu_torch.parallel.tensor_parallel import int8_row_linear, shard_state_dict
+    from crossscore_tpu_torch.train.optim import make_optimizer
+    from crossscore_tpu_torch.train.step import TrainState, make_predict_step, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, dev = mesh.init_distributed("gloo", "cuda")
+    try:
+        mesh.make_groups(2)
+        group = mesh.model_group()
+        rank, mp = dist.get_rank(group), dist.get_world_size(group)
+        wrappers = _rank_launches()
+
+        def zero():
+            for w in wrappers.values():
+                w.launches = 0
+
+        out = {}
+        cfg = CrossScoreConfig(compute_dtype=torch.float32, attention_impl="tp", mlp_impl="unfused",
+                               backbone_quant="int8")
+        model = load_into(CrossScoreNet(cfg, device=dev),
+                          shard_state_dict(init_params(cfg, SEED, dev), rank, mp, cfg.mlp_impl))
+        q, r = (torch.from_numpy(batch1_np[k]).to(dev) for k in ("query/img", "reference/cross/imgs"))
+        zero()
+        with _row_products() as seen:
+            out["map"] = make_predict_step(model)(q, r)["score_map_ref_cross"].cpu().numpy()
+        torch.cuda.synchronize()
+        out["launches_fp32_b1"] = {k: w.launches for k, w in wrappers.items()}
+        rows = []
+        with torch.inference_mode():
+            for tag, (x, w, b, y) in zip(("out", "fc2"), seen[:2]):  # block 0's two row-parallel products
+                want = int8_linear(all_gather(x, group, dim=-1), all_gather(w, group, dim=-1), b)
+                with _drop_max_reduce():
+                    y_bad = int8_row_linear(x, w, b, group)
+                rows.append({"product": tag, "x": list(x.shape), "bit_equal": bool(torch.equal(y, want)),
+                             "max_abs": float((y - want).abs().max()),
+                             "planted_elements_off": int((y_bad != want).sum()), "elements": want.numel()})
+        out["row_products"] = rows
+        del model, seen
+        torch.cuda.empty_cache()
+
+        cfg16 = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+        model = load_into(CrossScoreNet(cfg16, device=dev),
+                          shard_state_dict(init_params(cfg16, SEED, dev), rank, mp, cfg16.mlp_impl))
+        optimizer, scheduler, _ = make_optimizer(load_config("default"), model, steps_per_epoch=1)
+        step = make_train_step(model, optimizer, scheduler)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch2_np.items()}
+        zero()
+        state, metrics = step(TrainState(), batch)
+        torch.cuda.synchronize()
+        out.update(launches_bf16_b2_step={k: w.launches for k, w in wrappers.items()}, loss=float(metrics["loss"]),
+                   pred=metrics["pred"].float().cpu().numpy(),
+                   ms=_time_ms(torch, lambda: step(state, batch), reps=3))
+        return out
+    finally:
+        mesh.teardown()
+
+
+def _tp_int8_kernels(torch, dev, rows_main: int, peaks) -> tuple[dict, list]:
+    """Step 22 (a): Q1a, Q1b and Q2's int32 form against their plain
+    versions and against Q1 / Q2, reruns bit-equal, and their times beside
+    Q1 and Q2 at the predict point's products."""
+    from crossscore_tpu_torch.ops import quant
+
+    peak_bf16, peak_bw = peaks
+    peak_int8 = 2 * peak_bf16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bad = []
+    res = {k: {"cases": 0, "reruns_bit_equal": True, "max_abs_err": 0.0} for k in ("Q1a", "Q1b", "Q2s32")}
+    res["q1a_q1b_is_q1"] = res["dequant_is_q2_epilogue"] = True
+
+    def activation(rows, k, dtype):
+        x = torch.randn(rows, k, generator=gen, device=dev) * 2
+        x[0, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -1.5, 126.5], device=dev)  # ties at s = 1
+        if rows > 1:
+            x[1] = 0  # the eps scale
+        return x.to(dtype)
+
+    def note(kern, same, err, ok, what):
+        r = res[kern]
+        r["cases"] += 1
+        r["reruns_bit_equal"] &= same
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if not (ok and same):
+            bad.append(f"{kern} {what}: not bit-equal to its plain version, or a rerun's bits differ")
+
+    dtypes = (torch.bfloat16, torch.float32)
+    q1_cases = [(rows_main, k, dt) for k in (384, 1536) for dt in dtypes]
+    q1_cases += [(r, k, dt) for r in INT8_ROWS for k in (64, 768, 1024, 4096) for dt in dtypes]
+    q1_cases += [(n, k, torch.float32) for k, n in INT8_PRODUCTS.values()]  # the fp32 weights
+    for rows, k, dt in q1_cases:
+        x = activation(rows, k, dt)
+        (m,), same = _twice(lambda t: (quant.row_absmax(t),), x)
+        mp = quant.row_absmax_plain(x)
+        note("Q1a", same, _max_abs(m, mp), torch.equal(m, mp), f"({rows}, {k}) {dt}")
+        (q, s_), same = _twice(quant.quantize_rowwise_given, x, m)
+        qp, sp = quant.quantize_rowwise_given_plain(x, m)
+        note("Q1b", same, max(_max_abs(q, qp), _max_abs(s_, sp)), torch.equal(q, qp) and torch.equal(s_, sp),
+             f"({rows}, {k}) {dt}")
+        q1, s1 = quant.quantize_rowwise(x)
+        if not (torch.equal(q, q1) and torch.equal(s_, s1)):
+            res["q1a_q1b_is_q1"] = False
+            bad.append(f"Q1a then Q1b ({rows}, {k}) {dt} is not Q1")
+    q2_cases = [(rows_main, k, n, dt) for k, n in INT8_PRODUCTS.values() for dt in dtypes]
+    q2_cases += [(r, k, n, dt) for r in INT8_ROWS for k, n in INT8_WIDTHS for dt in dtypes]
+    for rows, k, n, dt in q2_cases:
+        xq, sx = quant.quantize_rowwise_plain(activation(rows, k, dt))
+        wq, sw = quant.quantize_rowwise_plain(torch.randn(n, k, generator=gen, device=dev) / k ** 0.5)
+        (acc,), same = _twice(lambda a, b: (quant.int8_matmul_s32(a, b),), xq, wq)
+        want = quant.int8_matmul_s32_plain(xq, wq)
+        note("Q2s32", same, _max_abs(acc, want), torch.equal(acc, want), f"({rows}, {k} -> {n}) {dt}")
+        bias = (torch.randn(n, generator=gen, device=dev) * 0.1).to(dt)
+        if not torch.equal(quant.dequantize_s32(acc, sx, sw, bias, dt),
+                           quant.int8_linear((xq, sx), (wq, sw), bias, dt)):
+            res["dequant_is_q2_epilogue"] = False
+            bad.append(f"the PyTorch dequantisation of ({rows}, {k} -> {n}) {dt} is not Q2's epilogue")
+    print(f"step 22 (a) Q1a, Q1b over {res['Q1a']['cases']} cases each and Q2's int32 form over "
+          f"{res['Q2s32']['cases']} (98,640 rows at the predict point's widths, rows {INT8_ROWS}, bf16 and fp32): "
+          f"bit-equal to their plain versions {not bad}, reruns bit-equal "
+          f"{all(res[k]['reruns_bit_equal'] for k in ('Q1a', 'Q1b', 'Q2s32'))}, Q1a then Q1b is Q1 "
+          f"{res['q1a_q1b_is_q1']}, the PyTorch dequantisation of the int32 products is Q2's epilogue "
+          f"{res['dequant_is_q2_epilogue']}")
+
+    # times at the predict point's products (bf16 x, fp32 weights), in stream
+    res["products"] = {}
+    for tag, (k, n) in INT8_PRODUCTS.items():
+        m_ = rows_main
+        x, w = activation(m_, k, torch.bfloat16), torch.randn(n, k, generator=gen, device=dev) / k ** 0.5
+        b16 = (torch.randn(n, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        mx = quant.row_absmax(x)
+        (xq, sx), (wq, sw) = quant.quantize_rowwise(x), quant.quantize_rowwise(w)
+        acc = quant.int8_matmul_s32(xq, wq)
+        r = {"Q1a": {"ms": _stream_ms(torch, lambda: quant.row_absmax(x)),
+                     "plain_ms": _stream_ms(torch, lambda: quant.row_absmax_plain(x), calls=5),
+                     "library_ms": _stream_ms(torch, lambda: torch.linalg.vector_norm(x, float("inf"), dim=-1,
+                                                                                     keepdim=True)),
+                     **_bound(0.0, m_ * k * 2 + m_ * 4, peak_int8, peak_bw)},
+             "Q1b": {"ms": _stream_ms(torch, lambda: quant.quantize_rowwise_given(x, mx)),
+                     "plain_ms": _stream_ms(torch, lambda: quant.quantize_rowwise_given_plain(x, mx), calls=5),
+                     "library_ms": None, **_bound(0.0, m_ * k * 2 + m_ * 4 + m_ * k + m_ * 4, peak_int8, peak_bw)},
+             "Q2s32": {"ms": _stream_ms(torch, lambda: quant.int8_matmul_s32(xq, wq)),
+                       "plain_ms": _stream_ms(torch, lambda: quant.int8_matmul_s32_plain(xq, wq), calls=5),
+                       "library_ms": _stream_ms(torch, lambda: torch._int_mm(xq, wq.t())),
+                       "dequant_ms": _stream_ms(torch, lambda: quant.dequantize_s32(acc, sx, sw, b16, torch.bfloat16)),
+                       **_bound(2.0 * m_ * k * n, m_ * k + n * k + 4 * m_ * n, peak_int8, peak_bw)},
+             "Q1_ms": _stream_ms(torch, lambda: quant.quantize_rowwise(x)),
+             "Q2_ms": _stream_ms(torch, lambda: quant.int8_linear((xq, sx), (wq, sw), b16, torch.bfloat16)),
+             "shape": f"x ({m_}, {k}) bf16, weight ({n}, {k}) fp32"}
+        res["products"][tag] = r
+        print(f"step 22 (a) {tag} ({m_} x {k} -> {n}): Q1a {r['Q1a']['ms']:.3f} ms (plain {r['Q1a']['plain_ms']:.3f}, "
+              f"vector_norm(inf) {r['Q1a']['library_ms']:.3f}, bound {r['Q1a']['bound_ms']:.3f}), Q1b "
+              f"{r['Q1b']['ms']:.3f} (plain {r['Q1b']['plain_ms']:.3f}, bound {r['Q1b']['bound_ms']:.3f}) beside Q1 "
+              f"{r['Q1_ms']:.3f}; Q2's int32 form {r['Q2s32']['ms']:.3f} (plain {r['Q2s32']['plain_ms']:.3f}, "
+              f"torch._int_mm {r['Q2s32']['library_ms']:.3f}, bound {r['Q2s32']['bound_ms']:.3f} "
+              f"{r['Q2s32']['bound_by']}) + the PyTorch dequantisation {r['Q2s32']['dequant_ms']:.3f} beside Q2 "
+              f"{r['Q2_ms']:.3f}")
+    return res, bad
+
+
+def _hd128_modes(torch, F, dev, peaks, zero_launches, read_launches) -> tuple[dict, list]:
+    """Step 22 (d): K11 (probes and chunks) and K7' at hd 128 against their
+    plain versions (step 3's tolerances at hd 48/64), each launched twice for
+    the same bits, timed beside K1 / K7 at hd 128 and the bound."""
+    from crossscore_tpu_torch.ops import flash_attention as fa
+
+    peak_bf16, peak_bw, peak_ex2 = peaks
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def bound(ops, nbytes, exps=0.0):
+        return _bound(ops, nbytes, peak_bf16, peak_bw, exps, peak_ex2)
+
+    zero_launches()
+    b, n, h, hd = HD128_QKV
+    qkv = torch.randn(b, n, 3 * h * hd, generator=gen, device=dev).to(torch.bfloat16)
+    out = _k11_modes(torch, F, fa, qkv, h, bound)
+    del qkv
+    torch.cuda.empty_cache()
+    bb, hh, nq, nk, hdim = HD128_K7
+    q, k_, v_ = (torch.randn(bb, hh, m_, hdim, generator=gen, device=dev).to(torch.bfloat16) for m_ in (nq, nk, nk))
+    out |= _k7p_modes(torch, F, fa, q, k_, v_, bound)
+    del q, k_, v_
+    torch.cuda.empty_cache()
+    launches, modes, bad = read_launches(), _rank_launches(), []
+    for kern, r in out.items():
+        fn = modes["K7'" if kern.startswith("K7'") else "K11 chunks" if "chunks" in kern else "K11 probe"]
+        r["launches"] = fn.launches_by_mode.get(kern.split()[1], 0)
+        r["shape"] = (f"qkv ({b}, {n}, {3 * h * hd}) bf16, {h} heads of hd {hd}" if kern.startswith("K11")
+                      else f"q ({bb}, {hh}, {nq}, {hdim}), k/v ({bb}, {hh}, {nk}, {hdim}) bf16")
+        ok = r["err"] <= r["tol"] and r.get("l2", 0.0) <= r.get("tol_l2", 1.0) and r["bit_equal"]
+        print(f"step 22 (d) {kern} hd 128 ({r['shape']}): err {r['err']:.3e} (tol {r['tol']:g})"
+              + (f", l2 {r['l2']:.3e} (tol {r['tol_l2']:g})" if "l2" in r else "")
+              + f", rerun bit-equal {r['bit_equal']}; {r['ms']:.3f} ms beside "
+              + (f"K1 {r['k1_ms']:.3f}" if kern.startswith("K11") else f"K7 {r['k7_ms']:.3f}")
+              + f" (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f} {r['bound_floor']}"
+              + (f", SDPA {r['library_ms']:.3f}" if r["library_ms"] else "") + ")")
+        if not ok:
+            bad.append(f"{kern} at hd 128")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    return out, bad
+
+
+def _tp_int8_phases(torch, F, dev, card: str, peaks, params, zero_launches, read_launches) -> dict:
+    """Step 22, the int8 backbone under tensor parallelism: (a) Q1a, Q1b and
+    Q2's int32 form (:func:`_tp_int8_kernels`); (b) TP = 1 on one NCCL rank at
+    the headline point (``params``, step 4's seeded init): the int8 tp
+    forward against the int8 flash forward, every row-parallel product
+    against the one-rank int8 linear, the launches, and the int8 tp train
+    step at B=24, K=5 beside the int8 flash step; (c) TP = 2 on two gloo
+    ranks sharing the card (:func:`_tp_int8_rank`) against the one-rank
+    int8 net, on its kernels and all-plain, and the one-rank tp route; (d)
+    K11 and K7' at hd 128
+    (:func:`_hd128_modes`). Returns the readings."""
+    import dataclasses
+
+    import numpy as np
+
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.io.convert import init_params, load_into
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.models import dinov2
+    from crossscore_tpu_torch.ops import quant
+    from crossscore_tpu_torch.parallel import mesh
+    from crossscore_tpu_torch.parallel.launch import RankPool
+    from crossscore_tpu_torch.train.optim import make_optimizer
+    from crossscore_tpu_torch.train.step import TrainState, loss_fn, make_predict_step, make_train_step
+
+    t_all = time.perf_counter()
+    peak_bf16, peak_f32, peak_bw, peak_ex2 = peaks
+    cfg = CrossScoreConfig()
+    vit, n_dec = cfg.backbone, 2 * cfg.decoder_layers
+    views = B * (1 + K)
+    out: dict = {}
+    out["kernels"], bad = _tp_int8_kernels(torch, dev, views * ((HW // vit.patch_size) ** 2 + 1),
+                                           (peak_bf16, peak_bw))
+    torch.cuda.empty_cache()
+
+    # --- (b) TP = 1 on one NCCL rank ---------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    query = torch.randint(0, 256, (B, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    refs = torch.randint(0, 256, (B, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    cfg8 = dataclasses.replace(cfg, backbone_quant="int8")
+    layers = vit.num_layers
+    # per forward: unfused, the qkv and fc1 column products (Q1 on x and on
+    # the weight, Q2) and the out and fc2 row products (Q1a and Q1b on x and
+    # on the weight, Q2's int32 form); with fused requested fc1 and fc2 whole
+    want_f = {"unfused": _launches(K7=layers + n_dec, Q1=4 * layers, Q2=2 * layers, Q1a=4 * layers,
+                                   Q1b=4 * layers, Q2s32=2 * layers),
+              "fused": _launches(K7=layers + n_dec, Q1=6 * layers, Q2=3 * layers, Q1a=2 * layers, Q1b=2 * layers,
+                                 Q2s32=layers)}
+    b = {}
+    with _one_nccl_rank():
+        mesh.make_groups(1)
+        flash8 = load_into(CrossScoreNet(cfg8, device=dev), params)
+        want_map = make_predict_step(flash8)(query, refs)["score_map_ref_cross"]
+        del flash8
+        nets = {}
+        for mlp in ("unfused", "fused"):
+            nets[mlp] = load_into(CrossScoreNet(dataclasses.replace(cfg8, attention_impl="tp", mlp_impl=mlp),
+                                                device=dev), params)
+            zero_launches()
+            s = make_predict_step(nets[mlp])(query, refs)["score_map_ref_cross"]
+            torch.cuda.synchronize()
+            got = read_launches()
+            d = (s.float() - want_map.float()).abs()
+            b[mlp] = {"launches": {k: v for k, v in got.items() if v},
+                      "expected": {k: v for k, v in want_f[mlp].items() if v},
+                      "mae_vs_flash": float(d.mean()), "max_vs_flash": float(d.max())}
+            if got != want_f[mlp] or tuple(s.shape) != (B, HW, HW) or not bool(torch.isfinite(s).all()) \
+                    or not b[mlp]["mae_vs_flash"] < TP_MAP_TOL:
+                bad.append(f"(b) the int8 tp forward, mlp {mlp}: launches or the map against the flash route's")
+        # every row-parallel product of a forward against the one-rank linear on the same operands
+        with _row_products(lambda x, w, bias, y: torch.equal(y, quant.int8_linear(x, w, bias))) as checks:
+            make_predict_step(nets["unfused"])(query, refs)
+        b["row_products_bit_equal"] = [sum(checks), len(checks)]
+        if len(checks) != 2 * layers or not all(checks):
+            bad.append("(b) a row-parallel product is not the one-rank int8 linear")
+        step_ms = {}
+        for mlp, net in nets.items():
+            step_ms[mlp] = sorted(_event_times(torch, lambda m=net: make_predict_step(m)(query, refs), reps=5))[2]
+        b["forward_ms"] = step_ms
+        print(f"step 22 (b) TP = 1 on one NCCL rank, int8 tp forward (dinov2-small, {HW} px, K={K}, B={B}, bf16): "
+              + "; ".join(f"mlp {mlp}: launches {b[mlp]['launches']} (expected {b[mlp]['expected']}), map against "
+                          f"the int8 flash forward MAE {b[mlp]['mae_vs_flash']:.3e} max {b[mlp]['max_vs_flash']:.3e} "
+                          f"(tol {TP_MAP_TOL:g}), {step_ms[mlp]:.2f} ms" for mlp in nets)
+              + f"; row-parallel products bit-equal to the one-rank int8 linear: {sum(checks)} of {len(checks)}")
+        del nets, checks, want_map
+        torch.cuda.empty_cache()
+
+        # the train step at B=24, K=5, tp (unfused) beside flash, both int8; B=2 for step (c)
+        tcfg = load_config("default")
+        tbatch = {
+            "query/img": torch.randint(0, 256, (TB, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8),
+            "reference/cross/imgs": torch.randint(0, 256, (TB, TK, HW, HW, 3), generator=gen, device=dev,
+                                                  dtype=torch.uint8),
+            "query/score_map": torch.rand(TB, HW, HW, generator=gen, device=dev),
+            "_valid": torch.tensor(TB, device=dev),
+        }
+        batch2 = {k: (v[:2] if v.ndim else torch.tensor(2, device=dev)) for k, v in tbatch.items()}
+        train, tsteps = {}, {}
+        for tag, c_ in (("flash", cfg8), ("tp", dataclasses.replace(cfg8, attention_impl="tp", mlp_impl="unfused"))):
+            tnet = load_into(CrossScoreNet(c_, device=dev), params)
+            if tag == "tp":
+                with torch.no_grad():
+                    loss2, (pred2, _, _) = loss_fn(tnet, batch2)
+                b["loss_b2"], pred_b2 = float(loss2), pred2.float().cpu().numpy()
+            optimizer, scheduler, _ = make_optimizer(tcfg, tnet, steps_per_epoch=1)
+            tsteps[tag] = make_train_step(tnet, optimizer, scheduler)
+            before = {k_: v.detach().clone() for k_, v in tnet.state_dict().items()}
+            zero_launches()
+            state, metrics = tsteps[tag](TrainState(), tbatch)
+            torch.cuda.synchronize()
+            got = read_launches()
+            after = tnet.state_dict()
+            frozen = [k_ for k_ in after if k_.startswith("backbone.") or k_ == "pos_enc_fn.PE"]
+            trained = [k_ for k_, prm in tnet.named_parameters() if prm.requires_grad]
+            train[tag] = {"loss": float(metrics["loss"]), "launches": {k_: v for k_, v in got.items() if v},
+                          "frozen_moved": sum(not torch.equal(after[k_], before[k_]) for k_ in frozen),
+                          "trained_unmoved": sum(torch.equal(after[k_], before[k_]) for k_ in trained),
+                          "state": state}
+            del before, after, metrics
+        want_t = {"flash": _launches(K1=layers, K3=n_dec, K4=n_dec, Q1=8 * layers, Q2=4 * layers),
+                  "tp": _launches(K7=layers + n_dec, K8=cfg.decoder_layers, K9=cfg.decoder_layers,
+                                  **{k: v for k, v in want_f["unfused"].items() if k != "K7" and v})}
+        times = {}
+        for tag in ("flash", "tp", "tp", "flash"):  # in turns
+            times.setdefault(tag, []).extend(_event_times(
+                torch, lambda s_=tsteps[tag], st=train[tag]["state"]: s_(st, tbatch), reps=3))
+        for tag, ts in times.items():
+            ts = sorted(ts)
+            train[tag].pop("state")
+            train[tag].update(ms=ts[len(ts) // 2], spread_ms=[ts[0], ts[-1]],
+                              expected={k_: v for k_, v in want_t[tag].items() if v})
+            r_ = train[tag]
+            if r_["launches"] != r_["expected"] or not np.isfinite(r_["loss"]) or r_["frozen_moved"] \
+                    or r_["trained_unmoved"]:
+                bad.append(f"(b) the int8 {tag} train step: launches, loss or parameters")
+        b["train_step"] = train
+        t8, tf = train["tp"], train["flash"]
+        print(f"step 22 (b) int8 tp train step (TP = 1, unfused; B={TB}, K={TK}, {HW} px, bf16): launches "
+              f"{t8['launches']} (expected {t8['expected']}); loss {t8['loss']:.6f} against the int8 flash step's "
+              f"{tf['loss']:.6f}; backbone/PE tensors moved {t8['frozen_moved']}, decoder/head tensors not updated "
+              f"{t8['trained_unmoved']}; {t8['ms']:.2f} ms (spread {t8['spread_ms'][0]:.2f}-{t8['spread_ms'][1]:.2f}) "
+              f"against the int8 flash step's {tf['ms']:.2f} (spread {tf['spread_ms'][0]:.2f}-"
+              f"{tf['spread_ms'][1]:.2f}), median of 6 in turns; {card}")
+        del tsteps, tbatch
+        torch.cuda.empty_cache()
+    out["tp1"] = b
+
+    # --- (c) TP = 2 on two gloo ranks sharing the card ------------------------------
+    t0 = time.perf_counter()
+    host = lambda bt: {k: v.cpu().numpy() for k, v in bt.items()}  # noqa: E731
+    batch1 = {"query/img": query[:1], "reference/cross/imgs": refs[:1]}
+    with RankPool(2) as pool:
+        ranks = pool.run(_tp_int8_rank, host(batch1), host(batch2), timeout=600)
+    # the one-rank int8 net, fp32 B=1, on its kernels (flash) and all-plain
+    # (dense, unfused, the plain W8A8 linear)
+    ref_maps = {}
+    for tag, impl, mlp in (("kernels", "flash", "fused_exact"), ("plain", "dense", "unfused")):
+        rcfg = CrossScoreConfig(compute_dtype=torch.float32, attention_impl=impl, mlp_impl=mlp, backbone_quant="int8")
+        real = dinov2.int8_linear
+        if tag == "plain":
+            dinov2.int8_linear = quant.int8_linear_plain
+        try:
+            rnet = load_into(CrossScoreNet(rcfg, device=dev), init_params(rcfg, SEED, dev))
+            ref_maps[tag] = make_predict_step(rnet)(query[:1], refs[:1])["score_map_ref_cross"].cpu().numpy()
+        finally:
+            dinov2.int8_linear = real
+        del rnet
+        torch.cuda.empty_cache()
+    want_r = {"fp32": _launches(**want_f["unfused"]),
+              "bf16": _launches(K8=cfg.decoder_layers, K9=cfg.decoder_layers,
+                                **{k: v for k, v in want_f["unfused"].items() if v})}
+    c = {"fp32_map_mae": [float(np.abs(r["map"] - ref_maps["kernels"]).mean()) for r in ranks],
+         "fp32_map_max": [float(np.abs(r["map"] - ref_maps["kernels"]).max()) for r in ranks],
+         "fp32_map_mae_vs_all_plain": [float(np.abs(r["map"] - ref_maps["plain"]).mean()) for r in ranks],
+         "one_rank_kernels_mae_vs_all_plain": float(np.abs(ref_maps["kernels"] - ref_maps["plain"]).mean()),
+         "bf16_map_mae": [float(np.abs(r["pred"] - pred_b2).mean()) for r in ranks],
+         "bf16_loss": [r["loss"] for r in ranks], "loss_b2_one_rank": b["loss_b2"],
+         "row_products": [r["row_products"] for r in ranks], "ms_per_rank_bf16_b2": [r["ms"] for r in ranks],
+         "launches_fp32_b1": {k: v for k, v in ranks[0]["launches_fp32_b1"].items() if v},
+         "launches_bf16_b2_step": {k: v for k, v in ranks[0]["launches_bf16_b2_step"].items() if v}}
+    rows_ok = all(p["bit_equal"] and p["planted_elements_off"] > 0 for r in ranks for p in r["row_products"])
+    print(f"step 22 (c) TP = 2 on 2 gloo ranks sharing the card, int8, unfused: fp32 B=1 score maps per rank "
+          f"against the one-rank int8 net on the same kernels, MAE {c['fp32_map_mae']} (tol {NET_TOL['float32']:g}), "
+          f"max {c['fp32_map_max']}; against the one-rank all-plain int8 net MAE {c['fp32_map_mae_vs_all_plain']}, "
+          f"where the one-rank kernel net reads {c['one_rank_kernels_mae_vs_all_plain']:.3e} (tier "
+          f"{INT8_TIER[0]:g}: fp32 summation order flips codes at a rounding boundary); bf16 B=2 "
+          f"train step per rank against the one-rank tp route: map MAE {c['bf16_map_mae']} (tol {TP_MAP_TOL:g}), "
+          f"loss {c['bf16_loss']} against {b['loss_b2']:.6f}; block 0's row products against the one-rank int8 "
+          f"linear on the gathered operands, and with the MAX all-reduce left out (planted): " + "; ".join(
+              f"rank {i} {p['product']} x {p['x']} bit-equal {p['bit_equal']}, planted {p['planted_elements_off']} of "
+              f"{p['elements']} elements off" for i, r in enumerate(ranks) for p in r["row_products"])
+          + f"; launches per rank {c['launches_fp32_b1']} (forward), {c['launches_bf16_b2_step']} (step); ms/step "
+            f"per rank {c['ms_per_rank_bf16_b2']} (two ranks time-slicing one card, gloo through host memory)")
+    if not (all(e < NET_TOL["float32"] for e in c["fp32_map_mae"])
+            and all(e < INT8_TIER[0] for e in (*c["fp32_map_mae_vs_all_plain"], c["one_rank_kernels_mae_vs_all_plain"]))
+            and all(e <= TP_MAP_TOL for e in c["bf16_map_mae"])
+            and all(abs(x - b["loss_b2"]) <= TP_MAP_TOL for x in c["bf16_loss"]) and rows_ok
+            and all(r["launches_fp32_b1"] == want_r["fp32"] and r["launches_bf16_b2_step"] == want_r["bf16"]
+                    for r in ranks)):
+        bad.append("(c) TP = 2 under int8")
+    c["s"] = time.perf_counter() - t0
+    out["tp2"] = c
+    del query, refs, batch1, batch2
+    torch.cuda.empty_cache()
+
+    # --- (d) K11 and K7' at hd 128 -------------------------------------------------
+    out["hd128"], bad_d = _hd128_modes(torch, F, dev, (peak_bf16, peak_bw, peak_ex2), zero_launches,
+                                       read_launches)
+    bad += bad_d
+    out["s"] = time.perf_counter() - t_all
+    print(f"step 22: {out['s']:.1f} s")
+    if bad:
+        _fail("step 22: " + "; ".join(bad))
+    return out
+
+
+def _tp_int8_rows(tpi: dict, int8: dict) -> list:
+    """The kernels line's rows of Q1a, Q1b and Q2's int32 form from step 22's
+    readings; their main path is the int8 tp forward (TP = 1, unfused)."""
+    ik, rows = tpi["kernels"], []
+    tp1 = tpi["tp1"]
+    for kern, fn, replaces, err in (
+            ("Q1a", "row_absmax", "crossscore_tpu/ops/quant.py:35", "bit-equal absmaxes"),
+            ("Q1b", "quantize_rowwise_given", "crossscore_tpu/ops/quant.py:35", "bit-equal codes and scales"),
+            ("Q2s32", "int8_matmul_s32", "crossscore_tpu/ops/quant.py:51", "bit-equal int32 products")):
+        r = ik["products"]["fc2"][kern]
+        rows.append({"name": fn, "route": "cuda", "source": "crossscore_tpu_torch/csrc/int8_linear.cu",
+                     "replaces": replaces, "pallas_counterpart": None,
+                     "launches": tp1["unfused"]["launches"].get(kern, 0), "max_abs_err": ik[kern]["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "err_kind": err, "shape": ik["products"]["fc2"]["shape"],
+                     "products": {tag: v[kern] | {"Q1_ms": v["Q1_ms"], "Q2_ms": v["Q2_ms"]}
+                                  for tag, v in ik["products"].items()},
+                     "launches_by_path": {"tp_int8_forward_unfused": tp1["unfused"]["launches"].get(kern, 0),
+                                          "tp_int8_forward_fused_requested": tp1["fused"]["launches"].get(kern, 0),
+                                          "tp_int8_train_step": tp1["train_step"]["tp"]["launches"].get(kern, 0),
+                                          "tp2_rank0_forward": tpi["tp2"]["launches_fp32_b1"].get(kern, 0),
+                                          "tp2_rank0_train_step": tpi["tp2"]["launches_bf16_b2_step"].get(kern, 0),
+                                          "int8_predict": int8["predict_step"]["launches"].get(kern, 0)}})
+    return rows
+
+
 def main() -> int:
     import argparse
 
@@ -5170,7 +5736,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     _lap(t_start, 21)
-    # --- 22. the kernels line, then the device line ---------------------------
+    # --- 22. the int8 backbone under tensor parallelism: the split forms, TP = 1
+    # on one NCCL rank, TP = 2 on two gloo ranks, K11 and K7' at hd 128 ------------
+    tpi = _tp_int8_phases(torch, F, dev, card, (peak_bf16, peak_f32, peak_bw, peak_ex2), params, zero_launches,
+                          read_launches)
+    torch.cuda.empty_cache()
+
+    _lap(t_start, 22)
+    # --- 23. the kernels line, then the device line ---------------------------
     sources = {"K1": ("flash_qkv_self_attention", "crossscore_tpu_torch/csrc/flash_qkv.cu",
                       "crossscore_tpu/ops/flash_attention.py:1347"),
                "K2": ("fused_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
@@ -5273,6 +5846,9 @@ def main() -> int:
         if kern in ("K3", "K7"):
             row["stress"] = stress["kernels"]["layout-native K3" if kern == "K3" else "head-major K7"] \
                 | {"sdpa_ms": stress["sdpa_ms"], "bound_ms": stress["bound_ms"], "geometry": stress["geometry"]}
+        if kern in ("K7", "K8", "K9"):  # step 22: the int8 tp forward and train step (TP = 1)
+            row["launches_by_path"]["tp_int8_forward"] = tpi["tp1"]["unfused"]["launches"].get(kern, 0)
+            row["launches_by_path"]["tp_int8_train_step"] = tpi["tp1"]["train_step"]["tp"]["launches"].get(kern, 0)
         if kern == "K7":  # the tp train step's backbone shape, 12 of its 16 launches
             s, s32 = report[("K7 backbone", "bfloat16")], report[("K7 backbone", "float32")]
             row["backbone"] = {k: s[k] for k in stats if k in s} | {"shape": shapes["K7 backbone"]}
@@ -5282,18 +5858,18 @@ def main() -> int:
     # its op; K11: the microbenchmark at the backbone shape; K7': at the
     # decoder shape, the MXU probe's home, the backbone run's beside it; K12:
     # its tool)
-    fa_src, qkv_src = "crossscore_tpu_torch/csrc/flash_cross.cu", "crossscore_tpu_torch/csrc/flash_qkv.cu"
+    modes_src = "crossscore_tpu_torch/csrc/attention_modes.cu"
     flash_py = "crossscore_tpu/ops/flash_attention.py"
     new_rows = {"K10": ("fused_res_ln_mlp", "crossscore_tpu_torch/csrc/fused_ln_mlp.cu",
                         "crossscore_tpu/ops/fused_mlp.py:72", inst["K10 op"]["launches"]["K10"], instruments["K10"])}
     for m in fa.QKV_PROBES:
-        new_rows[f"K11 {m}"] = (f"flash_qkv_self_attention_probe, probe {m}", qkv_src, f"{flash_py}:1255",
+        new_rows[f"K11 {m}"] = (f"flash_qkv_self_attention_probe, probe {m}", modes_src, f"{flash_py}:1255",
                                 bb["K11 probe"][m], instruments["K11"])
     for c in (2, 3):
-        new_rows[f"K11 chunks{c}"] = (f"flash_qkv_self_attention_chunked, chunks {c}", qkv_src, f"{flash_py}:1295",
+        new_rows[f"K11 chunks{c}"] = (f"flash_qkv_self_attention_chunked, chunks {c}", modes_src, f"{flash_py}:1295",
                                       bb["K11 chunks"][f"chunks{c}"], instruments["K11"])
     for m, line in (("mxuprobe", 157), ("noexp", 231), ("bf16exp", 231)):
-        new_rows[f"K7' {m}"] = (f"flash_attention_head_major_variant, {m}", fa_src, f"{flash_py}:{line}",
+        new_rows[f"K7' {m}"] = (f"flash_attention_head_major_variant, {m}", modes_src, f"{flash_py}:{line}",
                                 dec["K7'"][m], instruments["K7'"])
     for g in lpp.GEOMETRIES:
         new_rows[f"K12 {g}"] = (f"lane_pad_probe, {g}", "crossscore_tpu_torch/csrc/lane_pad_probe.cu",
@@ -5314,8 +5890,15 @@ def main() -> int:
         if kern.startswith("K7'"):
             row["backbone"] = {k: v for k, v in report[(f"{kern} backbone", "bfloat16")].items()} \
                 | {"launches": bb["K7'"][kern.split()[1]]}
+        if kern in tpi["hd128"]:  # step 22 (d): the ViT-L decoder's head dim
+            row["hd128"] = tpi["hd128"][kern]
         kernels.append(row)
     kernels += _int8_rows(int8)
+    for row in kernels[-2:]:  # Q1 and Q2 on the int8 tp path (step 22)
+        kern = "Q1" if row["name"] == "quantize_rowwise" else "Q2"
+        row["launches_by_path"]["tp_int8_forward"] = tpi["tp1"]["unfused"]["launches"].get(kern, 0)
+        row["launches_by_path"]["tp_int8_train_step"] = tpi["tp1"]["train_step"]["tp"]["launches"].get(kern, 0)
+    kernels += _tp_int8_rows(tpi, int8)
     seconds = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {seconds:.1f} s")
     # (a) is the reference of the agreement check: it has no reading of its own
@@ -5337,6 +5920,8 @@ def main() -> int:
                                             for tag, r in qual["tools"].items()}},
                       "int8": {k: v for k, v in int8.items() if k != "kernels"}
                       | {"planted_scale": int8["kernels"]["planted_scale"]},
+                      "tp_int8": {k: v for k, v in tpi.items() if k not in ("kernels", "hd128")}
+                      | {"hd128_launches": tpi["hd128"]["launches"]},
                       "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
                                                         for k, v in r.items()} for tag, r in ev["modes"].items()}},
                       "seconds": seconds}))

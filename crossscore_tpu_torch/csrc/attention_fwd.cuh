@@ -1,5 +1,6 @@
 // Flash-attention forward shared by K1 and K5 (flash_qkv.cu) and K3, K6 and
-// K7 (flash_cross.cu), and the timing modes K11 and K7' (below).
+// K7 (flash_cross.cu), and the timing modes K11 and K7' (below;
+// attention_modes.cu).
 //
 // softmax(Q K^T * scale) V for one (batch, head, 128-row q tile) per block,
 // with an online softmax over 128-row KV tiles, so the Nq x Nk score matrix
@@ -635,13 +636,14 @@ int launch_attention_hd(const AttnArgs& a, int batch, int dtype, cudaStream_t st
 }
 
 // A timing mode (bf16, no bias) at head dims 48 and 64, the two shapes of
-// the microbenchmark (the wrappers reject the rest); kPartial's grid takes
-// `nchunks` q-tile rows.
+// the microbenchmark, and 128, the ViT-L decoder's (the wrappers reject the
+// rest); kPartial's grid takes `nchunks` q-tile rows.
 template <int MODE>
 int launch_attention_mode(const AttnArgs& a, int batch, int hd, int nchunks, cudaStream_t st) {
   switch (hd) {
     case 48: return launch_fwd_wgmma<48, false, MODE>(a, batch, nchunks, st);
     case 64: return launch_fwd_wgmma<64, false, MODE>(a, batch, nchunks, st);
+    case 128: return launch_fwd_wgmma<128, false, MODE>(a, batch, nchunks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -671,6 +673,54 @@ void fwd_plan(int* out) {
   using T = FwdTiles<HD>;
   const int p[4] = {T::ROWS, T::BK, T::STAGES, (int)T::bytes};
   for (int i = 0; i < 4; ++i) out[i] = p[i];
+}
+
+// The arguments of the fused-qkv entries (K1, K5, K11): q, k and v at column
+// offsets 0, D and 2D of the (B, N, 3D) projection, heads side by side in a row.
+inline AttnArgs qkv_args(const void* qkv, void* o, void* l, void* m, int n, int heads, int hd,
+                         int dtype, float scale) {
+  const long long d = (long long)heads * hd;
+  const size_t esize = dtype == kBFloat16 ? 2 : 4;
+  AttnArgs a;
+  a.q = qkv;
+  a.k = static_cast<const char*>(qkv) + d * esize;
+  a.v = static_cast<const char*>(qkv) + 2 * d * esize;
+  a.q_bs = a.k_bs = a.v_bs = (long long)n * 3 * d;
+  a.q_rs = a.k_rs = a.v_rs = 3 * d;
+  a.q_hs = a.k_hs = a.v_hs = a.o_hs = hd;  // heads side by side in a row
+  a.o = o;
+  a.o_bs = (long long)n * d;
+  a.o_rs = d;
+  a.l = static_cast<float*>(l);
+  a.m = static_cast<float*>(m);
+  a.h = heads;
+  a.nq = a.nk = n;
+  a.c1 = scale * kLog2e;
+  return a;
+}
+
+// The arguments of the head-major entries (K7, K7'): strides, the batch,
+// head and row strides of q, k and v in elements; o a contiguous (B, H, Nq, hd).
+inline AttnArgs head_major_args(const void* q, const void* k, const void* v, const long long* strides,
+                                void* o, void* l, void* m, int heads, int nq, int nk, int hd, float scale) {
+  AttnArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.q_bs = strides[0], a.q_hs = strides[1], a.q_rs = strides[2];
+  a.k_bs = strides[3], a.k_hs = strides[4], a.k_rs = strides[5];
+  a.v_bs = strides[6], a.v_hs = strides[7], a.v_rs = strides[8];
+  a.o = o;  // contiguous (B, H, Nq, hd)
+  a.o_rs = hd;
+  a.o_hs = (long long)nq * hd;
+  a.o_bs = (long long)heads * nq * hd;
+  a.l = static_cast<float*>(l);
+  a.m = static_cast<float*>(m);
+  a.h = heads;
+  a.nq = nq;
+  a.nk = nk;
+  a.c1 = scale * kLog2e;
+  return a;
 }
 
 }  // namespace cs

@@ -37,15 +37,8 @@
 // exponentials per head against (2*Nq + 2*Nk)*hd elements moved), and a view
 // costs nothing over a contiguous tensor: its tensor map takes the view's
 // head and row strides, and TMA reads each box of hd-wide rows either way.
-
 //
-// K7' is K7's geometry with a timing mode of attention_fwd.cuh: the TPU's MXU
-// probe `_fwd_kernel_v2_mxu_probe` (`variant` "v2_mxuprobe", the multi-KV
-// body) and the `noexp` and `bf16` options of `_fwd_kernel_single_v2`
-// ("v2_noexp", "v2_bf16", the single-KV body). On the TPU each is tied to the
-// body its blocking selects; here each is a function of (q, k, v) alone, at
-// any Nk. v2 without its ones column ("v2_noaug") is the function of v2, and
-// K7 itself.
+// K7's timing modes (K7') are in attention_modes.cu.
 
 #include "attention_fwd.cuh"
 
@@ -96,39 +89,12 @@ extern "C" int cs_flash_cross_attention_masked(const void* q, const void* k, con
   return cs::launch_attention<true>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
 }
 
-namespace {
-
-// strides: the batch, head and row strides of q, k and v, in elements
-cs::AttnArgs head_major_args(const void* q, const void* k, const void* v, const long long* strides,
-                             void* o, void* l, void* m, int heads, int nq, int nk, int hd,
-                             float scale) {
-  cs::AttnArgs a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.q_bs = strides[0], a.q_hs = strides[1], a.q_rs = strides[2];
-  a.k_bs = strides[3], a.k_hs = strides[4], a.k_rs = strides[5];
-  a.v_bs = strides[6], a.v_hs = strides[7], a.v_rs = strides[8];
-  a.o = o;  // contiguous (B, H, Nq, hd)
-  a.o_rs = hd;
-  a.o_hs = (long long)nq * hd;
-  a.o_bs = (long long)heads * nq * hd;
-  a.l = static_cast<float*>(l);
-  a.m = static_cast<float*>(m);
-  a.h = heads;
-  a.nq = nq;
-  a.nk = nk;
-  a.c1 = scale * cs::kLog2e;
-  return a;
-}
-
-}  // namespace
 
 extern "C" int cs_flash_attention_head_major(const void* q, const void* k, const void* v,
                                              const long long* strides, void* o, void* l, void* m,
                                              int batch, int heads, int nq, int nk, int hd,
                                              int dtype, float scale, void* stream) {
-  const cs::AttnArgs a = head_major_args(q, k, v, strides, o, l, m, heads, nq, nk, hd, scale);
+  const cs::AttnArgs a = cs::head_major_args(q, k, v, strides, o, l, m, heads, nq, nk, hd, scale);
   return cs::launch_attention<false>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -138,26 +104,10 @@ extern "C" int cs_flash_attention_head_major_biased(const void* q, const void* k
                                                     void* o, void* l, void* m, int batch,
                                                     int heads, int nq, int nk, int hd, int dtype,
                                                     float scale, void* stream) {
-  cs::AttnArgs a = head_major_args(q, k, v, strides, o, l, m, heads, nq, nk, hd, scale);
+  cs::AttnArgs a = cs::head_major_args(q, k, v, strides, o, l, m, heads, nq, nk, hd, scale);
   a.bias = static_cast<const float*>(bias);
   a.bias_bs = 0;
   return cs::launch_attention<true>(a, batch, hd, dtype, static_cast<cudaStream_t>(stream));
-}
-
-// K7': mode 5 "mxuprobe", 6 "noexp", 7 "bf16exp" (cs::kMxuProbe ..); bf16,
-// no bias, hd 48 or 64.
-extern "C" int cs_flash_attention_head_major_variant(const void* q, const void* k, const void* v,
-                                                     const long long* strides, void* o, void* l, void* m,
-                                                     int batch, int heads, int nq, int nk, int hd, int mode,
-                                                     float scale, void* stream) {
-  const cs::AttnArgs a = head_major_args(q, k, v, strides, o, l, m, heads, nq, nk, hd, scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case cs::kMxuProbe: return cs::launch_attention_mode<cs::kMxuProbe>(a, batch, hd, 1, st);
-    case cs::kNoExp: return cs::launch_attention_mode<cs::kNoExp>(a, batch, hd, 1, st);
-    case cs::kBf16Exp: return cs::launch_attention_mode<cs::kBf16Exp>(a, batch, hd, 1, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // The bf16 forward's tile plan of head dim hd (attention_fwd.cuh's

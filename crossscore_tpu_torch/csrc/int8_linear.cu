@@ -33,6 +33,26 @@
 // (chip_smoke.py step 21); other tiles (64-256 rows or columns, warps of
 // 64 x 64) were slower and 3 stages within noise; wgmma.s8 with TMA is later
 // work.
+//
+// The split forms of the tensor-parallel row layer (parallel/tensor_parallel.py:
+// `attention.output.dense` and `fc2` under `tp`, whose input features and
+// weight columns are sharded over the model group). The JAX package takes each
+// token's absmax over the whole feature axis and sums the int32 partial
+// products exactly before the dequantisation (GSPMD), so a rank cannot run Q1
+// or Q2 whole on its shard:
+// - Q1a, `row_absmax_kernel`: Q1's first pass alone, the fp32 max |x| of each
+//   row of the shard; the wrapper all-reduces it (MAX) over the group;
+// - Q1b, `quantize_given_kernel`: Q1's second pass from a given absmax m,
+//   s = max(m, 1e-8) / 127 (__fdiv_rn) and the codes as Q1 rounds them, so
+//   Q1a over a whole row, then Q1b, is Q1 bit for bit;
+// - Q2's int32 form (`int8_linear_kernel` with T = int): Q2's main loop, its
+//   epilogue storing the int32 accumulators as they are; the wrapper
+//   all-reduces them (SUM) and dequantises in Q2's order.
+// Bound on the H100: bytes, as Q1 and Q2 (Q2's int32 form writes 4 bytes an
+// output). Simple forms: the split costs Q1 a second read of x and Q2 its
+// int32 output, which is later work to fuse.
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -62,14 +82,9 @@ __device__ __forceinline__ int code(float v, float s) {
   return min(max(__float2int_rn(__fdiv_rn(v, s)), -127), 127);
 }
 
+// the absmax of one row, reduced over its warp (every lane gets it)
 template <typename T>
-__global__ void __launch_bounds__(kQ1Warps * 32)
-    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
-                         long long rows, int k, float qmax) {
-  const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * kQ1Warps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const T* xr = x + row * k;
+__device__ __forceinline__ float warp_row_absmax(const T* xr, int k, int lane) {
   float amax = 0.f;
   for (int c = lane * 4; c < k; c += 128) {
     float v[4];
@@ -79,8 +94,12 @@ __global__ void __launch_bounds__(kQ1Warps * 32)
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float sc = __fdiv_rn(fmaxf(amax, 1e-8f), qmax);
-  int8_t* qr = q + row * k;
+  return amax;
+}
+
+// one row's codes at the scale sc, by its warp
+template <typename T>
+__device__ __forceinline__ void warp_row_codes(const T* xr, int8_t* qr, int k, float sc, int lane) {
   for (int c = lane * 4; c < k; c += 128) {
     float v[4];
     load4(xr + c, v);
@@ -88,6 +107,41 @@ __global__ void __launch_bounds__(kQ1Warps * 32)
         make_char4((signed char)code(v[0], sc), (signed char)code(v[1], sc), (signed char)code(v[2], sc),
                    (signed char)code(v[3], sc));
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kQ1Warps * 32)
+    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
+                         long long rows, int k, float qmax) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kQ1Warps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float sc = __fdiv_rn(fmaxf(warp_row_absmax(x + row * k, k, lane), 1e-8f), qmax);
+  warp_row_codes(x + row * k, q + row * k, k, sc, lane);
+  if (lane == 0) s[row] = sc;
+}
+
+// Q1a: m[row] = max |x[row]|
+template <typename T>
+__global__ void __launch_bounds__(kQ1Warps * 32)
+    row_absmax_kernel(const T* __restrict__ x, float* __restrict__ m, long long rows, int k) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kQ1Warps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float amax = warp_row_absmax(x + row * k, k, lane);
+  if (lane == 0) m[row] = amax;
+}
+
+// Q1b: Q1's codes and scale of each row from its given absmax m[row]
+template <typename T>
+__global__ void __launch_bounds__(kQ1Warps * 32)
+    quantize_given_kernel(const T* __restrict__ x, const float* __restrict__ m, int8_t* __restrict__ q,
+                          float* __restrict__ s, long long rows, int k) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kQ1Warps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float sc = __fdiv_rn(fmaxf(m[row], 1e-8f), 127.f);
+  warp_row_codes(x + row * k, q + row * k, k, sc, lane);
   if (lane == 0) s[row] = sc;
 }
 
@@ -137,6 +191,7 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, __nv_bfloat16 a, __nv_bfloat16 b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(a, b);
 }
+__device__ __forceinline__ void store2(int* p, int a, int b) { *reinterpret_cast<int2*>(p) = make_int2(a, b); }
 
 // the epilogue of one accumulator: the plain version's roundings in order
 template <typename T>
@@ -153,6 +208,9 @@ __global__ void __launch_bounds__(Tile<BM, BN, WM, WN, STAGES>::kThreads, Tile<B
                        int n, int k) {
   using C = Tile<BM, BN, WM, WN, STAGES>;
   constexpr int NT = C::kThreads, MT = C::kMt, NT8 = C::kNt;
+  // T = int: Q2's int32 form, the accumulators stored as they are (sx, sw and
+  // bias unused)
+  constexpr bool kRaw = std::is_same_v<T, int>;
   extern __shared__ __align__(128) int8_t smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / C::kWarpsN, wn = warp % C::kWarpsN;
@@ -218,13 +276,18 @@ __global__ void __launch_bounds__(Tile<BM, BN, WM, WN, STAGES>::kThreads, Tile<B
     for (int h = 0; h < 2; ++h) {
       const int rl = wm * WM + i * 16 + g + h * 8;
       const long long r = m0 + rl;
-      const float sr = r < m ? sx[r] : 0.f;
+      float sr = 0.f;
+      if constexpr (!kRaw) sr = r < m ? sx[r] : 0.f;
 #pragma unroll
       for (int j = 0; j < NT8; ++j) {
         const int cl = wn * WN + j * 8 + 2 * q, c = n0 + cl;
         if (c >= n) continue;
-        store2(tile + rl * LD + cl, dequant<T>(acc[i][j][2 * h], sr, sw[c], bias, c),
-               dequant<T>(acc[i][j][2 * h + 1], sr, sw[c + 1], bias, c + 1));
+        if constexpr (kRaw) {
+          store2(tile + rl * LD + cl, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        } else {
+          store2(tile + rl * LD + cl, dequant<T>(acc[i][j][2 * h], sr, sw[c], bias, c),
+                 dequant<T>(acc[i][j][2 * h + 1], sr, sw[c + 1], bias, c + 1));
+        }
       }
     }
   }
@@ -267,6 +330,25 @@ int launch_linear(const void* a, const void* sx, const void* w, const void* sw, 
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_absmax(const void* x, void* m, long long rows, int k, cudaStream_t st) {
+  if (rows <= 0) return 0;
+  const long long blocks = (rows + kQ1Warps - 1) / kQ1Warps;
+  row_absmax_kernel<T><<<(unsigned)blocks, kQ1Warps * 32, 0, st>>>(static_cast<const T*>(x), static_cast<float*>(m),
+                                                                    rows, k);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_given(const void* x, const void* m, void* q, void* s, long long rows, int k, cudaStream_t st) {
+  if (rows <= 0) return 0;
+  const long long blocks = (rows + kQ1Warps - 1) / kQ1Warps;
+  quantize_given_kernel<T><<<(unsigned)blocks, kQ1Warps * 32, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(m), static_cast<int8_t*>(q), static_cast<float*>(s), rows,
+      k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (rows, k) row major, fp32 or bf16 (dtype code), k % 4 == 0; q: (rows,
@@ -290,4 +372,31 @@ extern "C" int cs_int8_linear(const void* a, const void* sx, const void* w, cons
   if (dtype == cs::kBFloat16) return launch_linear<__nv_bfloat16>(a, sx, w, sw, bias, out, m, n, k, st);
   if (dtype == cs::kFloat32) return launch_linear<float>(a, sx, w, sw, bias, out, m, n, k, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Q1a. x: (rows, k) row major, fp32 or bf16 (dtype code), k % 4 == 0; m: (rows,) fp32.
+extern "C" int cs_row_absmax(const void* x, void* m, long long rows, int k, int dtype, void* stream) {
+  if (k <= 0 || k % 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == cs::kBFloat16) return launch_absmax<__nv_bfloat16>(x, m, rows, k, st);
+  if (dtype == cs::kFloat32) return launch_absmax<float>(x, m, rows, k, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Q1b. x: (rows, k) as Q1a; m: (rows,) fp32, each row's absmax; q: (rows, k)
+// int8; s: (rows,) fp32.
+extern "C" int cs_quantize_rows_given(const void* x, const void* m, void* q, void* s, long long rows, int k, int dtype,
+                                      void* stream) {
+  if (k <= 0 || k % 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == cs::kBFloat16) return launch_given<__nv_bfloat16>(x, m, q, s, rows, k, st);
+  if (dtype == cs::kFloat32) return launch_given<float>(x, m, q, s, rows, k, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Q2's int32 form. a: (m, k) int8, w: (n, k) int8; out: (m, n) int32, the
+// exact products. k % 32 == 0, n % 8 == 0, every pointer 16-byte aligned.
+extern "C" int cs_int8_matmul_s32(const void* a, const void* w, void* out, long long m, int n, int k, void* stream) {
+  if (k <= 0 || k % 32 || n <= 0 || n % 8) return (int)cudaErrorInvalidValue;
+  return launch_linear<int>(a, nullptr, w, nullptr, nullptr, out, m, n, k, static_cast<cudaStream_t>(stream));
 }

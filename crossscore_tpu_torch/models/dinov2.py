@@ -26,7 +26,13 @@ runs the qkv, out, fc1 and fc2 products through the W8A8 linear
 (:func:`crossscore_tpu_torch.ops.quant.int8_linear`: Q1 quantises the
 activation and the fp32 weight on each call, Q2 multiplies), and the MLP half
 then takes the unfused exact-GELU chain whatever ``mlp_impl`` says, as the
-JAX block does. The parameters are the same under both settings.
+JAX block does. The parameters are the same under both settings. Under
+``tp`` the column-parallel products (q/k/v, and fc1 when the MLP is split)
+are the int8 linear on this rank's weight rows and the row-parallel ones (the
+output projection, fc2) the split int8 row layer
+(``parallel.tensor_parallel.int8_row_linear``), which gives the one-rank bits;
+with ``fused``/``fused_exact`` requested fc1 and fc2 are whole, as under
+bf16, and every rank runs the one-rank int8 chain on them.
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ from crossscore_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from crossscore_tpu_torch.ops.interpolate import interpolate_bicubic, interpolate_bicubic_dyn
 from crossscore_tpu_torch.ops.quant import check_quant, int8_linear
 from crossscore_tpu_torch.parallel.mesh import model_group
-from crossscore_tpu_torch.parallel.tensor_parallel import check_divisible, column_linear, row_linear
+from crossscore_tpu_torch.parallel.tensor_parallel import (
+    check_divisible, column_linear, int8_column_linear, int8_row_linear, row_linear,
+)
 
 # additive logits bias of a masked token: -1e30, not -inf or -fmax, since the
 # kernels scale biases by log2(e), which must stay finite in fp32
@@ -121,6 +129,14 @@ def backbone_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, q
     return F.linear(x, weight.to(x.dtype), bias.to(x.dtype))
 
 
+def tp_row_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, group, quant: str) -> torch.Tensor:
+    """A row-parallel backbone product under ``tp``, summed over ``group``:
+    bf16/fp32 (autograd collectives) or int8."""
+    if quant == "int8":
+        return int8_row_linear(x, weight, bias, group)
+    return row_linear(x, weight, bias, group)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, dim: int, eps: float, device=None):
         super().__init__()
@@ -153,11 +169,7 @@ class ViTAttention(nn.Module):
         super().__init__()
         if attention_impl not in BACKBONE_IMPLS:
             raise ValueError(f"attention_impl must be one of {BACKBONE_IMPLS}, got {attention_impl!r}")
-        if check_quant(quant) == "int8" and attention_impl == "tp":
-            # JAX takes each token's absmax over the whole feature axis
-            # (GSPMD), so a row-parallel product needs an all-reduce MAX first
-            raise NotImplementedError("model.gpu.backbone_quant=int8 under the tp attention route")
-        self.quant = quant
+        self.quant = check_quant(quant)
         mp = tp_ranks(attention_impl)
         self.num_heads = check_divisible("heads", cfg.num_heads, mp)  # this rank's heads
         self.attention_impl = attention_impl
@@ -191,10 +203,15 @@ class ViTAttention(nn.Module):
         if kv_bias is not None:
             raise NotImplementedError("shape-bucketed masking under the tp attention route")
         group, a, h = model_group(), self.attention, self.num_heads
-        q, k, v = (column_linear(x, lin.weight, lin.bias, group) for lin in (a.query, a.key, a.value))
+        if self.quant == "int8":  # one product over this rank's q, k and v rows, as the one-rank route
+            w = torch.cat([a.query.weight, a.key.weight, a.value.weight])
+            bias = torch.cat([a.query.bias, a.key.bias, a.value.bias])
+            q, k, v = int8_column_linear(x, w, bias).chunk(3, dim=-1)
+        else:
+            q, k, v = (column_linear(x, lin.weight, lin.bias, group) for lin in (a.query, a.key, a.value))
         out, _, _ = flash_attention_head_major(*(_split_heads(t, h) for t in (q, k, v)))
         dense = self.output.dense
-        return row_linear(_merge_heads(out), dense.weight, dense.bias, group)
+        return tp_row_linear(_merge_heads(out), dense.weight, dense.bias, group, self.quant)
 
 
 class LayerScale(nn.Module):
@@ -240,8 +257,9 @@ class ViTBlock(nn.Module):
                                 m.fc2.bias, self.layer_scale2.lambda1, self.eps, gelu)
         if self.tp:
             fc1, fc2, group = self.mlp.fc1, self.mlp.fc2, model_group()
-            y = column_linear(self.norm2(x), fc1.weight, fc1.bias, group)
-            y = row_linear(F.gelu(y, approximate="none"), fc2.weight, fc2.bias, group)
+            y = (int8_column_linear(self.norm2(x), fc1.weight, fc1.bias) if self.quant == "int8"
+                 else column_linear(self.norm2(x), fc1.weight, fc1.bias, group))
+            y = tp_row_linear(F.gelu(y, approximate="none"), fc2.weight, fc2.bias, group, self.quant)
         else:
             fc1, fc2 = self.mlp.fc1, self.mlp.fc2
             y = backbone_linear(self.norm2(x), fc1.weight, fc1.bias, self.quant)

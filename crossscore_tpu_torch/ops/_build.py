@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "crossscore_tpu_torch"
-SOURCES = ("flash_qkv", "flash_cross", "flash_cross_bwd", "fused_ln_mlp", "lane_pad_probe", "int8_linear")
+SOURCES = ("flash_qkv", "flash_cross", "attention_modes", "flash_cross_bwd", "fused_ln_mlp", "lane_pad_probe",
+           "int8_linear")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -21,9 +21,9 @@ tokens, K9 beyond), the counterpart of the JAX ``custom_vjp``
 only, as in the JAX package: they raise on an input that requires grad.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/flash_qkv.cu`` (K1,
-K5, K11), ``csrc/flash_cross.cu`` (K3, K6, K7, K7'), ``csrc/flash_cross_bwd.cu``
-(K4, K8, K9)) or raises; on a CPU tensor it runs the plain PyTorch version
-beside it. Each wrapper counts its kernel launches in ``.launches`` (K11 and
+K5), ``csrc/flash_cross.cu`` (K3, K6, K7), ``csrc/attention_modes.cu`` (K11,
+K7'), ``csrc/flash_cross_bwd.cu`` (K4, K8, K9)) or raises; on a CPU tensor
+it runs the plain PyTorch version beside it. Each wrapper counts its kernel launches in ``.launches`` (K11 and
 K7' also per mode, in ``.launches_by_mode``).
 
 The kernels take head dims that are multiples of 16 up to 128. The
@@ -227,15 +227,15 @@ flash_qkv_self_attention_masked.launches = 0
 QKV_PROBES = {"nomax": 1, "nosum": 2, "mxu": 3}
 HEAD_MAJOR_VARIANTS = {"mxuprobe": 5, "noexp": 6, "bf16exp": 7}
 # the head dims of the timing modes' CUDA kernels: the microbenchmark's
-# backbone (64) and decoder (48) shapes
-TIMING_HEAD_DIMS = (48, 64)
+# backbone (64) and decoder (48) shapes, and the ViT-L decoder's (128)
+TIMING_HEAD_DIMS = (48, 64, 128)
 BF16_LN2 = 0.69140625  # ln 2 rounded to bf16, the factor of JAX's bf16 exp2
 
 
 def _check_timing(what: str, dtype: torch.dtype, hd: int, *tensors) -> None:
-    """The timing modes' CUDA kernels: bf16, hd 48 or 64, forward only."""
+    """The timing modes' CUDA kernels: bf16, hd 48, 64 or 128, forward only."""
     if dtype != torch.bfloat16 or hd not in TIMING_HEAD_DIMS:
-        raise ValueError(f"{what}: the CUDA kernel takes bfloat16 at head dim 48 or 64, got {dtype}, hd {hd}")
+        raise ValueError(f"{what}: the CUDA kernel takes bfloat16 at head dim 48, 64 or 128, got {dtype}, hd {hd}")
     if any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{what} is a forward-only timing instrument; an input requires grad")
 
@@ -290,7 +290,7 @@ def flash_qkv_self_attention_probe(qkv: torch.Tensor, num_heads: int, probe: str
     _build.check_cuda_operands(what, qkv)
     _check_timing(what, qkv.dtype, hd, qkv)
     _check_grid(what, b, num_heads)
-    lib = _build.load("flash_qkv")
+    lib = _build.load("attention_modes")
     fn = lib.cs_flash_qkv_self_attention_probe
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
     fn.restype = _I
@@ -367,7 +367,7 @@ def flash_qkv_self_attention_chunked(qkv: torch.Tensor, num_heads: int, chunks: 
     _check_timing(what, qkv.dtype, hd, qkv)
     _check_grid(what, b, num_heads)
     nchunks = len(bounds) - 1
-    lib = _build.load("flash_qkv")
+    lib = _build.load("attention_modes")
     fn = lib.cs_flash_qkv_self_attention_chunked
     fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
     fn.restype = _I
@@ -613,7 +613,7 @@ def flash_attention_head_major_variant(q: torch.Tensor, k: torch.Tensor, v: torc
     _check_timing(what, q.dtype, hd)
     _check_grid(what, b, h)
     strides = (ctypes.c_longlong * 9)(*_tma_strides(what, q, k, v))
-    lib = _build.load("flash_cross")
+    lib = _build.load("attention_modes")
     fn = lib.cs_flash_attention_head_major_variant
     fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
     fn.restype = _I

@@ -4,6 +4,9 @@ place: an in-place all-reduce and an all-gather over a process group.
 gloo reduces on the host, so on gloo a CUDA tensor is staged through a host
 copy explicitly (the backend is never switched); NCCL, and gloo with CPU
 tensors, reduce the tensor itself. ``group`` None is the default group.
+Besides float SUMs, the int8 row layer reduces fp32 absmaxes by MAX and its
+int32 products by SUM; both backends take int32 SUM as it is (exact, no
+staging through a wider type).
 """
 
 from __future__ import annotations

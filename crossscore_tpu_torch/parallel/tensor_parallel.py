@@ -21,6 +21,16 @@ them the gradients of replicated parameters come out whole and equal on
 every rank of the model group, so the model group needs no gradient
 reduction after the backward.
 
+Under ``backbone_quant=int8`` the backbone's products go through the W8A8
+linear (``ops/quant.py``), whose scales the JAX package takes over whole
+rows and columns (GSPMD): :func:`int8_column_linear` is the one-rank linear on
+this rank's weight rows, since each of them and each token of the replicated
+input are whole; :func:`int8_row_linear` holds a shard of every row, so it
+max-reduces the absmaxes before it quantises and sums the exact int32
+products before it dequantises, and gives the one-rank linear's bits. The
+backbone is frozen and runs under ``no_grad``, so neither has a backward;
+both raise when autograd would record them.
+
 One deviation from the JAX layout: the JAX package column-shards the
 backbone's fused (D, 3D) qkv kernel in contiguous blocks, which are not
 head-aligned, and GSPMD reshards it before the kernel; the port holds the
@@ -37,6 +47,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from crossscore_tpu_torch.ops.quant import (
+    dequantize_s32, int8_linear, int8_matmul_s32, quantize_rowwise_given, row_absmax,
+)
 from crossscore_tpu_torch.parallel.collectives import all_gather, all_reduce
 
 COLUMN, ROW = "column", "row"
@@ -164,3 +177,34 @@ def row_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, group)
     """A row-parallel layer on this rank's input features, in x's dtype: the
     partial products summed over ``group``, then the whole bias, once."""
     return reduce_from_group(F.linear(x, weight.to(x.dtype)), group) + bias.to(x.dtype)
+
+
+def _no_autograd(what: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward (the int8 backbone is frozen): run it under torch.no_grad(), "
+                           "on tensors that do not require grad")
+
+
+def int8_column_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A column-parallel W8A8 layer on replicated ``x`` (..., K): this rank's
+    output features, in x's dtype. Q1 on x and on this rank's fp32 weight
+    rows (N/mp, K), Q2 with their bias slice: every scale is whole, so no
+    collective."""
+    _no_autograd("int8_column_linear", x, weight, bias)
+    return int8_linear(x, weight, bias)
+
+
+def int8_row_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel W8A8 layer on this rank's input features ``x`` (...,
+    K/mp) and fp32 weight columns (N, K/mp), in x's dtype, the same bits as
+    the one-rank :func:`~crossscore_tpu_torch.ops.quant.int8_linear` on the
+    gathered operands: Q1a on both, one all-reduce MAX of the absmaxes over
+    ``group``, Q1b on both, Q2's int32 form, an all-reduce SUM of the int32
+    products, then Q2's dequantisation and the whole bias, once."""
+    _no_autograd("int8_row_linear", x, weight, bias)
+    mx, mw = row_absmax(x), row_absmax(weight)
+    m = all_reduce(torch.cat([mx.reshape(-1), mw.reshape(-1)]), dist.ReduceOp.MAX, group)
+    xq, sx = quantize_rowwise_given(x, m[:mx.numel()].reshape(mx.shape))
+    wq, sw = quantize_rowwise_given(weight, m[mx.numel():].reshape(mw.shape))
+    acc = all_reduce(int8_matmul_s32(xq, wq), dist.ReduceOp.SUM, group)
+    return dequantize_s32(acc, sx, sw, bias, x.dtype)

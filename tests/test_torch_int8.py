@@ -256,9 +256,36 @@ def test_config_rules_match_jax():
         CrossScoreConfig.from_config(load_config("default", ["model.gpu.backbone_quant=int4"]))
 
 
-def test_tp_under_int8_raises():
-    with pytest.raises(NotImplementedError, match="model.gpu.backbone_quant"):
-        ViTAttention(VIT_PRESETS["dinov2-test"], "tp", quant="int8")
+def test_tp_under_int8_builds_and_runs(monkeypatch):
+    """``ViTAttention`` on the tp route under int8 builds and runs: one gloo
+    rank in this process (TP = 1) against the dense route's int8 attention
+    on the same weights (the int8 products are exact; only the attention
+    core's summation order differs). With autograd on, the frozen int8
+    layers refuse to run. tests/test_torch_tp_int8.py holds TP = 2 and DP x
+    TP against JAX's tp:model int8 step."""
+    from crossscore_tpu_torch.parallel import mesh
+    from crossscore_tpu_torch.parallel.launch import free_port
+
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(k, v)
+    mesh.init_distributed("gloo", "cpu")
+    try:
+        mesh.make_groups(1)
+        vit = VIT_PRESETS["dinov2-test"]
+        torch.manual_seed(0)
+        tp = ViTAttention(vit, "tp", quant="int8")
+        dense = ViTAttention(vit, "dense", quant="int8")
+        dense.load_state_dict(tp.state_dict())
+        x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 17, vit.hidden_size)).astype(np.float32))
+        with torch.no_grad():
+            got, want = tp(x), dense(x)
+        assert got.shape == (2, 17, vit.hidden_size)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        with pytest.raises(RuntimeError, match="no backward"):
+            tp(x)
+    finally:
+        mesh.teardown()
 
 
 def test_one_state_dict_serves_both_settings(nets):

@@ -30,7 +30,7 @@ def _qkv(seed, b, n, h, hd):
     return np.random.default_rng(seed).standard_normal((b, n, 3 * h * hd)).astype(np.float32)
 
 
-@pytest.mark.parametrize("hd", [64, 16])
+@pytest.mark.parametrize("hd", [64, 16, 128])
 @pytest.mark.parametrize("probe", sorted(fa.QKV_PROBES))
 def test_k11_probe_matches_jax(probe, hd):
     qkv = _qkv(1, 2, 70, 2, hd)
@@ -47,8 +47,9 @@ def test_k11_probe_matches_jax(probe, hd):
 
 
 # n 70: one 128-aligned chunk, whatever is asked (the TPU's bounds); n 300:
-# two chunks ([0, 256), [256, 300)) and three ([0, 128), [128, 256), [256, 300))
-@pytest.mark.parametrize("n,hd", [(70, 64), (70, 16), (300, 16)])
+# two chunks ([0, 256), [256, 300)) and three ([0, 128), [128, 256), [256, 300));
+# hd 128: the ViT-L decoder's head dim
+@pytest.mark.parametrize("n,hd", [(70, 64), (70, 16), (300, 16), (300, 128)])
 @pytest.mark.parametrize("chunks", [2, 3])
 def test_k11_chunks_matches_jax_and_k1(chunks, n, hd):
     qkv = _qkv(2, 2, n, 2, hd)
@@ -67,8 +68,9 @@ def test_k11_chunks_matches_jax_and_k1(chunks, n, hd):
 # mxuprobe: nk 256 over 128-key blocks, so the TPU runs its multi-KV body (the
 # probe's home); noexp and bf16exp: nk == block_k, so its single-KV body runs
 # with no padded key (where a padded key would enter p as bf16(-0.7 FLT_MAX))
-@pytest.mark.parametrize("variant,nk,hd", [("mxuprobe", 256, 48), ("mxuprobe", 200, 64), ("noexp", 128, 48),
-                                           ("noexp", 128, 64), ("bf16exp", 128, 48), ("bf16exp", 128, 64)])
+@pytest.mark.parametrize("variant,nk,hd", [("mxuprobe", 256, 48), ("mxuprobe", 200, 64), ("mxuprobe", 256, 128),
+                                           ("noexp", 128, 48), ("noexp", 128, 64), ("noexp", 128, 128),
+                                           ("bf16exp", 128, 48), ("bf16exp", 128, 64), ("bf16exp", 128, 128)])
 def test_k7_variant_matches_jax(variant, nk, hd):
     rng = np.random.default_rng(3)
     q, k, v = (rng.standard_normal((2, 3, n, hd)).astype(np.float32) for n in (40, nk, nk))
@@ -97,3 +99,18 @@ def test_timing_modes_refuse_bad_arguments():
         fa.flash_attention_head_major_variant(q, q, q, "v2_mxuprobe")
     with pytest.raises(RuntimeError, match="forward only"):
         fa.flash_attention_head_major_variant(q.requires_grad_(), q, q, "noexp")
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128, 96, 16])
+def test_timing_modes_cuda_head_dims(hd):
+    """The CUDA kernels of the timing modes take bf16 at hd 48, 64 and 128
+    (the microbenchmark's two shapes and the ViT-L decoder's) and refuse the
+    rest and fp32 (the wrappers check before any launch; on the CPU they run
+    the plain versions, which take any hd)."""
+    if hd in fa.TIMING_HEAD_DIMS:
+        fa._check_timing("mode", torch.bfloat16, hd)
+        with pytest.raises(ValueError, match="bfloat16 at head dim 48, 64 or 128"):
+            fa._check_timing("mode", torch.float32, hd)
+    else:
+        with pytest.raises(ValueError, match=f"head dim 48, 64 or 128, got torch.bfloat16, hd {hd}"):
+            fa._check_timing("mode", torch.bfloat16, hd)

@@ -142,19 +142,21 @@ def make_groups_grid(n_ranks: int, model_parallel: int, batch_size) -> tuple:
         return (grid.data_parallel, grid.model_parallel, grid.data_rank, grid.model_rank, *ranks)
 
 
-def tp_train_step(n_ranks: int, model_parallel: int, cfg, state: dict, batch: dict, overrides: list):
+def tp_train_step(n_ranks: int, model_parallel: int, cfg, state: dict, batch: dict, overrides: list,
+                  predict: bool = False):
     """One train step of ``CrossScoreNet(cfg)`` (cfg with attention_impl "tp")
     over a (data, model) grid of the first ``n_ranks`` ranks, each data rank
     taking its rows of ``batch``: -> the global loss, the full state dict
     after the step gathered over the model group, this rank's gradients of
     the replicated trainable parameters, and the shard/gather round trip of
-    the initial weights; None on a rank outside the grid."""
+    the initial weights (with ``predict``, first the score maps of its rows
+    through ``make_predict_step``); None on a rank outside the grid."""
     from crossscore_tpu_torch.confsys import load_config
     from crossscore_tpu_torch.io.convert import load_into
     from crossscore_tpu_torch.models import CrossScoreNet
     from crossscore_tpu_torch.parallel.tensor_parallel import gather_state_dict, shard_state_dict, tp_spec_for
     from crossscore_tpu_torch.train.optim import make_optimizer
-    from crossscore_tpu_torch.train.step import TrainState, make_train_step
+    from crossscore_tpu_torch.train.step import TrainState, make_predict_step, make_train_step
 
     with _process_group():
         grid = mesh.make_groups(model_parallel, n_ranks=n_ranks)
@@ -170,13 +172,86 @@ def tp_train_step(n_ranks: int, model_parallel: int, cfg, state: dict, batch: di
         rows = len(batch["query/score_map"]) // grid.data_parallel
         local = {k: torch.from_numpy(np.ascontiguousarray(v[grid.data_rank * rows:(grid.data_rank + 1) * rows]))
                  for k, v in batch.items()}
+        out = {}
+        if predict:
+            out["map"] = make_predict_step(model)(local["query/img"], local["reference/cross/imgs"])[
+                "score_map_ref_cross"].numpy()
         _, metrics = make_train_step(model, optimizer, scheduler)(TrainState(), local)
         replicated = {n: p.grad.numpy().copy() for n, p in model.named_parameters()
                       if p.requires_grad and tp_spec_for(n, cfg.mlp_impl) is None}
         after = gather_state_dict(model.state_dict(), mesh.model_group(), cfg.mlp_impl)
-        return {"loss": float(metrics["loss"]), "grid": (grid.data_rank, grid.model_rank),
-                "params": {k: v.numpy() for k, v in after.items()}, "replicated_grads": replicated,
-                "round_trip": round_trip, "n_local": sum(p.numel() for p in model.parameters())}
+        return out | {"loss": float(metrics["loss"]), "grid": (grid.data_rank, grid.model_rank),
+                      "params": {k: v.numpy() for k, v in after.items()}, "replicated_grads": replicated,
+                      "round_trip": round_trip, "n_local": sum(p.numel() for p in model.parameters())}
+
+
+@contextlib.contextmanager
+def drop_max_reduce():
+    """The planted fault of the int8 row layer: its all-reduce MAX of the
+    absmaxes left out (every other collective untouched), so each rank
+    quantises its shard at its own scales."""
+    import crossscore_tpu_torch.parallel.tensor_parallel as tp
+
+    real = tp.all_reduce
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None):
+        return t if op == dist.ReduceOp.MAX else real(t, op, group)
+
+    tp.all_reduce = all_reduce
+    try:
+        yield
+    finally:
+        tp.all_reduce = real
+
+
+def tp_int8_layer(model_parallel: int, kind: str, x: np.ndarray, weight: np.ndarray, bias: np.ndarray,
+                  dtype: str, drop_max: bool = False):
+    """One int8 layer of the tp route over a model group of the first
+    ``model_parallel`` ranks, each rank given its shard of the full operands
+    (``kind`` "column": the weight's rows and the bias's slice; "row": x's
+    features and the weight's columns), x cast to ``dtype`` -> this rank's
+    output (column: its features; row: the whole), as fp32 numpy; None on the
+    other ranks. ``drop_max`` plants :func:`drop_max_reduce`."""
+    from crossscore_tpu_torch.parallel.tensor_parallel import int8_column_linear, int8_row_linear
+
+    with _process_group():
+        grid = mesh.make_groups(model_parallel, n_ranks=model_parallel)
+        if not grid.active:
+            return None
+        r, mp = grid.model_rank, model_parallel
+        xt = torch.from_numpy(x).to(getattr(torch, dtype))
+        wt, bt = torch.from_numpy(weight), torch.from_numpy(bias)
+        with torch.no_grad(), drop_max_reduce() if drop_max else contextlib.nullcontext():
+            if kind == "column":
+                y = int8_column_linear(xt, wt.chunk(mp, 0)[r], bt.chunk(mp)[r])
+            else:
+                y = int8_row_linear(xt.chunk(mp, -1)[r].contiguous(), wt.chunk(mp, 1)[r].contiguous(), bt,
+                                    mesh.model_group())
+        return y.float().numpy()
+
+
+def tp_int8_step(n_ranks: int, model_parallel: int, cfg, state: dict, batch: dict, overrides: list):
+    """:func:`tp_train_step` with ``predict`` on an int8 tp net, counting the
+    calls of the backbone's int8 column and row layers per rank."""
+    from crossscore_tpu_torch.models import dinov2
+
+    calls = {"column": 0, "row": 0}
+    real = dinov2.int8_column_linear, dinov2.int8_row_linear
+
+    def column(*a):
+        calls["column"] += 1
+        return real[0](*a)
+
+    def row(*a):
+        calls["row"] += 1
+        return real[1](*a)
+
+    dinov2.int8_column_linear, dinov2.int8_row_linear = column, row
+    try:
+        out = tp_train_step(n_ranks, model_parallel, cfg, state, batch, overrides, predict=True)
+    finally:
+        dinov2.int8_column_linear, dinov2.int8_row_linear = real
+    return None if out is None else out | {"int8_calls": calls}
 
 
 def tp_refusals(cfg) -> dict:
