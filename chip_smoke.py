@@ -242,7 +242,7 @@ In order:
     (80 steps, its correlation past 0.5, ms/step),
     ``tools.ab_token_vs_pixel --preset gpu-medium`` (both arms, 4 steps,
     then one validation batch), ``tools.multimethod_eval --train-steps 4 --ks
-    4,8,16``, ``tools.k_sweep`` on its corpus and checkpoint and
+    8``, ``tools.k_sweep`` on its corpus and checkpoint and
     ``tools.bench_stress_attention`` (K7 and K3 at B 2, 16 heads, hd 64,
     5476 queries over 87,616 keys beside SDPA and the bound, o within
     relative L2 8e-3 of SDPA's, and K7's o scaled by 0.85 caught), each
@@ -251,13 +251,15 @@ In order:
     counted through ``chip_smoke.py --count-launches``;
 21. the int8 W8A8 backbone (``model.gpu.backbone_quant=int8``): (a) Q1 (row
     quantise) and Q2 (the int8 linear) against their plain versions at the
-    predict point's three products (98,640 rows: fc1, fc2, qkv), the
-    weights' shapes and 1, 17, 63, 129 and 2741 rows at K 64-4096, bf16 and
-    fp32: Q1's codes and scales bit-equal, Q2 within one ulp (and counted
-    where not bit-equal), each launched twice for the same bits; a scale of
-    1/126 planted in Q1 caught; each timed beside its plain version,
-    ``torch._int_mm`` and a PyTorch dequantisation, bf16 ``F.linear`` and
-    the bound; (b) the int8 predict step at the headline point (dinov2-small,
+    predict point's four products (98,640 rows: fc1, fc2, qkv, out), the
+    weights' shapes and 1, 17, 63, 129 and 2741 rows at K 64-4096 (Q2 also
+    at the rows of one tile more than the card has SMs, a ragged last wave
+    of its persistent grid), bf16 and fp32: Q1's codes and scales bit-equal,
+    Q2 within one ulp (its elements that are not bit-equal counted), each
+    launched twice for the same bits (Q2's int32 form: step 22 (a)); a
+    scale of 1/126 planted in Q1 caught; each timed beside its plain
+    version, ``torch._int_mm`` and a PyTorch dequantisation, bf16
+    ``F.linear`` and the bound; (b) the int8 predict step at the headline point (dinov2-small,
     518 px, K=8, B=8, bf16, ``mlp_impl=fused`` requested): launches (K1 12,
     K2 0, K3 4, Q1 96, Q2 48), the score map within JAX's int8 tier of the
     unquantised step (MAE 5e-3, max 5e-2), maps/s of both in this call and
@@ -271,12 +273,14 @@ In order:
 22. the int8 backbone under tensor parallelism (``attention_impl="tp"``
     with ``backbone_quant="int8"``): (a) the row layer's split forms, Q1a
     (row absmax), Q1b (codes from a given absmax) and Q2's int32 form,
-    against their plain versions at the predict point's three products and
-    at 1-2741 rows, bf16 and fp32, each bit-equal and launched twice for the
-    same bits, Q1a then Q1b bit-equal to Q1 and the PyTorch dequantisation
-    of the int32 products to Q2's epilogue, each timed beside Q1 / Q2, its
-    plain version and the bound; (b) TP = 1 on one NCCL rank at the headline
-    point (dinov2-small, 518 px, K=8, B=8, bf16): the int8 tp forward with
+    against their plain versions at the predict point's four products and
+    at 1-2741 rows (Q2's int32 form also at step 21's ragged-wave rows),
+    bf16 and fp32, each bit-equal and launched twice for the same bits, Q1a
+    then Q1b bit-equal to Q1 and the PyTorch dequantisation of the int32
+    products to Q2's epilogue, each timed beside Q1 / Q2, its plain version,
+    ``torch._int_mm`` (Q2's int32 form), bf16 ``F.linear`` and the bound;
+    (b) TP = 1 on one NCCL rank at the headline point (dinov2-small, 518
+    px, K=8, B=8, bf16): the int8 tp forward with
     the MLP split (``unfused``) and whole (``fused`` requested) against the
     int8 ``flash`` forward (score-map MAE 5e-3) with its launches, every
     row-parallel product bit-equal to the one-rank int8 linear on the same
@@ -453,10 +457,14 @@ EVAL_OVERRIDES = [f"data.loader.validation.batch_size={PB}", f"data.neighbour_co
 FIGURES_OFF = ["logger.vis_imgs_every_n_train_steps=100000", "logger.cache_size.validation.n_fig=0"]
 
 # step 21: the predict point's backbone products (K, N) over its 98,640
-# rows, and the ragged rows and widths Q1 and Q2 are held at besides
-INT8_PRODUCTS = {"fc1": (384, 1536), "fc2": (1536, 384), "qkv": (384, 1152)}
+# rows, and the ragged rows and widths Q1 and Q2 are held at besides; Q2
+# also at the rows of one 128-row tile more than the card has SMs (and 77
+# rows of it), whose tiles leave its persistent grid a ragged last wave
+INT8_PRODUCTS = {"fc1": (384, 1536), "fc2": (1536, 384), "qkv": (384, 1152), "out": (384, 384)}
 INT8_ROWS = (1, 17, 63, 129, 2741)
-INT8_WIDTHS = ((64, 192), (768, 2304), (1024, 4096), (4096, 1024))
+# (K, N): dinov2-test's qkv, out's row shards under tp at TP 4 and 2 (one and
+# two of Q2's resident K chunks), dinov2-base's qkv, -large's fc1 and fc2
+INT8_WIDTHS = ((64, 192), (96, 384), (192, 384), (768, 2304), (1024, 4096), (4096, 1024))
 # JAX's int8 tier (tests/test_quant.py:80-92): score maps (in [0, 1]) of
 # the int8 net against the same net unquantised, MAE and max
 INT8_TIER = (5e-3, 5e-2)
@@ -1553,19 +1561,19 @@ def _ptxas_entries(_build, src: str, pattern: str) -> dict:
 
 
 def _wgmma_build_report(_build) -> dict:
-    """Print, for the bf16 kernels on wgmma, what ``-Xptxas -v`` says of each
-    (registers at launch, spill stores and loads, static shared memory, any
-    wgmma it serialised: C7515 and the other notes that say so) and the tile
-    plans from the libraries: the forward's at each head dim (K1, K3, K5-K7,
+    """Print, for the kernels on wgmma (bf16, and Q2's int8), what ``-Xptxas
+    -v`` says of each (registers at launch, spill stores and loads, static
+    shared memory, any wgmma it serialised: C7515 and the other notes that say
+    so) and the tile plans from the libraries: the forward's at each head dim (K1, K3, K5-K7,
     K11, K7'; ``attn_fwd_wgmma<HD, BIAS, MODE>``: q rows a block, KV tile,
     stages, dynamic shared memory), the backward's (K4, K8, K9; K12 with
     PROBE) and the fused MLP's at D 64 and 384 (K2, K10; ``ln_mlp_tma<D,
     RES, TANH>``: rows a block, blocks a cluster, hidden chunk, the two
     rings' stages, dynamic shared memory, W1/W2 bytes read from L2 per 1000
     rows). Fail on a spill or a serialised wgmma in the forward's hd 48 or 64
-    instantiations or in any ``ln_mlp_tma``, on a head dim or width without
-    a plan, on a plan above the block's shared memory, or on an MLP plan
-    whose L2 weight reads at the predict point exceed half of 64-row blocks
+    instantiations, in any ``ln_mlp_tma`` or in Q2, on a head dim or width
+    without a plan, on a plan above the block's shared memory, or on an MLP
+    plan whose L2 weight reads at the predict point exceed half of 64-row blocks
     that each read both matrices. Return the MLP's plan at D 384."""
     import ctypes
 
@@ -1584,6 +1592,14 @@ def _wgmma_build_report(_build) -> dict:
             if int(hd) in FWD_STRICT_HDS and (info.get("spill stores") or info.get("spill loads")
                                               or "wgmma serialised" in info):
                 bad.append(f"{src} attn_fwd_wgmma<{hd}, {bias}, {mode}>")
+    # Q2 and its int32 form (int8_linear_kernel<T, RC>): wgmma.s8 fed by TMA
+    out_types = {"i": "int32", "f": "fp32", "13__nv_bfloat16": "bf16"}  # mangled
+    for (typ, res), info in _ptxas_entries(_build, "int8_linear", r"int8_linear_kernelI(\w+?)Li(\d)E").items():
+        print(f"  ptxas int8_linear int8_linear_kernel<{out_types.get(typ, typ)}, "
+              f"{'streamed K' if res == '0' else f'A resident, {res} K chunks'}>: "
+              + ", ".join(f"{k} {v}" for k, v in info.items()))
+        if info.get("spill stores") or info.get("spill loads") or "wgmma serialised" in info:
+            bad.append(f"int8_linear int8_linear_kernel<{typ}, {res}>")
     for src in ("flash_cross_bwd", "lane_pad_probe"):
         for (kern, hd, probe), info in _ptxas_entries(_build, src, r"(attn_bwd_\w+_wgmma)ILi(\d+)ELb(\d)").items():
             print(f"  ptxas {src} {kern}<{hd}{', PROBE' if probe == '1' else ''}>: "
@@ -3321,7 +3337,7 @@ def _quality_tools(torch, zero_launches, read_launches, work: Path) -> dict:
     crops, OVERFIT_STEPS steps: its correlation must pass
     OVERFIT_MIN_CORR), ``ab_token_vs_pixel --preset gpu-medium`` (both arms,
     4 steps, then one validation batch each), ``multimethod_eval
-    --train-steps 4 --ks 4,8,16`` and ``k_sweep`` on its corpus and
+    --train-steps 4 --ks 8`` and ``k_sweep`` on its corpus and
     checkpoint, and ``bench_stress_attention`` (K7 and K3 beside SDPA at
     5476 queries over 87,616 keys). Each must exit 0 with its output lines
     and launch its kernels. ``ab_token_vs_pixel`` and ``multimethod_eval``
@@ -3399,10 +3415,10 @@ def _quality_tools(torch, zero_launches, read_launches, work: Path) -> dict:
         bad.append("ab_token_vs_pixel")
 
     r = run("multimethod_eval", multimethod_eval.main,
-            ["--out", str(work / "mm"), "--train-steps", "4", "--ks", "4,8,16"])
+            ["--out", str(work / "mm"), "--train-steps", "4", "--ks", "8"])
     report = _trailing_json(r["text"])
     r["report"] = report
-    if r["rc"] != 0 or report is None or [x["K"] for x in report["runs"]] != [4, 8, 16] \
+    if r["rc"] != 0 or report is None or [x["K"] for x in report["runs"]] != [8] \
             or any(set(x["per_method"]) != set(multimethod_eval.METHODS) for x in report["runs"]) \
             or not all(r["launches"].get(k) for k in ("K1", "K2", "K3", "K4")):
         bad.append("multimethod_eval")
@@ -3487,6 +3503,13 @@ def _ulps(torch, got, want) -> int:
     return int((a - b).abs().max())
 
 
+def _wave_rows(torch) -> int:
+    """Rows of one 128-row tile more than the card has SMs, the last tile
+    77 rows: Q2's persistent blocks (one a SM) then take unequal runs of
+    tiles at every width."""
+    return (torch.cuda.get_device_properties(0).multi_processor_count) * 128 + 77
+
+
 def _int8_kernels(torch, F, dev, rows_main: int, peaks) -> tuple[dict, list]:
     """Step 21 (a): Q1 and Q2 against their plain versions, the planted
     scale, and their times at the predict point's products."""
@@ -3496,8 +3519,8 @@ def _int8_kernels(torch, F, dev, rows_main: int, peaks) -> tuple[dict, list]:
     peak_int8 = 2 * peak_bf16  # Hopper's dense int8 rate is twice its bf16 rate
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bad, res = [], {"Q1": {"cases": 0, "reruns_bit_equal": True, "max_abs_err": 0.0},
-                    "Q2": {"cases": 0, "not_bit_equal": 0, "max_ulps": 0, "reruns_bit_equal": True,
-                           "max_abs_err": 0.0}}
+                    "Q2": {"cases": 0, "not_bit_equal": 0, "elements_not_bit_equal": 0, "max_ulps": 0,
+                           "reruns_bit_equal": True, "max_abs_err": 0.0}}
 
     def activation(rows, k, dtype):
         x = torch.randn(rows, k, generator=gen, device=dev) * 2
@@ -3529,6 +3552,8 @@ def _int8_kernels(torch, F, dev, rows_main: int, peaks) -> tuple[dict, list]:
     q2_cases = [(rows_main, k, n, dt, True) for k, n in INT8_PRODUCTS.values() for dt in dtypes]
     q2_cases += [(rows_main, 384, 1536, torch.bfloat16, False)]
     q2_cases += [(r, k, n, dt, True) for r in INT8_ROWS for k, n in INT8_WIDTHS for dt in dtypes]
+    wave = _wave_rows(torch)
+    q2_cases += [(wave, k, n, dt, True) for k, n in (*INT8_WIDTHS, *INT8_PRODUCTS.values()) for dt in dtypes]
     for rows, k, n, dt, with_bias in q2_cases:
         xq, sx = quant.quantize_rowwise_plain(activation(rows, k, dt))
         wq, sw = quant.quantize_rowwise_plain(weight(n, k))
@@ -3539,6 +3564,7 @@ def _int8_kernels(torch, F, dev, rows_main: int, peaks) -> tuple[dict, list]:
         r = res["Q2"]
         r["cases"] += 1
         r["not_bit_equal"] += int(not torch.equal(got[0], want))
+        r["elements_not_bit_equal"] += int((got[0] != want).sum())
         r["max_ulps"] = max(r["max_ulps"], ulps)
         r["max_abs_err"] = max(r["max_abs_err"], _max_abs(got[0], want))
         r["reruns_bit_equal"] &= same
@@ -3547,8 +3573,9 @@ def _int8_kernels(torch, F, dev, rows_main: int, peaks) -> tuple[dict, list]:
     print(f"step 21 (a) Q1 against its plain version over {res['Q1']['cases']} cases (98,640 rows at K 384 and "
           f"1536, rows {INT8_ROWS} at K 64-4096, bf16 and fp32, the fp32 weights): codes and scales bit-equal "
           f"{not any(b.startswith('Q1') for b in bad)}, reruns bit-equal {res['Q1']['reruns_bit_equal']}; Q2 over "
-          f"{res['Q2']['cases']} cases: max {res['Q2']['max_ulps']} ulps (bound 1), {res['Q2']['not_bit_equal']} "
-          f"cases not bit-equal, reruns bit-equal {res['Q2']['reruns_bit_equal']}")
+          f"{res['Q2']['cases']} cases (also {wave} rows, a ragged last wave of its persistent grid): max "
+          f"{res['Q2']['max_ulps']} ulps (limit 1), {res['Q2']['elements_not_bit_equal']} elements in "
+          f"{res['Q2']['not_bit_equal']} cases not bit-equal, reruns bit-equal {res['Q2']['reruns_bit_equal']}")
 
     # the planted fault: Q1 with the scale absmax / 126 must be caught, by
     # Q1's check and through Q2 by the linear's
@@ -3622,6 +3649,7 @@ def _int8_rows(int8: dict) -> list:
                                     "matmul_microbench": int8["matmul_microbench"]["launches"].get(kern, 0)}}
         if kern == "Q2":
             row["max_ulps"], row["cases_not_bit_equal"] = ik["Q2"]["max_ulps"], ik["Q2"]["not_bit_equal"]
+            row["elements_not_bit_equal"] = ik["Q2"]["elements_not_bit_equal"]
         rows.append(row)
     return rows
 
@@ -4016,7 +4044,9 @@ def _tp_int8_rank(batch1_np: dict, batch2_np: dict) -> dict:
 def _tp_int8_kernels(torch, dev, rows_main: int, peaks) -> tuple[dict, list]:
     """Step 22 (a): Q1a, Q1b and Q2's int32 form against their plain
     versions and against Q1 / Q2, reruns bit-equal, and their times beside
-    Q1 and Q2 at the predict point's products."""
+    Q1 and Q2 (and bf16 ``F.linear``) at the predict point's products."""
+    import torch.nn.functional as F
+
     from crossscore_tpu_torch.ops import quant
 
     peak_bf16, peak_bw = peaks
@@ -4060,6 +4090,7 @@ def _tp_int8_kernels(torch, dev, rows_main: int, peaks) -> tuple[dict, list]:
             bad.append(f"Q1a then Q1b ({rows}, {k}) {dt} is not Q1")
     q2_cases = [(rows_main, k, n, dt) for k, n in INT8_PRODUCTS.values() for dt in dtypes]
     q2_cases += [(r, k, n, dt) for r in INT8_ROWS for k, n in INT8_WIDTHS for dt in dtypes]
+    q2_cases += [(_wave_rows(torch), k, n, dt) for k, n in (*INT8_WIDTHS, *INT8_PRODUCTS.values()) for dt in dtypes]
     for rows, k, n, dt in q2_cases:
         xq, sx = quant.quantize_rowwise_plain(activation(rows, k, dt))
         wq, sw = quant.quantize_rowwise_plain(torch.randn(n, k, generator=gen, device=dev) / k ** 0.5)
@@ -4072,7 +4103,8 @@ def _tp_int8_kernels(torch, dev, rows_main: int, peaks) -> tuple[dict, list]:
             res["dequant_is_q2_epilogue"] = False
             bad.append(f"the PyTorch dequantisation of ({rows}, {k} -> {n}) {dt} is not Q2's epilogue")
     print(f"step 22 (a) Q1a, Q1b over {res['Q1a']['cases']} cases each and Q2's int32 form over "
-          f"{res['Q2s32']['cases']} (98,640 rows at the predict point's widths, rows {INT8_ROWS}, bf16 and fp32): "
+          f"{res['Q2s32']['cases']} (98,640 rows at the predict point's widths, rows {INT8_ROWS} and "
+          f"{_wave_rows(torch)}, bf16 and fp32): "
           f"bit-equal to their plain versions {not bad}, reruns bit-equal "
           f"{all(res[k]['reruns_bit_equal'] for k in ('Q1a', 'Q1b', 'Q2s32'))}, Q1a then Q1b is Q1 "
           f"{res['q1a_q1b_is_q1']}, the PyTorch dequantisation of the int32 products is Q2's epilogue "
@@ -4083,7 +4115,7 @@ def _tp_int8_kernels(torch, dev, rows_main: int, peaks) -> tuple[dict, list]:
     for tag, (k, n) in INT8_PRODUCTS.items():
         m_ = rows_main
         x, w = activation(m_, k, torch.bfloat16), torch.randn(n, k, generator=gen, device=dev) / k ** 0.5
-        b16 = (torch.randn(n, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        b16, w16 = (torch.randn(n, generator=gen, device=dev) * 0.1).to(torch.bfloat16), w.to(torch.bfloat16)
         mx = quant.row_absmax(x)
         (xq, sx), (wq, sw) = quant.quantize_rowwise(x), quant.quantize_rowwise(w)
         acc = quant.int8_matmul_s32(xq, wq)
@@ -4102,6 +4134,7 @@ def _tp_int8_kernels(torch, dev, rows_main: int, peaks) -> tuple[dict, list]:
                        **_bound(2.0 * m_ * k * n, m_ * k + n * k + 4 * m_ * n, peak_int8, peak_bw)},
              "Q1_ms": _stream_ms(torch, lambda: quant.quantize_rowwise(x)),
              "Q2_ms": _stream_ms(torch, lambda: quant.int8_linear((xq, sx), (wq, sw), b16, torch.bfloat16)),
+             "bf16_linear_ms": _stream_ms(torch, lambda: F.linear(x, w16, b16)),
              "shape": f"x ({m_}, {k}) bf16, weight ({n}, {k}) fp32"}
         res["products"][tag] = r
         print(f"step 22 (a) {tag} ({m_} x {k} -> {n}): Q1a {r['Q1a']['ms']:.3f} ms (plain {r['Q1a']['plain_ms']:.3f}, "
@@ -4110,7 +4143,7 @@ def _tp_int8_kernels(torch, dev, rows_main: int, peaks) -> tuple[dict, list]:
               f"{r['Q1_ms']:.3f}; Q2's int32 form {r['Q2s32']['ms']:.3f} (plain {r['Q2s32']['plain_ms']:.3f}, "
               f"torch._int_mm {r['Q2s32']['library_ms']:.3f}, bound {r['Q2s32']['bound_ms']:.3f} "
               f"{r['Q2s32']['bound_by']}) + the PyTorch dequantisation {r['Q2s32']['dequant_ms']:.3f} beside Q2 "
-              f"{r['Q2_ms']:.3f}")
+              f"{r['Q2_ms']:.3f} and bf16 F.linear {r['bf16_linear_ms']:.3f}")
     return res, bad
 
 
@@ -5894,6 +5927,7 @@ def main() -> int:
             row["hd128"] = tpi["hd128"][kern]
         kernels.append(row)
     kernels += _int8_rows(int8)
+    kernels[-1]["build_s"] = secs.get("int8_linear")  # Q2: csrc/int8_linear.cu's nvcc seconds (step 2)
     for row in kernels[-2:]:  # Q1 and Q2 on the int8 tp path (step 22)
         kern = "Q1" if row["name"] == "quantize_rowwise" else "Q2"
         row["launches_by_path"]["tp_int8_forward"] = tpi["tp1"]["unfused"]["launches"].get(kern, 0)

@@ -4,7 +4,8 @@
 // producer / consumer ring (arrivals on a cluster partner's barriers too),
 // register rebalancing between warpgroups (setmaxnreg), the block shape that
 // the attention kernels share (a producer warpgroup and two consumer
-// warpgroups), and the host side: a 4-D tensor map of one bf16 operand.
+// warpgroups), and the host side: a 4-D tensor map of one bf16 operand and
+// a 2-D map of a row-major matrix of any element type.
 //
 // The driver's cuTensorMapEncodeTiled is resolved at run time through the
 // runtime's driver entry point, so a library that includes this header
@@ -84,6 +85,38 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
                "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
                : "memory");
 }
+
+// one box of a 2-D tensor map at (c0 innermost, c1) into shared memory at
+// `dst`, completing the whole box's bytes on `bar` (out-of-bounds elements
+// read as zeros)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// one box of shared memory at `src` stored to a 2-D tensor map at (c0, c1);
+// elements past the map's ends are not written. Not committed: a thread
+// commits its stores as one bulk group (bulk_commit)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// wait until at most N of this thread's bulk groups have shared memory still to read
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until every bulk group of this thread has completed its writes
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // commit this thread's bulk stores and wait until they have read shared memory
 __device__ __forceinline__ void tma_store_drain() {
@@ -237,6 +270,24 @@ inline cudaError_t operand_map(CUtensorMap* map, const void* base, int hd, int r
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major matrix of `rows` rows of `cols` elements of
+// `type`, `row_bytes` apart (a 16-byte multiple, the base 16-byte aligned):
+// boxes of box_cols x box_rows, box_cols elements being the 128 bytes of the
+// swizzle span, written to (or read from) shared memory 128-byte swizzled.
+inline cudaError_t matrix_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, long long cols,
+                              long long rows, long long row_bytes, int box_cols, int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -39,8 +39,8 @@ from crossscore_tpu_torch.ops import _build
 BACKBONE_QUANTS = ("none", "int8")
 EPS = 1e-8
 QMAX = 127.0
-# the widths Q2 takes: the int8 product's depth (mma m16n8k32) and the
-# output's column pairs
+# the widths Q2 takes: the int8 product's depth (wgmma k32), and whole
+# column pairs and 16-byte output rows (TMA's strides)
 K_MULTIPLE = 32
 N_MULTIPLE = 8
 

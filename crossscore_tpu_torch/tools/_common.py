@@ -1,5 +1,5 @@
 """What the tools share: the device they time on, the card's line, a
-median of timed runs, and the CLIs in child processes."""
+median of timed runs, an in-stream mean, and the CLIs in child processes."""
 
 from __future__ import annotations
 
@@ -81,6 +81,31 @@ def median_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> float:
     CUDA events on the card, the host clock on the CPU."""
     times = times_ms(fn, device, reps, warmup)
     return sorted(times)[len(times) // 2]
+
+
+def stream_ms(fn, device: torch.device, calls: int, turns: int = 3, warmup: int = 2) -> float:
+    """The in-stream time of one call of ``fn`` in ms: the median of
+    ``turns`` means over ``calls`` back-to-back calls (no wait between
+    them), after ``warmup`` calls; CUDA events around each run of calls on
+    the card, the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    means = []
+    for _ in range(turns):
+        if device.type == "cuda":
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(calls):
+                fn()
+            b.record()
+            b.synchronize()
+            means.append(a.elapsed_time(b) / calls)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            means.append(1e3 * (time.perf_counter() - t0) / calls)
+    return sorted(means)[turns // 2]
 
 
 def times_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> list[float]:
