@@ -160,15 +160,29 @@ In order:
     K1 12, K2 12 and K3 4 launches and no other, and at B=1 against the
     uncached step and the all-plain cached net, bf16 and fp32; (b) the
     daemon in this process on an ephemeral port (8 references, micro-batches
-    of up to 8): its startup and launches, ``/healthz``, one ``map=npy``
-    map against the predict CLI's on the same query and references, the
-    load bench at 1, 4 and 8 workers x 16 requests (req/s, p50/p95/p99, the
-    dispatches and launches per dispatch), a reload to seed 1's weights in
-    the middle of a storm, and the typed 503s of a full queue; (c) the CLI
-    in a child process: SIGTERM in the middle of a storm with a request in
-    flight (every accepted request 200, the later ones a typed 503,
-    ``/livez`` 200 and ``/healthz`` 503 during the drain, exit 0), then a
-    warm-up-only run on the token store the first run filled;
+    of up to 8, one CUDA graph per bucket): its startup and launches (an
+    eager run and a capture per bucket), ``/healthz``, one ``map=npy`` map
+    against the predict CLI's on the same query and references, the load
+    bench at 1, 4 and 8 workers x 16 requests (req/s, p50/p95/p99, the
+    dispatches, and no counted launch: every dispatch a replay), a reload to
+    seed 1's weights in the middle of a storm, and the typed 503s of a full
+    queue; (c) the CLI in a child process: SIGTERM in the middle of a storm
+    with a request in flight (every accepted request 200, the later ones a
+    typed 503, ``/livez`` 200 and ``/healthz`` 503 during the drain, exit
+    0), then a warm-up-only run on the token store the first run filled;
+    (d) the daemon's graphs and artifacts: at buckets 1/2/4/8 the replayed
+    graph bit-equal to the eager forward, with K1 12, K2 12 and K3 4 kernels
+    by name in one replay (``torch.profiler``) and no other attention or MLP
+    kernel; the warm-cache step at B=8 and B=1 and the B=1 dispatch by
+    replay and eagerly, in turns (device ms, the host's enqueue ms, maps/s);
+    after (b)'s reload mid-storm, the replay bit-equal to a fresh net on
+    seed 1's weights; the exporter (``serve_warmup_only``,
+    ``serve_aot_save``) and a loader (``serve_aot_load``, an empty
+    ``$CROSSSCORE_COMPILE_CACHE``) in child processes: no ``nvcc``, the
+    libraries byte-equal, (b)'s map bit for bit, ``aot_shapes`` 4; three bad
+    artifacts refused by field; two replicas on the one card and the int8
+    backbone's graph bit-equal to eager (its Q1 and Q2 counted where a
+    capture passes the wrappers; the profiler loses some of their records);
 17. the native host input path (``data/fastimage.py``, ``data/records.py``,
     the decode skip): (a) build ``csrc/fastimage.cpp`` with g++ (its
     version, whether ``png.h`` is found, the seconds) and decode a seeded
@@ -240,7 +254,7 @@ In order:
     summing to the batch's pixels, and a run with figures on stopped at
     startup with matplotlib missing; (c) ``tools.overfit_convergence``
     (80 steps, its correlation past 0.5, ms/step),
-    ``tools.ab_token_vs_pixel --preset gpu-medium`` (both arms, 4 steps,
+    ``tools.ab_token_vs_pixel --preset gpu-medium`` (both arms, 2 steps,
     then one validation batch), ``tools.multimethod_eval --train-steps 4 --ks
     8``, ``tools.k_sweep`` on its corpus and checkpoint and
     ``tools.bench_stress_attention`` (K7 and K3 at B 2, 16 heads, hd 64,
@@ -317,6 +331,9 @@ from pathlib import Path
 
 SEED = 0
 B, K, HW = 8, 8, 518  # predict operating point: 72 backbone views of 1370 tokens
+# step 16 (d)'s query widths off the DINOv2 table's native 37x37 grid: a warm
+# shape (the daemon's documented example) and one first seen mid-storm
+WARM_W, NEW_W = 686, 602
 PREDICT_ROWS = B * (1 + K) * ((HW // 14) ** 2 + 1)  # the backbone MLP's rows there: 98,640
 TB, TK = 24, 5  # train operating point (config/data/combined_training.yaml): 144 views
 # the ViT-L stress path (BASELINE config #5, tools/stress_vitl.py): dinov2-large
@@ -757,6 +774,424 @@ class _Lines:
         return "".join(self.lines)
 
 
+# kernels of a library's attention, and of the unfused MLP (its GELU), which
+# a replay of the daemon's graphs must not hold (step 16 (d); the int8
+# backbone runs its MLP unfused by design, with Q2 in place of K2)
+FOREIGN_ATTENTION = re.compile(r"fmha|flash_fwd|flash_bwd|efficient_attention|mem_eff|softmax", re.I)
+FOREIGN_MLP = re.compile(r"gelu", re.I)
+REPLAY_GROUPS = {"K1 backbone attention": "K1", "K2 fused LN-MLP": "K2", "K3 decoder attention": "K3",
+                 "K10 fused residual LN-MLP": "K10", "Q1 int8 row quantise": "Q1", "Q2 int8 linear": "Q2"}
+
+
+def _replay_kernels(torch, tool, fn, foreign, want: dict, attempts: int = 8) -> tuple[dict, list, int]:
+    """The kernels one call of ``fn`` runs on the card, by ``torch.profiler``
+    name: ({K1, K2, K3, K10, Q1, Q2: count} of the first profiled call whose
+    counts are ``want``'s, else of the fullest, [the names that match any of
+    the patterns ``foreign`` in any call], the calls profiled). A trace with
+    no kernel is a lost trace. The profiler loses kernel records of the int8
+    graph's replay whose outputs are whole (94-95 of its 96 Q1 kernels in
+    every one of 8 profiled replays on one host, with the replay bit-equal
+    to the eager forward; once no record at all), so the int8 graph's names
+    are reported, not held; the bf16 graphs' have been whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best, found, tries = None, [], 0
+    for tries in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen, kernels = {v: 0 for v in REPLAY_GROUPS.values()}, 0
+        for evt in prof.key_averages():
+            if "CUDA" not in str(evt.device_type):
+                continue
+            kernels += evt.count
+            kern = REPLAY_GROUPS.get(tool._group(evt.key))
+            if kern is not None:
+                seen[kern] += evt.count
+            elif any(pat.search(evt.key) for pat in foreign) and evt.key[:100] not in found:
+                found.append(evt.key[:100])
+        if not kernels:
+            continue
+        if best is None or sum(seen.values()) > sum(best.values()):
+            best = seen
+        if {k: v for k, v in seen.items() if v} == want:
+            best = seen
+            break
+    if best is None:
+        _fail(f"the profiler recorded no kernel of a graph replay in {attempts} calls")
+    return best, found, tries
+
+
+def _rewrite_artifact(src: Path, dst: Path, edit) -> Path:
+    """A copy of the artifact ``src`` at ``dst`` with ``edit`` applied to its
+    decoded header."""
+    import zipfile
+
+    with zipfile.ZipFile(src) as zf:
+        members = {n: zf.read(n) for n in zf.namelist()}
+    header = json.loads(members["header.json"])
+    edit(header)
+    members["header.json"] = json.dumps(header).encode()
+    with zipfile.ZipFile(dst, "w") as zf:
+        for n, data in members.items():
+            zf.writestr(n, data)
+    return dst
+
+
+def _graph_phases(torch, dev, card: str, scorer, base: list, tmp: Path, qpath: Path, map0, ckpt: dict,
+                  zero_launches, read_launches) -> dict:
+    """Step 16 (d), the daemon's CUDA graphs and its artifacts, on (b)'s
+    daemon (``scorer``, on seed 1's weights after (b)'s storm): replay
+    against eager at every bucket, with the kernels of one replay by name;
+    a warm shape off the position table's grid (its graph holding its resize
+    constants through a clearing of their table) and a shape first captured
+    while a load-bench storm is served; the warm-cache step and the B=1 dispatch by replay and eagerly, in
+    turns; the reload's bits; the exporter and a loader in child processes;
+    three bad artifacts; two replicas on the one card; the int8 backbone's
+    graph. Returns the readings."""
+    import os
+    import signal
+    import subprocess
+    import threading
+
+    import numpy as np
+
+    from crossscore_tpu_torch.client import ScoreClient
+    from crossscore_tpu_torch.data.token_cache import RefTokenCache
+    from crossscore_tpu_torch.io import aot
+    from crossscore_tpu_torch.io.images import image_read
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.ops import _build, interpolate
+    from crossscore_tpu_torch.tasks.common import load_model_params, parse_cli
+    from crossscore_tpu_torch.tasks.serve import Scorer, _Graph, make_server
+    from crossscore_tpu_torch.tools.serve_load_bench import run as load_bench
+    from crossscore_tpu_torch.utils import compilation_cache
+
+    t_step = time.perf_counter()
+    gd: dict = {"card": card, "memory": scorer.graph_memory}
+    tool = _step_profile_tool()
+    bad = []
+    rng = np.random.default_rng(SEED + 161)
+    q_real = scorer._preprocess(image_read(str(qpath)))
+    batch = np.stack([q_real] + [rng.standard_normal(q_real.shape).astype(np.float32) for _ in range(7)])
+
+    def graph_of(sc, key):
+        execs = sc._executables[key]
+        if not all(isinstance(x, _Graph) for x in execs):
+            _fail(f"step 16 (d): the daemon's executables at {key} are not CUDA graphs: {execs}")
+        return execs
+
+    def replay_vs_eager(sc, b: int, tag: str, hold_names: bool = True, data=batch) -> dict:
+        (g,) = graph_of(sc, (*data.shape[1:3], b))
+        q = torch.from_numpy(data[:b])
+        zero_launches()
+        maps_r, means_r = (t.clone() for t in g(q))
+        torch.cuda.synchronize()
+        counted = {k: v for k, v in read_launches().items() if v}
+        zero_launches()
+        maps_e, means_e = sc._forward(sc.model, q.to(dev), sc.tokens)
+        torch.cuda.synchronize()
+        eager = {k: v for k, v in read_launches().items() if v}
+        # no library attention; and no unfused MLP where the eager forward runs K2
+        patterns = (FOREIGN_ATTENTION, FOREIGN_MLP) if eager.get("K2") else (FOREIGN_ATTENTION,)
+        counts, foreign, tries = _replay_kernels(torch, tool, lambda: g(q), patterns, eager)
+        r = {"bit_equal": torch.equal(maps_r, maps_e) and torch.equal(means_r, means_e),
+             "max_abs": float((maps_r - maps_e).abs().max()), "replay_counted_launches": counted,
+             "eager_launches": eager, "replay_kernels": {k: v for k, v in counts.items() if v}, "foreign": foreign,
+             "profiled_calls": tries}
+        print(f"step 16 (d) {tag} bucket {b}: replay against eager maps and means bit-equal {r['bit_equal']} "
+              f"(max |d| {r['max_abs']:.3e}); kernels in one replay by name {r['replay_kernels']}, the eager "
+              f"forward's counted launches {eager}, the replay's counted {counted}; library attention"
+              f"{'/MLP' if eager.get('K2') else ''} kernels {foreign}; {tries} replay(s) profiled")
+        names_whole = {k: v for k, v in counts.items() if v} == eager
+        if not r["bit_equal"] or counted or foreign or (hold_names and not names_whole):
+            bad.append(f"{tag} bucket {b}: {r}")
+        return r
+
+    # --- 1. replay against eager at every bucket ----------------------------------
+    gd["buckets"] = {b: replay_vs_eager(scorer, b, "bf16 daemon") for b in (1, 2, 4, 8)}
+    if gd["buckets"][8]["replay_kernels"] != {"K1": 12, "K2": 12, "K3": 4}:
+        bad.append(f"bucket 8 replay kernels {gd['buckets'][8]['replay_kernels']} != K1 12, K2 12, K3 4")
+
+    # --- 1b. a warm shape off the position table's grid (serve_warm_shapes) ---------
+    # 518x686 resizes the DINOv2 table bicubically (37x37 -> 37x49) inside the
+    # capture. Then the resize constants' table is cleared and memory of their
+    # sizes is taken and filled (NaN, or index 0): the graph, which keeps them,
+    # must replay the same bits, and the eager forward (new constants) too.
+    t0 = time.perf_counter()
+    wide = rng.standard_normal((8, HW, WARM_W, 3)).astype(np.float32)
+    srv_w, scw = make_server(parse_cli("default_predict", base + ["this_main.serve_max_batch=8",
+                                                                  f"this_main.serve_warm_shapes=[{HW}x{WARM_W}]"]))
+    srv_w.RequestHandlerClass.log_message = lambda *a: None
+    bicubic = ("bicubic", HW // 14, WARM_W // 14, torch.device("cuda", torch.cuda.current_device()))
+    gd["off_grid"] = {"bicubic_constant_made": bicubic in interpolate._CONSTANTS}
+    gd["off_grid"].update({b: replay_vs_eager(scw, b, f"{HW}x{WARM_W} warm shape", data=wide) for b in (1, 8)})
+    (g,) = graph_of(scw, (HW, WARM_W, 8))
+    q = torch.from_numpy(wide)
+    want_maps, want_means = (t.clone() for t in g(q))
+    sizes = [(t.shape, t.dtype) for v in interpolate._CONSTANTS.values() for t in (v if isinstance(v, tuple) else (v,))
+             if t.is_cuda]  # shapes only: a reference here would keep them alive
+    interpolate._CONSTANTS.clear()
+    junk = [torch.full(shape, float("nan"), dtype=dt, device=dev) if dt.is_floating_point
+            else torch.zeros(shape, dtype=dt, device=dev) for shape, dt in sizes]
+    got_maps, got_means = g(q)
+    eager_maps, eager_means = scw._forward(scw.model, q.to(dev), scw.tokens)
+    torch.cuda.synchronize()
+    gd["off_grid"]["after_clear"] = {
+        "constants_cleared": len(sizes), "replay_bit_equal": torch.equal(got_maps, want_maps)
+        and torch.equal(got_means, want_means), "eager_bit_equal": torch.equal(eager_maps, want_maps)
+        and torch.equal(eager_means, want_means)}
+    del junk, got_maps, got_means, eager_maps, eager_means
+    print(f"step 16 (d) {HW}x{WARM_W} (DINOv2 table 37x37 -> 37x{WARM_W // 14} bicubic, constant made "
+          f"{gd['off_grid']['bicubic_constant_made']}): after the resize constants' table was cleared and "
+          f"{len(sizes)} buffers of their sizes were taken and filled, bucket 8's replay bit-equal to its replay "
+          f"before {gd['off_grid']['after_clear']['replay_bit_equal']}, the eager forward too "
+          f"{gd['off_grid']['after_clear']['eager_bit_equal']}")
+    if not (gd["off_grid"]["bicubic_constant_made"] and all(gd["off_grid"]["after_clear"].values())):
+        bad.append(f"{HW}x{WARM_W} after the constants' clearing: {gd['off_grid']}")
+    for b in (1, 8):
+        if gd["off_grid"][b]["replay_kernels"] != {"K1": 12, "K2": 12, "K3": 4}:
+            bad.append(f"{HW}x{WARM_W} bucket {b} replay kernels {gd['off_grid'][b]['replay_kernels']}")
+
+    # --- 1c. a shape first captured at request time, under the lock, mid-storm ------
+    thread = threading.Thread(target=srv_w.serve_forever, daemon=True)
+    thread.start()
+    try:
+        host, port = srv_w.server_address[:2]
+        storm: dict = {}
+        bench = threading.Thread(target=lambda: storm.update(
+            load_bench(f"http://{host}:{port}", qpath.read_bytes(), 8, 32)))
+        bench.start()
+        while scw.n_requests < 2 and bench.is_alive():  # the warm request, then the storm's first
+            time.sleep(0.001)
+        img = rng.random((HW, NEW_W, 3), dtype=np.float32)
+        new_key = (HW, NEW_W, 1)
+        first = new_key not in scw.compiled_shapes
+        res = scw.score(img)
+        overlapped = bench.is_alive()
+        bench.join(timeout=300)
+    finally:
+        srv_w.shutdown()
+        srv_w.server_close()
+        thread.join(timeout=30)
+    q_new = torch.from_numpy(scw._preprocess(img)[None]).to(dev)
+    want_new = scw._forward(scw.model, q_new, scw.tokens)[0][0].cpu().numpy()
+    graph_of(scw, new_key)
+    gd["first_in_storm"] = {"first_dispatch": first, "storm_running_after": overlapped,
+                            "bit_equal_eager": bool(np.array_equal(res["score_map"], want_new)),
+                            "storm_ok": storm.get("requests_ok"), "storm_errors": storm.get("errors"),
+                            "storm_rps": storm.get("throughput_rps"), "latency_ms": storm.get("latency_ms")}
+    print(f"step 16 (d) {HW}x{NEW_W} first dispatched while 8 workers x 32 requests were served: captured then "
+          f"{first}, the storm still running when it answered {overlapped}, its map bit-equal to the eager "
+          f"forward {gd['first_in_storm']['bit_equal_eager']}; the storm {storm.get('requests_ok')} ok, errors "
+          f"{storm.get('errors')}, {storm.get('throughput_rps', 0):.2f} req/s, latency {storm.get('latency_ms')}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    if not (first and overlapped and gd["first_in_storm"]["bit_equal_eager"] and storm.get("errors") == 0
+            and storm.get("requests_ok") == 8 * 32):
+        bad.append(f"first dispatch mid-storm: {gd['first_in_storm']}")
+    del scw, srv_w, g, q
+    torch.cuda.empty_cache()
+
+    # --- 2. the warm-cache step and the B=1 dispatch, replay and eager in turns --
+    def enqueue_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (t1 - t0)
+
+    gd["timing"] = {}
+    for b in (8, 1):
+        (g,) = graph_of(scorer, (HW, HW, b))
+        q_dev = torch.from_numpy(batch[:b]).to(dev)
+        g.q.copy_(q_dev)
+        arms = {"replay": g.graph.replay, "eager": lambda q_dev=q_dev: scorer._forward(scorer.model, q_dev,
+                                                                                        scorer.tokens)}
+        res = {arm: {"ms": [], "enqueue_ms": []} for arm in arms}
+        for order in (("eager", "replay"), ("replay", "eager"), ("replay", "eager"), ("eager", "replay")):
+            for arm in order:
+                res[arm]["ms"] += _event_times(torch, arms[arm], reps=5, warmup=1)
+                res[arm]["enqueue_ms"] += [enqueue_ms(arms[arm]) for _ in range(3)]
+        for arm, r in res.items():
+            r["median_ms"] = float(np.median(r["ms"]))
+            r["median_enqueue_ms"] = float(np.median(r["enqueue_ms"]))
+            r["maps_per_s"] = 1e3 * b / r["median_ms"]
+            r["spread_ms"] = [min(r["ms"]), max(r["ms"])]
+        gd["timing"][f"step_b{b}"] = res
+        print(f"step 16 (d) warm-cache step B={b} ({HW} px, K={K}, bf16), 20 CUDA-event calls each in turns: "
+              + "; ".join(f"{arm} {r['median_ms']:.3f} ms (spread {r['spread_ms'][0]:.3f}-{r['spread_ms'][1]:.3f}), "
+                          f"host enqueue {r['median_enqueue_ms']:.3f} ms, {r['maps_per_s']:.2f} maps/s"
+                          for arm, r in res.items()) + f"; {card}")
+    q1 = batch[:1]
+
+    def eager_dispatch():  # the dispatch before graphs: upload, the eager forward, the mean's fetch
+        q = torch.from_numpy(np.ascontiguousarray(q1))
+        with scorer._lock:
+            return scorer._forward(scorer.model, q.to(dev), scorer.tokens)[1].cpu().numpy()
+
+    arms = {"replay": lambda: scorer._run_device(q1, False, count=False), "eager": eager_dispatch}
+    res = {arm: [] for arm in arms}
+    for order in (("eager", "replay"), ("replay", "eager"), ("replay", "eager"), ("eager", "replay")):
+        for arm in order:
+            arms[arm]()
+            for _ in range(5):
+                t0 = time.perf_counter()
+                arms[arm]()
+                res[arm].append(1e3 * (time.perf_counter() - t0))
+    gd["timing"]["dispatch_b1"] = {arm: {"ms": v, "median_ms": float(np.median(v)),
+                                         "maps_per_s": 1e3 / float(np.median(v))} for arm, v in res.items()}
+    print("step 16 (d) the B=1 dispatch (host wall: upload, forward, the mean's fetch), 20 each in turns: "
+          + "; ".join(f"{arm} {r['median_ms']:.3f} ms ({min(r['ms']):.3f}-{max(r['ms']):.3f}), "
+                      f"{r['maps_per_s']:.2f} maps/s" for arm, r in gd["timing"]["dispatch_b1"].items())
+          + f"; {card}")
+
+    # --- 3. after (b)'s reload mid-storm: the new weights' bits ---------------------
+    cfg1 = parse_cli("default_predict", base + [f"trainer.ckpt_path_to_load={ckpt[1]}"])
+    fresh = load_model_params(cfg1, CrossScoreNet(CrossScoreConfig.from_config(cfg1), device=dev))
+    tok1 = RefTokenCache(scorer._encode_fn(fresh), encode_batch=scorer._encode_batch, max_items=scorer.n_refs) \
+        .gather([[p] for p in scorer._ref_paths], scorer._ref_imgs).to(dev)
+    want = scorer._forward(fresh, torch.from_numpy(q_real[None]).to(dev), tok1)[0].cpu().numpy()
+    got = scorer._run_device(q_real[None], True, count=False)[0]
+    gd["reload"] = {"ckpt": str(scorer.ckpt_path), "bit_equal_fresh_seed1": bool(np.array_equal(got, want)),
+                    "differs_from_seed0": bool(not np.array_equal(got, map0))}
+    print(f"step 16 (d) after (b)'s reload mid-storm ({Path(str(scorer.ckpt_path)).name}): the replayed map "
+          f"bit-equal to a fresh net on seed 1's weights and tokens {gd['reload']['bit_equal_fresh_seed1']}, "
+          f"other than seed 0's {gd['reload']['differs_from_seed0']}")
+    if not (gd["reload"]["bit_equal_fresh_seed1"] and gd["reload"]["differs_from_seed0"]
+            and Path(str(scorer.ckpt_path)) == ckpt[1]):
+        bad.append(f"reload bits {gd['reload']}")
+    del fresh, tok1
+
+    # --- 4. the exporter, then a loader with an empty build cache ------------------
+    root = Path(__file__).resolve().parent
+    art = tmp / "serve.aot"
+    cli = [sys.executable, "-m", "crossscore_tpu_torch.tasks.serve", *base, "this_main.serve_max_batch=8"]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    env.pop(compilation_cache.ENV, None)
+    t0 = time.perf_counter()
+    res = subprocess.run(cli + ["this_main.serve_warmup_only=true", f"this_main.serve_aot_save={art}"], cwd=tmp,
+                         env=env, capture_output=True, text=True, timeout=300)
+    saved = next((ln.strip() for ln in res.stdout.splitlines() if "serve: saved" in ln), "")
+    done = next((ln.strip() for ln in res.stdout.splitlines() if "warmup-only done" in ln), "")
+    inv = aot.describe(art) if art.exists() else {"entries": {}, "libraries": {}}
+    gd["exporter"] = {"rc": res.returncode, "seconds": time.perf_counter() - t0, "saved": saved, "done": done,
+                      "entries": sorted(inv["entries"]), "libraries": inv["libraries"],
+                      "artifact_bytes": art.stat().st_size if art.exists() else 0}
+    print(f"step 16 (d) exporter (serve_warmup_only, serve_aot_save) in a child: exit {res.returncode} in "
+          f"{gd['exporter']['seconds']:.1f} s: {saved} / {done}; entries {gd['exporter']['entries']}; "
+          f"{len(inv['libraries'])} libraries, {gd['exporter']['artifact_bytes']} bytes")
+    want_keys = sorted(aot.key(HW, HW, b) for b in (1, 2, 4, 8))
+    if res.returncode != 0 or gd["exporter"]["entries"] != want_keys or len(inv["libraries"]) != 4 \
+            or "kernels built: none" not in done:
+        _fail(f"step 16 (d) exporter: {gd['exporter']}\n{(res.stdout + res.stderr)[-3000:]}")
+
+    cache = tmp / "empty_cache"
+    cache.mkdir()
+    env_l = dict(env, **{compilation_cache.ENV: str(cache)})
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli + [f"this_main.serve_aot_load={art}"], cwd=tmp, env=env_l,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out = _Lines(proc, r"serve: ready on http://([\d.]+):(\d+)")
+        if not out.found.wait(timeout=300):
+            _fail("step 16 (d) the loader never printed its ready line:\n" + "".join(out.lines)[-3000:])
+        ready_s = time.perf_counter() - t0
+        client = ScoreClient(f"http://{out.match.group(1)}:{out.match.group(2)}", timeout=120)
+        health = client.health()
+        map_l = client.score_map(qpath.read_bytes())
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    text = out.text()
+    ready = out.match.string.strip()
+    installed = sorted(p.name for p in cache.iterdir())
+    same_bytes = all((cache / n).read_bytes() == (_build.build_dir() / n).read_bytes() for n in installed)
+    split = dict(re.findall(r"(artifact|kernels|references|warm-up) ([\d.]+) s", ready))
+    gd["loader"] = {"rc": rc, "ready_s": ready_s, "ready_line": ready, "split_s": split,
+                    "installed": installed, "bytes_equal_exporter": same_bytes,
+                    "aot_shapes": health.get("aot_shapes"), "map_bit_equal": bool(np.array_equal(map_l, map0)),
+                    "loaded_line": next((ln.strip() for ln in text.splitlines() if "graph keys from" in ln), "")}
+    print(f"step 16 (d) loader (serve_aot_load, empty $CROSSSCORE_COMPILE_CACHE) in a child: ready after "
+          f"{ready_s:.1f} s (process start included): {ready}; {gd['loader']['loaded_line']}; installed "
+          f"{installed}, byte-equal to the exporter's {same_bytes}; /healthz aot_shapes {health.get('aot_shapes')}; "
+          f"map=npy bit-equal to (b)'s {gd['loader']['map_bit_equal']}; exit {rc}; {card}")
+    if (rc != 0 or "(built: none)" not in ready or not same_bytes or health.get("aot_shapes") != 4
+            or not gd["loader"]["map_bit_equal"] or sorted(inv["libraries"]) != installed
+            or any(n.endswith(".log") for n in installed)):
+        bad.append(f"loader {gd['loader']}")
+
+    # --- 5. three bad artifacts, refused by field -------------------------------------
+    def flip_digest(h):
+        rec = h["libraries"][0]
+        rec["file"] = rec["file"].replace(rec["digest"], "f" * 16)
+        rec["digest"] = "f" * 16
+
+    gd["refusals"] = {}
+    for field, edit, match in (
+            ("params_signature", lambda h: h["meta"]["params_signature"][0].__setitem__(1, [1]), "params_signature"),
+            ("ref_grid", lambda h: h["meta"].update(ref_grid=[49, 37]), "ref_grid"),
+            ("library digest", flip_digest, "built from other sources")):
+        bad_art = _rewrite_artifact(art, tmp / f"bad_{field.replace(' ', '_')}.aot", edit)
+        try:
+            Scorer(parse_cli("default_predict", base + ["this_main.serve_max_batch=8",
+                                                        f"this_main.serve_aot_load={bad_art}"]))
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        gd["refusals"][field] = None if msg is None else msg[:300]
+        print(f"step 16 (d) an artifact with another {field}: refused: {gd['refusals'][field]}")
+        if msg is None or match not in msg:
+            bad.append(f"bad artifact ({field}) not refused by name: {msg}")
+    torch.cuda.empty_cache()
+
+    # --- 6. two replicas on the one card: one graph each ---------------------------------
+    sc2 = Scorer(parse_cli("default_predict", base + ["this_main.serve_max_batch=2"]), devices=[dev, dev])
+    execs = graph_of(sc2, (HW, HW, 2))
+    maps2, means2 = sc2._run_device(batch[:2], True, count=False)
+    halves = [sc2._forward(sc2.model, torch.from_numpy(batch[i:i + 1]).to(dev), sc2.tokens) for i in (0, 1)]
+    gd["replicas"] = {"graphs": len(execs),
+                      "bit_equal": bool(np.array_equal(maps2, torch.cat([h[0] for h in halves]).cpu().numpy())
+                                        and np.array_equal(means2, torch.cat([h[1] for h in halves]).cpu().numpy()))}
+    print(f"step 16 (d) two replicas on the one card, bucket 2: {len(execs)} graphs, bit-equal to the eager "
+          f"forwards of the halves {gd['replicas']['bit_equal']}")
+    if len(execs) != 2 or not gd["replicas"]["bit_equal"]:
+        bad.append(f"replicas {gd['replicas']}")
+    del sc2, execs, halves
+    torch.cuda.empty_cache()
+
+    # --- 7. the int8 backbone's graph: Q1 and Q2 captured ------------------------------
+    # its kernels are counted where the capture passes the wrappers: a graph
+    # of the same forward, made beside the daemon's (an eager run, then the
+    # capture), counts the eager forward's launches twice
+    sc8 = Scorer(parse_cli("default_predict", base + ["model.gpu.backbone_quant=int8"]))
+    gd["int8"] = r = replay_vs_eager(sc8, 1, "int8 daemon", hold_names=False)
+    zero_launches()
+    _Graph(sc8._forward, sc8.model, sc8.tokens, dev, (1, HW, HW, 3), sc8._in_dtype, sc8._pool)
+    torch.cuda.synchronize()
+    both = {k: v for k, v in read_launches().items() if v}
+    r["captured_launches"] = {k: v - r["eager_launches"].get(k, 0) for k, v in both.items()}
+    print(f"step 16 (d) int8 daemon: launches counted in a capture {r['captured_launches']} (the eager forward's "
+          f"{r['eager_launches']}); by name in the fullest of {r['profiled_calls']} profiled replays "
+          f"{r['replay_kernels']}, reported only")
+    if r["captured_launches"] != r["eager_launches"] or not (r["eager_launches"].get("Q1")
+                                                             and r["eager_launches"].get("Q2")):
+        bad.append(f"int8 capture: {r['captured_launches']} against the eager {r['eager_launches']}")
+    del sc8
+    torch.cuda.empty_cache()
+
+    gd["seconds"] = time.perf_counter() - t_step
+    print(f"step 16 (d): {gd['seconds']:.1f} s")
+    if bad:
+        _fail("step 16 (d): " + "; ".join(bad))
+    return gd
+
+
+
 def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dict:
     """Step 16, the scoring daemon on the card (dinov2-small, 518x518, K=8,
     bf16, seeded weights): (a) the warm-cache step alone at B=8 (the
@@ -908,14 +1343,17 @@ def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dic
 
         try:
             srv, scorer, client, seconds, launches = start(["this_main.serve_max_batch=8"])
-            # one encode call (8 references in a batch of 16) and a warm-up
-            # dispatch at each bucket 1/2/4/8
-            want = _launches(K1=12 * 5, K2=12 * 5, K3=4 * 4)
-            sv["startup"] = {"seconds": seconds, "split": scorer.startup_s,
+            # one encode call (8 references in a batch of 16), and at each
+            # bucket 1/2/4/8 an eager run and the capture of its graph (the
+            # warm-up's replay counts nothing)
+            want = _launches(K1=12 * 9, K2=12 * 9, K3=4 * 8)
+            sv["startup"] = {"seconds": seconds, "split": scorer.startup_s, "graph_memory": scorer.graph_memory,
                              "launches": {k: v for k, v in launches.items() if v}}
             print(f"daemon startup: {seconds:.2f} s (kernels loaded {scorer.startup_s['kernels']:.2f} s, "
-                  f"{K} references read and encoded {scorer.startup_s['references']:.2f} s, warm-up of buckets "
-                  f"1/2/4/8 {scorer.startup_s['warmup']:.2f} s); launches {sv['startup']['launches']}")
+                  f"{K} references read and encoded {scorer.startup_s['references']:.2f} s, warm-up and capture "
+                  f"of buckets 1/2/4/8 {scorer.startup_s['warmup']:.2f} s); launches {sv['startup']['launches']}; "
+                  f"memory {json.dumps(scorer.graph_memory)} (GiB: the peak of the eager runs and of the "
+                  f"captures, and what stays allocated)")
             if launches != want:
                 _fail(f"daemon startup launches {launches} != {want}")
             health = client.health()
@@ -925,7 +1363,8 @@ def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dic
             zero_launches()
             got = client.score_map(qbytes)
             launches = read_launches()
-            if launches != per_dispatch or got.shape != (HW, HW):
+            map0 = got  # seed 0's map, for step 16 (d)'s loader
+            if launches != _launches() or got.shape != (HW, HW):  # a replay passes no wrapper
                 _fail(f"daemon map=npy: launches {launches}, shape {got.shape}")
             out = predict_main(base[:3] + [
                 f"data.dataset.query_dir={qdir}", f"data.neighbour_config.cross={K}",
@@ -950,17 +1389,16 @@ def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dic
                 r = load_bench(client.base_url, qbytes, workers, 16)
                 launches = read_launches()
                 disp = r["daemon"]["dispatches"]
-                want = _launches(**{k: v * disp for k, v in per_dispatch.items()})
+                want = _launches()  # every dispatch a replay (step 16 (d) counts its kernels by name)
                 r["launches"] = {k: v for k, v in launches.items() if v}
-                r["launches_per_dispatch"] = {k: v / disp for k, v in r["launches"].items()}
                 r["mean_batch"] = r["daemon"]["requests"] / disp
                 sv["load"][workers] = r
                 lat = r["latency_ms"]
                 print(f"load bench {workers} workers x 16 JSON requests: {r['throughput_rps']:.2f} req/s, p50 "
                       f"{lat['p50']:.2f} / p95 {lat['p95']:.2f} / p99 {lat['p99']:.2f} ms (max {lat['max']:.2f}); "
                       f"{r['daemon']['requests']} requests in {disp} dispatches (mean batch {r['mean_batch']:.2f}, "
-                      f"max_batch_seen {r['daemon']['max_batch_seen']}); launches per dispatch "
-                      f"{r['launches_per_dispatch']}; errors {r['errors']}; {card}")
+                      f"max_batch_seen {r['daemon']['max_batch_seen']}); counted launches {r['launches']} (replays); "
+                      f"errors {r['errors']}; {card}")
                 if r["errors"] or launches != want:
                     _fail(f"load bench at {workers} workers: {r['errors']} errors {r['error_messages']}, "
                           f"launches {launches} != {want}")
@@ -990,7 +1428,7 @@ def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dic
                                    "rest_ms": req_ms - decode_ms - prep_ms - dispatch_ms}
             print(f"one request (1 worker, p50 {req_ms:.2f} ms), its parts alone: PNG decode {decode_ms:.2f} ms, "
                   f"preprocess {prep_ms:.2f} ms, the B=1 dispatch {dispatch_ms:.2f} ms of host wall (upload, "
-                  f"launches, the mean's fetch) of which {device_ms:.2f} ms between CUDA events around the forward "
+                  f"replay, the mean's fetch); the eager forward {device_ms:.2f} ms between CUDA events "
                   f"({busy_ms:.2f} ms device busy); "
                   f"the rest (HTTP, the 2 ms batch window, the client, threads) "
                   f"{sv['request_split']['rest_ms']:.2f} ms; {card}")
@@ -1161,10 +1599,16 @@ def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dic
               f"s: {line.strip()}")
         if res.returncode != 0 or f"{K} references encoded ({K} from the token store)" not in line:
             _fail(f"serve_warmup_only run: {res.returncode}\n{(res.stdout + res.stderr)[-3000:]}")
+        sv["seconds_c"] = time.perf_counter() - t_step - sv["seconds_a"] - sv["seconds_b"]
+
+        # --- (d) the daemon's graphs and artifacts ----------------------------------
+        sv["graphs"] = _graph_phases(torch, dev, card, scorer, base, tmp, qpath, map0, ckpt,
+                                     zero_launches, read_launches)
+        del scorer
     sv["seconds"] = time.perf_counter() - t_step
     print(f"serving daemon step: {sv['seconds']:.1f} s ((a) the warm-cache step {sv['seconds_a']:.1f} s, (b) the "
-          f"daemon in process {sv['seconds_b']:.1f} s, (c) the CLI {sv['seconds'] - sv['seconds_a'] - sv['seconds_b']:.1f}"
-          f" s)")
+          f"daemon in process {sv['seconds_b']:.1f} s, (c) the CLI {sv['seconds_c']:.1f} s, (d) graphs and "
+          f"artifacts {sv['graphs']['seconds']:.1f} s)")
     return sv
 
 
@@ -1534,7 +1978,7 @@ def _ptxas_entries(_build, src: str, pattern: str) -> dict:
     """What ``-Xptxas -v`` says of each entry function of ``src`` whose
     mangled name matches ``pattern``: {match groups: {registers, spill
     stores, spill loads, static smem, wgmma serialised}}."""
-    log = (_build.BUILD_DIR / f"{src}.log").read_text().splitlines()
+    log = (_build.build_dir() / f"{src}.log").read_text().splitlines()
     out, key = {}, None
     for line in log:
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -3336,7 +3780,7 @@ def _quality_tools(torch, zero_launches, read_launches, work: Path) -> dict:
     dinov2-small width, 518 px: ``overfit_convergence`` (B=4, K=2, 224 px
     crops, OVERFIT_STEPS steps: its correlation must pass
     OVERFIT_MIN_CORR), ``ab_token_vs_pixel --preset gpu-medium`` (both arms,
-    4 steps, then one validation batch each), ``multimethod_eval
+    2 steps, then one validation batch each), ``multimethod_eval
     --train-steps 4 --ks 8`` and ``k_sweep`` on its corpus and
     checkpoint, and ``bench_stress_attention`` (K7 and K3 beside SDPA at
     5476 queries over 87,616 keys). Each must exit 0 with its output lines
@@ -3399,18 +3843,18 @@ def _quality_tools(torch, zero_launches, read_launches, work: Path) -> dict:
     if r["rc"] != 0 or not final or not ms or not all(r["launches"].get(k) for k in ("K1", "K2", "K3", "K4")):
         bad.append("overfit_convergence")
 
-    # 4 steps, then one validation batch: the epoch cut to 4 batches and
+    # 2 steps, then one validation batch: the epoch cut to 2 batches and
     # validated (trainer.max_steps would stop the run before the epoch-end
-    # validation); the sustained window over steps 3 and 4
+    # validation); the sustained window over step 2
     r = run("ab_token_vs_pixel", ab_token_vs_pixel.main,
-            ["--preset", "gpu-medium", "--out", str(work / "ab"), "--sustained", "2",
-             "--extra", "trainer.max_epochs=1", "--extra", "trainer.limit_train_batches=4",
+            ["--preset", "gpu-medium", "--out", str(work / "ab"), "--sustained", "1",
+             "--extra", "trainer.max_epochs=1", "--extra", "trainer.limit_train_batches=2",
              "--extra", "trainer.check_val_every_n_epoch=1", "--extra", "trainer.limit_val_batches=1"])
     report = _trailing_json(r["text"])
     r["arms"] = [{k: a.get(k) for k in ("arm", "steps", "wall_s", "sustained_ms_per_step", "final_val_loss",
                                          "final_val_corr", "error")} for a in (report or {}).get("arms", [])]
     if r["rc"] != 0 or [a["arm"] for a in r["arms"]] != ["pixel", "token"] \
-            or any(a["steps"] != 4 or a["final_val_loss"] is None or a["error"] for a in r["arms"]) \
+            or any(a["steps"] != 2 or a["final_val_loss"] is None or a["error"] for a in r["arms"]) \
             or not all(r["launches"].get(k) for k in ("K1", "K2", "K3", "K4")):
         bad.append("ab_token_vs_pixel")
 
@@ -3654,17 +4098,24 @@ def _int8_rows(int8: dict) -> list:
     return rows
 
 
-def _backbone_split(torch, fn) -> dict:
-    """Device ms of one call of ``fn`` by group: Q1, Q2, K1 and the rest
-    (``tools/torch_step_profile.py``'s kernel names)."""
+def _step_profile_tool():
+    """``tools/torch_step_profile.py`` as a module (its ``_group`` names
+    kernels)."""
     import importlib.util
-
-    from torch.profiler import ProfilerActivity, profile
 
     spec = importlib.util.spec_from_file_location("torch_step_profile",
                                                   Path(__file__).resolve().parent / "tools" / "torch_step_profile.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def _backbone_split(torch, fn) -> dict:
+    """Device ms of one call of ``fn`` by group: Q1, Q2, K1 and the rest
+    (``tools/torch_step_profile.py``'s kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tool = _step_profile_tool()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -4489,7 +4940,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
     for src in _build.SOURCES:
-        log = _build.BUILD_DIR / f"{src}.log"
+        log = _build.build_dir() / f"{src}.log"
         entry = ""
         for line in (log.read_text().splitlines() if log.exists() else []):
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -5832,7 +6283,8 @@ def main() -> int:
                                     "view_parallel_predict_rank0": vp["cli"]["off"]["launches_per_rank"][kern],
                                     "tp_train_step": tp_launches[kern],
                                     "eval_cli": {tag: r["launches"][kern] for tag, r in ev["modes"].items()},
-                                    "serve_dispatch": sv["load"][8]["launches_per_dispatch"].get(kern, 0),
+                                    # by torch.profiler name: the daemon's dispatches are replays
+                                    "serve_replay_b8": sv["graphs"]["buckets"][8]["replay_kernels"].get(kern, 0),
                                     "host_input_predict": {tag: r["launches"][kern]
                                                            for tag, r in inp["predict"].items()},
                                     "host_input_token_fast": {src: r["launches"][kern]

@@ -2,10 +2,13 @@
 and build the host decoder ``csrc/fastimage.cpp`` with ``g++``.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
-``build/crossscore_tpu_torch/<name>-<hash>.so`` at the repository root, where
-the hash covers every CUDA source in ``csrc/`` and the compiler flags. A
-library is built at its first use; :func:`build_all` starts one ``nvcc`` per
-source at once. The host decoder (:func:`build_host`) is hashed on its own
+``<name>-<hash>.so`` in the build directory, where the hash covers every CUDA
+source in ``csrc/`` and the compiler flags, so that one directory can serve
+several checkouts. The build directory is :func:`build_dir`:
+``build/crossscore_tpu_torch/`` at the repository root unless
+``utils/compilation_cache.py::enable`` pointed it elsewhere; it is read at
+each build and load. A library is built at its first use; :func:`build_all`
+starts one ``nvcc`` per source at once. The host decoder (:func:`build_host`) is hashed on its own
 source, its flags and the host CPU (``-march=native``), so that a change to
 one side rebuilds neither the other nor a library built for another CPU.
 Nothing here runs when the module is imported.
@@ -23,6 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# the default build directory (git-ignored)
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "crossscore_tpu_torch"
 SOURCES = ("flash_qkv", "flash_cross", "attention_modes", "flash_cross_bwd", "fused_ln_mlp", "lane_pad_probe",
            "int8_linear")
@@ -37,6 +41,19 @@ GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-Wall")
 GXX_LIBS = ("-lpng", "-lz")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_build_dir: Path | None = None  # set by utils/compilation_cache.py::enable
+
+
+def build_dir() -> Path:
+    """Where libraries are built and loaded from: the directory that
+    ``compilation_cache.enable`` set, else :data:`BUILD_DIR`."""
+    return BUILD_DIR if _build_dir is None else _build_dir
+
+
+def set_build_dir(path) -> None:
+    """Point every later build and load at ``path`` (None: the default)."""
+    global _build_dir
+    _build_dir = None if path is None else Path(path).expanduser().resolve()
 
 
 def _nvcc() -> str:
@@ -55,7 +72,7 @@ def _digest() -> str:
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest()}.so"
+    return build_dir() / f"{name}-{_digest()}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, float]:
@@ -64,7 +81,8 @@ def build_all(names=SOURCES) -> dict[str, float]:
     Returns the wall seconds of each compile that ran. The ``-Xptxas -v``
     report (registers, shared memory, spills) goes to ``<name>.log`` beside
     the library. Raises if any compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:
@@ -72,7 +90,7 @@ def build_all(names=SOURCES) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(BUILD_DIR / f"{name}.log", "wb")
+        log = open(out_dir / f"{name}.log", "wb")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out, log, time.perf_counter())
     secs, failed = {}, []
@@ -81,7 +99,7 @@ def build_all(names=SOURCES) -> dict[str, float]:
         log.close()
         secs[name] = time.perf_counter() - t0
         if rc != 0:
-            failed.append(f"{name} (rc {rc}):\n" + (BUILD_DIR / f"{name}.log").read_text()[-4000:])
+            failed.append(f"{name} (rc {rc}):\n" + (out_dir / f"{name}.log").read_text()[-4000:])
         else:
             os.replace(tmp, out)
     if failed:
@@ -116,7 +134,7 @@ def host_library_path(name: str = "fastimage") -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS + GXX_LIBS).encode())
     h.update((CSRC / f"{name}.cpp").read_bytes())
     h.update(_cpu_identity())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_host(name: str = "fastimage") -> tuple[Path, float]:
@@ -129,7 +147,7 @@ def build_host(name: str = "fastimage") -> tuple[Path, float]:
     gxx = shutil.which("g++") or shutil.which("c++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host decoder is built with g++ and libpng")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     res = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp"), *GXX_LIBS],

@@ -36,20 +36,52 @@ def _align_corners_axis(in_size: int, out_size: int):
     return lo, hi, frac
 
 
+# The static resizes' index and weight tensors on their device, made once a
+# key and never evicted. The serving daemon's CUDA graphs (``tasks/serve.py``)
+# read them by address, where a copy from the host cannot be captured; a graph
+# holds no reference of its own, so each keeps :func:`constants` beside it.
+_CONSTANTS: dict[tuple, object] = {}
+
+
+def _constant(key: tuple, make):
+    """``_CONSTANTS[key]``, made by ``make()`` at its first use, outside
+    inference mode, so that autograd may save it. No caller writes to it."""
+    out = _CONSTANTS.get(key)
+    if out is None:
+        with torch.inference_mode(False):
+            out = _CONSTANTS.setdefault(key, make())
+    return out
+
+
+def constants() -> list:
+    """Every device constant made so far. A CUDA graph captured over the
+    static resizes holds this list, so that what it reads outlives any
+    clearing of the table."""
+    return list(_CONSTANTS.values())
+
+
+def _align_corners_tensors(in_size: int, out_size: int, device: torch.device, dtype: torch.dtype):
+    """:func:`_align_corners_axis` on ``device``, made once per sizes, device
+    and dtype."""
+    def make():
+        lo, hi, frac = _align_corners_axis(in_size, out_size)
+        return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device),
+                torch.from_numpy(frac).to(device, dtype))
+
+    return _constant(("align_corners", in_size, out_size, torch.device(device), dtype), make)
+
+
 def interpolate_bilinear_align_corners(src: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize of (H, W, C), ``align_corners=True``: the source
     coordinate of output index i is ``i * (in-1)/(out-1)`` (0 when out == 1)."""
     in_h, in_w, _ = src.shape
-    dev = src.device
-    lo_h, hi_h, fh = _align_corners_axis(in_h, out_h)
-    lo_w, hi_w, fw = _align_corners_axis(in_w, out_w)
-    fh = torch.from_numpy(fh).to(dev, src.dtype)
-    fw = torch.from_numpy(fw).to(dev, src.dtype)
-    top = src[torch.from_numpy(lo_h).to(dev)]  # (out_h, in_w, C)
-    bot = src[torch.from_numpy(hi_h).to(dev)]
+    lo_h, hi_h, fh = _align_corners_tensors(in_h, out_h, src.device, src.dtype)
+    lo_w, hi_w, fw = _align_corners_tensors(in_w, out_w, src.device, src.dtype)
+    top = src[lo_h]  # (out_h, in_w, C)
+    bot = src[hi_h]
     rows = top + (bot - top) * fh[:, None, None]
-    left = rows[:, torch.from_numpy(lo_w).to(dev)]  # (out_h, out_w, C)
-    right = rows[:, torch.from_numpy(hi_w).to(dev)]
+    left = rows[:, lo_w]  # (out_h, out_w, C)
+    right = rows[:, hi_w]
     return left + (right - left) * fw[None, :, None]
 
 
@@ -126,11 +158,18 @@ def _bicubic_axis_matrix_padded(in_size: int, out_size: int, valid: int) -> np.n
     return mat
 
 
+def _bicubic_tensor(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`_bicubic_axis_matrix` on ``device``, made once per sizes and
+    device."""
+    return _constant(("bicubic", in_size, out_size, torch.device(device)),
+                     lambda: torch.from_numpy(_bicubic_axis_matrix(in_size, out_size)).to(device))
+
+
 def interpolate_bicubic(src: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bicubic resize of (H, W, C) in fp32, align_corners=False, no antialias."""
     in_h, in_w, _ = src.shape
-    mh = torch.from_numpy(_bicubic_axis_matrix(in_h, out_h)).to(src.device)
-    mw = torch.from_numpy(_bicubic_axis_matrix(in_w, out_w)).to(src.device)
+    mh = _bicubic_tensor(in_h, out_h, src.device)
+    mw = _bicubic_tensor(in_w, out_w, src.device)
     out = torch.einsum("oi,iwc->owc", mh, src.float())
     out = torch.einsum("pw,owc->opc", mw, out)
     return out.to(src.dtype)

@@ -51,6 +51,7 @@ from crossscore_tpu_torch.tasks.common import (
     load_model_params, parse_cli, refuse_tensor_parallel, resolve_accelerator,
 )
 from crossscore_tpu_torch.tasks.train import apply_train_recipe
+from crossscore_tpu_torch.utils import compilation_cache
 
 
 def parse_shard(shard) -> tuple[int, int]:
@@ -65,6 +66,7 @@ def encode_tokens(cfg) -> int:
     """Encode this shard's images into the store; returns how many it walked."""
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
     device = resolve_accelerator(cfg)
+    compilation_cache.enable()
     store_dir = cfg.this_main.get("ref_token_cache_dir")
     if not store_dir:
         raise ValueError("encode_tokens requires this_main.ref_token_cache_dir")

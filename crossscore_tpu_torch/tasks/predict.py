@@ -81,6 +81,7 @@ from crossscore_tpu_torch.tasks.common import (
     use_shape_buckets, write_batch_outputs, write_node_item_paths,
 )
 from crossscore_tpu_torch.train.step import make_predict_step, make_predict_step_cached
+from crossscore_tpu_torch.utils import compilation_cache
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
 from crossscore_tpu_torch.utils.vis import make_visualiser
 
@@ -131,6 +132,7 @@ def predict(cfg) -> Path:
     every rank."""
     ConfigChecker(cfg).check_predict()
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
+    compilation_cache.enable()
     with joined_ranks(cfg) as (top, device):
         return _predict(cfg, top, device)
 

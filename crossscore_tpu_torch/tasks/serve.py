@@ -47,6 +47,29 @@ set). A query of another shape scores against it, the reference position
 embedding pinned to the reference grid (``ref_grid``). The kernels take any
 shape; the first dispatch at a new (h, w, bucket) is logged.
 
+Graphs: on the card each (h, w, bucket) runs as one CUDA graph per replica,
+the counterpart of the JAX daemon's compiled executable per key: a first
+eager run (kernel loads, ``cudaFuncSetAttribute``, cuBLAS, the constants of
+the static resizes), then a capture of the forward that reads a static query
+buffer and the token set and writes static maps and means. A dispatch copies
+the padded batch in, replays, and copies the outputs out under the lock. All
+graphs share one memory pool: one runs at a time, and no graph's outputs are
+read but right after its own replay. A capture or replay that fails raises;
+there is no eager fallback on the card. On the CPU the daemon runs the same
+keys eagerly. A reload copies the new weights and tokens into the captured
+net's own tensors, so the graphs stay valid.
+
+Artifacts (``io/aot.py``): ``this_main.serve_aot_save=<file>`` writes, after
+the warm-up, every key captured so far (the loaded ones included) and the
+kernel libraries; ``this_main.serve_aot_load=<file>`` checks an artifact
+against this daemon and this card, installs its libraries into the build
+directory (``ops/_build.py``; the CLI points it at
+``$CROSSSCORE_COMPILE_CACHE`` through ``utils/compilation_cache.py``) before
+the first kernel load, so that no ``nvcc`` runs, and warms and captures
+every key it lists, in process like any other key: the artifact carries no
+graph. ``this_main.serve_warmup_only=true`` with ``serve_aot_save`` is the
+exporter: it warms, saves and exits.
+
 Transfer: the per-frame mean is reduced on the card, so a JSON request
 fetches one scalar; the map crosses only for ``?map=npy|png``.
 ``this_main.serve_upload_cast=true`` casts the queries to the compute dtype
@@ -65,7 +88,6 @@ kernels' launch counters sit under one lock, on the default stream.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import json
 import queue
@@ -79,15 +101,17 @@ import numpy as np
 import torch
 
 from crossscore_tpu_torch.data.token_cache import RefTokenCache
+from crossscore_tpu_torch.io import aot
 from crossscore_tpu_torch.io.images import image_read, image_read_bytes, metric_map_write, normalize_imagenet
 from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
 from crossscore_tpu_torch.models.crossscore import make_backbone_encoder
-from crossscore_tpu_torch.ops import _build
+from crossscore_tpu_torch.ops import _build, interpolate
 from crossscore_tpu_torch.ops.interpolate import resize_bilinear_antialias
 from crossscore_tpu_torch.tasks.common import (
     load_model_params, parse_cli, refuse_multi_rank, refuse_tensor_parallel, resolve_accelerator,
 )
 from crossscore_tpu_torch.train.step import make_predict_step_cached
+from crossscore_tpu_torch.utils import compilation_cache
 
 # the kernels of the daemon's path: K1 (flash_qkv), K3 (flash_cross), K2 (fused_ln_mlp), and Q1/Q2
 # (int8_linear) under model.gpu.backbone_quant=int8
@@ -124,6 +148,48 @@ class _Inflight:
             self.value += 1
 
 
+class _Eager:
+    """One (h, w, bucket)'s forward on one replica, run eagerly: the CPU's
+    executable."""
+
+    def __init__(self, forward, model, tokens, device):
+        self.forward, self.model, self.tokens, self.device = forward, model, tokens, device
+
+    def __call__(self, q: torch.Tensor):
+        return self.forward(self.model, q.to(self.device), self.tokens)
+
+
+class _Graph(_Eager):
+    """One (h, w, bucket)'s forward on one replica captured as a CUDA graph:
+    the card's executable. ``shape`` is the replica's part of the padded
+    batch. The graph holds device addresses (the kernels' TMA descriptors
+    among them): the static query buffer, the weights, the token set and the
+    graph pool must never move, so weights and tokens are updated in place.
+    It keeps the static resizes' constants (``ops/interpolate.py``) alive
+    for as long as it lives."""
+
+    def __init__(self, forward, model, tokens, device, shape, dtype, pool):
+        super().__init__(forward, model, tokens, device)
+        with torch.cuda.device(device):
+            self.q = torch.zeros(shape, dtype=dtype, device=device)
+            torch.cuda.reset_peak_memory_stats(device)
+            forward(model, self.q, tokens)  # outside any capture: kernel loads, attributes, caches
+            torch.cuda.synchronize(device)
+            self.eager_peak = torch.cuda.max_memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                self.maps, self.means = forward(model, self.q, tokens)
+            self.capture_peak = torch.cuda.max_memory_allocated(device)
+        self.constants = interpolate.constants()
+
+    def __call__(self, q: torch.Tensor):
+        with torch.cuda.device(self.device):
+            self.q.copy_(q)
+            self.graph.replay()
+        return self.maps, self.means
+
+
 class Scorer:
     """The model, the reference tokens and the cached predict step.
 
@@ -140,12 +206,6 @@ class Scorer:
         device = resolve_accelerator(cfg)
         refuse_multi_rank(cfg)
         refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
-        for key in ("serve_aot_save", "serve_aot_load"):
-            if cfg.this_main.get(key):
-                raise ValueError(
-                    f"this_main.{key}: AOT artifacts hold XLA executables (the JAX package's io/aot.py) "
-                    "and the port compiles nothing at serve time; its warm cache is the kernel build "
-                    "directory that ops/_build.py fills once per checkout")
         if devices is None:
             devices = [device] + [torch.device("cuda", i) for i in range(torch.cuda.device_count())
                                   if device.type == "cuda" and i != device.index]
@@ -153,17 +213,10 @@ class Scorer:
         if self._devices[0].type != device.type:
             raise ValueError(f"devices must start with the accelerator's ({device}), got {self._devices[0]}")
         self.device = device
-
-        t0 = time.perf_counter()
         if device.type == "cuda":
             # full fp32 for fp32 products and convolutions (cuDNN defaults to TF32)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-            # one build and load before any thread dispatches
-            _build.build_all(KERNEL_SOURCES)
-            for name in KERNEL_SOURCES:
-                _build.load(name)
-        self.startup_s = {"kernels": time.perf_counter() - t0}
 
         self.cfg = cfg
         self.resize_short = int(cfg.this_main.resize_short_side)
@@ -192,6 +245,37 @@ class Scorer:
 
         self._mcfg = CrossScoreConfig.from_config(cfg)
         self.model = load_model_params(cfg, CrossScoreNet(self._mcfg, device=device))
+        self._in_dtype = (self._mcfg.compute_dtype if bool(cfg.this_main.get("serve_upload_cast", False))
+                          else torch.float32)
+        patch = self._mcfg.patch_size
+        ref_h, ref_w = refs[0].shape[:2]
+        self._ref_grid = (ref_h // patch, ref_w // patch)
+        self.token_shape = (self.n_refs, self._ref_grid[0] * self._ref_grid[1], self._mcfg.backbone.hidden_size)
+        self.startup_s = {"references": time.perf_counter() - t0}
+
+        # an artifact's libraries go into the build directory before the
+        # first build or load, so that no nvcc runs
+        artifact_keys: list[tuple[int, int, int]] = []
+        aot_load = cfg.this_main.get("serve_aot_load")
+        if aot_load:
+            t0 = time.perf_counter()
+            _, entries, installed = aot.load_artifact(aot_load, expect_meta=self._artifact_meta(), device=device,
+                                                      max_devices=len(self._devices))
+            artifact_keys = [aot.parse_key(k) for k in entries]
+            self.startup_s["artifact"] = time.perf_counter() - t0
+            print(f"serve: loaded {len(entries)} graph keys from {aot_load}; {len(installed)} kernel libraries "
+                  f"installed into {_build.build_dir()}", flush=True)
+
+        t0 = time.perf_counter()
+        self.kernels_built: list[str] = []  # the sources nvcc compiled in this process
+        if device.type == "cuda":
+            # one build and load before any thread dispatches
+            self.kernels_built = sorted(_build.build_all(KERNEL_SOURCES))
+            for name in KERNEL_SOURCES:
+                _build.load(name)
+        self.startup_s["kernels"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
         self._encoder = make_backbone_encoder(self._mcfg)
         self._encode_batch = int(cfg.this_main.get("ref_token_cache_encode_batch", 16))
         self.ckpt_path = cfg.trainer.ckpt_path_to_load
@@ -204,18 +288,17 @@ class Scorer:
         )
         with self._lock:
             self.tokens = cache.gather([[p] for p in ref_paths], self._ref_imgs).to(device)  # (1, K, N, D)
-        self.token_shape = tuple(int(s) for s in self.tokens.shape[1:])
         self.disk_hits = cache.disk_hits
-        self.startup_s["references"] = time.perf_counter() - t0
+        self.startup_s["references"] += time.perf_counter() - t0
 
-        self._in_dtype = (self._mcfg.compute_dtype if bool(cfg.this_main.get("serve_upload_cast", False))
-                          else torch.float32)
-        patch = self._mcfg.patch_size
-        ref_h, ref_w = refs[0].shape[:2]
-        self._ref_grid = (ref_h // patch, ref_w // patch)
         self._serve_dp = bool(cfg.this_main.get("serve_local_dp", True))
         self._placed: dict[int, tuple] = {}  # split -> (the model it was made from, replicas)
         self.compiled_shapes: list[tuple[int, int, int]] = []  # (h, w, bucket) run so far
+        # (h, w, bucket) -> one executable per replica: graphs on the card
+        self._executables: dict[tuple[int, int, int], list] = {}
+        self._pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self._aot_keys = set(artifact_keys)  # the keys the artifact listed (/healthz aot_shapes)
+        self.graph_memory: dict = {}
         self.n_requests = 0
         self.n_dispatches = 0
         self.max_batch_seen = 0
@@ -244,11 +327,36 @@ class Scorer:
                 raise ValueError(f"serve_warm_shapes entry {s!r} must be %14-trimmed "
                                  f"(post-resize shapes, e.g. '518x686')")
             warm.append((h, w))
-        for h, w in warm:
-            for b in self._buckets:
-                self._run_device(np.zeros((b, h, w, 3), np.float32), want_map=(b == self._buckets[0]),
-                                 count=False)
+        keys = [(h, w, b) for h, w in warm for b in self._buckets]
+        keys += [k for k in artifact_keys if k not in keys]
+        for h, w, b in keys:
+            self._dispatch(torch.zeros((b, h, w, 3), dtype=self._in_dtype), b, want_map=(b == self._buckets[0]),
+                           count=False)
         self.startup_s["warmup"] = time.perf_counter() - t0
+        graphs = [g for execs in self._executables.values() for g in execs if isinstance(g, _Graph)]
+        if graphs:
+            self.graph_memory = {"eager_peak_gib": max(g.eager_peak for g in graphs) / 2**30,
+                                 "capture_peak_gib": max(g.capture_peak for g in graphs) / 2**30,
+                                 "resident_gib": torch.cuda.memory_allocated(device) / 2**30, "graphs": len(graphs)}
+
+        aot_save = cfg.this_main.get("serve_aot_save")
+        if aot_save:
+            try:
+                entries = {aot.key(*k): {"n_devices": len(execs)} for k, execs in self._executables.items()}
+                libs = [_build.library_path(name) for name in KERNEL_SOURCES] if device.type == "cuda" else []
+                aot.save_artifact(aot_save, entries, self._artifact_meta(), libs, device=device)
+                print(f"serve: saved {len(entries)} graph keys and {len(libs)} kernel libraries to {aot_save}",
+                      flush=True)
+            except (OSError, ValueError) as e:  # the daemon serves without it, as the JAX one does
+                print(f"serve: artifact save failed ({e}); continuing without it", flush=True)
+
+    def _artifact_meta(self) -> dict:
+        """The serving configuration an artifact is exported for and checked
+        against (``io/aot.py``), beside its environment fields."""
+        return {"token_shape": list(self.token_shape), "ref_grid": list(self._ref_grid),
+                "params_signature": aot.params_signature(self.model.state_dict()),
+                "in_dtype": str(self._in_dtype).removeprefix("torch."),
+                "backbone_quant": self._mcfg.backbone_quant, "n_devices": len(self._devices)}
 
     # ------------------------------------------------------------ scoring
 
@@ -317,17 +425,19 @@ class Scorer:
         q = torch.from_numpy(np.ascontiguousarray(qs, np.float32))
         if self._in_dtype != torch.float32:
             q = q.to(self._in_dtype)  # on the host: the upload is in the compute dtype
-        key = (int(q.shape[1]), int(q.shape[2]), bucket)
+        return self._dispatch(q, n, want_map, count)
+
+    def _dispatch(self, q: torch.Tensor, n: int, want_map: bool, count: bool = True):
+        """Run the executables of ``q``'s (h, w, bucket) on the padded host
+        batch ``q``, capturing them at the key's first dispatch; the first
+        ``n`` rows' (maps or None, means) as numpy."""
+        key = (int(q.shape[1]), int(q.shape[2]), int(q.shape[0]))
         with self._lock:
             if key not in self.compiled_shapes:
-                print(f"serve: first dispatch at query shape {key[:2]} bucket={bucket} "
+                print(f"serve: first dispatch at query shape {key[:2]} bucket={key[2]} "
                       f"({len(self.compiled_shapes)} shapes before)", flush=True)
                 self.compiled_shapes.append(key)
-            replicas = self._replicas(bucket)
-            outs = []
-            for (model, tokens, dev), part in zip(replicas, q.chunk(len(replicas))):
-                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                    outs.append(self._forward(model, part.to(dev), tokens))
+            outs = self._execute(key, q)
             means = torch.cat([mean.cpu() for _, mean in outs])[:n].numpy()  # small fetch = sync
             maps = torch.cat([m.cpu() for m, _ in outs])[:n].numpy() if want_map else None
             if count:
@@ -335,6 +445,19 @@ class Scorer:
                 self.n_dispatches += 1
                 self.max_batch_seen = max(self.max_batch_seen, n)
         return maps, means
+
+    def _execute(self, key: tuple[int, int, int], q: torch.Tensor) -> list:
+        """[(maps, means)] of each replica's part of ``q``. Called under
+        ``self._lock``. A key's executables are made again when the replicas
+        they were made on are gone (a reload rebuilds split replicas)."""
+        replicas = self._replicas(key[2])
+        execs = self._executables.get(key)
+        if execs is None or any(x.model is not model for x, (model, _, _) in zip(execs, replicas)):
+            rows = (key[2] // len(replicas), key[0], key[1], 3)
+            execs = self._executables[key] = [
+                _Graph(self._forward, model, tokens, dev, rows, self._in_dtype, self._pool) if dev.type == "cuda"
+                else _Eager(self._forward, model, tokens, dev) for model, tokens, dev in replicas]
+        return [x(part) for x, part in zip(execs, q.chunk(len(replicas)))]
 
     class _Pending:
         __slots__ = ("q", "want_map", "event", "result", "error")
@@ -417,10 +540,11 @@ class Scorer:
         """Weight hot-swap: load ``ckpt_path`` (a ``.ckpt`` file or a train
         run's ``ckpt/`` dir, as the CLI flag) into a fresh net on the host,
         off the serving path; then, under the dispatch lock, copy it to the
-        card, re-encode the reference tokens with it and swap the model and
-        the tokens. Requests serve the old weights until the swap, which
-        keeps them alive until then. On failure the old state is kept. The
-        card's peak memory over the locked part is reported."""
+        card, re-encode the reference tokens with it, and copy its weights
+        and tokens into the served net's own tensors, which the graphs read.
+        Requests serve the old weights until then. A failure before the copy
+        keeps the old state. The card's peak memory over the locked part is
+        reported."""
         if not ckpt_path:
             raise ValueError("reload needs a checkpoint path")
         t0 = time.perf_counter()
@@ -437,7 +561,10 @@ class Scorer:
                 model.to(self.device)
                 tokens = cache.gather([[p] for p in self._ref_paths], self._ref_imgs).to(self.device)
                 peak = torch.cuda.max_memory_allocated(self.device) / 2**30 if cuda else None
-                self.model, self.tokens = model, tokens
+                # in place: the captured graphs read these tensors
+                self.model.load_state_dict(model.state_dict())
+                with torch.inference_mode():
+                    self.tokens.copy_(tokens)
                 self.ckpt_path = ckpt_path
                 self._placed.clear()  # replicas are rebuilt at the next split dispatch
         except Exception:
@@ -460,7 +587,7 @@ class Scorer:
                 "max_batch_seen": self.max_batch_seen,
                 "rejected_503": self._rejected.value,
                 "restart_warm_disk_hits": self.disk_hits,
-                "aot_shapes": 0,
+                "aot_shapes": len(self._aot_keys),
                 "local_devices": len(self._devices),
                 "local_dp_meshes": sorted(self._placed),
                 "backend": self.device.type,
@@ -631,20 +758,24 @@ def drain_server(server, deadline_s: float = 30.0) -> bool:
 
 
 def serve(cfg) -> None:
+    compilation_cache.enable()
     if bool(cfg.this_main.get("serve_warmup_only", False)):
         # load the kernels, encode the references (filling the token store
         # when ref_token_cache_dir is set), warm every shape, exit
         scorer = Scorer(cfg)
         print(f"serve: warmup-only done — {len(scorer.compiled_shapes)} shapes warmed, {scorer.n_refs} "
-              f"references encoded ({scorer.disk_hits} from the token store)", flush=True)
+              f"references encoded ({scorer.disk_hits} from the token store); kernels built: "
+              f"{', '.join(scorer.kernels_built) or 'none'}", flush=True)
         return
     server, scorer = make_server(cfg)
     install_sigterm_drain(server)
     host, port = server.server_address[:2]
     s = scorer.startup_s
+    artifact = f"artifact {s['artifact']:.2f} s, " if "artifact" in s else ""
     print(f"serve: ready on http://{host}:{port} — {scorer.n_refs} references warm, token shape "
-          f"{scorer.token_shape}, backend {scorer.device.type}; startup: kernels {s['kernels']:.2f} s, "
-          f"references {s['references']:.2f} s, warm-up {s['warmup']:.2f} s", flush=True)
+          f"{scorer.token_shape}, backend {scorer.device.type}; startup: {artifact}kernels {s['kernels']:.2f} s "
+          f"(built: {', '.join(scorer.kernels_built) or 'none'}), references {s['references']:.2f} s, warm-up "
+          f"{s['warmup']:.2f} s", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -57,6 +57,7 @@ from crossscore_tpu_torch.tasks.common import (
     tristate, write_batch_outputs, write_node_item_paths,
 )
 from crossscore_tpu_torch.train.step import batch_to_device, make_eval_step
+from crossscore_tpu_torch.utils import compilation_cache
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
 from crossscore_tpu_torch.utils.vis import make_visualiser
 
@@ -67,6 +68,7 @@ def test(cfg) -> Path | None:
     every rank of the data layout (None on a rank outside it)."""
     ConfigChecker(cfg).check_test()
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
+    compilation_cache.enable()
     with data_ranks(cfg, int(cfg.data.loader.validation.batch_size), "test") as ranks:
         if not ranks.active:
             return None

@@ -65,6 +65,7 @@ from crossscore_tpu_torch.tasks.common import (
 )
 from crossscore_tpu_torch.train.optim import make_optimizer
 from crossscore_tpu_torch.train.step import TrainState, batch_to_device, make_eval_step, make_train_step
+from crossscore_tpu_torch.utils import compilation_cache
 from crossscore_tpu_torch.utils.check_config import ConfigChecker
 from crossscore_tpu_torch.utils.metric_logger import MetricLoggerScalar
 from crossscore_tpu_torch.utils.vis import make_visualiser
@@ -154,6 +155,7 @@ def train(cfg) -> Path | None:
     every rank of the data layout (None on a rank outside it)."""
     ConfigChecker(cfg).check_train_val()
     refuse_tensor_parallel(str(cfg.model.gpu.attention_impl))
+    compilation_cache.enable()
     recipe = apply_train_recipe(cfg)
     with data_ranks(cfg, int(cfg.data.loader.train.batch_size), "train") as ranks:
         if not ranks.active:

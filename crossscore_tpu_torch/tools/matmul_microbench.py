@@ -107,7 +107,7 @@ def build_other(root: Path) -> Path:
     for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    out = _build.BUILD_DIR / "other" / f"{SOURCE}-{h.hexdigest()[:16]}.so"
+    out = _build.build_dir() / "other" / f"{SOURCE}-{h.hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

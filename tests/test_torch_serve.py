@@ -491,26 +491,21 @@ def test_upload_cast_gives_the_same_bf16_scores(ws):
     np.testing.assert_array_equal(cast.score_path(path)["score_map"], plain.score_path(path)["score_map"])
 
 
-@pytest.mark.parametrize("case", ["no_dir", "empty_dir", "mixed_shapes", "untrimmed_warm_shape", "serve_aot_save",
-                                  "serve_aot_load"])
+@pytest.mark.parametrize("case", ["no_dir", "empty_dir", "mixed_shapes", "untrimmed_warm_shape"])
 def test_refusals(ws, tmp_path, case):
-    """The JAX daemon's errors for the reference dir and the warm shapes, and
-    the AOT options, which hold XLA executables."""
+    """The JAX daemon's errors for the reference dir and the warm shapes (the
+    artifact options' refusals: ``tests/test_torch_aot.py``)."""
     root, ckpts = ws
     extra = {"no_dir": ["data.dataset.reference_dir=null"],
              "empty_dir": [f"data.dataset.reference_dir={tmp_path}"],
              "mixed_shapes": [f"data.dataset.reference_dir={tmp_path}"],
-             "untrimmed_warm_shape": ["this_main.serve_warm_shapes=[84x100]"],
-             "serve_aot_save": [f"this_main.serve_aot_save={tmp_path / 'x.aot'}"],
-             "serve_aot_load": [f"this_main.serve_aot_load={tmp_path / 'x.aot'}"]}[case]
+             "untrimmed_warm_shape": ["this_main.serve_warm_shapes=[84x100]"]}[case]
     if case == "mixed_shapes":
         rng = np.random.default_rng(0)
         Image.fromarray(rng.integers(0, 256, (84, 112, 3), dtype=np.uint8)).save(tmp_path / "a.png")
         Image.fromarray(rng.integers(0, 256, (112, 84, 3), dtype=np.uint8)).save(tmp_path / "b.png")
     match = {"no_dir": "requires data.dataset.reference_dir", "empty_dir": "no reference images",
-             "mixed_shapes": "share one post-resize shape", "untrimmed_warm_shape": "must be %14-trimmed",
-             "serve_aot_save": "AOT artifacts hold XLA executables",
-             "serve_aot_load": "AOT artifacts hold XLA executables"}[case]
+             "mixed_shapes": "share one post-resize shape", "untrimmed_warm_shape": "must be %14-trimmed"}[case]
     with pytest.raises(ValueError, match=match):
         Scorer(parse_cli("default_predict", PORT + [f"trainer.ckpt_path_to_load={ckpts['A']}"] + extra))
 
