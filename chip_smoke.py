@@ -119,7 +119,21 @@ In order:
     train shape, hd 64 and 48) and ``tools.mlp_microbench`` (the unfused
     chain and K2 at the predict point), each with the counts zeroed just
     before it and read just after: every mode launched, K4 by
-    ``bwd_microbench``, K2 by ``mlp_microbench``, every run exit 0;
+    ``bwd_microbench``, K2 by ``mlp_microbench``, every run exit 0; (b)
+    the profiling tools and the build-flag sweep the same way:
+    ``tools.model_breakdown full backbone decoder``, ``tools.train_microbench
+    24 5``, ``tools.train_trace`` on the pixel and the token step (K1 12, K2
+    12, K3 4, K4 4 and K3 4, K4 4 a step, over its warm-up and traced
+    steps), ``tools.trace_breakdown`` with no argument and on the pixel
+    trace (a K4 family in it), ``tools.trace_events`` on that trace with a
+    family filter (each K4 kernel linked to ``_FlashCrossAttentionBackward``
+    and its recorded input shapes), ``tools.h2d_probe`` and ``tools.xla_flag_sweep baseline
+    ptxas_o2`` (both sets' lines, each timed or rejected); then the
+    converter (``io/convert.py``) at dinov2-small width: ``--reverse`` of a
+    port checkpoint, the default mode on the file it wrote, ``--hf-backbone``
+    on a ``config.json`` + ``pytorch_model.bin`` directory, and the converted
+    directory restored through ``tasks/common.py`` into a net whose B=1 maps
+    are the source net's bits;
 14. token-space training: (i) the full-width token step through
     ``make_train_step`` (B=24, K=5, 1369-token windows, bf16 compute, fp32
     master weights) with the counters zeroed: K3 4 and K4 4 launches and no
@@ -176,7 +190,9 @@ In order:
     kernel; the warm-cache step at B=8 and B=1 and the B=1 dispatch by
     replay and eagerly, in turns (device ms, the host's enqueue ms, maps/s);
     after (b)'s reload mid-storm, the replay bit-equal to a fresh net on
-    seed 1's weights; the exporter (``serve_warmup_only``,
+    seed 1's weights; a planted fault, the bicubic constant a graph keeps
+    halved in place, caught by the clearing's check and the replay
+    bit-equal again once it is restored; the exporter (``serve_warmup_only``,
     ``serve_aot_save``) and a loader (``serve_aot_load``, an empty
     ``$CROSSSCORE_COMPILE_CACHE``) in child processes: no ``nvcc``, the
     libraries byte-equal, (b)'s map bit for bit, ``aot_shapes`` 4; three bad
@@ -783,19 +799,25 @@ REPLAY_GROUPS = {"K1 backbone attention": "K1", "K2 fused LN-MLP": "K2", "K3 dec
                  "K10 fused residual LN-MLP": "K10", "Q1 int8 row quantise": "Q1", "Q2 int8 linear": "Q2"}
 
 
-def _replay_kernels(torch, tool, fn, foreign, want: dict, attempts: int = 8) -> tuple[dict, list, int]:
+def _replay_kernels(torch, fn, foreign, want: dict, attempts: int = 16) -> tuple[dict, list, int]:
     """The kernels one call of ``fn`` runs on the card, by ``torch.profiler``
-    name: ({K1, K2, K3, K10, Q1, Q2: count} of the first profiled call whose
-    counts are ``want``'s, else of the fullest, [the names that match any of
-    the patterns ``foreign`` in any call], the calls profiled). A trace with
-    no kernel is a lost trace. The profiler loses kernel records of the int8
-    graph's replay whose outputs are whole (94-95 of its 96 Q1 kernels in
-    every one of 8 profiled replays on one host, with the replay bit-equal
-    to the eager forward; once no record at all), so the int8 graph's names
-    are reported, not held; the bf16 graphs' have been whole."""
+    name: ({K1, K2, K3, K10, Q1, Q2: the most records of the group in any
+    one profiled call}, [the names that match any of the patterns
+    ``foreign`` in any call], the calls profiled: until those counts are
+    ``want``'s or ``attempts`` are spent). A trace with no kernel is a lost
+    trace. The profiler loses kernel records of graph replays whose outputs
+    are whole: 1-3 of the int8 graph's 12 K1, 96 Q1 and 48 Q2 kernels on some
+    hosts (once no record at all), and once one of the 518x686 bf16 graph's
+    12 K1 kernels, the same records in every profiled replay of a run (with
+    the replay bit-equal to the eager forward, whose counted launches were
+    whole). A record can be lost but never made up, so a group's most in one
+    call is never above what a replay runs; the exact counts are the graph's
+    own nodes (``_graph_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    best, found, tries = None, [], 0
+    from crossscore_tpu_torch.tools.trace_breakdown import kernel_group
+
+    most, found, tries, traced = {v: 0 for v in REPLAY_GROUPS.values()}, [], 0, False
     for tries in range(1, attempts + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -806,21 +828,48 @@ def _replay_kernels(torch, tool, fn, foreign, want: dict, attempts: int = 8) -> 
             if "CUDA" not in str(evt.device_type):
                 continue
             kernels += evt.count
-            kern = REPLAY_GROUPS.get(tool._group(evt.key))
+            kern = REPLAY_GROUPS.get(kernel_group(evt.key))
             if kern is not None:
                 seen[kern] += evt.count
             elif any(pat.search(evt.key) for pat in foreign) and evt.key[:100] not in found:
                 found.append(evt.key[:100])
         if not kernels:
             continue
-        if best is None or sum(seen.values()) > sum(best.values()):
-            best = seen
-        if {k: v for k, v in seen.items() if v} == want:
-            best = seen
+        traced = True
+        most = {k: max(v, seen[k]) for k, v in most.items()}
+        if {k: v for k, v in most.items() if v} == want:
             break
-    if best is None:
+    if not traced:
         _fail(f"the profiler recorded no kernel of a graph replay in {attempts} calls")
-    return best, found, tries
+    return most, found, tries
+
+
+def _graph_kernels(graph, foreign, path: Path) -> tuple[dict, list, int]:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph``, from the
+    graph itself (``cudaGraphDebugDotPrint`` of the graph that
+    ``keep_graph`` keeps: ``_serve_phases`` makes the daemon's graphs so):
+    ({K1, K2, K3, K10, Q1, Q2: count}, [the names that match any of
+    the patterns ``foreign``], the kernel nodes). Unlike the profiler, which
+    loses records of replays (``_replay_kernels``), this reads every node.
+    The dump is written to ``path``."""
+    from crossscore_tpu_torch.tools.trace_breakdown import kernel_group
+
+    path.unlink(missing_ok=True)
+    graph.debug_dump(str(path))
+    text = path.read_text(errors="replace") if path.exists() else ""
+    # a kernel node's label names its function before its launch shape, <<<grid>>>
+    names = re.findall(r"([A-Za-z_$][\w$]*)(?:\\?<|&lt;){3}", text)
+    if not names:
+        _fail(f"step 16 (d): the graph's dump {path} names no kernel node: {text[:400]!r}")
+    seen = {v: 0 for v in REPLAY_GROUPS.values()}
+    found = []
+    for name in names:
+        kern = REPLAY_GROUPS.get(kernel_group(name))
+        if kern is not None:
+            seen[kern] += 1
+        elif any(pat.search(name) for pat in foreign) and name[:100] not in found:
+            found.append(name[:100])
+    return {k: v for k, v in seen.items() if v}, found, len(names)
 
 
 def _rewrite_artifact(src: Path, dst: Path, edit) -> Path:
@@ -845,7 +894,8 @@ def _graph_phases(torch, dev, card: str, scorer, base: list, tmp: Path, qpath: P
     daemon (``scorer``, on seed 1's weights after (b)'s storm): replay
     against eager at every bucket, with the kernels of one replay by name;
     a warm shape off the position table's grid (its graph holding its resize
-    constants through a clearing of their table) and a shape first captured
+    constants through a clearing of their table, and a kept constant
+    overwritten in place caught by the same check) and a shape first captured
     while a load-bench storm is served; the warm-cache step and the B=1 dispatch by replay and eagerly, in
     turns; the reload's bits; the exporter and a loader in child processes;
     three bad artifacts; two replicas on the one card; the int8 backbone's
@@ -870,7 +920,6 @@ def _graph_phases(torch, dev, card: str, scorer, base: list, tmp: Path, qpath: P
 
     t_step = time.perf_counter()
     gd: dict = {"card": card, "memory": scorer.graph_memory}
-    tool = _step_profile_tool()
     bad = []
     rng = np.random.default_rng(SEED + 161)
     q_real = scorer._preprocess(image_read(str(qpath)))
@@ -895,24 +944,30 @@ def _graph_phases(torch, dev, card: str, scorer, base: list, tmp: Path, qpath: P
         eager = {k: v for k, v in read_launches().items() if v}
         # no library attention; and no unfused MLP where the eager forward runs K2
         patterns = (FOREIGN_ATTENTION, FOREIGN_MLP) if eager.get("K2") else (FOREIGN_ATTENTION,)
-        counts, foreign, tries = _replay_kernels(torch, tool, lambda: g(q), patterns, eager)
+        counts, foreign, tries = _replay_kernels(torch, lambda: g(q), patterns, eager)
+        nodes, node_foreign, n_nodes = _graph_kernels(g.graph, patterns, tmp / f"graph_{tag.replace(' ', '_')}_{b}.dot")
+        profiled = {k: v for k, v in counts.items() if v}
         r = {"bit_equal": torch.equal(maps_r, maps_e) and torch.equal(means_r, means_e),
              "max_abs": float((maps_r - maps_e).abs().max()), "replay_counted_launches": counted,
-             "eager_launches": eager, "replay_kernels": {k: v for k, v in counts.items() if v}, "foreign": foreign,
-             "profiled_calls": tries}
+             "eager_launches": eager, "graph_kernels": nodes, "graph_kernel_nodes": n_nodes,
+             "replay_kernels": profiled, "foreign": foreign + node_foreign, "profiled_calls": tries}
         print(f"step 16 (d) {tag} bucket {b}: replay against eager maps and means bit-equal {r['bit_equal']} "
-              f"(max |d| {r['max_abs']:.3e}); kernels in one replay by name {r['replay_kernels']}, the eager "
-              f"forward's counted launches {eager}, the replay's counted {counted}; library attention"
-              f"{'/MLP' if eager.get('K2') else ''} kernels {foreign}; {tries} replay(s) profiled")
-        names_whole = {k: v for k, v in counts.items() if v} == eager
-        if not r["bit_equal"] or counted or foreign or (hold_names and not names_whole):
+              f"(max |d| {r['max_abs']:.3e}); the graph's kernel nodes by name {nodes} of {n_nodes}, the eager "
+              f"forward's counted launches {eager}, the replay's counted {counted}; by profiler name, each the most "
+              f"in one of {tries} profiled replay(s), {profiled}; library attention"
+              f"{'/MLP' if eager.get('K2') else ''} kernels {r['foreign']}")
+        # the graph holds exactly the eager forward's kernels; a replay runs
+        # every node, and the profiler (which loses records) saw each group
+        # and no more of it than the graph holds
+        profiled_in = set(profiled) == set(eager) and all(v <= eager[k] for k, v in profiled.items())
+        if not r["bit_equal"] or counted or r["foreign"] or nodes != eager or (hold_names and not profiled_in):
             bad.append(f"{tag} bucket {b}: {r}")
         return r
 
     # --- 1. replay against eager at every bucket ----------------------------------
     gd["buckets"] = {b: replay_vs_eager(scorer, b, "bf16 daemon") for b in (1, 2, 4, 8)}
-    if gd["buckets"][8]["replay_kernels"] != {"K1": 12, "K2": 12, "K3": 4}:
-        bad.append(f"bucket 8 replay kernels {gd['buckets'][8]['replay_kernels']} != K1 12, K2 12, K3 4")
+    if gd["buckets"][8]["graph_kernels"] != {"K1": 12, "K2": 12, "K3": 4}:
+        bad.append(f"bucket 8 graph kernels {gd['buckets'][8]['graph_kernels']} != K1 12, K2 12, K3 4")
 
     # --- 1b. a warm shape off the position table's grid (serve_warm_shapes) ---------
     # 518x686 resizes the DINOv2 table bicubically (37x37 -> 37x49) inside the
@@ -930,19 +985,30 @@ def _graph_phases(torch, dev, card: str, scorer, base: list, tmp: Path, qpath: P
     (g,) = graph_of(scw, (HW, WARM_W, 8))
     q = torch.from_numpy(wide)
     want_maps, want_means = (t.clone() for t in g(q))
+
+    def replay_kept() -> bool:
+        """The check: bucket 8's replay bit-equal to its replay before."""
+        maps, means = g(q)
+        return torch.equal(maps, want_maps) and torch.equal(means, want_means)
+
+    # the graph's constants are the table as it stood at its capture (a
+    # table never evicted): the bicubic matrix's place in it is its place there
+    if not gd["off_grid"]["bicubic_constant_made"]:
+        _fail(f"step 16 (d): {HW}x{WARM_W}'s bicubic constant was never made")
+    kept = list(interpolate._CONSTANTS).index(bicubic)
+    same = g.constants[kept].data_ptr() == interpolate._CONSTANTS[bicubic].data_ptr()
     sizes = [(t.shape, t.dtype) for v in interpolate._CONSTANTS.values() for t in (v if isinstance(v, tuple) else (v,))
              if t.is_cuda]  # shapes only: a reference here would keep them alive
     interpolate._CONSTANTS.clear()
     junk = [torch.full(shape, float("nan"), dtype=dt, device=dev) if dt.is_floating_point
             else torch.zeros(shape, dtype=dt, device=dev) for shape, dt in sizes]
-    got_maps, got_means = g(q)
+    replay_equal = replay_kept()
     eager_maps, eager_means = scw._forward(scw.model, q.to(dev), scw.tokens)
     torch.cuda.synchronize()
     gd["off_grid"]["after_clear"] = {
-        "constants_cleared": len(sizes), "replay_bit_equal": torch.equal(got_maps, want_maps)
-        and torch.equal(got_means, want_means), "eager_bit_equal": torch.equal(eager_maps, want_maps)
-        and torch.equal(eager_means, want_means)}
-    del junk, got_maps, got_means, eager_maps, eager_means
+        "constants_cleared": len(sizes), "replay_bit_equal": replay_equal,
+        "eager_bit_equal": torch.equal(eager_maps, want_maps) and torch.equal(eager_means, want_means)}
+    del junk, eager_maps, eager_means
     print(f"step 16 (d) {HW}x{WARM_W} (DINOv2 table 37x37 -> 37x{WARM_W // 14} bicubic, constant made "
           f"{gd['off_grid']['bicubic_constant_made']}): after the resize constants' table was cleared and "
           f"{len(sizes)} buffers of their sizes were taken and filled, bucket 8's replay bit-equal to its replay "
@@ -950,9 +1016,27 @@ def _graph_phases(torch, dev, card: str, scorer, base: list, tmp: Path, qpath: P
           f"{gd['off_grid']['after_clear']['eager_bit_equal']}")
     if not (gd["off_grid"]["bicubic_constant_made"] and all(gd["off_grid"]["after_clear"].values())):
         bad.append(f"{HW}x{WARM_W} after the constants' clearing: {gd['off_grid']}")
+    # the planted fault: the bicubic matrix the graph keeps, halved in place,
+    # must fail the same check; restored, the replay must pass it again. It
+    # frees nothing, so no read can fault.
+    held = g.constants[kept]
+    saved = held.clone()
+    held.mul_(0.5)
+    caught = not replay_kept()
+    held.copy_(saved)
+    restored = replay_kept()
+    torch.cuda.synchronize()
+    gd["off_grid"]["planted_constant"] = {"the_graph_holds_the_table_entry": same, "caught": caught,
+                                          "restored_bit_equal": restored}
+    del held, saved
+    print(f"step 16 (d) planted fault, the kept bicubic constant 37x{WARM_W // 14} halved in place after the "
+          f"capture: bucket 8's replay bit-equal to its replay before {not caught} (caught {caught}); restored, "
+          f"bit-equal again {restored}; the graph's list held the table's tensor {same}")
+    if not (same and caught and restored):
+        bad.append(f"the planted constant: {gd['off_grid']['planted_constant']}")
     for b in (1, 8):
-        if gd["off_grid"][b]["replay_kernels"] != {"K1": 12, "K2": 12, "K3": 4}:
-            bad.append(f"{HW}x{WARM_W} bucket {b} replay kernels {gd['off_grid'][b]['replay_kernels']}")
+        if gd["off_grid"][b]["graph_kernels"] != {"K1": 12, "K2": 12, "K3": 4}:
+            bad.append(f"{HW}x{WARM_W} bucket {b} graph kernels {gd['off_grid'][b]['graph_kernels']}")
 
     # --- 1c. a shape first captured at request time, under the lock, mid-storm ------
     thread = threading.Thread(target=srv_w.serve_forever, daemon=True)
@@ -1176,8 +1260,8 @@ def _graph_phases(torch, dev, card: str, scorer, base: list, tmp: Path, qpath: P
     both = {k: v for k, v in read_launches().items() if v}
     r["captured_launches"] = {k: v - r["eager_launches"].get(k, 0) for k, v in both.items()}
     print(f"step 16 (d) int8 daemon: launches counted in a capture {r['captured_launches']} (the eager forward's "
-          f"{r['eager_launches']}); by name in the fullest of {r['profiled_calls']} profiled replays "
-          f"{r['replay_kernels']}, reported only")
+          f"{r['eager_launches']}); the graph's kernel nodes by name {r['graph_kernels']}; by profiler name, each "
+          f"the most in one of {r['profiled_calls']} profiled replays, {r['replay_kernels']}, reported only")
     if r["captured_launches"] != r["eager_launches"] or not (r["eager_launches"].get("Q1")
                                                              and r["eager_launches"].get("Q2")):
         bad.append(f"int8 capture: {r['captured_launches']} against the eager {r['eager_launches']}")
@@ -1224,6 +1308,23 @@ def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dic
     from crossscore_tpu_torch.train.step import make_predict_step, make_predict_step_cached
 
     t_step = time.perf_counter()
+    # the daemon's graphs keep each captured graph beside its executable,
+    # which is made at the capture's end as before, for (d)'s reading of its
+    # kernel nodes (keep_graph is a graph's own, set before its capture)
+    plain_graph = torch.cuda.CUDAGraph
+
+    class KeptGraph(plain_graph):
+        def __new__(cls, keep_graph: bool = False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph: bool = False):
+            super().__init__(True)
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+    torch.cuda.CUDAGraph = KeptGraph
     sv: dict = {"card": card}
     root = Path(__file__).resolve().parent
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
@@ -1605,6 +1706,7 @@ def _serve_phases(torch, dev, params, card, zero_launches, read_launches) -> dic
         sv["graphs"] = _graph_phases(torch, dev, card, scorer, base, tmp, qpath, map0, ckpt,
                                      zero_launches, read_launches)
         del scorer
+    torch.cuda.CUDAGraph = plain_graph
     sv["seconds"] = time.perf_counter() - t_step
     print(f"serving daemon step: {sv['seconds']:.1f} s ((a) the warm-cache step {sv['seconds_a']:.1f} s, (b) the "
           f"daemon in process {sv['seconds_b']:.1f} s, (c) the CLI {sv['seconds_c']:.1f} s, (d) graphs and "
@@ -4098,24 +4200,13 @@ def _int8_rows(int8: dict) -> list:
     return rows
 
 
-def _step_profile_tool():
-    """``tools/torch_step_profile.py`` as a module (its ``_group`` names
-    kernels)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("torch_step_profile",
-                                                  Path(__file__).resolve().parent / "tools" / "torch_step_profile.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    return tool
-
-
 def _backbone_split(torch, fn) -> dict:
     """Device ms of one call of ``fn`` by group: Q1, Q2, K1 and the rest
-    (``tools/torch_step_profile.py``'s kernel names)."""
+    (``tools/trace_breakdown.py::kernel_group``'s names)."""
     from torch.profiler import ProfilerActivity, profile
 
-    tool = _step_profile_tool()
+    from crossscore_tpu_torch.tools.trace_breakdown import kernel_group
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -4127,7 +4218,7 @@ def _backbone_split(torch, fn) -> dict:
         dev_us = getattr(evt, "self_device_time_total", None)
         dev_us = evt.self_cuda_time_total if dev_us is None else dev_us
         if dev_us > 0:
-            g = tool._group(evt.key)
+            g = kernel_group(evt.key)
             split[g] = split.get(g, 0.0) + dev_us / 1e3
     if not split:
         _fail("the profiler recorded no kernel of the int8 backbone")
@@ -6167,6 +6258,8 @@ def main() -> int:
         + [f"K12 {g}" for g in lpp.GEOMETRIES if not lp["K12"].get(g)]
     if missing:
         _fail("a timing mode was never launched by its entry point: " + ", ".join(missing))
+    # (b) the profiling tools, the build-flag sweep and the converter
+    inst["profiling"] = _profiling_phases(torch, dev, params, zero_launches, read_launches)
 
     _lap(t_start, 13)
     # --- 14. token-space training: the token step, the token graph at B=1, the
@@ -6414,6 +6507,152 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _run_teed(fn, argv) -> tuple[int, str]:
+    """``fn(argv)``, its printed lines shown and kept -> (its exit code, its
+    standard output)."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = fn(argv)
+    return rc, "".join(tee.text)
+
+
+def _profiling_phases(torch, dev, params, zero_launches, read_launches) -> dict:
+    """Step 13 (b): the profiling tools and the build-flag sweep through their
+    entry points, each with the counts zeroed just before it and read just
+    after, then the converter's three modes at dinov2-small width and the
+    converted checkpoint restored through ``tasks/common.py`` into a net
+    whose B=1 maps must be the source net's bits. Returns the readings."""
+    import tempfile
+
+    from crossscore_tpu_torch.confsys import load_config
+    from crossscore_tpu_torch.io import convert
+    from crossscore_tpu_torch.io.checkpoint import CheckpointManager
+    from crossscore_tpu_torch.models import CrossScoreConfig, CrossScoreNet
+    from crossscore_tpu_torch.tasks.common import load_model_params
+    from crossscore_tpu_torch.tools import (h2d_probe, model_breakdown, trace_breakdown, trace_events,
+                                            train_microbench, train_trace, xla_flag_sweep)
+    from crossscore_tpu_torch.train.optim import make_optimizer
+    from crossscore_tpu_torch.train.step import make_predict_step
+
+    t_step = time.perf_counter()
+    out, bad = {}, []
+    work = tempfile.TemporaryDirectory()
+    tmp = Path(work.name)
+    pixel, token = tmp / "pixel_trace.json", tmp / "token_trace.json"
+    steps = train_trace.WARMUP + train_trace.STEPS
+    runs = {
+        "model_breakdown": (model_breakdown.main, ["full", "backbone", "decoder"]),
+        "train_microbench": (train_microbench.main, ["24", "5"]),
+        "train_trace pixel": (train_trace.main, ["24", "5", str(pixel)]),
+        "train_trace tokens": (train_trace.main, ["24", "5", str(token), "tokens"]),
+        "trace_breakdown": (trace_breakdown.main, []),
+        "trace_breakdown on train_trace's file": (trace_breakdown.main, [str(pixel)]),
+        "trace_events": (trace_events.main, [str(pixel), str(train_trace.STEPS), "attn_bwd"]),
+        "h2d_probe": (h2d_probe.main, []),
+        "xla_flag_sweep": (xla_flag_sweep.main, ["baseline", "ptxas_o2"]),
+    }
+    for tag, (tool, argv) in runs.items():
+        zero_launches()
+        t0 = time.perf_counter()
+        rc, text = _run_teed(tool, argv)
+        torch.cuda.synchronize()
+        out[tag] = {"rc": rc, "s": time.perf_counter() - t0, "text": text,
+                    "launches": {k: v for k, v in read_launches().items() if v}}
+        print(f"step 13 (b) {tag} ({' '.join(argv)}): exit {rc} in {out[tag]['s']:.1f} s; launches "
+              f"{out[tag]['launches']}", flush=True)
+        if rc != 0:
+            bad.append(f"{tag} exited {rc}")
+        torch.cuda.empty_cache()
+    # the traced train steps, held to the launches a step counts
+    for tag, per_step in (("train_trace pixel", _launches(K1=12, K2=12, K3=4, K4=4)),
+                          ("train_trace tokens", _launches(K3=4, K4=4))):
+        want = {k: steps * v for k, v in per_step.items() if v}
+        if out[tag]["launches"] != want:
+            bad.append(f"{tag} launches {out[tag]['launches']} != {want} ({steps} steps)")
+    text = out["trace_breakdown on train_trace's file"]["text"]
+    if not re.search(r"x\s*\d+\s+K4 decoder attention backward\s+\S*attn_bwd", text):
+        bad.append("trace_breakdown: no K4 family in the pixel train step's trace")
+    # every K4 kernel under the filter linked to the decoder's backward op and its recorded shapes
+    links = re.findall(r"launched by (.*)", out["trace_events"]["text"])
+    if "in filter attn_bwd" not in out["trace_events"]["text"] or not links or not all(
+            re.match(r"_FlashCrossAttentionBackward, input shapes \[\[\d", ln) for ln in links):
+        bad.append(f"trace_events: a K4 kernel under the filter without its launching op and shapes: {links}")
+    lines = {t: [ln for ln in out["xla_flag_sweep"]["text"].splitlines() if ln.startswith(t + " ")]
+             for t in ("baseline", "ptxas_o2")}
+    out["xla_flag_sweep"]["sets"] = lines
+    if any(len(v) != 1 for v in lines.values()) or "ms/fwd" not in lines["baseline"][0]:
+        bad.append(f"xla_flag_sweep: the sets' lines {lines}")
+    n_copies = sum("MB/s" in ln for ln in out["h2d_probe"]["text"].splitlines())
+    if n_copies != 3 * h2d_probe.REPS * 2:
+        bad.append(f"h2d_probe: {n_copies} copies timed")
+    for tag, keys in (("model_breakdown", ("full(warm) ", "full ", "backbone ", "decoder ")),
+                      ("train_microbench", ("train step B=24 K=5 518px: ",))):
+        missing = [k for k in keys if not any(ln.startswith(k) for ln in out[tag]["text"].splitlines())]
+        if missing:
+            bad.append(f"{tag}: no line {missing}")
+
+    # the converter: a port checkpoint --reverse, the default mode on what it
+    # wrote, --hf-backbone on an HF directory written here; then the converted
+    # directory restored into a net on the card
+    t0 = time.perf_counter()
+    cfg = CrossScoreConfig()
+    source = CrossScoreNet(cfg, device=dev)
+    source.load_state_dict(params, strict=True)
+    optimizer, scheduler, _ = make_optimizer(load_config("default"), source, steps_per_epoch=100)
+    run_ckpt = tmp / "run" / "ckpt"
+    CheckpointManager(run_ckpt).save(3, source, optimizer, scheduler, {"step": 3, "epoch": 0, "batch_in_epoch": 3})
+    lightning, converted, hf_dir = tmp / "lightning.ckpt", tmp / "converted", tmp / "hf"
+    convert.main([str(run_ckpt), str(lightning), "--reverse"])
+    convert.main([str(lightning), str(converted)])
+    hf_dir.mkdir()
+    vit = cfg.backbone
+    (hf_dir / "config.json").write_text(json.dumps({
+        "model_type": "dinov2", "hidden_size": vit.hidden_size, "num_hidden_layers": vit.num_layers,
+        "num_attention_heads": vit.num_heads, "mlp_ratio": vit.mlp_ratio, "patch_size": vit.patch_size,
+        "image_size": vit.image_size, "layerscale_value": vit.layerscale_init, "layer_norm_eps": vit.layer_norm_eps}))
+    torch.save({k: v.cpu() for k, v in source.backbone.state_dict().items()}, hf_dir / "pytorch_model.bin")
+    convert.main([str(hf_dir), str(tmp / "backbone.pt"), "--hf-backbone"])
+    blob = torch.load(lightning, map_location="cpu", weights_only=True)
+    envelope = {k: blob[k] for k in ("pytorch-lightning_version", "epoch", "global_step", "loops")}
+    restored = load_model_params(load_config("default_predict", overrides=[
+        f"trainer.ckpt_path_to_load={converted}"]), CrossScoreNet(cfg, device=dev))
+    hf_net = convert.load_backbone(CrossScoreNet(cfg, device=dev), tmp / "backbone.pt")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    q1 = torch.randint(0, 256, (1, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    r1 = torch.randint(0, 256, (1, K, HW, HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    zero_launches()
+    maps = {tag: make_predict_step(net)(q1, r1)["score_map_ref_cross"]
+            for tag, net in (("source", source), ("restored", restored))}
+    torch.cuda.synchronize()
+    got, got_hf = restored.state_dict(), hf_net.backbone.state_dict()
+    conv = {"envelope": envelope, "launches": {k: v for k, v in read_launches().items() if v},
+            "maps_bit_equal": torch.equal(maps["source"], maps["restored"]),
+            "state_bit_equal": all(torch.equal(v, got[k]) for k, v in source.state_dict().items()),
+            "hf_backbone_bit_equal": all(torch.equal(v, got_hf[k]) for k, v in source.backbone.state_dict().items()),
+            "s": time.perf_counter() - t0}
+    out["convert"] = conv
+    print(f"step 13 (b) converter at dinov2-small width: --reverse of a port checkpoint (step 3) -> envelope "
+          f"{envelope}; the default mode on that file restored through tasks/common.py: every tensor bit-equal "
+          f"{conv['state_bit_equal']}, the B=1 maps bit-equal to the source net's {conv['maps_bit_equal']} "
+          f"(launches of the two forwards {conv['launches']}); --hf-backbone of a config.json + pytorch_model.bin "
+          f"directory: the backbone bit-equal {conv['hf_backbone_bit_equal']}; {conv['s']:.1f} s")
+    if envelope != {"pytorch-lightning_version": "2.1.3", "epoch": 0, "global_step": 3, "loops": {}} \
+            or not (conv["maps_bit_equal"] and conv["state_bit_equal"] and conv["hf_backbone_bit_equal"]) \
+            or conv["launches"] != {"K1": 24, "K2": 24, "K3": 8}:
+        bad.append(f"the converter: {conv}")
+    del source, restored, hf_net, optimizer, maps, got, got_hf
+    work.cleanup()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_step
+    print(f"step 13 (b): {out['s']:.1f} s")
+    if bad:
+        _fail("step 13 (b): " + "; ".join(bad))
+    for run in out.values():
+        if isinstance(run, dict):
+            run.pop("text", None)
+    return out
 
 
 def _lap(t_start: float, step: int) -> None:

@@ -42,6 +42,7 @@ GXX_LIBS = ("-lpng", "-lz")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _build_dir: Path | None = None  # set by utils/compilation_cache.py::enable
+_extra_flags: tuple[str, ...] = ()  # set by tools/xla_flag_sweep.py alone
 
 
 def build_dir() -> Path:
@@ -56,6 +57,17 @@ def set_build_dir(path) -> None:
     _build_dir = None if path is None else Path(path).expanduser().resolve()
 
 
+def set_extra_flags(flags=()) -> None:
+    """Add ``flags`` to every later ``nvcc`` command, and into the library
+    digest, and forget the loaded libraries, so that the next :func:`load`
+    of a source builds or loads its variant. Only the build-flag sweep
+    (``tools/xla_flag_sweep.py``) calls this; with no flags the digest and
+    the library paths are the default build's."""
+    global _extra_flags
+    _extra_flags = tuple(flags)
+    _libs.clear()
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
@@ -64,7 +76,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _extra_flags).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -91,7 +103,7 @@ def build_all(names=SOURCES) -> dict[str, float]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out_dir / f"{name}.log", "wb")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *_extra_flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out, log, time.perf_counter())
     secs, failed = {}, []
     for name, (proc, tmp, out, log, t0) in procs.items():

@@ -127,3 +127,9 @@ def times_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> list[float
             fn()
             times.append(1e3 * (time.perf_counter() - t0))
     return times
+
+
+def card_tag(device: torch.device) -> str:
+    """What each measurement line of a tool ends with: the card's name and
+    power limit (:func:`card_line`), or the CPU's label."""
+    return card_line() if device.type == "cuda" else "cpu: plain versions, host times"

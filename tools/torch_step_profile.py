@@ -16,7 +16,6 @@ and the device busy share (kernel time over the profiled wall time).
 from __future__ import annotations
 
 import argparse
-import re
 import subprocess
 import sys
 import time
@@ -25,30 +24,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 B, K, HW, STEPS = 8, 8, 518, 3
 
-
-def _group(name: str) -> str:
-    """The layer group of a kernel, from its name as the profiler gives it
-    (demangled, ``cs::ln_mlp_tma<384, false, true>(...)``) or mangled
-    (``_ZN2cs10ln_mlp_tmaILi384ELb0ELb1EE...``)."""
-    # the attention forward's kernels are templates on the head dim first:
-    # the backbone's is 64, the decoder's 48
-    if re.search(r"attn_fwd_\w*?(<64\b|ILi64E)", name):
-        return "K1 backbone attention"
-    if "attn_fwd" in name:
-        return "K3 decoder attention"
-    # the fused MLP's bf16 and fp32 kernels take RES (K10) second
-    if re.search(r"ln_mlp_(tma|wide|f32)(<\s*\d+\s*,\s*(true|1)\b|ILi\d+ELb1E)", name):
-        return "K10 fused residual LN-MLP"
-    if "ln_mlp" in name:
-        return "K2 fused LN-MLP"
-    # the int8 backbone's kernels (model.gpu.backbone_quant=int8)
-    if "quantize_rows_kernel" in name:
-        return "Q1 int8 row quantise"
-    if "int8_linear_kernel" in name:
-        return "Q2 int8 linear"
-    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")):
-        return "matrix products (cuBLAS)"
-    return "elementwise, reductions, copies"
+sys.path.insert(0, str(ROOT))
+# the layer groups, shared with crossscore_tpu_torch/tools/trace_breakdown.py and chip_smoke.py
+from crossscore_tpu_torch.tools.trace_breakdown import kernel_group as _group  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -61,7 +39,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
     from torch.profiler import ProfilerActivity, profile
 
     from crossscore_tpu_torch.io.convert import init_params, load_into
