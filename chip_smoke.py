@@ -8,6 +8,7 @@ parallelism.
 
     python3 chip_smoke.py                  # from the repository root, one card
     python3 chip_smoke.py --kernels-only   # steps 1-3 only, no result lines
+    python3 chip_smoke.py --against DIR    # also step 4's fp32 A/B against another checkout
 
 In order:
 1. print the card's name and power limit (``nvidia-smi``);
@@ -18,8 +19,12 @@ In order:
    serialised (C7515 and the other notes that say so), each head dim's tile
    plan and the fused MLP's plans at D 64, 384, 768 and 1024 (rows a block
    or tile, the cluster, the hidden chunk, the ring stages, dynamic shared
-   memory, W1/W2 bytes read from L2 per 1000 rows and at the main point);
-   fail on a spill or a serialised wgmma in the forward at hd 48 or 64 or in
+   memory, W1/W2 bytes read from L2 per 1000 rows and at the main point),
+   and for the fp32 forward (the 3xTF32 body and its pre-pass) its ptxas
+   lines, each head dim's plan and the HGMMA instructions that
+   ``cuobjdump -sass`` finds in each instantiation of the body;
+   fail on a serialised wgmma in the fp32 body at any head dim, a body with
+   no HGMMA, a spill or a serialised wgmma in the forward at hd 48 or 64 or in
    the fused MLP, on a plan above the block's shared memory, or on MLP weight
    reads above half of what 64-row blocks that each read them would take (D
    768 and 1024: above once per 64-row tile);
@@ -53,11 +58,18 @@ In order:
    K3, K5, K6 and K7 at the same ragged lengths at hd 48 and 128, K5 and K6
    with a bias that masks a third of the columns, each held by the relative
    L2 of each of o, l and m, as K1 and K3 also are at their main shapes, and
-   launched twice for the same bits), and time
+   launched twice for the same bits; every forward at the main shapes is
+   launched twice for the same bits too, and in fp32 K1's pre-pass is held
+   bit for bit against its plain version, at every head dim on head-major
+   views too, and K1's body run on stages whose K and V lo halves this
+   script zeroes must miss TOL_L2), and time
    the kernel, the plain version
    and, for the attention kernels, one ``F.scaled_dot_product_attention``
    call (K4, K8, K9: one backward of it; K5/K6: with the bias as a float
-   mask) on the same inputs (a yardstick only; the port never calls it), and
+   mask) on the same inputs (a yardstick only; the port never calls it;
+   in fp32 the kernels it ran, by profiler name), beside the bound (fp32
+   forwards: three TF32 products at the tensor cores' TF32 rate, with the
+   CUDA cores' floor beside it), and
    K4 on the same work as K8/K9; and the timing instruments of the sixth
    slice, which no model path reaches: K10 (LN -> MLP with the attention
    residual folded in) at x (72, 1370, 384), bf16 and fp32, timed beside the
@@ -70,7 +82,13 @@ In order:
 4. run the full-width forward through ``make_predict_step`` (dinov2-small,
    518 px, K=8, B=8, bf16, seeded random weights) with the launch counters
    zeroed, check the score map and that the forward launched 12 / 12 / 4 / 0
-   kernels, and time it with CUDA events;
+   kernels, and time it with CUDA events; the same at the parity preset
+   (``model.gpu.parity=true``: fp32 compute, the exact GELU), K1 and K3 on
+   the fp32 forward; with ``--against DIR``, that checkout's fp32 forward
+   (its ``flash_qkv.cu``, ``flash_cross.cu`` and launchers) in turns with
+   this tree's (other / this / this / other): K1, K5, K3, K6, K7 and K7 at
+   the tp backbone shape at step 3's shapes beside SDPA, and the parity
+   predict step;
 5. run the net again at B=1 with every kernel replaced by its plain version
    and bound the score-map difference, in bf16 and fp32;
 6. run the full-width train step through ``make_train_step`` (B=24, K=5,
@@ -245,7 +263,7 @@ In order:
     their plain versions, each launched twice for the same bits, timed beside
     the plain version, the unfused chain of PyTorch calls and the bound, and
     K1 on a fused qkv of more than 2^31 elements (B=8,
-    K=16: the last views bit-equal to the same views alone); (b) from the
+    K=16: the last views bit-equal to the same views alone; bf16 and fp32); (b) from the
     port's seeded init, the forward at K=5
     (B 1, 2, 4) and K=16 (B 1) and the pixel and token train steps at K=5,
     B=1: launches (K1 24, K2 24, K3 4 a forward; K3 4 and K4 4 a step),
@@ -394,6 +412,11 @@ PEAKS = {  # name fragment: (bf16 op/s, fp32 op/s, bytes/s, exp2/s)
     "H100 NVL": (835e12, 60e12, 3.9e12, 132 * 16 * 1.785e9),
     "H100": (989e12, 67e12, 3.35e12, 3.9e12),  # SXM
 }
+# the tensor cores' dense TF32 rate, half the bf16 one (NVIDIA's data
+# sheets): the fp32 attention forward runs three TF32 products a product
+# (3xTF32), so its floor is 3 x its operations at this rate, below the CUDA
+# cores' floor at the fp32 rate above
+TF32_PEAKS = {"H100 PCIe": 378e12, "H100 NVL": 417.5e12, "H100": 495e12}
 
 # kernel-vs-plain tolerances at the main-path shapes: the largest of
 # |kernel - plain| / (1 + |plain|) over o (or out), m and l.
@@ -530,6 +553,22 @@ def _bound(ops: float, nbytes: float, peak: float, peak_bw: float, exps: float =
     by = max(floors, key=floors.get)
     return dict(bound_ms=1e3 * floors[by], bound_by="bytes" if by == "bytes" else "operations", bound_floor=by,
                 products_ms=1e3 * floors["products"], exp_ms=1e3 * floors["exponentials"])
+
+
+def _tf32_peak(name: str) -> float:
+    return next((p for frag, p in TF32_PEAKS.items() if frag in name), TF32_PEAKS["H100"])
+
+
+def _fwd_bound(dtype_name: str, ops: float, nbytes: float, exps: float, peaks, peak_tf32: float) -> dict:
+    """The attention forward's bound (``_bound``): bf16 on its tensor-core
+    rate; fp32 as the 3xTF32 body runs it, three TF32 products a product, with
+    the CUDA cores' floor (one fp32 product at the fp32 rate) beside it as
+    ``cuda_core_bound_ms``."""
+    peak_bf16, peak_f32, peak_bw, peak_ex2 = peaks
+    if dtype_name == "bfloat16":
+        return _bound(ops, nbytes, peak_bf16, peak_bw, exps, peak_ex2)
+    return dict(_bound(3.0 * ops, nbytes, peak_tf32, peak_bw, exps, peak_ex2),
+                cuda_core_bound_ms=_bound(ops, nbytes, peak_f32, peak_bw, exps, peak_ex2)["bound_ms"])
 
 
 def _eval_plan(scene_groups: list, n: int, batch: int, encode_batch: int) -> tuple[int, int, int]:
@@ -815,7 +854,7 @@ def _replay_kernels(torch, fn, foreign, want: dict, attempts: int = 16) -> tuple
     own nodes (``_graph_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from crossscore_tpu_torch.tools.trace_breakdown import kernel_group
+    from crossscore_tpu_torch.tools.trace_breakdown import counts_as_launch, kernel_group
 
     most, found, tries, traced = {v: 0 for v in REPLAY_GROUPS.values()}, [], 0, False
     for tries in range(1, attempts + 1):
@@ -829,6 +868,8 @@ def _replay_kernels(torch, fn, foreign, want: dict, attempts: int = 16) -> tuple
                 continue
             kernels += evt.count
             kern = REPLAY_GROUPS.get(kernel_group(evt.key))
+            if kern is not None and not counts_as_launch(evt.key):  # the fp32 pre-pass: its body's launch
+                continue
             if kern is not None:
                 seen[kern] += evt.count
             elif any(pat.search(evt.key) for pat in foreign) and evt.key[:100] not in found:
@@ -852,7 +893,7 @@ def _graph_kernels(graph, foreign, path: Path) -> tuple[dict, list, int]:
     the patterns ``foreign``], the kernel nodes). Unlike the profiler, which
     loses records of replays (``_replay_kernels``), this reads every node.
     The dump is written to ``path``."""
-    from crossscore_tpu_torch.tools.trace_breakdown import kernel_group
+    from crossscore_tpu_torch.tools.trace_breakdown import counts_as_launch, kernel_group
 
     path.unlink(missing_ok=True)
     graph.debug_dump(str(path))
@@ -865,6 +906,8 @@ def _graph_kernels(graph, foreign, path: Path) -> tuple[dict, list, int]:
     found = []
     for name in names:
         kern = REPLAY_GROUPS.get(kernel_group(name))
+        if kern is not None and not counts_as_launch(name):  # the fp32 pre-pass: its body's launch
+            continue
         if kern is not None:
             seen[kern] += 1
         elif any(pat.search(name) for pat in foreign) and name[:100] not in found:
@@ -2138,6 +2181,16 @@ def _wgmma_build_report(_build) -> dict:
             if int(hd) in FWD_STRICT_HDS and (info.get("spill stores") or info.get("spill loads")
                                               or "wgmma serialised" in info):
                 bad.append(f"{src} attn_fwd_wgmma<{hd}, {bias}, {mode}>")
+    # the fp32 forward (attention_fwd_f32.cuh): the 3xTF32 body and its
+    # pre-pass, in both attention libraries; no serialised wgmma at any hd
+    for src in ("flash_qkv", "flash_cross"):
+        pattern = r"(attn_fwd_tf32|attn_fwd_split_kv)ILi(\d+)E(?:Lb(\d)E)?"
+        for (kern, hd, bias), info in _ptxas_entries(_build, src, pattern).items():
+            print(f"  ptxas {src} {kern}<{hd}" + ("" if bias is None else f", {'BIAS' if bias == '1' else 'no bias'}")
+                  + ">: " + ", ".join(f"{k} {v}" for k, v in info.items()))
+            if "wgmma serialised" in info or (int(hd) in FWD_STRICT_HDS
+                                              and (info.get("spill stores") or info.get("spill loads"))):
+                bad.append(f"{src} {kern}<{hd}, {bias}>")
     # Q2 and its int32 form (int8_linear_kernel<T, RC>): wgmma.s8 fed by TMA
     out_types = {"i": "int32", "f": "fp32", "13__nv_bfloat16": "bf16"}  # mangled
     for (typ, res), info in _ptxas_entries(_build, "int8_linear", r"int8_linear_kernelI(\w+?)Li(\d)E").items():
@@ -2168,6 +2221,16 @@ def _wgmma_build_report(_build) -> dict:
         rows, bq, bk, stages, smem1, smem2 = out
         print(f"  bf16 backward plan hd {hdim}: pass 1 {rows} KV rows a block over q tiles of {bq}, pass 2 {rows} "
               f"q rows over KV tiles of {bk}, {stages} stages, dynamic shared memory {smem1} / {smem2} bytes")
+    from crossscore_tpu_torch.ops.flash_attention import f32_plan
+
+    for hdim in range(16, 129, 16):
+        plan = f32_plan(_build.load("flash_qkv"), hdim)
+        print(f"  fp32 forward plan hd {hdim}: {plan['rows']} q rows a block ({plan['consumer_warpgroups']} consumer "
+              f"warpgroups) over KV tiles of {plan['block_k']}, {plan['stages']} stages of {plan['tile_bytes']} bytes, "
+              f"dynamic shared memory {plan['smem_bytes']} bytes")
+        if plan["smem_bytes"] > SMEM_LIMIT:
+            bad.append(f"fp32 forward plan hd {hdim}: {plan['smem_bytes']} bytes of shared memory")
+    bad += _f32_sass(_build)
     mlp = _build.load("fused_ln_mlp").cs_fused_ln_mlp_plan
     mlp.argtypes, mlp.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
     plans = {}
@@ -2199,6 +2262,191 @@ def _wgmma_build_report(_build) -> dict:
     if bad:
         _fail("the wgmma kernels' build: " + "; ".join(bad))
     return plans
+
+
+def _f32_sass(_build) -> list:
+    """``cuobjdump -sass`` of the K1/K5 library: the tensor-core instructions
+    (HGMMA) of each instantiation of the fp32 body, one quoted; a body
+    without any is returned as a fault."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = _build.library_path("flash_qkv")
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
+    if res.returncode != 0:
+        return [f"cuobjdump -sass {lib.name}: rc {res.returncode} {res.stderr[-300:]}"]
+    counts, first, fn = {}, {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "attn_fwd_tf32" in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+            first.setdefault(fn, re.sub(r"^\s*/\*\w+\*/\s*", "", line).strip())
+    for fn, n_ in counts.items():
+        print(f"  sass flash_qkv {fn}: {n_} HGMMA, e.g. {first.get(fn, '-')}")
+    if len(counts) != 16:
+        return [f"cuobjdump found {len(counts)} fp32 body instantiations in {lib.name}, not 16"]
+    return [f"{fn}: no HGMMA" for fn, n_ in counts.items() if not n_]
+
+
+def _kernel_names(torch, fn) -> list:
+    """The CUDA kernels one call of ``fn`` runs, by ``torch.profiler`` name
+    (which backend a library call took)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({evt.key[:120] for evt in prof.key_averages() if "CUDA" in str(evt.device_type)})
+
+
+def _f32_prepass(torch, qkv, h: int) -> dict:
+    """K1's fp32 route at its main shape taken apart, by this script's own
+    calls of the two launchers: the pre-pass's stages bit-equal to their
+    plain version (``f32_kv_tiles_plain``), then the body run on the stages
+    with their K lo and Vt lo zeroed (q's and p's lo halves untouched), whose
+    relative L2 against the plain version must exceed TOL_L2: the bound sees
+    the split's low halves."""
+    import math
+
+    from crossscore_tpu_torch.ops import _build
+    from crossscore_tpu_torch.ops import flash_attention as fa
+
+    lib = _build.load("flash_qkv")
+    b, n, _ = qkv.shape
+    q, k, v = fa.qkv_head_views(qkv, h)
+    hd = q.shape[-1]
+    bk = fa.f32_plan(lib, hd)["block_k"]
+    tiles = fa.f32_split_kv(lib, k, v)
+    same = torch.equal(tiles.view(torch.int32), fa.f32_kv_tiles_plain(k, v, bk).view(torch.int32))
+    kt, vt = bk * 32 * -(-hd // 32), bk * hd  # the floats of K hi (or lo) and of Vt hi (or lo) in a stage
+    tiles[..., kt:2 * kt] = 0
+    tiles[..., 2 * kt + vt:] = 0
+    o = torch.empty(b, n, h * hd, device=qkv.device)
+    l, m = fa.f32_forward(lib, q, tiles, n, fa._split_heads(o, h), None, 1.0 / math.sqrt(hd), "K1 planted")
+    _, l2 = _masked_errs([((o, l, m), fa.flash_qkv_self_attention_plain(qkv, h))])
+    return {"prepass_bit_equal": same, "planted_lo_zero_l2": l2, "planted_caught": l2 > TOL_L2["float32"]}
+
+
+def _f32_against(torch, F, dev, other: Path, parity_step, card: str) -> dict:
+    """``--against``: another checkout's fp32 attention forward in turns with
+    this tree's (other / this / this / other): its ``csrc/flash_qkv.cu`` and
+    ``flash_cross.cu`` built with this tree's flags and bound in place of this
+    tree's libraries, its ``ops/flash_attention.py`` launchers in place of
+    this tree's, on this tree's wrappers. Times K1, K5, K3 (cross and self),
+    K6 (cross and self), K7 (the view-parallel views) and K7 at the tp
+    backbone shape, fp32 at step 3's shapes, SDPA on the same inputs in each
+    turn, and the parity predict step: the median of 10 CUDA-event timed calls
+    a turn (5 for the step). Returns {what: {"other": [...], "this": [...],
+    "sdpa": [...]}} in ms."""
+    import concurrent.futures
+    import ctypes
+    import importlib.util
+
+    from crossscore_tpu_torch.ops import _build
+    from crossscore_tpu_torch.ops import flash_attention as fa
+    from crossscore_tpu_torch.tools.matmul_microbench import build_other
+
+    other = other.resolve()
+    sources = ("flash_qkv", "flash_cross")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        paths = dict(zip(sources, pool.map(lambda src: build_other(other, src), sources)))
+    libs = {src: ctypes.CDLL(str(path)) for src, path in paths.items()}
+    spec = importlib.util.spec_from_file_location("other_flash_attention",
+                                                  other / "crossscore_tpu_torch" / "ops" / "flash_attention.py")
+    ofa = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ofa)
+    launchers = ("_launch_qkv", "_launch_cross", "_launch_head_major")
+    print(f"--against {other}: its {', '.join(sources)} built in {time.perf_counter() - t0:.1f} s; turns "
+          "other / this / this / other")
+
+    @contextlib.contextmanager
+    def bound(turn):
+        if turn == "this":
+            yield
+            return
+        saved = {src: _build._libs.get(src) for src in sources}, {n: getattr(fa, n) for n in launchers}
+        _build._libs.update(libs)
+        for n in launchers:
+            setattr(fa, n, getattr(ofa, n))
+        try:
+            yield
+        finally:
+            for src, lib in saved[0].items():
+                if lib is None:
+                    _build._libs.pop(src, None)
+                else:
+                    _build._libs[src] = lib
+            for n, fn in saved[1].items():
+                setattr(fa, n, fn)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    d, h, dec_h, n, nq = 384, 6, 8, 1370, 1369
+    nb = BUCKET_GRID[0] * BUCKET_GRID[1]
+
+    def heads(t, hh):
+        return t.view(t.shape[0], -1, hh, t.shape[-1] // hh).transpose(1, 2)
+
+    cases = {}
+    qkv = rn(B * (1 + K), n, 3 * d)
+    sec = [heads(qkv[..., i * d:(i + 1) * d], h) for i in range(3)]
+    cases["K1"] = (lambda: fa.flash_qkv_self_attention(qkv, h), lambda: F.scaled_dot_product_attention(*sec))
+    qkv5 = rn(PB, nb + 1, 3 * d)
+    bias5 = torch.cat([torch.zeros(PB, 1, device=dev),
+                       _token_bias(torch, [VALID_GRIDS[i % 2] for i in range(PB)], dev)], 1).contiguous()
+    sec5 = [heads(qkv5[..., i * d:(i + 1) * d], h) for i in range(3)]
+    cases["K5"] = (lambda: fa.flash_qkv_self_attention_masked(qkv5, bias5, h),
+                   lambda: F.scaled_dot_product_attention(*sec5, attn_mask=bias5[:, None, None, :]))
+    q3 = rn(B, nq, d)
+    for tag, nk in (("K3", K * nq), ("K3self", nq)):
+        k3, v3 = rn(B, nk, d), rn(B, nk, d)
+        cases[tag] = (lambda k3=k3, v3=v3: fa.flash_cross_attention(q3, k3, v3, dec_h),
+                      lambda k3=k3, v3=v3: F.scaled_dot_product_attention(heads(q3, dec_h), heads(k3, dec_h),
+                                                                          heads(v3, dec_h)))
+    q6 = rn(PB, nb, d)
+    item_bias = _token_bias(torch, [VALID_GRIDS[i % 2] for i in range(PB)], dev)
+    for tag, reps_ in (("K6", PK), ("K6self", 1)):
+        k6, v6 = rn(PB, reps_ * nb, d), rn(PB, reps_ * nb, d)
+        b6 = item_bias.repeat(1, reps_).contiguous()
+        cases[tag] = (lambda k6=k6, v6=v6, b6=b6: fa.flash_cross_attention_masked(q6, k6, v6, b6, dec_h),
+                      lambda k6=k6, v6=v6, b6=b6: F.scaled_dot_product_attention(
+                          heads(q6, dec_h), heads(k6, dec_h), heads(v6, dec_h), attn_mask=b6[:, None, None, :]))
+    hm = [heads(t, dec_h) for t in (rn(B, nq, d), rn(B, VP_NK[0], d), rn(B, VP_NK[0], d))]
+    cases["K7"] = (lambda: fa.flash_attention_head_major(*hm), lambda: F.scaled_dot_product_attention(*hm))
+    bb = [heads(rn(TB * (TK + 1), n, d), h) for _ in range(3)]
+    cases["K7 backbone"] = (lambda: fa.flash_attention_head_major(*bb), lambda: F.scaled_dot_product_attention(*bb))
+
+    out = {}
+    for what, (fn, sdpa) in cases.items():
+        r = {"other": [], "this": [], "sdpa": []}
+        for turn in ("other", "this", "this", "other"):
+            with bound(turn):
+                r[turn].append(_time_ms(torch, fn))
+            r["sdpa"].append(_time_ms(torch, sdpa))
+        out[what] = r
+        print(f"--against {what} fp32: other {r['other'][0]:.3f}, {r['other'][1]:.3f} / this {r['this'][0]:.3f}, "
+              f"{r['this'][1]:.3f} ms; SDPA {', '.join(f'{t:.3f}' for t in r['sdpa'])} ms; {card}")
+    del cases, qkv, sec, qkv5, sec5, q3, q6, hm, bb
+    torch.cuda.empty_cache()
+    r = {"other": [], "this": []}
+    for turn in ("other", "this", "this", "other"):
+        with bound(turn):
+            r[turn].append(_time_ms(torch, parity_step, reps=5))
+    out["parity predict step"] = r
+    print(f"--against parity predict step (518 px, K={K}, B={B}): other {r['other'][0]:.2f}, {r['other'][1]:.2f} / "
+          f"this {r['this'][0]:.2f}, {r['this'][1]:.2f} ms; {card}")
+    return out
 
 
 def _twice(fn, *args):
@@ -3529,6 +3777,21 @@ def _vitl_phases(torch, dev, card: str, peaks, zero_launches, read_launches) -> 
         bad.append("(a) K1 past 2^31 elements")
     del qkv, big, alone
     torch.cuda.empty_cache()
+    # the same in fp32 (9.2 GB of qkv, ~12 GB of the pre-pass's stages): the
+    # 3xTF32 body and its pre-pass past 2^31 elements; a generator of its own
+    # keeps the later draws what they were
+    qkv = torch.randn(views, n_tok, 3 * 1024, generator=torch.Generator(device=dev).manual_seed(SEED + 11),
+                      device=dev)
+    big = flash_qkv_self_attention(qkv, 16)
+    alone = flash_qkv_self_attention(qkv[-2:].contiguous(), 16)
+    same = all(torch.equal(a[-2:], b_) for a, b_ in zip(big, alone))
+    out["k1_fp32_past_2_31"] = {"elements": qkv.numel(), "last_views_bit_equal": same}
+    print(f"step 19 (a) K1 at qkv ({views}, {n_tok}, 3072) fp32, {qkv.numel()} elements: the last 2 views bit-equal "
+          f"to the same views launched alone: {same}")
+    if not same:
+        bad.append("(a) K1 fp32 past 2^31 elements")
+    del qkv, big, alone
+    torch.cuda.empty_cache()
 
     # --- (b) dinov2-large at 1036 px: forward and train steps -----------------
     cfg, mcfg, model = stress_vitl.build("dinov2-large", [], dev, SEED)
@@ -3747,7 +4010,8 @@ def _hd8_phases(torch, F, dev, peaks, zero_launches, read_launches) -> dict:
                 rows[kern] = dict(err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], bit_equal=same,
                                   max_abs=_max_abs(got[0], want[0]), ms=_time_ms(torch, fn),
                                   plain_ms=_time_ms(torch, plain, reps=3), library_ms=_time_ms(torch, lib),
-                                  **_bound(4.0 * n_exp * hd, fwd_bytes, peak, peak_bw, n_exp, peak_ex2))
+                                  **_fwd_bound(tname, 4.0 * n_exp * hd, fwd_bytes, n_exp, peaks,
+                                               _tf32_peak(torch.cuda.get_device_name(0))))
                 if not same or err > TOL[tname] or l2 > TOL_L2[tname]:
                     bad.append(f"{kern} hd 8 {sname} {tname}: err {err:.3e}, l2 {l2:.3e}, same bits {same}")
             o, l, m = fa.flash_cross_attention(q, k, v, h)
@@ -4982,7 +5246,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (steps 1-3), printing no result lines")
-    kernels_only = ap.parse_args().kernels_only
+    ap.add_argument("--against", type=Path, default=None,
+                    help="another checkout's root (the parent commit unpacked): its fp32 attention forward timed in "
+                         "turns with this tree's after step 4")
+    cli_args = ap.parse_args()
+    kernels_only = cli_args.kernels_only
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5023,6 +5291,7 @@ def main() -> int:
     print(f"name, power limit, max SM clock: {card_line('clocks.max.sm')}")
     name = torch.cuda.get_device_name(0)
     peak_row, (peak_bf16, peak_f32, peak_bw, peak_ex2) = _peaks(name)
+    peaks, peak_tf32 = (peak_bf16, peak_f32, peak_bw, peak_ex2), _tf32_peak(name)
     print(f"peaks used for bounds: {peak_row} row: {peak_bf16 / 1e12:g} TFLOP/s bf16, "
           f"{peak_f32 / 1e12:g} TFLOP/s fp32, {peak_bw / 1e12:g} TB/s, {peak_ex2 / 1e12:g} T exp2/s")
 
@@ -5068,19 +5337,25 @@ def main() -> int:
         peak = peak_bf16 if dtype == torch.bfloat16 else peak_f32
 
         qkv = randn(views, n, 3 * d, dtype=dtype)
-        got = flash_qkv_self_attention(qkv, h)
+        got, same = _twice(flash_qkv_self_attention, qkv, h)
         want = flash_qkv_self_attention_plain(qkv, h)
         err, l2 = _masked_errs([(got, want)])
         ops = 4.0 * views * h * n * n * hd
         nbytes = views * n * (3 * d + d) * es + 2 * views * h * n * 4
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*(qkv.view(views, n, 3, h, hd)[:, :, i].transpose(1, 2)
+                                                    for i in range(3)))
+
         report[("K1", tname)] = dict(
-            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], max_abs=_max_abs(got[0], want[0]),
+            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], bit_equal=same, max_abs=_max_abs(got[0], want[0]),
             ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
             plain_ms=_time_ms(torch, lambda: flash_qkv_self_attention_plain(qkv, h), reps=3),
-            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                *(qkv.view(views, n, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)))),
-            **_bound(ops, nbytes, peak, peak_bw, views * h * n * n, peak_ex2),
+            library_ms=_time_ms(torch, sdpa),
+            **_fwd_bound(tname, ops, nbytes, views * h * n * n, peaks, peak_tf32),
         )
+        if dtype == torch.float32:  # the 3xTF32 route taken apart; the library call's kernels
+            report[("K1", tname)].update(_f32_prepass(torch, qkv, h), sdpa_kernels=_kernel_names(torch, sdpa))
         del qkv, got, want
 
         x = randn(views, n, d, dtype=dtype)
@@ -5112,21 +5387,24 @@ def main() -> int:
         q = randn(B, nq, d, dtype=dtype)
         for tag, nk in (("K3", K * nq), ("K3self", nq)):  # cross, then self
             k_, v_ = randn(B, nk, d, dtype=dtype), randn(B, nk, d, dtype=dtype)
-            got = flash_cross_attention(q, k_, v_, dec_h)
+            got, same = _twice(flash_cross_attention, q, k_, v_, dec_h)
             want = flash_cross_attention_plain(q, k_, v_, dec_h)
             err, l2 = _masked_errs([(got, want)])
             dhd = d // dec_h
             ops = 4.0 * B * dec_h * nq * nk * dhd
             nbytes = B * (2 * nq + 2 * nk) * d * es + 2 * B * dec_h * nq * 4
             heads = lambda t: t.view(B, -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
+            sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k_), heads(v_))  # noqa: E731
             report[(tag, tname)] = dict(
-                err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], max_abs=_max_abs(got[0], want[0]),
+                err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], bit_equal=same,
+                max_abs=_max_abs(got[0], want[0]),
                 ms=_time_ms(torch, lambda: flash_cross_attention(q, k_, v_, dec_h)),
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_plain(q, k_, v_, dec_h), reps=3),
-                library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    heads(q), heads(k_), heads(v_))),
-                **_bound(ops, nbytes, peak, peak_bw, B * dec_h * nq * nk, peak_ex2),
+                library_ms=_time_ms(torch, sdpa),
+                **_fwd_bound(tname, ops, nbytes, B * dec_h * nq * nk, peaks, peak_tf32),
             )
+            if dtype == torch.float32:
+                report[(tag, tname)]["sdpa_kernels"] = _kernel_names(torch, sdpa)
             del k_, v_, got, want
         del q
 
@@ -5170,7 +5448,7 @@ def main() -> int:
         item_bias = _token_bias(torch, [VALID_GRIDS[i % 2] for i in range(PB)], dev)  # (PB, nb)
         qkv = randn(PB, nb + 1, 3 * d, dtype=dtype)
         bias5 = torch.cat([torch.zeros(PB, 1, device=dev), item_bias], 1).contiguous()  # CLS valid
-        got = flash_qkv_self_attention_masked(qkv, bias5, h)
+        got, same = _twice(flash_qkv_self_attention_masked, qkv, bias5, h)
         want = flash_qkv_self_attention_masked_plain(qkv, bias5, h)
         err, l2 = _masked_errs([(got, want), (
             flash_qkv_self_attention_masked(qkv, bias5[1].contiguous(), h),
@@ -5179,23 +5457,28 @@ def main() -> int:
         ops = 4.0 * h * (nb + 1) * valid_cols * hd  # masked columns need no work
         nbytes = PB * (nb + 1) * (3 * d + d) * es + 2 * PB * h * (nb + 1) * 4 + bias5.numel() * 4
         mask = bias5[:, None, None, :].to(dtype)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*(qkv.view(PB, nb + 1, 3, h, hd)[:, :, i].transpose(1, 2)
+                                                    for i in range(3)), attn_mask=mask)
+
         report[("K5", tname)] = dict(
-            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], max_abs=_max_abs(got[0], want[0]),
+            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], bit_equal=same, max_abs=_max_abs(got[0], want[0]),
             ms=_time_ms(torch, lambda: flash_qkv_self_attention_masked(qkv, bias5, h)),
             # K1 on the same qkv: what the bias costs at equal shape
             k1_ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
             plain_ms=_time_ms(torch, lambda: flash_qkv_self_attention_masked_plain(qkv, bias5, h), reps=3),
-            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                *(qkv.view(PB, nb + 1, 3, h, hd)[:, :, i].transpose(1, 2) for i in range(3)),
-                attn_mask=mask)),
-            **_bound(ops, nbytes, peak, peak_bw, h * (nb + 1) * valid_cols, peak_ex2),
+            library_ms=_time_ms(torch, sdpa),
+            **_fwd_bound(tname, ops, nbytes, h * (nb + 1) * valid_cols, peaks, peak_tf32),
         )
+        if dtype == torch.float32:
+            report[("K5", tname)]["sdpa_kernels"] = _kernel_names(torch, sdpa)
         del qkv, got, want, mask
         q = randn(PB, nb, d, dtype=dtype)
         for tag, reps_ in (("K6", PK), ("K6self", 1)):  # cross over K views, then self
             k_, v_ = randn(PB, reps_ * nb, d, dtype=dtype), randn(PB, reps_ * nb, d, dtype=dtype)
             bias6 = item_bias.repeat(1, reps_).contiguous()
-            got = flash_cross_attention_masked(q, k_, v_, bias6, dec_h)
+            got, same = _twice(flash_cross_attention_masked, q, k_, v_, bias6, dec_h)
             want = flash_cross_attention_masked_plain(q, k_, v_, bias6, dec_h)
             err, l2 = _masked_errs([(got, want), (
                 flash_cross_attention_masked(q, k_, v_, bias6[1].contiguous(), dec_h),
@@ -5206,15 +5489,18 @@ def main() -> int:
             nbytes = PB * (2 * nb + 2 * reps_ * nb) * d * es + 2 * PB * dec_h * nb * 4 + bias6.numel() * 4
             heads = lambda t: t.view(PB, -1, dec_h, dhd).transpose(1, 2)  # noqa: E731
             mask = bias6[:, None, None, :].to(dtype)
+            sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k_), heads(v_), attn_mask=mask)  # noqa: E731
             report[(tag, tname)] = dict(
-                err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], max_abs=_max_abs(got[0], want[0]),
+                err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], bit_equal=same,
+                max_abs=_max_abs(got[0], want[0]),
                 ms=_time_ms(torch, lambda: flash_cross_attention_masked(q, k_, v_, bias6, dec_h)),
                 plain_ms=_time_ms(torch, lambda: flash_cross_attention_masked_plain(q, k_, v_, bias6, dec_h),
                                   reps=3),
-                library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    heads(q), heads(k_), heads(v_), attn_mask=mask)),
-                **_bound(ops, nbytes, peak, peak_bw, exps, peak_ex2),
+                library_ms=_time_ms(torch, sdpa),
+                **_fwd_bound(tname, ops, nbytes, exps, peaks, peak_tf32),
             )
+            if dtype == torch.float32:
+                report[(tag, tname)]["sdpa_kernels"] = _kernel_names(torch, sdpa)
             del k_, v_, got, want, mask
         del q, item_bias, bias5, bias6
         torch.cuda.empty_cache()
@@ -5225,17 +5511,18 @@ def main() -> int:
         # hd) tensors and on head-major hm of token-major projections
         dhd = d // dec_h
         k7_bias = _shared_bias(torch, VP_NK[0], dev)
-        errs, l2s = [], []
+        errs, l2s, same = [], [], True
         for nk in VP_NK:
             xq, xk, xv = randn(B, nq, d, dtype=dtype), randn(B, nk, d, dtype=dtype), randn(B, nk, d, dtype=dtype)
             hm = [t.view(B, -1, dec_h, dhd).transpose(1, 2) for t in (xq, xk, xv)]
             for layout in (hm, [t.contiguous() for t in hm]):
                 for bias in (None, k7_bias[:nk].contiguous()):
-                    got = flash_attention_head_major(*layout, bias)
+                    got, same_ = _twice(flash_attention_head_major, *layout, bias)
                     want = flash_attention_head_major_plain(*layout, bias)
                     err, l2 = _masked_errs([(got, want)])
                     errs.append(err)
                     l2s.append(l2)
+                    same = same and same_
             del got, want
             if nk == VP_NK[0]:  # time the main path's form: hm, no bias
                 ops = 4.0 * B * dec_h * nq * nk * dhd
@@ -5246,12 +5533,15 @@ def main() -> int:
                     ms=_time_ms(torch, lambda: flash_attention_head_major(*hm)),
                     plain_ms=_time_ms(torch, lambda: flash_attention_head_major_plain(*hm), reps=3),
                     library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(*hm)),
-                    **_bound(ops, nbytes, peak, peak_bw, B * dec_h * nq * nk, peak_ex2),
+                    **_fwd_bound(tname, ops, nbytes, B * dec_h * nq * nk, peaks, peak_tf32),
                     # K3 on the token-major tensors the hm read: the same work
                     k3_ms=_time_ms(torch, lambda: flash_cross_attention(xq, xk, xv, dec_h)),
                 )
+                if dtype == torch.float32:
+                    k7["sdpa_kernels"] = _kernel_names(torch, lambda: F.scaled_dot_product_attention(*hm))
             del xq, xk, xv, hm, layout
-        report[("K7", tname)] = dict(err=max(errs), tol=TOL[tname], l2=max(l2s), tol_l2=TOL_L2[tname], **k7)
+        report[("K7", tname)] = dict(err=max(errs), tol=TOL[tname], l2=max(l2s), tol_l2=TOL_L2[tname], bit_equal=same,
+                                     **k7)
         if dtype == torch.bfloat16:  # K7 and K3 at the 1-rank K=8 length, timed only
             nk = K * nq
             xq, xk, xv = randn(B, nq, d, dtype=dtype), randn(B, nk, d, dtype=dtype), randn(B, nk, d, dtype=dtype)
@@ -5272,23 +5562,24 @@ def main() -> int:
         g_bb = torch.Generator(device=dev).manual_seed(SEED + 1)  # its own stream: later draws stay as they were
         xq, xk, xv = (torch.randn(bv, n, d, generator=g_bb, device=dev).to(dtype) for _ in range(3))
         hm = [t.view(bv, n, h, hd).transpose(1, 2) for t in (xq, xk, xv)]
-        err, l2 = _masked_errs([(flash_attention_head_major(*layout), flash_attention_head_major_plain(*layout))
-                                for layout in (hm, [t.contiguous() for t in hm])])
+        runs = [(_twice(flash_attention_head_major, *layout), flash_attention_head_major_plain(*layout))
+                for layout in (hm, [t.contiguous() for t in hm])]
+        err, l2 = _masked_errs([(got, want) for (got, _), want in runs])
         ops = 4.0 * bv * h * n * n * hd
         nbytes = 4 * bv * n * d * es + 2 * bv * h * n * 4
         qkv = torch.cat([xq, xk, xv], -1)
         report[("K7 backbone", tname)] = dict(
-            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname],
+            err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname], bit_equal=all(same for (_, same), _ in runs),
             max_abs=max(_max_abs(g, w) for g, w in zip(flash_attention_head_major(*hm),
                                                        flash_attention_head_major_plain(*hm))),
             ms=_time_ms(torch, lambda: flash_attention_head_major(*hm)),
             plain_ms=_time_ms(torch, lambda: flash_attention_head_major_plain(*hm), reps=3),
             library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(*hm)),
-            **_bound(ops, nbytes, peak, peak_bw, bv * h * n * n, peak_ex2),
+            **_fwd_bound(tname, ops, nbytes, bv * h * n * n, peaks, peak_tf32),
             # K1 on the fused qkv of the same projections: the flash route's form
             k1_ms=_time_ms(torch, lambda: flash_qkv_self_attention(qkv, h)),
         )
-        del xq, xk, xv, hm, qkv
+        del xq, xk, xv, hm, qkv, runs
         torch.cuda.empty_cache()
 
         # K8/K9 at the main-path shapes (K89_SHAPES): on head-major views of
@@ -5359,6 +5650,13 @@ def main() -> int:
             report[(f"K7 hd{hdim}", tname)] = fwd_entry(
                 [(_twice(flash_attention_head_major, *layout), flash_attention_head_major_plain(*layout))
                  for layout in (hm, [t.contiguous() for t in hm])], tname)
+            if dtype == torch.float32:  # the fp32 pre-pass's stages, bit for bit, on the views
+                from crossscore_tpu_torch.ops import flash_attention as fa_
+
+                lib_ = _build.load("flash_cross")
+                same = torch.equal(fa_.f32_split_kv(lib_, hm[1], hm[2]).view(torch.int32), fa_.f32_kv_tiles_plain(
+                    hm[1], hm[2], fa_.f32_plan(lib_, hdim)["block_k"]).view(torch.int32))
+                report[(f"fp32 pre-pass hd{hdim}", tname)] = dict(err=0.0 if same else 1.0, tol=0.0, bit_equal=same)
         # ragged and tiny shapes, where the bf16 forward's TMA boxes run past Nq
         # or Nk and read zeros: K3, K6 and K7 (views and contiguous, without
         # and with a shared bias) at Nq 1, 63, 65 over Nk 1, 65, 2049, and K1
@@ -5489,17 +5787,16 @@ def main() -> int:
         for heads_, hdim in ((4, 16), (12, 64)):  # K5: dinov2-test, base/large backbones
             qkv = randn(2, 301, 3 * heads_ * hdim, dtype=dtype)
             bias = _token_bias(torch, [(10, 30), (15, 17)], dev, grid=(15, 20), cls=True)
-            err, l2 = _masked_errs([(flash_qkv_self_attention_masked(qkv, b_, heads_),
-                                     flash_qkv_self_attention_masked_plain(qkv, b_, heads_))
-                                    for b_ in (bias, bias[1].contiguous())])
-            report[(f"K5 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname])
+            report[(f"K5 hd{hdim}", tname)] = fwd_entry(
+                [(_twice(flash_qkv_self_attention_masked, qkv, b_, heads_),
+                  flash_qkv_self_attention_masked_plain(qkv, b_, heads_)) for b_ in (bias, bias[1].contiguous())], tname)
         for heads_, hdim in ((8, 64), (8, 96), (8, 128)):  # K6: other decoders' head dims
             q, k_ = randn(2, 300, heads_ * hdim, dtype=dtype), randn(2, 600, heads_ * hdim, dtype=dtype)
             bias = _token_bias(torch, [(10, 20), (15, 17)], dev, grid=(15, 20)).repeat(1, 2).contiguous()
-            err, l2 = _masked_errs([(flash_cross_attention_masked(q, k_, k_, b_, heads_),
-                                     flash_cross_attention_masked_plain(q, k_, k_, b_, heads_))
-                                    for b_ in (bias, bias[1].contiguous())])
-            report[(f"K6 hd{hdim}", tname)] = dict(err=err, tol=TOL[tname], l2=l2, tol_l2=TOL_L2[tname])
+            report[(f"K6 hd{hdim}", tname)] = fwd_entry(
+                [(_twice(flash_cross_attention_masked, q, k_, k_, b_, heads_),
+                  flash_cross_attention_masked_plain(q, k_, k_, b_, heads_)) for b_ in (bias, bias[1].contiguous())],
+                tname)
 
     # the token cache's encode shape (tasks.encode_tokens and the token_fast
     # loader's misses): chunks of ref_token_cache_encode_batch whole images of
@@ -5532,7 +5829,8 @@ def main() -> int:
 
     bad = []
     for (kern, tname), r in report.items():
-        ok = r["err"] <= r["tol"] and r.get("l2", 0.0) <= r.get("tol_l2", 0.0) and r.get("bit_equal", True)
+        ok = (r["err"] <= r["tol"] and r.get("l2", 0.0) <= r.get("tol_l2", 0.0) and r.get("bit_equal", True)
+              and r.get("prepass_bit_equal", True) and r.get("planted_caught", True))
         line = f"{kern:7s} {tname:8s} err {r['err']:.3e} (tol {r['tol']:.1e})"
         if "bit_equal" in r:
             line += f" rerun bit-equal {r['bit_equal']}"
@@ -5557,6 +5855,13 @@ def main() -> int:
         if "ms_nk10952" in r:
             line += (f"; at Nk 10952: kernel {r['ms_nk10952']:.3f} ms, K3 {r['k3_ms_nk10952']:.3f} ms, "
                      f"bound {r['bound_ms_nk10952']:.3f} ms")
+        if "cuda_core_bound_ms" in r:
+            line += f"; CUDA-core floor {r['cuda_core_bound_ms']:.3f} ms"
+        if "prepass_bit_equal" in r:
+            line += (f"; pre-pass bit-equal {r['prepass_bit_equal']}, K/V lo zeroed: rel L2 {r['planted_lo_zero_l2']:.3e}"
+                     f" caught {r['planted_caught']}")
+        if "sdpa_kernels" in r:
+            line += f"; SDPA ran {r['sdpa_kernels']}"
         print(f"{line} {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append(f"{kern} {tname}")
@@ -5603,6 +5908,26 @@ def main() -> int:
     print(f"predict step: {step_ms:.2f} ms per batch of {B} maps = {1e3 * B / step_ms:.2f} maps/s "
           f"(518 px, K={K}, bf16, median of 5 after warm-up); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the parity preset (model.gpu.parity=true: fp32 compute, K2's exact
+    # GELU) at the same point: K1 and K3 on the fp32 forward's 3xTF32 body
+    pnet = load_into(CrossScoreNet(CrossScoreConfig(parity=True), device=dev), params)
+    pstep = make_predict_step(pnet)
+    zero_launches()
+    pscore = pstep(query, refs)["score_map_ref_cross"]
+    torch.cuda.synchronize()
+    plaunches = read_launches()
+    if plaunches != want or tuple(pscore.shape) != (B, HW, HW) or not bool(torch.isfinite(pscore).all()) \
+            or float(pscore.min()) < 0.0 or float(pscore.max()) > 1.0:
+        _fail(f"parity predict step: launches {plaunches} (expected {want}) or its score map "
+              f"{tuple(pscore.shape)} is not finite in [0, 1]")
+    parity = {"ms": _time_ms(torch, lambda: pstep(query, refs), reps=5), "launches": plaunches}
+    print(f"parity predict step (model.gpu.parity=true: fp32, fused_exact; 518 px, K={K}, B={B}): "
+          f"{parity['ms']:.2f} ms per batch (median of 5), launches {plaunches}; {card}")
+    if cli_args.against is not None:
+        parity["against"] = _f32_against(torch, F, dev, cli_args.against, lambda: pstep(query, refs), card)
+    del pnet, pstep, pscore
+    torch.cuda.empty_cache()
 
     _lap(t_start, 4)
     # --- 5. the same net at B=1, kernels vs all-plain, bf16 and fp32 ----------
@@ -6352,7 +6677,8 @@ def main() -> int:
               **{kern: "q/o/do ({0}, {1}, {2}, {4}), k/v ({0}, {1}, {3}, {4}) bf16 head-major views".format(
                   *K89_SHAPES[kern][:5]) for kern in ("K8", "K9")}}
     stats = ("err", "tol", "l2", "tol_l2", "max_abs", "ms", "plain_ms", "library_ms", "bound_ms", "bound_floor",
-             "k1_ms", "k3_ms", "k4_ms", "unfused_ms")
+             "k1_ms", "k3_ms", "k4_ms", "unfused_ms", "bit_equal", "cuda_core_bound_ms", "sdpa_kernels",
+             "prepass_bit_equal", "planted_lo_zero_l2")
     kernels = []
     for kern, (fn, src, replaces) in sources.items():
         r, r32 = report[(kern, "bfloat16")], report[(kern, "float32")]
@@ -6501,6 +6827,7 @@ def main() -> int:
                       | {"planted_scale": int8["kernels"]["planted_scale"]},
                       "tp_int8": {k: v for k, v in tpi.items() if k not in ("kernels", "hd128")}
                       | {"hd128_launches": tpi["hd128"]["launches"]},
+                      "parity_predict": parity,
                       "eval_cli": ev | {"modes": {tag: {k: ({n: c for n, c in v.items() if c} if k == "launches" else v)
                                                         for k, v in r.items()} for tag, r in ev["modes"].items()}},
                       "seconds": seconds}))

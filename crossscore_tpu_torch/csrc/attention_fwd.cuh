@@ -91,8 +91,9 @@
 //   after the wait for Q K^T, ahead of the exponentials, whatever the source
 //   order (PERF.md), so within a warpgroup the softmax follows both of its
 //   products; the overlap is between the warpgroups.
-// fp32 inputs take a CUDA-core path in full fp32 (the tensor cores' fp32
-// route is TF32), unchanged.
+// fp32 inputs take their own body on the tensor cores in 3xTF32 (three TF32
+// products a product, fp32-level error; attention_fwd_f32.cuh), which shares
+// AttnArgs, the ring's turns and tile_softmax with this one.
 #pragma once
 
 #include "common.cuh"
@@ -101,10 +102,6 @@
 #include "wgmma.cuh"
 
 namespace cs {
-
-constexpr int BQ = 64;  // q rows per block of the fp32 path (two threads per row)
-constexpr int BK = 64;  // KV rows per tile of the fp32 path
-constexpr int ATTN_THREADS = 128;
 
 struct AttnArgs {
   const void* q;
@@ -127,6 +124,7 @@ struct AttnArgs {
   float* part_o = nullptr;
   float* part_l = nullptr;
   float* part_m = nullptr;
+  const void* kv_tiles = nullptr;  // fp32: the pre-pass's split K / V stages (attention_fwd_f32.cuh)
 };
 
 // the score-epilogue modes of attn_fwd_wgmma (see the top of this file)
@@ -518,89 +516,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-template <int HD>
-struct F32Layout {
-  static constexpr int LD = HD + 4;
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = align128(BK * LD * 4);
-  static constexpr size_t s_off = align128(v_off + BK * LD * 4);
-  static constexpr size_t total = align128(s_off + BQ * (BK + 1) * 4);
-};
-
-// fp32: CUDA cores only. Two threads per q row, each holding half of the
-// row's q and o in registers; K/V tiles and the row's scores in shared memory.
-template <int HD, bool BIAS>
-__global__ void __launch_bounds__(ATTN_THREADS) attn_fwd_f32(AttnArgs a) {
-  using L = F32Layout<HD>;
-  constexpr int HH = HD / 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sK = reinterpret_cast<float*>(smem + L::k_off);
-  float* sV = reinterpret_cast<float*>(smem + L::v_off);
-  const int tid = threadIdx.x, row = tid >> 1, half = tid & 1;
-  float* srow = reinterpret_cast<float*>(smem + L::s_off) + row * (BK + 1);
-  const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
-  const float* Q = static_cast<const float*>(a.q) + b * a.q_bs + head * a.q_hs;
-  const float* K = static_cast<const float*>(a.k) + b * a.k_bs + head * a.k_hs;
-  const float* V = static_cast<const float*>(a.v) + b * a.v_bs + head * a.v_hs;
-  const float* bias = BIAS ? a.bias + b * a.bias_bs : nullptr;
-
-  const int qrow = q0 + row;
-  float q[HH], o[HH];
-#pragma unroll
-  for (int d = 0; d < HH; ++d) {
-    q[d] = qrow < a.nq ? Q[qrow * a.q_rs + half * HH + d] : 0.f;
-    o[d] = 0.f;
-  }
-  float m_run = -INFINITY, l_run = 0.f;
-
-  for (int k0 = 0; k0 < a.nk; k0 += BK) {
-    __syncthreads();
-    load_rows<BK, HD>(sK, L::LD, K, a.k_rs, k0, a.nk, tid, ATTN_THREADS);
-    load_rows<BK, HD>(sV, L::LD, V, a.v_rs, k0, a.nk, tid, ATTN_THREADS);
-    __syncthreads();
-    const int kvalid = min(BK, a.nk - k0);
-    float mx = -INFINITY;
-    for (int j = 0; j < kvalid; ++j) {
-      const float* kr = sK + j * L::LD + half * HH;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < HH; ++d) s = fmaf(q[d], kr[d], s);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      const float t = BIAS ? fmaf(s, a.c1, __ldg(bias + k0 + j) * kLog2e) : s * a.c1;
-      if (half == 0) srow[j] = t;
-      mx = fmaxf(mx, t);
-    }
-    __syncwarp();
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = exp2f(m_run - m_new);
-#pragma unroll
-    for (int d = 0; d < HH; ++d) o[d] *= alpha;
-    float sum = 0.f;
-    for (int j = 0; j < kvalid; ++j) {
-      const float p = exp2f(srow[j] - m_new);
-      sum += p;
-      const float* vr = sV + j * L::LD + half * HH;
-#pragma unroll
-      for (int d = 0; d < HH; ++d) o[d] = fmaf(p, vr[d], o[d]);
-    }
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    __syncwarp();
-  }
-
-  if (qrow < a.nq) {
-    const float inv = l_run == 0.f ? 1.f : 1.f / l_run;
-    float* out = static_cast<float*>(a.o) + b * a.o_bs + qrow * a.o_rs + head * a.o_hs + half * HH;
-#pragma unroll
-    for (int d = 0; d < HH; ++d) out[d] = o[d] * inv;
-    if (half == 0) {
-      const long long i = ((long long)b * a.h + head) * a.nq + qrow;
-      a.l[i] = l_run;
-      a.m[i] = m_run * (1.f / kLog2e);
-    }
-  }
-}
-
 // The bf16 kernel at head dim HD: one tensor map per operand (Q in boxes of
 // the block's 128 rows, K and V in boxes of a KV tile), then the launch;
 // kPartial's grid takes `nchunks` q-tile rows. A map takes at least one row,
@@ -623,16 +538,12 @@ int launch_fwd_wgmma(const AttnArgs& a, int batch, int nchunks, cudaStream_t st)
   return (int)cudaGetLastError();
 }
 
+// bf16 only: fp32 takes the entries of attention_fwd_f32.cuh, which need the
+// wrapper's scratch for the split K / V
 template <int HD, bool BIAS>
 int launch_attention_hd(const AttnArgs& a, int batch, int dtype, cudaStream_t st) {
-  if (dtype == kBFloat16) return launch_fwd_wgmma<HD, BIAS, kExact>(a, batch, 1, st);
-  const dim3 grid((a.nq + BQ - 1) / BQ, a.h, batch);
-  const int bytes = (int)F32Layout<HD>::total;
-  const cudaError_t err =
-      cudaFuncSetAttribute(attn_fwd_f32<HD, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  attn_fwd_f32<HD, BIAS><<<grid, ATTN_THREADS, bytes, st>>>(a);
-  return (int)cudaGetLastError();
+  if (dtype != kBFloat16) return (int)cudaErrorInvalidValue;
+  return launch_fwd_wgmma<HD, BIAS, kExact>(a, batch, 1, st);
 }
 
 // A timing mode (bf16, no bias) at head dims 48 and 64, the two shapes of

@@ -38,9 +38,14 @@
 // costs nothing over a contiguous tensor: its tensor map takes the view's
 // head and row strides, and TMA reads each box of hd-wide rows either way.
 //
+// The entries below take bf16; fp32 operands go through the 3xTF32 body's
+// entries (cs_attention_f32_*, attention_fwd_f32.cuh), which this library
+// holds too, at the same strides.
+//
 // K7's timing modes (K7') are in attention_modes.cu.
 
 #include "attention_fwd.cuh"
+#include "attention_fwd_f32.cuh"
 
 namespace {
 

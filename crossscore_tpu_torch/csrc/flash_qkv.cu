@@ -22,9 +22,15 @@
 // still computed (bucket padding is 15-25% of the columns at the bucketed
 // predict shapes), which a later version could skip per tile.
 //
+// The entries below take bf16; fp32 operands go through the 3xTF32 body's
+// entries (cs_attention_f32_*, attention_fwd_f32.cuh), which this library
+// holds too: a pre-pass splits K and V into the wrapper's scratch, then the
+// body reads q at the fused projection's strides.
+//
 // K1's timing modes (K11) are in attention_modes.cu.
 
 #include "attention_fwd.cuh"
+#include "attention_fwd_f32.cuh"
 
 extern "C" int cs_flash_qkv_self_attention(const void* qkv, void* o, void* l, void* m,
                                            int batch, int n, int heads, int hd,

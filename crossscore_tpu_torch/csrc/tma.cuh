@@ -1,11 +1,11 @@
-// Hopper asynchronous copies (sm_90a): TMA tile loads into shared memory
-// that complete on an mbarrier (one block's, or multicast to the blocks of a
-// thread-block cluster), TMA tile stores, the mbarrier operations of a
-// producer / consumer ring (arrivals on a cluster partner's barriers too),
-// register rebalancing between warpgroups (setmaxnreg), the block shape that
-// the attention kernels share (a producer warpgroup and two consumer
-// warpgroups), and the host side: a 4-D tensor map of one bf16 operand and
-// a 2-D map of a row-major matrix of any element type.
+// Hopper asynchronous copies (sm_90a): TMA tile loads and plain bulk copies
+// into shared memory that complete on an mbarrier (one block's, or multicast
+// to the blocks of a thread-block cluster), TMA tile stores, the mbarrier
+// operations of a producer / consumer ring (arrivals on a cluster partner's
+// barriers too), register rebalancing between warpgroups (setmaxnreg), the
+// block shape that the attention kernels share (a producer warpgroup and two
+// consumer warpgroups), and the host side: a 4-D tensor map of one bf16
+// operand and a 2-D map of a row-major matrix of any element type.
 //
 // The driver's cuTensorMapEncodeTiled is resolved at run time through the
 // runtime's driver entry point, so a library that includes this header
@@ -50,6 +50,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// `bytes` (a multiple of 16) of device memory at `src` into shared memory at
+// `dst` (both 16-byte aligned) as one bulk copy, completing them on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
 }
 
 // one box of a 4-D tensor map at coordinates (c0 innermost .. c3) into

@@ -26,6 +26,13 @@ K7'), ``csrc/flash_cross_bwd.cu`` (K4, K8, K9)) or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. Each wrapper counts its kernel launches in ``.launches`` (K11 and
 K7' also per mode, in ``.launches_by_mode``).
 
+fp32 operands take the 3xTF32 body on the tensor cores
+(``csrc/attention_fwd_f32.cuh``, in the K1/K5 and K3/K6/K7 libraries): a
+pre-pass splits k and v into TF32 (hi, lo) pairs in the body's tile layout
+(:func:`f32_kv_tiles_plain` is its plain version) in a scratch the wrapper
+allocates, then the body runs every product as three TF32 products
+(:func:`tf32_split`). A wrapper call counts one launch for the two kernels.
+
 The kernels take head dims that are multiples of 16 up to 128. The
 decoder's wrappers (K3, K4, K6, K7, K8/K9) also take hd 8, the decoder's at
 the ``dinov2-test`` preset (width 64, 8 heads), through
@@ -135,6 +142,122 @@ def _bias_args(what: str, kv_bias, device) -> tuple[list, tuple]:
     return [_P, ctypes.c_longlong], (kv_bias.data_ptr(), kv_bias.shape[-1] if kv_bias.ndim == 2 else 0)
 
 
+# --- fp32: the 3xTF32 body's split and tiles ---------------------------------
+
+TF32_DROPPED = 13  # mantissa bits a TF32 container drops of fp32's 23
+# the key (0-7 of a k8 step) that the body's P registers take at column c
+# (``tf32_pair_key``): columns q and q + 4 come from the accumulator pair 2q, 2q + 1
+TF32_PAIR_KEYS = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), nearest with ties away from
+    zero, by integer operations on the bits, as ``cvt.rna.tf32.f32`` rounds:
+    half the dropped bits' range added to the magnitude, then those bits
+    cleared (a finite value past the largest TF32 one becomes inf). Non-finite
+    values are returned as they are."""
+    bits = x.contiguous().view(torch.int32)
+    half, keep = 1 << (TF32_DROPPED - 1), ~((1 << TF32_DROPPED) - 1)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    return torch.where(finite, (bits + half) & keep, bits).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (fp32) -> (hi, lo), the 3xTF32 body's split: hi = rna_tf32(x), lo =
+    rna_tf32(x - hi), each with at most 10 mantissa bits, and x - hi - lo
+    within 2^-22 |x|; lo = 0 where hi is not finite. Bit for bit what the
+    body computes (``tf32_split`` in ``csrc/attention_fwd_f32.cuh``)."""
+    x = x.float()
+    hi = _tf32_rna(x)
+    return hi, torch.where(torch.isfinite(hi), _tf32_rna(x - hi), torch.zeros_like(x))
+
+
+def _swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """Rows of 32 fp32 values (128 bytes) laid out as a 128-byte swizzled
+    shared-memory tile: the 16-byte chunk c of row r holds the row's chunk
+    c ^ (r % 8)."""
+    rows = t.shape[-2]
+    r = torch.arange(rows, device=t.device)[:, None]
+    c = torch.arange(32, device=t.device)[None, :]
+    idx = (((c // 4) ^ (r % 8)) * 4 + c % 4).expand(t.shape)
+    return torch.gather(t, -1, idx)
+
+
+def f32_kv_tiles_plain(k: torch.Tensor, v: torch.Tensor, block_k: int) -> torch.Tensor:
+    """Plain version of the fp32 pre-pass: k, v (B, H, Nk, hd) -> (B, H,
+    ceil(Nk / block_k), tile floats), each KV tile one stage of the body's
+    ring: [K hi | K lo | Vt hi | Vt lo]. K's rows are hd padded to 32-column
+    blocks, stored as [blocks][block_k rows][32]; Vt is V transposed, block_k
+    / 32 blocks of [hd rows][32 keys], the keys of each 8 in the order
+    ``TF32_PAIR_KEYS``; every 32-value row 128-byte swizzled, rows past Nk
+    and the padding zero."""
+    b, h, nk, hd = k.shape
+    cb, nt = -(-hd // 32), -(-nk // block_k)
+    pad = nt * block_k - nk
+    kp = F.pad(k.float(), (0, 32 * cb - hd, 0, pad)).reshape(b, h, nt, block_k, cb, 32).transpose(3, 4)
+    order = torch.tensor([8 * (p // 8) + TF32_PAIR_KEYS[p % 8] for p in range(32)], device=v.device)
+    vp = F.pad(v.float(), (0, 0, 0, pad)).reshape(b, h, nt, block_k // 32, 32, hd)[..., order, :]
+    parts = [*tf32_split(_swizzle128(kp)), *tf32_split(_swizzle128(vp.transpose(-1, -2)))]
+    return torch.cat([t.reshape(b, h, nt, -1) for t in parts], -1)
+
+
+F32_PLAN_FIELDS = ("rows", "block_k", "stages", "smem_bytes", "tile_bytes", "consumer_warpgroups")
+
+
+def f32_plan(lib: ctypes.CDLL, hd: int) -> dict:
+    """The fp32 body's tile plan at head dim ``hd`` (``cs_attention_f32_plan``)."""
+    fn = lib.cs_attention_f32_plan
+    fn.argtypes, fn.restype = [_I, _P], _I
+    out = (ctypes.c_int * len(F32_PLAN_FIELDS))()
+    _build.check_rc(lib, fn(hd, ctypes.addressof(out)), f"the fp32 plan at hd {hd}")
+    return dict(zip(F32_PLAN_FIELDS, out))
+
+
+def f32_split_kv(lib: ctypes.CDLL, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The fp32 pre-pass on CUDA tensors: k, v (B, H, Nk, hd) views with hd
+    contiguous -> the body's stages, (B, H, ceil(Nk / BK), tile floats) fp32
+    (:func:`f32_kv_tiles_plain`'s layout)."""
+    b, h, nk, hd = k.shape
+    plan = f32_plan(lib, hd)
+    tiles = torch.empty(b, h, -(-nk // plan["block_k"]), plan["tile_bytes"] // 4, dtype=torch.float32,
+                        device=k.device)
+    fn = lib.cs_attention_f32_split_kv
+    fn.argtypes, fn.restype = [_P, _P, _P, _P, _I, _I, _I, _I, _P], _I
+    strides = (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])
+    rc = fn(k.data_ptr(), v.data_ptr(), ctypes.addressof(strides), tiles.data_ptr(), b, h, nk, hd,
+            torch.cuda.current_stream(k.device).cuda_stream)
+    _build.check_rc(lib, rc, "the fp32 pre-pass")
+    return tiles
+
+
+def f32_forward(lib: ctypes.CDLL, q: torch.Tensor, tiles: torch.Tensor, nk: int, o: torch.Tensor, kv_bias,
+                scale: float, what: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 body on CUDA tensors: q and o (B, H, Nq, hd) views with hd
+    contiguous (o written in place), ``tiles`` from :func:`f32_split_kv` over
+    ``nk`` keys, ``kv_bias`` None, (Nk,) or (B, Nk) -> (l, m)."""
+    b, h, nq, hd = q.shape
+    l = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
+    m = torch.empty_like(l)
+    bias_ptr, bias_bs = _bias_args(what, kv_bias, q.device)[1] or (None, 0)
+    fn = lib.cs_attention_f32_fwd
+    fn.argtypes = [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.restype = _I
+    strides = (ctypes.c_longlong * 6)(*q.stride()[:3], *o.stride()[:3])
+    rc = fn(q.data_ptr(), tiles.data_ptr(), ctypes.addressof(strides), bias_ptr, bias_bs, o.data_ptr(), l.data_ptr(),
+            m.data_ptr(), b, h, nq, nk, hd, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_rc(lib, rc, what)
+    return l, m
+
+
+def _launch_f32(what: str, source: str, q, k, v, o, kv_bias, scale: float):
+    """fp32 on the 3xTF32 body: the pre-pass, then the body, from library
+    ``source``; q, k, v, o (B, H, N, hd) views with hd contiguous, rows
+    16-byte aligned (the wrappers' checks) -> (l, m), o written."""
+    _bias_args(what, kv_bias, q.device)  # a bias the body cannot take raises before the pre-pass runs
+    lib = _build.load(source)
+    return f32_forward(lib, q, f32_split_kv(lib, k, v), k.shape[2], o, kv_bias, scale, what)
+
+
 # --- K1 and K5: the backbone self-attention, unmasked and masked -------------
 
 
@@ -151,6 +274,11 @@ def _launch_qkv(what: str, qkv: torch.Tensor, num_heads: int, kv_bias=None):
     _build.check_cuda_operands(what, qkv)
     _check_head_dim(what, hd, narrow=False)
     _check_grid(what, b, num_heads)
+    if qkv.dtype == torch.float32:
+        o = torch.empty(b, n, d, dtype=qkv.dtype, device=qkv.device)
+        l, m = _launch_f32(what, "flash_qkv", *qkv_head_views(qkv, num_heads), _split_heads(o, num_heads),
+                           kv_bias, 1.0 / math.sqrt(hd))
+        return o, l, m
     bias_types, bias_args = _bias_args(what, kv_bias, qkv.device)
     lib = _build.load("flash_qkv")
     fn = lib.cs_flash_qkv_self_attention if kv_bias is None else lib.cs_flash_qkv_self_attention_masked
@@ -416,6 +544,11 @@ def _launch_cross(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         return narrow_head_route(
             lambda q, k, v, scale: _launch_cross(what, q, k, v, num_heads, kv_bias, scale), (q, k, v), 1)
     _check_grid(what, b, num_heads)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    if q.dtype == torch.float32:
+        o = torch.empty_like(q)
+        l, m = _launch_f32(what, "flash_cross", *(_split_heads(t, num_heads) for t in (q, k, v, o)), kv_bias, scale)
+        return o, l, m
     bias_types, bias_args = _bias_args(what, kv_bias, q.device)
     lib = _build.load("flash_cross")
     fn = lib.cs_flash_cross_attention if kv_bias is None else lib.cs_flash_cross_attention_masked
@@ -426,8 +559,7 @@ def _launch_cross(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     m = torch.empty_like(l)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *bias_args, o.data_ptr(), l.data_ptr(), m.data_ptr(),
-            b, nq, nk, num_heads, hd, _build.DTYPE_CODES[str(q.dtype)],
-            1.0 / math.sqrt(hd) if scale is None else scale, stream)
+            b, nq, nk, num_heads, hd, _build.DTYPE_CODES[str(q.dtype)], scale, stream)
     _build.check_rc(lib, rc, what)
     return o, l, m
 
@@ -536,6 +668,11 @@ def _launch_head_major(what: str, q, k, v, kv_bias, scale=None):
                                  (q, k, v), 1)
     _check_grid(what, b, h)
     strides = (ctypes.c_longlong * 9)(*_tma_strides(what, q, k, v))
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    if q.dtype == torch.float32:
+        o = torch.empty(b, h, nq, hd, dtype=q.dtype, device=q.device)
+        l, m = _launch_f32(what, "flash_cross", q, k, v, o, kv_bias, scale)
+        return o, l, m
     lib = _build.load("flash_cross")
     if kv_bias is None:
         fn, bias_types, bias_args = lib.cs_flash_attention_head_major, [], ()
@@ -551,7 +688,7 @@ def _launch_head_major(what: str, q, k, v, kv_bias, scale=None):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctypes.addressof(strides), *bias_args,
             o.data_ptr(), l.data_ptr(), m.data_ptr(), b, h, nq, nk, hd,
-            _build.DTYPE_CODES[str(q.dtype)], 1.0 / math.sqrt(hd) if scale is None else scale, stream)
+            _build.DTYPE_CODES[str(q.dtype)], scale, stream)
     _build.check_rc(lib, rc, what)
     return o, l, m
 

@@ -99,22 +99,23 @@ def mode_fns(o: dict) -> dict:
                 torch.bfloat16)}
 
 
-def build_other(root: Path) -> Path:
-    """``root``'s ``csrc/int8_linear.cu`` compiled with this tree's flags,
-    unless built -> the library's path (hashed on that checkout's sources)."""
+def build_other(root: Path, source: str = SOURCE) -> Path:
+    """``root``'s ``csrc/<source>.cu`` (the int8 kernels unless named)
+    compiled with this tree's flags, unless built -> the library's path
+    (hashed on that checkout's sources)."""
     csrc = root / "crossscore_tpu_torch" / "csrc"
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
     for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    out = _build.build_dir() / "other" / f"{SOURCE}-{h.hexdigest()[:16]}.so"
+    out = _build.build_dir() / "other" / f"{source}-{h.hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{SOURCE}.cu")],
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{source}.cu")],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {csrc / SOURCE}.cu:\n{(res.stdout + res.stderr)[-4000:]}")
+            raise RuntimeError(f"nvcc failed for {csrc / source}.cu:\n{(res.stdout + res.stderr)[-4000:]}")
         os.replace(tmp, out)
     return out
 

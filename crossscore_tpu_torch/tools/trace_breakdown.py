@@ -50,7 +50,8 @@ def kernel_group(name: str) -> str:
     (demangled, ``cs::ln_mlp_tma<384, false, true>(...)``) or mangled
     (``_ZN2cs10ln_mlp_tmaILi384ELb0ELb1EE...``)."""
     # the attention forward's kernels are templates on the head dim first:
-    # the backbone's is 64, the decoder's 48
+    # the backbone's is 64, the decoder's 48 (fp32: the 3xTF32 body,
+    # attn_fwd_tf32, and its pre-pass, attn_fwd_split_kv, in the same group)
     if re.search(r"attn_fwd_\w*?(<64\b|ILi64E)", name):
         return "K1 backbone attention"
     if "attn_fwd" in name:
@@ -72,6 +73,14 @@ def kernel_group(name: str) -> str:
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")):
         return "matrix products (cuBLAS)"
     return "elementwise, reductions, copies"
+
+
+def counts_as_launch(name: str) -> bool:
+    """Whether a kernel is a launch that its wrapper counts in ``.launches``:
+    the fp32 attention's pre-pass (``attn_fwd_split_kv``) runs before the
+    body (``attn_fwd_tf32``) inside the one launch that K1, K3, K5, K6 or K7
+    counts, so its time is its group's but it is no launch of its own."""
+    return "attn_fwd_split_kv" not in name
 
 
 def family(name: str) -> str:

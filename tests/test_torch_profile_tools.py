@@ -74,6 +74,13 @@ def trace(tmp_path):
      "K3 decoder attention"),
     ("void cs::attn_bwd_dkdv_wgmma<48, false>(CUtensorMap_st, cs::BwdArgs)", "cs::attn_bwd_dkdv_wgmma",
      "K4 decoder attention backward"),
+    # the fp32 forward: the 3xTF32 body and its pre-pass, by head dim as the bf16 body
+    ("void cs::attn_fwd_tf32<64, false>(cs::AttnArgs)", "cs::attn_fwd_tf32", "K1 backbone attention"),
+    ("void cs::attn_fwd_split_kv<64>(cs::AttnArgs, float*)", "cs::attn_fwd_split_kv", "K1 backbone attention"),
+    ("_ZN2cs13attn_fwd_tf32ILi48ELb1EEEvNS_8AttnArgsE", "_ZN2cs13attn_fwd_tf32ILi48ELb1EEEvNS_8AttnArgsE",
+     "K3 decoder attention"),
+    ("_ZN2cs17attn_fwd_split_kvILi48EEEvNS_8AttnArgsEPf", "_ZN2cs17attn_fwd_split_kvILi48EEEvNS_8AttnArgsEPf",
+     "K3 decoder attention"),
     ("void (anonymous namespace)::bwd_stats<48>(cs::BwdArgs)", "bwd_stats", "K4 decoder attention backward"),
     ("_ZN2cs17attn_bwd_dq_wgmmaILi48ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE",
      "_ZN2cs17attn_bwd_dq_wgmmaILi48ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE", "K4 decoder attention backward"),
@@ -85,6 +92,18 @@ def trace(tmp_path):
 def test_family_and_group_of_a_kernel_name(name, fam, group):
     assert trace_breakdown.family(name) == fam
     assert trace_breakdown.kernel_group(name) == group
+
+
+@pytest.mark.parametrize("name,counted", [
+    ("void cs::attn_fwd_tf32<64, false>(cs::AttnArgs)", True),
+    ("void cs::attn_fwd_split_kv<64>(cs::AttnArgs, float*)", False),
+    ("_ZN2cs17attn_fwd_split_kvILi48EEEvNS_8AttnArgsEPf", False),
+    ("void cs::attn_fwd_wgmma<64, false, 0>(CUtensorMap_st, cs::AttnArgs)", True),
+])
+def test_the_fp32_pre_pass_is_no_launch_of_its_own(name, counted):
+    """One wrapper call of the fp32 forward runs the pre-pass and the body and
+    counts one launch: a profile counts the body, and times both in its group."""
+    assert trace_breakdown.counts_as_launch(name) is counted
 
 
 def test_the_step_profile_uses_the_shared_grouping():
